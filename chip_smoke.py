@@ -8,17 +8,35 @@ without printing a result:
 
 1. device   the card's name and power limit (nvidia-smi);
 2. build    every CUDA kernel of the path, from csrc/ in this checkout;
-3. kernels  each kernel against its plain PyTorch version on the card,
-            at modest shapes in f32 and f64 and at the batch and main
-            paths' shapes; the scan's chain bound from a one-thread probe;
+3. kernels  each kernel against its plain PyTorch version on the same
+            CUDA inputs.  The switching scan (K1) must be bit-identical
+            (integer views equal), in f64 and f32: at modest shapes, at
+            the batch and main paths' shapes (its one-chunk case too),
+            with a small chunk and warm-up at T from 1 to 20,000 (many
+            chunks, re-runs), and on inputs where trajectories do not
+            merge (a burst into exact silence, also at T = 60,000 with
+            the default chunk and warm-up), constant input, -0.0 and NaN.
+            Its time at the main shape beside the one-chunk case's (a
+            thread per lane) and the worst case's, re-run steps, and the
+            chain bound from a one-thread probe.  Where a plain loop
+            would take minutes, K1 at its defaults is held bit for bit to
+            K1 as one chunk (held to the plain loop at the main shape):
+            the worst case at the main length and every input the VAR
+            and RED renders below give K1;
 4. main     VAR on 60 s of 48 kHz stereo noise (seeded numpy) on CUDA:
-            launch counts, finite output, timing, and the first second
-            against the port's CPU render at the audio epsilon;
+            launch counts, re-run steps, finite output, timing, and the
+            first second against the port's CPU render at the audio
+            epsilon; then VAR on 60 s of program-like material (noise
+            with a silent lead-in, silent gaps and a fade-out): time and
+            re-run steps;
 5. batch    all five Faust modules through FaustBatchRenderer on
             8 files of 10 s each, the first second of each file against
             the CPU render;
-then one `kernels` JSON line (with `chain_ms`, the chain bound, beside
-`bound_ms`) and, last, the device JSON line.
+then one `kernels` JSON line (beside `bound_ms`: `chain_ms`, the chain
+bound of T steps in one thread, `chunk_chain_ms`, that of the chunked
+scan's warmup + chunk steps, `earlier_ms`, the one-chunk time, the
+worst case, and the program-like render's re-run steps) and, last, the
+device JSON line.
 
 Imports nothing of JAX or of the JAX package `zorak_tpu`.
 """
@@ -41,7 +59,6 @@ SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}   # outside tensor cores
 SCAN_OPS_PER_STEP = 5   # compare, select, subtract, multiply, add
-TOL = {"float64": 1e-12, "float32": 1e-5}
 # dspkit stages one VAR render runs (zorak_tpu_torch/models/faustmods.py,
 # VAR.forward): two noise streams, eight biquads, five one-poles, one scan
 VAR_STAGES = {"lcg_noise": 2, "biquad_tf2": 8, "onepole": 5,
@@ -128,6 +145,13 @@ def main() -> int:
     cuda = torch.device("cuda")
     rng = np.random.RandomState(SEED)
 
+    def zero_reruns():
+        for v in SS.RERUN_STEPS.values():
+            v.zero_()
+
+    def rerun_steps():
+        return sum(int(v.item()) for v in SS.RERUN_STEPS.values())
+
     # 1. device ---------------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -146,8 +170,14 @@ def main() -> int:
             print(f"[build] switching_scan: {line.strip()}")
 
     # 3. kernels against their plain versions -----------------------------------
-    def scan_inputs(n_t, lanes, dtype, up=None, dn=None):
-        x = torch.from_numpy(np.abs(rng.randn(n_t, lanes))).to(cuda, dtype)
+    # K1 must equal its plain loop bit for bit: compare the integer views
+    def same_bits(a, b):
+        iv = torch.int64 if a.dtype == torch.float64 else torch.int32
+        return a.shape == b.shape and torch.equal(a.view(iv), b.view(iv))
+
+    def scan_inputs(n_t, lanes, dtype, up=None, dn=None, x=None):
+        x = np.abs(rng.randn(n_t, lanes)) if x is None else x
+        x = torch.from_numpy(x).to(cuda, dtype)
         upv = torch.from_numpy(rng.uniform(0.3, 0.9, lanes) if up is None
                                else np.full(lanes, up)).to(cuda, dtype)
         dnv = torch.from_numpy(rng.uniform(0.95, 0.9999, lanes) if dn is None
@@ -155,42 +185,129 @@ def main() -> int:
         z0 = torch.from_numpy(rng.uniform(0.0, 1.0, lanes)).to(cuda, dtype)
         return x, upv, dnv, z0
 
+    def adversarial(kind, n_t, lanes):
+        x = np.abs(rng.randn(n_t, lanes))
+        if kind == "silence":       # a burst, then exact zeros: never merges
+            x[n_t // 10:] = 0.0
+        elif kind == "constant":
+            x[:] = 0.25
+        elif kind == "negzero":
+            x[::3] = -0.0
+        elif kind == "nan":
+            x[n_t // 2] = np.nan
+        return x
+
+    def witnessed(what, args):
+        """K1 at its defaults against K1 as one chunk on the same inputs,
+        bit for bit; returns the defaults' re-run steps."""
+        zero_reruns()
+        got = SS.switching_scan(*args)
+        reruns = rerun_steps()
+        ok = same_bits(got, SS.switching_scan(*args, chunk=args[0].shape[0]))
+        print(f"[kernels] switching_scan {what} T={args[0].shape[0]} "
+              f"lanes={args[0].shape[1]} {str(args[0].dtype)[6:]} defaults vs "
+              f"one chunk: {'bit-identical' if ok else 'DIFFERS'} "
+              f"rerun_steps={reruns}")
+        check(ok, f"switching_scan {what} differs from its one-chunk case")
+        return reruns
+
+    def caught_scans(fn):
+        """Runs fn() and returns the arguments of every K1 call it made."""
+        caught, plain = [], SS.switching_scan
+
+        def spy(*a, **kw):
+            caught.append(a)
+            return plain(*a, **kw)
+
+        SS.switching_scan = spy
+        try:
+            fn()
+        finally:
+            SS.switching_scan = plain
+        return caught
+
+    def held(what, args, ref=None, **kw):
+        """K1 against the plain loop on the same CUDA inputs, bit for bit;
+        returns (plain result, re-run steps)."""
+        zero_reruns()
+        got = SS.switching_scan(*args, **kw)
+        reruns = rerun_steps()
+        if ref is None:
+            ref = SS.switching_scan_reference(*args)
+        torch.cuda.synchronize()
+        ok = same_bits(got, ref)
+        print(f"[kernels] switching_scan {what} {dict(kw) or 'defaults'}: "
+              f"{'bit-identical' if ok else 'DIFFERS'} rerun_steps={reruns}")
+        check(ok, f"switching_scan {what} {kw} differs from its plain loop")
+        return ref, reruns
+
+    small = {"chunk": 64, "warmup": 64}
+    # VAR's follower poles: 2.5 ms attack, 80 ms release
+    VAR_POLES = (float(np.exp(-1.0 / (SR * 0.0025))),
+                 float(np.exp(-1.0 / (SR * 0.080))))
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[1]
-        for n_t, lanes in ((8192, 1), (8191, 3), (8192, 128)):
-            args = scan_inputs(n_t, lanes, dtype)
-            got = SS.switching_scan(*args)
-            ref = SS.switching_scan_reference(*args)
-            torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            print(f"[kernels] switching_scan {dname} T={n_t} lanes={lanes} "
-                  f"max_abs_err={err:.3e} (tol {TOL[dname]:g})")
-            check(err <= TOL[dname], f"switching_scan {dname} disagrees")
+        for n_t, lanes in ((8192, 1), (8191, 3), (8192, 128),
+                           (BATCH_T, BATCH_FILES)):
+            held(f"{dname} T={n_t} lanes={lanes}",
+                 scan_inputs(n_t, lanes, dtype))
+        # many chunks and re-runs at small T
+        for n_t in (1, 63, 64, 65, 4095, 20_000):
+            for lanes in (1, 3, 8):
+                held(f"{dname} T={n_t} lanes={lanes}",
+                     scan_inputs(n_t, lanes, dtype), **small)
+        for kind in ("silence", "constant", "negzero", "nan"):
+            args = scan_inputs(20_000, 3, dtype, x=adversarial(kind, 20_000, 3))
+            ref, _ = held(f"{dname} {kind} T=20000 lanes=3", args, **small)
+            held(f"{dname} {kind} T=20000 lanes=3", args, ref)
+        # past warm-up + chunk at the defaults: chunks after the burst are
+        # speculated and, decaying at VAR's release pole, never merge
+        n_long = 60_000
+        args = scan_inputs(n_long, 3, dtype, *VAR_POLES,
+                           x=adversarial("silence", n_long, 3))
+        _, reruns = held(f"{dname} silence T={n_long} lanes=3", args)
+        check(reruns > 0, "the default-settings silence case re-ran nothing")
 
-    # at the batch path's shape: VAR's and RED's followers, one lane a file
-    args = scan_inputs(BATCH_T, BATCH_FILES, torch.float64)
-    err = (SS.switching_scan(*args)
-           - SS.switching_scan_reference(*args)).abs().max().item()
-    print(f"[kernels] switching_scan float64 T={BATCH_T} lanes={BATCH_FILES} "
-          f"max_abs_err={err:.3e} (tol {TOL['float64']:g})")
-    check(err <= TOL["float64"], "switching_scan at the batch shape disagrees")
-
-    # at the main path's shape: VAR's follower, one lane, f64
-    up_var = float(np.exp(-1.0 / (SR * 0.0025)))
-    dn_var = float(np.exp(-1.0 / (SR * 0.080)))
-    args = scan_inputs(MAIN_T, 1, torch.float64, up_var, dn_var)
+    # at the main path's shape: VAR's follower, one lane, at VAR's poles;
+    # the one-chunk case too, the witness for the longer inputs below
+    one = {"chunk": MAIN_T}         # one chunk: a thread per lane
+    args = scan_inputs(MAIN_T, 1, torch.float32, *VAR_POLES)
+    ref, _ = held("float32 T=%d lanes=1" % MAIN_T, args)
+    held("float32 T=%d lanes=1" % MAIN_T, args, ref, **one)
+    args = scan_inputs(MAIN_T, 1, torch.float64, *VAR_POLES)
+    zero_reruns()
     got = SS.switching_scan(*args)
-    scan_ms = cuda_ms(lambda: SS.switching_scan(*args), reps=5)
+    main_reruns = rerun_steps()
+    got_one = SS.switching_scan(*args, **one)
     ref_holder = []
     plain_ms = cuda_ms(lambda: ref_holder.append(
         SS.switching_scan_reference(*args)))
-    scan_err = (got - ref_holder[0]).abs().max().item()
-    check(scan_err <= TOL["float64"], "switching_scan at the main shape disagrees")
+    ref = ref_holder[0]
+    check(same_bits(got, ref) and same_bits(got_one, ref),
+          "switching_scan at the main shape differs from its plain loop")
+    scan_err = (got - ref).abs().max().item()
+    # the new default, the one-chunk design, the default again: same card
+    scan_ms = cuda_ms(lambda: SS.switching_scan(*args), reps=5)
+    earlier_ms = cuda_ms(lambda: SS.switching_scan(*args, **one), reps=3)
+    scan_ms_2 = cuda_ms(lambda: SS.switching_scan(*args), reps=5)
     bound_ms, bound_by = scan_bound_ms(MAIN_T, 1, "float64")
-    print(f"[kernels] switching_scan float64 T={MAIN_T} lanes=1 "
-          f"max_abs_err={scan_err:.3e} ms={scan_ms:.4f} plain_ms={plain_ms:.1f} "
-          f"bound_ms={bound_ms:.5f} ({bound_by}) "
-          f"ns_per_step={scan_ms * 1e6 / MAIN_T:.3f}")
+    chunk, warmup, n_chunks = SS.chunk_plan(MAIN_T, SS.CHUNK,
+                                            SS.WARMUP[torch.float64])
+    print(f"[kernels] switching_scan float64 T={MAIN_T} lanes=1 bit-identical "
+          f"max_abs_err={scan_err:.3e} ms={scan_ms:.4f} "
+          f"(again {scan_ms_2:.4f}) "
+          f"one_chunk_ms={earlier_ms:.4f} plain_ms={plain_ms:.1f} "
+          f"bound_ms={bound_ms:.5f} ({bound_by}) chunk={chunk} "
+          f"warmup={warmup} chunks={n_chunks} rerun_steps={main_reruns}")
+
+    # the worst case: a burst, then silence to the end; no chunk after the
+    # burst merges, so the fix-up re-runs them all one after another
+    worst = scan_inputs(MAIN_T, 1, torch.float64, *VAR_POLES,
+                        x=adversarial("silence", MAIN_T, 1))
+    worst_reruns = witnessed("worst case (burst then silence)", worst)
+    worst_ms = cuda_ms(lambda: SS.switching_scan(*worst), reps=2)
+    print(f"[kernels] switching_scan float64 T={MAIN_T} worst case (burst "
+          f"then silence): ms={worst_ms:.4f} rerun_steps={worst_reruns}")
 
     # the chain bound: the same dependent steps in one thread, x cycling
     # through registers, no memory traffic (checked against the plain loop
@@ -199,15 +316,18 @@ def main() -> int:
     n_check = 128 * SS.CHAIN_CHUNK
     z_ref = SS.switching_scan_reference(
         xc.repeat(n_check // SS.CHAIN_CHUNK)[:, None], *chain_args)[-1]
-    err = (SS.switching_chain_probe(xc, *chain_args, n_check)
-           - z_ref).abs().max().item()
-    check(err <= TOL["float64"], f"chain probe disagrees ({err:.3e})")
+    check(same_bits(SS.switching_chain_probe(xc, *chain_args, n_check), z_ref),
+          "chain probe differs from the plain loop")
     SS.switching_chain_probe(xc, *chain_args, MAIN_T)
     chain_ms = cuda_ms(
         lambda: SS.switching_chain_probe(xc, *chain_args, MAIN_T), reps=3)
+    chain_ns = chain_ms * 1e6 / MAIN_T
+    chunk_chain_ms = (warmup + chunk) * chain_ns * 1e-6
     print(f"[kernels] switching_scan chain bound, float64 T={MAIN_T}: "
-          f"chain_ms={chain_ms:.4f} ns_per_step={chain_ms * 1e6 / MAIN_T:.3f} "
-          f"kernel/chain={scan_ms / chain_ms:.3f} (probe err {err:.1e})")
+          f"chain_ms={chain_ms:.4f} ns_per_step={chain_ns:.3f}; one chunk "
+          f"{earlier_ms / chain_ms:.3f}x it; chunked bound (warmup + chunk) "
+          f"x {chain_ns:.3f} ns = {chunk_chain_ms:.4f} ms, the kernel "
+          f"{scan_ms / chunk_chain_ms:.3f}x it")
 
     # stage times at the main shape, each after a warm-up, for the
     # breakdown of a VAR render
@@ -231,14 +351,16 @@ def main() -> int:
     v = var.values()
     x_np = rng.randn(2, MAIN_T) * 0.25
     x = torch.from_numpy(x_np).to(cuda)
-    var(x, v, SR)                                   # warm-up
+    var_scans = caught_scans(lambda: var(x, v, SR))   # warm-up
     torch.cuda.synchronize()
     SS.LAUNCHES = 0
+    zero_reruns()
     t0 = time.perf_counter()
     y_holder = []
     var_ms = cuda_ms(lambda: y_holder.append(var(x, v, SR)))
     var_wall = time.perf_counter() - t0
     main_launches = {"switching_scan": SS.LAUNCHES}
+    var_reruns = rerun_steps()
     y = y_holder[0]
     check(all(n > 0 for n in main_launches.values()),
           f"main path skipped a kernel: {main_launches}")
@@ -247,7 +369,7 @@ def main() -> int:
     sec = MAIN_T / SR
     print(f"[main] VAR 60 s stereo: device_ms={var_ms:.2f} wall_s={var_wall:.4f} "
           f"audio_s_per_s={sec / (var_ms / 1e3):.1f} launches={main_launches} "
-          f"card='{card}'")
+          f"rerun_steps={var_reruns} card='{card}'")
     staged_ms = sum(n * stages[k] for k, n in VAR_STAGES.items())
     print(f"[main] VAR stages {VAR_STAGES} account for {staged_ms:.2f} ms "
           f"of {var_ms:.2f} ms")
@@ -264,6 +386,31 @@ def main() -> int:
                         y[:, :n1].to(torch.float32).cpu().numpy())
     print(f"[main] first 1 s, CUDA vs CPU render: {rep.summary()}")
     check(rep.audio_passed, f"CUDA render disagrees with CPU at {AUDIO_EPS}")
+    for a in var_scans:
+        witnessed("VAR follower input", a)
+
+    # the same render on program-like material: a 2 s silent lead-in,
+    # 1 s silent gaps at 10, 20, 30 and 40 s, a 5 s fade-out to silence.
+    # In silence VAR's detector decays at its release pole and a guess
+    # does not merge, so the fix-up re-runs there.
+    s1 = int(SR)
+    x_prog = rng.randn(2, MAIN_T) * 0.25
+    x_prog[:, :2 * s1] = 0.0
+    for a in range(10 * s1, 50 * s1, 10 * s1):
+        x_prog[:, a:a + s1] = 0.0
+    x_prog[:, -5 * s1:] *= np.linspace(1.0, 0.0, 5 * s1)
+    x_prog = torch.from_numpy(x_prog).to(cuda)
+    prog_scans = caught_scans(lambda: var(x_prog, v, SR))   # warm-up
+    SS.LAUNCHES = 0
+    zero_reruns()
+    prog_ms = cuda_ms(lambda: var(x_prog, v, SR))
+    prog_reruns, prog_launches = rerun_steps(), SS.LAUNCHES
+    print(f"[main] VAR 60 s stereo, program-like material: device_ms="
+          f"{prog_ms:.2f} audio_s_per_s={sec / (prog_ms / 1e3):.1f} "
+          f"launches={prog_launches} rerun_steps={prog_reruns} (share "
+          f"{prog_reruns / MAIN_T:.4f} of T) card='{card}'")
+    for a in prog_scans:
+        witnessed("VAR follower input, program-like", a)
 
     # 5. batch path: five modules, 8 files x 10 s ----------------------------
     batch = {}
@@ -271,10 +418,12 @@ def main() -> int:
         r = FaustBatchRenderer(slug, srate=SR, device=cuda)
         xb = (rng.randn(BATCH_FILES, r.nch, BATCH_T) * 0.25).astype(np.float32)
         xb = torch.from_numpy(xb).to(cuda)
-        r.render_files(xb)                          # warm-up
+        scans = caught_scans(lambda: r.render_files(xb))   # warm-up
         SS.LAUNCHES = 0
+        zero_reruns()
         out = []
         ms = cuda_ms(lambda: out.append(r.render_files(xb)))
+        reruns = rerun_steps()
         yb = out[0]
         check(tuple(yb.shape) == tuple(xb.shape), f"{slug} batch shape")
         check(bool(torch.isfinite(yb).all()), f"{slug} batch not finite")
@@ -284,7 +433,9 @@ def main() -> int:
         batch[slug] = audio_s / (ms / 1e3)
         print(f"[batch] {slug} {BATCH_FILES}x{r.nch}ch x 10 s: device_ms={ms:.2f} "
               f"audio_s_per_s={batch[slug]:.1f} switching_scan_launches="
-              f"{SS.LAUNCHES} card='{card}'")
+              f"{SS.LAUNCHES} rerun_steps={reruns} card='{card}'")
+        for a in scans:
+            witnessed(f"{slug} batch follower input", a)
         # every module is causal: the first second of each file against
         # the same module's CPU render of that second
         y_cpu = FaustBatchRenderer(slug, srate=SR, device="cpu").render_files(
@@ -307,6 +458,14 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "chain_ms": chain_ms,
+        "chunk_chain_ms": chunk_chain_ms,
+        "earlier_ms": earlier_ms,
+        "worst_ms": worst_ms,
+        "rerun_steps": var_reruns,
+        "worst_rerun_steps": worst_reruns,
+        "program_rerun_steps": prog_reruns,
+        "chunk": chunk,
+        "warmup": warmup,
         "library_ms": None,
     }]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
