@@ -245,7 +245,10 @@ def test_chain_probe_takes_only_cuda_tensors():
 
 def test_build_module_imports_and_names_libraries_without_nvcc(
         monkeypatch, tmp_path):
-    assert set(_build.SOURCES) == {"switching_scan"}
+    assert set(_build.SOURCES) == {"switching_scan", "linrec_scan",
+                                   "ring_taps"}
+    for name, src in _build.SOURCES.items():
+        assert (_build.CSRC_DIR / src).is_file(), name
     path = _build.library_path("switching_scan")
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path("switching_scan")  # stable hash
@@ -257,6 +260,8 @@ def test_build_module_imports_and_names_libraries_without_nvcc(
     if not os.path.isfile("/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.build("switching_scan")
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.build_all()
         assert not (tmp_path / "build").exists()
 
 

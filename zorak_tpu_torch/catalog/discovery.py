@@ -7,8 +7,7 @@ leaf README.md embedded as help.  A catalog root can be any directory tree
 — including the reference checkout itself — so users of the reference can
 point this framework at their existing plugins unchanged.
 
-Copy of zorak_tpu/catalog/discovery.py without `PluginSpec.load_program`,
-which parses JSFX and comes with the port's JSFX slices.
+Copy of zorak_tpu/catalog/discovery.py.
 """
 from __future__ import annotations
 
@@ -51,6 +50,12 @@ class PluginSpec:
         if self.readme_path and self.readme_path.is_file():
             return self.readme_path.read_text(encoding="utf-8", errors="replace")
         return ""
+
+    def load_program(self):
+        if self.plugin_type != "jsfx":
+            raise CatalogError(f"{self.slug}: not a JSFX plugin")
+        from ..ir import load_plugin_file
+        return load_plugin_file(self.entry_path)
 
 
 def _infer_entry(leaf: Path) -> Path:

@@ -1,10 +1,16 @@
-"""Carry the Faust modules' parameters and initial state across from JAX.
+"""Carry parameters and state across from the JAX package, as numpy.
 
 The Faust modules hold no trained weights.  Their parameters are the
 `values` dict (control values per render) and their state is the
 followers' and filters' initial `z0` / `s0`.  JAX-side values may be
 floats, numpy scalars or 0-d arrays; the port takes Python floats and
 tensors on its device.
+
+A JSFX plugin's state is a `ShadowState` (vars, sliders, spl registers,
+mem) and, mid-render, a vector kernel's carry `(svec, rings)`.
+`shadow_state_from_numpy` and `carry_from_numpy` rebuild both on the
+port's side from plain numpy, so that two renders can start from the
+same numbers.
 """
 from __future__ import annotations
 
@@ -32,3 +38,43 @@ def state_from_numpy(state, device=None, dtype=torch.float64):
         return type(state)(state_from_numpy(v, dev, dtype) for v in state)
     return torch.as_tensor(np.asarray(state, dtype=np.float64),
                            dtype=dtype, device=dev)
+
+
+def carry_from_numpy(kernel, svec, rings):
+    """A vector kernel's carry from numpy: `svec` [n] and `rings`
+    {(origin, mod): [mod]}, e.g. a JAX kernel's `initial_carry()` or the
+    carry one of its renders returned, for the port's `kernel` (a
+    `SpecializedSampleKernel` planned from the same program and state).
+
+    Raises if the two plans do not carry the same scalars and regions.
+    """
+    svec = np.asarray(svec, dtype=np.float64)
+    if svec.shape != (len(kernel.carried_vars),):
+        raise ValueError(f"svec has shape {svec.shape}, the kernel carries "
+                         f"{len(kernel.carried_vars)} scalars")
+    rings = {(int(r[0]), int(r[1])): np.asarray(a, dtype=np.float64)
+             for r, a in rings.items()}
+    if sorted(rings) != sorted(kernel.carry_regions):
+        raise ValueError(f"rings cover {sorted(rings)}, the kernel carries "
+                         f"{sorted(kernel.carry_regions)}")
+    for (origin, mod), a in rings.items():
+        if a.shape != (mod,):
+            raise ValueError(f"ring ({origin}, {mod}) has shape {a.shape}")
+    return kernel.device_carry((svec, rings))
+
+
+def shadow_state_from_numpy(state, variables: Mapping, sliders, mem,
+                            spl=None):
+    """Overwrite a port `ShadowState` with another package's numbers:
+    `variables` {name: value}, `sliders` [64], `mem` (the whole heap
+    array: `mem_used` may end below tables that @init wrote) and
+    optionally `spl` [64].  Returns `state`."""
+    state.V.clear()
+    state.V.update({str(k): float(v) for k, v in variables.items()})
+    state.sliders = [float(v) for v in sliders]
+    mem = np.asarray(mem, dtype=np.float64)
+    state.mem_ensure(len(mem))
+    state.mem[:len(mem)] = mem
+    if spl is not None:
+        state.spl = [float(v) for v in spl]
+    return state

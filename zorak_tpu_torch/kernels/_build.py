@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -26,6 +26,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # kernel name -> its source under csrc/
 SOURCES: Dict[str, str] = {
     "switching_scan": "switching_scan.cu",
+    "linrec_scan": "linrec_scan.cu",
+    "ring_taps": "ring_taps.cu",
 }
 
 # --fmad=false keeps multiply and add as two roundings, as in the plain
@@ -57,26 +59,43 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> str:
-    """Compile kernel `name` unless it is built; return nvcc's log.
+def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
+    """Compile the kernels `names` that are not built yet, one nvcc each,
+    all started together; return each kernel's nvcc log.
 
-    Raises RuntimeError with the compiler's output if the build fails.
+    Raises RuntimeError with the compiler's output if a build fails.
     The log of a kernel that was already built is "" (nothing compiled).
     """
-    out = library_path(name)
-    if out.is_file():
-        return ""
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build of {name} failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a reader never sees half a file
-    return proc.stdout
+    logs: Dict[str, str] = {}
+    running = []
+    for name in names:
+        out = library_path(name)
+        if out.is_file():
+            logs[name] = ""
+            continue
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, proc, tmp, out))
+    failed = []
+    for name, proc, tmp, out in running:
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"kernel build of {name} failed (nvcc exit "
+                          f"{proc.returncode}):\n{logs[name]}")
+        else:
+            os.replace(tmp, out)  # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def build(name: str) -> str:
+    """Compile kernel `name` unless it is built; return nvcc's log."""
+    return build_all((name,))[name]
 
 
 def load(name: str) -> ctypes.CDLL:
