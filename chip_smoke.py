@@ -7,11 +7,12 @@
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result (`--phases` takes `jsfx`, `faust` or both, the
-default; device and build always run):
+default; device and build always run; `k4sweep` is described at the end):
 
 1. device   the card's name and power limit (nvidia-smi);
 2. build    every CUDA kernel of the paths, from csrc/ in this checkout,
-            one nvcc a source, all started together;
+            one nvcc a source, all started together (the generated
+            scan-group kernels are built in phase 3, all together too);
 3. kernels (jsfx)  the linear-recurrence scan (K2) against a NumPy
             sequential loop, bit-identical, and against its plain
             doubling ladder within 1e-9 x max|z| (scalar and per-sample
@@ -21,15 +22,29 @@ default; device and build always run):
             (K3) against its plain fold, bit-identical, at 16, 192 and
             300 taps, delays below and above L, L = 131,072, a short
             remainder and 1, its time beside the plain fold's, a dense
-            FIR convolution's (the library call) and its bound;
+            FIR convolution's (the library call) and its bound.  The
+            scan-group kernel (K4), generated from each plugin's own step
+            list: eight bodies (followers, a coupled pair, a nonlinear
+            recurrence, a peak hold fed from a delay, a wrap loop, a sin
+            in the loop) against the plain Python loop on the same inputs
+            at L in 1, 7, 4,096, 131,072, non-zero start carries, with and
+            without NaN and -0.0 in the externals: bit-identical, every
+            NaN counted as one value, or within 1e-8 for the body that
+            calls the device's libm; its time at L = 131,072 beside the
+            plain loop's, a one-thread chain probe of the same body, the
+            bytes bound and a launch-per-sample estimate; then every
+            operation of csrc/scan_ops.cuh on every pair of a grid of edge
+            values against the scalar semantics, bit for bit (the libm
+            calls within 4 ulp);
 4. main (jsfx)  the in-repo delay network and its 192-tap widening
             through PluginInstance.render on 60 s of 48 kHz stereo noise
             at the default segment length: engine torch-vector, K2 and
             K3 launch counts, finite output, timing, a torch.profiler
             pass, the first second against the port's CPU render and the
-            first 4,800 samples against the Python golden; then a plugin
-            with a sequential scan group, which must report cpu-shadow
-            with the missing kernel as the reason;
+            first 4,800 samples against the Python golden; then, the same
+            way, two plugins with sequential scan groups (a follower that
+            feeds both channels, and two independent envelopes): engine
+            torch-vector, K4 launches = levels x segments;
 5. kernels (faust)  the switching scan (K1) must be bit-identical
             (integer views equal), in f64 and f32: at modest shapes, at
             the batch and main paths' shapes (its one-chunk case too),
@@ -39,11 +54,12 @@ default; device and build always run):
             the default chunk and warm-up), constant input, -0.0 and NaN.
             Its time at the main shape beside the one-chunk case's (a
             thread per lane) and the worst case's, re-run steps, and the
-            chain bound from a one-thread probe.  Where a plain loop
-            would take minutes, K1 at its defaults is held bit for bit to
-            K1 as one chunk (held to the plain loop at the main shape):
-            the worst case at the main length and every input the VAR
-            and RED renders below give K1;
+            chain bound from a one-thread probe.  The plain loop runs
+            the main length once, in f64 (minutes), and a tenth of it in
+            f32; for the rest at that length K1 at its defaults is held
+            bit for bit to K1 as one chunk: the main shape in f32, the
+            worst case and every input the VAR and RED renders below
+            give K1;
 6. main (faust)  VAR on 60 s of 48 kHz stereo noise (seeded numpy) on CUDA:
             launch counts, re-run steps, finite output, timing, and the
             first second against the port's CPU render at the audio
@@ -57,7 +73,13 @@ then one `kernels` JSON line (beside `bound_ms`: `chain_ms`, the chain
 bound of T steps in one thread, `chunk_chain_ms`, that of the chunked
 scan's warmup + chunk steps, `earlier_ms`, the one-chunk time, the
 worst case, and the program-like render's re-run steps) and, last, the
-device JSON line.
+device JSON line.  Each phase prints the seconds it took.
+
+    python3 chip_smoke.py --phases k4sweep
+
+runs neither path: it times K4 at L = 131,072 with 2 to 32 samples held
+in registers at once, for the K4 bodies with one, two and three external
+streams, each held bit for bit to the default's output first.
 
 Imports nothing of JAX or of the JAX package `zorak_tpu`.
 """
@@ -89,6 +111,65 @@ x = abs(spl0);
 env = x > env ? x + (env - x)*up : x + (env - x)*dn;
 spl0 = env; spl1 = env;
 """
+
+# two independent attack/release followers, one a channel: one DAG level,
+# two components, so K4 walks them in two blocks, one thread each
+STEREO_FOLLOWERS_SRC = """\
+desc:two attack/release followers
+@init
+up = 0.9; dn = 0.999;
+@sample
+x0 = abs(spl0); x1 = abs(spl1);
+e0 = x0 > e0 ? x0 + (e0 - x0)*up : x0 + (e0 - x0)*dn;
+e1 = x1 > e1 ? x1 + (e1 - x1)*up : x1 + (e1 - x1)*dn;
+spl0 = spl0*(1 - 0.5*e0); spl1 = spl1*(1 - 0.5*e1);
+"""
+
+# scan-group bodies held to the plain loop: name -> (source, channels).
+# The linear pair `a2 = 0.95*b + ...; b = 0.9*a2 + ...` folds into one
+# linear recurrence (K2's), so the pair here is coupled through a select.
+K4_BODIES = {
+    "follower": (SCAN_GROUP_SRC, 2),
+    "stereo_followers": (STEREO_FOLLOWERS_SRC, 2),
+    "attack_release_envelope": (
+        "@init\na_att = 0.6; a_rel = 0.999;\n@sample\nr = abs(spl0);\n"
+        "env = r > env ? a_att*env + (1-a_att)*r : a_rel*env + (1-a_rel)*r;\n"
+        "spl0 = env;\n", 1),
+    "coupled_pair": (
+        "@sample\nx = abs(spl0);\n"
+        "fast = x > slow ? x : fast*0.9 + slow*0.1;\n"
+        "slow = fast > slow ? slow + (fast - slow)*0.01 : slow*0.9995;\n"
+        "spl0 = fast - slow;\n", 1),
+    "nonlinear_self_recurrence": (
+        "@sample\nz = z*0.9 + z*z*0.01 + spl0*0.1;\nspl0 = z;\n", 1),
+    "group_feeding_from_vectorized_delay": (
+        "@init\nMASK = 511; d = 100;\n@sample\nbuf[w & MASK] = spl0;\n"
+        "late = buf[(w - d) & MASK];\n"
+        "pk = abs(late) > pk ? abs(late) : pk*0.995;\n"
+        "spl0 = late * (1 - 0.5*pk);\nw += 1;\n", 1),
+    "wrap_feeding_recurrence": (
+        "@sample\nph += 0.37 + spl0;\nwhile (ph > 1) ( ph -= 2; );\n"
+        "spl0 = ph * 0.5;\n", 1),
+    "transcendental_in_the_loop": (
+        "@sample\nz = sin(z*0.9 + spl0);\nspl0 = z;\n", 1),
+}
+# the sweep over register block sizes: one, two and three externals, one
+# and two components, a data-dependent loop
+K4_SWEEP_BODIES = ("follower", "stereo_followers", "attack_release_envelope",
+                   "wrap_feeding_recurrence")
+K4_SWEEP_UNROLLS = (2, 4, 8, 16, 32)
+K4_LIBM_TOL = 1e-8     # the device's sin is 1 to 2 ulp from glibc's
+K4_LIBM_ULPS = 4.0     # one libm call on the card against glibc's
+K4_EDGE_VALUES = [
+    0.0, -0.0, 1.0, -1.0, 0.5, -0.5, 0.3, -0.999, 2.5, -2.5, 3.0, 7.0, -7.0,
+    31.0, 32.0, 33.0, -33.0, 255.75, 4.9e-324, -4.9e-324, 1e-310,
+    2.2250738585072014e-308, 2.0 ** 31, -(2.0 ** 31), 2.0 ** 31 - 1,
+    2.0 ** 31 + 0.5, -(2.0 ** 31) - 1, 2.0 ** 32, 2.0 ** 32 + 5,
+    -(2.0 ** 32) - 3, 2.0 ** 53, 2.0 ** 62, -(2.0 ** 62), 1.5 * 2.0 ** 62,
+    -1.5 * 2.0 ** 62, 2.0 ** 63, -(2.0 ** 63), 1e300, -1e300, 3.5e38,
+    float("inf"), float("-inf"), float("nan"),
+]
+K1_PLAIN_T = 288_000   # K1's plain Python loop in f32: a tenth of MAIN_T
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -127,7 +208,7 @@ def scan_bound_ms(n_t: int, lanes: int, dtype: str):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def profile_render(render, label: str) -> None:
+def profile_render(render, label: str, segments: int = 0) -> None:
     """Device busy time, idle share and top kernels of one render, from a
     torch.profiler trace of the kernels it ran."""
     import torch
@@ -149,7 +230,9 @@ def profile_render(render, label: str) -> None:
     for e in kernels:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    print(f"[profile] {label} render: {len(kernels)} device events, busy "
+    per_seg = (f" ({len(kernels) / segments:.1f} a segment)" if segments
+               else "")
+    print(f"[profile] {label} render: {len(kernels)} device events{per_seg}, busy "
           f"{busy_us / 1e3:.2f} ms of a {span_us / 1e3:.2f} ms span, idle share "
           f"{1.0 - busy_us / span_us:.3f}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
@@ -162,6 +245,19 @@ def same_bits(a, b):
 
     iv = torch.int64 if a.dtype == torch.float64 else torch.int32
     return a.shape == b.shape and torch.equal(a.view(iv), b.view(iv))
+
+
+def same_values(a, b):
+    """Equal as bit patterns, every NaN counted as one value (no EEL2
+    operation reads a NaN's sign or payload)."""
+    import torch
+
+    if a.shape != b.shape:
+        return False
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    zero = torch.zeros_like(a)
+    return bool(torch.equal(nan_a, nan_b) and same_bits(
+        torch.where(nan_a, zero, a), torch.where(nan_b, zero, b)))
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str = "float64"):
@@ -352,14 +448,259 @@ def ring_taps_phase(torch, cuda, rng):
     }
 
 
+def scan_group_phase(torch, cuda, rng):
+    """K4, generated from each body's own step list, against the plain
+    Python loop on the same CUDA inputs; times at L = 131,072 beside the
+    plain loop, a one-thread chain probe, the bytes bound and a
+    launch-per-sample estimate (printed, not part of the `kernels` line:
+    it is computed from one measured launch).  Returns K4's entry of the
+    `kernels` line (the follower body's numbers; every body's under
+    `bodies`)."""
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import _build, scan_group as SG
+    from zorak_tpu_torch.lowering.scan_codegen import TRANSCENDENTAL
+    from zorak_tpu_torch.lowering.specialize import _SC_BINARY, _SC_UNARY
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+
+    programs = {}
+    for name, (src, _nch) in K4_BODIES.items():
+        inst = PluginInstance(compile_plugin_source(src), srate=SR)
+        check(inst.engine == "torch-vector" and inst.spec_error is None,
+              f"{name}: engine {inst.engine} ({inst.spec_error})")
+        levels = inst.kernel.scan_level_programs()
+        check(len(levels) == 1, f"{name}: {len(levels)} scan levels")
+        programs[name] = levels[min(levels)][2]
+    # the render's source holds the scan kernel alone; the chain probe is
+    # the same steps in a source of its own
+    probes = {name: SG.ScanGroupProgram(p.steps, p.outs, p.n_ext, probe=True)
+              for name, p in programs.items()}
+    # every operation of csrc/scan_ops.cuh as a carry of its own: binary
+    # ops on (x0, x1), unary ops on x0, a select
+    op_names = ([f"bin {op}" for op in sorted(_SC_BINARY)]
+                + [f"call {op}" for op in sorted(_SC_UNARY)] + ["select"])
+    op_steps = ([("bin", op, {}, [("x", 0), ("x", 1)])
+                 for op in sorted(_SC_BINARY)]
+                + [("call", op, {}, [("x", 0)]) for op in sorted(_SC_UNARY)]
+                + [("select", None, {}, [("x", 0), ("x", 1), ("c", -3.25)])])
+    ops_program = SG.ScanGroupProgram(
+        op_steps, [("s", i) for i in range(len(op_steps))], 2)
+    # one nvcc a generated source, all started together
+    t0 = time.perf_counter()
+    logs = _build.build_generated(
+        [p.source for p in programs.values()]
+        + [p.source for p in probes.values()] + [ops_program.source])
+    print(f"[build] {len(logs)} generated scan-group kernels in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, program in programs.items():
+        for line in logs[program.source].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] scan_group {name}: {line.strip()}")
+
+    # what one eager launch costs the host: a launch-per-sample loop in
+    # plain PyTorch would pay it for every operation of every sample
+    acc = torch.zeros((), dtype=torch.float64, device=cuda)
+    for _ in range(200):
+        acc.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        acc.add_(1.0)
+    torch.cuda.synchronize()
+    launch_us = (time.perf_counter() - t0) / 2000 * 1e6
+
+    def inputs(program, n, specials):
+        xs = rng.randn(n, program.n_ext) * 0.5
+        if specials:
+            xs[n // 3, 0] = -0.0
+            xs[2, 0] = 0.0
+            xs[3 * n // 4, -1] = np.nan    # reaches the carry and stays
+        c0 = rng.uniform(0.1, 0.9, program.n_carry)     # non-zero start
+        return (torch.from_numpy(xs).to(cuda), torch.from_numpy(c0).to(cuda))
+
+    bodies = {}
+    for name, program in programs.items():
+        worst = 0.0
+        plain_ms = None
+        for n in (1, 7, 4096, SEG_L):
+            for specials in (False, True):
+                if specials and (n < 7 or not program.n_ext):
+                    continue
+                xs, c0 = inputs(program, n, specials)
+                got = SG.scan_group(program, xs, c0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = SG.scan_group_plain(program.steps, program.outs, xs, c0)
+                if n == SEG_L and not specials:
+                    plain_ms = (time.perf_counter() - t0) * 1e3
+                what = f"scan_group {name} L={n} specials={specials}"
+                if program.transcendental:
+                    fin = torch.isfinite(ref)
+                    check(torch.equal(torch.isnan(got), torch.isnan(ref)),
+                          f"{what}: NaNs elsewhere than the plain loop's")
+                    err = float((got[fin] - ref[fin]).abs().max()) \
+                        if fin.any() else 0.0
+                    check(err <= K4_LIBM_TOL, f"{what}: differs from the "
+                          f"plain loop by {err:.3e} (limit {K4_LIBM_TOL})")
+                else:
+                    check(same_values(got, ref),
+                          f"{what} differs from its plain loop")
+                    fin = torch.isfinite(ref)
+                    err = float((got[fin] - ref[fin]).abs().max()) \
+                        if fin.any() else 0.0
+                worst = max(worst, err)
+        # time at the main path's segment length, then the chain probe:
+        # the same steps with the externals cycling through registers,
+        # checked against the plain loop on the same repeated rows first
+        xs, c0 = inputs(program, SEG_L, False)
+        run = lambda: SG.scan_group(program, xs, c0)
+        run()
+        ms = cuda_ms(run, reps=20)
+        probe = probes[name]
+        rows = probe.block_rows
+        xc = xs[:rows].contiguous()
+        n_check = 64 * rows
+        ref_end = SG.scan_group_plain(program.steps, program.outs,
+                                      xc.repeat(64, 1), c0)[-1]
+        got_end = SG.scan_group_chain_probe(probe, xc, c0, n_check)
+        if program.transcendental:
+            check(float((got_end - ref_end).abs().max()) <= K4_LIBM_TOL,
+                  f"scan_group {name}: chain probe differs from the plain loop")
+        else:
+            check(same_values(got_end, ref_end),
+                  f"scan_group {name}: chain probe differs from the plain loop")
+        chain_ms = cuda_ms(
+            lambda: SG.scan_group_chain_probe(probe, xc, c0, SEG_L), reps=5)
+        ms_2 = cuda_ms(run, reps=20)
+        n_ops = len(program.steps)
+        # each external read once, each carry stream written once; the
+        # operations bound counts every step of the body as one operation
+        b_ms, b_by = bound_ms((program.n_ext + program.n_carry) * SEG_L * 8
+                              + program.n_carry * 8, n_ops * SEG_L)
+        per_sample_ms = n_ops * SEG_L * launch_us * 1e-3
+        how = (f"within {K4_LIBM_TOL} (device libm)" if program.transcendental
+               else "bit-identical")
+        print(f"[kernels] scan_group {name}: {program.n_carry} carries in "
+              f"{len(program.components)} component(s), {program.n_ext} "
+              f"externals, {n_ops} steps; L in (1, 7, 4096, {SEG_L}), with "
+              f"and without NaN and -0.0: {how}, max_abs_err={worst:.3e}; "
+              f"L={SEG_L}: ms={ms:.4f} (again {ms_2:.4f}) "
+              f"plain_ms={plain_ms:.1f} chain_ms={chain_ms:.4f} "
+              f"({chain_ms * 1e6 / SEG_L:.3f} ns a step), the kernel "
+              f"{ms / chain_ms:.3f}x it; bound_ms={b_ms:.5f} ({b_by}); a "
+              f"launch a step and sample at {launch_us:.2f} us would take "
+              f"{per_sample_ms:.0f} ms")
+        bodies[name] = {
+            "ms": ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": worst,
+            "steps": n_ops,
+            "carries": program.n_carry, "externals": program.n_ext,
+            "components": len(program.components)}
+    # the operations one by one, every pair of K4_EDGE_VALUES: what the
+    # scalar semantics give (the plain loop), bit for bit; the device's
+    # libm calls within K4_LIBM_ULPS of glibc's, same NaNs and infinities
+    xs = torch.tensor([(a, b) for a in K4_EDGE_VALUES for b in K4_EDGE_VALUES],
+                      dtype=torch.float64, device=cuda)
+    c0 = torch.zeros(ops_program.n_carry, dtype=torch.float64, device=cuda)
+    got = SG.scan_group(ops_program, xs, c0)
+    ref = SG.scan_group_plain(ops_program.steps, ops_program.outs, xs, c0)
+    worst_ulps = 0.0
+    for i, name in enumerate(op_names):
+        g, r = got[:, i], ref[:, i]
+        if name.split()[-1] in TRANSCENDENTAL:
+            fin = torch.isfinite(r)
+            check(torch.equal(torch.isnan(g), torch.isnan(r))
+                  and torch.equal(g[torch.isinf(r)], r[torch.isinf(r)]),
+                  f"scan_group op {name}: NaNs or infinities elsewhere than "
+                  "the plain loop's")
+            ulp = (torch.nextafter(r[fin].abs(), torch.full_like(r[fin], np.inf))
+                   - r[fin].abs())
+            ulps = float(((g[fin] - r[fin]).abs() / ulp).max()) \
+                if fin.any() else 0.0
+            check(ulps <= K4_LIBM_ULPS, f"scan_group op {name}: {ulps:.1f} "
+                  f"ulp from the plain loop (limit {K4_LIBM_ULPS})")
+            worst_ulps = max(worst_ulps, ulps)
+        else:
+            bad = [tuple(xs[j].tolist()) + (float(g[j]), float(r[j]))
+                   for j in range(xs.shape[0])
+                   if not same_values(g[j:j + 1], r[j:j + 1])][:3]
+            check(not bad, f"scan_group op {name} differs from the scalar "
+                  f"semantics at (a, b, kernel, plain) {bad}")
+    print(f"[kernels] scan_group operations: {len(op_names)} ops on "
+          f"{xs.shape[0]} pairs of edge values (zeros, subnormals, +-2^31, "
+          f"+-2^62, +-2^63, +-inf, NaN): bit-identical to the scalar "
+          f"semantics; the {sum(n.split()[-1] in TRANSCENDENTAL for n in op_names)}"
+          f" libm ops within {worst_ulps:.2f} ulp (limit {K4_LIBM_ULPS})")
+
+    fol = bodies["follower"]
+    return {
+        "name": "scan_group", "route": "cuda",
+        "source": "zorak_tpu_torch/lowering/scan_codegen.py",
+        "replaces": "zorak_tpu/lowering/specialize.py:4482",
+        "launches": 0, "max_abs_err": fol["max_abs_err"], "ms": fol["ms"],
+        "plain_ms": fol["plain_ms"], "bound_ms": fol["bound_ms"],
+        "bound_by": fol["bound_by"], "library_ms": None,
+        "chain_ms": fol["chain_ms"], "eager_launch_us": launch_us,
+        "worst_abs_err": max(b["max_abs_err"] for b in bodies.values()),
+        "shape": [SEG_L, fol["externals"], fol["carries"]], "bodies": bodies,
+    }
+
+
+def scan_group_sweep(torch, cuda, rng, rounds=5, reps=10):
+    """K4 across register block sizes: for each of K4_SWEEP_UNROLLS the
+    bodies of K4_SWEEP_BODIES generated with that many samples held at
+    once, held to the default size's output bit for bit at L = 131,072,
+    then timed in a rotating order (mean, min, max of `rounds` samples of
+    `reps` launches) beside the body's chain probe."""
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import _build, scan_group as SG
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+
+    bases, programs = {}, {}
+    for name in K4_SWEEP_BODIES:
+        inst = PluginInstance(compile_plugin_source(K4_BODIES[name][0]),
+                              srate=SR)
+        ((_keys, _ext, base, _idx),) = inst.kernel.scan_level_programs().values()
+        bases[name] = SG.ScanGroupProgram(base.steps, base.outs, base.n_ext,
+                                          probe=True)
+        for u in K4_SWEEP_UNROLLS:
+            programs[name, u] = SG.ScanGroupProgram(
+                base.steps, base.outs, base.n_ext, unroll=u)
+    _build.build_generated([p.source for p in (*bases.values(),
+                                               *programs.values())])
+    for name, base in bases.items():
+        xs = torch.from_numpy(rng.randn(SEG_L, base.n_ext) * 0.5).to(cuda)
+        c0 = torch.from_numpy(rng.uniform(0.1, 0.9, base.n_carry)).to(cuda)
+        runs = {u: (lambda p=programs[name, u]: SG.scan_group(p, xs, c0))
+                for u in K4_SWEEP_UNROLLS}
+        ref = SG.scan_group(base, xs, c0)
+        for u, run in runs.items():
+            check(same_values(run(), ref),
+                  f"scan_group {name} with {u} samples held differs from "
+                  "the default")
+        xc = xs[:base.block_rows].contiguous()
+        chain_ms = cuda_ms(
+            lambda: SG.scan_group_chain_probe(base, xc, c0, SEG_L), reps=5)
+        samples = {u: [] for u in K4_SWEEP_UNROLLS}
+        for r in range(rounds):
+            k = r % len(K4_SWEEP_UNROLLS)
+            for u in K4_SWEEP_UNROLLS[k:] + K4_SWEEP_UNROLLS[:k]:
+                samples[u].append(cuda_ms(runs[u], reps))
+        cells = "  ".join(
+            f"U={programs[name, u].block_rows}: {np.mean(v):.4f} "
+            f"({min(v):.4f}-{max(v):.4f})" for u, v in samples.items())
+        print(f"[sweep] scan_group {name} L={SEG_L} n_ext={base.n_ext} "
+              f"chain_ms={chain_ms:.4f}; ms mean (min-max): {cells}")
+
+
 def jsfx_phase(torch, cuda, rng, card):
-    """The JSFX main path: the in-repo delay network and its 192-tap
-    widening through PluginInstance.render on 60 s of stereo; returns the
-    K2 and K3 launch counts of each timed render."""
+    """The JSFX main path: the in-repo delay network, its 192-tap
+    widening and two scan-group plugins through PluginInstance.render on
+    60 s of stereo; returns the K2, K3 and K4 launch counts of each timed
+    render."""
     from zorak_tpu_torch import builtin_plugins as BP
     from zorak_tpu_torch.ir import compile_plugin_source
     from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
-    from zorak_tpu_torch.lowering.specialize import _K4_REASON
+    from zorak_tpu_torch.kernels import scan_group as SG
     from zorak_tpu_torch.runtime.engine import DEFAULT_SEGMENT_LEN, PluginInstance
     from zorak_tpu_torch.verify import AUDIO_EPS, compare_audio
 
@@ -367,30 +708,42 @@ def jsfx_phase(torch, cuda, rng, card):
     sec = MAIN_T / SR
     n1, n_gold = int(SR), 4800
     launches = {}
-    for label, src, hold_golden in (
-            ("fallback", BP.FALLBACK_SRC, False),
-            ("wide", BP.wide_delay_network(192), True)):
+    segments = -(-MAIN_T // SEG_L)
+    # label, source, held to the golden, launches of (K2, K3, K4) a segment
+    for label, src, hold_golden, per_segment in (
+            ("fallback", BP.FALLBACK_SRC, False, (1, 2, 0)),
+            ("wide", BP.wide_delay_network(192), True, (1, 2, 0)),
+            ("follower", SCAN_GROUP_SRC, True, (0, 0, 1)),
+            ("stereo_followers", STEREO_FOLLOWERS_SRC, True, (0, 0, 1))):
+        t_phase = time.perf_counter()
         prog = compile_plugin_source(src)
         inst = PluginInstance(prog, srate=SR)          # device None: the card
-        check(inst.engine == "torch-vector",
+        check(inst.engine == "torch-vector" and inst.spec_error is None,
               f"{label}: engine {inst.engine} ({inst.spec_error})")
+        levels = len(inst.kernel.scan_level_programs())
+        check(levels == per_segment[2], f"{label}: {levels} scan levels")
         x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+        t0 = time.perf_counter()
         inst.render(x)                                 # warm-up
         torch.cuda.synchronize()
-        LS.LAUNCHES = RT.LAUNCHES = 0
+        warm_s = time.perf_counter() - t0
+        LS.LAUNCHES = RT.LAUNCHES = SG.LAUNCHES = 0
         out = []
         t0 = time.perf_counter()
         ms = cuda_ms(lambda: out.append(inst.render(x)))
         wall = time.perf_counter() - t0
         launches[label] = {"linrec_scan": LS.LAUNCHES,
-                           "ring_tap_sum": RT.LAUNCHES}
+                           "ring_tap_sum": RT.LAUNCHES,
+                           "scan_group": SG.LAUNCHES}
         res = out[0]
         # the render's host side (copies, the wake scan) shares its CPU
         # with other tenants: four more renders show the spread
         more_ms = sorted(cuda_ms(lambda: inst.render(x)) for _ in range(4))
         check(res.engine == "torch-vector", f"{label}: rendered by {res.engine}")
-        check(all(v > 0 for v in launches[label].values()),
-              f"{label}: the main path skipped a kernel: {launches[label]}")
+        check(tuple(launches[label].values())
+              == tuple(n * segments for n in per_segment),
+              f"{label}: launches {launches[label]}, expected "
+              f"{per_segment} a segment x {segments} segments")
         y = res.audio
         check(y.shape == (2, MAIN_T) and y.dtype == np.float32,
               f"{label}: output {y.shape} {y.dtype}")
@@ -398,8 +751,9 @@ def jsfx_phase(torch, cuda, rng, card):
         print(f"[main] JSFX {label} 60 s stereo: engine={res.engine} "
               f"device_ms={ms:.2f} wall_s={wall:.4f} "
               f"audio_s_per_s={sec / (ms / 1e3):.1f} "
-              f"launches={launches[label]} segments="
-              f"{-(-MAIN_T // SEG_L)} four more renders "
+              f"launches={launches[label]} segments={segments} "
+              f"warm-up render (kernel builds included) {warm_s:.2f} s; "
+              f"four more renders "
               f"{' '.join(f'{m:.2f}' for m in more_ms)} ms card='{card}'")
         kern = inst.kernel
         x_dev = torch.from_numpy(x).to(cuda)
@@ -408,7 +762,8 @@ def jsfx_phase(torch, cuda, rng, card):
         print(f"[main] JSFX {label}: the kernel alone, audio already on the "
               f"card and left there, mean of 3: device_ms={dev_ms:.2f} "
               f"audio_s_per_s={sec / (dev_ms / 1e3):.1f}")
-        profile_render(lambda: kern.render_device(x_dev), f"JSFX {label}")
+        profile_render(lambda: kern.render_device(x_dev), f"JSFX {label}",
+                       segments)
 
         # causal, so the first second stands alone: against the port's
         # CPU render (the doubling ladders in place of K2's order)
@@ -439,28 +794,8 @@ def jsfx_phase(torch, cuda, rng, card):
                   abs(rep_c.max_abs_delta - rep.max_abs_delta) < AUDIO_EPS,
                   f"{label}: CUDA and CPU renders differ from the golden "
                   "by different amounts")
+        print(f"[done] JSFX {label} in {time.perf_counter() - t_phase:.1f} s")
 
-    # a plugin with a sequential scan group (an attack/release follower):
-    # the card has no kernel for it yet, so the engine must say so and
-    # render through the golden, never through a launch-per-sample loop
-    follower = compile_plugin_source(SCAN_GROUP_SRC)
-    on_cpu = PluginInstance(follower, srate=SR, device="cpu")
-    check(on_cpu.engine == "torch-vector" and on_cpu.kernel.scan_groups,
-          "the follower plugin no longer plans a scan group")
-    on_card = PluginInstance(follower, srate=SR)
-    check(on_card.engine == "cpu-shadow" and on_card.spec_error == _K4_REASON,
-          f"scan-group plugin on the card: engine {on_card.engine}, "
-          f"reason {on_card.spec_error!r}")
-    xs = (rng.randn(2, 2048) * 0.25).astype(np.float32)
-    res = on_card.render(xs)
-    check(res.engine == "cpu-shadow"
-          and res.details.get("spec_error") == _K4_REASON,
-          "scan-group render did not report the golden and K4's reason")
-    rep = compare_audio(res.audio, on_cpu.render(xs).audio)
-    check(rep.audio_passed, "scan-group plugin: golden vs CPU vector render")
-    print(f"[main] scan-group plugin on the card: engine={res.engine} "
-          f"reason='{on_card.spec_error}'; golden vs CPU vector render: "
-          f"{rep.summary()}")
     return launches
 
 
@@ -482,7 +817,7 @@ def faust_phases(torch, cuda, rng, card):
 
     # 5. K1 against its plain version -----------------------------------
     # K1 must equal its plain loop bit for bit (same_bits: integer views)
-    def scan_inputs(n_t, lanes, dtype, up=None, dn=None, x=None):
+    def scan_inputs(n_t, lanes, dtype, up=None, dn=None, x=None, rng=rng):
         x = np.abs(rng.randn(n_t, lanes)) if x is None else x
         x = torch.from_numpy(x).to(cuda, dtype)
         upv = torch.from_numpy(rng.uniform(0.3, 0.9, lanes) if up is None
@@ -575,24 +910,34 @@ def faust_phases(torch, cuda, rng, card):
         _, reruns = held(f"{dname} silence T={n_long} lanes=3", args)
         check(reruns > 0, "the default-settings silence case re-ran nothing")
 
-    # at the main path's shape: VAR's follower, one lane, at VAR's poles;
-    # the one-chunk case too, the witness for the longer inputs below
+    # VAR's follower, one lane, at VAR's poles, at the main path's shape:
+    # K1 at its defaults and as one chunk (a thread per lane) against the
+    # plain loop in f64, bit for bit.  The plain Python loop takes 70 to
+    # 110 us a step, minutes at this length, so the second dtype runs
+    # K1_PLAIN_T steps of it, and at the main length K1 in f32 at its
+    # defaults is held to K1 as one chunk.
     one = {"chunk": MAIN_T}         # one chunk: a thread per lane
-    args = scan_inputs(MAIN_T, 1, torch.float32, *VAR_POLES)
-    ref, _ = held("float32 T=%d lanes=1" % MAIN_T, args)
-    held("float32 T=%d lanes=1" % MAIN_T, args, ref, **one)
+    # a stream of its own: the draws below stay what they were before the
+    # f32 plain loop was cut
+    rng_plain = np.random.RandomState(SEED + 7)
+    args = scan_inputs(K1_PLAIN_T, 1, torch.float32, *VAR_POLES, rng=rng_plain)
+    t0 = time.perf_counter()
+    ref, _ = held(f"float32 T={K1_PLAIN_T} lanes=1", args)
+    held(f"float32 T={K1_PLAIN_T} lanes=1", args, ref, **one)
+    print(f"[kernels] switching_scan plain loop float32 T={K1_PLAIN_T}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    witnessed("main shape", scan_inputs(MAIN_T, 1, torch.float32, *VAR_POLES))
     args = scan_inputs(MAIN_T, 1, torch.float64, *VAR_POLES)
-    zero_reruns()
-    got = SS.switching_scan(*args)
-    main_reruns = rerun_steps()
-    got_one = SS.switching_scan(*args, **one)
     ref_holder = []
+    t0 = time.perf_counter()
     plain_ms = cuda_ms(lambda: ref_holder.append(
         SS.switching_scan_reference(*args)))
     ref = ref_holder[0]
-    check(same_bits(got, ref) and same_bits(got_one, ref),
-          "switching_scan at the main shape differs from its plain loop")
-    scan_err = (got - ref).abs().max().item()
+    print(f"[kernels] switching_scan plain loop float64 T={MAIN_T}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    _, main_reruns = held(f"float64 T={MAIN_T} lanes=1", args, ref)
+    held(f"float64 T={MAIN_T} lanes=1", args, ref, **one)
+    scan_err = (SS.switching_scan(*args) - ref).abs().max().item()
     # the new default, the one-chunk design, the default again: same card
     scan_ms = cuda_ms(lambda: SS.switching_scan(*args), reps=5)
     earlier_ms = cuda_ms(lambda: SS.switching_scan(*args, **one), reps=3)
@@ -780,10 +1125,11 @@ def faust_phases(torch, cuda, rng, card):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="jsfx,faust",
-                    help="comma-separated: jsfx, faust (default both)")
+                    help="comma-separated: jsfx, faust (default both); "
+                         "k4sweep times K4 across register block sizes")
     phases = set(ap.parse_args(argv).phases.split(","))
-    if not phases or phases - {"jsfx", "faust"}:
-        ap.error("--phases takes jsfx, faust or both")
+    if not phases or phases - {"jsfx", "faust", "k4sweep"}:
+        ap.error("--phases takes jsfx, faust or both, or k4sweep")
     t_start = time.perf_counter()
     import torch
 
@@ -826,16 +1172,29 @@ def main(argv=None) -> int:
         # a seeded stream of their own: the Faust phases draw the same
         # inputs whether or not these ran before them
         rng_jsfx = np.random.RandomState(SEED + 5)
+        t0 = time.perf_counter()
         k2 = linrec_phase(torch, cuda, rng_jsfx)
         k3 = ring_taps_phase(torch, cuda, rng_jsfx)
+        print(f"[done] K2 and K3 kernel phases in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        # a stream of its own again: K4's draws do not move the others'
+        k4 = scan_group_phase(torch, cuda, np.random.RandomState(SEED + 6))
+        print(f"[done] K4 kernel phase in {time.perf_counter() - t0:.1f} s")
         launches = jsfx_phase(torch, cuda, rng_jsfx, card)
         for entry in (k2, k3):
             entry["launches"] = launches["fallback"][entry["name"]]
             entry["launches_wide"] = launches["wide"][entry["name"]]
-        kernels += [k2, k3]
+        k4["launches"] = launches["follower"]["scan_group"]
+        k4["launches_stereo"] = launches["stereo_followers"]["scan_group"]
+        kernels += [k2, k3, k4]
         print(f"[done] jsfx phases at {time.perf_counter() - t_start:.1f} s")
+    if "k4sweep" in phases:
+        scan_group_sweep(torch, cuda, np.random.RandomState(SEED))
     if "faust" in phases:
+        t0 = time.perf_counter()
         kernels.insert(0, faust_phases(torch, cuda, rng, card))
+        print(f"[done] faust phases in {time.perf_counter() - t0:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,10 +24,11 @@ from zorak_tpu.verify import make_initialized_shadow as jax_shadow
 
 from zorak_tpu_torch import builtin_plugins, convert
 from zorak_tpu_torch.ir import compile_plugin_source
+from zorak_tpu_torch.kernels import _build
 from zorak_tpu_torch.kernels import linrec_scan as LS
 from zorak_tpu_torch.kernels import ring_taps as RT
+from zorak_tpu_torch.kernels import scan_group as SG
 from zorak_tpu_torch.lowering import SpecializeError, specialize_sample_kernel
-from zorak_tpu_torch.lowering.specialize import _K4_REASON
 from zorak_tpu_torch.verify import (
     compare_audio, make_initialized_shadow, null_test_plugin)
 
@@ -39,6 +40,13 @@ CARRY_EPS = 1e-8    # carried scalars and rings against JAX's
 def cold_trace_cache(tmp_path, monkeypatch):
     # no JAX kernel built here may warm the home trace cache
     monkeypatch.setenv("ZORAK_TRACE_CACHE_DIR", str(tmp_path))
+
+
+def host_compiler():
+    try:
+        return _build.find_host_compiler()
+    except RuntimeError:
+        return None
 
 
 def noise(nch, n, scale=0.5, seed=3):
@@ -348,21 +356,42 @@ def test_gated_regime_is_refused_with_its_slice():
 
 @pytest.mark.parametrize("name", ["attack_release_envelope",
                                   "group_feeding_from_vectorized_delay",
+                                  "mutually_recursive_pair",
                                   "nonlinear_self_recurrence"])
-def test_scan_group_plans_are_refused_off_the_cpu(name, monkeypatch):
-    # a kernel for a CUDA device refuses a sequential scan group at
-    # construction (no generated kernel yet); the device check is stood in
-    # for, since no card is here
+def test_scan_group_plans_are_accepted_off_the_cpu(name, monkeypatch):
+    # a kernel for a CUDA device takes a sequential scan group (its level
+    # becomes a generated CUDA kernel); the device check is stood in for,
+    # since no card is here, so the kernel is planned but not run.  The
+    # level as the CPU kernel lowers it prints to a source that a host
+    # compiler accepts and that repeats the plain loop bit for bit.
     import zorak_tpu_torch.device as device_mod
 
-    src, x, _opts, _ = CASES[name]
+    src, x, opts, _ = CASES[name]
     prog = compile_plugin_source(src)
-    monkeypatch.setattr(device_mod, "resolve_device",
-                        lambda device=None: torch.device("cuda"))
-    with pytest.raises(SpecializeError) as exc:
-        specialize_sample_kernel(prog, make_initialized_shadow(prog).state,
-                                 x.shape[0])
-    assert str(exc.value) == _K4_REASON
+    with monkeypatch.context() as m:
+        m.setattr(device_mod, "resolve_device",
+                  lambda device=None: torch.device("cuda"))
+        kern = specialize_sample_kernel(
+            prog, make_initialized_shadow(prog).state, x.shape[0])
+    assert kern.device.type == "cuda"
+    # the linear pair folds into one linear recurrence (`linrec_scan`'s);
+    # the other three keep a sequential scan group
+    assert bool(kern.scan_groups) == (name != "mutually_recursive_pair")
+    cpu = specialize_sample_kernel(prog, make_initialized_shadow(prog).state,
+                                   x.shape[0], device="cpu", **opts)
+    assert cpu.scan_groups == kern.scan_groups
+    assert sorted(cpu.scan_level_programs()) == sorted(set(
+        cpu.scan_levels.get(i, 0) for i in range(len(cpu.scan_groups))))
+    if not host_compiler():
+        pytest.skip("no host C++ compiler for the generated source")
+    rng = np.random.RandomState(7)
+    for _keys, externals, program, _idx in cpu.scan_level_programs().values():
+        assert "scan_group_launch" in program.source
+        xs = torch.from_numpy(rng.randn(257, len(externals)) * 0.5)
+        c0 = torch.from_numpy(rng.uniform(0.1, 0.9, program.n_carry))
+        got = SG.scan_group_host(program, xs, c0)
+        ref = SG.scan_group_plain(program.steps, program.outs, xs, c0)
+        assert torch.equal(got.view(torch.int64), ref.view(torch.int64))
 
 
 def test_fallback_source_is_the_entry_scripts():
@@ -479,4 +508,4 @@ def test_resumed_ring_render_from_a_converted_jax_carry(segment_len):
 
 def test_wrappers_counted_nothing_on_the_cpu():
     # a launch count moves only where a kernel is launched
-    assert LS.LAUNCHES == 0 and RT.LAUNCHES == 0
+    assert LS.LAUNCHES == 0 and RT.LAUNCHES == 0 and SG.LAUNCHES == 0

@@ -7,6 +7,12 @@ in .gitignore), under a name that carries the hash of its source and of
 the flags: editing a source rebuilds it, and a library built from another
 source is never loaded.
 
+A kernel whose text is generated at run time (a sequential scan group,
+`lowering/scan_codegen.py`) takes the second way in: `load_generated`
+writes the text to `_build/gen-<hash>.cu`, compiles it with the same flags
+plus `-I csrc/` and loads it; the hash covers the text, the flags and the
+headers of `csrc/`, so the same text never compiles twice.
+
 Importing this module runs nothing and needs no nvcc.
 """
 from __future__ import annotations
@@ -17,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -102,3 +108,98 @@ def load(name: str) -> ctypes.CDLL:
     """Build kernel `name` if needed and load its library."""
     build(name)
     return ctypes.CDLL(str(library_path(name)))
+
+
+def _generated_stem(source: str, flags: Tuple[str, ...]) -> str:
+    """The hash of a generated text, the flags and csrc/'s headers."""
+    h = hashlib.sha256(source.encode() + b"\0" + "\0".join(flags).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(b"\0" + header.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def generated_paths(source: str) -> Tuple[Path, Path]:
+    """(the .cu a generated source is written to, the library built from
+    it), named by the hash of the text, the flags and csrc/'s headers."""
+    stem = f"gen-{_generated_stem(source, NVCC_FLAGS)}"
+    return BUILD_DIR / f"{stem}.cu", BUILD_DIR / f"lib{stem}.so"
+
+
+def build_generated(sources: Iterable[str]) -> Dict[str, str]:
+    """Compile the generated sources that are not built yet, one nvcc
+    each, all started together; return nvcc's log by source text ("" for
+    one that was built before).
+
+    Raises RuntimeError with the compiler's output if a build fails.
+    """
+    logs: Dict[str, str] = {}
+    running = []
+    for source in dict.fromkeys(sources):
+        cu, out = generated_paths(source)
+        if out.is_file():
+            logs[source] = ""
+            continue
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp_cu = cu.with_name(f"{cu.stem}.{os.getpid()}.tmp.cu")
+        tmp_cu.write_text(source)
+        os.replace(tmp_cu, cu)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((source, proc, tmp, out, cu))
+    failed = []
+    for source, proc, tmp, out, cu in running:
+        logs[source] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"build of generated kernel {cu.name} failed (nvcc "
+                          f"exit {proc.returncode}):\n{logs[source]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def load_generated(source: str) -> ctypes.CDLL:
+    """Build the generated source if needed and load its library."""
+    build_generated((source,))
+    return ctypes.CDLL(str(generated_paths(source)[1]))
+
+
+# the host form of a generated source: the same two roundings a multiply-add
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
+              "-shared", "-fPIC")
+
+
+def find_host_compiler() -> str:
+    """Path of g++ (or gcc, cc), for the host form of a generated source."""
+    for name in ("g++", "gcc", "c++", "cc"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler found (g++, gcc, c++, cc)")
+
+
+def load_generated_host(source: str) -> ctypes.CDLL:
+    """Compile a generated source for the CPU (no CUDA: its host form, a
+    plain loop over time around the same bodies) and load it.  For tests
+    and for reading a body's arithmetic where there is no GPU; no render
+    path calls it."""
+    out = BUILD_DIR / f"libgenhost-{_generated_stem(source, HOST_FLAGS)}.so"
+    if not out.is_file():
+        cxx = find_host_compiler()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [cxx, *HOST_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), "-",
+             "-lm"],
+            input=source, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"host build of a generated source failed "
+                               f"({cxx} exit {proc.returncode}):\n"
+                               f"{proc.stdout}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))

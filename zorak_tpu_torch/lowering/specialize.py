@@ -22,6 +22,10 @@ time axis:
 * first-order recurrences z = A*z' + B (one-poles, meters, envelopes with
   state-independent coefficients) go to the `linrec_scan` CUDA kernel,
   sums of constant-gain ring taps to the `ring_tap_sum` CUDA kernel,
+* state-dependent recurrences (attack/release envelopes, peak holds,
+  nonlinear feedback, mutually recursive pairs) form sequential scan
+  groups, each DAG level of which runs as one `scan_group` kernel whose
+  CUDA text is generated from the level's steps,
 * data-dependent branches become `select` via per-variable branch merging.
 
 The emitted segment function runs eagerly in a host loop across
@@ -29,9 +33,8 @@ segments.  Plugins whose @sample uses features outside this subset raise
 SpecializeError and fall back to the golden executor.  Regimes this
 package does not carry yet raise SpecializeError too, naming the work
 that brings them: the audio-coupled @block and the hop section (they
-need the device section compiler), the gated kinds (gated rings, gated
-cursors, gated rand(), masked loop(n)), and, on a CUDA device, the
-sequential scan groups (their generated kernel).
+need the device section compiler) and the gated kinds (gated rings, gated
+cursors, gated rand(), masked loop(n)).
 """
 from __future__ import annotations
 
@@ -1697,8 +1700,6 @@ def _norm_loop(v, meta):
         v = torch.where(p, v + S, v)
 
 
-# why a kernel for a CUDA device refuses a plan with sequential scan groups
-_K4_REASON = "sequential scan group: kernel K4 not ported"
 # the gated regimes wait for the slice that brings gate prefix sums
 _GATED_KINDS = ("gringidx", "gringref", "gdynringref")
 
@@ -2241,8 +2242,6 @@ class SpecializedSampleKernel:
             raise SpecializeError(
                 f"gated regime ({', '.join(gated)}): not ported "
                 "(queue 1, slice 5)")
-        if self.scan_groups and self.device.type != "cpu":
-            raise SpecializeError(_K4_REASON)
         self.n_rand = sym.rand_slots
         if self.n_rand and self.has_block:
             for stmt in program.sections.get("block", []):
@@ -2265,6 +2264,9 @@ class SpecializedSampleKernel:
         # matched ring tap sums (or None) by (`+` node, L)
         self._const_cache: Dict[Any, Any] = {}
         self._tap_tables: Dict[Any, Any] = {}
+        # the lowered scan-group levels (step list, externals, generated
+        # source) by DAG level
+        self._scan_programs: Dict[int, Any] = {}
 
     def _require_devblock(self) -> None:
         """The coupled regime: @block must compile to device code.  The
@@ -3520,6 +3522,93 @@ class SpecializedSampleKernel:
                 self._const_cache[ck] = got
         return got
 
+    def scan_level_program(self, level: int):
+        """One DAG level of scan groups, lowered for `scan_group` once for
+        the kernel's life (the plan is static): (carried keys, external
+        GNodes, ScanGroupProgram with the step list and the generated
+        source, positions of the carries in svec as an int64 tensor on
+        the kernel's device)."""
+        import torch
+
+        from ..kernels.scan_group import ScanGroupProgram
+
+        lowered = self._scan_programs.get(level)
+        if lowered is not None:
+            return lowered
+        P_plans = self.plans
+        scan_group_keys = [k for i, grp in enumerate(self.scan_groups)
+                           if self.scan_levels.get(i, 0) == level
+                           for k in grp]
+        scan_gset = set(scan_group_keys)
+        targets = {g: P_plans[g].out for g in scan_group_keys}
+        internal_memo: Dict[int, bool] = {}
+
+        def is_internal(x) -> bool:
+            if not isinstance(x, GNode):
+                return False
+            got = internal_memo.get(id(x))
+            if got is not None:
+                return got
+            if x.kind == "prev":
+                r = x.meta["key"] in scan_gset
+            elif x.kind in ("dynringref", "gdynringref"):
+                if any(is_internal(a) for a in x.args):
+                    raise SpecializeError(
+                        "dynamic delay index driven by a sequential "
+                        "recurrence group")
+                r = False
+            elif x.kind in ("in", "ind", "ringidx", "ringref",
+                            "ctrl", "rand"):
+                r = False
+            else:
+                r = any(is_internal(a) for a in x.args)
+            internal_memo[id(x)] = r
+            return r
+
+        externals: List[GNode] = []
+        ext_ids: Dict[int, int] = {}
+        g_index = {g: i for i, g in enumerate(scan_group_keys)}
+        # the internal DAG in evaluation order; an operand is
+        # ("c", float) | ("x", external) | ("p", carry) | ("s", slot)
+        steps: List[Tuple[str, str, Dict, List]] = []
+        slot_of: Dict[int, int] = {}
+
+        def lower(x):
+            if not isinstance(x, GNode):
+                return ("c", x)
+            if not is_internal(x):
+                if id(x) not in ext_ids:
+                    ext_ids[id(x)] = len(externals)
+                    externals.append(x)
+                return ("x", ext_ids[id(x)])
+            if x.kind == "prev":
+                return ("p", g_index[x.meta["key"]])
+            got = slot_of.get(id(x))
+            if got is None:
+                if x.kind not in ("bin", "call", "select",
+                                  "normloop"):
+                    raise AssertionError(f"scan-internal {x.kind}")
+                args = [lower(a) for a in x.args]
+                got = len(steps)
+                slot_of[id(x)] = got
+                steps.append((x.kind, x.op, x.meta, args))
+            return ("s", got)
+
+        outs = [lower(targets[g]) for g in scan_group_keys]
+        lowered = self._scan_programs[level] = (
+            scan_group_keys, externals,
+            ScanGroupProgram(steps, outs, len(externals)),
+            torch.tensor([self.scalar_index[g] for g in scan_group_keys],
+                         dtype=torch.int64).to(self.device))
+        return lowered
+
+    def scan_level_programs(self) -> Dict[int, Any]:
+        """Every DAG level of scan groups, lowered: {level:
+        `scan_level_program(level)`}; empty for a plan without them."""
+        levels = sorted({self.scan_levels.get(i, 0)
+                         for i in range(len(self.scan_groups))})
+        return {lv: self.scan_level_program(lv) for lv in levels}
+
     def _make_seg_fn(self, L: int) -> Callable:
         """The per-segment program of length L, in torch.
 
@@ -3530,15 +3619,17 @@ class SpecializedSampleKernel:
         access a slice (a view) of `[history | this segment's write
         stream]`, and no segment waits for the device: the values only
         the device knows (a recurrence's last state) stay 0-d tensors.
-        Two hot loops go to the hand-written
-        kernels: the linear recurrences (`linrec_scan`) and the ring tap
-        sums (`ring_tap_sum`).
+        Three hot loops go to the hand-written
+        kernels: the linear recurrences (`linrec_scan`), the ring tap
+        sums (`ring_tap_sum`) and the sequential scan groups
+        (`scan_group`, generated from the group's steps).
         """
         import torch
 
         from . import eelmath as EM
         from ..kernels.linrec_scan import linrec_scan
         from ..kernels.ring_taps import ring_tap_sum
+        from ..kernels.scan_group import scan_group
 
         F64 = torch.float64
         dev = self.device
@@ -3893,112 +3984,32 @@ class SpecializedSampleKernel:
             solved_groups: Set[int] = set()
 
             def solve_scan_group(gid):
-                """Jointly solve one sequential-recurrence group; external
-                feeds stay vectorized and stream in as inputs.  Groups run
-                in dependency order (the group graph is a DAG, checked at
-                plan time).
-
-                This is the plain per-sample loop over the group's DAG, in
-                the scalar EEL2 semantics, for CPU tensors.  A kernel built
-                for a CUDA device refuses such a plan at construction."""
+                """Jointly solve one sequential-recurrence group with ONE
+                `scan_group` call a DAG level (the generated kernel on a
+                CUDA device, the plain per-sample loop on the CPU);
+                external feeds stay vectorized and stream in as inputs.
+                Groups run in dependency order (the group graph is a DAG,
+                checked at plan time)."""
                 if gid in solved_groups:
                     return
-                if dev.type != "cpu":
-                    raise SpecializeError(_K4_REASON)
+                # levels are mutually independent, so batching only
+                # concatenates the carries
                 level = scan_levels.get(gid, 0)
                 batch = [i for i in range(len(scan_groups))
                          if scan_levels.get(i, 0) == level
                          and i not in solved_groups]
                 solved_groups.update(batch)
-                scan_group = [k for i in batch for k in scan_groups[i]]
-                scan_gset = set(scan_group)
-                targets = {g: P_plans[g].out for g in scan_group}
-                internal_memo: Dict[int, bool] = {}
-
-                def is_internal(x) -> bool:
-                    if not isinstance(x, GNode):
-                        return False
-                    got = internal_memo.get(id(x))
-                    if got is not None:
-                        return got
-                    if x.kind == "prev":
-                        r = x.meta["key"] in scan_gset
-                    elif x.kind == "dynringref":
-                        if any(is_internal(a) for a in x.args):
-                            raise SpecializeError(
-                                "dynamic delay index driven by a sequential "
-                                "recurrence group")
-                        r = False
-                    elif x.kind in ("in", "ind", "ringidx", "ringref",
-                                    "ctrl", "rand"):
-                        r = False
-                    else:
-                        r = any(is_internal(a) for a in x.args)
-                    internal_memo[id(x)] = r
-                    return r
-
-                externals: List[GNode] = []
-                ext_ids: Dict[int, int] = {}
-                g_index = {g: i for i, g in enumerate(scan_group)}
-                # the internal DAG in evaluation order; an operand is
-                # ("c", float) | ("x", external) | ("p", carry) | ("s", slot)
-                steps: List[Tuple[str, str, Dict, List]] = []
-                slot_of: Dict[int, int] = {}
-
-                def lower(x):
-                    if not isinstance(x, GNode):
-                        return ("c", x)
-                    if not is_internal(x):
-                        if id(x) not in ext_ids:
-                            ext_ids[id(x)] = len(externals)
-                            externals.append(x)
-                        return ("x", ext_ids[id(x)])
-                    if x.kind == "prev":
-                        return ("p", g_index[x.meta["key"]])
-                    got = slot_of.get(id(x))
-                    if got is None:
-                        if x.kind not in ("bin", "call", "select",
-                                          "normloop"):
-                            raise AssertionError(f"scan-internal {x.kind}")
-                        args = [lower(a) for a in x.args]
-                        got = len(steps)
-                        slot_of[id(x)] = got
-                        steps.append((x.kind, x.op, x.meta, args))
-                    return ("s", got)
-
-                outs = [lower(targets[g]) for g in scan_group]
-                rows = (torch.stack([_full(emit(e)) for e in externals],
-                                    dim=1).tolist()
-                        if externals else [()] * L)
-                cv = [host_scalar(g) for g in scan_group]
-                ys = []
-                vals = [0.0] * len(steps)
-
-                def get(spec, x_t):
-                    tag, v = spec
-                    if tag == "s":
-                        return vals[v]
-                    if tag == "x":
-                        return x_t[v]
-                    return cv[v] if tag == "p" else v
-
-                for x_t in rows:
-                    for i, (kind, op, meta, args) in enumerate(steps):
-                        if kind == "bin":
-                            vals[i] = _SC_BINARY[op](get(args[0], x_t),
-                                                     get(args[1], x_t))
-                        elif kind == "call":
-                            vals[i] = _SC_UNARY[op](get(args[0], x_t))
-                        elif kind == "select":
-                            vals[i] = (get(args[1], x_t)
-                                       if SC.truthy(get(args[0], x_t))
-                                       else get(args[2], x_t))
-                        else:
-                            vals[i] = _norm_loop(get(args[0], x_t), meta)
-                    cv = [float(get(o, x_t)) for o in outs]
-                    ys.append(cv)
-                ys = upload(ys, F64).reshape(L, len(scan_group))
-                for i, g in enumerate(scan_group):
+                # the plan is static: a level is lowered, and its kernel's
+                # text printed, once for the kernel's life
+                keys, externals, program, carry_idx = \
+                    self.scan_level_program(level)
+                xs_l = (torch.stack([_full(emit(e)) for e in externals],
+                                    dim=1) if externals
+                        else torch.zeros((L, 0), dtype=F64, device=dev))
+                # the start carries stay where they are: svec holds every
+                # carried scalar, known to the host or not
+                ys = scan_group(program, xs_l, svec[carry_idx])
+                for i, g in enumerate(keys):
                     var_stream[g] = ys[:, i]
 
             linrec_waves = ({} if not _LINREC_BATCH
