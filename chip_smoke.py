@@ -13,38 +13,51 @@ default; device and build always run; `k4sweep` is described at the end):
 2. build    every CUDA kernel of the paths, from csrc/ in this checkout,
             one nvcc a source, all started together (the generated
             scan-group kernels are built in phase 3, all together too);
-3. kernels (jsfx)  the linear-recurrence scan (K2) against a NumPy
-            sequential loop, bit-identical, and against its plain
-            doubling ladder within 1e-9 x max|z| (scalar and per-sample
-            a; k in 1, 2, 8; L in 1, 7, 4,096, 131,072; z0 != 0, a = 0,
-            NaN in b), its time at the main shape beside the ladder's,
-            its bounds and a one-thread chain probe.  The ring tap sum
-            (K3) against its plain fold, bit-identical, at 16, 192 and
-            300 taps, delays below and above L, L = 131,072, a short
+3. kernels (jsfx)  the linear-recurrence scan (K2, a chunked affine
+            scan) against `linrec_chunked`, the NumPy mirror of its
+            order (equal, every NaN one value), and within 1e-9 x max|z|
+            of the sequential loop and of its plain doubling ladder
+            (scalar and per-sample a; k in 1, 2, 8; L in 1, 7, 4,096,
+            131,072; z0 != 0, a = 0, NaN in b; |a| > 1 with overflow,
+            integrators on integer counters, exact; L in 100, 1,000,
+            131,071), its time at the main shape beside one chunk (a
+            thread a row), the ladder's, its bounds, a one-thread chain
+            probe and a sweep over the chunk.  The ring tap sum (K3)
+            against its plain fold, bit-identical, at 16, 192 and 300
+            taps, delays below and above L, L = 131,072, a short
             remainder and 1, its time beside the plain fold's, a dense
             FIR convolution's (the library call) and its bound.  The
-            scan-group kernel (K4), generated from each plugin's own step
-            list: eight bodies (followers, a coupled pair, a nonlinear
-            recurrence, a peak hold fed from a delay, a wrap loop, a sin
-            in the loop) against the plain Python loop on the same inputs
-            at L in 1, 7, 4,096, 131,072, non-zero start carries, with and
-            without NaN and -0.0 in the externals: bit-identical, every
-            NaN counted as one value, or within 1e-8 for the body that
-            calls the device's libm; its time at L = 131,072 beside the
-            plain loop's, a one-thread chain probe of the same body, the
-            bytes bound and a launch-per-sample estimate; then every
-            operation of csrc/scan_ops.cuh on every pair of a grid of edge
-            values against the scalar semantics, bit for bit (the libm
-            calls within 4 ulp);
+            scan-group kernels (K4, a speculate and a fix-up kernel),
+            generated from each plugin's own step list: eight bodies
+            (followers, a coupled pair, a nonlinear recurrence, a peak
+            hold fed from a delay, a wrap loop, a sin in the loop)
+            against the plain Python loop on the same inputs at L in 1,
+            7, 4,096, 131,072, non-zero start carries, with and without
+            NaN and -0.0 in the externals, at the default chunk and
+            warm-up and at a small one (many chunks re-run):
+            bit-identical, every NaN counted as one value, or within
+            1e-8 for the body that calls the device's libm; at L =
+            131,072 its time and re-run steps on noise and on
+            program-like material beside the walk in series (one chunk),
+            the plain loop's, a one-thread chain probe of the same body,
+            the chunked chain bound, the bytes bound, each body's merge
+            step and a launch-per-sample estimate; the follower after a
+            burst into exact silence (bit-identical; launches that
+            re-walk and launches in series take turns); then every
+            operation of csrc/scan_ops.cuh on every pair of a grid of
+            edge values against the scalar semantics, bit for bit (the
+            libm calls within 4 ulp), as one chunk;
 4. main (jsfx)  the in-repo delay network and its 192-tap widening
             through PluginInstance.render on 60 s of 48 kHz stereo noise
             at the default segment length: engine torch-vector, K2 and
             K3 launch counts, finite output, timing, a torch.profiler
-            pass, the first second against the port's CPU render and the
-            first 4,800 samples against the Python golden; then, the same
-            way, two plugins with sequential scan groups (a follower that
-            feeds both channels, and two independent envelopes): engine
-            torch-vector, K4 launches = levels x segments;
+            pass, the first second against the port's CPU render, the
+            first 4,800 samples against the Python golden and the
+            carries after 10 s against the CPU render's within 1e-8;
+            then, the same way, two plugins with sequential scan groups
+            (a follower that feeds both channels, and two independent
+            envelopes): engine torch-vector, K4 launches = levels x
+            segments, K4's re-run steps;
 5. kernels (faust)  the switching scan (K1) must be bit-identical
             (integer views equal), in f64 and f32: at modest shapes, at
             the batch and main paths' shapes (its one-chunk case too),
@@ -78,8 +91,11 @@ device JSON line.  Each phase prints the seconds it took.
     python3 chip_smoke.py --phases k4sweep
 
 runs neither path: it times K4 at L = 131,072 with 2 to 32 samples held
-in registers at once, for the K4 bodies with one, two and three external
-streams, each held bit for bit to the default's output first.
+in registers at once, at five pairs of chunk and warm-up beside the
+walk in series, and with the speculate kernel loading the externals the
+other way (staged through shared memory, or in register blocks), for the
+K4 bodies with one, two and three external streams, each held bit for
+bit to the default's output first.
 
 Imports nothing of JAX or of the JAX package `zorak_tpu`.
 """
@@ -158,6 +174,9 @@ K4_BODIES = {
 K4_SWEEP_BODIES = ("follower", "stereo_followers", "attack_release_envelope",
                    "wrap_feeding_recurrence")
 K4_SWEEP_UNROLLS = (2, 4, 8, 16, 32)
+# (chunk, warm-up) pairs the sweep times beside the walk in series
+K4_SWEEP_PLANS = ((1024, 49152), (1024, 16384), (256, 16384), (4096, 16384),
+                  (1024, 8192))
 K4_LIBM_TOL = 1e-8     # the device's sin is 1 to 2 ulp from glibc's
 K4_LIBM_ULPS = 4.0     # one libm call on the card against glibc's
 K4_EDGE_VALUES = [
@@ -268,13 +287,45 @@ def bound_ms(nbytes: float, ops: float, dtype: str = "float64"):
 
 
 def linrec_phase(torch, cuda, rng):
-    """K2 against a NumPy sequential loop (bit-identical) and against its
-    plain doubling ladder (tolerance printed); times at the main shape."""
+    """K2 against `linrec_chunked`, the NumPy mirror of its order (equal,
+    every NaN one value), and within TOL_REL x max|z| of the sequential
+    loop and of its plain doubling ladder; times at the main shape."""
     from zorak_tpu_torch.kernels import linrec_scan as LS
 
-    # the ladder's order differs from the sequential order by rounding only
-    tol_rel = 1e-9
-    worst = 0.0
+    tol_rel = LS.TOL_REL
+    worst = {"sequential": 0.0, "ladder": 0.0}
+
+    def held(what, a, b, z0, exact_seq=False, overflow=False):
+        at, bt, zt = (torch.from_numpy(v).to(cuda) for v in (a, b, z0))
+        got = LS.linrec_scan(at, bt, zt)
+        torch.cuda.synchronize()
+        got = got.cpu()
+        mirror = torch.from_numpy(LS.linrec_chunked(a, b, z0))
+        check(same_values(got, mirror),
+              f"linrec_scan {what} differs from linrec_chunked")
+        seq = torch.from_numpy(LS.linrec_sequential(a, b, z0))
+        if exact_seq:
+            check(same_values(got, seq), f"linrec_scan {what} is not exact")
+        ladder = LS.linrec_scan_reference(at, bt, zt).cpu()
+        fin = torch.isfinite(seq)
+        scale = float(seq[fin].abs().max()) if fin.any() else 1.0
+        for name, ref in (("sequential", seq), ("ladder", ladder)):
+            inf = torch.isinf(ref)
+            # the ladder composes maps whose products overflow, so where
+            # the loop overflows it may give NaN for inf: held on the
+            # loop's finite values there
+            check((overflow and name == "ladder")
+                  or (torch.equal(torch.isnan(ref), torch.isnan(got))
+                      and torch.equal(inf, torch.isinf(got))
+                      and torch.equal(ref[inf], got[inf])),
+                  f"linrec_scan {what}: NaN or inf elsewhere than the "
+                  f"{name}'s")
+            fin = torch.isfinite(seq) & torch.isfinite(ref)
+            err = float((ref[fin] - got[fin]).abs().max()) if fin.any() else 0.0
+            worst[name] = max(worst[name], err / max(scale, 1e-300))
+            check(err <= tol_rel * scale, f"linrec_scan {what}: {name} "
+                  f"differs by {err:.3e} (limit {tol_rel} x {scale:.3e})")
+
     for vec_a in (False, True):
         for k in (1, 2, 8):
             for n in (1, 7, 4096, SEG_L):
@@ -290,29 +341,25 @@ def linrec_phase(torch, cuda, rng):
                             continue
                         b = b.copy()
                         b[-1, n // 2] = np.nan
-                    at, bt, zt = (torch.from_numpy(v).to(cuda)
-                                  for v in (a, b, z0))
-                    got = LS.linrec_scan(at, bt, zt)
-                    torch.cuda.synchronize()
-                    seq = torch.from_numpy(LS.linrec_sequential(a, b, z0))
-                    ok = same_bits(got.cpu(), seq)
-                    ladder = LS.linrec_scan_reference(at, bt, zt).cpu()
-                    fin = torch.isfinite(seq)
-                    nan_ok = torch.equal(torch.isnan(ladder), torch.isnan(seq))
-                    scale = float(seq[fin].abs().max()) if fin.any() else 1.0
-                    err = float((ladder[fin] - got.cpu()[fin]).abs().max()) \
-                        if fin.any() else 0.0
-                    worst = max(worst, err / max(scale, 1e-300))
-                    check(ok, f"linrec_scan k={k} L={n} vec_a={vec_a} "
-                          f"nan={with_nan} differs from the sequential loop")
-                    check(nan_ok and err <= tol_rel * scale,
-                          f"linrec_scan k={k} L={n} vec_a={vec_a} "
-                          f"nan={with_nan}: ladder differs by {err:.3e} "
-                          f"(limit {tol_rel} x {scale:.3e})")
-            print(f"[kernels] linrec_scan {'per-sample' if vec_a else 'scalar'}"
-                  f" a, k={k}, L in (1, 7, 4096, {SEG_L}), with and without "
-                  "NaN: bit-identical to the sequential loop; plain ladder "
-                  f"within {tol_rel} x max|z| (worst so far {worst:.3e})")
+                    held(f"k={k} L={n} vec_a={vec_a} nan={with_nan}", a, b, z0)
+        # |a| > 1 (and one that overflows), an integrator on integer
+        # counters (exact), L not a multiple of the chunk and below it
+        for n in (100, 1000, SEG_L - 1):
+            shape = (3, n) if vec_a else (3,)
+            a = rng.uniform(1.0, 1.0 + 2.0 / n, shape)
+            a[2] = 1.5                                 # overflows to inf
+            held(f"|a| > 1 L={n} vec_a={vec_a}", a, rng.randn(3, n),
+                 rng.uniform(-1.0, 1.0, 3), overflow=True)
+            held(f"integrator L={n} vec_a={vec_a}", np.ones(shape),
+                 rng.randint(-1000, 1000, (3, n)).astype(np.float64),
+                 np.array([0.0, 5.0, -7.0]), exact_seq=True)
+        print(f"[kernels] linrec_scan {'per-sample' if vec_a else 'scalar'}"
+              f" a: k in (1, 2, 8), L in (1, 7, 4096, {SEG_L}), with and "
+              "without NaN; |a| > 1 with overflow, integrators (exact), L "
+              f"in (100, 1000, {SEG_L - 1}): equal to linrec_chunked "
+              f"(chunk {LS.CHUNK}), within {tol_rel} x max|z| of the "
+              f"sequential loop (worst {worst['sequential']:.3e}) and of the "
+              f"plain ladder (worst {worst['ladder']:.3e})")
 
     # the main path's shape: the two one-poles of the delay network, one
     # wave of k = 2 rows with scalar a over a full segment
@@ -323,16 +370,21 @@ def linrec_phase(torch, cuda, rng):
     got = LS.linrec_scan(a, b, z0)
     ref = LS.linrec_scan_reference(a, b, z0)
     err = float((got - ref).abs().max())
-    scan_ms = cuda_ms(lambda: LS.linrec_scan(a, b, z0), reps=20)
+    run = lambda: LS.linrec_scan(a, b, z0)
+    run()
+    scan_ms = cuda_ms(run, reps=50)
+    one_chunk_ms = cuda_ms(lambda: LS.linrec_scan(a, b, z0, chunk=n), reps=10)
     plain_ms = cuda_ms(lambda: LS.linrec_scan_reference(a, b, z0), reps=5)
     av = torch.from_numpy(rng.uniform(0.5, 0.9999, (k, n))).to(cuda)
-    vec_ms = cuda_ms(lambda: LS.linrec_scan(av, b, z0), reps=20)
+    vec_ms = cuda_ms(lambda: LS.linrec_scan(av, b, z0), reps=50)
     vec_plain_ms = cuda_ms(lambda: LS.linrec_scan_reference(av, b, z0), reps=5)
-    scan_ms_2 = cuda_ms(lambda: LS.linrec_scan(a, b, z0), reps=20)
+    scan_ms_2 = cuda_ms(run, reps=50)
+    by_chunk = {c: cuda_ms(lambda c=c: LS.linrec_scan(a, b, z0, chunk=c),
+                           reps=50) for c in (64, 128, 256, 512, 1024, 4096)}
     # each input read once, the output written once; 2 operations a step
     b_ms, b_by = bound_ms((2 * k * n + 2 * k) * 8, 2 * k * n)
-    # the chain bound: the same dependent steps in one thread, a and b
-    # cycling through registers (checked against the sequential loop first)
+    # the chain: the same dependent steps in one thread, a and b cycling
+    # through registers (checked against the sequential loop first)
     ac = torch.from_numpy(rng.uniform(0.9, 0.9999, LS.CHAIN_CHUNK)).to(cuda)
     bc = torch.from_numpy(rng.randn(LS.CHAIN_CHUNK)).to(cuda)
     zc = torch.zeros(1, dtype=torch.float64, device=cuda)
@@ -344,21 +396,36 @@ def linrec_phase(torch, cuda, rng):
                     torch.from_numpy(z_seq)),
           "linrec chain probe differs from the sequential loop")
     chain_ms = cuda_ms(lambda: LS.linrec_chain_probe(ac, bc, zc, n), reps=5)
-    print(f"[kernels] linrec_scan k={k} L={n} scalar a: ms={scan_ms:.4f} "
-          f"(again {scan_ms_2:.4f}) plain_ms={plain_ms:.4f} "
+    chain_ns = chain_ms * 1e6 / n
+    # the chunked scan's chains: compose and apply walk a chunk each, the
+    # carry pass walks a row's maps
+    n_chunks = -(-n // LS.CHUNK)
+    chunk_chain_ms = (2 * LS.CHUNK + n_chunks - 1) * chain_ns * 1e-6
+    print(f"[kernels] linrec_scan k={k} L={n} scalar a, chunk {LS.CHUNK}: "
+          f"ms={scan_ms:.4f} (again {scan_ms_2:.4f}) one_chunk_ms="
+          f"{one_chunk_ms:.4f} (a thread a row; the earlier one-thread walk "
+          f"with helper warps read 1.344 ms on an NVIDIA H100 80GB HBM3 at "
+          f"700 W) plain_ms={plain_ms:.4f} "
           f"max_abs_err_vs_ladder={err:.3e} bound_ms={b_ms:.5f} ({b_by}) "
-          f"chain_ms={chain_ms:.4f} ({chain_ms * 1e6 / n:.3f} ns a step), "
-          f"the kernel {scan_ms / chain_ms:.3f}x it; per-sample a: "
-          f"ms={vec_ms:.4f} plain_ms={vec_plain_ms:.4f}")
+          f"chain_ms={chain_ms:.4f} ({chain_ns:.3f} ns a step), the kernel "
+          f"{scan_ms / chain_ms:.3f}x it; chunked chains (2 x {LS.CHUNK} + "
+          f"{n_chunks - 1} steps) {chunk_chain_ms:.4f} ms, the kernel "
+          f"{scan_ms / chunk_chain_ms:.3f}x it; per-sample a: ms={vec_ms:.4f} "
+          f"plain_ms={vec_plain_ms:.4f}")
+    print("[kernels] linrec_scan k=2 L=%d scalar a, ms by chunk: %s" % (
+        n, " ".join(f"{c}: {v:.4f}" for c, v in by_chunk.items())))
     return {
         "name": "linrec_scan", "route": "cuda",
         "source": "zorak_tpu_torch/csrc/linrec_scan.cu",
         "replaces": "zorak_tpu/lowering/eelmath.py:277",
         "launches": 0, "max_abs_err": err, "ms": scan_ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "chain_ms": chain_ms, "vector_a_ms": vec_ms,
-        "vector_a_plain_ms": vec_plain_ms, "worst_rel_err_vs_ladder": worst,
-        "shape": [k, n],
+        "library_ms": None, "chain_ms": chain_ms,
+        "chunk_chain_ms": chunk_chain_ms, "earlier_ms": one_chunk_ms,
+        "chunk": LS.CHUNK, "ms_by_chunk": by_chunk, "vector_a_ms": vec_ms,
+        "vector_a_plain_ms": vec_plain_ms,
+        "worst_rel_err_vs_sequential": worst["sequential"],
+        "worst_rel_err_vs_ladder": worst["ladder"], "shape": [k, n],
     }
 
 
@@ -517,6 +584,58 @@ def scan_group_phase(torch, cuda, rng):
         c0 = rng.uniform(0.1, 0.9, program.n_carry)     # non-zero start
         return (torch.from_numpy(xs).to(cuda), torch.from_numpy(c0).to(cuda))
 
+    def program_like(xs):
+        """Noise with a silent lead-in, a silent gap and a fade-out."""
+        xs = xs.clone()
+        n = xs.shape[0]
+        xs[:2000] = 0.0
+        xs[n // 4:n // 4 + 10_000] = 0.0
+        xs[-20_000:] *= torch.linspace(1.0, 0.0, 20_000, dtype=xs.dtype,
+                                       device=xs.device)[:, None]
+        return xs
+
+    def held(program, what, got, ref):
+        if program.transcendental:
+            fin = torch.isfinite(ref)
+            check(torch.equal(torch.isnan(got), torch.isnan(ref)),
+                  f"{what}: NaNs elsewhere than the plain loop's")
+            err = float((got[fin] - ref[fin]).abs().max()) \
+                if fin.any() else 0.0
+            check(err <= K4_LIBM_TOL, f"{what}: differs from the "
+                  f"plain loop by {err:.3e} (limit {K4_LIBM_TOL})")
+        else:
+            check(same_values(got, ref), f"{what} differs from its plain loop")
+            fin = torch.isfinite(ref)
+            err = float((got[fin] - ref[fin]).abs().max()) \
+                if fin.any() else 0.0
+        return err
+
+    def reruns_of(fn):
+        for v in SG.RERUN_STEPS.values():
+            v.zero_()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, sum(int(v.item()) for v in SG.RERUN_STEPS.values())
+
+    def merge_step(program, xs, c0):
+        """Samples after which a walk started from c0 at a quarter, a
+        half and three quarters of xs has the true walk's carries in
+        every bit, and keeps them (the most of the three); None if one
+        never does within xs."""
+        n = xs.shape[0]
+        one = {"chunk": n}
+        true = SG.scan_group(program, xs, c0, **one).view(torch.int64)
+        worst = 0
+        for t_s in (n // 4, n // 2, 3 * n // 4):
+            guess = SG.scan_group(program, xs[t_s:].contiguous(), c0, **one)
+            differs = (guess.view(torch.int64) != true[t_s:]).any(dim=1)
+            last = torch.nonzero(differs)
+            if len(last) and int(last[-1]) == n - t_s - 1:
+                return None
+            worst = max(worst, int(last[-1]) + 1 if len(last) else 0)
+        return worst
+
+    small = {"chunk": 64, "warmup": 256}   # many chunks, many re-runs
     bodies = {}
     for name, program in programs.items():
         worst = 0.0
@@ -533,28 +652,27 @@ def scan_group_phase(torch, cuda, rng):
                 if n == SEG_L and not specials:
                     plain_ms = (time.perf_counter() - t0) * 1e3
                 what = f"scan_group {name} L={n} specials={specials}"
-                if program.transcendental:
-                    fin = torch.isfinite(ref)
-                    check(torch.equal(torch.isnan(got), torch.isnan(ref)),
-                          f"{what}: NaNs elsewhere than the plain loop's")
-                    err = float((got[fin] - ref[fin]).abs().max()) \
-                        if fin.any() else 0.0
-                    check(err <= K4_LIBM_TOL, f"{what}: differs from the "
-                          f"plain loop by {err:.3e} (limit {K4_LIBM_TOL})")
-                else:
-                    check(same_values(got, ref),
-                          f"{what} differs from its plain loop")
-                    fin = torch.isfinite(ref)
-                    err = float((got[fin] - ref[fin]).abs().max()) \
-                        if fin.any() else 0.0
-                worst = max(worst, err)
-        # time at the main path's segment length, then the chain probe:
-        # the same steps with the externals cycling through registers,
-        # checked against the plain loop on the same repeated rows first
+                worst = max(worst, held(program, what, got, ref))
+                # a small chunk and warm-up: many chunks re-run; twice, so
+                # that a launch after a fallback to the walk in series is
+                # held too
+                for _ in range(2):
+                    held(program, f"{what} {small}",
+                         SG.scan_group(program, xs, c0, **small), ref)
+        # time at the main path's segment length beside the walk in series
+        # (one chunk: the earlier design's walk) and the chain probe: the
+        # same steps with the externals cycling through registers, checked
+        # against the plain loop on the same repeated rows first
         xs, c0 = inputs(program, SEG_L, False)
         run = lambda: SG.scan_group(program, xs, c0)
-        run()
+        _, reruns = reruns_of(run)
         ms = cuda_ms(run, reps=20)
+        walk_ms = cuda_ms(lambda: SG.scan_group(program, xs, c0, chunk=SEG_L),
+                          reps=10)
+        xp = program_like(xs)
+        _, prog_reruns = reruns_of(lambda: SG.scan_group(program, xp, c0))
+        prog_ms = cuda_ms(lambda: SG.scan_group(program, xp, c0), reps=20)
+        merge = (merge_step(program, xs, c0), merge_step(program, xp, c0))
         probe = probes[name]
         rows = probe.block_rows
         xc = xs[:rows].contiguous()
@@ -570,6 +688,9 @@ def scan_group_phase(torch, cuda, rng):
                   f"scan_group {name}: chain probe differs from the plain loop")
         chain_ms = cuda_ms(
             lambda: SG.scan_group_chain_probe(probe, xc, c0, SEG_L), reps=5)
+        chain_ns = chain_ms * 1e6 / SEG_L
+        chunk, warm, n_chunks = SG.chunk_plan(SEG_L, SG.CHUNK, SG.WARMUP)
+        chunk_chain_ms = (warm + chunk) * chain_ns * 1e-6
         ms_2 = cuda_ms(run, reps=20)
         n_ops = len(program.steps)
         # each external read once, each carry stream written once; the
@@ -582,19 +703,54 @@ def scan_group_phase(torch, cuda, rng):
         print(f"[kernels] scan_group {name}: {program.n_carry} carries in "
               f"{len(program.components)} component(s), {program.n_ext} "
               f"externals, {n_ops} steps; L in (1, 7, 4096, {SEG_L}), with "
-              f"and without NaN and -0.0: {how}, max_abs_err={worst:.3e}; "
-              f"L={SEG_L}: ms={ms:.4f} (again {ms_2:.4f}) "
-              f"plain_ms={plain_ms:.1f} chain_ms={chain_ms:.4f} "
-              f"({chain_ms * 1e6 / SEG_L:.3f} ns a step), the kernel "
-              f"{ms / chain_ms:.3f}x it; bound_ms={b_ms:.5f} ({b_by}); a "
-              f"launch a step and sample at {launch_us:.2f} us would take "
-              f"{per_sample_ms:.0f} ms")
+              f"and without NaN and -0.0, chunk {chunk} warm-up {warm} and "
+              f"{small}: {how}, max_abs_err={worst:.3e}; L={SEG_L}: "
+              f"ms={ms:.4f} (again {ms_2:.4f}) rerun_steps={reruns} "
+              f"walk_in_series_ms={walk_ms:.4f} plain_ms={plain_ms:.1f} "
+              f"chain_ms={chain_ms:.4f} ({chain_ns:.3f} ns a step), the "
+              f"kernel {ms / chain_ms:.3f}x it; chunked chain bound ({warm} + "
+              f"{chunk} steps) {chunk_chain_ms:.4f} ms, the kernel "
+              f"{ms / chunk_chain_ms:.3f}x it; program-like material: "
+              f"ms={prog_ms:.4f} rerun_steps={prog_reruns}; merge step on "
+              f"noise {merge[0]}, on program-like material {merge[1]} "
+              f"(None: not within the segment); bound_ms={b_ms:.5f} "
+              f"({b_by}); a launch a step and sample at {launch_us:.2f} us "
+              f"would take {per_sample_ms:.0f} ms")
         bodies[name] = {
             "ms": ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
+            "chunk_chain_ms": chunk_chain_ms, "earlier_ms": walk_ms,
+            "rerun_steps": reruns, "program_ms": prog_ms,
+            "program_rerun_steps": prog_reruns, "merge_step": merge[0],
+            "program_merge_step": merge[1],
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": worst,
             "steps": n_ops,
             "carries": program.n_carry, "externals": program.n_ext,
             "components": len(program.components)}
+
+    # the follower after a burst into exact silence: two walks from other
+    # carries keep a fixed ratio and never meet, so every launch that
+    # speculates re-walks most of the segment and the next walks in series
+    fol = programs["follower"]
+    xs, c0 = inputs(fol, SEG_L, False)
+    xs[SEG_L // 64:] = 0.0
+    ref = SG.scan_group_plain(fol.steps, fol.outs, xs, c0)
+    silence_reruns = []
+    for _ in range(4):
+        got, r = reruns_of(lambda: SG.scan_group(fol, xs, c0))
+        held(fol, "scan_group follower, burst into silence", got, ref)
+        silence_reruns.append(r)
+    check(sorted(r == 0 for r in silence_reruns) == [False, False, True, True],
+          f"follower in silence: re-run steps {silence_reruns}, expected "
+          "a launch that re-walks and one in series, in turns")
+    silence_ms = cuda_ms(lambda: SG.scan_group(fol, xs, c0), reps=22)
+    silence_walk_ms = cuda_ms(
+        lambda: SG.scan_group(fol, xs, c0, chunk=SEG_L), reps=22)
+    print(f"[kernels] scan_group follower, burst into exact silence, "
+          f"L={SEG_L}: bit-identical; re-run steps of four launches in a "
+          f"row {silence_reruns}; ms={silence_ms:.4f} (mean of 22, half of "
+          f"them in series) walk_in_series_ms={silence_walk_ms:.4f}, "
+          f"{silence_ms / silence_walk_ms:.3f}x it")
+
     # the operations one by one, every pair of K4_EDGE_VALUES: what the
     # scalar semantics give (the plain loop), bit for bit; the device's
     # libm calls within K4_LIBM_ULPS of glibc's, same NaNs and infinities
@@ -639,7 +795,11 @@ def scan_group_phase(torch, cuda, rng):
         "launches": 0, "max_abs_err": fol["max_abs_err"], "ms": fol["ms"],
         "plain_ms": fol["plain_ms"], "bound_ms": fol["bound_ms"],
         "bound_by": fol["bound_by"], "library_ms": None,
-        "chain_ms": fol["chain_ms"], "eager_launch_us": launch_us,
+        "chain_ms": fol["chain_ms"], "chunk_chain_ms": fol["chunk_chain_ms"],
+        "earlier_ms": fol["earlier_ms"], "rerun_steps": fol["rerun_steps"],
+        "chunk": SG.CHUNK, "warmup": SG.WARMUP,
+        "silence_ms": silence_ms, "silence_walk_ms": silence_walk_ms,
+        "silence_rerun_steps": silence_reruns, "eager_launch_us": launch_us,
         "worst_abs_err": max(b["max_abs_err"] for b in bodies.values()),
         "shape": [SEG_L, fol["externals"], fol["carries"]], "bodies": bodies,
     }
@@ -653,6 +813,7 @@ def scan_group_sweep(torch, cuda, rng, rounds=5, reps=10):
     `reps` launches) beside the body's chain probe."""
     from zorak_tpu_torch.ir import compile_plugin_source
     from zorak_tpu_torch.kernels import _build, scan_group as SG
+    from zorak_tpu_torch.lowering import scan_codegen as CG
     from zorak_tpu_torch.runtime.engine import PluginInstance
 
     bases, programs = {}, {}
@@ -665,6 +826,10 @@ def scan_group_sweep(torch, cuda, rng, rounds=5, reps=10):
         for u in K4_SWEEP_UNROLLS:
             programs[name, u] = SG.ScanGroupProgram(
                 base.steps, base.outs, base.n_ext, unroll=u)
+        # the speculate kernel's other way to load the externals
+        programs[name, "other"] = SG.ScanGroupProgram(
+            base.steps, base.outs, base.n_ext,
+            staged=base.n_ext > CG.STAGE_MAX_EXT)
     _build.build_generated([p.source for p in (*bases.values(),
                                                *programs.values())])
     for name, base in bases.items():
@@ -690,24 +855,49 @@ def scan_group_sweep(torch, cuda, rng, rounds=5, reps=10):
             f"({min(v):.4f}-{max(v):.4f})" for u, v in samples.items())
         print(f"[sweep] scan_group {name} L={SEG_L} n_ext={base.n_ext} "
               f"chain_ms={chain_ms:.4f}; ms mean (min-max): {cells}")
+        # the chunk and the warm-up of the default block size, the walk
+        # in series last; each held to the default's output first
+        plans = {f"C={c} W={w}": (base, {"chunk": c, "warmup": w})
+                 for c, w in K4_SWEEP_PLANS}
+        plans["one chunk"] = (base, {"chunk": SEG_L})
+        other = "register blocks" if base.n_ext <= CG.STAGE_MAX_EXT \
+            else "staged"
+        plans[other] = (programs[name, "other"], {})
+        for prog, kw in plans.values():
+            check(same_values(SG.scan_group(prog, xs, c0, **kw), ref),
+                  f"scan_group {name} {kw} differs from the default")
+        times = {k: [] for k in plans}
+        for r in range(rounds):
+            for k, (prog, kw) in plans.items():
+                times[k].append(cuda_ms(
+                    lambda prog=prog, kw=kw: SG.scan_group(prog, xs, c0, **kw),
+                    reps))
+        print(f"[sweep] scan_group {name} L={SEG_L}, ms mean (min-max) by "
+              "chunk C and warm-up W, and with the externals loaded the "
+              "other way: "
+              + "  ".join(
+                  f"{k}: {np.mean(v):.4f} ({min(v):.4f}-{max(v):.4f})"
+                  for k, v in times.items()))
 
 
 def jsfx_phase(torch, cuda, rng, card):
     """The JSFX main path: the in-repo delay network, its 192-tap
     widening and two scan-group plugins through PluginInstance.render on
     60 s of stereo; returns the K2, K3 and K4 launch counts of each timed
-    render."""
+    render, and K4's re-run steps in it."""
     from zorak_tpu_torch import builtin_plugins as BP
     from zorak_tpu_torch.ir import compile_plugin_source
     from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
     from zorak_tpu_torch.kernels import scan_group as SG
     from zorak_tpu_torch.runtime.engine import DEFAULT_SEGMENT_LEN, PluginInstance
     from zorak_tpu_torch.verify import AUDIO_EPS, compare_audio
+    # carried state against the CPU render's: the golden's scalar contract
+    from zorak_tpu_torch.verify.nulltest import SCALAR_EPS as CARRY_EPS
 
     check(DEFAULT_SEGMENT_LEN == SEG_L, "the default segment length moved")
     sec = MAIN_T / SR
     n1, n_gold = int(SR), 4800
-    launches = {}
+    launches, reruns = {}, {}
     segments = -(-MAIN_T // SEG_L)
     # label, source, held to the golden, launches of (K2, K3, K4) a segment
     for label, src, hold_golden, per_segment in (
@@ -728,6 +918,8 @@ def jsfx_phase(torch, cuda, rng, card):
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         LS.LAUNCHES = RT.LAUNCHES = SG.LAUNCHES = 0
+        for v in SG.RERUN_STEPS.values():
+            v.zero_()
         out = []
         t0 = time.perf_counter()
         ms = cuda_ms(lambda: out.append(inst.render(x)))
@@ -735,6 +927,7 @@ def jsfx_phase(torch, cuda, rng, card):
         launches[label] = {"linrec_scan": LS.LAUNCHES,
                            "ring_tap_sum": RT.LAUNCHES,
                            "scan_group": SG.LAUNCHES}
+        reruns[label] = sum(int(v.item()) for v in SG.RERUN_STEPS.values())
         res = out[0]
         # the render's host side (copies, the wake scan) shares its CPU
         # with other tenants: four more renders show the spread
@@ -752,6 +945,7 @@ def jsfx_phase(torch, cuda, rng, card):
               f"device_ms={ms:.2f} wall_s={wall:.4f} "
               f"audio_s_per_s={sec / (ms / 1e3):.1f} "
               f"launches={launches[label]} segments={segments} "
+              f"scan_group_rerun_steps={reruns[label]} "
               f"warm-up render (kernel builds included) {warm_s:.2f} s; "
               f"four more renders "
               f"{' '.join(f'{m:.2f}' for m in more_ms)} ms card='{card}'")
@@ -794,9 +988,29 @@ def jsfx_phase(torch, cuda, rng, card):
                   abs(rep_c.max_abs_delta - rep.max_abs_delta) < AUDIO_EPS,
                   f"{label}: CUDA and CPU renders differ from the golden "
                   "by different amounts")
+        # the carries after 10 s (four segments, the speculated ones
+        # included), scalars and rings, against the CPU render's
+        n10 = 10 * int(SR)
+        _y, (sv, rings) = kern.render_device(x_dev[:, :n10])
+        _y, (sv_c, rings_c) = PluginInstance(
+            prog, srate=SR, device="cpu").kernel.render(x[:, :n10])
+        carry_err = 0.0
+        for what, got, want in [("scalars", sv, sv_c)] + [
+                (f"ring {r}", rings[r], a) for r, a in rings_c.items()]:
+            got = got.cpu()
+            check(torch.equal(torch.isnan(got), torch.isnan(want)),
+                  f"{label}: carried {what} NaN elsewhere than the CPU's")
+            fin = torch.isfinite(want)
+            err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+            carry_err = max(carry_err, err)
+        check(carry_err <= CARRY_EPS, f"{label}: carries after 10 s differ "
+              f"from the CPU render's by {carry_err:.3e}")
+        print(f"[main] JSFX {label}: carries after 10 s (scalars and "
+              f"{len(rings_c)} rings) against the CPU render's: max "
+              f"|delta| {carry_err:.3e} (limit {CARRY_EPS})")
         print(f"[done] JSFX {label} in {time.perf_counter() - t_phase:.1f} s")
 
-    return launches
+    return launches, reruns
 
 
 def faust_phases(torch, cuda, rng, card):
@@ -1181,12 +1395,14 @@ def main(argv=None) -> int:
         # a stream of its own again: K4's draws do not move the others'
         k4 = scan_group_phase(torch, cuda, np.random.RandomState(SEED + 6))
         print(f"[done] K4 kernel phase in {time.perf_counter() - t0:.1f} s")
-        launches = jsfx_phase(torch, cuda, rng_jsfx, card)
+        launches, reruns = jsfx_phase(torch, cuda, rng_jsfx, card)
         for entry in (k2, k3):
             entry["launches"] = launches["fallback"][entry["name"]]
             entry["launches_wide"] = launches["wide"][entry["name"]]
         k4["launches"] = launches["follower"]["scan_group"]
         k4["launches_stereo"] = launches["stereo_followers"]["scan_group"]
+        k4["render_rerun_steps"] = reruns["follower"]
+        k4["render_rerun_steps_stereo"] = reruns["stereo_followers"]
         kernels += [k2, k3, k4]
         print(f"[done] jsfx phases at {time.perf_counter() - t_start:.1f} s")
     if "k4sweep" in phases:

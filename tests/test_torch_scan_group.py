@@ -169,6 +169,122 @@ def test_generated_body_equals_the_plain_loop(name, specials, host_cxx):
     assert SG.LAUNCHES == 0
 
 
+def burst_into_silence(program, n, seed):
+    """Noise, then exact zeros from a tenth of the way on: two followers
+    started from other carries keep a fixed ratio and never meet."""
+    xs, c0 = seeded_inputs(program, n, seed, False)
+    xs[n // 10:] = 0.0
+    return xs, c0
+
+
+SPEC = {"chunk": 64, "warmup": 256}     # many chunks at a small L
+
+
+@pytest.mark.parametrize("kind", ["noise", "nan_and_negzero",
+                                  "burst_into_silence"])
+@pytest.mark.parametrize("name", sorted(BODIES))
+def test_speculation_equals_the_plain_loop(name, kind, host_cxx):
+    # the host form runs the kernels' two phases (speculate every chunk
+    # from the start carries after a warm-up, then the bitwise fix-up),
+    # one chunk after another: bit for bit the plain loop, whether the
+    # body's walks meet or not, and on the call after a fallback too
+    src, nch = BODIES[name]
+    _externals, program = lowered_level(src, nch)
+    n = 3001
+    if kind == "burst_into_silence":
+        xs, c0 = burst_into_silence(program, n, 5)
+    else:
+        xs, c0 = seeded_inputs(program, n, 5, kind == "nan_and_negzero")
+    ref = SG.scan_group_plain(program.steps, program.outs, xs, c0)
+    for _call in range(2):
+        got = SG.scan_group_host(program, xs, c0, **SPEC)
+        assert same_values(got, ref), f"{name} {kind} {program.host_last}"
+    assert SG.LAUNCHES == 0
+
+
+def test_chunks_rerun_and_the_flag_turns_speculation_off_for_one_call(
+        host_cxx):
+    n = 3001
+    # the wrap never contracts: every chunk after the warm-up's reach is
+    # walked again, more than half the samples, so the next call walks in
+    # series, and the one after speculates again
+    _e, wrap = lowered_level(*BODIES["wrap_feeding_recurrence"])
+    xs, c0 = seeded_inputs(wrap, n, 8, False)
+    seen = []
+    for _call in range(4):
+        SG.scan_group_host(wrap, xs, c0, **SPEC)
+        seen.append(wrap.host_last)
+    assert [s for s, _r in seen] == [True, False, True, False]
+    assert seen[0][1] > n // 2 and seen[0][1] == seen[2][1]
+    assert seen[1][1] == seen[3][1] == 0
+    # a contracting body meets its speculated walk within the chunk: some
+    # chunks re-run a few steps, and speculation stays on
+    _e, nonlin = lowered_level(*BODIES["nonlinear_self_recurrence"])
+    xs, c0 = seeded_inputs(nonlin, n, 8, False)
+    ref = SG.scan_group_plain(nonlin.steps, nonlin.outs, xs, c0)
+    for _call in range(3):
+        assert same_values(
+            SG.scan_group_host(nonlin, xs, c0, chunk=128, warmup=320), ref)
+        speculated, reruns = nonlin.host_last
+        assert speculated and 0 < reruns <= n // 2
+    # a follower after a burst into silence: walks keep their ratio
+    _e, env = lowered_level(*BODIES["attack_release_envelope"])
+    xs, c0 = burst_into_silence(env, n, 8)
+    SG.scan_group_host(env, xs, c0, **SPEC)
+    assert env.host_last[0] and env.host_last[1] > n // 2
+    # the flag is the program's: another program is not held back by it
+    _e, env2 = lowered_level(*BODIES["attack_release_envelope"])
+    SG.scan_group_host(env2, xs, c0, **SPEC)
+    assert env2.host_last[0]
+
+
+@pytest.mark.parametrize("n", [1, 7, 320, 321])
+def test_a_short_segment_is_one_walk(n, host_cxx):
+    # L <= warmup + chunk: no speculation, the walk in series from c0
+    _e, program = lowered_level(*BODIES["coupled_pair"])
+    xs, c0 = seeded_inputs(program, n, 3, True)
+    ref = SG.scan_group_plain(program.steps, program.outs, xs, c0)
+    got = SG.scan_group_host(program, xs, c0, **SPEC)
+    assert same_values(got, ref)
+    if n <= 320:
+        assert program.host_last == (False, 0)
+    else:
+        assert program.host_last[0]
+    assert SG.chunk_plan(n, 64, 256) == ((max(n, 1), 0, 1) if n <= 320
+                                         else (64, 256, 6))
+
+
+def test_the_speculate_kernel_stages_a_single_external_stream():
+    # one stream: the warp's coalesced loads pass through a shared tile;
+    # more: each thread loads its own in register blocks; the host form
+    # is the same either way
+    _e, one = lowered_level(*BODIES["nonlinear_self_recurrence"])
+    _e, three = lowered_level(*BODIES["attack_release_envelope"])
+    assert (one.n_ext, three.n_ext) == (1, 3)
+    assert "extern __shared__" in one.source
+    assert "extern __shared__" not in three.source
+    forced = SG.ScanGroupProgram(three.steps, three.outs, three.n_ext,
+                                 staged=True)
+    assert "extern __shared__" in forced.source
+    host = forced.source.split("#else")[1]
+    assert host == three.source.split("#else")[1]
+
+
+def test_chunk_plan():
+    assert SG.chunk_plan(131072, SG.CHUNK, SG.WARMUP) == (1024, 16384, 128)
+    assert SG.chunk_plan(SG.CHUNK + SG.WARMUP, SG.CHUNK, SG.WARMUP) == (
+        SG.CHUNK + SG.WARMUP, 0, 1)
+    # the warm-up never reaches back before t = 0 for every chunk
+    assert SG.chunk_plan(1000, 100, 899) == (100, 899, 10)
+    assert SG.chunk_plan(1000, 100, 950) == (1000, 0, 1)
+    assert SG.chunk_plan(1051, 100, 950) == (100, 950, 11)
+    for bad in ({"chunk": 0}, {"warmup": -1}, {"chunk": 1.5},
+                {"chunk": True}):
+        kw = {"chunk": 64, "warmup": 64, **bad}
+        with pytest.raises(ValueError):
+            SG.chunk_plan(100, kw["chunk"], kw["warmup"])
+
+
 def test_components_split_independent_groups_only():
     _e, stereo = lowered_level(*BODIES["stereo_envelopes"])
     assert stereo.components == [[0], [1]] and stereo.n_ext == 2
