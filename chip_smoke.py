@@ -22,11 +22,21 @@ default; device and build always run; `k4sweep` is described at the end):
             integrators on integer counters, exact; L in 100, 1,000,
             131,071), its time at the main shape beside one chunk (a
             thread a row), the ladder's, its bounds, a one-thread chain
-            probe and a sweep over the chunk.  The ring tap sum (K3)
-            against its plain fold, bit-identical, at 16, 192 and 300
-            taps, delays below and above L, L = 131,072, a short
-            remainder and 1, its time beside the plain fold's, a dense
-            FIR convolution's (the library call) and its bound.  The
+            probe and a sweep over the chunk.  The ring tap sum (K3, a
+            window staged in shared memory, the ring read in place,
+            sibling chains in one launch) against its plain fold,
+            bit-identical, at 16, 192 and 300 taps, delays 0 to mod,
+            history alone, cursor starts 0, mod - 1 and the middle, L =
+            131,072, a short remainder and 1, scalar, stream and 0-d
+            inits, batches of five chains of different tables, a chain
+            cut into windows, every tile, and the earlier design (a
+            thread a sample); at the two delay networks' planned
+            launches, the pair in one launch beside one chain, two
+            launches, the earlier design and the buffers the emitter
+            joined before, the plain fold's time, a dense FIR
+            convolution's (the library call), a sweep over the tile and
+            three floors (operations at two roundings, on-chip reads,
+            bytes).  The
             scan-group kernels (K4, a speculate and a fix-up kernel),
             generated from each plugin's own step list: eight bodies
             (followers, a coupled pair, a nonlinear recurrence, a peak
@@ -47,11 +57,13 @@ default; device and build always run; `k4sweep` is described at the end):
             operation of csrc/scan_ops.cuh on every pair of a grid of
             edge values against the scalar semantics, bit for bit (the
             libm calls within 4 ulp), as one chunk;
-4. main (jsfx)  the in-repo delay network and its 192-tap widening
+4. main (jsfx)  the in-repo delay network, its 192-tap widening and a
+            cross-fed network (the right ring written from the left sum)
             through PluginInstance.render on 60 s of 48 kHz stereo noise
             at the default segment length: engine torch-vector, K2 and
             K3 launch counts, finite output, timing, a torch.profiler
-            pass, the first second against the port's CPU render, the
+            pass (device events a segment), the first second against
+            the port's CPU render, the
             first 4,800 samples against the Python golden and the
             carries after 10 s against the CPU render's within 1e-8;
             then, the same way, two plugins with sequential scan groups
@@ -193,6 +205,9 @@ K1_PLAIN_T = 288_000   # K1's plain Python loop in f32: a tenth of MAIN_T
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}   # outside tensor cores
+# a DMUL or a DADD issues at the DFMA instruction rate, half the f64 peak
+F64_INSTR_PER_S = PEAK_OPS_PER_S["float64"] / 2
+SMEM_BYTES_PER_CLK = 128   # shared memory / L1 of one SM (Hopper)
 SCAN_OPS_PER_STEP = 5   # compare, select, subtract, multiply, add
 # dspkit stages one VAR render runs (zorak_tpu_torch/models/faustmods.py,
 # VAR.forward): two noise streams, eight biquads, five one-poles, one scan
@@ -218,6 +233,40 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def traced(fn):
+    """The profiler events of one fn() call, the card synchronised after
+    it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof.events()
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Mean device time of one fn() call: `reps` calls captured in one
+    CUDA graph and replayed, so that the host's cost of each launch,
+    which can exceed a short kernel's, does not separate the kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                       # builds and first allocations, uncaptured
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ms = cuda_ms(graph.replay, reps=replays) / reps
+    del graph
+    return ms
+
+
 def scan_bound_ms(n_t: int, lanes: int, dtype: str):
     """Least time for the scan: bytes over HBM rate vs ops over peak."""
     itemsize = 8 if dtype == "float64" else 4
@@ -227,21 +276,21 @@ def scan_bound_ms(n_t: int, lanes: int, dtype: str):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def profile_render(render, label: str, segments: int = 0) -> None:
-    """Device busy time, idle share and top kernels of one render, from a
-    torch.profiler trace of the kernels it ran."""
-    import torch
+def profile_render(render, label: str, segments: int = 0, traces: int = 3):
+    """Device busy time, idle share and top kernels of one render, from
+    the fullest of `traces` torch.profiler traces of the kernels it ran
+    (a trace can miss a few of a render's launches); returns the device
+    events a segment (None where the trace holds none or `segments` is 0)
+    and the launches in the trace by kernel name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        render()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = max(([e for e in traced(render)
+                    if e.device_type == DeviceType.CUDA]
+                   for _ in range(traces)), key=len)
     if not kernels:
         print("[profile] the trace holds no device events: busy time and "
               "idle share not measured")
-        return
+        return None, {}
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     span_us = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels))
@@ -256,6 +305,8 @@ def profile_render(render, label: str, segments: int = 0) -> None:
           f"{1.0 - busy_us / span_us:.3f}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[profile]   {us / 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
+    return (len(kernels) / segments if segments else None,
+            {name: n for name, (n, _us) in by_name.items()})
 
 
 def same_bits(a, b):
@@ -430,80 +481,241 @@ def linrec_phase(torch, cuda, rng):
 
 
 def tap_case(rng, n_taps, mod, n, long_only=False):
-    """A ring buffer [mod + n] (or history alone, every delay >= n) with
-    tap offsets spread over it, delay 0 and delay mod included."""
-    lo = 0
+    """A ring [mod] and a stream [n] (None: every delay >= n, history
+    alone) with tap starts spread over [history | stream], delay 0 (start
+    mod) and delay mod (start 0) included."""
     hi = mod - n if long_only else mod
-    starts = rng.randint(lo, hi + 1, n_taps)
-    starts[0], starts[-1] = hi, lo
-    gains = rng.uniform(-0.1, 0.1, n_taps)
-    buf = rng.randn(mod if long_only else mod + n)
-    return buf, starts.astype(np.int64), gains
+    starts = rng.randint(0, hi + 1, n_taps)
+    starts[0], starts[-1] = hi, 0
+    return (rng.randn(mod), None if long_only else rng.randn(n),
+            starts.tolist(), rng.uniform(-0.1, 0.1, n_taps).tolist())
+
+
+def tap_bounds(tables, streamed, n, sms, clock_hz):
+    """K3's three floors for one launch: the f64 instructions at two
+    roundings (a DMUL and a DADD a tap and sample, each at the DFMA
+    instruction rate), one 8-byte on-chip read a tap and sample, and the
+    bytes from device memory (the part of each buffer the taps reach,
+    output, tables; the inits are scalars)."""
+    taps = sum(tables.counts)
+    ops_ms = 2 * taps * n / F64_INSTR_PER_S * 1e3
+    smem_ms = 8 * taps * n / (SMEM_BYTES_PER_CLK * sms * clock_hz) * 1e3
+    nbytes = 12 * taps
+    for st, (mod, has_stream) in zip(tables.starts, streamed):
+        end = min(max(st) + n, mod + (n if has_stream else 0))
+        nbytes += 8 * (end - min(st) + n)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    floors = {"operations": ops_ms, "on-chip reads": smem_ms,
+              "bytes": bytes_ms}
+    return floors, max(floors, key=floors.get)
 
 
 def ring_taps_phase(torch, cuda, rng):
-    """K3 against its plain fold, bit-identical; times at the two delay
-    networks' shapes beside a dense-FIR convolution as the library call."""
+    """K3 against its plain fold, bit-identical (single chains, batches,
+    wrapped cursors, history alone, windows cut to fit, both designs);
+    then, at the two delay networks' planned launches, each part of the
+    design timed on its own beside the earlier design, the plain fold, a
+    dense-FIR convolution (the library call) and the three floors."""
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.ir import compile_plugin_source
     from zorak_tpu_torch.kernels import ring_taps as RT
+    from zorak_tpu_torch.runtime.engine import PluginInstance
 
-    def on_card(case):
-        buf, starts, gains = case
-        return (torch.from_numpy(buf).to(cuda),
-                torch.from_numpy(starts).to(cuda),
-                torch.from_numpy(gains).to(cuda))
+    def T(v):
+        return torch.from_numpy(np.asarray(v, dtype=np.float64)).to(cuda)
+
+    def on_card(chains, cursors, n, tile=None):
+        """chains: (ring, stream, starts, gains, init) in numpy and lists
+        -> the wrapper's arguments on the card (tile None: the planner's
+        choice for L = n)."""
+        tables = RT.TapTables([(st, g) for _r, _s, st, g, _i in chains],
+                              cuda, tile, n)
+        return (tables, [T(r) for r, *_ in chains], list(cursors),
+                [None if s is None else T(s) for _r, s, *_ in chains],
+                [T(i) if isinstance(i, np.ndarray) else i
+                 for *_, i in chains], n)
+
+    def held(what, args, staged=True):
+        got = RT.ring_tap_sum(*args, staged=staged)
+        ref = RT.ring_tap_sum_reference(*args)
+        torch.cuda.synchronize()
+        check(same_bits(got, ref), f"ring_tap_sum {what} "
+              f"({'staged' if staged else 'global'}) differs from its plain "
+              "fold")
 
     for n_taps, mod in ((16, 4096), (192, 16384), (300, 16384)):
         for n in (SEG_L, 6784, 1):
             for long_only in (False, True):
                 if long_only and n > mod:
                     continue
-                args = on_card(tap_case(rng, n_taps, mod, n, long_only))
-                for init in (0.0, torch.from_numpy(rng.randn(n)).to(cuda)):
-                    got = RT.ring_tap_sum(*args, init, n)
-                    ref = RT.ring_tap_sum_reference(*args, init, n)
-                    torch.cuda.synchronize()
-                    check(same_bits(got, ref),
-                          f"ring_tap_sum taps={n_taps} mod={mod} L={n} "
-                          f"long_only={long_only} differs from its plain fold")
+                ring, stream, starts, gains = tap_case(rng, n_taps, mod, n,
+                                                       long_only)
+                for start in (0, mod - 1, mod // 2 + 3):
+                    for init in (0.0, rng.randn(n)):
+                        args = on_card([(ring, stream, starts, gains, init)],
+                                       [start], n)
+                        what = (f"taps={n_taps} mod={mod} L={n} long_only="
+                                f"{long_only} start={start}")
+                        held(what, args)
+                        held(what, args, staged=False)
         print(f"[kernels] ring_tap_sum taps={n_taps} mod={mod}, L in ({SEG_L}, "
-              "6784, 1), delays below and above L, scalar and stream init: "
-              "bit-identical to the plain fold")
+              "6784, 1), delays 0 to mod, history alone, cursor starts 0, "
+              "mod - 1 and the middle, scalar and stream init, staged and "
+              "global kernels: bit-identical to the plain fold")
+    # a batch: tables of 2 to 300 taps, rings of three sizes, history
+    # alone beside streams, scalar, stream and 0-d inits; a chain whose
+    # taps span 2^18 samples, cut into windows; every tile
+    for n in (SEG_L, 6784, 1):
+        parts = [tap_case(rng, 2, 64, n), tap_case(rng, 16, 4096, n),
+                 tap_case(rng, 300, 16384, n),
+                 tap_case(rng, 24, 1 << 18, n, long_only=n < 1 << 18),
+                 tap_case(rng, 192, 16384, n, long_only=n <= 16384)]
+        inits = [0.0, rng.randn(n), np.array(-0.5), 1.25, rng.randn(n)]
+        chains = [p + (i,) for p, i in zip(parts, inits)]
+        cursors = [int(rng.randint(0, len(c[0]))) for c in chains]
+        for tile in RT.TILES:
+            args = on_card(chains, cursors, n, tile)
+            held(f"batch of {len(chains)} L={n} tile={tile} windows="
+                 f"{args[0].n_windows}", args)
+        held(f"batch of {len(chains)} L={n}", args, staged=False)
+    print(f"[kernels] ring_tap_sum batches of 5 chains (2 to 300 taps, rings "
+          f"of 64 to 2^18, history alone, 0-d inits, windows cut to fit), "
+          f"tiles {RT.TILES}: bit-identical to the plain fold")
 
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
     out = {}
-    for label, n_taps, mod in (("fallback", 16, 4096), ("wide", 192, 16384)):
+    for label, src in (("fallback", BP.FALLBACK_SRC),
+                       ("wide", BP.wide_delay_network(192))):
         n = SEG_L
-        buf, starts, gains = args = on_card(tap_case(rng, n_taps, mod, n))
-        got = RT.ring_tap_sum(*args, 0.0, n)
-        ref = RT.ring_tap_sum_reference(*args, 0.0, n)
+        kern = PluginInstance(compile_plugin_source(src), srate=SR).kernel
+        launches = kern.tap_launches(n)
+        check(len(launches) == 1 and len(launches[0].members) == 2,
+              f"{label}: {len(launches)} tap launches planned")
+        chains = []
+        for m in launches[0].members:
+            mod = m.region[1]
+            chains.append((rng.randn(mod), rng.randn(n) if m.needs_src
+                           else None, m.starts, m.gains, 0.0))
+        cursors = [int(rng.randint(0, len(c[0]))) for c in chains]
+        pair = on_card(chains, cursors, n)
+        one = on_card(chains[:1], cursors[:1], n)
+        other = on_card(chains[1:], cursors[1:], n)
+        got = RT.ring_tap_sum(*pair)
+        ref = RT.ring_tap_sum_reference(*pair)
+        torch.cuda.synchronize()
+        check(same_bits(got, ref), f"ring_tap_sum {label} pair differs from "
+              "its plain fold")
         err = float((got - ref).abs().max())
-        ms = cuda_ms(lambda: RT.ring_tap_sum(*args, 0.0, n), reps=20)
-        plain_ms = cuda_ms(lambda: RT.ring_tap_sum_reference(*args, 0.0, n),
-                           reps=3)
-        # one PyTorch call for the same function: the taps as a dense FIR
-        s_min, s_max = int(starts.min()), int(starts.max())
-        fir = torch.zeros(s_max - s_min + 1, dtype=torch.float64, device=cuda)
-        fir.index_add_(0, starts - s_min, gains)
-        sig = buf[s_min:s_max + n][None, None]
-        lib = torch.nn.functional.conv1d(sig, fir[None, None])[0, 0]
+        streamed = [(len(c[0]), c[1] is not None) for c in chains]
+
+        def joined(ring, start, stream):
+            # the buffer the emitter built for a chain before reading in
+            # place: the history joined at the wrap, then [history | stream]
+            hist = torch.cat([ring[start:], ring[:start]])
+            return hist if stream is None else torch.cat([hist, stream])
+
+        timed = {
+            "ms": lambda: RT.ring_tap_sum(*pair),
+            "one_chain_ms": lambda: RT.ring_tap_sum(*one),
+            "earlier_one_chain_ms": lambda: RT.ring_tap_sum(*one,
+                                                            staged=False),
+            "two_launches_ms": lambda: (RT.ring_tap_sum(*one),
+                                        RT.ring_tap_sum(*other)),
+            "earlier_ms": lambda: (RT.ring_tap_sum(*one, staged=False),
+                                   RT.ring_tap_sum(*other, staged=False)),
+            "cat_ms": lambda: [joined(*a) for a in zip(pair[1], cursors,
+                                                       pair[3])],
+        }
+        # the kernels' device time, in turns, twice: forwards, then
+        # backwards; and the pair's launches back to back by CUDA events,
+        # where the host's launch cost shows
+        times = {k: [] for k in timed}
+        for order in (list(timed), list(timed)[::-1]):
+            for k in order:
+                times[k].append(graph_ms(timed[k]))
+        res = {k: min(v) for k, v in times.items()}
+        spread = max(max(v) / min(v) for v in times.values())
+        res["events_ms"] = cuda_ms(timed["ms"], reps=20)
+        res["plain_ms"] = graph_ms(
+            lambda: RT.ring_tap_sum_reference(*pair), reps=3)
+        # one PyTorch call for the same function: the taps of each chain
+        # as a dense FIR, both chains as the groups of one convolution
+        firs, sigs = [], []
+        for c, (ring, start, stream) in enumerate(zip(pair[1], cursors,
+                                                      pair[3])):
+            starts, gains = chains[c][2], chains[c][3]
+            s_min, s_max = min(starts), max(starts)
+            fir = torch.zeros(s_max - s_min + 1, dtype=torch.float64,
+                              device=cuda)
+            fir.index_add_(0, torch.tensor(starts, device=cuda) - s_min,
+                           T(gains))
+            firs.append(fir)
+            sigs.append(joined(ring, start, stream)[s_min:s_max + n])
+        check(len({f.numel() for f in firs}) == 1,
+              f"{label}: the chains' FIRs differ in length")
+        weight, sig = torch.stack(firs)[:, None], torch.stack(sigs)[None]
+        lib = torch.nn.functional.conv1d(sig, weight, groups=len(firs))[0]
         lib_err = float((lib - ref).abs().max())
         check(lib.shape == ref.shape and lib_err < 1e-9,
               f"dense-FIR convolution disagrees with the tap sum: {lib_err:.3e}")
-        lib_ms = cuda_ms(
-            lambda: torch.nn.functional.conv1d(sig, fir[None, None]), reps=3)
-        ms_2 = cuda_ms(lambda: RT.ring_tap_sum(*args, 0.0, n), reps=20)
-        # the buffer read once, the output written once, the tables; one
-        # multiply and one add a tap and sample
-        b_ms, b_by = bound_ms((mod + n + n) * 8 + n_taps * 16,
-                              2 * n_taps * n)
-        print(f"[kernels] ring_tap_sum {label}: taps={n_taps} mod={mod} L={n} "
-              f"bit-identical max_abs_err={err:.3e} ms={ms:.4f} (again "
-              f"{ms_2:.4f}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"(conv1d, dense FIR of {fir.numel()} taps, max |delta| "
-              f"{lib_err:.3e}) bound_ms={b_ms:.5f} ({b_by})")
-        out[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-                      "shape": [n_taps, mod, n]}
-    fb, wide = out["fallback"], out["wide"]
+        res["library_ms"] = graph_ms(lambda: torch.nn.functional.conv1d(
+            sig, weight, groups=len(firs)), reps=3)
+        tiles, tiles_one = {}, {}
+        for tile in RT.TILES:
+            args = on_card(chains, cursors, n, tile)
+            held(f"{label} pair tile={tile}", args)
+            tiles[tile] = graph_ms(lambda: RT.ring_tap_sum(*args))
+            args = on_card(chains[:1], cursors[:1], n, tile)
+            tiles_one[tile] = graph_ms(lambda: RT.ring_tap_sum(*args))
+        floors1, by1 = tap_bounds(one[0], streamed[:1], n, sms, max_mhz * 1e6)
+        floors2, by2 = tap_bounds(pair[0], streamed, n, sms, max_mhz * 1e6)
+        print(f"[kernels] ring_tap_sum {label}: taps={one[0].counts[0]} a "
+              f"chain, rings {[c[0] for c in streamed]}, L={n}, windows "
+              f"{pair[0].n_windows} for 2 chains, tile {pair[0].tile} for "
+              f"the pair and {one[0].tile} for one chain, shared memory "
+              f"{pair[0].smem_bytes} B a block; bit-identical max_abs_err="
+              f"{err:.3e}")
+        print(f"[kernels] ring_tap_sum {label}: one chain {res['one_chain_ms']:.4f}"
+              f" ms, earlier design (a thread a sample, global reads) "
+              f"{res['earlier_one_chain_ms']:.4f}; the pair in one launch "
+              f"ms={res['ms']:.4f}, in two launches "
+              f"{res['two_launches_ms']:.4f}, earlier design in two launches "
+              f"{res['earlier_ms']:.4f}; the buffers the emitter joined before "
+              f"reading in place (4 cats) {res['cat_ms']:.4f} ms; plain fold "
+              f"{res['plain_ms']:.4f}; conv1d (two dense FIRs of "
+              f"{firs[0].numel()} taps, max |delta| {lib_err:.3e}) "
+              f"{res['library_ms']:.4f}; spread over two turns (max/min) "
+              f"{spread:.3f} (device time: 20 calls in a CUDA graph); the pair's "
+              f"launches back to back by CUDA events {res['events_ms']:.4f}")
+        print(f"[kernels] ring_tap_sum {label}: by tile, the pair "
+              + ", ".join(f"{t}: {ms:.4f}" for t, ms in tiles.items())
+              + " ms; one chain "
+              + ", ".join(f"{t}: {ms:.4f}" for t, ms in tiles_one.items())
+              + " ms")
+        for what, floors, by in (("one chain", floors1, by1),
+                                 ("the pair", floors2, by2)):
+            print(f"[kernels] ring_tap_sum {label} {what} floors: operations "
+                  f"at two roundings {floors['operations']:.5f} ms, on-chip "
+                  f"reads {floors['on-chip reads']:.5f} ms ({SMEM_BYTES_PER_CLK}"
+                  f" B/clk x {sms} SMs at {max_mhz:.0f} MHz, the max SM "
+                  f"clock), bytes {floors['bytes']:.5f} ms; binds: {by}")
+        res.update({
+            "max_abs_err": err, "tiles_ms": tiles,
+            "one_chain_tiles_ms": tiles_one, "spread": spread,
+            # the contract's bound, for the pair: bytes or operations
+            "bound_ms": max(floors2["bytes"], floors2["operations"]),
+            "bound_by": ("bytes" if floors2["bytes"] >= floors2["operations"]
+                         else "operations"),
+            "floors_ms": floors2, "binds": by2,
+            "one_chain_floors_ms": floors1, "one_chain_binds": by1,
+            "tile": pair[0].tile,
+            "shape": [len(chains), one[0].counts[0], streamed[0][0], n]})
+        out[label] = res
+    fb = out["fallback"]
     return {
         "name": "ring_tap_sum", "route": "cuda",
         "source": "zorak_tpu_torch/csrc/ring_taps.cu",
@@ -511,7 +723,7 @@ def ring_taps_phase(torch, cuda, rng):
         "launches": 0, "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
         "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
         "bound_by": fb["bound_by"], "library_ms": fb["library_ms"],
-        "shape": fb["shape"], "wide": wide,
+        "shape": fb["shape"], "fallback": fb, "wide": out["wide"],
     }
 
 
@@ -882,7 +1094,8 @@ def scan_group_sweep(torch, cuda, rng, rounds=5, reps=10):
 
 def jsfx_phase(torch, cuda, rng, card):
     """The JSFX main path: the in-repo delay network, its 192-tap
-    widening and two scan-group plugins through PluginInstance.render on
+    widening, a cross-fed network and two scan-group plugins through
+    PluginInstance.render on
     60 s of stereo; returns the K2, K3 and K4 launch counts of each timed
     render, and K4's re-run steps in it."""
     from zorak_tpu_torch import builtin_plugins as BP
@@ -899,10 +1112,13 @@ def jsfx_phase(torch, cuda, rng, card):
     n1, n_gold = int(SR), 4800
     launches, reruns = {}, {}
     segments = -(-MAIN_T // SEG_L)
-    # label, source, held to the golden, launches of (K2, K3, K4) a segment
+    # label, source, held to the golden, launches of (K2, K3, K4) a
+    # segment: one K3 launch folds both channels' chains; the cross-fed
+    # network's right ring is written from the left sum, so two
     for label, src, hold_golden, per_segment in (
-            ("fallback", BP.FALLBACK_SRC, False, (1, 2, 0)),
-            ("wide", BP.wide_delay_network(192), True, (1, 2, 0)),
+            ("fallback", BP.FALLBACK_SRC, False, (1, 1, 0)),
+            ("wide", BP.wide_delay_network(192), True, (1, 1, 0)),
+            ("cross_fed", BP.cross_fed_delay_network(16), True, (1, 2, 0)),
             ("follower", SCAN_GROUP_SRC, True, (0, 0, 1)),
             ("stereo_followers", STEREO_FOLLOWERS_SRC, True, (0, 0, 1))):
         t_phase = time.perf_counter()
@@ -956,8 +1172,13 @@ def jsfx_phase(torch, cuda, rng, card):
         print(f"[main] JSFX {label}: the kernel alone, audio already on the "
               f"card and left there, mean of 3: device_ms={dev_ms:.2f} "
               f"audio_s_per_s={sec / (dev_ms / 1e3):.1f}")
-        profile_render(lambda: kern.render_device(x_dev), f"JSFX {label}",
-                       segments)
+        events, by_name = profile_render(lambda: kern.render_device(x_dev),
+                                         f"JSFX {label}", segments)
+        traced_k3 = sum(n for name, n in by_name.items()
+                        if "ring_tap_sum" in name)
+        print(f"[main] JSFX {label}: device events a segment {events}, K3 "
+              f"launches a segment {per_segment[1]} (in the trace "
+              f"{traced_k3} of {per_segment[1] * segments}) card='{card}'")
 
         # causal, so the first second stands alone: against the port's
         # CPU render (the doubling ladders in place of K2's order)
@@ -1399,6 +1620,7 @@ def main(argv=None) -> int:
         for entry in (k2, k3):
             entry["launches"] = launches["fallback"][entry["name"]]
             entry["launches_wide"] = launches["wide"][entry["name"]]
+            entry["launches_cross_fed"] = launches["cross_fed"][entry["name"]]
         k4["launches"] = launches["follower"]["scan_group"]
         k4["launches_stereo"] = launches["stereo_followers"]["scan_group"]
         k4["render_rerun_steps"] = reruns["follower"]

@@ -237,6 +237,10 @@ CASES = {
     "wide_delay_network_192_taps": (
         builtin_plugins.wide_delay_network(192),
         noise(2, 5000, scale=0.25, seed=5), {"segment_len": 2048}, True),
+    # the right ring written from the left tap sum: two tap launches
+    "cross_fed_delay_network": (
+        builtin_plugins.cross_fed_delay_network(16),
+        noise(2, 5000, scale=0.25, seed=7), {"segment_len": 2048}, True),
     "wide_delay_network_long_delays_only": (
         builtin_plugins.wide_delay_network(24, buf=4096, max_delay=4000)
         .replace("32 + ((i*317) % 3968)", "700 + ((i*317) % 3000)"),
@@ -420,13 +424,19 @@ def test_fallback_network_matches_jax_exactly_and_shares_its_divergence():
     assert abs(rep.max_abs_delta - rep_jax.max_abs_delta) <= 1e-6
 
 
-@pytest.mark.parametrize("n_taps", [16, 192])
-def test_tap_sums_and_recurrences_go_through_the_wrappers(n_taps, monkeypatch):
-    # the emitter hands the tap chains to ring_tap_sum (one call a channel
-    # and segment) and the one-pole wave to linrec_scan (one call a
+@pytest.mark.parametrize("src,launches", [
+    pytest.param(builtin_plugins.FALLBACK_SRC, [(16, 16)], id="16"),
+    pytest.param(builtin_plugins.wide_delay_network(192), [(192, 192)],
+                 id="192"),
+    pytest.param(builtin_plugins.cross_fed_delay_network(16), [(16,), (16,)],
+                 id="cross_fed")])
+def test_tap_sums_and_recurrences_go_through_the_wrappers(src, launches,
+                                                           monkeypatch):
+    # the emitter hands the tap chains to ring_tap_sum, one call a segment
+    # holding both channels' chains (the cross-fed network: one call a
+    # channel, since its right ring is written from the left sum), the
+    # rings in place, and the one-pole wave to linrec_scan (one call a
     # segment), and the result equals the node-by-node emission bit for bit
-    src = (builtin_plugins.FALLBACK_SRC if n_taps == 16
-           else builtin_plugins.wide_delay_network(n_taps))
     x = noise(2, 2048 * 2 + 300, scale=0.25, seed=9)
     prog = compile_plugin_source(src)
     calls = {"taps": [], "linrec": []}
@@ -434,9 +444,11 @@ def test_tap_sums_and_recurrences_go_through_the_wrappers(n_taps, monkeypatch):
     import zorak_tpu_torch.kernels.ring_taps as rt_mod
     plain_taps, plain_linrec = rt_mod.ring_tap_sum, ls_mod.linrec_scan
 
-    def spy_taps(buf, starts, gains, init, length=None):
-        calls["taps"].append(int(starts.shape[0]))
-        return plain_taps(buf, starts, gains, init, length)
+    def spy_taps(tables, rings, cursors, streams, inits, length):
+        # the rings themselves, not a [history | stream] buffer
+        assert all(r.shape[0] in (4096, 16384) for r in rings)
+        calls["taps"].append(tuple(tables.counts))
+        return plain_taps(tables, rings, cursors, streams, inits, length)
 
     def spy_linrec(a, b, z0):
         calls["linrec"].append(tuple(b.shape))
@@ -448,7 +460,7 @@ def test_tap_sums_and_recurrences_go_through_the_wrappers(n_taps, monkeypatch):
         prog, make_initialized_shadow(prog).state, 2, segment_len=2048,
         device="cpu")
     y, _ = kern.render(x)
-    assert calls["taps"] == [n_taps] * 6          # 2 channels x 3 segments
+    assert calls["taps"] == launches * 3          # 3 segments
     assert calls["linrec"] == [(2, 2048), (2, 2048), (2, 300)]
 
     # node by node: no chain is recognised when a chain needs more taps

@@ -5,7 +5,9 @@ network: a stereo ring delay network with 16 taps a channel, two
 one-pole recurrences and an induction cursor (the same text as the JAX
 package's entry script carries).  `wide_delay_network(n_taps)` is the
 same network at a catalog plugin's scale: its own tap tables, a larger
-ring and delays spread over most of it.
+ring and delays spread over most of it.  `cross_fed_delay_network` feeds
+the right ring from the left tap sum, so the right sum depends on the
+left one within a sample.
 """
 from __future__ import annotations
 
@@ -84,6 +86,36 @@ loop({n_taps},
   d = dT[i] | 0;
   sumL += gT[i] * mem[bL + ((w - d) & MASK)];
   sumR += gT[i] * mem[bR + ((w - d) & MASK)];
+  i += 1;
+);
+zL = (1-aLP)*sumL + aLP*zL;
+zR = (1-aLP)*sumR + aLP*zR;
+spl0 = spl0*(1-wet) + zL*wet;
+spl1 = spl1*(1-wet) + zR*wet;
+w += 1;
+"""
+
+
+def cross_fed_delay_network(n_taps: int = 16, buf: int = 4096,
+                            max_delay: int = 1500, feed: float = 0.5) -> str:
+    """The widened network with its right ring written from the left tap
+    sum (`spl1 + feed * sumL`): the left ring is summed first, then the
+    right ring is written and summed."""
+    head = wide_delay_network(n_taps, buf, max_delay).split("@sample\n")[0]
+    return head.replace("desc:", "desc:cross-fed ", 1) + f"""\
+@sample
+mem[bL + (w & MASK)] = spl0;
+sumL = 0;
+i = 0;
+loop({n_taps},
+  sumL += gT[i] * mem[bL + ((w - (dT[i] | 0)) & MASK)];
+  i += 1;
+);
+mem[bR + (w & MASK)] = spl1 + {feed}*sumL;
+sumR = 0;
+i = 0;
+loop({n_taps},
+  sumR += gT[i] * mem[bR + ((w - (dT[i] | 0)) & MASK)];
   i += 1;
 );
 zL = (1-aLP)*sumL + aLP*zL;

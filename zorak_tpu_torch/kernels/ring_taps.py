@@ -1,17 +1,26 @@
-"""Sum of constant-gain ring-buffer taps: CUDA kernel + plain version.
+"""Sums of constant-gain ring-buffer taps: CUDA kernel + plain version.
 
 Counterpart of the tap reads of zorak_tpu/lowering/specialize.py
 (`ring_hist_full`, `ring_delayed`) and the multiply-add chain that
-consumes them.  With `buf` a ring region in write order,
-`[history | this segment's write stream]`, and `starts[k] = mod -
-delay[k]` a tap's static offset into it,
+consumes them.  A chain reads its ring region in write order,
+`buf = [history | this segment's write stream]`, with `starts[k] = mod -
+delay[k]` a tap's static offset into it:
 
-    acc = init;  for k in order:  acc = acc + gains[k] * buf[starts[k] : starts[k] + L]
+    acc = init
+    for k in order:  acc = acc + gains[k] * buf[starts[k] : starts[k] + L]
 
-in f64, multiply and add as two roundings a tap.  On a CUDA tensor
-`ring_tap_sum` launches the kernel of `csrc/ring_taps.cu`, one thread a
-sample; on a CPU tensor it runs `ring_tap_sum_reference`, the same fold
-over tensor slices.  Both keep the chain's order, so both equal the
+in f64, multiply and add as two roundings a tap.  The buffer is never
+built: buffer index i < mod is `ring[(start + i) % mod]`, where `start`
+is the ring position of the oldest sample (the host knows the cursor),
+and i >= mod is `stream[i - mod]`.  A chain whose every tap reaches past
+the segment reads history alone and takes no stream.
+
+A launch folds a batch of chains (`TapTables`, built once at plan time:
+the tables concatenated, and the runs of taps whose window fits the
+kernel's shared memory).  On CUDA tensors `ring_tap_sum` launches the
+kernel of `csrc/ring_taps.cu`; on CPU tensors it runs
+`ring_tap_sum_reference`, the same fold over slices of the buffer built
+with `torch.cat`.  Both keep the chain's order, so both equal the
 node-by-node emission bit for bit.  Nothing falls back from one to the
 other.
 """
@@ -19,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -28,91 +38,237 @@ from . import _build
 # before a path and reads it after to show the path went through the kernel.
 LAUNCHES = 0
 
+MAX_CHAINS = 16               # chains in one launch (csrc: kMaxChains)
+TILE = 1024                   # output samples a block of the staged kernel
+TILES = (256, 512, 1024, 2048)
+SMEM_BYTES = 232_448          # shared memory a block may opt into (sm_90)
+WINDOW_TAPS = 512             # taps of one window staged at once
+
+
+class _Chain(ctypes.Structure):
+    """One chain of a launch; the layout of csrc/ring_taps.cu's Chain."""
+    _fields_ = [("ring", ctypes.c_void_p), ("stream", ctypes.c_void_p),
+                ("init", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("mod", ctypes.c_longlong), ("start", ctypes.c_longlong),
+                ("init_stride", ctypes.c_longlong),
+                ("window_begin", ctypes.c_longlong),
+                ("window_end", ctypes.c_longlong),
+                ("init_scalar", ctypes.c_double)]
+
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("ring_taps")
     lib.zorak_ring_tap_sum.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_double, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     lib.zorak_ring_tap_sum.restype = ctypes.c_int
     return lib
 
 
-def _check(buf, starts, gains, init, length) -> int:
-    """Validates the arguments; returns L."""
-    if buf.dim() != 1 or buf.dtype != torch.float64:
-        raise ValueError("buf must be a 1-d float64 tensor")
-    if starts.dim() != 1 or starts.dtype != torch.int64:
-        raise ValueError("starts must be a 1-d int64 tensor")
-    if gains.shape != starts.shape or gains.dtype != torch.float64:
-        raise ValueError(f"gains must be float64 {tuple(starts.shape)}")
-    tensors = [("starts", starts), ("gains", gains)]
-    if isinstance(init, torch.Tensor):
-        if init.dim() != 1 or init.dtype != torch.float64:
-            raise ValueError("init must be a float or a 1-d float64 tensor")
-        if length is None:
-            length = init.shape[0]
-        if init.shape[0] != length:
-            raise ValueError(f"init has {init.shape[0]} samples, not {length}")
-        tensors.append(("init", init))
-    elif length is None:
-        raise ValueError("a scalar init needs `length`")
-    for name, v in tensors:
-        if v.device != buf.device:
-            raise ValueError(f"{name} is on {v.device}, buf on {buf.device}")
-    if length < 0 or length > buf.shape[0]:
-        raise ValueError(f"length {length} does not fit a buffer of "
-                         f"{buf.shape[0]} samples")
-    return int(length)
+def _windows(starts: Sequence[int],
+             tile: int) -> List[Tuple[int, int, int, int]]:
+    """Cuts a chain's taps, in order, into runs whose window of
+    `max - min + tile + 1` samples fits shared memory beside a table of
+    WINDOW_TAPS taps: [(first tap, end, min start, max start)]."""
+    room = (SMEM_BYTES - 12 * WINDOW_TAPS) // 8 - tile - 1
+    out = []
+    k = 0
+    while k < len(starts):
+        lo = hi = starts[k]
+        e = k + 1
+        while e < len(starts) and e - k < WINDOW_TAPS and \
+                max(hi, starts[e]) - min(lo, starts[e]) <= room:
+            lo, hi = min(lo, starts[e]), max(hi, starts[e])
+            e += 1
+        out.append((k, e, lo, hi))
+        k = e
+    return out
 
 
-def ring_tap_sum_reference(buf: torch.Tensor, starts: torch.Tensor,
-                           gains: torch.Tensor, init,
-                           length: int | None = None) -> torch.Tensor:
-    """Plain PyTorch version: one multiply and one add a tap, on slices."""
-    n = _check(buf, starts, gains, init, length)
-    acc = init if isinstance(init, torch.Tensor) else torch.full(
-        (n,), float(init), dtype=torch.float64, device=buf.device)
-    for s, g in zip(starts.tolist(), gains.tolist()):
-        if s < 0 or s + n > buf.shape[0]:
-            raise ValueError(f"tap window [{s}, {s + n}) lies outside the "
-                             f"buffer of {buf.shape[0]} samples")
-        acc = acc + g * buf[s:s + n]
-    return acc
+def choose_tile(length: int, n_chains: int, sms: int) -> int:
+    """The largest tile that still gives nearly every SM a block (15 in
+    16): each block stages its window's span once more, so fewer, larger
+    tiles move less, as long as the card stays full."""
+    for tile in reversed(TILES):
+        if -(-length // tile) * n_chains * 16 >= sms * 15:
+            return tile
+    return TILES[0]
 
 
-def ring_tap_sum(buf: torch.Tensor, starts: torch.Tensor, gains: torch.Tensor,
-                 init, length: int | None = None) -> torch.Tensor:
-    """buf [M] f64; starts [K] i64; gains [K] f64; init a float or [L] f64
-    -> acc [L], with L = `length` (default: init's).
+class TapTables:
+    """The tap tables of a batch of chains, built once at plan time.
 
-    CUDA tensors go to the kernel, CPU tensors to the plain version.  Every
-    tap window [starts[k], starts[k] + L) must lie inside buf: the plain
-    version raises otherwise, and the kernel, which does not read the
-    offsets back to the host, gives NaN for that tap.
+    `chains` is one `(starts, gains)` pair of host sequences a chain, in
+    fold order.  Keeps the host lists for the checks and the plain
+    version, and on `device` the tables concatenated (starts i32, gains
+    f64) and the windows of the staged kernel at `tile` samples a block;
+    `tile` None is `choose_tile` for `length` samples on a CUDA device,
+    else TILE.
+    """
+
+    def __init__(self, chains: Sequence[Tuple[Sequence[int], Sequence[float]]],
+                 device=None, tile: Optional[int] = None,
+                 length: Optional[int] = None):
+        if not 0 < len(chains) <= MAX_CHAINS:
+            raise ValueError(f"a launch takes 1 to {MAX_CHAINS} chains, "
+                             f"not {len(chains)}")
+        device = torch.device("cpu" if device is None else device)
+        if tile is None and device.type == "cuda" and length is not None:
+            props = torch.cuda.get_device_properties(device)
+            tile = choose_tile(length, len(chains), props.multi_processor_count)
+        elif tile is None:
+            tile = TILE
+        if tile not in TILES:
+            raise ValueError(f"tile must be one of {TILES}, not {tile}")
+        self.starts = [[int(s) for s in st] for st, _g in chains]
+        self.gains = [[float(g) for g in gs] for _s, gs in chains]
+        for st, gs in zip(self.starts, self.gains):
+            if not st or len(st) != len(gs):
+                raise ValueError("every chain needs taps, as many gains as "
+                                 "starts")
+            if min(st) < 0 or max(st) >= 2 ** 31:
+                raise ValueError("tap starts must lie in [0, 2^31)")
+        self.tile = tile
+        self.counts = [len(st) for st in self.starts]
+        self.max_starts = [max(st) for st in self.starts]
+        windows, self.chain_windows = [], []
+        base = 0
+        for st in self.starts:
+            first = len(windows)
+            windows += [(base + k, base + e, lo, hi)
+                        for k, e, lo, hi in _windows(st, tile)]
+            self.chain_windows.append((first, len(windows)))
+            base += len(st)
+        # gains and starts of the largest window (a multiple of 4), then
+        # the window and one double for alignment
+        self.table_taps = -(-max(e - k for k, e, _lo, _hi in windows) // 4) * 4
+        self.smem_bytes = (12 * self.table_taps + 8 * (
+            max(hi - lo for _k, _e, lo, hi in windows) + tile + 1))
+        self.n_windows = len(windows)
+        host = (torch.tensor([s for st in self.starts for s in st],
+                             dtype=torch.int32),
+                torch.tensor([g for gs in self.gains for g in gs],
+                             dtype=torch.float64),
+                torch.tensor(windows, dtype=torch.int32))
+        if device.type == "cuda":
+            # through pinned memory: a pageable copy would wait for the card
+            host = tuple(v.pin_memory().to(device, non_blocking=True)
+                         for v in host)
+        self.starts_dev, self.gains_dev, self.windows_dev = host
+        self.device = self.starts_dev.device     # with its index
+
+
+def _check(tables: TapTables, rings, cursors, streams, inits, length) -> None:
+    n = len(tables.counts)
+    if not len(rings) == len(cursors) == len(streams) == len(inits) == n:
+        raise ValueError(f"{n} chains need {n} rings, cursors, streams and "
+                         "inits")
+    if length < 0:
+        raise ValueError(f"length {length} < 0")
+    f64, dev = torch.float64, tables.device
+    for c, (ring, start, stream, init, hi) in enumerate(
+            zip(rings, cursors, streams, inits, tables.max_starts)):
+        if ring.dtype != f64 or ring.dim() != 1 or ring.device != dev:
+            raise ValueError(f"chain {c}: the ring must be a 1-d float64 "
+                             f"tensor on {dev}")
+        mod = ring.shape[0]
+        if not 0 <= start < mod:
+            raise ValueError(f"chain {c}: cursor start {start} outside "
+                             f"[0, {mod})")
+        if stream is None:
+            if hi + length > mod:
+                raise ValueError(
+                    f"chain {c}: a tap at start {hi} reaches past the "
+                    f"history of {mod} samples and there is no stream")
+        elif stream.dtype != f64 or stream.shape != (length,) \
+                or stream.device != dev:
+            raise ValueError(f"chain {c}: the stream must be float64 "
+                             f"[{length}] on {dev}")
+        elif hi > mod:
+            raise ValueError(f"chain {c}: a tap at start {hi} reaches past "
+                             f"the buffer of {mod} + {length}")
+        if isinstance(init, torch.Tensor) and (
+                init.dtype != f64 or init.shape not in ((), (length,))
+                or init.device != dev):
+            raise ValueError(f"chain {c}: init must be a float, a 0-d or a "
+                             f"[{length}] float64 tensor on {dev}")
+
+
+def ring_tap_sum_reference(tables: TapTables, rings: Sequence[torch.Tensor],
+                           cursors: Sequence[int],
+                           streams: Sequence[Optional[torch.Tensor]],
+                           inits: Sequence, length: int) -> torch.Tensor:
+    """Plain PyTorch version: builds each chain's buffer, then one multiply
+    and one add a tap, on slices.  Returns [chains, length]."""
+    _check(tables, rings, cursors, streams, inits, length)
+    out = []
+    for c, (ring, start, stream, init) in enumerate(
+            zip(rings, cursors, streams, inits)):
+        parts = [ring[start:], ring[:start]]
+        buf = torch.cat(parts + ([stream] if stream is not None else []))
+        acc = init.expand(length) if isinstance(init, torch.Tensor) \
+            else torch.full((length,), float(init), dtype=torch.float64,
+                            device=ring.device)
+        for s, g in zip(tables.starts[c], tables.gains[c]):
+            acc = acc + g * buf[s:s + length]
+        out.append(acc)
+    return torch.stack(out)
+
+
+def ring_tap_sum(tables: TapTables, rings: Sequence[torch.Tensor],
+                 cursors: Sequence[int],
+                 streams: Sequence[Optional[torch.Tensor]], inits: Sequence,
+                 length: int, staged: bool = True) -> torch.Tensor:
+    """Folds every chain of `tables` in one launch -> [chains, length] f64.
+
+    For chain c: `rings[c]` [mod] f64, its region's ring; `cursors[c]`
+    the ring position of the oldest sample (a host int); `streams[c]`
+    this segment's write stream [length] f64, or None for a chain that
+    reads history alone; `inits[c]` a float, a 0-d or a [length] f64
+    tensor.  CUDA tensors go to the kernel, CPU tensors to the plain
+    version.  `staged=False` runs the global kernel, the earlier design,
+    for timing beside the staged one.
     """
     global LAUNCHES
-    n = _check(buf, starts, gains, init, length)
-    if buf.device.type == "cpu":
-        return ring_tap_sum_reference(buf, starts, gains, init, n)
-    if buf.device.type != "cuda":
-        raise ValueError(f"ring_tap_sum runs on cuda or cpu, not {buf.device}")
-    buf, starts, gains = (v.contiguous() for v in (buf, starts, gains))
-    out = torch.empty((n,), dtype=torch.float64, device=buf.device)
-    if n == 0:
+    _check(tables, rings, cursors, streams, inits, length)
+    dev = tables.device
+    if dev.type == "cpu":
+        return ring_tap_sum_reference(tables, rings, cursors, streams, inits,
+                                      length)
+    if dev.type != "cuda":
+        raise ValueError(f"ring_tap_sum runs on cuda or cpu, not {dev}")
+    out = torch.empty((len(rings), length), dtype=torch.float64, device=dev)
+    if length == 0:
         return out
-    if isinstance(init, torch.Tensor):
-        init = init.contiguous()
-        init_ptr, init_scalar = init.data_ptr(), 0.0
-    else:
-        init_ptr, init_scalar = None, float(init)
-    with torch.cuda.device(buf.device):
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
+    keep = []                     # every tensor a pointer is taken from
+    chains = (_Chain * len(rings))()
+    for c, (ring, start, stream, init) in enumerate(
+            zip(rings, cursors, streams, inits)):
+        ring = ring.contiguous()
+        keep.append(ring)
+        ch = chains[c]
+        ch.ring, ch.mod, ch.start = ring.data_ptr(), ring.shape[0], start
+        if stream is not None:
+            stream = stream.contiguous()
+            keep.append(stream)
+            ch.stream = stream.data_ptr()
+        if isinstance(init, torch.Tensor):
+            keep.append(init)
+            ch.init = init.data_ptr()
+            ch.init_stride = init.stride(0) if init.dim() == 1 else 0
+        else:
+            ch.init_scalar = float(init)
+        ch.out = out.data_ptr() + 8 * c * length
+        ch.window_begin, ch.window_end = tables.chain_windows[c]
+    with torch.cuda.device(dev):
+        stream_ptr = torch.cuda.current_stream(dev).cuda_stream
         err = _library().zorak_ring_tap_sum(
-            buf.data_ptr(), buf.shape[0], starts.data_ptr(), gains.data_ptr(),
-            starts.shape[0], init_ptr, init_scalar, out.data_ptr(), n, stream)
+            ctypes.addressof(chains), len(rings), tables.starts_dev.data_ptr(),
+            tables.gains_dev.data_ptr(), tables.windows_dev.data_ptr(), length,
+            tables.tile if staged else 0, tables.table_taps,
+            tables.smem_bytes, stream_ptr)
     if err != 0:
         raise RuntimeError(f"ring_tap_sum kernel launch failed: cudaError {err}")
     LAUNCHES += 1

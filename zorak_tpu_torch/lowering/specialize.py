@@ -2089,6 +2089,25 @@ class _VarPlan:
     step: int = 0
 
 
+@dataclass(eq=False)
+class _TapChain:
+    """A left-leaning `+` chain of constant-gain taps of one ring region,
+    folded by `ring_tap_sum`: `acc = init; acc = acc + g * buf[s + t]`."""
+    root: GNode                    # the chain's last `+`
+    init: Any                      # GNode | float, the chain's first operand
+    region: Tuple[int, int]        # (origin, mod)
+    needs_src: bool                # a tap reads this segment's write stream
+    starts: List[int]              # mod - delay, in fold order
+    gains: List[float]
+
+
+@dataclass(eq=False)
+class _TapGroup:
+    """Chains folded by one `ring_tap_sum` launch, with their tables."""
+    members: List[_TapChain]
+    tables: Any                    # kernels.ring_taps.TapTables
+
+
 class SpecializedSampleKernel:
     """Compiled, segment-scanned render kernel for one plugin config."""
 
@@ -2260,10 +2279,11 @@ class SpecializedSampleKernel:
         self._traj_plugin = None
         self.last_control_state = None
         self._seg_fns: Dict[Any, Callable] = {}
-        # per-kernel device constants: 0-d tensors by value, and the
-        # matched ring tap sums (or None) by (`+` node, L)
+        # per-kernel device constants: 0-d tensors by value, and, by
+        # segment length, the ring tap chains' launches (or None) by `+`
+        # node (`_tap_plan`)
         self._const_cache: Dict[Any, Any] = {}
-        self._tap_tables: Dict[Any, Any] = {}
+        self._tap_tables: Dict[int, Dict[int, Any]] = {}
         # the lowered scan-group levels (step list, externals, generated
         # source) by DAG level
         self._scan_programs: Dict[int, Any] = {}
@@ -2880,6 +2900,18 @@ class SpecializedSampleKernel:
                 written.update(int(i) + len(base) for i in extra)
         return written
 
+    @staticmethod
+    def _plan_roots(sym: _SymExec) -> List[GNode]:
+        """The nodes the plan starts from: every var's value, every ring,
+        dynamic and gated write."""
+        roots = [sv.node for sv in sym.env.values() if isinstance(sv, TS)]
+        roots += [w.value for ws in sym.ring_writes.values() for w in ws]
+        roots += [x for dw in sym.dyn_writes
+                  for x in (dw.idx, dw.value, dw.gate)]
+        roots += [x for gws in sym.gring_writes.values() for gw in gws
+                  for x in (gw.value, gw.gate)]
+        return [x for x in roots if isinstance(x, GNode)]
+
     def _all_nodes(self, sym: _SymExec):
         seen: Set[int] = set()
         stack: List[GNode] = []
@@ -2889,21 +2921,8 @@ class SpecializedSampleKernel:
                 seen.add(id(x))
                 stack.append(x)
 
-        for sv in sym.env.values():
-            if isinstance(sv, TS):
-                push(sv.node)
-        for ws in sym.ring_writes.values():
-            for w in ws:
-                push(w.value) if isinstance(w.value, GNode) else None
-        for dw in sym.dyn_writes:
-            for x in (dw.idx, dw.value, dw.gate):
-                if isinstance(x, GNode):
-                    push(x)
-        for gws in sym.gring_writes.values():
-            for gw in gws:
-                for x in (gw.value, gw.gate):
-                    if isinstance(x, GNode):
-                        push(x)
+        for x in self._plan_roots(sym):
+            push(x)
         while stack:
             n = stack.pop()
             yield n
@@ -3023,6 +3042,206 @@ class SpecializedSampleKernel:
                     by_key[k] = tk
         self._linrec_waves_cache = by_key
         return by_key
+
+    # -- ring tap chains ------------------------------------------------------
+
+    def _tap_slice(self, x) -> Optional[Tuple[Tuple[int, int], int]]:
+        """(region, start) when ringref x reads the static slice
+        [start, start + L) of its region's [history | write stream]
+        buffer, else None."""
+        sym = self.sym
+        region = x.meta["region"]
+        ws = sym.ring_writes.get(region)
+        if ws is None:
+            return None
+        w = ws[-1]
+        delay = (sym._cursor_anchor(w.var, w.offset, w.mod)
+                 - sym._cursor_anchor(x.meta["var"], x.meta["offset"],
+                                      w.mod)) % w.mod
+        if delay == 0:
+            pre = [u for u in ws if u.order < x.meta["order"]]
+            if pre:
+                # same-slot same-sample: the final writer's value is the
+                # tail of the buffer; an earlier writer's is not in it
+                return (region, w.mod) if pre[-1] is w else None
+            delay = w.mod   # read precedes every write: prior wrap
+        return region, w.mod - delay
+
+    @staticmethod
+    def _tap_term(x) -> Optional[Tuple[float, GNode]]:
+        """(gain, ringref) of `const * ringref` / `ringref * const`."""
+        if not (isinstance(x, GNode) and x.kind == "bin" and x.op == "*"):
+            return None
+        a, b = x.args
+        if isinstance(a, float) and isinstance(b, GNode) \
+                and b.kind == "ringref":
+            return a, b
+        if isinstance(b, float) and isinstance(a, GNode) \
+                and a.kind == "ringref":
+            return b, a
+        return None
+
+    def _tap_chain(self, x, L: int) -> Optional[_TapChain]:
+        """The maximal left-leaning `+` chain ending at x whose right
+        operands are constant-gain ring taps of ONE region, or None when
+        fewer than MIN_CHAIN_TAPS taps match."""
+        taps = []
+        region = None
+        node = x
+        while isinstance(node, GNode) and node.kind == "bin" \
+                and node.op == "+":
+            term = self._tap_term(node.args[1])
+            if term is None:
+                break
+            where = self._tap_slice(term[1])
+            if where is None or (region is not None and where[0] != region):
+                break
+            region = where[0]
+            taps.append((term[0], where[1]))
+            node = node.args[0]
+        if len(taps) < self.MIN_CHAIN_TAPS:
+            return None
+        taps.reverse()
+        # taps that reach this segment's writes need the stream; a chain
+        # of long delays reads history alone and stays free of the
+        # current source
+        needs_src = max(s for _g, s in taps) + L > region[1]
+        return _TapChain(x, node, region, needs_src, [s for _g, s in taps],
+                         [g for g, _s in taps])
+
+    def _tap_group(self, x, L: int) -> Optional[_TapGroup]:
+        """The launch that folds the chain ending at `+` node x in the
+        segment program of length L, or None when x is no chain.  Chains
+        are grouped once for the kernel's life (`_tap_plan`); a chain the
+        plan did not list (a node inside another chain that is also read
+        elsewhere) is a launch of its own, matched at its first use."""
+        plan = self._tap_plan(L)
+        if id(x) not in plan:
+            chain = self._tap_chain(x, L)
+            plan[id(x)] = None if chain is None else \
+                self._tap_launch([chain], L)
+        return plan[id(x)]
+
+    def tap_launches(self, L: int) -> List[_TapGroup]:
+        """The planned `ring_tap_sum` launches of the segment program of
+        length L, each with its chains and tables."""
+        return list({id(g): g for g in self._tap_plan(L).values()
+                     if g is not None}.values())
+
+    def _tap_launch(self, members: List[_TapChain], L: int) -> _TapGroup:
+        from ..kernels.ring_taps import TapTables
+
+        return _TapGroup(members, TapTables(
+            [(m.starts, m.gains) for m in members], self.device, length=L))
+
+    def _tap_plan(self, L: int) -> Dict[int, Optional[_TapGroup]]:
+        """{id(chain root): its launch} for the segment program of length
+        L, built once.
+
+        The roots are the chains the emitter can meet: the plan's nodes
+        reached through their operands, a chain through its init alone
+        (its taps are never emitted).  A chain joins a launch only when
+        neither its inputs (init; with the stream, its region's writes)
+        reach a chain of that launch nor theirs reach it, walking the
+        emitter's edges conservatively: operands, a `prev` to its var's
+        plan and the plans solved with it (a linrec wave, a scan level),
+        a ring read to the region's writes, and a chain to the inputs of
+        every chain of its launch.  Launches then form no cycle, and a
+        cross-fed pair (the right ring written from the left sum) stays
+        two launches.
+        """
+        got = self._tap_tables.get(L)
+        if got is not None:
+            return got
+        from ..kernels.ring_taps import MAX_CHAINS
+
+        sym, P_plans = self.sym, self.plans
+        chains: Dict[int, _TapChain] = {}
+        seen: Set[int] = set()
+        stack = list(reversed(self._plan_roots(sym)))
+        while stack:
+            x = stack.pop()
+            if not isinstance(x, GNode) or id(x) in seen:
+                continue
+            seen.add(id(x))
+            chain = (self._tap_chain(x, L)
+                     if x.kind == "bin" and x.op == "+" else None)
+            if chain is not None:
+                chains[id(x)] = chain
+                stack.append(chain.init)
+            else:
+                stack.extend(reversed(x.args))
+
+        waves = self._linrec_wave_map()
+
+        def plan_nodes(key):
+            keys = [key]
+            p = P_plans.get(key)
+            if p is None:
+                return []
+            if p.kind == "linrec":
+                keys += list(waves.get(key, ()))
+            elif p.kind == "scan":
+                level = self.scan_levels.get(p.step, 0)
+                keys += [g for i, grp in enumerate(self.scan_groups)
+                         if self.scan_levels.get(i, 0) == level for g in grp]
+            return [v for k in keys if k in P_plans
+                    for v in (P_plans[k].out, P_plans[k].A, P_plans[k].B)]
+
+        def inputs(m: _TapChain):
+            return [m.init] + ([w.value for w in sym.ring_writes[m.region]]
+                               if m.needs_src else [])
+
+        group_of: Dict[int, List[_TapChain]] = {}
+
+        def reach(nodes) -> Set[int]:
+            """The chain roots the emission of `nodes` may meet."""
+            found: Set[int] = set()
+            done: Set[int] = set()
+            todo = list(nodes)
+            while todo:
+                x = todo.pop()
+                if not isinstance(x, GNode) or id(x) in done:
+                    continue
+                done.add(id(x))
+                if id(x) in chains:
+                    found.add(id(x))
+                    for m in group_of.get(id(x), [chains[id(x)]]):
+                        todo.extend(inputs(m))
+                    continue
+                if x.kind == "prev":
+                    todo.extend(plan_nodes(x.meta["key"]))
+                elif x.kind in ("ringref", "dynringref"):
+                    region = x.meta["region"]
+                    todo.extend(w.value for w in sym.ring_writes.get(region, ()))
+                    todo.extend(v for dw in sym.dyn_writes
+                                if dw.origin == region[0]
+                                for v in (dw.idx, dw.value, dw.gate))
+                todo.extend(x.args)
+            return found
+
+        groups: List[List[_TapChain]] = []
+        for chain in chains.values():
+            key = id(chain.root)
+            for grp in groups:
+                ids = {id(m.root) for m in grp}
+                if len(grp) < MAX_CHAINS \
+                        and not reach(inputs(chain)) & ids \
+                        and key not in reach(
+                            [v for m in grp for v in inputs(m)]):
+                    grp.append(chain)
+                    group_of[key] = grp
+                    break
+            else:
+                groups.append([chain])
+                group_of[key] = groups[-1]
+        plan: Dict[int, Optional[_TapGroup]] = {}
+        for grp in groups:
+            launch = self._tap_launch(grp, L)
+            for m in grp:
+                plan[id(m.root)] = launch
+        self._tap_tables[L] = plan
+        return plan
 
     # -- planning ------------------------------------------------------------
 
@@ -3621,7 +3840,8 @@ class SpecializedSampleKernel:
         the device knows (a recurrence's last state) stay 0-d tensors.
         Three hot loops go to the hand-written
         kernels: the linear recurrences (`linrec_scan`), the ring tap
-        sums (`ring_tap_sum`) and the sequential scan groups
+        sums (`ring_tap_sum`: the chains planned into one launch
+        together, each ring read in place) and the sequential scan groups
         (`scan_group`, generated from the group's steps).
         """
         import torch
@@ -3661,7 +3881,6 @@ class SpecializedSampleKernel:
         B = self.B
         t64 = torch.arange(L, dtype=torch.int64, device=dev)
         tf = t64.to(F64)
-        tap_tables = self._tap_tables
 
         def upload(values, dtype):
             """A host list as a tensor on the kernel's device, without
@@ -3729,81 +3948,28 @@ class SpecializedSampleKernel:
                         out[i] = v
                 return out
 
-            def tap_slice(x):
-                """(region, start) when ringref x reads the static slice
-                [start, start + L) of its region's [history | write
-                stream] buffer, else None."""
-                region = x.meta["region"]
-                ws = sym.ring_writes.get(region)
-                if ws is None:
-                    return None
-                w = ws[-1]
-                delay = (sym._cursor_anchor(w.var, w.offset, w.mod)
-                         - sym._cursor_anchor(x.meta["var"], x.meta["offset"],
-                                              w.mod)) % w.mod
-                if delay == 0:
-                    pre = [u for u in ws if u.order < x.meta["order"]]
-                    if pre:
-                        # same-slot same-sample: the final writer's value
-                        # is the tail of the buffer; an earlier writer's
-                        # is not in it
-                        return (region, w.mod) if pre[-1] is w else None
-                    delay = w.mod   # read precedes every write: prior wrap
-                return region, w.mod - delay
+            tap_emitting: Set[int] = set()
 
-            def tap_term(x):
-                """(gain, ringref) of `const * ringref` / `ringref * const`."""
-                if not (isinstance(x, GNode) and x.kind == "bin"
-                        and x.op == "*"):
-                    return None
-                a, b = x.args
-                if isinstance(a, float) and isinstance(b, GNode) \
-                        and b.kind == "ringref":
-                    return a, b
-                if isinstance(b, float) and isinstance(a, GNode) \
-                        and a.kind == "ringref":
-                    return b, a
-                return None
-
-            def tap_chain(x):
-                """A maximal left-leaning `+` chain ending at x whose right
-                operands are constant-gain ring taps of ONE region:
-                (init operand, region, [(gain, start)] in fold order), or
-                None when fewer than two taps match."""
-                taps = []
-                region = None
-                node = x
-                while isinstance(node, GNode) and node.kind == "bin" \
-                        and node.op == "+":
-                    term = tap_term(node.args[1])
-                    if term is None:
-                        break
-                    where = tap_slice(term[1])
-                    if where is None or (region is not None
-                                         and where[0] != region):
-                        break
-                    region = where[0]
-                    taps.append((term[0], where[1]))
-                    node = node.args[0]
-                if len(taps) < self.MIN_CHAIN_TAPS:
-                    return None
-                taps.reverse()
-                # taps that reach this segment's writes need the stream
-                # appended; a chain of long delays reads history alone and
-                # stays free of the current source
-                needs_src = max(s for _g, s in taps) + L > region[1]
-                return (node, region, needs_src,
-                        upload([s for _g, s in taps], torch.int64),
-                        upload([g for g, _s in taps], F64))
-
-            def emit_tap_chain(chain):
-                init, region, needs_src, starts, gains = chain
-                buf = ring_hist_full(region) if needs_src \
-                    else ring_hist(region)
-                init_v = emit(init)
-                if not isinstance(init_v, float) and init_v.dim() == 0:
-                    init_v = init_v.expand(L)
-                return ring_tap_sum(buf, starts, gains, init_v, L)
+            def emit_tap_group(group):
+                """Folds every chain of a launch and memoizes each one's
+                sum: one `ring_tap_sum` call, the rings read in place."""
+                if id(group) in tap_emitting:
+                    raise SpecializeError(
+                        "tap chains of one launch feed each other")
+                tap_emitting.add(id(group))
+                rings_g, cursors, streams, inits = [], [], [], []
+                for m in group.members:
+                    w = sym.ring_writes[m.region][-1]
+                    rings_g.append(rings[m.region])
+                    cursors.append(cursor_start(w.var, w.offset, m.region[1]))
+                    streams.append(ring_source(m.region) if m.needs_src
+                                   else None)
+                    inits.append(emit(m.init))
+                out = ring_tap_sum(group.tables, rings_g, cursors, streams,
+                                   inits, L)
+                tap_emitting.discard(id(group))
+                for i, m in enumerate(group.members):
+                    memo[id(m.root)] = out[i]
 
             def emit(x):
                 if not isinstance(x, GNode):
@@ -3827,18 +3993,14 @@ class SpecializedSampleKernel:
                                      x.meta["mod"], 0, L)
                     val = idx.to(F64) + float(x.meta["origin"])
                 elif x.kind == "bin":
-                    chain = None
-                    if x.op == "+":
-                        # the plan is static, so a `+` node is matched
-                        # once for the kernel's life, not once a segment
-                        if (id(x), L) not in tap_tables:
-                            tap_tables[(id(x), L)] = tap_chain(x)
-                        chain = tap_tables[(id(x), L)]
-                    if chain is not None:
-                        val = emit_tap_chain(chain)
-                    else:
-                        val = EM.BINARY[x.op](_arr(emit(x.args[0])),
-                                              _arr(emit(x.args[1])))
+                    # the plan is static, so a `+` node is matched once
+                    # for the kernel's life, not once a segment
+                    group = self._tap_group(x, L) if x.op == "+" else None
+                    if group is not None:
+                        emit_tap_group(group)
+                        return memo[id(x)]
+                    val = EM.BINARY[x.op](_arr(emit(x.args[0])),
+                                          _arr(emit(x.args[1])))
                 elif x.kind == "call":
                     val = EM.UNARY[x.op](_arr(emit(x.args[0])))
                 elif x.kind == "select":
