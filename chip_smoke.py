@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py --phases jsfx      # the JSFX phases alone
+    python3 chip_smoke.py --phases spectral  # the spectral phase alone
 
 Phases, in order; any failure raises and the script exits non-zero
-without printing a result (`--phases` takes `jsfx`, `faust` or both, the
-default; device and build always run; `k4sweep` is described at the end):
+without printing a result (`--phases` takes any of `jsfx`, `spectral`
+and `faust`, all three by default; device and build always run;
+`k4sweep` is described at the end):
 
 1. device   the card's name and power limit (nvidia-smi);
 2. build    every CUDA kernel of the paths, from csrc/ in this checkout,
@@ -69,7 +71,30 @@ default; device and build always run; `k4sweep` is described at the end):
             then, the same way, two plugins with sequential scan groups
             (a follower that feeds both channels, and two independent
             envelopes): engine torch-vector, K4 launches = levels x
-            segments, K4's re-run steps;
+            segments, K4's re-run steps; each whole 60 s render (the
+            fallback network reported, not held: it misses its own
+            golden) against the native C golden through
+            `null_test_plugin(golden="native")`: audio within 1e-5, vars
+            and heap within 1e-8 at the end; then the CLI's `verify`
+            (native golden, an export bundle) on a one-entry catalog;
+4b. spectral  the STFT framing (K7a), overlap-add (K7b) and gate gain
+            (K7c) kernels and the partition MAC (K8) against their plain
+            versions, bit-identical (every NaN one value), at odd shapes
+            (1 and 3 lanes, a hop that does not divide the size, T <
+            size, T not a multiple of the part size, an IR under one
+            partition, NaN, inf and -0.0 in the inputs) and at the
+            bench's (32 lanes x 20 s, size 2,048, hop 512; a 131,072-tap
+            IR at part size 2,048); stft_process, spectral_gate and
+            partitioned_convolve on the card against the port's CPU
+            render (the convolution also against scipy's fftconvolve in
+            f64) at the odd shapes and, on two lanes, at the bench's;
+            each kernel's time beside its bound, its plain version's and
+            the library call's (Tensor.unfold x window for K7a, F.fold x
+            1/wsum for K7b; K7c and K8 have none); then the three bench
+            sections of zorak_tpu_torch/bench.py as a user calls them:
+            each kernel's launches a section call, and the
+            stft2048_overlap_add_rtx, restoration_spectral_gate_rtx and
+            partitioned_convolution_131072tap_rtx figures;
 5. kernels (faust)  the switching scan (K1) must be bit-identical
             (integer views equal), in f64 and f32: at modest shapes, at
             the batch and main paths' shapes (its one-chunk case too),
@@ -115,6 +140,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -213,6 +239,25 @@ SCAN_OPS_PER_STEP = 5   # compare, select, subtract, multiply, add
 # VAR.forward): two noise streams, eight biquads, five one-poles, one scan
 VAR_STAGES = {"lcg_noise": 2, "biquad_tf2": 8, "onepole": 5,
               "switching_scan": 1}
+
+# the spectral slice: STFT sizes, the bench's shapes (bench.py:137-206)
+SPEC_SIZE, SPEC_HOP, PART = 2048, 512, 2048
+# small odd shapes for K7a/K7b (lanes, T, size, hop): one and three lanes,
+# a hop that does not divide the size, T < size, T not a multiple of hop
+K7_ODD = [(1, 5000, 512, 128), (3, 7001, 600, 250), (1, 300, 512, 128),
+          (3, 4097, 2048, 512), (1, 48000, 1024, 384)]
+# (lanes, frames, bins, parts) for K8: one partition, an IR under one
+# partition's worth of frames, parts beyond one staged group (64)
+K8_ODD = [(1, 5, 9, 1), (3, 7, 33, 4), (2, 3, 17, 9), (1, 20, 5, 70),
+          (3, 130, 1025, 65), (1, 1, 2049, 64)]
+# (lanes or None, T, IR taps, part_size) for the whole convolution
+CONV_ODD = [(None, 20000, 100, 1024), (3, 5000, 3000, 512),
+            (1, 700, 300, 256), (3, 4097, 9000, 256), (None, 100, 1000, 256)]
+WSUM_MIN = 1e-3   # below it the OLA normalisation magnifies FFT rounding
+# a complex MAC on the card: four multiplies and four adds, two roundings
+# (no contraction), at the FP32 instruction rate (half the FMA peak)
+F32_INSTR_PER_S = PEAK_OPS_PER_S["float32"] / 2
+MAC_INSTR = 8
 
 
 def check(ok: bool, what: str) -> None:
@@ -1103,7 +1148,7 @@ def jsfx_phase(torch, cuda, rng, card):
     from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
     from zorak_tpu_torch.kernels import scan_group as SG
     from zorak_tpu_torch.runtime.engine import DEFAULT_SEGMENT_LEN, PluginInstance
-    from zorak_tpu_torch.verify import AUDIO_EPS, compare_audio
+    from zorak_tpu_torch.verify import AUDIO_EPS, compare_audio, null_test_plugin
     # carried state against the CPU render's: the golden's scalar contract
     from zorak_tpu_torch.verify.nulltest import SCALAR_EPS as CARRY_EPS
 
@@ -1229,9 +1274,387 @@ def jsfx_phase(torch, cuda, rng, card):
         print(f"[main] JSFX {label}: carries after 10 s (scalars and "
               f"{len(rings_c)} rings) against the CPU render's: max "
               f"|delta| {carry_err:.3e} (limit {CARRY_EPS})")
+        # the whole 60 s render against the native C golden: audio, and
+        # vars and heap at the end (null_test_plugin renders both)
+        t_g = time.perf_counter()
+        rep = null_test_plugin(prog, x, srate=SR, golden="native",
+                               segment_len=SEG_L, device=cuda,
+                               compare_mem=True)
+        print(f"[main] JSFX {label} whole 60 s, CUDA vs the native golden: "
+              f"{rep.summary()} ({time.perf_counter() - t_g:.1f} s)")
+        if hold_golden:
+            check(rep.passed, f"{label}: the 60 s render disagrees with the "
+                  "native golden")
+        else:
+            print(f"[main] JSFX {label}: not held to the golden (its tap "
+                  "tables alias the ring; ROADMAP queue 3)")
         print(f"[done] JSFX {label} in {time.perf_counter() - t_phase:.1f} s")
 
     return launches, reruns
+
+
+def verify_cli_phase(card):
+    """The CLI's `verify` on the card (device None), native golden and an
+    export bundle, on a one-entry catalog made in a temporary directory
+    (the 192-tap widening, 2 s of stereo noise)."""
+    import tempfile
+
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.cli.main import main as cli_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        leaf = Path(tmp) / "catalog" / "plugins" / "Delay" / "Wide"
+        (leaf / "src").mkdir(parents=True)
+        (leaf / "plugin.json").write_text(json.dumps({
+            "name": "Wide delay network", "slug": "Wide",
+            "pluginCode": "Zwid", "pluginType": "jsfx"}))
+        (leaf / "src" / "Wide.jsfx").write_text(BP.wide_delay_network(192))
+        bundle = Path(tmp) / "bundle"
+        t0 = time.perf_counter()
+        rc = cli_main(["verify", "--catalog", str(Path(tmp) / "catalog"),
+                       "--seconds", "2", "--golden", "native",
+                       "--export-dir", str(bundle)])
+        names = sorted(p.name for p in bundle.iterdir())
+        report = json.loads((bundle / "Wide_report.json").read_text())
+    check(rc == 0 and report["passed"], f"CLI verify: rc {rc}, {report}")
+    check(names == ["Wide_compiled.wav", "Wide_delta.wav", "Wide_report.json",
+                    "Wide_shadow.wav"], f"CLI verify bundle: {names}")
+    print(f"[verify] CLI verify --golden native --export-dir on the card: rc "
+          f"{rc}, bundle {names}, max |delta| {report['max_abs_delta']:.3e} "
+          f"({time.perf_counter() - t0:.1f} s) card='{card}'")
+
+
+def spectral_phase(torch, cuda, rng, card):
+    """The spectral and convolution slice (BASELINE configs 2-4): K7a,
+    K7b, K7c and K8 against their plain versions bit for bit, at odd
+    shapes and at the bench's; their times beside bounds, plain versions
+    and library calls; the three bench sections through
+    zorak_tpu_torch.bench (launch counts a section call, the _rtx
+    figures); the pipelines against the port's CPU render, and the
+    convolution against scipy in f64.  Returns the four `kernels`
+    entries."""
+    import importlib
+
+    import scipy.signal
+
+    from zorak_tpu_torch import bench as BN
+    from zorak_tpu_torch.kernels import convolution as CV
+    from zorak_tpu_torch.verify import AUDIO_EPS
+
+    ST = importlib.import_module("zorak_tpu_torch.kernels.stft")
+    F = torch.nn.functional
+
+    def bits_equal(a, b):
+        """Kernel vs plain: every bit, every NaN one value (complex as
+        real and imaginary parts)."""
+        if a.is_complex():
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
+        return same_values(a.contiguous(), b.contiguous())
+
+    def held(what, got, want):
+        check(bits_equal(got, want), f"{what}: kernel differs from its "
+              "plain version")
+
+    def timed(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        return cuda_ms(fn, reps=reps)
+
+    def wsum_of(t, size, hop):
+        w = np.hanning(size).astype(np.float32)
+        n_frames = ST._n_frames(t, size, hop)
+        return ST._ola_window_norm(w, n_frames, size, hop)[:t].astype(
+            np.float64)
+
+    def audio_held(what, got, want, size, hop):
+        """CUDA against the CPU render: the OLA sum (y x wsum) within
+        AUDIO_EPS everywhere, y within it where wsum >= WSUM_MIN."""
+        wsum = wsum_of(got.shape[-1], size, hop)
+        d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+        err_sum = float((d * wsum).max())
+        err = float(d[..., wsum >= WSUM_MIN].max())
+        print(f"[spectral] {what}: CUDA vs CPU render max |delta| {err:.3e} "
+              f"where wsum >= {WSUM_MIN}, of the OLA sum {err_sum:.3e} "
+              f"(limit {AUDIO_EPS})")
+        check(err <= AUDIO_EPS and err_sum <= AUDIO_EPS,
+              f"{what}: CUDA render disagrees with the CPU render")
+        return err
+
+    # -- odd shapes, bit for bit ----------------------------------------------
+    for lanes, t, size, hop in K7_ODD:
+        x = torch.from_numpy((rng.randn(lanes, t) * 0.25).astype(np.float32))
+        x[0, :3] = torch.tensor([float("nan"), -0.0, float("inf")])
+        w = torch.from_numpy(np.hanning(size).astype(np.float32))
+        xc, wc = x.to(cuda), w.to(cuda)
+        frames = ST.frame_window(xc, wc, size, hop)
+        held(f"K7a {lanes}x{t} size {size} hop {hop}", frames,
+             ST.frame_window_reference(xc, wc, size, hop))
+        check(torch.equal(torch.isnan(frames.cpu()), torch.isnan(
+            ST.frame_window(x, w, size, hop))), "K7a: NaN elsewhere than "
+              "on the CPU")
+        n_frames = frames.shape[1]
+        fr = torch.randn(lanes, n_frames, size, device=cuda) * 100
+        fr[0, 0, 1] = -0.0
+        inv = torch.from_numpy(ST._inv_wsum(w.numpy().tobytes(), n_frames,
+                                            size, hop)).to(cuda)
+        for t_out in {t, (n_frames - 1) * hop + size}:
+            held(f"K7b {lanes}x{n_frames}x{size} hop {hop} to {t_out}",
+                 ST.overlap_add_norm(fr, wc, inv, hop, t_out),
+                 ST.overlap_add_norm_reference(fr, wc, inv, hop, t_out))
+        bins = size // 2 + 1
+        spec = torch.complex(torch.randn(lanes, n_frames, bins, device=cuda),
+                             torch.randn(lanes, n_frames, bins, device=cuda))
+        spec[0, 0, 0] = complex(float("nan"), 1.0)
+        thr = torch.rand(lanes, device=cuda) * 2
+        thr[-1] = 0.0
+        for floor_db in (-24.0, -60.0):
+            held(f"K7c {lanes}x{n_frames}x{bins} floor {floor_db}",
+                 ST.gate_gain(spec, thr, floor_db),
+                 ST.gate_gain_reference(spec, thr, floor_db))
+    nan_thr = torch.tensor([float("nan"), 0.5], device=cuda)
+    spec2 = torch.randn(2, 3, 17, dtype=torch.complex64, device=cuda)
+    held("K7c NaN threshold", ST.gate_gain(spec2, nan_thr, -24.0),
+         ST.gate_gain_reference(spec2, nan_thr, -24.0))
+    for lanes, n_frames, bins, parts in K8_ODD:
+        x = torch.randn(lanes, n_frames, bins, dtype=torch.complex64,
+                        device=cuda)
+        h = torch.randn(parts, bins, dtype=torch.complex64, device=cuda) * 30
+        h[0, 0] = complex(float("inf"), 0.0)   # the zero rows meet it
+        held(f"K8 {lanes}x{n_frames}x{bins} {parts} parts",
+             CV.partition_mac(x, h), CV.partition_mac_reference(x, h))
+    print(f"[spectral] K7a, K7b, K7c and K8 bit-identical to their plain "
+          f"versions at {len(K7_ODD)} + {len(K8_ODD)} odd shapes")
+
+    # the pipelines at odd shapes against the port's CPU render
+    for lanes, t, size, hop in K7_ODD:
+        x = (rng.randn(lanes, t) * 0.25).astype(np.float32)
+        x1 = x[0] if lanes == 1 else x               # [T] and [lanes, T]
+        cpu = ST.stft_process(torch.from_numpy(x1), lambda s: s * 0.5, size,
+                              hop).numpy()
+        got = ST.stft_process(torch.from_numpy(x1).to(cuda),
+                              lambda s: s * 0.5, size, hop).cpu().numpy()
+        audio_held(f"stft_process {x1.shape} size {size} hop {hop}", got,
+                   cpu, size, hop)
+        xq = x1 * np.float32(0.1)
+        cpu = ST.spectral_gate(torch.from_numpy(xq), size=size,
+                               hop=hop).numpy()
+        got = ST.spectral_gate(torch.from_numpy(xq).to(cuda), size=size,
+                               hop=hop).cpu().numpy()
+        audio_held(f"spectral_gate {x1.shape} size {size} hop {hop}", got,
+                   cpu, size, hop)
+    for lanes, t, k, b in CONV_ODD:
+        x = (rng.randn(*((t,) if lanes is None else (lanes, t)))
+             ).astype(np.float32)
+        ir = (rng.randn(k) * np.exp(-np.arange(k) / (k / 4))).astype(
+            np.float32)
+        cpu = CV.partitioned_convolve(torch.from_numpy(x), ir, b).numpy()
+        got = CV.partitioned_convolve(torch.from_numpy(x).to(cuda), ir,
+                                      b).cpu().numpy()
+        scale = max(1.0, float(np.abs(cpu).max()))
+        err = float(np.abs(got - cpu).max())
+        ref = np.stack([scipy.signal.fftconvolve(
+            r.astype(np.float64), ir.astype(np.float64))[:t]
+            for r in x.reshape(-1, t)]).reshape(x.shape)
+        err_ref = float(np.abs(got - ref).max())
+        check(err <= AUDIO_EPS * scale and err_ref <= 2e-5 * max(
+            1.0, float(np.abs(ref).max())),
+            f"partitioned_convolve {x.shape} k {k} B {b}: {err:.3e} from "
+            f"the CPU render, {err_ref:.3e} from scipy")
+    print(f"[spectral] stft_process, spectral_gate ({len(K7_ODD)} shapes) "
+          f"and partitioned_convolve ({len(CONV_ODD)}) on the card held to "
+          "the CPU render; the convolution also to scipy in f64")
+
+    # -- the bench's shapes: held, timed, bounded ------------------------------
+    n = int(BN.KERNEL_SECONDS * BN.SRATE)
+    lanes = BN.LANES
+    src = np.random.RandomState(11)
+    xb = torch.from_numpy((src.randn(lanes, n) * 0.25).astype(np.float32)).to(
+        cuda)
+    ir_np = BN.section_ir(src)      # drawn after the input, as bench.py does
+    w_np = np.hanning(SPEC_SIZE).astype(np.float32)
+    w = torch.from_numpy(w_np).to(cuda)
+    entries = {}
+
+    def entry(name, replaces, what, ms, plain_ms, nbytes, ops, library_ms,
+              shape, **extra):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_INSTR_PER_S * 1e3
+        b_ms, b_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                      else (ops_ms, "operations"))
+        lib = ("none (no one PyTorch call computes it)" if library_ms is None
+               else f"{library_ms:.4f}")
+        print(f"[spectral] {name} ({what}) {shape}: ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={b_ms:.4f} "
+              f"({b_by}; bytes {bytes_ms:.4f}, operations {ops_ms:.4f}) "
+              f"card='{card}'")
+        entries[name] = {
+            "name": name, "route": "cuda", "source": f"zorak_tpu_torch/csrc/"
+            f"{'partition_mac' if name == 'partition_mac' else 'stft_ola'}.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms, "shape": list(shape),
+            **extra}
+
+    # K7a
+    n_frames = ST._n_frames(n, SPEC_SIZE, SPEC_HOP)
+    frames = ST.frame_window(xb, w, SPEC_SIZE, SPEC_HOP)
+    held("K7a at the bench shape", frames,
+         ST.frame_window_reference(xb, w, SPEC_SIZE, SPEC_HOP))
+    pad = (n_frames - 1) * SPEC_HOP + SPEC_SIZE - n
+
+    def unfold_window():
+        return F.pad(xb, (0, pad)).unfold(-1, SPEC_SIZE, SPEC_HOP) * w
+
+    entry("frame_window", "zorak_tpu/kernels/stft.py:35", "K7a",
+          timed(lambda: ST.frame_window(xb, w, SPEC_SIZE, SPEC_HOP)),
+          timed(lambda: ST.frame_window_reference(xb, w, SPEC_SIZE,
+                                                  SPEC_HOP), 3),
+          4.0 * (xb.numel() + SPEC_SIZE + frames.numel()), frames.numel(),
+          timed(unfold_window, 3), frames.shape)
+    # K7b on the irFFT of the bench's spectra
+    spec = torch.fft.rfft(frames, dim=-1)
+    del frames
+    fr = torch.fft.irfft(spec, SPEC_SIZE, dim=-1).contiguous()
+    del spec
+    total = (n_frames - 1) * SPEC_HOP + SPEC_SIZE
+    inv = torch.from_numpy(ST._inv_wsum(w_np.tobytes(), n_frames, SPEC_SIZE,
+                                        SPEC_HOP)).to(cuda)
+    y = ST.overlap_add_norm(fr, w, inv, SPEC_HOP, n)
+    held("K7b at the bench shape", y,
+         ST.overlap_add_norm_reference(fr, w, inv, SPEC_HOP, n))
+
+    def fold_norm():
+        ola = F.fold((fr * w).transpose(1, 2), (1, total), (1, SPEC_SIZE),
+                     stride=(1, SPEC_HOP))
+        return (ola.reshape(lanes, total) * inv)[:, :n]
+
+    fold_err = float((fold_norm() - y).abs().max())
+    entry("overlap_add_norm", "zorak_tpu/kernels/stft.py:61", "K7b",
+          timed(lambda: ST.overlap_add_norm(fr, w, inv, SPEC_HOP, n)),
+          timed(lambda: ST.overlap_add_norm_reference(fr, w, inv, SPEC_HOP,
+                                                      n), 3),
+          4.0 * (fr.numel() + SPEC_SIZE + total + y.numel()),
+          2.0 * fr.numel() + y.numel(), timed(fold_norm, 3), fr.shape,
+          library_max_abs_delta=fold_err)
+    print(f"[spectral] K7b: F.fold x 1/wsum differs from the kernel by "
+          f"{fold_err:.3e} (another summing order)")
+    del fr, y
+    # K7c on the denoiser's spectra and thresholds
+    xq = torch.from_numpy((np.random.RandomState(11).randn(lanes, n) * 0.02
+                           ).astype(np.float32)).to(cuda)
+    spec = torch.fft.rfft(ST.frame_window(xq, w, SPEC_SIZE, SPEC_SIZE // 2),
+                          dim=-1)
+    quiet = ST.percentile(ST.magnitude(spec), 10.0, dim=-2)
+    thr = torch.clamp_min(ST.median(quiet), float(
+        np.float32(10.0 ** (-50.0 / 20.0)))) * 4.0
+    del quiet
+    held("K7c at the bench shape", ST.gate_gain(spec, thr, -24.0),
+         ST.gate_gain_reference(spec, thr, -24.0))
+    entry("gate_gain", "zorak_tpu/kernels/stft.py:126", "K7c",
+          timed(lambda: ST.gate_gain(spec, thr, -24.0)),
+          timed(lambda: ST.gate_gain_reference(spec, thr, -24.0), 3),
+          16.0 * spec.numel() + 4.0 * lanes, 16.0 * spec.numel(), None,
+          spec.shape)
+    del spec, xq
+    # K8 on the bench's input spectra and IR partitions
+    h = CV.ir_spectra(torch.from_numpy(ir_np).to(cuda), PART)
+    n_cf = -(-n // PART)
+    xp = F.pad(xb, (PART, n_cf * PART - n))
+    X = torch.fft.rfft(xp.unfold(-1, 2 * PART, PART), dim=-1).contiguous()
+    del xp
+    Y = CV.partition_mac(X, h)
+    held("K8 at the bench shape", Y, CV.partition_mac_reference(X, h))
+    del Y
+    macs = X.numel() * h.shape[0]
+    entry("partition_mac", "zorak_tpu/kernels/convolution.py:209", "K8",
+          timed(lambda: CV.partition_mac(X, h)),
+          timed(lambda: CV.partition_mac_reference(X, h), 3),
+          8.0 * (2 * X.numel() + h.numel()), MAC_INSTR * macs, None,
+          X.shape + (h.shape[0],), complex_macs=macs)
+    del X
+    torch.cuda.empty_cache()
+
+    # -- the main path: the three bench sections --------------------------------
+    for k in ST.LAUNCHES:
+        ST.LAUNCHES[k] = 0
+    CV.LAUNCHES = 0
+    calls = 4                       # _timed: a warm-up, then the best of 3
+    rtx, per_call = {}, {}
+    for section, kernels_run in (("stft", ("frame_window", "overlap_add_norm")),
+                                 ("denoiser", ("frame_window",
+                                               "overlap_add_norm",
+                                               "gate_gain")),
+                                 ("convolution", ("partition_mac",))):
+        before = dict(ST.LAUNCHES, partition_mac=CV.LAUNCHES)
+        t0 = time.perf_counter()
+        rtx.update(BN.SECTIONS[section](cuda))
+        torch.cuda.empty_cache()
+        after = dict(ST.LAUNCHES, partition_mac=CV.LAUNCHES)
+        ran = {k: after[k] - before[k] for k in after}
+        per_call[section] = {k: v / calls for k, v in ran.items() if v}
+        check(all(ran[k] == calls for k in kernels_run) and
+              sum(ran.values()) == calls * len(kernels_run),
+              f"bench section {section}: launches {ran}, expected one of "
+              f"each of {kernels_run} a call x {calls} calls")
+        print(f"[spectral] bench section {section}: launches a call "
+              f"{per_call[section]} ({time.perf_counter() - t0:.1f} s)")
+    launches = dict(ST.LAUNCHES, partition_mac=CV.LAUNCHES)
+    for name, e in entries.items():
+        e["launches"] = launches[name]
+        e["launches_per_section_call"] = {
+            s: c[name] for s, c in per_call.items() if name in c}
+    print(f"[spectral] {json.dumps(rtx)} card='{card}'")
+
+    def tilt(spec):
+        return spec * torch.linspace(0.5, 1.5, spec.shape[-1],
+                                     device=spec.device)
+
+    # -- where a section's time goes: one call of each pipeline, traced -------
+    xq = torch.from_numpy((np.random.RandomState(11).randn(lanes, n) * 0.02
+                           ).astype(np.float32))
+    xq_dev, ir_dev = xq.to(cuda), torch.from_numpy(ir_np).to(cuda)
+    for section, call in (
+            ("stft", lambda: ST.stft_process(xb, tilt, SPEC_SIZE, SPEC_HOP)),
+            ("denoiser", lambda: ST.spectral_gate(xq_dev, size=SPEC_SIZE)),
+            ("convolution", lambda: CV.partitioned_convolve(xb, ir_dev,
+                                                            PART))):
+        call()
+        profile_render(call, f"bench section {section}")
+    del xq_dev
+    torch.cuda.empty_cache()
+
+    # -- the bench's pipelines against the port's CPU render (lanes 0, 31) ----
+    keep = [0, lanes - 1]
+    x_cpu = xb[keep].cpu()
+
+    got = ST.stft_process(xb, tilt, SPEC_SIZE, SPEC_HOP)[keep].cpu().numpy()
+    audio_held("stft_process at the bench shape", got,
+               ST.stft_process(x_cpu, tilt, SPEC_SIZE, SPEC_HOP).numpy(),
+               SPEC_SIZE, SPEC_HOP)
+    got = ST.spectral_gate(xq.to(cuda), size=SPEC_SIZE)[keep].cpu().numpy()
+    audio_held("spectral_gate at the bench shape", got,
+               ST.spectral_gate(xq[keep], size=SPEC_SIZE).numpy(),
+               SPEC_SIZE, SPEC_SIZE // 2)
+    got = CV.partitioned_convolve(xb, ir_np, PART)[keep].cpu().numpy()
+    cpu = CV.partitioned_convolve(x_cpu, ir_np, PART).numpy()
+    err = float(np.abs(got - cpu).max())
+    ref = np.stack([scipy.signal.fftconvolve(
+        r.astype(np.float64), ir_np.astype(np.float64))[:n]
+        for r in x_cpu.numpy()])
+    err_ref = float(np.abs(got - ref).max())
+    scale = float(np.abs(ref).max())
+    print(f"[spectral] partitioned_convolve at the bench shape: CUDA vs CPU "
+          f"render {err:.3e}, vs scipy.signal.fftconvolve in f64 "
+          f"{err_ref:.3e} (max |y| {scale:.1f}; limits "
+          f"{AUDIO_EPS} x max(1, max|y|), 2e-5 x max(1, max|y|))")
+    check(err <= AUDIO_EPS * max(1.0, float(np.abs(cpu).max())) and
+          err_ref <= 2e-5 * max(1.0, scale),
+          "partitioned_convolve disagrees with the CPU render or scipy")
+    entries["partition_mac"]["conv_vs_scipy_f64"] = err_ref
+    del xb
+    torch.cuda.empty_cache()
+    return [entries[k] for k in ("frame_window", "overlap_add_norm",
+                                 "gate_gain", "partition_mac")]
 
 
 def faust_phases(torch, cuda, rng, card):
@@ -1559,12 +1982,13 @@ def faust_phases(torch, cuda, rng, card):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="jsfx,faust",
-                    help="comma-separated: jsfx, faust (default both); "
-                         "k4sweep times K4 across register block sizes")
+    ap.add_argument("--phases", default="jsfx,spectral,faust",
+                    help="comma-separated: jsfx, spectral, faust (default "
+                         "all three); k4sweep times K4 across register "
+                         "block sizes")
     phases = set(ap.parse_args(argv).phases.split(","))
-    if not phases or phases - {"jsfx", "faust", "k4sweep"}:
-        ap.error("--phases takes jsfx, faust or both, or k4sweep")
+    if not phases or phases - {"jsfx", "spectral", "faust", "k4sweep"}:
+        ap.error("--phases takes jsfx, spectral, faust or k4sweep")
     t_start = time.perf_counter()
     import torch
 
@@ -1580,6 +2004,8 @@ def main(argv=None) -> int:
           "not from this checkout")
     from zorak_tpu_torch.kernels import _build
 
+    # the native golden's libraries go beside the kernels', in the checkout
+    os.environ.setdefault("ZORAK_TPU_CACHE", str(_build.BUILD_DIR))
     cuda = torch.device("cuda")
     rng = np.random.RandomState(SEED)
 
@@ -1626,7 +2052,13 @@ def main(argv=None) -> int:
         k4["render_rerun_steps"] = reruns["follower"]
         k4["render_rerun_steps_stereo"] = reruns["stereo_followers"]
         kernels += [k2, k3, k4]
+        verify_cli_phase(card)
         print(f"[done] jsfx phases at {time.perf_counter() - t_start:.1f} s")
+    if "spectral" in phases:
+        t0 = time.perf_counter()
+        kernels += spectral_phase(torch, cuda, np.random.RandomState(SEED + 7),
+                                  card)
+        print(f"[done] spectral phase in {time.perf_counter() - t0:.1f} s")
     if "k4sweep" in phases:
         scan_group_sweep(torch, cuda, np.random.RandomState(SEED))
     if "faust" in phases:

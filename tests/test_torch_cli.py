@@ -88,7 +88,7 @@ def test_render_cpu_round_trips_a_wav_like_jax_cli(catalog, capsys, tmp_path,
     assert rep.audio_passed, rep.summary()
 
 
-def test_render_jsfx_is_not_ported(catalog, capsys, tmp_path):
+def test_render_jsfx_on_torch_vector_or_cpu_shadow(catalog, capsys, tmp_path):
     # a JSFX plugin whose regime the vector engine does not carry yet (an
     # audio-coupled @block) renders through the golden, and the CLI says
     # so with the reason; one the engine carries says torch-vector
@@ -107,6 +107,74 @@ def test_render_jsfx_is_not_ported(catalog, capsys, tmp_path):
     assert "vector engine refused the plugin" in out and "slice 6" in out
     with pytest.raises(Exception, match="slice 6"):
         main([*common, "--engine", "vector"])
+
+
+def _echo_source(catalog, text):
+    (catalog / "plugins" / "Delay" / "Echo" / "src" / "Echo.jsfx").write_text(
+        text)
+
+
+ECHO_FOLLOWER = ("desc:Echo\n@init\nup = 0.9; dn = 0.999;\n@sample\n"
+                 "x = abs(spl0);\n"
+                 "env = x > env ? x + (env - x)*up : x + (env - x)*dn;\n"
+                 "spl0 = env; spl1 = spl1*0.5;\n")
+
+
+@pytest.mark.parametrize("golden", ["python", "native"])
+def test_verify_null_tests_jsfx_entries_against_either_golden(
+        catalog, capsys, tmp_path, monkeypatch, golden):
+    from zorak_tpu_torch.shadow import cgen
+
+    monkeypatch.setattr(cgen, "CACHE_DIR", tmp_path / "cgen")
+    _echo_source(catalog, ECHO_FOLLOWER)
+    rc, out, _ = _run(main, ["verify", "--catalog", str(catalog), "--seconds",
+                             "0.1", "--golden", golden, "--device", "cpu"],
+                      capsys)
+    assert rc == 0
+    lines = out.splitlines()
+    assert sum("faust module (no shadow null test)" in ln for ln in lines) == 3
+    echo = [ln for ln in lines if ln.startswith("Echo: ")]
+    assert len(echo) == 1 and "PASS" in echo[0]
+    # the JAX package's CLI prints the same lines for the Faust entries
+    rc_j, out_j, _ = _run(jax_main, ["verify", "--catalog", str(catalog),
+                                     "--only", "VAR", "--golden", golden],
+                          capsys)
+    assert rc_j == 0 and out_j == "VAR: faust module (no shadow null test)\n"
+
+
+def test_verify_writes_the_export_bundle(catalog, capsys, tmp_path,
+                                         monkeypatch):
+    from zorak_tpu_torch.shadow import cgen
+
+    monkeypatch.setattr(cgen, "CACHE_DIR", tmp_path / "cgen")
+    _echo_source(catalog, ECHO_FOLLOWER)
+    out_dir = tmp_path / "bundle"
+    rc, out, _ = _run(main, ["verify", "--catalog", str(catalog), "--only",
+                             "Echo", "--seconds", "0.05", "--export-dir",
+                             str(out_dir), "--device", "cpu"], capsys)
+    assert rc == 0 and out.startswith("Echo: ") and "PASS" in out
+    assert sorted(p.name for p in out_dir.iterdir()) == [
+        "Echo_compiled.wav", "Echo_delta.wav", "Echo_report.json",
+        "Echo_shadow.wav"]
+    report = json.loads((out_dir / "Echo_report.json").read_text())
+    assert report["passed"] is True and report["samples"] == 2400
+
+
+def test_verify_prints_skip_where_the_vector_engine_refuses(catalog, capsys,
+                                                            tmp_path,
+                                                            monkeypatch):
+    from zorak_tpu_torch.shadow import cgen
+
+    monkeypatch.setattr(cgen, "CACHE_DIR", tmp_path / "cgen")
+    # an audio-coupled @block: the coupled regime is not ported yet
+    _echo_source(catalog, "desc:Echo\n@sample\nacc += abs(spl0);\n"
+                 "spl0 *= g;\n@block\ng = 1/(1 + acc*0.001);\n")
+    rc, out, _ = _run(main, ["verify", "--catalog", str(catalog), "--only",
+                             "Echo", "--seconds", "0.05", "--device", "cpu"],
+                      capsys)
+    assert rc == 0
+    assert out.startswith("Echo: SKIP vector engine (") and "slice 6" in out
+    assert out.rstrip().endswith(") — shadow-only")
 
 
 def test_render_needs_exactly_one_plugin(catalog, capsys, tmp_path):
@@ -166,6 +234,10 @@ _JSFX_MODULES = [
     "kernels._build", "lowering.scan_codegen", "verify.nulltest", "cli.main",
 ]
 
+# every module of the spectral and convolution slice and of the native golden
+_SPECTRAL_MODULES = ["kernels.stft", "kernels.convolution", "bench",
+                     "shadow.cgen"]
+
 
 def test_port_imports_neither_jax_nor_zorak_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -173,8 +245,8 @@ def test_port_imports_neither_jax_nor_zorak_tpu():
     assert res.returncode == 0, res.stderr
     n, rest = res.stdout.split(" ", 1)
     bad, names = rest.split("] [", 1)
-    assert int(n) >= 48 and bad.strip() == "["
-    for mod in _JSFX_MODULES:
+    assert int(n) >= 52 and bad.strip() == "["
+    for mod in _JSFX_MODULES + _SPECTRAL_MODULES:
         assert f"'zorak_tpu_torch.{mod}'" in names, mod
 
 
@@ -194,6 +266,8 @@ def test_entry_points_without_device_need_a_gpu(catalog, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["render", "--catalog", str(catalog), "--only", "VAR",
               "--in", str(wav_in), "--out", str(tmp_path / "o.wav")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["verify", "--catalog", str(catalog), "--only", "Echo"])
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

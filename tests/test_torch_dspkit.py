@@ -246,7 +246,7 @@ def test_chain_probe_takes_only_cuda_tensors():
 def test_build_module_imports_and_names_libraries_without_nvcc(
         monkeypatch, tmp_path):
     assert set(_build.SOURCES) == {"switching_scan", "linrec_scan",
-                                   "ring_taps"}
+                                   "ring_taps", "stft_ola", "partition_mac"}
     for name, src in _build.SOURCES.items():
         assert (_build.CSRC_DIR / src).is_file(), name
     path = _build.library_path("switching_scan")

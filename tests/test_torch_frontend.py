@@ -21,6 +21,7 @@ VERBATIM = [
                              "program", "symbols")),
     *(f"semantics/{m}.py" for m in ("__init__", "scalar", "mt19937np")),
     "shadow/state.py", "shadow/pyexec.py", "runtime/fftops.py",
+    "shadow/__init__.py", "shadow/cgen.py",
 ]
 
 PLUGINS = {

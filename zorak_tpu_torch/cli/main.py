@@ -1,8 +1,8 @@
-"""Command-line interface of the port: list / inspect / render.
+"""Command-line interface of the port: list / inspect / render / verify.
 
 Same arguments as zorak_tpu/cli/main.py (render's `--engine` names the
-port's engines: auto, vector, shadow), plus `--device` for render (default
-cuda; `--device cpu` runs the plain PyTorch path):
+port's engines: auto, vector, shadow), plus `--device` for render and
+verify (default cuda; `--device cpu` runs the plain PyTorch path):
 
     python -m zorak_tpu_torch.cli.main list    --catalog <catalog root>
     python -m zorak_tpu_torch.cli.main inspect --catalog ... --only VAR
@@ -11,10 +11,14 @@ cuda; `--device cpu` runs the plain PyTorch path):
     python -m zorak_tpu_torch.cli.main render  --catalog ... --only DDT \
         --in in.wav --out out.wav --slider 1=40 [--engine auto|vector|shadow]
         [--monitor compiled|shadow|delta]
+    python -m zorak_tpu_torch.cli.main verify  --catalog ... [--only Echo] \
+        [--seconds 0.5] [--srate 48000] [--golden python|native] \
+        [--export-dir DIR] [--device cpu]
 
 Faust entries render through the port's modules, JSFX entries through
-`runtime.engine.PluginInstance`.  The verify / bench / help / new-plugin
-subcommands come with the tooling slice.
+`runtime.engine.PluginInstance`.  `verify` null-tests each JSFX entry's
+vector render against the golden (`verify.null_test_plugin`).  The bench /
+help / new-plugin subcommands come with the tooling slice.
 """
 from __future__ import annotations
 
@@ -135,6 +139,35 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_verify(args) -> int:
+    from ..device import resolve_device
+    from ..lowering import SpecializeError
+    from ..verify import null_test_plugin
+
+    dev = resolve_device(args.device)
+    failures = 0
+    for spec in _specs(args):
+        if spec.plugin_type != "jsfx":
+            print(f"{spec.slug}: faust module (no shadow null test)")
+            continue
+        prog = spec.load_program()
+        n = int(args.seconds * args.srate)
+        rng = np.random.RandomState(42)
+        ch = max(1, prog.io_channels["process"])
+        x = (rng.randn(ch, n) * 0.25).astype(np.float32)
+        try:
+            rep = null_test_plugin(
+                prog, x, srate=args.srate, golden=args.golden,
+                export_dir=(args.export_dir if args.export_dir else None),
+                name=spec.slug, device=dev)
+            print(f"{spec.slug}: {rep.summary()}")
+            if not rep.audio_passed:
+                failures += 1
+        except SpecializeError as exc:
+            print(f"{spec.slug}: SKIP vector engine ({exc}) — shadow-only")
+    return 1 if failures else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="zorak-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -168,6 +201,16 @@ def main(argv=None) -> int:
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where to render (default cuda; no silent CPU fallback)")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("verify")
+    common(p)
+    p.add_argument("--seconds", type=float, default=0.5)
+    p.add_argument("--srate", type=float, default=48000.0)
+    p.add_argument("--golden", choices=("python", "native"), default="native")
+    p.add_argument("--export-dir", default="")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="where the vector engine renders (default cuda)")
+    p.set_defaults(fn=cmd_verify)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -34,6 +34,8 @@ SOURCES: Dict[str, str] = {
     "switching_scan": "switching_scan.cu",
     "linrec_scan": "linrec_scan.cu",
     "ring_taps": "ring_taps.cu",
+    "stft_ola": "stft_ola.cu",
+    "partition_mac": "partition_mac.cu",
 }
 
 # --fmad=false keeps multiply and add as two roundings, as in the plain
