@@ -82,19 +82,27 @@ and `faust`, all three by default; device and build always run;
             versions, bit-identical (every NaN one value), at odd shapes
             (1 and 3 lanes, a hop that does not divide the size, T <
             size, T not a multiple of the part size, an IR under one
-            partition, NaN, inf and -0.0 in the inputs) and at the
-            bench's (32 lanes x 20 s, size 2,048, hop 512; a 131,072-tap
-            IR at part size 2,048); stft_process, spectral_gate and
-            partitioned_convolve on the card against the port's CPU
-            render (the convolution also against scipy's fftconvolve in
-            f64) at the odd shapes and, on two lanes, at the bench's;
-            each kernel's time beside its bound, its plain version's and
-            the library call's (Tensor.unfold x window for K7a, F.fold x
-            1/wsum for K7b; K7c and K8 have none); then the three bench
-            sections of zorak_tpu_torch/bench.py as a user calls them:
-            each kernel's launches a section call, and the
-            stft2048_overlap_add_rtx, restoration_spectral_gate_rtx and
-            partitioned_convolution_131072tap_rtx figures;
+            partition, NaN, inf and -0.0 in the inputs; for K8 the edges
+            of its walk, every tile it is built for, scale 1 and 2^-12)
+            and at the bench's (32 lanes x 20 s, size 2,048, hop 512; a
+            131,072-tap IR at part size 2,048; K8's every tile, irfft's
+            1/N, and the earlier design); the convolution with 1/N folded
+            into K8 against irfft's own 1/N, bit for bit; stft_process,
+            spectral_gate and partitioned_convolve on the card against
+            the port's CPU render (the convolution also against scipy's
+            fftconvolve in f64) at the odd shapes and, on two lanes, at
+            the bench's; each kernel's time beside its bound, its plain
+            version's and the library call's (Tensor.unfold x window for
+            K7a, F.fold x 1/wsum for K7b, a grouped complex conv1d with
+            TF32 off for K8; K7c has none); K8's tiles swept, its design
+            and the earlier one timed in turns beside the SM clock under load;
+            then the three bench sections of zorak_tpu_torch/bench.py as
+            a user calls them: each kernel's launches a section call,
+            and the stft2048_overlap_add_rtx,
+            restoration_spectral_gate_rtx and
+            partitioned_convolution_131072tap_rtx figures; a profiler
+            pass a pipeline (the convolution's must hold K8 and no
+            multiply pass);
 5. kernels (faust)  the switching scan (K1) must be bit-identical
             (integer views equal), in f64 and f32: at modest shapes, at
             the batch and main paths' shapes (its one-chunk case too),
@@ -139,6 +147,7 @@ Imports nothing of JAX or of the JAX package `zorak_tpu`.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -247,9 +256,16 @@ SPEC_SIZE, SPEC_HOP, PART = 2048, 512, 2048
 K7_ODD = [(1, 5000, 512, 128), (3, 7001, 600, 250), (1, 300, 512, 128),
           (3, 4097, 2048, 512), (1, 48000, 1024, 384)]
 # (lanes, frames, bins, parts) for K8: one partition, an IR under one
-# partition's worth of frames, parts beyond one staged group (64)
+# partition's worth of frames, parts beyond one staged group (64); then
+# the edges of the walk of each tile (R frames a thread, W warps, 64
+# partitions a group; the default R = 16, W = 8): frames 1, R - 1, R + 1,
+# W*R + 1, two tiles and a bit; parts < R, 65, more than the frames,
+# three groups; 33 bins; three lanes
 K8_ODD = [(1, 5, 9, 1), (3, 7, 33, 4), (2, 3, 17, 9), (1, 20, 5, 70),
-          (3, 130, 1025, 65), (1, 1, 2049, 64)]
+          (3, 130, 1025, 65), (1, 1, 2049, 64), (3, 1, 33, 5),
+          (3, 15, 33, 9), (2, 17, 33, 65), (3, 129, 33, 130),
+          (3, 259, 65, 131), (2, 31, 33, 7), (2, 33, 33, 40),
+          (1, 65, 33, 66)]
 # (lanes or None, T, IR taps, part_size) for the whole convolution
 CONV_ODD = [(None, 20000, 100, 1024), (3, 5000, 3000, 512),
             (1, 700, 300, 256), (3, 4097, 9000, 256), (None, 100, 1000, 256)]
@@ -1324,6 +1340,117 @@ def verify_cli_phase(card):
           f"({time.perf_counter() - t0:.1f} s) card='{card}'")
 
 
+def smi_under_load(torch, fn, reps: int) -> str:
+    """nvidia-smi's SM clock, power draw and power limit, read while the
+    card works through `reps` queued calls of fn."""
+    for _ in range(reps):
+        fn()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    torch.cuda.synchronize()
+    return smi
+
+
+def k8_at_the_bench(torch, CV, xb, ir_np, n, held, timed, entry):
+    """K8 on the bench's input spectra and IR partitions: held to its
+    plain version (every tile, scale 1 and irfft's 1/N) and the earlier
+    design to it; the partitioned convolution's new form (1/N folded into
+    K8) against its old form bit for bit; the tiles swept; this design
+    and the earlier one timed in turns (earlier, this, this, earlier)
+    beside nvidia-smi's SM clock under load; the library call (a grouped
+    complex conv1d, a group a bin, TF32 off) timed and compared.  Fills
+    K8's entry."""
+    F = torch.nn.functional
+    h = CV.ir_spectra(torch.from_numpy(ir_np).to(xb.device), PART)
+    X = CV.input_spectra(xb, PART).contiguous()
+    parts, bins = h.shape
+    Y = CV.partition_mac(X, h)
+    ref = CV.partition_mac_reference(X, h)
+    held("K8 at the bench shape", Y, ref)
+    scale = 1.0 / (2 * PART)
+    held("K8 with irfft's 1/N at the bench shape",
+         CV.partition_mac(X, h, scale),
+         torch.view_as_complex(torch.view_as_real(ref) * scale))
+    for tile in CV.TILES[1:]:
+        held(f"K8 tile {tile} at the bench shape",
+             CV.partition_mac(X, h, tile=tile), ref)
+    del ref
+
+    lib = CV._library()
+    lib.zorak_partition_mac_earlier.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    lib.zorak_partition_mac_earlier.restype = ctypes.c_int
+    y_old = torch.empty_like(X)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def earlier():
+        err = lib.zorak_partition_mac_earlier(
+            X.data_ptr(), h.data_ptr(), y_old.data_ptr(), *X.shape, parts,
+            stream)
+        check(err == 0, f"K8's earlier design: launch failed, cudaError {err}")
+
+    earlier()
+    held("K8's earlier design at the bench shape", y_old, Y)
+
+    # the convolution: 1/N in K8's store against irfft's own, bit for bit
+    new = CV.partitioned_convolve(xb, torch.from_numpy(ir_np).to(xb.device),
+                                  PART)
+    old = CV.overlap_save_crop(torch.fft.irfft(Y, 2 * PART, dim=-1), n)
+    check(same_bits(new, old), "partitioned_convolve: 1/N folded into K8 "
+          "differs from irfft's own 1/N")
+    print("[spectral] partitioned_convolve at the bench shape: 1/N folded "
+          "into K8 bit-identical to irfft's own 1/N")
+    y_max = float(Y.abs().max())
+    del new, old, Y
+
+    macs = X.numel() * parts
+    ops_ms = MAC_INSTR * macs / F32_INSTR_PER_S * 1e3
+    sweep = {}
+    for tile in CV.TILES:
+        sweep[str(tile)] = timed(lambda: CV.partition_mac(X, h, tile=tile))
+        print(f"[spectral] K8 tile (R, W, PG) = {tile}: "
+              f"{sweep[str(tile)]:.4f} ms, {ops_ms / sweep[str(tile)]:.1%} "
+              f"of the operations bound")
+    turns = [timed(earlier), timed(lambda: CV.partition_mac(X, h)),
+             timed(lambda: CV.partition_mac(X, h)), timed(earlier)]
+    smi = smi_under_load(torch, lambda: CV.partition_mac(X, h), 1500)
+    ms, earlier_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    print(f"[spectral] K8 in turns (earlier, this, this, earlier): "
+          f"{', '.join(f'{t:.4f}' for t in turns)} ms; this design "
+          f"{ms:.4f} ms against {earlier_ms:.4f} ms, {ops_ms / ms:.1%} of "
+          f"the operations bound; under load clocks.sm, power.draw, "
+          f"power.limit = {smi}")
+    del y_old
+
+    # the library yardstick: one grouped complex conv1d, input laid out
+    # beforehand, TF32 off (cuDNN's default for f32 convolutions is on)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        xin = F.pad(X.permute(0, 2, 1), (parts - 1, 0)).contiguous()
+        wt = h.T.flip(-1).unsqueeze(1).contiguous()
+        y_lib = F.conv1d(xin, wt, groups=bins).permute(0, 2, 1)
+        lib_err = float((y_lib - CV.partition_mac(X, h)).abs().max())
+        del y_lib
+        library_ms = timed(lambda: F.conv1d(xin, wt, groups=bins), 3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del xin
+    print(f"[spectral] K8's library call, grouped complex conv1d (cudnn "
+          f"allow_tf32 {tf32} by default, False for the call): "
+          f"{library_ms:.4f} ms, max |delta| from the kernel {lib_err:.3e} "
+          f"(max |Y| {y_max:.1f}: another summing order)"
+          f"{'; it beats the kernel' if library_ms < ms else ''}")
+    entry("partition_mac", "zorak_tpu/kernels/convolution.py:73-80", "K8",
+          ms, timed(lambda: CV.partition_mac_reference(X, h), 3),
+          8.0 * (2 * X.numel() + h.numel()), MAC_INSTR * macs, library_ms,
+          X.shape + (parts,), complex_macs=macs, earlier_ms=earlier_ms,
+          turns_ms=turns, tile_sweep_ms=sweep, default_tile=list(CV.TILES[0]),
+          smi_under_load=smi, library_max_abs_delta=lib_err)
+
+
 def spectral_phase(torch, cuda, rng, card):
     """The spectral and convolution slice (BASELINE configs 2-4): K7a,
     K7b, K7c and K8 against their plain versions bit for bit, at odd
@@ -1418,12 +1545,18 @@ def spectral_phase(torch, cuda, rng, card):
     for lanes, n_frames, bins, parts in K8_ODD:
         x = torch.randn(lanes, n_frames, bins, dtype=torch.complex64,
                         device=cuda)
+        x[-1, 0, 0] = complex(float("nan"), -0.0)
         h = torch.randn(parts, bins, dtype=torch.complex64, device=cuda) * 30
-        h[0, 0] = complex(float("inf"), 0.0)   # the zero rows meet it
-        held(f"K8 {lanes}x{n_frames}x{bins} {parts} parts",
-             CV.partition_mac(x, h), CV.partition_mac_reference(x, h))
+        h[0, 1] = complex(float("inf"), 0.0)   # the zero rows meet it
+        for scale in (1.0, 2.0 ** -12):
+            want = CV.partition_mac_reference(x, h, scale)
+            for tile in CV.TILES:
+                held(f"K8 {lanes}x{n_frames}x{bins} {parts} parts scale "
+                     f"{scale} tile {tile}",
+                     CV.partition_mac(x, h, scale, tile), want)
     print(f"[spectral] K7a, K7b, K7c and K8 bit-identical to their plain "
-          f"versions at {len(K7_ODD)} + {len(K8_ODD)} odd shapes")
+          f"versions at {len(K7_ODD)} + {len(K8_ODD)} odd shapes (K8: "
+          f"every tile of {CV.TILES}, scale 1 and 2^-12)")
 
     # the pipelines at odd shapes against the port's CPU render
     for lanes, t, size, hop in K7_ODD:
@@ -1557,21 +1690,7 @@ def spectral_phase(torch, cuda, rng, card):
           spec.shape)
     del spec, xq
     # K8 on the bench's input spectra and IR partitions
-    h = CV.ir_spectra(torch.from_numpy(ir_np).to(cuda), PART)
-    n_cf = -(-n // PART)
-    xp = F.pad(xb, (PART, n_cf * PART - n))
-    X = torch.fft.rfft(xp.unfold(-1, 2 * PART, PART), dim=-1).contiguous()
-    del xp
-    Y = CV.partition_mac(X, h)
-    held("K8 at the bench shape", Y, CV.partition_mac_reference(X, h))
-    del Y
-    macs = X.numel() * h.shape[0]
-    entry("partition_mac", "zorak_tpu/kernels/convolution.py:209", "K8",
-          timed(lambda: CV.partition_mac(X, h)),
-          timed(lambda: CV.partition_mac_reference(X, h), 3),
-          8.0 * (2 * X.numel() + h.numel()), MAC_INSTR * macs, None,
-          X.shape + (h.shape[0],), complex_macs=macs)
-    del X
+    k8_at_the_bench(torch, CV, xb, ir_np, n, held, timed, entry)
     torch.cuda.empty_cache()
 
     # -- the main path: the three bench sections --------------------------------
@@ -1619,7 +1738,13 @@ def spectral_phase(torch, cuda, rng, card):
             ("convolution", lambda: CV.partitioned_convolve(xb, ir_dev,
                                                             PART))):
         call()
-        profile_render(call, f"bench section {section}")
+        names = profile_render(call, f"bench section {section}")[1]
+    # irfft runs unscaled: its 1/N is K8's (no multiply pass left)
+    check(any("partition_mac_kernel" in k for k in names) and not any(
+        "MulFunctor" in k for k in names), f"the convolution's trace: "
+          f"K8 missing or a multiply pass left: {sorted(names)}")
+    print("[spectral] the convolution's trace holds K8 and no multiply "
+          "pass (irfft's 1/N is K8's)")
     del xq_dev
     torch.cuda.empty_cache()
 
@@ -2024,7 +2149,9 @@ def main(argv=None) -> int:
     print(f"[build] {', '.join(logs)} in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # K8 has a build a tile: name each kernel its lines belong to
+            if "registers" in line or "spill" in line or (
+                    name == "partition_mac" and "Function properties" in line):
                 print(f"[build] {name}: {line.strip()}")
 
     kernels = []

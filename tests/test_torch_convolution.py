@@ -11,7 +11,17 @@ Tolerances:
   differently; the output's scale grows with the IR's energy), and
   within 2e-5 x max(1, max|ref|) of np.convolve in f64, the bound of
   tests/test_kernels.py;
-- K8's plain version bit for bit against its NumPy loop.
+- K8's plain version bit for bit against its NumPy loop;
+- the new form of `partitioned_convolve` (irfft's 1/N folded into K8 as
+  a power-of-two scale, the inverse transform unscaled) bit for bit
+  against the old form (scale 1, irfft's own 1/N) at the shapes
+  chip_smoke.py holds the card's convolution at: a power of two scales
+  every rounding exactly;
+- K8's library yardstick, one grouped complex `F.conv1d` over frames (a
+  group a bin), within 1e-5 x max|y| of K8's plain version: the same
+  function summed in another order (PyTorch's complex convolution
+  forms each product from three real ones), a few f32 ulps of the
+  largest partial sum apart.
 """
 import importlib
 
@@ -171,3 +181,69 @@ def test_cpu_tensors_take_the_plain_version():
     before = PC.LAUNCHES
     PC.partitioned_convolve(torch.zeros(2, 3000), _ir(3000, 1), part_size=512)
     assert PC.LAUNCHES == before
+
+
+def test_partition_mac_scale_is_exact():
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy((rng.randn(2, 9, 17) + 1j * rng.randn(2, 9, 17)
+                          ).astype(np.complex64))
+    h = torch.from_numpy((rng.randn(5, 17) + 1j * rng.randn(5, 17)
+                          ).astype(np.complex64))
+    y = PC.partition_mac(x, h)
+    for scale in (2.0 ** -13, 0.5, 8.0):
+        got = torch.view_as_real(PC.partition_mac(x, h, scale))
+        assert torch.equal(got, torch.view_as_real(y) * scale)
+
+
+def test_partition_mac_refuses_a_scale_that_is_not_a_power_of_two():
+    x = torch.zeros(1, 4, 9, dtype=torch.complex64)
+    h = torch.zeros(3, 9, dtype=torch.complex64)
+    for scale in (0.3, 3.0, -0.5, 0.0, float("inf"), float("nan"),
+                  2.0 ** -127, 2.0 ** 128):
+        with pytest.raises(ValueError, match="power of two"):
+            PC.partition_mac(x, h, scale)
+    with pytest.raises(ValueError, match="tile"):
+        PC.partition_mac(x, h, tile=(4, 2, 8))      # the host form's only
+    with pytest.raises(ValueError, match="power of 2"):
+        PC.partitioned_convolve(torch.zeros(100), np.ones(3), part_size=384)
+
+
+# chip_smoke.py's CONV_ODD: (lanes or None for [T], T, IR taps, part_size)
+CONV_ODD = [(None, 20000, 100, 1024), (3, 5000, 3000, 512),
+            (1, 700, 300, 256), (3, 4097, 9000, 256), (None, 100, 1000, 256)]
+
+
+@pytest.mark.parametrize("lanes,t,k,b", CONV_ODD, ids=[
+    f"{'T' if l is None else l}x{t}-k{k}-B{b}" for l, t, k, b in CONV_ODD])
+def test_folded_scale_equals_the_separate_inverse_scale(lanes, t, k, b):
+    shape = (t,) if lanes is None else (lanes, t)
+    x = torch.from_numpy(np.random.RandomState(k).randn(*shape).astype(
+        np.float32))
+    ir = torch.from_numpy(_ir(k, t))
+    got = PC.partitioned_convolve(x, ir, part_size=b)
+    # the old form: K8 unscaled, then irfft with its own 1/N
+    xl = x.reshape(-1, t)
+    y_spec = PC.partition_mac(PC.input_spectra(xl, b), PC.ir_spectra(ir, b))
+    old = PC.overlap_save_crop(torch.fft.irfft(y_spec, 2 * b, dim=-1), t)
+    assert torch.equal(got.view(torch.int32),
+                       old.reshape(shape).view(torch.int32))
+
+
+@pytest.mark.parametrize("lanes,n_frames,bins,parts", [
+    (2, 40, 33, 8), (3, 7, 33, 4), (1, 20, 5, 70), (2, 3, 17, 9),
+    (3, 130, 65, 65)])
+def test_partition_mac_library_call_computes_the_same_function(
+        lanes, n_frames, bins, parts):
+    rng = np.random.RandomState(n_frames)
+    x = torch.from_numpy((rng.randn(lanes, n_frames, bins)
+                          + 1j * rng.randn(lanes, n_frames, bins)
+                          ).astype(np.complex64))
+    h = torch.from_numpy((rng.randn(parts, bins) + 1j * rng.randn(
+        parts, bins)).astype(np.complex64))
+    # chip_smoke.py times this call as K8's library_ms
+    lib = torch.nn.functional.conv1d(
+        torch.nn.functional.pad(x.permute(0, 2, 1), (parts - 1, 0)),
+        h.T.flip(-1).unsqueeze(1), groups=bins).permute(0, 2, 1)
+    want = PC.partition_mac_reference(x, h)
+    assert lib.shape == want.shape
+    assert (lib - want).abs().max() <= 1e-5 * want.abs().max()

@@ -11,7 +11,12 @@ A kernel whose text is generated at run time (a sequential scan group,
 `lowering/scan_codegen.py`) takes the second way in: `load_generated`
 writes the text to `_build/gen-<hash>.cu`, compiles it with the same flags
 plus `-I csrc/` and loads it; the hash covers the text, the flags and the
-headers of `csrc/`, so the same text never compiles twice.
+headers of `csrc/`, so the same text never compiles twice.  A fixed
+source's hash covers those headers too.
+
+A source that also compiles without CUDA (its host form, for tests where
+there is no GPU) is built by `load_host` (a fixed source) or
+`load_generated_host` (a generated one) with a host C++ compiler.
 
 Importing this module runs nothing and needs no nvcc.
 """
@@ -60,11 +65,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where kernel `name` is built, named by the hash of source and flags."""
-    src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + "\0".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where kernel `name` is built, named by the hash of its source, the
+    flags and csrc/'s headers (a source may include one)."""
+    src = (CSRC_DIR / SOURCES[name]).read_text()
+    return BUILD_DIR / f"lib{name}-{_generated_stem(src, NVCC_FLAGS)}.so"
 
 
 def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
@@ -189,7 +193,24 @@ def load_generated_host(source: str) -> ctypes.CDLL:
     plain loop over time around the same bodies) and load it.  For tests
     and for reading a body's arithmetic where there is no GPU; no render
     path calls it."""
-    out = BUILD_DIR / f"libgenhost-{_generated_stem(source, HOST_FLAGS)}.so"
+    return _load_host_text(
+        source,
+        BUILD_DIR / f"libgenhost-{_generated_stem(source, HOST_FLAGS)}.so")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """Compile kernel `name`'s source for the CPU (its host form: the file
+    without __CUDACC__) and load it.  For tests where there is no GPU; no
+    render path calls it."""
+    source = (CSRC_DIR / SOURCES[name]).read_text()
+    return _load_host_text(
+        source,
+        BUILD_DIR / f"libhost-{name}-{_generated_stem(source, HOST_FLAGS)}.so")
+
+
+def _load_host_text(source: str, out: Path) -> ctypes.CDLL:
+    """Compile C++ text with the host flags into `out` unless it is built,
+    and load it."""
     if not out.is_file():
         cxx = find_host_compiler()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -200,7 +221,7 @@ def load_generated_host(source: str) -> ctypes.CDLL:
             input=source, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"host build of a generated source failed "
+            raise RuntimeError(f"host build of {out.name} failed "
                                f"({cxx} exit {proc.returncode}):\n"
                                f"{proc.stdout}")
         os.replace(tmp, out)
