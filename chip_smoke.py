@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py --phases jsfx      # the JSFX phases alone
+    python3 chip_smoke.py --phases batch     # the batch phases alone
     python3 chip_smoke.py --phases spectral  # the spectral phase alone
 
 Phases, in order; any failure raises and the script exits non-zero
-without printing a result (`--phases` takes any of `jsfx`, `spectral`
-and `faust`, all three by default; device and build always run;
-`k4sweep` is described at the end):
+without printing a result (`--phases` takes any of `jsfx`, `batch`,
+`spectral` and `faust`, all four by default; device and build always
+run; `k4sweep` is described at the end):
 
 1. device   the card's name and power limit (nvidia-smi);
 2. build    every CUDA kernel of the paths, from csrc/ in this checkout,
@@ -77,6 +78,26 @@ and `faust`, all three by default; device and build always run;
             `null_test_plugin(golden="native")`: audio within 1e-5, vars
             and heap within 1e-8 at the end; then the CLI's `verify`
             (native golden, an export bundle) on a one-entry catalog;
+4a. batch   K3 and K4 with a files axis (1, 3 and 8 files, other data
+            a file, NaN in one, for K4 the last file's burst into
+            silence) against their plain versions and against each
+            file's own launch, bit for bit, the K4 re-run steps and
+            flags of a batch those of its files alone; then the JSFX
+            batch path, BatchRenderer on 8 files x 60 s of stereo noise
+            at the bench's segment ((1 << 15) * 11, 8 segments) through
+            the 192-tap widening, the cross-fed network and the two
+            scan-group plugins: every file torch.equal to its solo
+            render on the card, K2, K3 and K4 launched exactly as often
+            as for one file, the K2, K3 and K4 launches of the middle
+            segment held bit for bit to their plain versions on the same
+            inputs (linrec_chunked, ring_tap_sum_reference,
+            scan_group_plain), times beside one file's, a profiler pass;
+            the catalog functions (catalog_batch_render,
+            catalog_stacked_render) on a temporary catalog of two Faust
+            modules and three JSFX plugins, CUDA against CPU, K1 to K4
+            launched; then zorak_tpu_torch/bench.py's config 1:
+            ddt_offline_render_rtx at both segment lengths and
+            ddt_batched;
 4b. spectral  the STFT framing (K7a), overlap-add (K7b) and gate gain
             (K7c) kernels and the partition MAC (K8) against their plain
             versions, bit-identical (every NaN one value), at odd shapes
@@ -130,8 +151,10 @@ and `faust`, all three by default; device and build always run;
 then one `kernels` JSON line (beside `bound_ms`: `chain_ms`, the chain
 bound of T steps in one thread, `chunk_chain_ms`, that of the chunked
 scan's warmup + chunk steps, `earlier_ms`, the one-chunk time, the
-worst case, and the program-like render's re-run steps) and, last, the
-device JSON line.  Each phase prints the seconds it took.
+worst case, and the program-like render's re-run steps; K2, K3 and K4
+carry `launches_batched`, their launches in the batch phase's render of 8
+files) and, last, the device JSON line.  Each phase prints the seconds
+it took.
 
     python3 chip_smoke.py --phases k4sweep
 
@@ -342,7 +365,7 @@ def profile_render(render, label: str, segments: int = 0, traces: int = 3):
     the fullest of `traces` torch.profiler traces of the kernels it ran
     (a trace can miss a few of a render's launches); returns the device
     events a segment (None where the trace holds none or `segments` is 0)
-    and the launches in the trace by kernel name."""
+    and (launches, device us) in the trace by kernel name."""
     from torch.autograd import DeviceType
 
     kernels = max(([e for e in traced(render)
@@ -366,8 +389,7 @@ def profile_render(render, label: str, segments: int = 0, traces: int = 3):
           f"{1.0 - busy_us / span_us:.3f}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[profile]   {us / 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
-    return (len(kernels) / segments if segments else None,
-            {name: n for name, (n, _us) in by_name.items()})
+    return len(kernels) / segments if segments else None, by_name
 
 
 def same_bits(a, b):
@@ -1235,7 +1257,7 @@ def jsfx_phase(torch, cuda, rng, card):
               f"audio_s_per_s={sec / (dev_ms / 1e3):.1f}")
         events, by_name = profile_render(lambda: kern.render_device(x_dev),
                                          f"JSFX {label}", segments)
-        traced_k3 = sum(n for name, n in by_name.items()
+        traced_k3 = sum(n for name, (n, _us) in by_name.items()
                         if "ring_tap_sum" in name)
         print(f"[main] JSFX {label}: device events a segment {events}, K3 "
               f"launches a segment {per_segment[1]} (in the trace "
@@ -1338,6 +1360,411 @@ def verify_cli_phase(card):
     print(f"[verify] CLI verify --golden native --export-dir on the card: rc "
           f"{rc}, bundle {names}, max |delta| {report['max_abs_delta']:.3e} "
           f"({time.perf_counter() - t0:.1f} s) card='{card}'")
+
+
+def batch_kernels_phase(torch, cuda, rng):
+    """K3 and K4 with a files axis against their plain versions on the
+    same CUDA inputs, and each file against the kernel's single-file
+    launch, bit for bit (every NaN one value): 1, 3 and 8 files, other
+    data and cursors a file, NaN in one file; for K4 the last file's
+    burst into silence makes its fix-up walk again, which must mark that
+    file's flag alone, as its single-file launch marks its own."""
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import ring_taps as RT, scan_group as SG
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+
+    def T(v):
+        return torch.from_numpy(np.asarray(v, dtype=np.float64)).to(cuda)
+
+    cases = 0
+    for nf in (1, 3, 8):
+        for n in (1, 777, SEG_L):
+            parts = [tap_case(rng, 192, 16384, n), tap_case(rng, 16, 4096, n),
+                     tap_case(rng, 5, max(4096, 2 * n), n, long_only=True)]
+            rings = [rng.randn(nf, len(r)) for r, *_ in parts]
+            rings[0][nf - 1, ::97] = np.nan       # NaN in the last file
+            # a stream a file, one stream for all files, history alone;
+            # inits a value a file, a stream a file, one float
+            streams = [T(rng.randn(nf, n)), T(parts[1][1]), None]
+            inits = [T(rng.randn(nf, 1)), T(rng.randn(nf, n)), 0.25]
+            cursors = [16383, 1000, 2048]
+            for tile in (None, RT.TILES[0], RT.TILES[-1]):
+                tables = RT.TapTables([(st, g) for _r, _s, st, g in parts],
+                                      cuda, tile, n, files=nf)
+                args = (tables, [T(r) for r in rings], cursors, streams,
+                        inits, n)
+                got = RT.ring_tap_sum(*args)
+                ref = RT.ring_tap_sum_reference(*args)
+                what = f"ring_tap_sum files={nf} L={n} tile={tables.tile}"
+                check(got.shape == (3, nf, n), f"{what}: {tuple(got.shape)}")
+                check(same_values(got, ref), f"{what} differs from its plain "
+                      "fold")
+                for f in range(nf):
+                    one = RT.ring_tap_sum(
+                        tables, [r[f] for r in args[1]], cursors,
+                        [s if s is None or s.dim() == 1 else s[f]
+                         for s in streams],
+                        [i[f] if isinstance(i, torch.Tensor) else i
+                         for i in inits], n)
+                    check(same_values(got[:, f], one),
+                          f"{what}: file {f} differs from its own launch")
+                cases += 1
+    torch.cuda.synchronize()
+    print(f"[batch] ring_tap_sum with files 1, 3, 8 x L 1, 777, {SEG_L} x "
+          f"three tiles: {cases} cases bit-identical to the plain fold and "
+          "to each file's own launch (NaN in one file)")
+
+    small = {"chunk": 64, "warmup": 256}   # many chunks, many re-runs
+    key = str(torch.zeros(0, device=cuda).device)     # the flags' key
+    for name in ("follower", "stereo_followers",
+                 "group_feeding_from_vectorized_delay"):
+        src, _nch = K4_BODIES[name]
+        levels = PluginInstance(compile_plugin_source(src),
+                                srate=SR).kernel.scan_level_programs()
+        base = levels[min(levels)][2]
+
+        def fresh():
+            # flags of its own; the library is the same text's, built once
+            return SG.ScanGroupProgram(base.steps, base.outs, base.n_ext)
+
+        def reruns_of(fn):
+            for v in SG.RERUN_STEPS.values():
+                v.zero_()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, sum(int(v.item()) for v in SG.RERUN_STEPS.values())
+
+        for nf in (1, 3, 8):
+            for n in (4096, SEG_L):
+                xs = rng.randn(nf, n, base.n_ext) * 0.5
+                if nf > 1 and base.n_ext:
+                    xs[1, n // 3, 0] = -0.0
+                    xs[1, 3 * n // 4, -1] = np.nan
+                xs[nf - 1, n // 10:] = 0.0           # a burst into silence
+                xs = T(xs)
+                c0 = T(rng.uniform(0.1, 0.9, (nf, base.n_carry)))
+                ref = (SG.scan_group_plain(base.steps, base.outs, xs, c0)
+                       if n <= 4096 else None)
+                for kw in ({}, small):
+                    program = fresh()
+                    launches = SG.LAUNCHES
+                    got, reruns = reruns_of(
+                        lambda: SG.scan_group(program, xs, c0, **kw))
+                    check(SG.LAUNCHES == launches + 1,
+                          f"scan_group {name}: {SG.LAUNCHES - launches} "
+                          "launches for one batch")
+                    marks = [int(v) for v in program._flags[(key, nf)][0]]
+                    what = f"scan_group {name} files={nf} L={n} {kw or ''}"
+                    if ref is not None:
+                        check(same_values(got, ref),
+                              f"{what} differs from its plain loop")
+                    solo_reruns, solo_marks = 0, []
+                    for f in range(nf):
+                        alone = fresh()
+                        one, r = reruns_of(lambda: SG.scan_group(
+                            alone, xs[f], c0[f], **kw))
+                        check(same_values(got[f], one),
+                              f"{what}: file {f} differs from its own launch")
+                        solo_reruns += r
+                        solo_marks += [int(v) for v in
+                                       alone._flags[(key, 1)][0]]
+                    check(reruns == solo_reruns and marks == solo_marks,
+                          f"{what}: re-runs {reruns} flags {marks}, each file "
+                          f"alone {solo_reruns} {solo_marks}")
+                    if name == "group_feeding_from_vectorized_delay" and kw:
+                        check(marks == [-1] * (nf - 1) + [1],
+                              f"{what}: flags {marks}, the silent file's alone "
+                              "expected")
+                    print(f"[batch] {what}: bit-identical to "
+                          f"{'the plain loop and ' if ref is not None else ''}"
+                          f"each file's own launch, re-run steps {reruns} "
+                          f"(each file alone: {solo_reruns}), flags {marks}")
+
+
+def kernel_bounds(kern, label, nf, seg, per_segment, segments):
+    """(kernel, trace name tag, launches a render, (bound ms, by)) of K2,
+    K3 and K4 in a render of nf files at segment length seg: each input
+    read and each output written once at the HBM rate, or K3's two f64
+    instructions a tap and sample."""
+    out = []
+    if per_segment[0]:
+        # the one-pole wave: nf x 2 rows, a scalar a; b read, z written
+        rows = nf * 2
+        out.append(("linrec_scan", "linrec_", per_segment[0] * segments,
+                    bound_ms(16 * rows * seg, 0.0)))
+    if per_segment[1]:
+        launches = kern.tap_launches(seg, nf)
+        taps = sum(sum(g.tables.counts) for g in launches)
+        nbytes = 12 * taps
+        for g in launches:
+            for st, m in zip(g.tables.starts, g.members):
+                mod = m.region[1]
+                end = min(max(st) + seg, mod + (seg if m.needs_src else 0))
+                nbytes += 8 * nf * (end - min(st) + seg)
+        # a DMUL and a DADD a tap and sample, at the f64 instruction rate
+        ops_ms = 2 * taps * seg * nf / F64_INSTR_PER_S * 1e3 / len(launches)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3 / len(launches)
+        out.append(("ring_tap_sum", "ring_tap_sum",
+                    per_segment[1] * segments,
+                    (max(ops_ms, bytes_ms),
+                     "operations" if ops_ms > bytes_ms else "bytes")))
+    if per_segment[2]:
+        ((_k, ext, program, _i),) = kern.scan_level_programs().values()
+        out.append(("scan_group", "zs_", per_segment[2] * segments,
+                    bound_ms(8 * nf * seg * (len(ext) + program.n_carry),
+                             0.0)))
+    return out
+
+
+def held_at_the_batch_shapes(torch, label, src, seg, x, y, per_segment,
+                             segment):
+    """K2, K3 and K4 at the shapes a batch render gives them: a fresh
+    BatchRenderer renders x with the wrappers' calls of one segment
+    recorded (the inputs copied before the launch, the kernel's output
+    kept), and each recorded launch is held bit for bit (every NaN one
+    value) to its plain version on those same CUDA inputs: K2 to
+    `linrec_chunked`, the NumPy mirror of its order, K3 to
+    `ring_tap_sum_reference`, K4 to `scan_group_plain` (within
+    K4_LIBM_TOL where its body calls the device's libm).  The render must
+    equal y."""
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
+    from zorak_tpu_torch.kernels import scan_group as SG
+    from zorak_tpu_torch.parallel import BatchRenderer
+
+    def copied(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, (list, tuple)):
+            return type(v)(copied(u) for u in v)
+        return v
+
+    wrappers = [(LS, "linrec_scan", per_segment[0]),
+                (RT, "ring_tap_sum", per_segment[1]),
+                (SG, "scan_group", per_segment[2])]
+    calls = {name: [] for _m, name, _n in wrappers}
+    seen = dict.fromkeys(calls, 0)
+
+    def spy(mod, name, fn, per):
+        def run(*args):
+            i = seen[name]
+            seen[name] += 1
+            if per * segment <= i < per * (segment + 1):
+                kept = copied(args)
+                out = fn(*args)
+                calls[name].append((kept, out))
+                return out
+            return fn(*args)
+        setattr(mod, name, run)
+
+    kept_fns = [(mod, name, getattr(mod, name)) for mod, name, _n in wrappers]
+    try:
+        for (mod, name, per), (_m, _n, fn) in zip(wrappers, kept_fns):
+            spy(mod, name, fn, per)
+        # a fresh renderer: its segment program binds the recording wrappers
+        br = BatchRenderer(compile_plugin_source(src), SR, segment_len=seg)
+        again = br.render_files(x)
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in kept_fns:
+            setattr(mod, name, fn)
+    check(torch.equal(again, y), f"batch {label}: the recorded render differs")
+    shapes = []
+    for name, rec in calls.items():
+        per = dict((n, p) for _m, n, p in wrappers)[name]
+        check(len(rec) == per, f"batch {label}: {len(rec)} {name} calls "
+              f"recorded in segment {segment}, {per} expected")
+        for args, got in rec:
+            what = f"batch {label} {name} segment {segment}"
+            if name == "linrec_scan":
+                a, b, z0 = (v.cpu().numpy() for v in args)
+                ref = torch.from_numpy(LS.linrec_chunked(a, b, z0))
+                check(same_values(got.cpu(), ref),
+                      f"{what} differs from linrec_chunked")
+                shapes.append(f"K2 rows {tuple(b.shape)}")
+            elif name == "ring_tap_sum":
+                ref = RT.ring_tap_sum_reference(*args)
+                check(same_values(got, ref), f"{what} differs from its plain "
+                      "fold")
+                shapes.append(f"K3 {tuple(got.shape)} "
+                              f"taps {list(args[0].counts)}")
+            else:
+                program, xs, c0 = args
+                ref = SG.scan_group_plain(program.steps, program.outs, xs, c0)
+                if program.transcendental:
+                    check(bool((torch.isnan(got) == torch.isnan(ref)).all())
+                          and float((got - ref).nan_to_num().abs().max())
+                          <= K4_LIBM_TOL, f"{what} differs from its plain "
+                          f"loop by more than {K4_LIBM_TOL}")
+                else:
+                    check(same_values(got, ref),
+                          f"{what} differs from its plain loop")
+                shapes.append(f"K4 xs {tuple(xs.shape)}")
+    return shapes
+
+
+def batch_phase(torch, cuda, rng, card):
+    """The JSFX batch path: BatchRenderer on 8 files x 60 s of stereo at
+    the bench's segment through the 192-tap widening, the cross-fed
+    network and the two scan-group plugins (each file equal to its solo
+    render on the card, K2, K3 and K4 launched as often as for one file,
+    times, a profiler pass); the catalog functions on a temporary catalog,
+    CUDA against CPU; then the config-1 figures of
+    zorak_tpu_torch/bench.py.  Returns the batched launches of the
+    widening (K2, K3) and of the follower (K4)."""
+    import tempfile
+
+    from zorak_tpu_torch import bench
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
+    from zorak_tpu_torch.kernels import scan_group as SG
+    from zorak_tpu_torch.kernels import switching_scan as SS
+    from zorak_tpu_torch.parallel import (
+        BatchRenderer, build_catalog_renderers, catalog_batch_render,
+        catalog_stacked_render)
+    from zorak_tpu_torch.verify import AUDIO_EPS, compare_audio
+
+    def counts():
+        return {"linrec_scan": LS.LAUNCHES, "ring_tap_sum": RT.LAUNCHES,
+                "scan_group": SG.LAUNCHES, "switching_scan": SS.LAUNCHES}
+
+    def zero():
+        LS.LAUNCHES = RT.LAUNCHES = SG.LAUNCHES = SS.LAUNCHES = 0
+
+    nf, n, seg = bench.DDT_FILES, bench.DDT_SAMPLES, bench.DDT_SEG
+    segments = -(-n // seg)
+    sec = n / SR
+    gen = torch.Generator(device=cuda)
+    launches = {}
+    for label, src, per_segment in (
+            ("wide", BP.wide_delay_network(192), (1, 1, 0)),
+            ("cross_fed", BP.cross_fed_delay_network(16), (1, 2, 0)),
+            ("follower", SCAN_GROUP_SRC, (0, 0, 1)),
+            ("stereo_followers", STEREO_FOLLOWERS_SRC, (0, 0, 1))):
+        t_phase = time.perf_counter()
+        br = BatchRenderer(compile_plugin_source(src), SR, segment_len=seg)
+        kern = br.kernel
+        check(kern.device.type == "cuda", f"batch {label}: on {kern.device}")
+        gen.manual_seed(int(rng.randint(1 << 30)))
+        x = torch.randn((nf, 2, n), generator=gen, device=cuda) * 0.25
+        br.render_files(x)                               # warm-up
+        kern.render_device(x[0])
+        zero()
+        y = br.render_files(x)
+        torch.cuda.synchronize()
+        batched = counts()
+        zero()
+        kern.render_device(x[0])
+        torch.cuda.synchronize()
+        solo = counts()
+        want = {"linrec_scan": per_segment[0] * segments,
+                "ring_tap_sum": per_segment[1] * segments,
+                "scan_group": per_segment[2] * segments, "switching_scan": 0}
+        check(batched == solo == want, f"batch {label}: launches {batched} "
+              f"for {nf} files, {solo} for one, {want} expected")
+        launches[label] = batched
+        check(y.shape == (nf, 2, n) and y.dtype == torch.float32,
+              f"batch {label}: output {tuple(y.shape)} {y.dtype}")
+        check(bool(torch.isfinite(y).all()), f"batch {label}: not finite")
+        for f in range(nf):
+            one, _carry = kern.render_device(x[f])
+            check(torch.equal(y[f], one),
+                  f"batch {label}: file {f} differs from its solo render")
+        t0 = time.perf_counter()
+        shapes = held_at_the_batch_shapes(torch, label, src, seg, x, y,
+                                          per_segment, segments // 2)
+        print(f"[batch] {label}: segment {segments // 2}'s launches at the "
+              f"batch's shapes ({'; '.join(shapes)}) bit-identical to their "
+              f"plain versions on the same inputs "
+              f"({time.perf_counter() - t0:.1f} s)")
+        # in turns: one file, the batch, the batch, one file, twice
+        batch_ms, one_ms = [], []
+        for _ in range(2):
+            one_ms.append(cuda_ms(lambda: kern.render_device(x[0])))
+            batch_ms += [cuda_ms(lambda: br.render_files(x)) for _ in range(2)]
+            one_ms.append(cuda_ms(lambda: kern.render_device(x[0])))
+        ms, solo_ms = min(batch_ms), min(one_ms)
+        print(f"[batch] JSFX {label} {nf} files x 60 s stereo, segment {seg} "
+              f"({segments} segments): device_ms={ms:.2f} (best of "
+              f"{' '.join(f'{m:.2f}' for m in batch_ms)}) audio_s_per_s="
+              f"{nf * sec / (ms / 1e3):.1f} per_file_rtx="
+              f"{sec / (ms / 1e3):.1f}; one file alone {solo_ms:.2f} ms "
+              f"(best of {' '.join(f'{m:.2f}' for m in one_ms)}; x{nf} = "
+              f"{nf * solo_ms:.2f}), the batch {ms / solo_ms:.2f}x one "
+              f"file's; launches {batched} for {nf} files = one file's; "
+              f"every file torch.equal to its solo render card='{card}'")
+        _events, by_name = profile_render(lambda: br.render_files(x),
+                                          f"batch {label} {nf} files",
+                                          segments)
+        _events, by_name_one = profile_render(
+            lambda: kern.render_device(x[0]), f"batch {label} one file",
+            segments, traces=1)
+        # each kernel's device time a launch at the batch's shapes, from
+        # the traces, beside one file's and the bytes or operations bound
+        for kname, tag, n_launch, bound in kernel_bounds(
+                kern, label, nf, seg, per_segment, segments):
+            def per_launch(names):
+                us = sum(t for name, (_n, t) in names.items() if tag in name)
+                return us / 1e3 / n_launch
+            print(f"[batch] {kname} in the {label} render, {nf} files: "
+                  f"{per_launch(by_name):.4f} ms a launch (one file "
+                  f"{per_launch(by_name_one):.4f}), bound {bound[0]:.5f} ms "
+                  f"({bound[1]}) card='{card}'")
+        print(f"[done] batch {label} in {time.perf_counter() - t_phase:.1f} s")
+
+    # the catalog functions on the card against the CPU: two Faust
+    # modules (VAR runs K1), and three JSFX plugins (K2, K3, K4)
+    leaves = {("Restoration", "VAR"): ("faust", "process = _, _;\n"),
+              ("Dynamics", "GTS"): ("faust", "process = _, _;\n"),
+              ("Delay", "Wide"): ("jsfx", BP.wide_delay_network(192)),
+              ("Delay", "Cross"): ("jsfx", BP.cross_fed_delay_network(16)),
+              ("Dynamics", "Follow"): ("jsfx", SCAN_GROUP_SRC)}
+    x = (rng.randn(2, int(SR)) * 0.25).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "catalog"
+        for (category, slug), (ptype, text) in leaves.items():
+            leaf = root / "plugins" / category / slug
+            (leaf / "src").mkdir(parents=True)
+            (leaf / "plugin.json").write_text(json.dumps({
+                "name": slug, "slug": slug, "pluginCode": "Z" + slug[:3],
+                "pluginType": ptype}))
+            ext = ".dsp" if ptype == "faust" else ".jsfx"
+            (leaf / "src" / f"{slug}{ext}").write_text(text)
+        renderers, skipped = build_catalog_renderers(str(root),
+                                                     segment_len=SEG_L)
+        zero()
+        outs, _ = catalog_batch_render(str(root), x, renderers=renderers)
+        torch.cuda.synchronize()
+        got = counts()
+        check(not skipped and sorted(outs) == sorted(s for _c, s in leaves),
+              f"catalog: {sorted(outs)}, skipped {skipped}")
+        check(all(v > 0 for v in got.values()),
+              f"catalog_batch_render skipped a kernel: {got}")
+        outs_cpu, _ = catalog_batch_render(str(root), x, segment_len=SEG_L,
+                                           device="cpu")
+        stacked, n_groups = catalog_stacked_render(renderers, x)
+    worst = 0.0
+    for slug, y in outs.items():
+        check(y.device.type == "cuda", f"catalog {slug} on {y.device}")
+        rep = compare_audio(outs_cpu[slug][0].numpy(), y[0].cpu().numpy())
+        check(rep.audio_passed, f"catalog {slug}: CUDA vs CPU {rep.summary()}")
+        check(torch.equal(stacked[slug], y[0]),
+              f"catalog {slug}: the stacked render differs from the batch")
+        worst = max(worst, rep.max_abs_delta)
+    print(f"[batch] catalog_batch_render on the card, {len(outs)} entries: "
+          f"launches {got}; each within {AUDIO_EPS} of its CPU render (max "
+          f"|delta| {worst:.3e}); catalog_stacked_render in {n_groups} "
+          f"group(s), equal to it card='{card}'")
+
+    t0 = time.perf_counter()
+    figures = {**bench.section_ddt(cuda), **bench.section_ddt_batched(cuda)}
+    print(f"[batch] bench config 1 (zorak_tpu_torch/bench.py, the 192-tap "
+          f"widening, 60 s stereo): {json.dumps(figures)} "
+          f"({time.perf_counter() - t0:.1f} s) card='{card}'")
+    return {"linrec_scan": launches["wide"]["linrec_scan"],
+            "ring_tap_sum": launches["wide"]["ring_tap_sum"],
+            "scan_group": launches["follower"]["scan_group"]}
 
 
 def smi_under_load(torch, fn, reps: int) -> str:
@@ -2107,13 +2534,14 @@ def faust_phases(torch, cuda, rng, card):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="jsfx,spectral,faust",
-                    help="comma-separated: jsfx, spectral, faust (default "
-                         "all three); k4sweep times K4 across register "
-                         "block sizes")
+    ap.add_argument("--phases", default="jsfx,batch,spectral,faust",
+                    help="comma-separated: jsfx, batch, spectral, faust "
+                         "(default all four); k4sweep times K4 across "
+                         "register block sizes")
     phases = set(ap.parse_args(argv).phases.split(","))
-    if not phases or phases - {"jsfx", "spectral", "faust", "k4sweep"}:
-        ap.error("--phases takes jsfx, spectral, faust or k4sweep")
+    if not phases or phases - {"jsfx", "batch", "spectral", "faust",
+                               "k4sweep"}:
+        ap.error("--phases takes jsfx, batch, spectral, faust or k4sweep")
     t_start = time.perf_counter()
     import torch
 
@@ -2181,6 +2609,18 @@ def main(argv=None) -> int:
         kernels += [k2, k3, k4]
         verify_cli_phase(card)
         print(f"[done] jsfx phases at {time.perf_counter() - t_start:.1f} s")
+    if "batch" in phases:
+        t0 = time.perf_counter()
+        batch_kernels_phase(torch, cuda, np.random.RandomState(SEED + 8))
+        print(f"[done] batch kernel phase in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        batched = batch_phase(torch, cuda, np.random.RandomState(SEED + 9),
+                              card)
+        for entry in kernels:
+            if entry["name"] in batched:
+                entry["launches_batched"] = batched[entry["name"]]
+        print(f"[done] batch phase in {time.perf_counter() - t0:.1f} s; "
+              f"launches of 8 files: {batched}")
     if "spectral" in phases:
         t0 = time.perf_counter()
         kernels += spectral_phase(torch, cuda, np.random.RandomState(SEED + 7),

@@ -47,3 +47,33 @@ def test_sections_need_a_gpu_without_a_device():
     for fn in bench.SECTIONS.values():
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(lanes=1, seconds=0.01)
+
+
+def test_ddt_sections_report_the_bench_metrics():
+    # config 1 at a cut size: one file at the bench's segment and at the
+    # engine's, and a batch of files
+    text = (REPO / "bench.py").read_text()
+    for name in ("ddt_offline_render_rtx", "ddt_batched", "audio_s_per_s",
+                 "per_file_rtx"):
+        assert f'"{name}"' in text
+    assert re.search(r"^SEG = \(1 << 15\) \* 11\b", text, re.M)
+    assert re.search(r"^N_SAMPLES = SEG \* 8\b", text, re.M)
+    assert (bench.DDT_SEG, bench.DDT_SAMPLES, bench.ENGINE_SEG) == (
+        360448, 2883584, 1 << 17)
+    out = bench.section_ddt(device="cpu", seconds=0.05)
+    assert list(out) == ["ddt_offline_render_rtx",
+                         "ddt_offline_render_rtx_engine_segment"]
+    assert all(np.isfinite(v) and v > 0 for v in out.values())
+    out = bench.section_ddt_batched(device="cpu", seconds=0.05, files=2)
+    assert list(out) == ["ddt_batched"]
+    got = out["ddt_batched"]
+    assert got["files"] == 2 and got["audio_s_per_s"] > 0
+    assert got["per_file_rtx"] == round(got["audio_s_per_s"] / 2, 1)
+
+
+def test_ddt_sections_need_a_gpu_without_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None resolves to it")
+    for fn in bench.DDT_SECTIONS.values():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(seconds=0.01)

@@ -238,6 +238,10 @@ _JSFX_MODULES = [
 _SPECTRAL_MODULES = ["kernels.stft", "kernels.convolution", "bench",
                      "shadow.cgen"]
 
+# the batch path and the catalog it sweeps
+_BATCH_MODULES = ["parallel", "parallel.batch", "catalog.discovery",
+                  "models.faustmods"]
+
 
 def test_port_imports_neither_jax_nor_zorak_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -246,7 +250,7 @@ def test_port_imports_neither_jax_nor_zorak_tpu():
     n, rest = res.stdout.split(" ", 1)
     bad, names = rest.split("] [", 1)
     assert int(n) >= 52 and bad.strip() == "["
-    for mod in _JSFX_MODULES + _SPECTRAL_MODULES:
+    for mod in _JSFX_MODULES + _SPECTRAL_MODULES + _BATCH_MODULES:
         assert f"'zorak_tpu_torch.{mod}'" in names, mod
 
 

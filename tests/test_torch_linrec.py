@@ -233,3 +233,25 @@ def test_wrapper_rejects_a_chunk_the_kernel_does_not_take(chunk):
     with pytest.raises(ValueError, match="chunk"):
         LS.linrec_scan(*(torch.from_numpy(v) for v in (a, b, z0)),
                        chunk=chunk)
+
+
+@pytest.mark.parametrize("nf", [1, 3])
+@pytest.mark.parametrize("vec_a", [False, True])
+def test_files_flattened_into_rows_scan_as_each_file(nf, vec_a):
+    # the emitter's batch: k recurrences of nf files as nf * k rows, a file
+    # after another; every row is solved on its own, so the flattened scan
+    # equals each file's scan of its k rows, in the ladder and in the
+    # kernel's chunked order
+    k, n = 2, 1000
+    rng = np.random.RandomState(30 + nf)
+    a = rng.uniform(-0.999, 0.9999, (nf, k, n) if vec_a else (nf, k))
+    b, z0 = rng.randn(nf, k, n), rng.uniform(-2.0, 2.0, (nf, k))
+    rows = (a.reshape(nf * k, n) if vec_a else a.reshape(nf * k),
+            b.reshape(nf * k, n), z0.reshape(nf * k))
+    got = LS.linrec_scan(*(torch.from_numpy(v) for v in rows)).numpy()
+    chunked = LS.linrec_chunked(*rows, chunk=64)
+    for f in range(nf):
+        one = LS.linrec_scan(*(torch.from_numpy(v[f]) for v in (a, b, z0)))
+        assert np.array_equal(got.reshape(nf, k, n)[f], one.numpy())
+        assert np.array_equal(chunked.reshape(nf, k, n)[f],
+                              LS.linrec_chunked(a[f], b[f], z0[f], chunk=64))

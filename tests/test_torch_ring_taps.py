@@ -184,3 +184,69 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises(ValueError):
         tables = RT.TapTables(chains, tile=tile)
         RT.ring_tap_sum(tables, rings, cursors, streams, inits, n)
+
+
+@pytest.mark.parametrize("start", ["zero", "last", "middle"])
+@pytest.mark.parametrize("nf", [1, 3])
+def test_files_fold_each_file_as_alone(start, nf):
+    # a batch of files shares the tables and the cursors: rings [nf, mod],
+    # streams one a file or one for all, inits [nf, 1], [nf, n], [n], 0-d
+    # and floats; each file's fold equals its single-file fold
+    n = 700
+    rng = np.random.RandomState(20 + nf)
+    parts = [case(2, 64, n, seed=21), case(16, 4096, n, seed=22),
+             case(192, 16384, n, seed=23), case(5, 4096, n, seed=24,
+                                                long_only=True)]
+    tables = RT.TapTables([(st, g) for _r, _s, st, g in parts])
+    rings = [rng.randn(nf, len(r)) for r, *_ in parts]
+    shared = [False, True, False, True]
+    streams = [None if s is None else (s if sh else rng.randn(nf, n))
+               for (_r, s, *_), sh in zip(parts, shared)]
+    inits = [rng.randn(nf, 1), rng.randn(nf, n), rng.randn(n), np.array(0.5)]
+    cursors = [cursor(start, len(r)) for r, *_ in parts]
+    T = torch.from_numpy
+    got = RT.ring_tap_sum(tables, [T(r) for r in rings], cursors,
+                          [None if s is None else T(s) for s in streams],
+                          [T(i) for i in inits], n).numpy()
+    assert got.shape == (4, nf, n)
+    for f in range(nf):
+        one = RT.ring_tap_sum(
+            tables, [T(r[f]) for r in rings], cursors,
+            [None if s is None else T(s if s.ndim == 1 else s[f])
+             for s in streams],
+            [T(np.broadcast_to(i, (nf, n))[f].copy()) for i in inits],
+            n).numpy()
+        assert same_bits(got[:, f], one), f
+    # a float init and the plain fold agree with the tensor forms
+    floats = RT.ring_tap_sum_reference(
+        tables, [T(r) for r in rings], cursors,
+        [None if s is None else T(s) for s in streams],
+        [0.5, 0.5, 0.5, 0.5], n).numpy()
+    halves = RT.ring_tap_sum_reference(
+        tables, [T(r) for r in rings], cursors,
+        [None if s is None else T(s) for s in streams],
+        [T(np.array(0.5))] * 4, n).numpy()
+    assert same_bits(floats, halves)
+
+
+def test_files_need_rings_of_one_batch():
+    _ring, _stream, starts, gains = case(8, 256, 100, seed=2, long_only=True)
+    tables = RT.TapTables([(starts, gains), (starts, gains)])
+    rings = [torch.zeros(2, 256, dtype=torch.float64),
+             torch.zeros(3, 256, dtype=torch.float64)]
+    with pytest.raises(ValueError, match="ring"):
+        RT.ring_tap_sum(tables, rings, [0, 0], [None, None], [0.0, 0.0], 100)
+    with pytest.raises(ValueError, match="stream"):
+        RT.ring_tap_sum(tables, [rings[0]] * 2, [0, 0],
+                        [torch.zeros(3, 100, dtype=torch.float64)] * 2,
+                        [0.0, 0.0], 100)
+    with pytest.raises(ValueError, match="init"):
+        RT.ring_tap_sum(tables, [rings[0]] * 2, [0, 0], [None, None],
+                        [torch.zeros(3, 1, dtype=torch.float64)] * 2, 100)
+
+
+@pytest.mark.parametrize("length,chains,files,tile", [
+    (131072, 2, 1, 2048), (131072, 2, 8, 2048), (16384, 2, 8, 2048),
+    (16384, 2, 1, 256), (6784, 2, 8, 512), (2048, 1, 8, 256)])
+def test_the_tile_counts_the_files(length, chains, files, tile):
+    assert RT.choose_tile(length, chains, 132, files) == tile

@@ -290,7 +290,8 @@ def test_components_split_independent_groups_only():
     assert stereo.components == [[0], [1]] and stereo.n_ext == 2
     assert "ZS_COMPONENTS 2" in stereo.source
     assert "zs_walk_1" in stereo.source
-    assert "<<<ZS_COMPONENTS, 1, 0," in stereo.source      # a block each
+    # a block each, for every file of a batch
+    assert "<<<dim3(ZS_COMPONENTS, files), 1, 0," in stereo.source
     _e, pair = lowered_level(*BODIES["coupled_pair"])
     assert pair.components == [[0, 1]] and pair.n_carry == 2
     # steps shared between two carries, or a read of the other's value,
@@ -352,7 +353,8 @@ def test_a_level_is_lowered_once_for_a_kernels_life(monkeypatch):
     y1, _ = kern.render(x)
     y2, _ = kern.render(x)
     assert made == [1] and np.array_equal(y1, y2)
-    assert sorted(kern._seg_fns) == [100, 512]
+    # by (segment length, files): the solo render is one file
+    assert sorted(kern._seg_fns) == [(100, 1), (512, 1)]
 
 
 def test_the_start_carries_are_gathered_on_the_device(monkeypatch):
@@ -370,8 +372,9 @@ def test_the_start_carries_are_gathered_on_the_device(monkeypatch):
     monkeypatch.setattr(SG, "scan_group", spy)
     x = (np.random.RandomState(4).randn(1, 768) * 0.3).astype(np.float32)
     _y, (svec, _rings) = kern.render(x)
-    assert len(seen) >= 2 and all(c.shape == (2,) for c in seen)
-    assert torch.equal(seen[0], torch.zeros(2, dtype=torch.float64))
+    # one row a file: the solo render is one file
+    assert len(seen) >= 2 and all(c.shape == (1, 2) for c in seen)
+    assert torch.equal(seen[0], torch.zeros((1, 2), dtype=torch.float64))
     assert float(seen[1].abs().min()) > 0.0
     idx = [kern.scalar_index[k] for k in kern.scan_groups[0]]
     assert float(svec[idx].abs().min()) > 0.0
@@ -413,6 +416,7 @@ def test_edge_values_follow_the_scalar_tables(host_cxx, monkeypatch):
     x = edge_audio()
     kern.render(x)
     program, xs, _c0 = calls[0]               # the first segment
+    xs = xs[0]                                # of the solo render's file
     ops = {(k, o) for k, o, _m, _a in program.steps}
     assert {("call", "floor"), ("call", "ceil"), ("bin", "%"),
             ("bin", "atan2")} <= ops
@@ -697,3 +701,47 @@ def test_resumed_from_a_converted_jax_carry_three_ways(name):
         gold.process_block(x[:, cut + s:cut + s + 512], y_gold[:, s:s + 512])
     rep = compare_audio(y_gold, y2)
     assert rep.audio_passed, rep.summary()
+
+
+@pytest.mark.parametrize("nf", [1, 3])
+@pytest.mark.parametrize("name", ["attack_release_envelope",
+                                  "stereo_envelopes",
+                                  "group_feeding_from_vectorized_delay"])
+def test_files_walk_as_each_would_alone(name, nf, host_cxx):
+    # a batch of files (xs [nf, L, n_ext], c0 [nf, n]): other data and
+    # start carries a file, NaN and -0.0 in the second, and the last
+    # bursting into silence, so that its fix-up walks again and marks its
+    # own flag; every file equals its solo call and the plain loop bit for
+    # bit, the re-run steps sum over the files, the flags are the solo
+    # calls' flags, and on the next call only the marked file walks in
+    # series
+    src, nch = BODIES[name]
+    _e, program = lowered_level(src, nch)
+    n = 3001
+    parts = [burst_into_silence(program, n, 40 + f) if f == nf - 1
+             else seeded_inputs(program, n, 40 + f, f == 1)
+             for f in range(nf)]
+    xs = torch.stack([x for x, _c in parts])
+    c0 = torch.stack([c for _x, c in parts])
+    ref = SG.scan_group_plain(program.steps, program.outs, xs, c0)
+    assert ref.shape == (nf, n, program.n_carry)
+    solo_reruns, solo_marks = 0, []
+    for f, (x, c) in enumerate(parts):
+        assert same_values(ref[f], SG.scan_group_plain(
+            program.steps, program.outs, x, c))
+        _e, alone = lowered_level(src, nch)
+        assert same_values(SG.scan_group_host(alone, x, c, **SPEC), ref[f])
+        solo_reruns += alone.host_last[1]
+        solo_marks += alone.host_marks
+    got = SG.scan_group_host(program, xs, c0, **SPEC)
+    assert same_values(got, ref)
+    assert program.host_last == (nf, solo_reruns)
+    assert program.host_marks == solo_marks
+    if name == "group_feeding_from_vectorized_delay":
+        # the peak hold meets its speculated walk on noise at once; only
+        # the silent file re-walks, and only it walks in series next
+        assert solo_marks == [-1] * (nf - 1) + [1]
+    got = SG.scan_group_host(program, xs, c0, **SPEC)
+    assert same_values(got, ref)
+    assert program.host_last[0] == nf - solo_marks.count(1)
+    assert SG.LAUNCHES == 0

@@ -9,6 +9,10 @@
 // ring[(start + i) % mod] (start: the host-known cursor of the oldest
 // sample), i >= mod is stream[i - mod].  s[k] = mod - delay[k] is a tap's
 // static offset.  A history-only chain (every delay >= L) has no stream.
+// A launch serves a batch of files that share the tap tables and the
+// cursors (the files of one plugin rendered together): each chain names a
+// file stride for its ring, stream, init and output (0 where the files
+// share one row), and blockIdx.z picks the file.
 // Replaces the tap reads of zorak_tpu/lowering/specialize.py
 // (ring_hist_full, ring_delayed) together with the multiply-add chain that
 // consumes them, which the reference leaves to XLA to fuse.
@@ -22,7 +26,8 @@
 // the stream, init and output once.
 //
 // What the design does about it (the staged kernel): a block takes a tile
-// of R * 256 output samples of one chain (blockIdx.y picks the chain) and
+// of R * 256 output samples of one chain (blockIdx.y picks the chain) of
+// one file (blockIdx.z) and
 // copies the window its taps read, [min s + t0, max s + t0 + tile), into
 // shared memory once with 16-byte cp.async copies (8-byte where source and
 // destination disagree mod 16), split at the ring's wrap and at the
@@ -49,19 +54,34 @@ constexpr int kThreads = 256;
 constexpr int kMaxChains = 16;   // chains in one launch (kernel parameter)
 constexpr int kGlobalTaps = 256; // taps the global kernel stages at once
 
-// One chain of a launch; the layout matches ring_taps.py's _Chain.
+// One chain of a launch; the layout matches ring_taps.py's _Chain.  File f
+// reads ring + f * ring_fstride and so on; out_fstride is length.
 struct Chain {
-  const double* ring;     // [mod]
-  const double* stream;   // [length], or null: history only
-  const double* init;     // init[t * init_stride], or null: init_scalar
-  double* out;            // [length]
+  const double* ring;     // [mod] a file
+  const double* stream;   // [length] a file, or null: history only
+  const double* init;     // init[t * init_stride] a file, or null: init_scalar
+  double* out;            // [length] a file
   long long mod;
   long long start;        // ring index of buffer index 0, in [0, mod)
   long long init_stride;
   long long window_begin; // its runs of taps in the window table
   long long window_end;
   double init_scalar;
+  long long ring_fstride;
+  long long stream_fstride;
+  long long init_fstride;
+  long long out_fstride;
 };
+
+// Chain c of the launch as file f sees it.
+__device__ __forceinline__ Chain file_chain(const Chain& c, long long f) {
+  Chain ch = c;
+  ch.ring += f * c.ring_fstride;
+  if (ch.stream != nullptr) ch.stream += f * c.stream_fstride;
+  if (ch.init != nullptr) ch.init += f * c.init_fstride;
+  ch.out += f * c.out_fstride;
+  return ch;
+}
 
 struct Chains {
   Chain c[kMaxChains];
@@ -155,7 +175,7 @@ ring_tap_sum_staged(Chains chains, const int* __restrict__ starts,
   int* sh_s = reinterpret_cast<int*>(sh_g + table_taps);
   double* sh_w = reinterpret_cast<double*>(sh_s + table_taps);
 
-  const Chain ch = chains.c[blockIdx.y];
+  const Chain ch = file_chain(chains.c[blockIdx.y], blockIdx.z);
   const long long t0 = static_cast<long long>(blockIdx.x) * (R * kThreads);
   const long long buf_len = ch.mod + (ch.stream != nullptr ? length : 0);
   double acc[R];
@@ -209,7 +229,7 @@ ring_tap_sum_global(Chains chains, const int* __restrict__ starts,
   __shared__ int s_start[kGlobalTaps];
   __shared__ double s_gain[kGlobalTaps];
 
-  const Chain ch = chains.c[blockIdx.y];
+  const Chain ch = file_chain(chains.c[blockIdx.y], blockIdx.z);
   const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const bool live = t < length;
   double acc = live ? init_at(ch, t) : 0.0;
@@ -234,10 +254,10 @@ ring_tap_sum_global(Chains chains, const int* __restrict__ starts,
 }
 
 template <int R>
-int launch_staged(const Chains& chains, int n_chains, const int* starts,
-                  const double* gains, const Window* windows,
-                  long long length, int table_taps, int smem_bytes,
-                  cudaStream_t stream) {
+int launch_staged(const Chains& chains, int n_chains, int files,
+                  const int* starts, const double* gains,
+                  const Window* windows, long long length, int table_taps,
+                  int smem_bytes, cudaStream_t stream) {
   // above 48 KB a block's shared memory is opted into, once for the
   // largest size asked so far
   static int opted = 48 * 1024;
@@ -249,7 +269,8 @@ int launch_staged(const Chains& chains, int n_chains, const int* starts,
     opted = smem_bytes;
   }
   const long long tiles = (length + R * kThreads - 1) / (R * kThreads);
-  ring_tap_sum_staged<R><<<dim3(static_cast<unsigned>(tiles), n_chains),
+  ring_tap_sum_staged<R><<<dim3(static_cast<unsigned>(tiles), n_chains,
+                                files),
                            kThreads, smem_bytes, stream>>>(
       chains, starts, gains, windows, length, table_taps);
   return static_cast<int>(cudaGetLastError());
@@ -259,16 +280,19 @@ int launch_staged(const Chains& chains, int n_chains, const int* starts,
 
 // chains: [n_chains] of Chain (host memory, passed to the kernel by
 // value); starts: [K] i32; gains: [K] f64; windows: [W] of 4 i32.
+// files: the batch, 1 to 65535 (the grid's third axis).
 // tile: samples a block, 256 * {1, 2, 4, 8}; 0 runs the global kernel.
 // table_taps, smem_bytes: the staged kernel's shared memory, computed by
 // the caller from the windows (ring_taps.py, TapTables).
 extern "C" int zorak_ring_tap_sum(const void* chains, int n_chains,
                                   const void* starts, const void* gains,
                                   const void* windows, long long length,
-                                  int tile, int table_taps, int smem_bytes,
-                                  void* stream) {
-  if (length <= 0 || n_chains <= 0) return 0;
-  if (n_chains > kMaxChains) return static_cast<int>(cudaErrorInvalidValue);
+                                  int files, int tile, int table_taps,
+                                  int smem_bytes, void* stream) {
+  if (length <= 0 || n_chains <= 0 || files <= 0) return 0;
+  if (n_chains > kMaxChains || files > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Chains batch;
   for (int c = 0; c < n_chains; ++c) {
     batch.c[c] = static_cast<const Chain*>(chains)[c];
@@ -280,22 +304,23 @@ extern "C" int zorak_ring_tap_sum(const void* chains, int n_chains,
   switch (tile) {
     case 0: {
       const long long blocks = (length + kThreads - 1) / kThreads;
-      ring_tap_sum_global<<<dim3(static_cast<unsigned>(blocks), n_chains),
+      ring_tap_sum_global<<<dim3(static_cast<unsigned>(blocks), n_chains,
+                                 files),
                             kThreads, 0, st>>>(batch, s, g, w, length);
       return static_cast<int>(cudaGetLastError());
     }
     case kThreads:
-      return launch_staged<1>(batch, n_chains, s, g, w, length, table_taps,
-                              smem_bytes, st);
+      return launch_staged<1>(batch, n_chains, files, s, g, w, length,
+                              table_taps, smem_bytes, st);
     case 2 * kThreads:
-      return launch_staged<2>(batch, n_chains, s, g, w, length, table_taps,
-                              smem_bytes, st);
+      return launch_staged<2>(batch, n_chains, files, s, g, w, length,
+                              table_taps, smem_bytes, st);
     case 4 * kThreads:
-      return launch_staged<4>(batch, n_chains, s, g, w, length, table_taps,
-                              smem_bytes, st);
+      return launch_staged<4>(batch, n_chains, files, s, g, w, length,
+                              table_taps, smem_bytes, st);
     case 8 * kThreads:
-      return launch_staged<8>(batch, n_chains, s, g, w, length, table_taps,
-                              smem_bytes, st);
+      return launch_staged<8>(batch, n_chains, files, s, g, w, length,
+                              table_taps, smem_bytes, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

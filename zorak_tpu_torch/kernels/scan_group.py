@@ -4,7 +4,8 @@ Counterpart of the `lax.scan` that the reference solves a DAG level of
 scan groups with (zorak_tpu/lowering/specialize.py, `solve_scan_group`):
 carries c [n] (f64), external streams xs [L, n_ext] (f64), a body that is
 a small DAG of EEL2 operations over carries, externals and constants;
-ys [L, n] out, c <- ys[t] each sample.  A state-dependent recurrence (an
+ys [L, n] out, c <- ys[t] each sample; or the same for a batch of files,
+xs [nf, L, n_ext], c0 [nf, n], ys [nf, L, n], in one launch.  A state-dependent recurrence (an
 attack/release envelope, a peak hold, a nonlinear feedback, a mutually
 recursive pair) has no closed form, yet it splits across time exactly
 where two walks from different carries come to meet, as a contracting
@@ -20,9 +21,9 @@ fix-up kernel walks the chunks in order with the true carries, passing
 through each chunk whose recorded start equals them in every bit and
 walking the others again until they meet the speculated values.  The
 result is the sequential walk's bit for bit, whatever the body.  Where a
-launch re-walked more than half its samples, the program's flag makes the
-next launch walk in series without speculating (the flag lives on the
-device; no host read).  L <= warmup + chunk is that walk alone.  On a CPU
+launch re-walked more than half a file's samples, that file's flag makes
+the next launch walk it in series without speculating (the flags live on
+the device; no host read).  L <= warmup + chunk is that walk alone.  On a CPU
 tensor `scan_group` runs `scan_group_plain`, the per-sample Python loop in
 the scalar EEL2 semantics, which the generated body repeats bit for bit
 wherever it calls no transcendental (those go to the device's libm, 1 to
@@ -76,10 +77,11 @@ class ScanGroupProgram:
     def __init__(self, steps: Sequence[CG.Step], outs: Sequence[CG.Operand],
                  n_ext: int, unroll: int = CG.MAX_UNROLL,
                  probe: bool = False, staged: Optional[bool] = None):
-        # the no-merge flag and the launch count, by device ("cpu" for the
-        # host form): a launch that re-walked more than half its samples
-        # writes its number into the flag, and the next launch, seeing the
-        # number before its own, walks in series
+        # the no-merge flags (one a file) and the launch count, by device
+        # ("cpu" for the host form) and batch size: a launch that re-walked
+        # more than half a file's samples writes its number into the
+        # file's flag, and the next launch, seeing the number before its
+        # own, walks that file in series
         self._flags: dict = {}
         self.steps = list(steps)
         self.outs = list(outs)
@@ -92,10 +94,11 @@ class ScanGroupProgram:
         self.components = CG.components(self.steps, self.outs)
         self.transcendental = CG.has_transcendental(self.steps)
         self.host_last = None     # set by scan_group_host
+        self.host_marks = None    # set by scan_group_host
 
 
-# xs, c0, ys, ws, mark, reruns; L, chunk, warm, launch number; stream
-_LAUNCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [
+# xs, c0, ys, ws, mark, reruns; L, chunk, warm, launch number, files; stream
+_LAUNCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5 + [
     ctypes.c_void_p]
 # xc, c0, out, L, stream
 _CHAIN_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
@@ -129,10 +132,12 @@ def _rerun_counter(device: torch.device) -> torch.Tensor:
 
 
 def _check(n_carry: int, n_ext: int, xs, c0) -> None:
-    if xs.dim() != 2 or xs.shape[1] != n_ext:
-        raise ValueError(f"xs must be [L, {n_ext}], got {tuple(xs.shape)}")
-    if tuple(c0.shape) != (n_carry,):
-        raise ValueError(f"c0 must be [{n_carry}], got {tuple(c0.shape)}")
+    if xs.dim() not in (2, 3) or xs.shape[-1] != n_ext:
+        raise ValueError(f"xs must be [L, {n_ext}] or [files, L, {n_ext}], "
+                         f"got {tuple(xs.shape)}")
+    if tuple(c0.shape) != tuple(xs.shape[:-2]) + (n_carry,):
+        raise ValueError(f"c0 must be {list(xs.shape[:-2]) + [n_carry]}, "
+                         f"got {tuple(c0.shape)}")
     for name, v in (("xs", xs), ("c0", c0)):
         if v.dtype != torch.float64 or v.device != xs.device:
             raise ValueError(f"{name} must be float64 on {xs.device}, got "
@@ -142,11 +147,17 @@ def _check(n_carry: int, n_ext: int, xs, c0) -> None:
 def scan_group_plain(steps: Sequence[CG.Step], outs: Sequence[CG.Operand],
                      xs: torch.Tensor, c0: torch.Tensor) -> torch.Tensor:
     """Plain version: the per-sample loop over the level's steps in Python,
-    with the scalar EEL2 tables.  xs [L, n_ext], c0 [n] -> ys [L, n]."""
+    with the scalar EEL2 tables.  xs [L, n_ext], c0 [n] -> ys [L, n]; a
+    batch, xs [nf, L, n_ext] and c0 [nf, n], a file after another."""
     from ..lowering.specialize import _SC_BINARY, _SC_UNARY, _norm_loop
     from ..semantics import scalar as SC
 
-    _check(len(outs), xs.shape[1], xs, c0)
+    _check(len(outs), xs.shape[-1], xs, c0)
+    if xs.dim() == 3:
+        return torch.stack([scan_group_plain(steps, outs, x, c)
+                            for x, c in zip(xs, c0)]) if xs.shape[0] else \
+            torch.empty((0, xs.shape[1], len(outs)), dtype=torch.float64,
+                        device=xs.device)
     n_t = xs.shape[0]
     rows = xs.tolist() if xs.shape[1] else [()] * n_t
     cv = c0.tolist()
@@ -184,29 +195,33 @@ def scan_group(program: ScanGroupProgram, xs: torch.Tensor,
                c0: torch.Tensor, *, chunk: int = CHUNK,
                warmup: int = WARMUP) -> torch.Tensor:
     """xs [L, n_ext]; c0 [n]; f64 -> ys [L, n], ys[t] the carries after
-    sample t.
+    sample t.  A batch of files, xs [nf, L, n_ext] and c0 [nf, n], gives
+    ys [nf, L, n] from one launch, each file as it would walk alone.
 
     CUDA tensors go to the kernels generated from the program's steps, CPU
     tensors to the plain loop over them.  `chunk` and `warmup` shape the
     kernels' split of time and never change the result; L <= warmup +
-    chunk is one chunk, a thread a component walking all of L.
+    chunk is one chunk, a thread a component and file walking all of L.
     """
     global LAUNCHES
     _check(program.n_carry, program.n_ext, xs, c0)
-    n_t = xs.shape[0]
+    n_t = xs.shape[-2]
     chunk, warm, n_chunks = chunk_plan(n_t, chunk, warmup)
     if xs.device.type == "cpu":
         return scan_group_plain(program.steps, program.outs, xs, c0)
     if xs.device.type != "cuda":
         raise ValueError(f"scan_group runs on cuda or cpu, not {xs.device}")
+    nf = xs.shape[0] if xs.dim() == 3 else 1
+    if nf > 65535:
+        raise ValueError("scan_group takes at most 65535 files")
     xs, c0 = xs.contiguous(), c0.contiguous()
-    ys = torch.empty((n_t, program.n_carry), dtype=torch.float64,
-                     device=xs.device)
-    if n_t == 0:
+    ys = torch.empty(tuple(xs.shape[:-1]) + (program.n_carry,),
+                     dtype=torch.float64, device=xs.device)
+    if n_t == 0 or nf == 0:
         return ys
-    ws = torch.empty((2, n_chunks, program.n_carry), dtype=torch.float64,
+    ws = torch.empty((nf, 2, n_chunks, program.n_carry), dtype=torch.float64,
                      device=xs.device)
-    mark, launch_no = _next_launch(program, xs.device)
+    mark, launch_no = _next_launch(program, xs.device, nf)
     reruns = _rerun_counter(xs.device)
     lib = _library(program.source)
     with torch.cuda.device(xs.device):
@@ -214,19 +229,20 @@ def scan_group(program: ScanGroupProgram, xs: torch.Tensor,
         err = lib.scan_group_launch(
             xs.data_ptr(), c0.data_ptr(), ys.data_ptr(), ws.data_ptr(),
             mark.data_ptr(), reruns.data_ptr(), n_t, chunk, warm, launch_no,
-            stream)
+            nf, stream)
     if err != 0:
         raise RuntimeError(f"scan_group kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return ys
 
 
-def _next_launch(program: ScanGroupProgram, device):
-    """(the program's flag on `device`, this launch's number, from 1)."""
-    key = str(device)
+def _next_launch(program: ScanGroupProgram, device, nf: int):
+    """(the program's flags, one a file, for batches of nf files on
+    `device`, and this launch's number, from 1)."""
+    key = (str(device), nf)
     if key not in program._flags:
-        flag = (ctypes.c_longlong(-1) if key == "cpu" else
-                torch.full((1,), -1, dtype=torch.int64, device=device))
+        flag = ((ctypes.c_longlong * nf)(*[-1] * nf) if key[0] == "cpu" else
+                torch.full((nf,), -1, dtype=torch.int64, device=device))
         program._flags[key] = [flag, 0]
     entry = program._flags[key]
     entry[1] += 1
@@ -273,22 +289,31 @@ def scan_group_host(program: ScanGroupProgram, xs: torch.Tensor,
     speculation repeat `scan_group_plain`; no render path calls it, and
     it leaves LAUNCHES alone.  `program.host_last` then holds (whether
     the call speculated, the steps its fix-up re-walked); the no-merge
-    flag of the host form is the program's own, as on the card."""
+    flags of the host form are the program's own, as on the card.  A
+    batch (xs [nf, L, n_ext], c0 [nf, n]) runs its files one after
+    another; `host_last` then holds (the files speculated, the steps all
+    files re-walked), and `host_marks` the files' flags after the call."""
     _check(program.n_carry, program.n_ext, xs, c0)
     if xs.device.type != "cpu":
         raise ValueError("scan_group_host takes CPU tensors")
     fn = _build.load_generated_host(program.source).scan_group_host
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5
     fn.restype = ctypes.c_int
+    batched = xs.dim() == 3
     xs, c0 = xs.contiguous(), c0.contiguous()
-    n_t = xs.shape[0]
+    nf = xs.shape[0] if batched else 1
+    n_t = xs.shape[-2]
     chunk, warm, n_chunks = chunk_plan(n_t, chunk, warmup)
-    ys = torch.empty((n_t, program.n_carry), dtype=torch.float64)
-    ws = torch.empty((2, n_chunks, program.n_carry), dtype=torch.float64)
-    mark, launch_no = _next_launch(program, "cpu")
+    ys = torch.empty(tuple(xs.shape[:-1]) + (program.n_carry,),
+                     dtype=torch.float64)
+    ws = torch.empty((nf, 2, n_chunks, program.n_carry), dtype=torch.float64)
+    mark, launch_no = _next_launch(program, "cpu", nf)
     reruns = ctypes.c_ulonglong(0)
     speculated = fn(xs.data_ptr(), c0.data_ptr(), ys.data_ptr(),
                     ws.data_ptr(), ctypes.addressof(mark),
-                    ctypes.addressof(reruns), n_t, chunk, warm, launch_no)
-    program.host_last = (bool(speculated), reruns.value)
+                    ctypes.addressof(reruns), n_t, chunk, warm, launch_no,
+                    nf)
+    program.host_last = (speculated if batched else bool(speculated),
+                         reruns.value)
+    program.host_marks = list(mark)
     return ys

@@ -59,7 +59,9 @@ _DESIGN = """\
 // Replaces the lax.scan of zorak_tpu/lowering/specialize.py
 // solve_scan_group (one DAG level of sequential scan groups): carries
 // c [ZS_N] f64, externals xs [L, ZS_NX] f64, ys[t] = the carries after
-// sample t.
+// sample t; for each of nf files at once (xs [nf, L, ZS_NX], c0 [nf,
+// ZS_N], ys [nf, L, ZS_N]), the files a grid axis of every kernel, each
+// with its own chunk records and its own "walk in series" flag.
 //
 // What bounds it: the body is a chain of dependent steps, far above the
 // (ZS_NX + ZS_N) * 8 bytes a sample moves.  One thread walking all L
@@ -98,13 +100,14 @@ _DESIGN = """\
 // walk's for every body and every input, whether the body contracts (two
 // walks then meet, and the fix-up passes through) or not (the fix-up then
 // walks the chunk in series).
-// Where a launch re-walked more than half its samples (a body that never
-// contracts, such as a wrap; a decay into exact silence, where two
-// followers keep a fixed ratio), its fix-up marks the program's flag with
+// Where a launch re-walked more than half a file's samples (a body that
+// never contracts, such as a wrap; a decay into exact silence, where two
+// followers keep a fixed ratio), its fix-up marks that file's flag with
 // the launch's number; the next launch then neither speculates nor fixes
-// up, and zs_walk_kernel walks in series (a launch with one chunk,
-// L <= warm + chunk, is that walk alone).  The flag is read on the
-// device only and holds for one launch.
+// up that file, and zs_walk_kernel walks it in series (a launch with one
+// chunk, L <= warm + chunk, is that walk alone).  The flags are read on
+// the device only and hold for one launch; a silent file does not push
+// the others into series.
 """
 
 _BINARY_INFIX = {"+": "+", "-": "-", "*": "*"}
@@ -258,11 +261,14 @@ def emit_scan_source(steps: Sequence[Step], outs: Sequence[Operand],
     exactly where the level has one external stream (`STAGE_MAX_EXT`).
 
     Entry points (plain C interface, arrays f64 and contiguous unless
-    named otherwise; ws holds 2 x n_chunks x n_carry f64, the start and
-    end records; mark is one int64, reruns one uint64):
-      scan_group_launch(xs [L, n_ext], c0 [n_carry], ys [L, n_carry], ws,
-                        mark, reruns, L, chunk, warm, launch_no, stream)
-                                   the two kernels (the fix-up alone where
+    named otherwise, for nf files, each file's rows after the last's; ws
+    holds nf x 2 x n_chunks x n_carry f64, the start and end records;
+    mark is nf int64, a file's flag, reruns one uint64, the steps all
+    files re-walked):
+      scan_group_launch(xs [nf, L, n_ext], c0 [nf, n_carry],
+                        ys [nf, L, n_carry], ws, mark, reruns, L, chunk,
+                        warm, launch_no, nf, stream)
+                                   the kernels (the walk alone where
                                    chunk >= L); returns the cudaError
       scan_group_chain(xc [ZS_U, n_ext], c0, out [n_carry], L, stream)
                                    with `probe` only, for timing: the same
@@ -270,10 +276,12 @@ def emit_scan_source(steps: Sequence[Step], outs: Sequence[Operand],
                                    through registers, no memory traffic;
                                    writes the last carry
       scan_group_host(xs, c0, ys, ws, mark, reruns, L, chunk, warm,
-                      launch_no)   host compilers only: the same two
-                                   phases, one chunk after another;
-                                   returns 1 if it speculated, 0 if it
-                                   walked in series
+                      launch_no, nf)
+                                   host compilers only: the same two
+                                   phases, one chunk after another, a
+                                   file after another; returns the files
+                                   it speculated (the others it walked
+                                   in series)
     """
     if n_carry != len(outs) or n_carry < 1:
         raise ValueError(f"{len(outs)} outs for {n_carry} carries")
@@ -713,14 +721,20 @@ def emit_scan_source(steps: Sequence[Step], outs: Sequence[Operand],
         ]
     ncomp = len(comps)
     out += [
-        "// A warp a block: 32 chunks of component blockIdx.y.  Returns at",
-        "// once where the launch before marked the flag with its number.",
+        "// A warp a block: 32 chunks of component blockIdx.y of file",
+        "// blockIdx.z.  Returns at once where the launch before marked the",
+        "// file's flag with its number.",
         "__global__ void __launch_bounds__(32) zs_speculate_kernel(",
         "    const double* __restrict__ xs, const double* __restrict__ c0,",
         "    double* __restrict__ ys, double* __restrict__ ws,",
         "    const long long* __restrict__ mark, long long L, long long chunk,",
         "    long long warm, long long n_chunks, long long launch_no) {",
-        "  if (*mark == launch_no - 1) return;",
+        "  const long long f = blockIdx.z;",
+        "  if (mark[f] == launch_no - 1) return;",
+        "  xs += f * L * ZS_NX;",
+        "  c0 += f * ZS_N;",
+        "  ys += f * L * ZS_N;",
+        "  ws += f * 2 * n_chunks * ZS_N;",
         "  double* ws_end = ws + n_chunks * ZS_N;",
         "  switch (blockIdx.y) {",
         *[f"    case {k}: zs_speculate_{k}(xs, c0, ys, ws, ws_end, L, chunk, "
@@ -728,29 +742,39 @@ def emit_scan_source(steps: Sequence[Step], outs: Sequence[Operand],
         "  }",
         "}",
         "",
-        "// Where the flag says the launch before re-walked most of its",
-        "// samples, or the launch has one chunk (`force`): the walk in",
-        "// series, a block of one thread a component; else nothing.",
+        "// Where the file's flag says the launch before re-walked most of",
+        "// its samples, or the launch has one chunk (`force`): the walk in",
+        "// series, a block of one thread a component (blockIdx.x) and file",
+        "// (blockIdx.y); else nothing.",
         "__global__ void __launch_bounds__(1) zs_walk_kernel(",
         "    const double* __restrict__ xs, const double* __restrict__ c0,",
         "    double* __restrict__ ys, const long long* __restrict__ mark,",
         "    long long L, long long launch_no, int force) {",
-        "  if (!force && *mark != launch_no - 1) return;",
+        "  const long long f = blockIdx.y;",
+        "  if (!force && mark[f] != launch_no - 1) return;",
+        "  xs += f * L * ZS_NX;",
+        "  c0 += f * ZS_N;",
+        "  ys += f * L * ZS_N;",
         "  switch (blockIdx.x) {              // a block a component",
         *[f"    case {k}: zs_walk_{k}(xs, c0, ys, L); break;"
           for k in range(ncomp)],
         "  }",
         "}",
         "",
-        "// The fix-up, a block of one thread a component, after a launch",
-        "// that speculated (else nothing); marks the flag where a",
-        "// component re-walked more than half its samples.",
+        "// The fix-up, a block of one thread a component (blockIdx.x) and",
+        "// file (blockIdx.y), after a launch that speculated the file (else",
+        "// nothing); marks the file's flag where a component re-walked more",
+        "// than half its samples.",
         "__global__ void __launch_bounds__(1) zs_fixup_kernel(",
         "    const double* __restrict__ xs, double* __restrict__ ys,",
         "    const double* __restrict__ ws, long long* __restrict__ mark,",
         "    unsigned long long* __restrict__ reruns, long long L,",
         "    long long chunk, long long n_chunks, long long launch_no) {",
-        "  if (*mark == launch_no - 1) return;",
+        "  const long long f = blockIdx.y;",
+        "  if (mark[f] == launch_no - 1) return;",
+        "  xs += f * L * ZS_NX;",
+        "  ys += f * L * ZS_N;",
+        "  ws += f * 2 * n_chunks * ZS_N;",
         "  const double* ws_end = ws + n_chunks * ZS_N;",
         "  __shared__ double rs[ZS_GROUP * ZS_N], re[ZS_GROUP * ZS_N];",
         "  unsigned long long walked = 0;",
@@ -758,7 +782,7 @@ def emit_scan_source(steps: Sequence[Step], outs: Sequence[Operand],
         *[f"    case {k}: zs_fixup_{k}(xs, ys, ws, ws_end, L, chunk, "
           "n_chunks, rs, re, walked); break;" for k in range(ncomp)],
         "  }",
-        "  if (2 * walked > (unsigned long long)L) *mark = launch_no;",
+        "  if (2 * walked > (unsigned long long)L) mark[f] = launch_no;",
         "  if (walked) atomicAdd(reruns, walked);",
         "}",
         "",
@@ -781,9 +805,11 @@ def emit_scan_source(steps: Sequence[Step], outs: Sequence[Operand],
         'extern "C" int scan_group_launch(const void* xs, const void* c0,',
         "    void* ys, void* ws, void* mark, void* reruns, long long L,",
         "    long long chunk, long long warm, long long launch_no,",
-        "    void* stream) {",
+        "    long long nf, void* stream) {",
         "  cudaGetLastError();  // clear an error left by an earlier call",
-        "  if (L <= 0) return 0;",
+        "  if (L <= 0 || nf <= 0) return 0;",
+        "  if (nf > 65535) return static_cast<int>(cudaErrorInvalidValue);",
+        "  const unsigned files = static_cast<unsigned>(nf);",
         "  const auto s = static_cast<cudaStream_t>(stream);",
         "  const auto* x = static_cast<const double*>(xs);",
         "  const auto* c = static_cast<const double*>(c0);",
@@ -798,19 +824,20 @@ def emit_scan_source(steps: Sequence[Step], outs: Sequence[Operand],
         "          cudaFuncAttributeMaxDynamicSharedMemorySize, ZS_SMEM);",
         "      opted_in = true;",
         "    }",
-        "    const dim3 grid((unsigned)((n_chunks + 31) / 32), ZS_COMPONENTS);",
+        "    const dim3 grid((unsigned)((n_chunks + 31) / 32), ZS_COMPONENTS,",
+        "                    files);",
         "    zs_speculate_kernel<<<grid, 32, ZS_SMEM, s>>>(x, c, y, w, m, L,",
         "        chunk, warm, n_chunks, launch_no);",
         "    cudaError_t err = cudaGetLastError();",
         "    if (err != cudaSuccess) return static_cast<int>(err);",
-        "    zs_fixup_kernel<<<ZS_COMPONENTS, 1, 0, s>>>(x, y, w, m,",
-        "        static_cast<unsigned long long*>(reruns), L, chunk, n_chunks,",
+        "    zs_fixup_kernel<<<dim3(ZS_COMPONENTS, files), 1, 0, s>>>(x, y, w,",
+        "        m, static_cast<unsigned long long*>(reruns), L, chunk, n_chunks,",
         "        launch_no);",
         "    err = cudaGetLastError();",
         "    if (err != cudaSuccess) return static_cast<int>(err);",
         "  }",
-        "  zs_walk_kernel<<<ZS_COMPONENTS, 1, 0, s>>>(x, c, y, m, L, launch_no,",
-        "                                              n_chunks <= 1);",
+        "  zs_walk_kernel<<<dim3(ZS_COMPONENTS, files), 1, 0, s>>>(x, c, y, m,",
+        "      L, launch_no, n_chunks <= 1);",
         "  return static_cast<int>(cudaGetLastError());",
         "}",
         "",
@@ -890,27 +917,37 @@ def emit_scan_source(steps: Sequence[Step], outs: Sequence[Operand],
             "",
         ]
     out += [
-        'extern "C" int scan_group_host(const double* xs, const double* c0,',
-        "    double* ys, double* ws, long long* mark,",
+        'extern "C" int scan_group_host(const double* xs0, const double* c00,',
+        "    double* ys0, double* ws0, long long* mark,",
         "    unsigned long long* reruns, long long L, long long chunk,",
-        "    long long warm, long long launch_no) {",
+        "    long long warm, long long launch_no, long long nf) {",
         "  if (L <= 0) return 0;",
         "  const long long n_chunks = (L + chunk - 1) / chunk;",
-        "  const bool serial = n_chunks <= 1 || *mark == launch_no - 1;",
-        "  double* ws_end = ws + n_chunks * ZS_N;",
+        "  int speculated = 0;",
+        "  for (long long f = 0; f < nf; ++f) {   // a file after another",
+    ]
+    body = [
+        "const double* xs = xs0 + f * L * ZS_NX;",
+        "const double* c0 = c00 + f * ZS_N;",
+        "double* ys = ys0 + f * L * ZS_N;",
+        "double* ws = ws0 + f * 2 * n_chunks * ZS_N;",
+        "const bool serial = n_chunks <= 1 || mark[f] == launch_no - 1;",
+        "double* ws_end = ws + n_chunks * ZS_N;",
+        "speculated += serial ? 0 : 1;",
     ]
     for k in range(ncomp):
-        out += [
-            "  if (serial) {",
-            f"    zs_walk_{k}(xs, c0, ys, L);",
-            "  } else {",
-            "    for (long long c = 0; c < n_chunks; ++c)",
-            f"      zs_speculate_{k}(xs, c0, ys, ws, ws_end, L, chunk, warm, c);",
-            f"    const unsigned long long walked = zs_fixup_{k}(xs, ys, ws, ws_end,",
-            "        L, chunk, n_chunks);",
-            "    if (2 * walked > (unsigned long long)L) *mark = launch_no;",
-            "    *reruns += walked;",
-            "  }",
+        body += [
+            "if (serial) {",
+            f"  zs_walk_{k}(xs, c0, ys, L);",
+            "} else {",
+            "  for (long long c = 0; c < n_chunks; ++c)",
+            f"    zs_speculate_{k}(xs, c0, ys, ws, ws_end, L, chunk, warm, c);",
+            f"  const unsigned long long walked = zs_fixup_{k}(xs, ys, ws, ws_end,",
+            "      L, chunk, n_chunks);",
+            "  if (2 * walked > (unsigned long long)L) mark[f] = launch_no;",
+            "  *reruns += walked;",
+            "}",
         ]
-    out += ["  return serial ? 0 : 1;", "}", "", "#endif", ""]
+    out += ["    " + ln for ln in body]
+    out += ["  }", "  return speculated;", "}", "", "#endif", ""]
     return "\n".join(out)

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import math
 import os
+import struct
 import sys
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple, Union
@@ -1669,6 +1670,39 @@ def _host_i64(v: float) -> int:
     return int(v)
 
 
+def _shared_value(values: Sequence[float], key) -> float:
+    """The one value every file of a batch holds for a host-mirrored
+    carried scalar; a batch whose files disagree on it is refused, never
+    rendered with one file's value."""
+    first = values[0]
+    if any(_f64_bits(v) != _f64_bits(first) for v in values[1:]):
+        raise SpecializeError(
+            f"the files of a batch hold different values of the host-"
+            f"mirrored carried scalar {key!r}: render them apart")
+    return first
+
+
+def _shared_known(rows: Sequence[Sequence[float]], mirrored: Sequence[int],
+                  keys: Sequence[Any]) -> List[Optional[float]]:
+    """The host mirror a batch starts from: carried scalar i as a float
+    where every file holds the same bits, else None (the device holds
+    it).  A mirrored slot (`mirrored_slots`) on which the files disagree
+    raises a SpecializeError."""
+    known: List[Optional[float]] = list(rows[0])
+    mirrored_set = set(mirrored)
+    for i in range(len(known)):
+        col = [r[i] for r in rows]
+        if i in mirrored_set:
+            known[i] = _shared_value(col, keys[i])
+        elif any(_f64_bits(v) != _f64_bits(col[0]) for v in col[1:]):
+            known[i] = None
+    return known
+
+
+def _f64_bits(v: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", v))[0]
+
+
 def _norm_loop(v, meta):
     """Masked fixpoint for range-normalization whiles (a tensor, or one
     Python float): iterate `v (+|-)= S where pred(v, C)` until no lane
@@ -2279,11 +2313,12 @@ class SpecializedSampleKernel:
         self._traj_plugin = None
         self.last_control_state = None
         self._seg_fns: Dict[Any, Callable] = {}
+        self._mirrored: Optional[List[int]] = None
         # per-kernel device constants: 0-d tensors by value, and, by
         # segment length, the ring tap chains' launches (or None) by `+`
         # node (`_tap_plan`)
         self._const_cache: Dict[Any, Any] = {}
-        self._tap_tables: Dict[int, Dict[int, Any]] = {}
+        self._tap_tables: Dict[Tuple[int, int], Dict[int, Any]] = {}
         # the lowered scan-group levels (step list, externals, generated
         # source) by DAG level
         self._scan_programs: Dict[int, Any] = {}
@@ -3109,34 +3144,38 @@ class SpecializedSampleKernel:
         return _TapChain(x, node, region, needs_src, [s for _g, s in taps],
                          [g for g, _s in taps])
 
-    def _tap_group(self, x, L: int) -> Optional[_TapGroup]:
+    def _tap_group(self, x, L: int, nf: int = 1) -> Optional[_TapGroup]:
         """The launch that folds the chain ending at `+` node x in the
-        segment program of length L, or None when x is no chain.  Chains
-        are grouped once for the kernel's life (`_tap_plan`); a chain the
-        plan did not list (a node inside another chain that is also read
-        elsewhere) is a launch of its own, matched at its first use."""
-        plan = self._tap_plan(L)
+        segment program of length L over nf files, or None when x is no
+        chain.  Chains are grouped once for the kernel's life
+        (`_tap_plan`); a chain the plan did not list (a node inside
+        another chain that is also read elsewhere) is a launch of its
+        own, matched at its first use."""
+        plan = self._tap_plan(L, nf)
         if id(x) not in plan:
             chain = self._tap_chain(x, L)
             plan[id(x)] = None if chain is None else \
-                self._tap_launch([chain], L)
+                self._tap_launch([chain], L, nf)
         return plan[id(x)]
 
-    def tap_launches(self, L: int) -> List[_TapGroup]:
+    def tap_launches(self, L: int, nf: int = 1) -> List[_TapGroup]:
         """The planned `ring_tap_sum` launches of the segment program of
-        length L, each with its chains and tables."""
-        return list({id(g): g for g in self._tap_plan(L).values()
+        length L over nf files, each with its chains and tables."""
+        return list({id(g): g for g in self._tap_plan(L, nf).values()
                      if g is not None}.values())
 
-    def _tap_launch(self, members: List[_TapChain], L: int) -> _TapGroup:
+    def _tap_launch(self, members: List[_TapChain], L: int,
+                    nf: int) -> _TapGroup:
         from ..kernels.ring_taps import TapTables
 
         return _TapGroup(members, TapTables(
-            [(m.starts, m.gains) for m in members], self.device, length=L))
+            [(m.starts, m.gains) for m in members], self.device, length=L,
+            files=nf))
 
-    def _tap_plan(self, L: int) -> Dict[int, Optional[_TapGroup]]:
+    def _tap_plan(self, L: int, nf: int = 1) -> Dict[int, Optional[_TapGroup]]:
         """{id(chain root): its launch} for the segment program of length
-        L, built once.
+        L over nf files, built once (the files set only the kernel's
+        tile).
 
         The roots are the chains the emitter can meet: the plan's nodes
         reached through their operands, a chain through its init alone
@@ -3150,7 +3189,7 @@ class SpecializedSampleKernel:
         cross-fed pair (the right ring written from the left sum) stays
         two launches.
         """
-        got = self._tap_tables.get(L)
+        got = self._tap_tables.get((L, nf))
         if got is not None:
             return got
         from ..kernels.ring_taps import MAX_CHAINS
@@ -3237,10 +3276,10 @@ class SpecializedSampleKernel:
                 group_of[key] = groups[-1]
         plan: Dict[int, Optional[_TapGroup]] = {}
         for grp in groups:
-            launch = self._tap_launch(grp, L)
+            launch = self._tap_launch(grp, L, nf)
             for m in grp:
                 plan[id(m.root)] = launch
-        self._tap_tables[L] = plan
+        self._tap_tables[(L, nf)] = plan
         return plan
 
     # -- planning ------------------------------------------------------------
@@ -3828,21 +3867,33 @@ class SpecializedSampleKernel:
                          for i in range(len(self.scan_groups))})
         return {lv: self.scan_level_program(lv) for lv in levels}
 
-    def _make_seg_fn(self, L: int) -> Callable:
-        """The per-segment program of length L, in torch.
+    def _make_seg_fn(self, L: int, nf: int = 1) -> Callable:
+        """The per-segment program of length L over a batch of nf files,
+        in torch.
 
-        Counterpart of the reference's `_make_seg_fn`: the same walk over
-        the plan's GNode DAG, run eagerly.  The host keeps a mirror of
-        the carried scalars it can compute itself (cursors, counters,
-        constants), so every ring cursor is a Python int and every ring
-        access a slice (a view) of `[history | this segment's write
-        stream]`, and no segment waits for the device: the values only
-        the device knows (a recurrence's last state) stay 0-d tensors.
-        Three hot loops go to the hand-written
-        kernels: the linear recurrences (`linrec_scan`), the ring tap
-        sums (`ring_tap_sum`: the chains planned into one launch
-        together, each ring read in place) and the sequential scan groups
-        (`scan_group`, generated from the group's steps).
+        Counterpart of the reference's `_make_seg_fn` under its files
+        vmap (zorak_tpu/parallel/batch.py): the same walk over the plan's
+        GNode DAG, run eagerly, with the files as a leading axis.  A
+        file's streams are [nf, L] (x [nf, nch, L], the carry (svec [nf,
+        n], rings {region: [nf, mod]})); what every file shares stays
+        unbatched and broadcasts: the control and draw streams [L], the
+        read-only regions [mod], the host-known values.  A file's rows go
+        through the same operations in the same order as when it renders
+        alone, so the batch equals the solo renders bit for bit, and the
+        solo render is the nf = 1 case of this program.
+
+        The host keeps a mirror of the carried scalars it can compute
+        itself (cursors, counters, constants), shared by every file, so
+        every ring cursor is a Python int and every ring access a slice (a
+        view) of `[history | this segment's write stream]`, and no segment
+        waits for the device: the values only the device knows (a
+        recurrence's last state) stay [nf, 1] tensors.  Three hot loops
+        go to the hand-written kernels, each launched once for the whole
+        batch: the linear recurrences (`linrec_scan`, files x rows as its
+        rows), the ring tap sums (`ring_tap_sum`: the chains planned into
+        one launch together, each ring read in place, the files its grid's
+        third axis) and the sequential scan groups (`scan_group`,
+        generated from the group's steps, a block a component and file).
         """
         import torch
 
@@ -3862,7 +3913,7 @@ class SpecializedSampleKernel:
         snap = self.snap
         const = self._const
 
-        # read-only regions bake as constants
+        # read-only regions bake as constants, shared by every file
         static_regions: Dict[Tuple[int, int], Any] = {}
         for node in self._all_nodes(sym):
             if node.kind in ("ringref", "dynringref") \
@@ -3892,26 +3943,33 @@ class SpecializedSampleKernel:
                 return host
             return host.pin_memory().to(dev, non_blocking=True)
 
+        def is_scalar(v) -> bool:
+            """One value a file (a float, a 0-d or an [nf, 1] tensor), not
+            a stream ([L] or [nf, L]); at L = 1 the two agree."""
+            return isinstance(v, float) or v.dim() == 0 or v.shape[-1] == 1
+
         def seg(carry, xs, known):
             """One segment.  `known[i]` is carried scalar i as a Python
-            float where the host knows it, else None (it is svec[i] on
-            the device).  Returns (new carry, y, new known)."""
+            float where the host knows it (the same for every file), else
+            None (it is svec[:, i] on the device).  Returns (new carry, y
+            [nf, nch, L], new known)."""
             xseg, ctrlseg, randseg = xs
             svec, rings = carry
             memo: Dict[int, Any] = {}
 
             def sc(key):
-                """A carried scalar: a float, or a 0-d device tensor."""
+                """A carried scalar: a float, or an [nf, 1] device tensor."""
                 i = scalar_index[key]
                 v = known[i]
-                return svec[i] if v is None else v
+                return svec[:, i:i + 1] if v is None else v
 
             def host_scalar(key) -> float:
                 """A carried scalar as a float; reads the device (and
-                waits for it) only for a value the host does not know."""
+                waits for it) only for a value the host does not know,
+                which every file must then agree on."""
                 i = scalar_index[key]
                 if known[i] is None:
-                    known[i] = float(svec[i])
+                    known[i] = _shared_value(svec[:, i].tolist(), key)
                 return known[i]
 
             var_stream: Dict[Any, Any] = {}
@@ -3935,18 +3993,32 @@ class SpecializedSampleKernel:
                 return const(v) if isinstance(v, float) else v
 
             def _full(v):
+                """A value as [nf, L]: a view where it is shared."""
                 if isinstance(v, float):
-                    return torch.full((L,), v, dtype=F64, device=dev)
-                return v.expand(L)
+                    return torch.full((L,), v, dtype=F64,
+                                      device=dev).expand(nf, L)
+                return v.expand(nf, L)
 
             def _rows(vals):
-                """Python floats and 0-d tensors -> one [k] tensor."""
+                """Python floats and one-value-a-file tensors -> [nf, k]
+                (one upload for the floats of every file)."""
                 out = upload([v if isinstance(v, float) else 0.0
-                              for v in vals], F64)
+                              for v in vals] * nf, F64).view(nf, len(vals))
                 for i, v in enumerate(vals):
                     if not isinstance(v, float):
-                        out[i] = v
+                        out[:, i:i + 1] = v
                 return out
+
+            def _take(arr, idx):
+                """arr at idx along its last axis, per file: arr [m]
+                (shared) or [nf, m]; idx [L] or broadcast to [nf, L]."""
+                if idx.dim() < 2:
+                    idx = idx.expand(L)
+                    if arr.dim() == 1:
+                        return arr[idx]
+                if arr.dim() == 1:
+                    return arr[idx.expand(nf, L)]
+                return torch.gather(arr, 1, idx.expand(nf, L))
 
             tap_emitting: Set[int] = set()
 
@@ -3978,7 +4050,7 @@ class SpecializedSampleKernel:
                 if got is not None:
                     return got
                 if x.kind == "in":
-                    val = xseg[x.meta["ch"]]
+                    val = xseg[:, x.meta["ch"]]
                 elif x.kind == "ctrl":
                     col = ctrlseg[:, ctrl_index[x.meta["key"]]]
                     val = torch.repeat_interleave(col, B)[:L]
@@ -3995,7 +4067,8 @@ class SpecializedSampleKernel:
                 elif x.kind == "bin":
                     # the plan is static, so a `+` node is matched once
                     # for the kernel's life, not once a segment
-                    group = self._tap_group(x, L) if x.op == "+" else None
+                    group = (self._tap_group(x, L, nf) if x.op == "+"
+                             else None)
                     if group is not None:
                         emit_tap_group(group)
                         return memo[id(x)]
@@ -4019,8 +4092,9 @@ class SpecializedSampleKernel:
                         origin, mod = region
                         src_arr = (rings[region] if region not in
                                    static_regions else static_regions[region])
-                        val = src_arr[cursor_idx(x.meta["var"],
-                                                 x.meta["offset"], mod, 0, L)]
+                        val = src_arr[..., cursor_idx(x.meta["var"],
+                                                      x.meta["offset"], mod,
+                                                      0, L)]
                     else:
                         w = ws[-1]
                         # delay via cursor anchors so distinct-but-equal
@@ -4078,11 +4152,12 @@ class SpecializedSampleKernel:
                 mod = region[1]
                 ring = rings[region]
                 if k > mod:   # window re-wraps: the general gather
-                    return ring[cursor_idx(var, offset, mod, 0, k)]
+                    return ring[:, cursor_idx(var, offset, mod, 0, k)]
                 start = cursor_start(var, offset, mod)
                 if start + k <= mod:
-                    return ring[start:start + k]
-                return torch.cat([ring[start:], ring[:start + k - mod]])
+                    return ring[:, start:start + k]
+                return torch.cat([ring[:, start:], ring[:, :start + k - mod]],
+                                 dim=1)
 
             def ring_hist(region):
                 """The region's whole ring in write order (element mod-1 =
@@ -4099,7 +4174,8 @@ class SpecializedSampleKernel:
                 mod+L; a tap at delay d<L is full[mod-d : mod-d+L]."""
                 got = ring_cache.get((region, "full"))
                 if got is None:
-                    got = torch.cat([ring_hist(region), ring_source(region)])
+                    got = torch.cat([ring_hist(region), ring_source(region)],
+                                    dim=1)
                     ring_cache[(region, "full")] = got
                 return got
 
@@ -4112,7 +4188,7 @@ class SpecializedSampleKernel:
                 # feedback legal and cycle-free)
                 buf = ring_hist(region) if delay >= L \
                     else ring_hist_full(region)
-                return buf[mod - delay:mod - delay + L]
+                return buf[:, mod - delay:mod - delay + L]
 
             def dyn_ring_read(x):
                 """Read with a time-varying slot index: resolve each sample
@@ -4125,16 +4201,16 @@ class SpecializedSampleKernel:
                 if ws is None:
                     src_arr = (rings[region] if region not in static_regions
                                else static_regions[region])
-                    return src_arr[sigma.expand(L)]
+                    return _take(src_arr, sigma)
                 w = ws[-1]
                 full = ring_hist_full(region)
                 w0c = _host_i64(host_scalar(w.var)) + w.offset
                 pre = [u for u in ws if u.order < x.meta["order"]]
                 if not pre:
                     dtil = torch.remainder(w0c + t64 - sigma - 1, mod) + 1
-                    return full[mod + t64 - dtil]
+                    return _take(full, mod + t64 - dtil)
                 dtil = torch.remainder(w0c + t64 - sigma, mod)
-                base = full[mod + t64 - dtil]
+                base = _take(full, mod + t64 - dtil)
                 if pre[-1] is w:
                     return base
                 # same-slot same-sample reads see the latest PRECEDING
@@ -4155,7 +4231,8 @@ class SpecializedSampleKernel:
                 if gid in solved_groups:
                     return
                 # levels are mutually independent, so batching only
-                # concatenates the carries
+                # concatenates the carries; the files are the kernel's
+                # own axis
                 level = scan_levels.get(gid, 0)
                 batch = [i for i in range(len(scan_groups))
                          if scan_levels.get(i, 0) == level
@@ -4166,13 +4243,13 @@ class SpecializedSampleKernel:
                 keys, externals, program, carry_idx = \
                     self.scan_level_program(level)
                 xs_l = (torch.stack([_full(emit(e)) for e in externals],
-                                    dim=1) if externals
-                        else torch.zeros((L, 0), dtype=F64, device=dev))
+                                    dim=2) if externals
+                        else torch.zeros((nf, L, 0), dtype=F64, device=dev))
                 # the start carries stay where they are: svec holds every
                 # carried scalar, known to the host or not
-                ys = scan_group(program, xs_l, svec[carry_idx])
+                ys = scan_group(program, xs_l, svec[:, carry_idx])
                 for i, g in enumerate(keys):
-                    var_stream[g] = ys[:, i]
+                    var_stream[g] = ys[:, :, i]
 
             linrec_waves = ({} if not _LINREC_BATCH
                             else self._linrec_wave_map())
@@ -4202,22 +4279,29 @@ class SpecializedSampleKernel:
                     ring_emitting.update(saved_re)
                     return False
                 in_progress.difference_update(set(live) - saved_ip)
-                scalar_g = [e for e in emitted
-                            if isinstance(e[1], float) or e[1].dim() == 0]
-                vector_g = [e for e in emitted
-                            if not (isinstance(e[1], float)
-                                    or e[1].dim() == 0)]
+                scalar_g = [e for e in emitted if is_scalar(e[1])]
+                vector_g = [e for e in emitted if not is_scalar(e[1])]
                 for grp in (scalar_g, vector_g):
-                    if not grp:
-                        continue
-                    Am = (_rows([e[1] for e in grp]) if grp is scalar_g
-                          else torch.stack([e[1] for e in grp]))
-                    Bm = torch.stack([e[2] for e in grp])
-                    z0 = _rows([sc(e[0]) for e in grp])
-                    out = linrec_scan(Am, Bm, z0)
-                    for i, e in enumerate(grp):
-                        var_stream[e[0]] = out[i]
+                    if grp:
+                        out = solve_linrecs([e[1] for e in grp],
+                                            [e[2] for e in grp],
+                                            [sc(e[0]) for e in grp],
+                                            grp is scalar_g)
+                        for i, e in enumerate(grp):
+                            var_stream[e[0]] = out[:, i]
                 return True
+
+            def solve_linrecs(As, Bs, z0s, scalar_a):
+                """k recurrences of every file in ONE `linrec_scan` launch:
+                the rows are files x recurrences ([nf * k, L]), each row's
+                a one value (scalar_a) or a stream.  Returns [nf, k, L]."""
+                k = len(Bs)
+                Am = (_rows(As).reshape(nf * k) if scalar_a
+                      else torch.stack([_full(a) for a in As],
+                                       dim=1).reshape(nf * k, L))
+                Bm = torch.stack(Bs, dim=1).reshape(nf * k, L)
+                z0 = _rows(z0s).reshape(nf * k)
+                return linrec_scan(Am, Bm, z0).view(nf, k, L)
 
             def stream_of(key):
                 got = var_stream.get(key)
@@ -4243,12 +4327,8 @@ class SpecializedSampleKernel:
                         val = var_stream[key]
                     else:
                         A = emit(plan.A)
-                        Bv = _full(emit(plan.B))
-                        if isinstance(A, float) or A.dim() == 0:
-                            A = _rows([A])
-                        else:
-                            A = A[None]
-                        val = linrec_scan(A, Bv[None], _rows([sc(key)]))[0]
+                        val = solve_linrecs([A], [_full(emit(plan.B))],
+                                            [sc(key)], is_scalar(A))[:, 0]
                 elif plan.kind == "scan":
                     solve_scan_group(plan.step)
                     val = var_stream[key]
@@ -4264,9 +4344,9 @@ class SpecializedSampleKernel:
                     return got
                 if key in P_plans:
                     cur = stream_of(key)
-                    val = torch.empty((L,), dtype=F64, device=dev)
-                    val[0] = sc(key)
-                    val[1:] = cur[:-1]
+                    val = torch.empty((nf, L), dtype=F64, device=dev)
+                    val[:, :1] = sc(key)
+                    val[:, 1:] = cur[..., :-1]
                 else:
                     val = _full(sc(key))
                 var_prev[key] = val
@@ -4278,13 +4358,13 @@ class SpecializedSampleKernel:
                 key = ("spl", c)
                 sv = sym.env.get(key)
                 if key in sym.writes:
-                    outs.append(stream_of(key))
+                    outs.append(_full(stream_of(key)))
                 elif sv is not None and isinstance(sv, TS) and sv.node.kind == "in":
-                    outs.append(xseg[c])
+                    outs.append(xseg[:, c])
                 else:
                     outs.append(_full(sc(key)) if key in scalar_index
-                                else xseg[c])
-            y = torch.stack(outs, dim=0)
+                                else xseg[:, c])
+            y = torch.stack(outs, dim=1)
 
             # carry updates: host floats and 0-d device values, joined
             # into one vector
@@ -4303,9 +4383,9 @@ class SpecializedSampleKernel:
                     elif plan.kind == "const":
                         new_vals.append(float(plan.out))
                     else:
-                        new_vals.append(stream_of(key)[-1])
+                        new_vals.append(stream_of(key)[..., -1:])
                 elif key[0] == "spl" and key[1] < nch:
-                    new_vals.append(xseg[key[1], -1])
+                    new_vals.append(xseg[:, key[1], -1:])
                 else:
                     new_vals.append(sc(key))
             new_svec = _rows(new_vals)
@@ -4322,18 +4402,19 @@ class SpecializedSampleKernel:
                         continue
                     # gated dynamic write, last writer wins: the latest
                     # write time per slot (amax), then each written slot's
-                    # value at that time; dead samples go to a spare slot
+                    # value at that time; dead samples go to a spare slot.
+                    # Each file scatters into its own row.
                     mod = region[1]
-                    idx = EM.to_i64(_arr(emit(dw.idx))).expand(L)
+                    idx = EM.to_i64(_arr(emit(dw.idx))).expand(nf, L)
                     val = _full(emit(dw.value))
                     live = (idx >= 0) & (idx < mod)
                     if dw.gate is not None:
                         live = live & EM.truthy_mask(_arr(emit(dw.gate)))
                     pos = torch.where(live, idx, torch.full_like(idx, mod))
-                    lastt = torch.zeros((mod + 1,), dtype=torch.int64,
+                    lastt = torch.zeros((nf, mod + 1), dtype=torch.int64,
                                         device=dev).scatter_reduce(
-                        0, pos, t64 + 1, "amax")[:mod]
-                    gathered = val[(lastt - 1).clamp(0, L - 1)]
+                        1, pos, (t64 + 1).expand(nf, L), "amax")[:, :mod]
+                    gathered = torch.gather(val, 1, (lastt - 1).clamp(0, L - 1))
                     new_rings[region] = torch.where(lastt > 0, gathered,
                                                     rings[region])
                     continue
@@ -4347,9 +4428,9 @@ class SpecializedSampleKernel:
                          + (L - k)) % mod
                 ring = rings[region].clone()
                 n1 = min(k, mod - start)
-                ring[start:start + n1] = src[L - k:L - k + n1]
+                ring[:, start:start + n1] = src[:, L - k:L - k + n1]
                 if k > n1:
-                    ring[:k - n1] = src[L - k + n1:]
+                    ring[:, :k - n1] = src[:, L - k + n1:]
                 new_rings[region] = ring
             return (new_svec, new_rings), y, new_known
 
@@ -4447,40 +4528,63 @@ class SpecializedSampleKernel:
 
         return (put(svec), {tuple(r): put(a) for r, a in rings.items()})
 
-    def _seg_fn(self, L: int):
-        fn = self._seg_fns.get(L)
+    def _seg_fn(self, L: int, nf: int = 1):
+        fn = self._seg_fns.get((L, nf))
         if fn is None:
-            fn = self._make_seg_fn(L)
-            self._seg_fns[L] = fn
+            fn = self._make_seg_fn(L, nf)
+            self._seg_fns[(L, nf)] = fn
         return fn
 
-    def _run(self, carry, x64, ctrl, rand, L: int):
-        """The segment loop: full segments of L, then the remainder, with
-        carry (svec, rings); f64 inside, f32 out."""
+    def mirrored_slots(self) -> List[int]:
+        """The carried scalars whose value the host mirrors as a Python
+        float for the whole batch (`known` of the segment program): the
+        induction and modular-induction counters, and the cursors of
+        every ring access.  A batch holds them as one value for all its
+        files, so every file must start with the same."""
+        if self._mirrored is None:
+            keys = {k for k, p in self.plans.items()
+                    if p.kind in ("induction", "modind")}
+            keys |= {w.var for ws in self.sym.ring_writes.values()
+                     for w in ws}
+            keys |= {n.meta["var"] for n in self._all_nodes(self.sym)
+                     if n.kind in ("ringidx", "ringref", "dynringref")
+                     and "var" in n.meta}
+            self._mirrored = sorted(self.scalar_index[k] for k in keys
+                                    if k in self.scalar_index)
+        return self._mirrored
+
+    def _run(self, carry, x, ctrl, rand, L: int):
+        """The segment loop over a batch of files: full segments of L,
+        then the remainder.  x [nf, nch, T] on the device (f32 audio, each
+        segment taken to f64 as it runs); carry (svec [nf, n], rings
+        {region: [nf, mod]}) f64; ctrl and rand shared by every file.
+        Returns (y f32 [nf, nch, T], carry)."""
         import torch
 
-        T = x64.shape[1]
+        nf, _nch, T = x.shape
         # the one device-to-host read of a render: the scalars it starts
         # from.  From here on each segment hands the next what the host
         # can compute itself, and the rest stays on the device.
-        known = carry[0].tolist()
+        known = _shared_known(carry[0].tolist(), self.mirrored_slots(),
+                              self.carried_vars)
         nfull = T // L
         rem = T - nfull * L
         rows_per_seg = L // self.B
-        y = torch.empty((self.nch, T), dtype=torch.float32,
+        f64 = torch.float64
+        y = torch.empty((nf, self.nch, T), dtype=torch.float32,
                         device=self.device)
         for s in range(nfull):
             t0, r0 = s * L, s * rows_per_seg
-            carry, yseg, known = self._seg_fn(L)(
-                carry, (x64[:, t0:t0 + L], ctrl[r0:r0 + rows_per_seg],
-                        rand[t0:t0 + L]), known)
-            y[:, t0:t0 + L] = yseg
+            carry, yseg, known = self._seg_fn(L, nf)(
+                carry, (x[:, :, t0:t0 + L].to(f64),
+                        ctrl[r0:r0 + rows_per_seg], rand[t0:t0 + L]), known)
+            y[:, :, t0:t0 + L] = yseg
         if rem:
             t0 = nfull * L
-            carry, yseg, known = self._seg_fn(rem)(
-                carry, (x64[:, t0:], ctrl[nfull * rows_per_seg:], rand[t0:]),
-                known)
-            y[:, t0:] = yseg
+            carry, yseg, known = self._seg_fn(rem, nf)(
+                carry, (x[:, :, t0:].to(f64), ctrl[nfull * rows_per_seg:],
+                        rand[t0:]), known)
+            y[:, :, t0:] = yseg
         return y, carry
 
     @property
@@ -4514,22 +4618,16 @@ class SpecializedSampleKernel:
                 self._carry0 = self.device_carry(self.initial_carry())
             carry = self._carry0
         carry = self.device_carry(carry)
-        L = min(self.L, max(self.B, (T // self.B) * self.B)) if T else self.L
-        n_full_blocks = T // self.B
-        rem_block = T - n_full_blocks * self.B
-        if ctrl is not None:
-            pass
-        elif self.has_block:
+        L = self.segment_length(T)
+        if ctrl is None:
             self._traj_midi_out = []
-            if midi or not fresh:
-                ctrl = self.control_trajectory(n_full_blocks, rem_block,
-                                               midi=midi, resume=not fresh)
+            if self.has_block and (midi or not fresh):
+                n_full_blocks = T // self.B
+                ctrl = self.control_trajectory(
+                    n_full_blocks, T - n_full_blocks * self.B, midi=midi,
+                    resume=not fresh)
             else:
-                ctrl = self.cached_trajectory(n_full_blocks, rem_block)
-        else:
-            self._traj_midi_out = []
-            rows = n_full_blocks + (1 if rem_block else 0)
-            ctrl = np.zeros((rows, len(self.ctrl_order)), dtype=np.float64)
+                ctrl = self.fresh_control(T)
         rand = self._rand_streams(T, reset=fresh)
         self.last_midi_out = list(self._traj_midi_out)
         if midi and not self.accepts_midi:
@@ -4537,19 +4635,51 @@ class SpecializedSampleKernel:
                 "MIDI events supplied but this kernel has no @block "
                 "midirecv path")
 
-        def put(a):
-            # to the device in the type it has (f32 audio is half the
-            # bytes), to f64 there
-            if not isinstance(a, torch.Tensor):
-                a = torch.from_numpy(np.ascontiguousarray(a))
-            return a.to(self.device).to(torch.float64)
-
-        if not isinstance(x, torch.Tensor):
-            x = np.ascontiguousarray(x, np.float32)
         if T == 0:
             return torch.zeros((nch, 0), dtype=torch.float32,
                                device=self.device), carry
-        return self._run(carry, put(x), put(ctrl), put(rand), L)
+        # the solo render is the batch of one file
+        svec, rings = carry
+        y, (svec, rings) = self._run(
+            (svec[None], {r: a[None] for r, a in rings.items()}),
+            self.put_audio(x)[None], self.put_f64(ctrl), self.put_f64(rand),
+            L)
+        return y[0], (svec[0], {r: a[0] for r, a in rings.items()})
+
+    def segment_length(self, T: int) -> int:
+        """The segment length of a render of T samples: the kernel's,
+        or T cut to whole blocks where that is shorter."""
+        return min(self.L, max(self.B, (T // self.B) * self.B)) if T \
+            else self.L
+
+    def put_audio(self, x):
+        """Audio (a numpy array, f32, or a tensor) on the kernel's device
+        in the type it has: f32 audio crosses at half the bytes, and each
+        segment goes to f64 on the device as it runs."""
+        import torch
+
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+        return x.to(self.device)
+
+    def put_f64(self, a):
+        """A numpy array or tensor as f64 on the kernel's device."""
+        import torch
+
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        return a.to(self.device).to(torch.float64)
+
+    def fresh_control(self, T: int) -> np.ndarray:
+        """The control matrix of a fresh render of T samples with no MIDI:
+        the @block trajectory from the planned state (memoized by
+        length), or the empty trajectory of a plugin without @block."""
+        n_full_blocks = T // self.B
+        rem_block = T - n_full_blocks * self.B
+        if self.has_block:
+            return self.cached_trajectory(n_full_blocks, rem_block)
+        rows = n_full_blocks + (1 if rem_block else 0)
+        return np.zeros((rows, len(self.ctrl_order)), dtype=np.float64)
 
     def _rand_streams(self, T: int, reset: bool) -> np.ndarray:
         """Pregenerate the exact MT19937 draw matrix [T, n_rand] (f64 u32

@@ -1,1 +1,4 @@
-from .batch import FaustBatchRenderer  # noqa: F401
+from .batch import (  # noqa: F401
+    BatchRenderer, FaustBatchRenderer, build_catalog_renderers,
+    catalog_batch_render, catalog_stacked_render, render_batch,
+)
