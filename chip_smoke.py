@@ -6,11 +6,12 @@
     python3 chip_smoke.py --phases jsfx      # the JSFX phases alone
     python3 chip_smoke.py --phases batch     # the batch phases alone
     python3 chip_smoke.py --phases spectral  # the spectral phase alone
+    python3 chip_smoke.py --phases coupled   # the coupled @block alone
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result (`--phases` takes any of `jsfx`, `batch`,
-`spectral` and `faust`, all four by default; device and build always
-run; `k4sweep` is described at the end):
+`spectral`, `coupled` and `faust`, all five by default; device and build
+always run; `k4sweep` is described at the end):
 
 1. device   the card's name and power limit (nvidia-smi);
 2. build    every CUDA kernel of the paths, from csrc/ in this checkout,
@@ -124,6 +125,25 @@ run; `k4sweep` is described at the end):
             partitioned_convolution_131072tap_rtx figures; a profiler
             pass a pipeline (the convolution's must hold K8 and no
             multiply pass);
+4c. coupled  the audio-coupled @block of builtin_plugins'
+            spectral_tilt_leveler(2048) (a Hann-windowed fft_real of a
+            2,048-cell ring every block): K10 (block_section, generated
+            CUDA C from lowering/devgen.py and csrc/block_ops.cuh) against
+            its plain version on the inputs it met at the first and the
+            middle block of 60 s renders, of 1 and of 8 files: the
+            exchanges bit for bit, the heap outside the FFT buffer bit for
+            bit, the FFT buffer, vars and control row within FFT_TOL_REL
+            x the heap's largest magnitude; then PluginInstance.render on
+            60 s of stereo: engine torch-vector, K10 and K3 launched once
+            a block, K2 a fixed number of times a block, the time with the
+            spread of four more renders, the whole render (audio, vars
+            and heap after the writeback) held to the native golden, the
+            golden's own time; K10's time a launch, the sections' chain
+            on one thread and the one-thread fft_real's share (probes),
+            its bound; the idle share of a traced 10 s render; a batch of
+            8 files x 60 s beside one file's time (K10 held at its first
+            and middle block), and each file of an 8-file batch of 10 s
+            torch.equal to its solo render;
 5. kernels (faust)  the switching scan (K1) must be bit-identical
             (integer views equal), in f64 and f32: at modest shapes, at
             the batch and main paths' shapes (its one-chunk case too),
@@ -133,12 +153,12 @@ run; `k4sweep` is described at the end):
             the default chunk and warm-up), constant input, -0.0 and NaN.
             Its time at the main shape beside the one-chunk case's (a
             thread per lane) and the worst case's, re-run steps, and the
-            chain bound from a one-thread probe.  The plain loop runs
-            the main length once, in f64 (minutes), and a tenth of it in
-            f32; for the rest at that length K1 at its defaults is held
-            bit for bit to K1 as one chunk: the main shape in f32, the
-            worst case and every input the VAR and RED renders below
-            give K1;
+            chain bound from a one-thread probe.  The plain loop runs a
+            tenth of the main length, in f64 and in f32 (it takes 70 to
+            110 us a step); at the main length K1 at its defaults is held
+            bit for bit to K1 as one chunk: the main shape in f64 and
+            f32, the worst case and every input the VAR and RED renders
+            below give K1;
 6. main (faust)  VAR on 60 s of 48 kHz stereo noise (seeded numpy) on CUDA:
             launch counts, re-run steps, finite output, timing, and the
             first second against the port's CPU render at the audio
@@ -258,7 +278,7 @@ K4_EDGE_VALUES = [
     -1.5 * 2.0 ** 62, 2.0 ** 63, -(2.0 ** 63), 1e300, -1e300, 3.5e38,
     float("inf"), float("-inf"), float("nan"),
 ]
-K1_PLAIN_T = 288_000   # K1's plain Python loop in f32: a tenth of MAIN_T
+K1_PLAIN_T = 288_000   # K1's plain Python loop, f64 and f32: a tenth of MAIN_T
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -1767,6 +1787,253 @@ def batch_phase(torch, cuda, rng, card):
             "scan_group": launches["follower"]["scan_group"]}
 
 
+COUPLED_FFT = 2048      # the stand-in's FFT (spectral_tilt_leveler)
+COUPLED_FILES = 8
+
+
+def coupled_phase(torch, cuda, rng, card):
+    """The audio-coupled @block: K10 (block_section) against its plain
+    version at the first and a middle block of 1 and 8 files, then
+    spectral_tilt_leveler through PluginInstance.render on 60 s of
+    stereo, held to the native golden; returns K10's `kernels` entry."""
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import _build
+    from zorak_tpu_torch.kernels import block_section as BS
+    from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
+    from zorak_tpu_torch.parallel import BatchRenderer
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+    from zorak_tpu_torch.shadow import compile_native_shadow
+    from zorak_tpu_torch.verify import (AUDIO_EPS, SCALAR_EPS,
+                                        apply_slider_state, compare_audio)
+    from zorak_tpu_torch.verify.nulltest import (compare_memory_pages,
+                                                 compare_states)
+
+    sec = MAIN_T / SR
+    n_fft = COUPLED_FFT
+    spec = slice(2 * n_fft, 3 * n_fft)      # the plugin's FFT buffer
+    prog = compile_plugin_source(BP.spectral_tilt_leveler(n_fft))
+    inst = PluginInstance(prog, srate=SR)
+    kern = inst.kernel
+    check(inst.engine == "torch-vector" and kern.coupled,
+          f"coupled: engine {inst.engine} ({inst.spec_error})")
+    B = kern.B
+    blocks = -(-MAIN_T // B)
+    k10 = kern._block_prog
+    probe = BS.BlockSectionProgram(k10.block, k10.slider, k10.n_svec,
+                                   k10.inter, k10.regions, k10.cells,
+                                   k10.ctrl, probe=True)
+    t0 = time.perf_counter()
+    logs = _build.build_generated([k10.source, probe.source])
+    print(f"[coupled] K10 and its probe build built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for line in logs[k10.source].splitlines():
+        if "registers" in line or "spill" in line or "stack" in line:
+            print(f"[build] block_section: {line.strip()}")
+
+    # K10's inputs at chosen launches of a render, copied before the launch
+    def recording(wanted):
+        got = {}
+        real = BS.block_section
+        count = [0]
+
+        def spy(program, svec, rings, bvars, bmem, samplesblock, midi=None,
+                ctrl=None, mout=None):
+            if count[0] in wanted:
+                got[count[0]] = (svec.clone(), [r.clone() for r in rings],
+                                 bvars.clone(), bmem.clone(), samplesblock)
+            count[0] += 1
+            return real(program, svec, rings, bvars, bmem, samplesblock,
+                        midi, ctrl, mout)
+        return got, spy, real
+
+    def held(label, inputs):
+        """K10 on the card against its plain version on the same inputs:
+        the exchanges and the heap outside the FFT buffer bit for bit, the
+        FFT buffer, vars and control row within FFT_TOL_REL (the buffer of
+        the heap's largest magnitude, a value of its own); returns (max
+        |delta|, plain version's ms)."""
+        svec, rings, bvars, bmem, sb = inputs
+        dev = [t.clone() for t in (svec, bvars, bmem)]
+        dev_r = [r.clone() for r in rings]
+        saved = BS.LAUNCHES
+        ctrl, _mo = BS.block_section(k10, dev[0], dev_r, dev[1], dev[2], sb)
+        BS.LAUNCHES = saved          # a comparison, not the main path
+        torch.cuda.synchronize()
+        cpu = [t.cpu() for t in (svec, bvars, bmem)]
+        cpu_r = [r.cpu() for r in rings]
+        t_p = time.perf_counter()
+        ctrl_p, _ = BS.block_section_plain(k10, cpu[0], cpu_r, cpu[1],
+                                           cpu[2], sb)
+        plain_ms = (time.perf_counter() - t_p) * 1e3
+        check(same_values(dev[0].cpu(), cpu[0]) and all(
+            same_values(a.cpu(), b) for a, b in zip(dev_r, cpu_r)),
+            f"K10 {label}: the sample side differs from the plain version")
+        heap, heap_p = dev[2].cpu(), cpu[2]
+        off = ~(heap == heap_p)
+        off[:, spec] = False
+        check(not bool(off.any()), f"K10 {label}: heap cells outside the "
+              "FFT buffer differ from the plain version")
+        vals = torch.cat([dev[1].cpu(), ctrl.cpu()], dim=1)
+        vals_p = torch.cat([cpu[1], ctrl_p], dim=1)
+        excess = BS.fft_excess(heap, heap_p, vals, vals_p)
+        errs = [float((heap - heap_p).abs().max()),
+                float((vals - vals_p).abs().max())]
+        check(excess <= 0.0, f"K10 {label}: heap {errs[0]:.3e}, vars and "
+              f"control row {errs[1]:.3e} from the plain version, beyond "
+              f"FFT_TOL_REL {BS.FFT_TOL_REL}")
+        print(f"[coupled] K10 {label} (samplesblock {sb:g}): exchanges and "
+              f"the heap outside the FFT buffer bit-identical; FFT buffer "
+              f"within {errs[0]:.3e} (of max {float(heap_p.abs().max()):.3e})"
+              f", vars and control row within {errs[1]:.3e} of the plain "
+              f"version; plain version {plain_ms:.1f} ms")
+        return max(errs), plain_ms
+
+    x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+    x_dev = torch.from_numpy(x).to(cuda)
+    mid = blocks // 2
+    # the warm-up render also records K10's inputs at the first and the
+    # middle block
+    got, spy, real = recording({0, mid})
+    BS.block_section = spy
+    t0 = time.perf_counter()
+    try:
+        inst.render(x)
+        torch.cuda.synchronize()
+    finally:
+        BS.block_section = real
+    warm_s = time.perf_counter() - t0
+
+    # the main path: counts zeroed just before, read just after
+    BS.LAUNCHES = LS.LAUNCHES = RT.LAUNCHES = 0
+    out = []
+    t0 = time.perf_counter()
+    ms = cuda_ms(lambda: out.append(inst.render(x)))
+    wall = time.perf_counter() - t0
+    launches = {"block_section": BS.LAUNCHES, "linrec_scan": LS.LAUNCHES,
+                "ring_tap_sum": RT.LAUNCHES}
+    res = out[0]
+    check(res.engine == "torch-vector", f"coupled: rendered by {res.engine}")
+    check(launches["block_section"] == blocks
+          and launches["ring_tap_sum"] == blocks
+          and launches["linrec_scan"] > 0
+          and launches["linrec_scan"] % blocks == 0,
+          f"coupled: launches {launches} for {blocks} blocks")
+    more_ms = sorted(cuda_ms(lambda: inst.render(x)) for _ in range(4))
+    y = res.audio
+    check(y.shape == (2, MAIN_T) and bool(np.isfinite(y).all()),
+          "coupled: output not finite or of the wrong shape")
+    print(f"[main] coupled spectral_tilt_leveler({n_fft}) 60 s stereo: "
+          f"engine={res.engine} device_ms={ms:.2f} wall_s={wall:.4f} "
+          f"audio_s_per_s={sec / (ms / 1e3):.2f} launches={launches} "
+          f"blocks={blocks} ({launches['linrec_scan'] // blocks} K2 a block)"
+          f" warm-up render (builds included) {warm_s:.2f} s; four more "
+          f"renders {' '.join(f'{m:.2f}' for m in more_ms)} ms card='{card}'")
+
+    # the native golden on the same 60 s, timed alone; the render above
+    # (the instance's audio and its state after the writeback) held to it
+    gold = compile_native_shadow(prog)
+    gold.state.srate = SR
+    apply_slider_state(gold.state, prog, None)
+    gold.run_init()
+    gold.run_slider()
+    y_gold = np.zeros_like(x)
+    t0 = time.perf_counter()
+    for start in range(0, MAIN_T, B):
+        gold.process_block(x[:, start:start + B], y_gold[:, start:start + B])
+    gold_s = time.perf_counter() - t0
+    rep = compare_audio(y_gold, y)
+    compare_states(gold.state, inst.shadow.state, report=rep)
+    compare_memory_pages(gold.state, inst.shadow.state, report=rep)
+    print(f"[main] coupled whole 60 s, PluginInstance.render on the card vs "
+          f"the native golden (audio {AUDIO_EPS}, vars and heap "
+          f"{SCALAR_EPS}): {rep.summary()}; the golden alone "
+          f"{gold_s:.2f} s on the host ({sec / gold_s:.2f} audio s per s)")
+    check(rep.passed, "coupled: the 60 s render disagrees with the native "
+          "golden")
+
+    # K10 against its plain version at the first and the middle block
+    err1, _ = held("1 file, block 0", got[0])
+    err2, plain_ms = held(f"1 file, block {mid}", got[mid])
+
+    # K10 alone: its time a launch at the middle block's inputs, the
+    # section's chain on one thread, and the one-thread FFT's share
+    svec, rings, bvars, bmem, sb = got[mid]
+    k10_ms = cuda_ms(lambda: BS.block_section(k10, svec, rings, bvars, bmem,
+                                              sb), reps=50)
+    BS.LAUNCHES = 0
+    reps = 20
+    names = BS.fft_probe_names(probe)
+    which = names.index(f"fft_real({n_fft})")
+    BS.block_section_chain_probe(probe, bvars, bmem, sb, 1)    # first launch
+    BS.block_section_fft_probe(probe, bvars, bmem, which, 1)   # loads each
+    chain_ms = cuda_ms(lambda: BS.block_section_chain_probe(
+        probe, bvars, bmem, sb, reps)) / reps
+    fft_ms = cuda_ms(lambda: BS.block_section_fft_probe(
+        probe, bvars, bmem, which, reps)) / reps
+    n_inter, ring_cells = len(k10.inter), sum(m for _o, m in k10.regions)
+    nbytes = 8 * (2 * (n_inter + ring_cells + len(k10.cells))
+                  + len(k10.ctrl) + 2 * k10.n_vars + 3 * n_fft)
+    ops = 5 * n_fft * int(np.log2(n_fft)) + 3 * n_fft
+    b_ms, b_by = bound_ms(nbytes, ops)
+    print(f"[coupled] K10 a launch {k10_ms * 1e3:.1f} us (1 file, block "
+          f"{mid}'s inputs, mean of 50); the sections alone on one thread "
+          f"{chain_ms * 1e3:.1f} us; fft_real({n_fft}) alone on one thread "
+          f"{fft_ms * 1e3:.1f} us, {fft_ms / k10_ms:.2f} of K10; bound "
+          f"{b_ms * 1e3:.3f} us by {b_by} ({nbytes} bytes, {ops} f64 "
+          f"operations) card='{card}'")
+
+    # one traced render of 10 s: the device idle share
+    n10 = 10 * int(SR)
+    _events, by_name = profile_render(
+        lambda: kern.render_device(x_dev[:, :n10]), "coupled 10 s",
+        traces=1)
+    k10_traced = [(n, us) for name, (n, us) in by_name.items()
+                  if "zb_kernel" in name]
+    if k10_traced:
+        n, us = k10_traced[0]
+        print(f"[coupled] K10 in the trace: {n} launches, {us / n:.1f} us a "
+              "launch")
+
+    # 8 files: the batch render of 60 s beside one file's, K10 at the
+    # batch's first and middle blocks; every file of a 10 s batch equal to
+    # its solo render
+    x8 = torch.from_numpy((rng.randn(COUPLED_FILES, 2, MAIN_T) * 0.25)
+                          .astype(np.float32)).to(cuda)
+    br = BatchRenderer(prog, srate=SR)
+    br.render_files(x8[:, :, :B])                    # stage and warm up
+    got8, spy, real = recording({0, mid})
+    BS.block_section = spy
+    try:
+        batch_ms = cuda_ms(lambda: br.render_files(x8))
+    finally:
+        BS.block_section = real
+    solo_ms = cuda_ms(lambda: br.kernel.render_device(x8[0]))
+    err3, _ = held(f"{COUPLED_FILES} files, block 0", got8[0])
+    err4, _ = held(f"{COUPLED_FILES} files, block {mid}", got8[mid])
+    y8 = br.render_files(x8[:, :, :n10])
+    for f in range(COUPLED_FILES):
+        solo, _ = br.kernel.render_device(x8[f, :, :n10])
+        check(torch.equal(y8[f], solo),
+              f"coupled batch: file {f} differs from its solo render")
+    print(f"[coupled] batch of {COUPLED_FILES} x 60 s: {batch_ms:.2f} ms "
+          f"beside one file's {solo_ms:.2f} ms; every file of a 10 s batch "
+          f"torch.equal to its solo render card='{card}'")
+    return {
+        "name": "block_section", "route": "cuda",
+        "source": "zorak_tpu_torch/csrc/block_ops.cuh",
+        "replaces": "zorak_tpu/lowering/devgen.py:463",
+        "launches": launches["block_section"],
+        "max_abs_err": max(err1, err2, err3, err4), "ms": k10_ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "chain_ms": chain_ms, "fft_ms": fft_ms,
+        "render_ms": ms, "render_more_ms": more_ms, "golden_s": gold_s,
+        "batch_ms": batch_ms, "solo_ms": solo_ms, "blocks": blocks,
+        "launches_linrec_scan": launches["linrec_scan"],
+        "launches_ring_tap_sum": launches["ring_tap_sum"],
+    }
+
+
 def smi_under_load(torch, fn, reps: int) -> str:
     """nvidia-smi's SM clock, power draw and power limit, read while the
     card works through `reps` queued calls of fn."""
@@ -2320,12 +2587,11 @@ def faust_phases(torch, cuda, rng, card):
         _, reruns = held(f"{dname} silence T={n_long} lanes=3", args)
         check(reruns > 0, "the default-settings silence case re-ran nothing")
 
-    # VAR's follower, one lane, at VAR's poles, at the main path's shape:
-    # K1 at its defaults and as one chunk (a thread per lane) against the
-    # plain loop in f64, bit for bit.  The plain Python loop takes 70 to
-    # 110 us a step, minutes at this length, so the second dtype runs
-    # K1_PLAIN_T steps of it, and at the main length K1 in f32 at its
-    # defaults is held to K1 as one chunk.
+    # VAR's follower, one lane, at VAR's poles: K1 at its defaults and as
+    # one chunk (a thread per lane) against the plain loop, bit for bit.
+    # The plain Python loop takes 70 to 110 us a step, minutes at the main
+    # length, so both dtypes run K1_PLAIN_T steps of it, and at the main
+    # length K1 at its defaults is held to K1 as one chunk.
     one = {"chunk": MAIN_T}         # one chunk: a thread per lane
     # a stream of its own: the draws below stay what they were before the
     # f32 plain loop was cut
@@ -2338,16 +2604,19 @@ def faust_phases(torch, cuda, rng, card):
           f"{time.perf_counter() - t0:.1f} s")
     witnessed("main shape", scan_inputs(MAIN_T, 1, torch.float32, *VAR_POLES))
     args = scan_inputs(MAIN_T, 1, torch.float64, *VAR_POLES)
+    short = (args[0][:K1_PLAIN_T],) + tuple(args[1:])   # x is [T, lanes]
     ref_holder = []
     t0 = time.perf_counter()
     plain_ms = cuda_ms(lambda: ref_holder.append(
-        SS.switching_scan_reference(*args)))
+        SS.switching_scan_reference(*short)))
     ref = ref_holder[0]
-    print(f"[kernels] switching_scan plain loop float64 T={MAIN_T}: "
+    print(f"[kernels] switching_scan plain loop float64 T={K1_PLAIN_T}: "
           f"{time.perf_counter() - t0:.1f} s")
+    held(f"float64 T={K1_PLAIN_T} lanes=1", short, ref)
+    held(f"float64 T={K1_PLAIN_T} lanes=1", short, ref, **one)
+    scan_err = (SS.switching_scan(*short) - ref).abs().max().item()
+    ref = SS.switching_scan(*args, **one)     # the main length: one chunk
     _, main_reruns = held(f"float64 T={MAIN_T} lanes=1", args, ref)
-    held(f"float64 T={MAIN_T} lanes=1", args, ref, **one)
-    scan_err = (SS.switching_scan(*args) - ref).abs().max().item()
     # the new default, the one-chunk design, the default again: same card
     scan_ms = cuda_ms(lambda: SS.switching_scan(*args), reps=5)
     earlier_ms = cuda_ms(lambda: SS.switching_scan(*args, **one), reps=3)
@@ -2517,6 +2786,7 @@ def faust_phases(torch, cuda, rng, card):
         "max_abs_err": scan_err,
         "ms": scan_ms,
         "plain_ms": plain_ms,
+        "plain_T": K1_PLAIN_T,     # the plain loop's length, in f64
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "chain_ms": chain_ms,
@@ -2534,14 +2804,15 @@ def faust_phases(torch, cuda, rng, card):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="jsfx,batch,spectral,faust",
-                    help="comma-separated: jsfx, batch, spectral, faust "
-                         "(default all four); k4sweep times K4 across "
-                         "register block sizes")
+    ap.add_argument("--phases", default="jsfx,batch,spectral,coupled,faust",
+                    help="comma-separated: jsfx, batch, spectral, coupled, "
+                         "faust (default all five); k4sweep times K4 "
+                         "across register block sizes")
     phases = set(ap.parse_args(argv).phases.split(","))
-    if not phases or phases - {"jsfx", "batch", "spectral", "faust",
-                               "k4sweep"}:
-        ap.error("--phases takes jsfx, batch, spectral, faust or k4sweep")
+    if not phases or phases - {"jsfx", "batch", "spectral", "coupled",
+                               "faust", "k4sweep"}:
+        ap.error("--phases takes jsfx, batch, spectral, coupled, faust or "
+                 "k4sweep")
     t_start = time.perf_counter()
     import torch
 
@@ -2626,6 +2897,11 @@ def main(argv=None) -> int:
         kernels += spectral_phase(torch, cuda, np.random.RandomState(SEED + 7),
                                   card)
         print(f"[done] spectral phase in {time.perf_counter() - t0:.1f} s")
+    if "coupled" in phases:
+        t0 = time.perf_counter()
+        kernels.append(coupled_phase(torch, cuda,
+                                     np.random.RandomState(SEED + 10), card))
+        print(f"[done] coupled phase in {time.perf_counter() - t0:.1f} s")
     if "k4sweep" in phases:
         scan_group_sweep(torch, cuda, np.random.RandomState(SEED))
     if "faust" in phases:

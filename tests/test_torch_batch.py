@@ -72,6 +72,8 @@ CASES = {
 
 COUPLED_SRC = ("@sample\nacc += abs(spl0);\nspl0 *= g;\n"
                "@block\ng = 1/(1 + acc*0.001);\n")
+# an audio-coupled @block that writes gmem: still refused (slice 6b)
+COUPLED_GMEM_SRC = COUPLED_SRC + "gmem[0] = g;\n"
 GATED_SRC = ("@init\nHIST = 900;\n"
              "@sample\npeak = max(peak, abs(spl0));\ncnt += 1;\n"
              "cnt >= 37 ? (\n  HIST[wpos] = peak;\n"
@@ -231,7 +233,7 @@ def test_the_mirror_check_refuses_files_whose_cursors_differ():
 
 
 @pytest.mark.parametrize("src,match", [
-    (COUPLED_SRC, "coupled @block.*slice 6"),
+    (COUPLED_GMEM_SRC, "coupled @block.*slice 6b"),
     (HOP_SRC, "hop section.*slice 5"),
     (GATED_SRC, "gated regime.*slice 5"),
 ])
@@ -295,15 +297,15 @@ def test_catalog_functions_match_jax(catalog):
     rend, skipped = build_catalog_renderers(str(catalog), segment_len=1024,
                                             device="cpu")
     jrend, jskipped = jax_build(str(catalog), segment_len=1024)
-    assert sorted(rend) == ["Echo", "Follow", "GTS"]
+    assert sorted(rend) == ["Echo", "Follow", "GTS", "Pump"]
     assert isinstance(rend["GTS"], FaustBatchRenderer) and rend["GTS"].is_faust
-    # the JAX package renders the coupled plugin on its device @block
-    # compiler; the port skips it with the solo path's reason
-    assert "slice 6" in skipped["Pump"] and not jskipped
+    # both packages render the coupled plugin on their device @block
+    assert rend["Pump"].kernel.coupled and not skipped and not jskipped
 
     outs, n_groups = catalog_stacked_render(rend, x)
     jouts, jn_groups = jax_stacked({s: jrend[s] for s in rend}, x)
-    assert n_groups == jn_groups == 1 and sorted(outs) == sorted(jouts)
+    # the coupled kernel is a group of its own in both
+    assert n_groups == jn_groups == 2 and sorted(outs) == sorted(jouts)
     for slug in outs:
         assert outs[slug].shape == (rend[slug].nch, 2048)
         assert_audio_like_jax(slug, outs[slug], jouts[slug])
@@ -320,7 +322,7 @@ def test_catalog_functions_match_jax(catalog):
                                            device="cpu")
     jbouts, _ = jax_catalog_batch(str(catalog), x, segment_len=1024,
                                   renderers={s: jrend[s] for s in rend})
-    assert sorted(bouts) == sorted(outs) and "Pump" in bskipped
+    assert sorted(bouts) == sorted(outs) and not bskipped
     for slug in bouts:
         assert bouts[slug].shape == (1, rend[slug].nch, 2048)
         assert_audio_like_jax(slug, bouts[slug], jbouts[slug])

@@ -1,0 +1,312 @@
+"""The audio-coupled @block through the port's fused block/sample loop on the
+CPU (K10's plain version between segments), against the JAX package's
+coupled pipeline and the native golden.
+
+Each case of tests/test_coupled_block.py renders the same seeded numpy
+input three ways: the port's kernel (CPU tensors), the JAX kernel and
+the native C golden (`null_test_plugin(golden="native")`, state and heap
+compared).  Tolerances, the reference's null contract
+(verify/nulltest.py): audio within 1e-5 after f32 rounding, vars and heap
+within 1e-8, against the golden and against the JAX render.
+"""
+import numpy as np
+import pytest
+import torch
+
+from zorak_tpu.ir import compile_plugin_source as jax_compile
+from zorak_tpu.lowering import specialize_sample_kernel as jax_specialize
+from zorak_tpu.verify import make_initialized_shadow as jax_shadow
+
+from zorak_tpu_torch import builtin_plugins, convert
+from zorak_tpu_torch.ir import compile_plugin_source
+from zorak_tpu_torch.kernels import block_section as BS
+from zorak_tpu_torch.lowering import SpecializeError, specialize_sample_kernel
+from zorak_tpu_torch.parallel import BatchRenderer
+from zorak_tpu_torch.verify import make_initialized_shadow, null_test_plugin
+
+AUDIO_TOL = 1e-5
+STATE_TOL = 1e-8
+
+
+@pytest.fixture(autouse=True)
+def cold_trace_cache(tmp_path, monkeypatch):
+    # no JAX kernel built here may warm the home trace cache
+    monkeypatch.setenv("ZORAK_TRACE_CACHE_DIR", str(tmp_path))
+
+
+def noise(nch, n, scale=0.4, seed=3):
+    return (np.random.RandomState(seed).randn(nch, n) * scale).astype(
+        np.float32)
+
+
+_MIDI_BLOCK_BODY = """while (midirecv(ofs, m1, m23)) (
+  st = m1 & 240;
+  st == 144 ? notes += 1;
+  st == 128 ? notes -= 1;
+  last_vel = (m23 / 256) & 127;
+);
+"""
+MIDI_EVENTS = [(100, 144, 60, 100), (700, 144, 64, 90), (1800, 128, 60, 0),
+               (2600, 144, 67, 70), (4400, 128, 64, 0)]
+
+# name -> (source, input, segment length, MIDI in)
+CASES = {
+    "hot_meter_read": ("""
+@init
+g = 1;
+@block
+avg = acc / max(samplesblock, 1);
+g = 1 / (1 + avg*avg);
+acc = 0;
+@sample
+acc += abs(spl0);
+spl0 = spl0 * g;
+""", noise(1, 6100), 4096, None),
+    "block_rewrites_audio_state": ("""
+@block
+env = env * 0.5;
+@sample
+env = max(abs(spl0), env * 0.999);
+spl0 = spl0 / (1 + env);
+""", noise(1, 6100), 4096, None),
+    "shared_mem_ring_and_table": ("""
+@init
+MASK = 255; tab = 1000;
+@block
+s = 0; i = 0;
+while(i < 16) ( s += buf[i]; i += 1; );
+tab[0] = s / 16;
+@sample
+buf[w & MASK] = spl0;
+w += 1;
+spl0 = spl0 - tab[0];
+""", noise(1, 6100), 2048, None),
+    "fft_in_coupled_block": ("""
+@init
+FS = 64; buf = 4096; spec = 8192;
+@block
+i = 0;
+loop(FS, spec[2*i] = buf[i]; spec[2*i+1] = 0; i += 1;);
+fft(spec, FS);
+fft_permute(spec, FS);
+mag0 = sqrt(spec[2]*spec[2] + spec[3]*spec[3]);
+@sample
+buf[wp] = spl0;
+wp += 1; wp >= FS ? wp = 0;
+spl0 = spl0 * 0.5 + mag0 * 0.001;
+""", noise(1, 5000), 2048, None),
+    "coupled_retrigger_runs_device_slider": ("""@slider
+g = 0.2 + slider1 * 0.1;
+@block
+acc_b = acc;
+acc > 40 && slider1 < 3 ? (
+  slider1 = slider1 + 1;
+  sliderchange(slider1);
+  acc = 0;
+);
+@sample
+acc += abs(spl0);
+spl0 = spl0 * g + 0.001 * acc_b;
+""", noise(1, 6000, seed=19, scale=0.5), 2048, None),
+    "block_midirecv_coupled_staged_planes": (
+        "@block\n" + _MIDI_BLOCK_BODY
+        + "g = 0.1 + 0.2 * notes + 0.001 * last_vel + acc * 0.0001;\n"
+        + "acc = 0;\n"
+        + "@sample\nacc += abs(spl0);\nenv += 0.01 * (g - env);\n"
+        + "spl0 = spl0 * env;\n",
+        noise(1, 5000, seed=24, scale=0.5), 2048, MIDI_EVENTS),
+    "block_midisend_staged_out": ("""@block
+acc > thr ? (
+  midisend(3, 144, 60 + 256 * 100);
+  sent += 1;
+);
+thr = 5 + sent;
+acc = 0;
+@sample
+acc += abs(spl0);
+spl0 = spl0 * 0.5;
+""", noise(1, 4000, seed=29, scale=0.6), 2048, None),
+    # the in-repo stand-in for the catalog's coupled plugins, at a small
+    # FFT: three full blocks and a remainder
+    "spectral_tilt_leveler": (
+        builtin_plugins.spectral_tilt_leveler(256),
+        noise(2, 3 * 512 + 100, scale=0.3, seed=5), 4096, None),
+}
+
+
+def kernels_for(src, nch, seg):
+    prog = compile_plugin_source(src)
+    state = make_initialized_shadow(prog).state
+    kern = specialize_sample_kernel(prog, state, nch, segment_len=seg,
+                                    device="cpu")
+    jprog = jax_compile(src)
+    jstate = jax_shadow(jprog).state
+    jkern = jax_specialize(jprog, jstate, nch, segment_len=seg)
+    return prog, (kern, state), (jkern, jstate)
+
+
+def state_delta(st, jst, n_mem):
+    """Max |delta| over vars (by name), sliders and the first n_mem heap
+    cells of two writebacks."""
+    names = set(st.V) | set(jst.V)
+    worst = max((abs(st.V.get(k, 0.0) - jst.V.get(k, 0.0)) for k in names),
+                default=0.0)
+    worst = max(worst, max(abs(a - b) for a, b in zip(st.sliders,
+                                                      jst.sliders)))
+    m = np.zeros(n_mem)
+    jm = np.zeros(n_mem)
+    m[:min(n_mem, len(st.mem))] = st.mem[:n_mem]
+    jm[:min(n_mem, len(jst.mem))] = jst.mem[:n_mem]
+    return max(worst, float(np.max(np.abs(m - jm))))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_coupled_port_matches_jax_and_golden(name):
+    src, x, seg, midi = CASES[name]
+    prog, (kern, state), (jkern, jstate) = kernels_for(src, x.shape[0], seg)
+    assert kern.coupled and jkern.coupled
+    assert kern.accepts_midi == jkern.accepts_midi == bool(midi)
+    assert kern.carried_vars == jkern.carried_vars
+    assert kern._devblock.slots == jkern._devblock.slots
+    assert kern._devblock.mem_size == jkern._devblock.mem_size
+    y, carry = kern.render(x, midi=midi)
+    yj, jcarry = jkern.render(x, midi=midi)
+    assert y.dtype == np.float32 and y.shape == x.shape
+    assert np.max(np.abs(y.astype(np.float64) - np.asarray(yj, np.float64))) \
+        <= AUDIO_TOL
+    assert kern.last_midi_out == jkern.last_midi_out
+    kern.writeback(carry, state)
+    jkern.writeback(jcarry, jstate)
+    assert state_delta(state, jstate, kern._devblock.mem_size) <= STATE_TOL
+    rep = null_test_plugin(prog, x, segment_len=seg, golden="native",
+                           compare_state=True, compare_mem=True, midi=midi,
+                           device="cpu")
+    assert rep.passed, rep.summary()
+
+
+def test_coupled_retrigger_writes_back_the_slider():
+    src, x, seg, _ = CASES["coupled_retrigger_runs_device_slider"]
+    prog = compile_plugin_source(src)
+    state = make_initialized_shadow(prog, 48000.0).state
+    kern = specialize_sample_kernel(prog, state, 1, segment_len=seg,
+                                    device="cpu")
+    assert kern._devslider is not None and kern._block_prog.slider is not None
+    _y, carry = kern.render(x)
+    kern.writeback(carry, state)
+    assert state.sliders[0] == 3.0 and state.pending_change_mask == 0
+
+
+def test_block_midisend_decodes_to_absolute_offsets():
+    src, x, seg, _ = CASES["block_midisend_staged_out"]
+    prog = compile_plugin_source(src)
+    kern = specialize_sample_kernel(prog, make_initialized_shadow(prog).state,
+                                    1, segment_len=seg, device="cpu")
+    assert kern._devblock.uses_midi_out and not kern.accepts_midi
+    kern.render(x)
+    sent = kern.last_midi_out
+    assert sent and all(o % 512 == 3 and tuple(ev) == (144, 60, 100)
+                        for o, *ev in sent)
+
+
+def test_file_load_folds_into_coupled_block():
+    # file-slot data in @block comes with the services copy (queue 1
+    # item 3); until then the plugin is refused at build time
+    src = """
+@init
+TAB = 5000;
+@block
+g = acc / max(samplesblock, 1); acc = 0;
+need ? (
+  h = file_open(0);
+  h > 0 ? (
+    nch = 0; sr = 0;
+    file_riff(h, nch, sr);
+    n = min(file_avail(h), 64);
+    file_mem(h, TAB, n);
+    loaded = n;
+    file_close(h);
+  );
+  need = 0;
+);
+@sample
+acc += abs(spl0);
+spl0 = spl0 * (1/(1+g)) + 0.1 * TAB[0] + 0.01 * TAB[37];
+"""
+    prog = compile_plugin_source(src)
+    with pytest.raises(SpecializeError, match="item 3"):
+        specialize_sample_kernel(prog, make_initialized_shadow(prog).state, 1,
+                                 device="cpu")
+
+
+def test_uncoupled_stays_on_host_trajectory():
+    src = """
+@block
+t += 1;
+g = 0.5 + 0.4 * sin(t * 0.1);
+@sample
+spl0 = spl0 * g;
+"""
+    prog = compile_plugin_source(src)
+    kern = specialize_sample_kernel(prog, make_initialized_shadow(prog).state,
+                                    1, segment_len=2048, device="cpu")
+    assert not kern.coupled and kern._block_prog is None
+    rep = null_test_plugin(prog, noise(1, 5000), segment_len=2048,
+                           golden="native", compare_state=True, device="cpu")
+    assert rep.passed, rep.summary()
+
+
+def test_k10_launches_once_a_block_on_the_cpu_path(monkeypatch):
+    src, x, seg, _ = CASES["spectral_tilt_leveler"]
+    prog = compile_plugin_source(src)
+    kern = specialize_sample_kernel(prog, make_initialized_shadow(prog).state,
+                                    2, segment_len=seg, device="cpu")
+    calls = []
+    plain = BS.block_section_plain
+
+    def spy(*a, **k):
+        calls.append(a[5])          # samplesblock
+        return plain(*a, **k)
+
+    monkeypatch.setattr(BS, "block_section_plain", spy)
+    kern.render(x)
+    assert calls == [512.0, 512.0, 512.0, 100.0]
+    assert BS.LAUNCHES == 0        # the plain version is no launch
+
+
+def test_batch_of_three_files_equals_the_solo_renders():
+    src, _x, seg, _ = CASES["spectral_tilt_leveler"]
+    prog = compile_plugin_source(src)
+    br = BatchRenderer(prog, segment_len=seg, device="cpu")
+    assert br.kernel.coupled
+    xs = np.stack([noise(2, 1300, scale=0.3, seed=40 + f) for f in range(3)])
+    y = br.render_files(xs)
+    again = br.render_files(xs)        # the staged carry stays fresh
+    assert torch.equal(y, again)
+    for f in range(3):
+        solo, _ = br.kernel.render_device(xs[f])
+        assert torch.equal(y[f], solo)
+
+
+def test_converted_jax_carry_resumes_to_the_same_audio():
+    src, x, seg, _ = CASES["shared_mem_ring_and_table"]
+    _prog, (kern, _st), (jkern, _jst) = kernels_for(src, 1, seg)
+    head, tail = x[:, :2560], x[:, 2560:]
+    _yj, jcarry = jkern.render(head)
+    as_numpy = jax_tree_to_numpy(jcarry)    # the JAX render donates jcarry
+    carry = convert.carry_from_numpy(kern, as_numpy)
+    y, _ = kern.render(tail, carry=carry)
+    yj, _ = jkern.render(tail, carry=jcarry)
+    assert np.max(np.abs(y.astype(np.float64) - np.asarray(yj, np.float64))) \
+        <= AUDIO_TOL
+    with pytest.raises(ValueError, match="coupled"):
+        uncoupled = specialize_sample_kernel(
+            compile_plugin_source("@sample\nspl0 *= 0.5;\n"),
+            make_initialized_shadow(compile_plugin_source(
+                "@sample\nspl0 *= 0.5;\n")).state, 1, device="cpu")
+        convert.carry_from_numpy(uncoupled, as_numpy)
+
+
+def jax_tree_to_numpy(carry):
+    (svec, rings), bvars, bmem = carry
+    return ((np.asarray(svec), {r: np.asarray(a) for r, a in rings.items()}),
+            np.asarray(bvars), np.asarray(bmem))

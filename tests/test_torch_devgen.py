@@ -1,0 +1,398 @@
+"""The device section compiler (lowering/devgen.py) and K10's two CPU forms
+against the JAX package's traced device sections.
+
+Each case of tests/test_devgen.py that needs no gmem and no message bus
+runs its @block for a few blocks three ways from one seeded state (the
+snapshot's vars, its heap with seeded noise in the first 1,024 cells):
+the JAX `DeviceSection.step`, K10's plain version (`block_section_plain`,
+the port's Python golden with the device heap's addressing) and K10's
+generated source in its host form (`block_section_host`, g++ -O2
+-ffp-contract=off).  The host form equals the plain version bit for bit
+(every NaN one value), apart from sections with an FFT, whose heap cells
+are held within `FFT_TOL_REL` of the heap's largest magnitude and whose
+vars within `FFT_TOL_REL` of their own (a radix-2 against NumPy's FFT).
+Both are held to JAX within 1e-8 on every var slot but the function
+params (the C functions take them as arguments) and on the plugin heap.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from zorak_tpu.ir.program import compile_plugin_source as jax_compile
+from zorak_tpu.lowering import devgen as jax_devgen
+from zorak_tpu.verify import make_initialized_shadow as jax_shadow
+
+from zorak_tpu_torch.ir import compile_plugin_source
+from zorak_tpu_torch.kernels import _build
+from zorak_tpu_torch.kernels import block_section as BS
+from zorak_tpu_torch.lowering.devgen import (
+    DeviceSection, DevgenError, section_dynamic_keys)
+from zorak_tpu_torch.verify import make_initialized_shadow
+
+JAX_TOL = 1e-8
+
+
+@pytest.fixture(autouse=True)
+def cold_trace_cache(tmp_path, monkeypatch):
+    # no JAX kernel built here may warm the home trace cache
+    monkeypatch.setenv("ZORAK_TRACE_CACHE_DIR", str(tmp_path))
+
+
+def host_compiler():
+    try:
+        return _build.find_host_compiler()
+    except RuntimeError:
+        return None
+
+
+PRED = "@init\nctr = 0;\n@block\nctr += 1;\n"
+
+# name -> (source, blocks, heap cells, samplesblock)
+CASES = {
+    "math_and_state": ("""
+@init
+a = 1; t = 0;
+@block
+t += samplesblock;
+a = a * 0.9 + 0.1;
+b = sin(a) + max(t, 3) + (t > 1000 ? 7 : 2);
+""", 3, 1 << 16, 512),
+    "loops_and_mem": ("""
+@init
+base = 100;
+@block
+i = 0;
+loop(37, base[i] = i*2 + k; i += 1;);
+k += 1;
+acc = 0; j = 0;
+while(j < 37) ( acc += base[j]; j += 2; );
+""", 3, 1 << 16, 512),
+    "branches_and_instance_fns": ("""
+@init
+function env(x) instance(z) ( z = z*0.5 + x; z );
+@block
+m1.env(cnt); m2.env(cnt*2);
+cnt += 1;
+cnt > 2 ? ( flip = !flip; memset(50, cnt, 20); ) : ( other = cnt/3; );
+""", 3, 1 << 16, 512),
+    "fft_roundtrip": ("""
+@init
+FS = 1024; buf = 4096;
+i = 0; loop(2*FS, buf[i] = 0; i += 1;);
+buf[6] = 1; buf[33] = 0.5;
+@block
+fft(buf, FS);
+fft_permute(buf, FS);
+g = buf[9];
+fft_ipermute(buf, FS);
+ifft(buf, FS);
+i = 0; loop(2*FS, buf[i] = buf[i] / FS; i += 1;);
+""", 2, 1 << 16, 512),
+    "fft_real_roundtrip": ("""
+@init
+N = 512; buf = 8192;
+i = 0; loop(N, buf[i] = sin(i*0.1) + 0.2*i/N; i += 1;);
+@block
+fft_real(buf, N);
+fft_permute(buf, N/2);
+q = buf[3];
+fft_ipermute(buf, N/2);
+ifft_real(buf, N);
+i = 0; loop(N, buf[i] = buf[i] * 0.5 / N; i += 1;);
+""", 2, 1 << 16, 512),
+    "convolve_c": ("""
+@init
+N = 64; a = 1000; b = 2000;
+i = 0; loop(2*N, a[i] = sin(i*.3); b[i] = cos(i*.2); i += 1;);
+@block
+convolve_c(a, b, N);
+chk = a[5] + a[77];
+""", 1, 1 << 14, 512),
+    "addbuf_shape": ("""@init
+A = 0; B = 256; N = 128;
+i = 0;
+while (i < N) ( A[i] = i * 0.5; B[i] = 1 + i; i += 1; );
+@block
+i = 0;
+while (i < N) ( A[i] += B[i] * 0.25; i += 1; );
+k = i;
+@sample
+spl0 = spl0;
+""", 1, 1 << 12, 64),
+    "two_buffer_overlap_add": ("""@init
+ACC = 0; OV = 512; WET = 768; P = 200;
+i = 0;
+while (i < 2*P) ( ACC[i] = i + 1; i += 1; );
+i = 0;
+while (i < P) ( OV[i] = 1000 + i; i += 1; );
+@block
+sc = 0.5;
+i = 0;
+while (i < P) (
+  WET[i] = OV[i] + ACC[i] * sc;
+  OV[i] = ACC[i + P] * sc;
+  i += 1;
+);
+@sample
+spl0 = spl0;
+""", 1, 1 << 11, 64),
+    "cross_iteration_recurrence": ("""@init
+X = 0; Y = 300; N = 64;
+i = 0;
+while (i < N) ( X[i] = i; i += 1; );
+Y[0] = 0;
+@block
+i = 1;
+while (i < N) ( Y[i] = Y[i - 1] + X[i]; i += 1; );
+@sample
+spl0 = spl0;
+""", 1, 1 << 10, 64),
+    "static_while_keeps_handle": ("""@init
+T = 0;
+@block
+h = 3;
+n = 100;
+i = 0;
+while (i < n) ( T[i] = spl_probe + i; i += 1; );
+hh = h * 2;
+@sample
+spl_probe = spl0;
+spl0 = spl0;
+""", 1, 1 << 10, 64),
+    "mem_writes_both_arms": (PRED + """
+odd = ctr % 2;
+odd ? (mem[10 + ctr] = ctr; tag = 1;)
+    : (mem[40 + ctr] = -ctr; tag = 2;);
+""", 4, 1 << 16, 512),
+    "nested_branches": (PRED + """
+a = ctr % 2; b = ctr % 3;
+a ? (
+  b ? mem[ctr] = 7 : (mem[ctr] = 9; u = ctr;);
+  v = u + 1;
+) : (
+  b ? (w = w + 1; mem[100] = w;);
+);
+""", 4, 1 << 16, 512),
+    "untaken_arm_garbage_address": (PRED + """
+neg = -(ctr % 2);
+neg ? (j = neg * 987654321; j[0] = 5;) : (mem[3] = ctr;);
+check = mem[3];
+""", 4, 1 << 16, 512),
+    "bulk_ops_under_predicate": (PRED + """
+src = 200; dst = 300;
+i = 0; loop(16, src[i] = ctr * 10 + i; i += 1;);
+(ctr % 2) ? (
+  memcpy(dst, src, 16);
+  memset(400, ctr, 8);
+);
+probe = mem[300] + mem[407];
+""", 4, 1 << 16, 512),
+    "while_loop_in_arm": (PRED + """
+go = ctr % 2;
+go ? (
+  n = ctr * 3; i = 0; acc = 0;
+  while (i < n) ( acc += i; i += 1; );
+  mem[50] = acc;
+) : (
+  mem[60] = ctr;
+);
+""", 4, 1 << 16, 512),
+    "dynamic_loop_in_arm": (PRED + """
+k = ctr % 3;
+k ? (
+  i = 0;
+  loop(k * 5, mem[70 + i] = i + ctr; i += 1;);
+);
+""", 4, 1 << 16, 512),
+    "fft_under_predicate": (PRED + """
+buf = 512;
+i = 0; loop(64, buf[i] = sin(i * 0.3 + ctr); i += 1;);
+(ctr % 2) ? (
+  fft_real(buf, 64);
+  fft_ipermute(buf, 32);
+);
+probe = mem[512] + mem[513];
+""", 4, 1 << 16, 512),
+    "value_of_branch_expression": (PRED + """
+x = (ctr % 2) ? (mem[5] = ctr; ctr * 2.0) : (ctr - 1.0);
+y = x + mem[5];
+""", 4, 1 << 16, 512),
+    "logical_ops_with_assigning_rhs": (PRED + """
+a = (ctr % 2) && (t1 = ctr; mem[80] = t1; 1);
+b = (ctr % 2) || (t2 = ctr * 3; mem[81] = t2; 0);
+s = t1 + t2 + mem[80] + mem[81];
+""", 4, 1 << 16, 512),
+    # the heap clamp: dynamic addresses past the heap and below 0
+    "heap_clamp": ("""
+@block
+ctr += 1;
+hi = 5000 + ctr; lo = -3 - ctr;
+mem[hi] = ctr * 2;
+mem[lo] = ctr * 3;
+r = mem[hi + 7] + mem[lo - 9];
+memset(hi - 2, ctr, 6);
+""", 3, 1 << 12, 512),
+}
+
+
+def seeded_state(dev, seed=11):
+    v = dev.initial_vars()
+    m = dev.initial_mem()
+    m[:1024] += np.random.RandomState(seed).randn(1024) * 0.5
+    return v, m
+
+
+@functools.lru_cache(maxsize=None)
+def jax_run(name):
+    """(JAX section, its vars and heap after each block)."""
+    src, n_blocks, mem_size, B = CASES[name]
+    prog = jax_compile(src)
+    snap = jax_shadow(prog, 48000.0).state
+    dev = jax_devgen.DeviceSection(
+        prog, snap, "block",
+        jax_devgen.section_dynamic_keys(prog, ("block", "sample")),
+        mem_size, consts={"samplesblock": float(B)})
+    v, m = seeded_state(dev)
+    step = jax.jit(dev.step)
+    v, m = jnp.asarray(v), jnp.asarray(m)
+    out = []
+    for _ in range(n_blocks):
+        v, m = step(v, m)
+        out.append((np.asarray(v), np.asarray(m)))
+    return dev, out
+
+
+def port_program(name):
+    src, _n, mem_size, _B = CASES[name]
+    prog = compile_plugin_source(src)
+    snap = make_initialized_shadow(prog, 48000.0).state
+    dev = DeviceSection(prog, snap, "block",
+                        section_dynamic_keys(prog, ("block", "sample")),
+                        mem_size)
+    return dev, BS.BlockSectionProgram(dev, None, 0, [], [], [], [])
+
+
+def run_port(name, form):
+    """The port's vars and heap after each block, through `form`."""
+    _src, n_blocks, _mem, B = CASES[name]
+    dev, prog = port_program(name)
+    v, m = seeded_state(dev)
+    v = torch.from_numpy(v)[None].contiguous()
+    m = torch.from_numpy(m)[None].contiguous()
+    svec = torch.zeros((1, 0), dtype=torch.float64)
+    out = []
+    for _ in range(n_blocks):
+        form(prog, svec, [], v, m, float(B))
+        out.append((v[0].numpy().copy(), m[0].numpy().copy()))
+    return dev, prog, out
+
+
+def held_to_jax(dev, jdev, got, want):
+    assert dev.slots == jdev.slots and dev.n_vars == jdev.n_vars
+    n = dev.mem_size
+    keep = [s for k, s in dev.slots.items() if k[0] != "param"]
+    for (v, m), (jv, jm) in zip(got, want):
+        assert np.allclose(v[keep], jv[keep], rtol=0, atol=JAX_TOL,
+                           equal_nan=True)
+        assert np.allclose(m[:n], jm[:n], rtol=0, atol=JAX_TOL,
+                           equal_nan=True)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_version_matches_jax(name):
+    jdev, want = jax_run(name)
+    dev, _prog, got = run_port(name, BS.block_section_plain)
+    held_to_jax(dev, jdev, got, want)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_host_form_matches_the_plain_version(name):
+    if host_compiler() is None:
+        pytest.skip("no host C++ compiler (g++, gcc, c++, cc) for the "
+                    "generated source's host form")
+    dev, prog, plain = run_port(name, BS.block_section_plain)
+    _dev, _prog, host = run_port(name, BS.block_section_host)
+    has_fft = bool(prog.perm_sizes)
+    for (v, m), (hv, hm) in zip(plain, host):
+        if has_fft:
+            assert BS.fft_excess(torch.from_numpy(hm), torch.from_numpy(m),
+                                 torch.from_numpy(hv),
+                                 torch.from_numpy(v)) <= 0.0
+        else:
+            assert np.array_equal(hv, v, equal_nan=True)
+            assert np.array_equal(hm, m, equal_nan=True)
+    jdev, want = jax_run(name)
+    held_to_jax(dev, jdev, host, want)
+
+
+def test_heap_clamp_lands_on_the_edges():
+    dev, prog, out = run_port("heap_clamp", BS.block_section_plain)
+    n = dev.mem_size
+    v, m = out[-1]
+    ctr = v[dev.slots[("var", "ctr")]]
+    assert ctr == 3.0
+    # the memset run [hi - 2, hi + 4) is clamped to end at the heap's end
+    assert np.all(m[n - 6:n] == ctr)
+    assert m[0] == ctr * 3       # below 0 -> cell 0
+    assert m[n:].size == 0       # no MIDI out table: the heap is the row
+
+
+def test_static_address_past_the_heap_is_refused():
+    prog = compile_plugin_source("@block\nmem[70000] = 1;\n")
+    snap = make_initialized_shadow(prog, 48000.0).state
+    with pytest.raises(DevgenError, match="beyond device heap"):
+        DeviceSection(prog, snap, "block",
+                      section_dynamic_keys(prog, ("block",)), 1 << 12)
+    prog = compile_plugin_source("@block\nmemset(4090, 1, 16);\n")
+    with pytest.raises(DevgenError, match="beyond device heap"):
+        DeviceSection(prog, make_initialized_shadow(prog, 48000.0).state,
+                      "block", section_dynamic_keys(prog, ("block",)),
+                      1 << 12)
+
+
+def test_forbidden_builtins_raise():
+    # rand(): the reference's coupled @block has no draw pool either
+    src = "@block\nx = rand(4);\n"
+    prog = compile_plugin_source(src)
+    snap = make_initialized_shadow(prog, 48000.0).state
+    with pytest.raises(DevgenError, match="slice 6b"):
+        DeviceSection(prog, snap, "block",
+                      section_dynamic_keys(prog, ("block",)), 1 << 12)
+    jprog = jax_compile(src)
+    with pytest.raises(jax_devgen.DevgenError):
+        jax_devgen.DeviceSection(
+            jprog, jax_shadow(jprog, 48000.0).state, "block",
+            jax_devgen.section_dynamic_keys(jprog, ("block",)), 1 << 12)
+
+
+@pytest.mark.parametrize("body,match", [
+    ("gmem[3] = x;", "slice 6b"),
+    ("y = gmem_size();", "slice 6b"),
+    ("msg_send(1, 2, 3, 4, 5, 6);", "slice 6b"),
+    ("h = file_open(0);", "item 3"),
+    ("n = sample_len(0);", "item 3"),
+    ("t = time();", "item 3"),
+    ("midisend_buf(0, 100, 3);", "no slice brings it"),
+    ("slider(x) = 3;", "no slice brings it"),
+])
+def test_refusals_name_the_slice_that_brings_them(body, match):
+    prog = compile_plugin_source(f"@block\nx = x + 1;\n{body}\n")
+    snap = make_initialized_shadow(prog, 48000.0).state
+    with pytest.raises(DevgenError, match=match):
+        DeviceSection(prog, snap, "block",
+                      section_dynamic_keys(prog, ("block",)), 1 << 12)
+
+
+def test_generated_source_is_one_function_a_section():
+    dev, prog = port_program("branches_and_instance_fns")
+    assert prog.source.count("ZB_DEV void zb_section_block(ZB* S)") == 1
+    # the instance function prints once, with its prototype
+    name = next(iter(dev.functions))
+    assert prog.source.count(f"double {name}(") == 2
+    assert 'extern "C" int block_section_launch(' in prog.source
+    assert 'extern "C" int block_section_host(' in prog.source

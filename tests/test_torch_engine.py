@@ -217,9 +217,10 @@ def test_device_none_needs_a_gpu_and_unported_engines_say_so():
                                      2)
     with pytest.raises(SpecializeError, match="slice 6"):
         PluginInstance(prog, prefer="devexec", device="cpu")
+    # an audio-coupled @block that writes gmem (slice 6b)
     coupled = compile_plugin_source(
         "@sample\nacc += abs(spl0);\nspl0 *= g;\n"
-        "@block\ng = 1/(1 + acc*0.001);\n")
+        "@block\ng = 1/(1 + acc*0.001);\ngmem[0] = g;\n")
     inst = PluginInstance(coupled, device="cpu")
     assert inst.engine == "cpu-shadow" and "slice 6" in inst.spec_error
     res = inst.render(noise(1, 1200))

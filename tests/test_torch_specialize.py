@@ -331,12 +331,13 @@ def test_rejected_in_both(name):
 
 
 def test_coupled_block_is_refused_with_its_slice():
-    # the JAX package runs this through its device @block compiler; the
-    # port names the work that brings it and leaves it to the golden
+    # an audio-coupled @block runs on the card now; one that writes gmem
+    # still waits for the message bus and gmem (slice 6b), and the port
+    # names that work and leaves the plugin to the golden
     src = ("@sample\nacc += abs(spl0);\nspl0 *= g;\n"
-           "@block\ng = 1/(1 + acc*0.001);\n")
+           "@block\ng = 1/(1 + acc*0.001);\ngmem[0] = g;\n")
     prog = compile_plugin_source(src)
-    with pytest.raises(SpecializeError, match="slice 6"):
+    with pytest.raises(SpecializeError, match="slice 6b"):
         specialize_sample_kernel(prog, make_initialized_shadow(prog).state, 1,
                                  device="cpu")
 

@@ -7,7 +7,10 @@ package's entry script carries).  `wide_delay_network(n_taps)` is the
 same network at a catalog plugin's scale: its own tap tables, a larger
 ring and delays spread over most of it.  `cross_fed_delay_network` feeds
 the right ring from the left tap sum, so the right sum depends on the
-left one within a sample.
+left one within a sample.  `spectral_tilt_leveler(fft_size)` has an
+audio-coupled @block of a catalog plugin's width (the shape of the
+catalog's SpectralStabilizer and ERBTilt): @block reads and resets the
+meters @sample accumulates and takes the FFT of the ring @sample fills.
 """
 from __future__ import annotations
 
@@ -123,4 +126,60 @@ zR = (1-aLP)*sumR + aLP*zR;
 spl0 = spl0*(1-wet) + zL*wet;
 spl1 = spl1*(1-wet) + zR*wet;
 w += 1;
+"""
+
+
+def spectral_tilt_leveler(fft_size: int = 2048) -> str:
+    """A stereo leveler with an audio-coupled @block.
+
+    @sample writes the mid signal into a `fft_size`-cell masked ring,
+    accumulates each channel's sum of squares into a meter, reads three
+    constant-gain taps of the ring (a short diffuse echo) and applies a
+    one-pole tilt filter whose coefficient, tilt gain and level gain come
+    from @block.  @block, every block: reads and resets the meters, copies
+    the ring into a Hann-windowed buffer (`loop(fft_size)`), takes
+    `fft_real` of it, sums the low- and high-band energy over its
+    fft_size / 2 bins, and derives and smooths the coefficient and the
+    two gains."""
+    n = int(fft_size)
+    return f"""\
+desc:spectral tilt leveler (coupled @block, FFT of the ring)
+
+@init
+N = {n}; HALF = N / 2; MASK = N - 1;
+RING = 0; WIN = N; SPEC = 2 * N;
+LOW = HALF / 8;
+D1 = floor(N * 0.15); D2 = floor(N * 0.35); D3 = floor(N * 0.55);
+i = 0;
+loop(N, WIN[i] = 0.5 - 0.5 * cos(2 * $pi * i / N); i += 1;);
+coef = 0.2; hg = 1; gain = 1;
+
+@block
+lvl = sqrt((e0 + e1) / max(2 * samplesblock, 1));
+e0 = 0; e1 = 0;
+i = 0;
+loop(N, SPEC[i] = RING[(wp + i) & MASK] * WIN[i]; i += 1;);
+fft_real(SPEC, N);
+fft_permute(SPEC, HALF);
+lo = 0; hi = 0; k = 0;
+loop(HALF,
+  p = sqr(SPEC[2 * k]) + sqr(SPEC[2 * k + 1]);
+  k < LOW ? lo += p : hi += p;
+  k += 1;
+);
+share = hi / (lo + hi + 1e-12);
+coef += 0.2 * ((0.05 + 0.4 * share) - coef);
+hg += 0.2 * (min(max(1.5 - 2 * share, 0.25), 4) - hg);
+gain += 0.1 * ((lvl > 1e-6 ? min(0.25 / lvl, 4) : 1) - gain);
+
+@sample
+RING[wp & MASK] = 0.5 * (spl0 + spl1);
+dly = 0.5 * RING[(wp - D1) & MASK] + 0.3 * RING[(wp - D2) & MASK] + 0.2 * RING[(wp - D3) & MASK];
+wp += 1;
+e0 += spl0 * spl0;
+e1 += spl1 * spl1;
+lp0 += coef * (spl0 - lp0);
+lp1 += coef * (spl1 - lp1);
+spl0 = gain * (lp0 + hg * (spl0 - lp0)) + 0.1 * dly;
+spl1 = gain * (lp1 + hg * (spl1 - lp1)) + 0.1 * dly;
 """

@@ -40,14 +40,35 @@ def state_from_numpy(state, device=None, dtype=torch.float64):
                            dtype=dtype, device=dev)
 
 
-def carry_from_numpy(kernel, svec, rings):
+def carry_from_numpy(kernel, svec, rings=None):
     """A vector kernel's carry from numpy: `svec` [n] and `rings`
     {(origin, mod): [mod]}, e.g. a JAX kernel's `initial_carry()` or the
     carry one of its renders returned, for the port's `kernel` (a
     `SpecializedSampleKernel` planned from the same program and state).
+    A coupled kernel's carry comes as one argument, the JAX package's
+    ((svec, rings), bvars, bmem): its var slots are laid out alike, and
+    the port's device heap is the head of the JAX one (the plugin heap,
+    then the MIDI out table; the JAX tail holds nothing of a solo render).
 
     Raises if the two plans do not carry the same scalars and regions.
     """
+    if rings is not None:
+        return kernel.device_carry(_sample_carry(kernel, svec, rings))
+    if not kernel.coupled:
+        raise ValueError("a coupled carry takes a coupled kernel")
+    (svec, rings), bvars, bmem = svec
+    n_vars, total = kernel._devblock.n_vars, kernel._block_prog.total_mem
+    bvars = np.asarray(bvars, dtype=np.float64)
+    bmem = np.asarray(bmem, dtype=np.float64)
+    if bvars.shape != (n_vars,) or bmem.ndim != 1 or len(bmem) < total:
+        raise ValueError(f"bvars {bvars.shape} and bmem {bmem.shape} do not "
+                         f"hold {n_vars} slots and {total} heap cells")
+    return kernel.device_carry((_sample_carry(kernel, svec, rings), bvars,
+                                bmem[:total]))
+
+
+def _sample_carry(kernel, svec, rings):
+    """(svec, rings) as checked numpy arrays for the kernel's plan."""
     svec = np.asarray(svec, dtype=np.float64)
     if svec.shape != (len(kernel.carried_vars),):
         raise ValueError(f"svec has shape {svec.shape}, the kernel carries "
@@ -60,7 +81,7 @@ def carry_from_numpy(kernel, svec, rings):
     for (origin, mod), a in rings.items():
         if a.shape != (mod,):
             raise ValueError(f"ring ({origin}, {mod}) has shape {a.shape}")
-    return kernel.device_carry((svec, rings))
+    return svec, rings
 
 
 def shadow_state_from_numpy(state, variables: Mapping, sliders, mem,

@@ -1,0 +1,839 @@
+"""The audio-coupled @block between sample segments: K10 + its plain version.
+
+Replaces the reference's traced `@block` step of the fused block/sample
+pipeline (`DeviceSection.step`, zorak_tpu/lowering/devgen.py:463, as
+`_coupled_run` runs it inside its scan, zorak_tpu/lowering/specialize.py:
+3085-3150): once a block, each file's sample state goes into the device
+view of its section (vars [n_vars], heap [total_mem]), the @block section
+runs (and @slider where @block retriggered it), the device view goes back
+into the sample state, and the control row of the next segment is
+gathered.
+
+On a CUDA tensor `block_section` launches one generated kernel: a CUDA
+block a file, whose threads copy the exchanges, and whose thread 0 alone
+runs the section's CUDA C (`lowering/devgen.py`, `csrc/block_ops.cuh`)
+between two barriers.  On a CPU tensor it runs `block_section_plain`, the
+same exchanges in torch and the sections through the port's Python golden
+(`shadow/pyexec.py`) with the device heap's addressing.  Nothing falls
+back from one to the other.  `block_section_host` runs the generated text
+compiled with a host C++ compiler, for the tests.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from ..lowering.devgen import (
+    MIDI_OUT_CAP, MIDI_POS_SLOT, PENDING_SLOT_NAMES, DeviceSection)
+from ..runtime import fftops as FO
+
+# Kernel launches since the counter was last set; chip_smoke.py zeroes it
+# before a path and reads it after to show the path went through the kernel.
+LAUNCHES = 0
+
+# Threads of a file's CUDA block: they share the exchanges; thread 0 runs
+# the section.
+THREADS = 128
+
+# The most shared memory a block takes (of an H100's 227 KB, after the
+# opt-in above 48 KB): the var row and the FFT workspace live there when
+# they fit, else in device memory.
+SMEM_MAX = 200 * 1024
+
+# The stated tolerance of a section with an FFT against the plain version
+# (NumPy's FFT): a heap cell relative to the largest magnitude of the heap,
+# a var or control value relative to its own magnitude (at least 1).  A
+# radix-2 in f64 and pocketfft differ by rounding, of the order of log2(n)
+# ulps of the transform's largest magnitude.
+FFT_TOL_REL = 1e-12
+
+
+def fft_excess(heap, heap_want, vals, vals_want) -> float:
+    """How far a section's heap row and var (or control) values lie
+    outside FFT_TOL_REL of the wanted ones (<= 0 means inside)."""
+    heap_tol = FFT_TOL_REL * max(1.0, float(heap_want.abs().max()))
+    val_tol = FFT_TOL_REL * vals_want.abs().clamp(min=1.0)
+    return max(float((heap - heap_want).abs().max()) - heap_tol,
+               float(((vals - vals_want).abs() - val_tol).max()))
+
+_DESIGN = """\
+// K10 block_section: replaces the traced @block step of the reference's
+// fused block/sample pipeline (zorak_tpu/lowering/devgen.py:463
+// DeviceSection.step inside specialize.py _coupled_run's scan).
+//
+// What bounds it: the section is scalar control code, one dependent chain
+// (a loop over a buffer, an FFT) that runs on one thread; the exchanges
+// move (rings + scalars) x 16 bytes a file, far less.  One launch a block
+// costs the launch itself, a few microseconds.
+//
+// What the design does: a CUDA block a file.  Its threads copy the
+// sample side into the device view (carried scalars -> var slots, each
+// ring region and carried cell -> the heap), then thread 0 alone runs
+// the section (and @slider when a pending mask is set) between two
+// barriers, and the threads copy the view back and gather the next
+// segment's control row.  No barrier sits in code that only thread 0
+// runs.
+"""
+
+
+class BlockSectionProgram:
+    """K10's generated source for one coupled plugin, made once for the
+    kernel's life.
+
+    block, slider   the @block section and, where @block can retrigger it,
+                    the @slider section (DeviceSections over one slot
+                    table and heap);
+    n_svec          carried scalars of the sample side;
+    inter           [(svec index, slot)]: carried scalars the section sees;
+    regions         [(origin, mod)]: the carried heap regions (the rings);
+    cells           [(svec index, address)]: carried single heap cells;
+    ctrl            [("v", slot) or ("m", address)]: the control row.
+    """
+
+    def __init__(self, block: DeviceSection, slider: Optional[DeviceSection],
+                 n_svec: int, inter: Sequence[Tuple[int, int]],
+                 regions: Sequence[Tuple[int, int]],
+                 cells: Sequence[Tuple[int, int]],
+                 ctrl: Sequence[Tuple[str, int]], probe: bool = False):
+        if slider is not None and (slider.slots != block.slots
+                                   or slider.mem_size != block.mem_size):
+            raise ValueError("@block and @slider must share slots and heap")
+        self.block, self.slider = block, slider
+        secs = [s for s in (block, slider) if s is not None]
+        self.n_vars = block.n_vars
+        self.mem_size = block.mem_size
+        self.uses_midi_in = any(s.uses_midi_in for s in secs)
+        self.uses_midi_out = any(s.uses_midi_out for s in secs)
+        self.midi_out_cells = (1 + MIDI_OUT_CAP * 4) \
+            if self.uses_midi_out else 0
+        self.total_mem = self.mem_size + self.midi_out_cells
+        self.n_svec = int(n_svec)
+        self.inter = [(int(a), int(b)) for a, b in inter]
+        self.regions = [(int(o), int(m)) for o, m in regions]
+        self.cells = [(int(a), int(b)) for a, b in cells]
+        self.ctrl = [(k, int(v)) for k, v in ctrl]
+        self.fft_max = max(s.fft_max for s in secs)
+        self.scratch_cells = max(1, max(s.scratch_cells for s in secs))
+        self.perm_sizes = sorted({n for s in secs for n in s.perm_sizes})
+        self.probe = probe
+        # thread 0's working set on chip: the var row (its loop counters and
+        # accumulators), and the FFT workspace where both fit
+        self.v_shared = self.n_vars * 8 <= SMEM_MAX
+        self.scratch_shared = self.v_shared and \
+            (self.n_vars + self.scratch_cells) * 8 <= SMEM_MAX
+        self.smem_bytes = 8 * ((self.n_vars if self.v_shared else 0)
+                               + (self.scratch_cells if self.scratch_shared
+                                  else 0))
+        self.pend_slots = [block.slots[("var", nm)] for nm in PENDING_SLOT_NAMES]
+        self.pos_slot = block.slots[("var", MIDI_POS_SLOT)]
+        for o, m in self.regions:
+            if o + m > self.mem_size:
+                raise ValueError(f"region ({o}, {m}) beyond the heap")
+        self.source = _emit_source(self)
+        # cos, sin of 2 pi k / n, k < n / 2, for the largest transform
+        n = max(self.fft_max, 2)
+        ang = 2.0 * np.pi * np.arange(n // 2, dtype=np.float64) / n
+        self.twiddles = np.stack([np.cos(ang), np.sin(ang)], axis=1).reshape(-1)
+        self._device_tables: Dict[str, torch.Tensor] = {}
+        self._scratch: Dict[Tuple[str, int], torch.Tensor] = {}
+        self._plain_fns = None
+        self._plain_state = None
+
+    def twiddles_on(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._device_tables:
+            self._device_tables[key] = torch.from_numpy(
+                self.twiddles.copy()).to(device)
+        return self._device_tables[key]
+
+    def scratch_on(self, device, nf: int) -> torch.Tensor:
+        key = (str(device), nf)
+        if key not in self._scratch:
+            self._scratch[key] = torch.zeros(
+                (nf, self.scratch_cells), dtype=torch.float64, device=device)
+        return self._scratch[key]
+
+
+def _c_table(name: str, values: Sequence[int], ctype: str = "long long") -> str:
+    vals = ", ".join(str(int(v)) for v in values) or "0"
+    return f"ZB_DEV const {ctype} {name}[] = {{{vals}}};"
+
+
+def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
+    """K10's text: the sections, the exchanges, the kernel, its launcher
+    and, for a host compiler, the same phases a file after another."""
+    secs = [s for s in (p.block, p.slider) if s is not None]
+    functions: Dict[str, str] = {}
+    for s in secs:
+        for name, text in s.functions.items():
+            if functions.setdefault(name, text) != text:
+                raise ValueError(f"{name} prints differently in two sections")
+    perm = FO.perm_table
+    nr = len(p.regions)
+    ring_params = "".join(f", double* r{i}" for i in range(nr))
+    ring_args = "".join(f", r{i}" for i in range(nr))
+    out = [
+        _DESIGN,
+        '#include "block_ops.cuh"',
+        "",
+        "#ifdef __CUDACC__",
+        "#define ZB_DEV static __device__",
+        "#else",
+        "#define ZB_DEV static",
+        "#endif",
+        "",
+        f"#define ZB_NS {p.n_svec}",
+        f"#define ZB_NV {p.n_vars}",
+        f"#define ZB_TM {p.total_mem}",
+        f"#define ZB_MEM {p.mem_size}",
+        f"#define ZB_MO {p.mem_size if p.uses_midi_out else -1}",
+        f"#define ZB_MO_CELLS {p.midi_out_cells}",
+        f"#define ZB_NC {len(p.ctrl)}",
+        f"#define ZB_SCRATCH {p.scratch_cells}",
+        f"#define ZB_THREADS {THREADS}",
+        f"#define ZB_V_SHARED {int(p.v_shared)}",
+        f"#define ZB_SCRATCH_SHARED {int(p.scratch_shared)}",
+        f"#define ZB_SMEM {p.smem_bytes}",
+        "",
+    ]
+    for n in p.perm_sizes:
+        out.append(_c_table(f"zb_perm_{n}", perm(n), "int"))
+    out.append(_c_table("zb_in_sv", [a for a, _b in p.inter]))
+    out.append(_c_table("zb_in_slot", [b for _a, b in p.inter]))
+    out.append(_c_table("zb_cell_sv", [a for a, _b in p.cells]))
+    out.append(_c_table("zb_cell_at", [b for _a, b in p.cells]))
+    out.append(_c_table("zb_ctrl_mem", [k == "m" for k, _v in p.ctrl], "int"))
+    out.append(_c_table("zb_ctrl_at", [v for _k, v in p.ctrl]))
+    out.append("")
+    out += [text.split(" {", 1)[0] + ";" for text in functions.values()]
+    out += list(functions.values())
+    out += [s.body_source for s in secs]
+    run = [f"  {p.block.fn_name}(S);"]
+    if p.slider is not None:
+        a, b, c = p.pend_slots
+        run += [
+            "  // @block retriggered @slider: run it and clear the masks",
+            f"  if (S->V[{a}] + S->V[{b}] + S->V[{c}] != 0.0) {{",
+            f"    {p.slider.fn_name}(S);",
+            f"    S->V[{a}] = 0.0; S->V[{b}] = 0.0; S->V[{c}] = 0.0;",
+            "  }",
+        ]
+    out += ["", "ZB_DEV void zb_run(ZB* S) {", *run, "}", ""]
+    # the exchanges: thread t of nt takes every nt-th copy
+    loop = "for (long long i = t; i < {n}; i += nt) "
+    view_in = [
+        f"ZB_DEV void zb_view_in(long long f, long long t, long long nt, "
+        f"double* V, double* M, const double* sv{ring_params}) {{",
+        "  (void)f;",
+        f"  {loop.format(n=len(p.inter))}V[zb_in_slot[i]] = sv[zb_in_sv[i]];",
+    ]
+    for i, (o, m) in enumerate(p.regions):
+        view_in.append(f"  {loop.format(n=m)}M[{o} + i] = r{i}[f * {m} + i];")
+    view_in.append(f"  {loop.format(n=p.midi_out_cells)}M[ZB_MO + i] = 0.0;")
+    if p.uses_midi_in:
+        view_in.append(f"  if (t == 0) V[{p.pos_slot}] = 0.0;  "
+                       "// a fresh host queue each block")
+    view_in += ["}", ""]
+    cells_in = [
+        "ZB_DEV void zb_cells_in(long long t, long long nt, double* M, "
+        "const double* sv) {",
+        f"  {loop.format(n=len(p.cells))}M[zb_cell_at[i]] = sv[zb_cell_sv[i]];",
+        "}", ""]
+    view_out = [
+        f"ZB_DEV void zb_view_out(long long f, long long t, long long nt, "
+        f"const double* V, const double* M, double* sv{ring_params}, "
+        "double* ctrl, double* mout) {",
+        "  (void)f; (void)ctrl; (void)mout;",
+        f"  {loop.format(n=len(p.inter))}sv[zb_in_sv[i]] = V[zb_in_slot[i]];",
+    ]
+    for i, (o, m) in enumerate(p.regions):
+        view_out.append(f"  {loop.format(n=m)}r{i}[f * {m} + i] = M[{o} + i];")
+    view_out += [
+        f"  {loop.format(n=len(p.cells))}sv[zb_cell_sv[i]] = M[zb_cell_at[i]];",
+        f"  {loop.format(n=len(p.ctrl))}ctrl[f * ZB_NC + i] = "
+        "zb_ctrl_mem[i] ? M[zb_ctrl_at[i]] : V[zb_ctrl_at[i]];",
+        f"  {loop.format(n=p.midi_out_cells)}"
+        "mout[f * ZB_MO_CELLS + i] = M[ZB_MO + i];",
+        "}", ""]
+    out += view_in + cells_in + view_out
+    make_s = ("ZB S = {V, M, ZB_MEM, ZB_MO, samplesblock, midi_ev, midi_n, "
+              "W, tw, tw_n};")
+    # the kernels' var row and FFT workspace: shared memory where it fits
+    on_chip = [
+        "  extern __shared__ double zb_sh[];",
+        "#if ZB_V_SHARED",
+        "  double* const V = zb_sh;",
+        "  for (long long i = t; i < ZB_NV; i += nt) V[i] = bvars[f * ZB_NV + i];",
+        "  __syncthreads();",
+        "#else",
+        "  double* const V = bvars + f * ZB_NV;",
+        "#endif",
+        "#if ZB_SCRATCH_SHARED",
+        "  double* const W = zb_sh + ZB_NV;",
+        "#else",
+        "  double* const W = scratch + f * ZB_SCRATCH;",
+        "#endif",
+    ]
+    off_chip = [
+        "#if ZB_V_SHARED",
+        "  for (long long i = t; i < ZB_NV; i += nt) bvars[f * ZB_NV + i] = V[i];",
+        "#endif",
+    ]
+    args = ("void* svec, void* bvars, void* bmem, void* ctrl, void* mout, "
+            "const void* midi_ev, double midi_n, void* scratch, "
+            "const void* tw, long long tw_n, double samplesblock, "
+            "long long nf")
+    casts = [
+        "  double* sv0 = static_cast<double*>(svec);",
+        "  double* bv = static_cast<double*>(bvars);",
+        "  double* bm = static_cast<double*>(bmem);",
+        "  double* cr = static_cast<double*>(ctrl);",
+        "  double* mo = static_cast<double*>(mout);",
+        "  const double* ev = static_cast<const double*>(midi_ev);",
+        "  double* sc = static_cast<double*>(scratch);",
+        "  const double* twd = static_cast<const double*>(tw);",
+    ] + [f"  double* r{i} = static_cast<double*>(ring{i});"
+         for i in range(nr)]
+    ring_void = "".join(f", void* ring{i}" for i in range(nr))
+    out += [
+        "#ifdef __CUDACC__",
+        "__global__ void __launch_bounds__(ZB_THREADS) zb_kernel(",
+        "    double* svec, double* bvars, double* bmem, double* ctrl,",
+        "    double* mout, const double* midi_ev, double midi_n,",
+        "    double* scratch, const double* tw, long long tw_n,",
+        f"    double samplesblock{ring_params}) {{",
+        "  const long long f = blockIdx.x, t = threadIdx.x, nt = blockDim.x;",
+        *on_chip,
+        "  double* M = bmem + f * ZB_TM;",
+        "  double* sv = svec + f * ZB_NS;",
+        f"  zb_view_in(f, t, nt, V, M, sv{ring_args});",
+        "  __syncthreads();",
+        "  zb_cells_in(t, nt, M, sv);   // a cell may lie in a ring region",
+        "  __syncthreads();",
+        "  if (t == 0) {",
+        f"    {make_s}",
+        "    zb_run(&S);",
+        "  }",
+        "  __syncthreads();",
+        f"  zb_view_out(f, t, nt, V, M, sv{ring_args}, ctrl, mout);",
+        *off_chip,
+        "}",
+        "",
+    ]
+    if p.probe:
+        out += _probe_kernels(p, make_s, on_chip, off_chip)
+    out += [
+        f'extern "C" int block_section_launch({args}, void* stream'
+        f'{ring_void}) {{',
+        "  cudaGetLastError();  // clear an error left by an earlier call",
+        "  if (nf <= 0) return 0;",
+        "  if (nf > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);",
+        *casts,
+        "  static bool opted_in = false;   // above 48 KB only after this",
+        "  if (!opted_in && ZB_SMEM > 48 * 1024) {",
+        "    cudaFuncSetAttribute(zb_kernel,",
+        "        cudaFuncAttributeMaxDynamicSharedMemorySize, ZB_SMEM);",
+        "    opted_in = true;",
+        "  }",
+        "  zb_kernel<<<static_cast<unsigned>(nf), ZB_THREADS, ZB_SMEM,",
+        "              static_cast<cudaStream_t>(stream)>>>(sv0, bv, bm, cr,",
+        f"      mo, ev, midi_n, sc, twd, tw_n, samplesblock{ring_args});",
+        "  return static_cast<int>(cudaGetLastError());",
+        "}",
+        "",
+        "#else  // a host compiler: the same phases, a file after another",
+        "",
+        f'extern "C" int block_section_host({args}{ring_void}) {{',
+        *casts,
+        "  for (long long f = 0; f < nf; ++f) {",
+        "    double* V = bv + f * ZB_NV;",
+        "    double* M = bm + f * ZB_TM;",
+        "    double* sv = sv0 + f * ZB_NS;",
+        f"    zb_view_in(f, 0, 1, V, M, sv{ring_args});",
+        "    zb_cells_in(0, 1, M, sv);",
+        "    {",
+        "      const double* midi_ev = ev;",
+        "      const double* tw = twd;",
+        "      double* W = sc + f * ZB_SCRATCH;",
+        f"      {make_s}",
+        "      zb_run(&S);",
+        "    }",
+        f"    zb_view_out(f, 0, 1, V, M, sv{ring_args}, cr, mo);",
+        "  }",
+        "  return 0;",
+        "}",
+        "",
+        "#endif",
+        "",
+    ]
+    return "\n".join(out)
+
+
+def _probe_kernels(p: BlockSectionProgram, make_s: str, on_chip: List[str],
+                   off_chip: List[str]) -> List[str]:
+    """Timing probes (chip_smoke.py): the sections alone on one thread,
+    `reps` times on file 0's view (its dependent chain with no exchange);
+    and each transform the section calls, alone, at the heap's start.
+    Both keep the var row and workspace where the kernel keeps them."""
+    calls = _fft_calls(p)
+    head = ["  const long long f = 0, t = 0, nt = 1;", *on_chip,
+            "  double* M = bmem;", f"  {make_s}"]
+    out = [
+        "__global__ void zb_chain_kernel(double* bvars, double* bmem,",
+        "    const double* midi_ev, double midi_n, double* scratch,",
+        "    const double* tw, long long tw_n, double samplesblock,",
+        "    long long reps) {",
+        *head,
+        "  for (long long r = 0; r < reps; ++r) zb_run(&S);",
+        *off_chip,
+        "}",
+        "",
+        "__global__ void zb_fft_probe_kernel(double* bvars, double* bmem,",
+        "    double* scratch, const double* tw, long long tw_n, int which,",
+        "    long long reps) {",
+        "  const double* midi_ev = nullptr;",
+        "  const double midi_n = 0.0, samplesblock = 0.0;",
+        *head,
+        "  for (long long r = 0; r < reps; ++r) {",
+        "    switch (which) {",
+        *[f"      case {i}: {call}; break;"
+          for i, (_label, call) in enumerate(calls)],
+        "      default: break;",
+        "    }",
+        "  }",
+        *off_chip,
+        "}",
+        "",
+        'extern "C" int block_section_chain(void* bvars, void* bmem,',
+        "    const void* midi_ev, double midi_n, void* scratch, const void* tw,",
+        "    long long tw_n, double samplesblock, long long reps, void* stream) {",
+        "  if (ZB_SMEM > 48 * 1024)",
+        "    cudaFuncSetAttribute(zb_chain_kernel,",
+        "        cudaFuncAttributeMaxDynamicSharedMemorySize, ZB_SMEM);",
+        "  zb_chain_kernel<<<1, 1, ZB_SMEM, static_cast<cudaStream_t>(stream)>>>(",
+        "      static_cast<double*>(bvars), static_cast<double*>(bmem),",
+        "      static_cast<const double*>(midi_ev), midi_n,",
+        "      static_cast<double*>(scratch), static_cast<const double*>(tw),",
+        "      tw_n, samplesblock, reps);",
+        "  return static_cast<int>(cudaGetLastError());",
+        "}",
+        "",
+        'extern "C" int block_section_fft_probe(void* bvars, void* bmem,',
+        "    void* scratch, const void* tw, long long tw_n, int which,",
+        "    long long reps, void* stream) {",
+        "  if (ZB_SMEM > 48 * 1024)",
+        "    cudaFuncSetAttribute(zb_fft_probe_kernel,",
+        "        cudaFuncAttributeMaxDynamicSharedMemorySize, ZB_SMEM);",
+        "  zb_fft_probe_kernel<<<1, 1, ZB_SMEM,",
+        "                        static_cast<cudaStream_t>(stream)>>>(",
+        "      static_cast<double*>(bvars), static_cast<double*>(bmem),",
+        "      static_cast<double*>(scratch), static_cast<const double*>(tw),",
+        "      tw_n, which, reps);",
+        "  return static_cast<int>(cudaGetLastError());",
+        "}",
+        "",
+    ]
+    return out
+
+
+def _fft_calls(p: BlockSectionProgram) -> List[Tuple[str, str]]:
+    """The probe's (label, call) pairs: for each complex size n the
+    section's tables serve, fft(n) and fft_real(2n), where the twiddle
+    table and the heap are large enough."""
+    calls = []
+    for n in p.perm_sizes:
+        if 2 * n <= p.fft_max and 2 * n <= p.mem_size:
+            calls.append((f"fft_real({2 * n})",
+                          f"zb_fft_real(&S, 0.0, {2 * n}, zb_perm_{n})"))
+        if n <= p.fft_max and 2 * n <= p.mem_size:
+            calls.append((f"fft({n})", f"zb_fft(&S, 0.0, {n}, zb_perm_{n})"))
+    return calls
+
+
+def fft_probe_names(program: BlockSectionProgram) -> List[str]:
+    """What each `which` of `block_section_fft_probe` runs."""
+    return [label for label, _call in _fft_calls(program)]
+
+
+# -- the checks shared by every form ---------------------------------------------
+
+def _check(program: BlockSectionProgram, svec, rings, bvars, bmem) -> int:
+    nf = bvars.shape[0]
+    dev = bvars.device
+    want = [("svec", svec, (nf, program.n_svec)),
+            ("bvars", bvars, (nf, program.n_vars)),
+            ("bmem", bmem, (nf, program.total_mem))]
+    if len(rings) != len(program.regions):
+        raise ValueError(f"{len(rings)} rings for {len(program.regions)} "
+                         "regions")
+    want += [(f"ring {r}", a, (nf, r[1]))
+             for r, a in zip(program.regions, rings)]
+    for name, t, shape in want:
+        if tuple(t.shape) != shape or t.dtype != torch.float64 \
+                or t.device != dev:
+            raise ValueError(f"{name} must be float64 {list(shape)} on {dev}, "
+                             f"got {t.dtype} {list(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (updated in place)")
+    return nf
+
+
+def _midi_args(program, midi):
+    """(events [k, 4] f64 or None, count) of this block's staged queue."""
+    if midi is None or not program.uses_midi_in:
+        return None, 0.0
+    ev, n = midi
+    return ev, float(n)
+
+
+def block_section(program: BlockSectionProgram, svec: torch.Tensor,
+                  rings: Sequence[torch.Tensor], bvars: torch.Tensor,
+                  bmem: torch.Tensor, samplesblock: float, midi=None,
+                  ctrl: Optional[torch.Tensor] = None,
+                  mout: Optional[torch.Tensor] = None):
+    """One block of the coupled pipeline for nf files, in place.
+
+    svec [nf, n_svec] and rings (one [nf, mod] a region, in
+    `program.regions` order) are the sample side's carry; bvars [nf,
+    n_vars] and bmem [nf, total_mem] the device view; all f64,
+    contiguous, on one device, and all updated in place.  midi: (events
+    [k, 4] f64 on the device, count) of this block's staged host queue,
+    shared by the files, where the section calls midirecv.  Returns
+    (ctrl [nf, n_ctrl], mout [nf, midi_out_cells] or None): the control
+    row of the next segment and the block's MIDI out table (written into
+    `ctrl` and `mout` where given).
+
+    CUDA tensors go to the generated kernel, CPU tensors to the plain
+    version; nothing falls back from one to the other.
+    """
+    global LAUNCHES
+    nf = _check(program, svec, rings, bvars, bmem)
+    dev = bvars.device
+    if ctrl is None:
+        ctrl = torch.empty((nf, len(program.ctrl)), dtype=torch.float64,
+                           device=dev)
+    if mout is None and program.midi_out_cells:
+        mout = torch.empty((nf, program.midi_out_cells), dtype=torch.float64,
+                           device=dev)
+    if dev.type == "cpu":
+        block_section_plain(program, svec, rings, bvars, bmem, samplesblock,
+                            midi, ctrl, mout)
+        return ctrl, mout
+    if dev.type != "cuda":
+        raise ValueError(f"block_section runs on cuda or cpu, not {dev}")
+    ev, n_ev = _midi_args(program, midi)
+    lib = _library(program.source, len(program.regions))
+    tw = program.twiddles_on(dev)
+    scratch = program.scratch_on(dev, nf)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.block_section_launch(
+            svec.data_ptr(), bvars.data_ptr(), bmem.data_ptr(),
+            ctrl.data_ptr(), 0 if mout is None else mout.data_ptr(),
+            0 if ev is None else ev.data_ptr(), n_ev, scratch.data_ptr(),
+            tw.data_ptr(), max(program.fft_max, 2), float(samplesblock), nf,
+            stream, *[r.data_ptr() for r in rings])
+    if err != 0:
+        raise RuntimeError(f"block_section kernel launch failed: cudaError "
+                           f"{err}")
+    LAUNCHES += 1
+    return ctrl, mout
+
+
+_HEAD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_longlong,
+                                      ctypes.c_double, ctypes.c_longlong]
+
+
+@functools.lru_cache(maxsize=None)
+def _library(source: str, n_rings: int) -> ctypes.CDLL:
+    lib = _build.load_generated(source)
+    lib.block_section_launch.argtypes = _HEAD_ARGS + [ctypes.c_void_p] * (
+        1 + n_rings)
+    lib.block_section_launch.restype = ctypes.c_int
+    return lib
+
+
+def block_section_host(program: BlockSectionProgram, svec, rings, bvars,
+                       bmem, samplesblock: float, midi=None):
+    """The generated source compiled for the CPU with a host C++ compiler
+    (its host form), on CPU tensors, in place as `block_section`.  Shows
+    without a GPU that the printed sections and exchanges repeat
+    `block_section_plain`; no render path calls it, and it leaves
+    LAUNCHES alone."""
+    nf = _check(program, svec, rings, bvars, bmem)
+    if bvars.device.type != "cpu":
+        raise ValueError("block_section_host takes CPU tensors")
+    fn = _build.load_generated_host(program.source).block_section_host
+    fn.argtypes = _HEAD_ARGS + [ctypes.c_void_p] * len(program.regions)
+    fn.restype = ctypes.c_int
+    ctrl = torch.empty((nf, len(program.ctrl)), dtype=torch.float64)
+    mout = torch.empty((nf, max(program.midi_out_cells, 1)),
+                       dtype=torch.float64)
+    ev, n_ev = _midi_args(program, midi)
+    ev = None if ev is None else ev.contiguous()
+    scratch = torch.zeros((nf, program.scratch_cells), dtype=torch.float64)
+    tw = torch.from_numpy(program.twiddles.copy())
+    fn(svec.data_ptr(), bvars.data_ptr(), bmem.data_ptr(), ctrl.data_ptr(),
+       mout.data_ptr(), 0 if ev is None else ev.data_ptr(), n_ev,
+       scratch.data_ptr(), tw.data_ptr(), max(program.fft_max, 2),
+       float(samplesblock), nf, *[r.data_ptr() for r in rings])
+    return ctrl, (mout if program.midi_out_cells else None)
+
+
+def block_section_chain_probe(program: BlockSectionProgram, bvars, bmem,
+                              samplesblock: float, reps: int, midi=None):
+    """Timing probe (chip_smoke.py): the sections alone on one thread,
+    `reps` times on file 0's view, which they change.  Its time a rep is
+    the section's dependent chain with no exchange.  Needs a program made
+    with `probe=True`; not a kernel of any path, so LAUNCHES stays."""
+    if not program.probe or bvars.device.type != "cuda":
+        raise ValueError("a probe program and CUDA tensors are needed")
+    lib = _library(program.source, len(program.regions))
+    lib.block_section_chain.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_double, ctypes.c_longlong,
+        ctypes.c_void_p]
+    lib.block_section_chain.restype = ctypes.c_int
+    ev, n_ev = _midi_args(program, midi)
+    dev = bvars.device
+    with torch.cuda.device(dev):
+        err = lib.block_section_chain(
+            bvars.data_ptr(), bmem.data_ptr(),
+            0 if ev is None else ev.data_ptr(), n_ev,
+            program.scratch_on(dev, 1).data_ptr(),
+            program.twiddles_on(dev).data_ptr(), max(program.fft_max, 2),
+            float(samplesblock), int(reps),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block_section chain probe failed: cudaError {err}")
+
+
+def block_section_fft_probe(program: BlockSectionProgram, bvars, bmem,
+                            which: int, reps: int):
+    """Timing probe (chip_smoke.py): transform `which` of
+    `fft_probe_names(program)` alone on one thread, `reps` times, on the
+    start of file 0's heap (which it overwrites)."""
+    if not program.probe or bmem.device.type != "cuda":
+        raise ValueError("a probe program and CUDA tensors are needed")
+    lib = _library(program.source, len(program.regions))
+    lib.block_section_fft_probe.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    lib.block_section_fft_probe.restype = ctypes.c_int
+    dev = bmem.device
+    with torch.cuda.device(dev):
+        err = lib.block_section_fft_probe(
+            bvars.data_ptr(), bmem.data_ptr(),
+            program.scratch_on(dev, 1).data_ptr(),
+            program.twiddles_on(dev).data_ptr(), max(program.fft_max, 2),
+            int(which), int(reps), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block_section FFT probe failed: cudaError {err}")
+
+
+# -- the plain version -------------------------------------------------------------
+
+def block_section_plain(program: BlockSectionProgram, svec, rings, bvars,
+                        bmem, samplesblock: float, midi=None, ctrl=None,
+                        mout=None):
+    """Plain version: the exchanges in torch, and for each file the
+    sections through the port's Python golden (`shadow/pyexec.py`) on a
+    ShadowState built from the file's slots and heap row, with the device
+    heap's addressing (clamped addresses, runs and FFT regions inside the
+    heap).  In place, as `block_section`; CPU tensors."""
+    nf = _check(program, svec, rings, bvars, bmem)
+    if ctrl is None:
+        ctrl = torch.empty((nf, len(program.ctrl)), dtype=torch.float64)
+    if mout is None and program.midi_out_cells:
+        mout = torch.empty((nf, program.midi_out_cells), dtype=torch.float64)
+    if program.inter:
+        sv_i = torch.tensor([a for a, _b in program.inter])
+        sl_i = torch.tensor([b for _a, b in program.inter])
+        bvars[:, sl_i] = svec[:, sv_i]
+    for (o, m), r in zip(program.regions, rings):
+        bmem[:, o:o + m] = r
+    mo = program.mem_size
+    bmem[:, mo:mo + program.midi_out_cells] = 0.0
+    if program.uses_midi_in:
+        bvars[:, program.pos_slot] = 0.0
+    for a, addr in program.cells:
+        bmem[:, addr] = svec[:, a]
+    events = []
+    if midi is not None and program.uses_midi_in:
+        ev, n = midi
+        events = ev.detach().cpu().numpy()[:int(n)].tolist()
+    block_fn, slider_fn = _plain_functions(program)
+    for f in range(nf):
+        _plain_file(program, block_fn, slider_fn, bvars[f], bmem[f],
+                    float(samplesblock), events)
+    if program.inter:
+        svec[:, sv_i] = bvars[:, sl_i]
+    for (o, m), r in zip(program.regions, rings):
+        r.copy_(bmem[:, o:o + m])
+    for a, addr in program.cells:
+        svec[:, a] = bmem[:, addr]
+    for i, (kind, at) in enumerate(program.ctrl):
+        ctrl[:, i] = bmem[:, at] if kind == "m" else bvars[:, at]
+    if mout is not None:
+        mout.copy_(bmem[:, mo:mo + program.midi_out_cells])
+    return ctrl, mout
+
+
+def _plain_file(program, block_fn, slider_fn, v_row, m_row,
+                samplesblock: float, events) -> None:
+    from ..shadow.state import MidiEvent
+
+    sec = program.block
+    st = program._plain_state.clone()
+    vals = v_row.tolist()
+    masks = ("pending_change_mask", "pending_automate_mask",
+             "pending_automate_end_mask")
+    for key, slot in sec.slots.items():
+        _put(st, key, vals[slot], masks)
+    st.mem = m_row[:program.mem_size].numpy()   # shares the row
+    st.mem_used = program.mem_size
+    st.samplesblock = samplesblock
+    st.midi_in = [MidiEvent(int(e[0]), int(e[1]), int(e[2]), int(e[3]))
+                  for e in events]
+    st.midi_in_pos = int(vals[program.pos_slot])
+    st.midi_out = []
+    block_fn(st)
+    if slider_fn is not None and (st.pending_change_mask
+                                  or st.pending_automate_mask
+                                  or st.pending_automate_end_mask):
+        slider_fn(st)
+        st.pending_change_mask = 0
+        st.pending_automate_mask = 0
+        st.pending_automate_end_mask = 0
+    out = list(vals)
+    for key, slot in sec.slots.items():
+        got = _get(st, key, masks)
+        if got is not None:
+            out[slot] = got
+    out[program.pos_slot] = float(st.midi_in_pos) if program.uses_midi_in \
+        else vals[program.pos_slot]
+    v_row.copy_(torch.tensor(out, dtype=torch.float64))
+    if program.midi_out_cells:
+        table = np.zeros(program.midi_out_cells)
+        sent = st.midi_out[:MIDI_OUT_CAP]
+        table[0] = float(len(sent))
+        for k, ev in enumerate(sent):
+            table[1 + 4 * k:5 + 4 * k] = (ev.offset, ev.b1, ev.b2, ev.b3)
+        m_row[program.mem_size:] = torch.from_numpy(table)
+
+
+def _put(st, key, v: float, masks) -> None:
+    kind = key[0]
+    if kind == "var" and key[1] in PENDING_SLOT_NAMES:
+        setattr(st, masks[PENDING_SLOT_NAMES.index(key[1])],
+                int(max(0.0, v)) if v == v else 0)
+    elif kind == "var":
+        st.V[key[1]] = v
+    elif kind == "spl":
+        st.spl[key[1]] = v
+    elif kind == "slider":
+        st.sliders[key[1]] = v
+
+
+def _get(st, key, masks):
+    kind = key[0]
+    if kind == "var" and key[1] in PENDING_SLOT_NAMES:
+        return float(getattr(st, masks[PENDING_SLOT_NAMES.index(key[1])]))
+    if kind == "var":
+        return float(st.V.get(key[1], 0.0))
+    if kind == "spl":
+        return float(st.spl[key[1]])
+    if kind == "slider":
+        return float(st.sliders[key[1]])
+    return None   # params: the C functions take them as arguments
+
+
+def _plain_functions(program: BlockSectionProgram):
+    """(@block, @slider or None) compiled by pyexec with the device heap's
+    addressing in place of the golden's growable heap."""
+    if program._plain_fns is None:
+        from ..shadow import pyexec as PX
+
+        P = program.block.P
+        ns = PX._exec_namespace(P)
+        ns.update(_device_heap_helpers())
+        for spec_name, proto in P.fn_defs.items():
+            PX._compile_callable(P, ns, PX._py_fn_name(spec_name),
+                                 proto.params, [proto.body], return_last=True)
+        fns = [PX._compile_callable(P, ns, f"jsfx_{s.section}", (), s.body,
+                                    return_last=False)
+               if s is not None else None
+               for s in (program.block, program.slider)]
+        program._plain_fns = tuple(fns)
+        # the frozen state the sections read; each file brings its heap row
+        program._plain_state = program.block.snap.clone()
+        program._plain_state.mem = np.zeros(1)
+    return program._plain_fns
+
+
+def _device_heap_helpers():
+    """pyexec's heap helpers with `csrc/block_ops.cuh`'s addressing: the
+    heap is the state's fixed row (len(S.mem) = mem_size)."""
+    from ..semantics import scalar as SC
+    from ..shadow import pyexec as PX
+
+    def addr(S, base, idx):
+        return min(SC.mem_address(base, idx), len(S.mem) - 1)
+
+    def mget(S, base, idx):
+        return float(S.mem[addr(S, base, idx)])
+
+    def mset(S, val, base, idx):
+        S.mem[addr(S, base, idx)] = val
+        return val
+
+    def mrmw(S, rhs, base, idx, op):
+        a = addr(S, base, idx)
+        out = PX._COMPOUND[op](float(S.mem[a]), rhs)
+        S.mem[a] = out
+        return out
+
+    def run(S, x, length):
+        n = min(max(0, SC.trunc_i64(length)), len(S.mem))
+        return min(SC.blob_address(x), len(S.mem) - n), n
+
+    def memset(S, dest, value, length):
+        d, n = run(S, dest, length)
+        S.mem[d:d + n] = value
+        return dest
+
+    def memcpy(S, dest, src, length):
+        d, n = run(S, dest, length)
+        s, _n = run(S, src, length)
+        S.mem[d:d + n] = S.mem[s:s + n].copy()
+        return dest
+
+    def inside(S, base, span):
+        return FO._same_page(base, span) and base + span <= len(S.mem)
+
+    def fft_call(S, which, a0, a1):
+        n = FO._round_index(a1)
+        if not FO._pow2_ok(n):
+            return 0.0
+        span = n if which in ("fft_real", "ifft_real") else 2 * n
+        if not inside(S, max(0, FO._round_index(a0)), span):
+            return 0.0
+        return FO.dispatch(S, which, a0, a1)
+
+    def convolve_c(S, dest, src, size):
+        n = FO._round_index(size)
+        if n <= 0 or n > FO.PAGE_DOUBLES // 2:
+            return 0.0
+        if not (inside(S, max(0, FO._round_index(dest)), 2 * n)
+                and inside(S, max(0, FO._round_index(src)), 2 * n)):
+            return 0.0
+        return FO.convolve_c(S, dest, src, size)
+
+    return {"_mget": mget, "_mset": mset, "_mrmw": mrmw, "_maddr": addr,
+            "_memset": memset, "_memcpy": memcpy, "_fft_call": fft_call,
+            "_convolve_c": convolve_c}

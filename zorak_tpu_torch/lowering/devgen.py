@@ -1,0 +1,556 @@
+"""Audio-coupled device sections: an EEL2 section -> CUDA C (K10's body).
+
+Counterpart of zorak_tpu/lowering/devgen.py.  The reference traces an
+audio-coupled @block (control computed from the audio: meters,
+accumulators, spectral state) into XLA ops, and most of its bulk makes
+scalar control code fit a TPU program: static/dynamic folding, both-arm
+select-merges for traced branches, a loop vectorizer, cond outlining and
+f64 DFT matmuls.  On an H100 scalar control code belongs on one thread,
+so a `DeviceSection` here traces nothing: it prints the section as C
+through `shadow/cgen.py`'s expression emitter, which has the golden's
+scalar semantics, with the state retargeted at a device view:
+
+* vars are the slots of a `double` row (`slots`, the reference's layout:
+  the dynamic keys sorted by repr, then every user function's params,
+  then the pseudo slots), anything else is frozen @init/@slider state and
+  prints as a constant;
+* mem is a heap row of `mem_size` cells, then the MIDI out table;
+* `samplesblock` is an argument, so one source serves full blocks and the
+  remainder.
+
+Heap addressing follows the reference's device sections, not the
+golden's growable heap: a static address at or past `mem_size` raises
+DevgenError while the source is printed, a dynamic one is clamped to
+[0, mem_size - 1] (`csrc/block_ops.cuh`).
+
+What the section may not use raises DevgenError naming the work that
+brings it; the specializer turns that into a SpecializeError, and the
+engine renders the plugin through the golden.  `kernels/block_section.py`
+wraps the printed sections into K10.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Set
+
+import numpy as np
+
+from ..frontend.astnodes import (
+    Asn, Bin, CallExpr, Const, Mem, Name, Node, Str, Un, walk,
+)
+from ..ir.program import PluginProgram
+from ..ir.symbols import dollar_const
+from ..runtime import fftops as FO
+from ..semantics import scalar as SC
+from ..shadow.cgen import _CGen, _mangle_c
+from .scan_codegen import c_double
+from .specialize import _env_key_for_name as _env_key, section_var_usage
+
+
+class DevgenError(Exception):
+    """The section uses a construct the device sections do not support."""
+
+
+PENDING_SLOT_NAMES = ("__pend_chg__", "__pend_auto__", "__pend_auto_end__")
+MIDI_POS_SLOT = "__midi_pos__"
+MIDI_OUT_CAP = 64  # staged sends a block (later ones drop, like the ref queue)
+# kept for the reference's slot layout; no device section draws rand()
+RAND_POS_SLOT = "__rand_pos__"
+
+# where each refused construct comes from (ROADMAP.md queue 1)
+_BUS = "gmem and the message bus come with queue 1 item 7 (slice 6b)"
+_SERVICES = ("file, pool and host services come with queue 1 item 3 "
+             "(the services copy)")
+_NEVER = ("the reference does not run it on the device either, and no "
+          "slice brings it: the golden renders the plugin")
+
+_COMM_FNS = frozenset({
+    "msg_send", "msg_sendto", "msg_recv", "msg_peek",
+    "msg_send_buf", "msg_sendto_buf", "msg_recv_buf",
+    "msg_advertise", "msg_subscribe", "msg_unsubscribe",
+    "msg_avail", "msg_kind", "msg_length", "msg_dropped", "msg_clear",
+    "msg_peer_count", "msg_peer_id", "msg_peer_name", "msg_peer_uid",
+    "msg_peer_caps", "msg_peer_alive",
+    "comm_join", "instance_id", "instance_uid", "instance_set_name",
+    "instance_get_name",
+})
+_GMEM_FNS = frozenset({
+    "gmem_attach", "gmem_attach_size", "gmem_size", "gmem_get",
+    "gmem_put", "gmem_fill", "gmem_zero", "gmem_copy", "gmem_seq",
+    "gmem_page"})
+_SERVICE_FNS = frozenset({
+    "file_open", "file_open_multi", "file_close", "file_rewind",
+    "file_seek", "file_avail", "file_text", "file_riff", "file_var",
+    "file_mem", "file_multi_count", "file_multi_select",
+    "file_string", "file_read", "file_write",
+    "strlen", "str_getchar", "time", "time_precise",
+    "track_name", "track_name_available", "track_name_seq",
+    "host_track_name", "host_track_name_available", "host_track_name_seq",
+})
+# the reference's _FORBIDDEN that no other list names
+_FORBIDDEN = frozenset({
+    "midisend_buf", "midirecv_buf", "midisend_str", "midirecv_str",
+    "midisyx", "slider_show", "slider_next_chg",
+    "get_host_placement", "export_buffer_to_project",
+    "mem_set_values", "mem_get_values", "atomic_setifequal",
+    "stack_push", "stack_pop", "stack_peek", "stack_exch",
+})
+_INERT = frozenset({
+    "sprintf", "printf", "strcpy", "strcat", "strcmp", "str_setchar",
+    "str_insert", "str_delete", "str_mid", "strncpy"})
+_UNARY_C = {
+    "sin": "sin", "cos": "cos", "tan": "tan", "asin": "asin",
+    "acos": "acos", "atan": "atan", "exp": "exp", "log": "log",
+    "log10": "log10", "sqrt": "sqrt", "abs": "z_abs", "fabs": "z_abs",
+    "floor": "z_floor", "ceil": "z_ceil", "invsqrt": "z_invsqrt",
+    "sign": "z_sign",
+}
+_BINARY_C = {
+    "/": "z_div", "^": "z_pow", "%": "z_mod", "|": "z_or", "&": "z_and",
+    "~": "z_xor", "<<": "z_shl", ">>": "z_shr", "<": "z_lt", "<=": "z_le",
+    ">": "z_gt", ">=": "z_ge", "==": "z_eq", "!=": "z_ne",
+    "min": "z_min", "max": "z_max", "pow": "z_pow", "atan2": "atan2",
+}
+_COMPOUND_C = {"+=": "+", "-=": "-", "*=": "*", "/=": "/", "%=": "%",
+               "^=": "^", "|=": "|", "&=": "&", "~=": "~"}
+_SC_BINARY = {
+    "+": lambda a, b: a + b, "-": lambda a, b: a - b,
+    "*": lambda a, b: a * b, "/": SC.eel_div, "^": SC.eel_pow,
+    "%": SC.eel_mod, "|": SC.eel_or, "&": SC.eel_and, "~": SC.eel_xor,
+    "<<": SC.eel_shl, ">>": SC.eel_shr, "<": SC.cmp_lt, "<=": SC.cmp_le,
+    ">": SC.cmp_gt, ">=": SC.cmp_ge, "==": SC.cmp_eq, "!=": SC.cmp_ne,
+}
+# calls with no effect on the state (their operands may still have one)
+_PURE_CALLS = frozenset(_UNARY_C) | {"min", "max", "pow", "atan2", "sqr",
+                                     "__memtop"}
+_FFT_FNS = ("fft", "ifft", "fft_real", "ifft_real", "fft_permute",
+            "fft_ipermute")
+
+
+def section_dynamic_keys(program: PluginProgram, sections: Sequence[str]):
+    """Env keys any DSP section can CHANGE at runtime (everything else is
+    frozen @init/@slider state and prints as a constant)."""
+    dyn: Set[Any] = set()
+    for sec in sections:
+        if program.sections.get(sec):
+            _, writes, _, _ = section_var_usage(program, sec)
+            dyn |= writes
+    dyn |= {("spl", c) for c in range(64)}
+    return dyn
+
+
+def _impure(node: Node) -> bool:
+    """Whether evaluating node may change the state (an assignment, a call
+    that writes), so that the operands around it must run in order."""
+    for n in walk(node):
+        if isinstance(n, Asn):
+            return True
+        if isinstance(n, CallExpr) and n.func not in _PURE_CALLS:
+            return True
+    return False
+
+
+class _SectionC(_CGen):
+    """cgen's expression emitter with the state of a device section: var
+    slots `S->V[i]`, the clamped heap `S->M`, `csrc/block_ops.cuh` for what
+    cgen sends to its host callback.  Operands that change the state are
+    evaluated in the golden's order (left to right, an assignment's value
+    before its target), which C leaves unspecified."""
+
+    def __init__(self, dev: "DeviceSection", params: Sequence[str] = ()):
+        super().__init__(dev.P, params)
+        self.dev = dev
+
+    def tmp(self) -> str:
+        self.dev._ntmp += 1
+        return f"_z{self.dev._ntmp}"
+
+    def seq(self, parts: Sequence[str], fmt) -> str:
+        """fmt(values) with each part evaluated once, in order."""
+        names = [self.tmp() for _ in parts]
+        decl = " ".join(f"double {t} = ({p});" for t, p in zip(names, parts))
+        return f"({{ {decl} {fmt(names)}; }})"
+
+    def args(self, nodes: Sequence[Node], fmt) -> str:
+        """fmt(operand texts), sequenced where an operand has an effect."""
+        parts = [self.ex(a) for a in nodes]
+        if len(nodes) > 1 and any(_impure(a) for a in nodes):
+            return self.seq(parts, fmt)
+        return fmt(parts)
+
+    # -- names and constants ---------------------------------------------------
+
+    def name_ref(self, ident: str) -> str:
+        if ident in self.params:
+            return self.params[ident]
+        if ident == "mem":
+            return "0.0"
+        if ident == "gmem":
+            raise DevgenError(f"gmem in a device section: {_BUS}")
+        c = dollar_const(ident)
+        if c is not None:
+            return c_double(c)
+        key = _env_key(ident)
+        if key == ("builtin", "samplesblock"):
+            return "S->samplesblock"
+        slot = self.dev.slots.get(key)
+        if slot is not None:
+            return f"S->V[{slot}]"
+        return c_double(self.dev._frozen_value(key))
+
+    def lvalue(self, ident: str) -> str:
+        if ident in self.params:
+            return self.params[ident]
+        if ident in ("mem", "gmem") or dollar_const(ident) is not None:
+            raise DevgenError(f"cannot assign to {ident}")
+        key = _env_key(ident)
+        slot = self.dev.slots.get(key)
+        if slot is None:
+            raise DevgenError(f"write to unclassified state {key!r}")
+        return f"S->V[{slot}]"
+
+    def fold(self, n: Node) -> Optional[float]:
+        """n's value when it is known while printing (constants and frozen
+        state), else None."""
+        if isinstance(n, Const):
+            return float(n.value)
+        if isinstance(n, Name):
+            if n.ident in self.params or n.ident == "gmem":
+                return None
+            if n.ident == "mem":
+                return 0.0
+            c = dollar_const(n.ident)
+            if c is not None:
+                return float(c)
+            key = _env_key(n.ident)
+            if key == ("builtin", "samplesblock") or key in self.dev.slots:
+                return None
+            return self.dev._frozen_value(key)
+        if isinstance(n, Un):
+            a = self.fold(n.operand)
+            if a is None:
+                return None
+            return {"+": a, "-": 0.0 - a}.get(n.op, SC.eel_not(a))
+        if isinstance(n, Bin) and n.op in _SC_BINARY:
+            a, b = self.fold(n.lhs), self.fold(n.rhs)
+            if a is None or b is None:
+                return None
+            return _SC_BINARY[n.op](a, b)
+        return None
+
+    def static_addr(self, base: Node, idx: Node) -> Optional[int]:
+        b, i = self.fold(base), self.fold(idx)
+        if b is None or i is None:
+            return None
+        a = SC.mem_address(b, i)
+        if a >= self.dev.mem_size:
+            raise DevgenError(f"static mem address {a} beyond device heap "
+                              f"({self.dev.mem_size})")
+        return a
+
+    def static_run(self, what: str, start: Node, length: Node) -> None:
+        """A bulk operation's static run must lie inside the heap."""
+        s, n = self.fold(start), self.fold(length)
+        if s is not None and n is not None:
+            end = SC.blob_address(s) + max(0, SC.trunc_i64(n))
+            if end > self.dev.mem_size:
+                raise DevgenError(f"{what}: static mem address {end} beyond "
+                                  f"device heap ({self.dev.mem_size})")
+
+    # -- expressions -----------------------------------------------------------
+
+    def ex(self, n: Node) -> str:
+        if isinstance(n, Const):
+            return c_double(n.value)
+        if isinstance(n, Str):
+            return c_double(float(self.P.string_handle(n.text)))
+        if isinstance(n, Mem):
+            if self._is_gmem(n):
+                raise DevgenError(f"gmem in a device section: {_BUS}")
+            a = self.static_addr(n.base, n.index)
+            if a is not None:
+                return f"S->M[{a}]"
+            return self.args([n.base, n.index],
+                             lambda v: f"zb_mget(S, {v[0]}, {v[1]})")
+        if isinstance(n, Un):
+            a = self.ex(n.operand)
+            return {"+": a, "-": f"(0.0 - {a})"}.get(n.op, f"z_not({a})")
+        if isinstance(n, Bin) and n.op not in ("&&", "||"):
+            op = n.op
+            if op in ("+", "-", "*"):
+                return self.args([n.lhs, n.rhs],
+                                 lambda v: f"({v[0]} {op} {v[1]})")
+            return self.args([n.lhs, n.rhs],
+                             lambda v: f"{_BINARY_C[op]}({v[0]}, {v[1]})")
+        return super().ex(n)
+
+    def _assign(self, n: Asn) -> str:
+        tgt = n.target
+        rhs = self.ex(n.value)
+        if isinstance(tgt, Name):
+            ref = self.lvalue(tgt.ident)
+            r = self.tmp()
+            if n.op == "=":
+                return f"({{ double {r} = ({rhs}); {ref} = {r}; {r}; }})"
+            new = self._binop(_COMPOUND_C[n.op], ref, r)
+            return f"({{ double {r} = ({rhs}); {ref} = {new}; {ref}; }})"
+        if isinstance(tgt, Mem):
+            if self._is_gmem(tgt):
+                raise DevgenError(f"gmem in a device section: {_BUS}")
+            r, a = self.tmp(), self.tmp()
+            static = self.static_addr(tgt.base, tgt.index)
+            if static is not None:
+                where = f"long long {a} = {static};"
+            else:
+                b, i = self.tmp(), self.tmp()
+                where = (f"double {b} = ({self.ex(tgt.base)}); "
+                         f"double {i} = ({self.ex(tgt.index)}); "
+                         f"long long {a} = zb_addr(S, {b}, {i});")
+            if n.op == "=":
+                return (f"({{ double {r} = ({rhs}); {where} "
+                        f"S->M[{a}] = {r}; {r}; }})")
+            new = self._binop(_COMPOUND_C[n.op], f"S->M[{a}]", r)
+            return (f"({{ double {r} = ({rhs}); {where} "
+                    f"S->M[{a}] = {new}; S->M[{a}]; }})")
+        if isinstance(tgt, CallExpr) and tgt.func in ("slider", "spl"):
+            raise DevgenError(f"dynamic {tgt.func}() assignment in a device "
+                              f"section: {_NEVER}")
+        raise DevgenError("invalid assignment target")
+
+    @staticmethod
+    def _binop(op: str, a: str, b: str) -> str:
+        if op in ("+", "-", "*"):
+            return f"({a} {op} {b})"
+        return f"{_BINARY_C[op]}({a}, {b})"
+
+    # -- calls -----------------------------------------------------------------
+
+    def _call(self, n: CallExpr) -> str:  # noqa: C901 (one dispatch)
+        fn, A = n.func, n.args
+        dev = self.dev
+        if fn in self.P.fn_defs:
+            proto = self.P.fn_defs[fn]
+            dev._used_fns.add(fn)
+            k = len(proto.params)
+            name = f"uf_{_mangle_c(fn)}"
+            if not k:
+                return f"{name}(S)"
+            # the golden drops extra arguments unevaluated and pads with 0
+            nodes = list(A[:k])
+            pad = ", 0.0" * (k - len(nodes))
+            if not nodes:
+                return f"{name}(S{pad})"
+            return self.args(nodes, lambda v: f"{name}(S, {', '.join(v)}{pad})")
+        if fn in ("slider", "spl") and len(A) == 1:
+            i = self.fold(A[0])
+            if i is None:
+                raise DevgenError(f"dynamic {fn}() read in a device section: "
+                                  f"{_NEVER}")
+            c = int(i + 1.0e-5) - (1 if fn == "slider" else 0)
+            if not 0 <= c < 64:
+                return "0.0"
+            return self.name_ref(f"slider{c + 1}" if fn == "slider"
+                                 else f"spl{c}")
+        if fn in ("min", "max", "pow", "atan2") and len(A) == 2:
+            return self.args(A, lambda v: f"{_BINARY_C[fn]}({v[0]}, {v[1]})")
+        if fn in _UNARY_C and len(A) == 1:
+            return f"{_UNARY_C[fn]}({self.ex(A[0])})"
+        if fn == "sqr" and len(A) == 1:
+            t = self.tmp()
+            return f"({{ double {t} = ({self.ex(A[0])}); {t} * {t}; }})"
+        if fn in ("memset", "memcpy") and len(A) == 3:
+            self.static_run(fn, A[0], A[2])
+            if fn == "memcpy":
+                self.static_run(fn, A[1], A[2])
+            return self.args(A, lambda v: f"zb_{fn}(S, {', '.join(v)})")
+        if fn in _FFT_FNS and len(A) == 2:
+            return self._fft(fn, A)
+        if fn == "convolve_c" and len(A) == 3:
+            return self._convolve(A)
+        if fn == "midirecv":
+            return self._midirecv(A)
+        if fn == "midisend":
+            if len(A) not in (3, 4):
+                raise DevgenError("midisend expects 3 or 4 args")
+            dev.uses_midi_out = True
+            name = "zb_midisend" if len(A) == 4 else "zb_midisend3"
+            return self.args(A, lambda v: f"{name}(S, {', '.join(v)})")
+        if fn in ("sliderchange", "slider_automate") and A:
+            return self._pending(fn, A)
+        if fn == "freembuf":
+            return "(" + "".join(f"(void)({self.ex(a)}), " for a in A) + "0.0)"
+        if fn in _INERT:
+            return "(" + "".join(f"(void)({self.ex(a)}), " for a in A) + "0.0)"
+        if fn == "__memtop":
+            return c_double(float(self.P.memtop))
+        if fn == "rand":
+            raise DevgenError(
+                "rand() in a coupled @block: the reference stages no draw "
+                "pool there; the sequential executor's pool comes with "
+                "queue 1 item 7 (slice 6b)")
+        if fn in _COMM_FNS or fn in _GMEM_FNS:
+            raise DevgenError(f"@{dev.section} uses {fn}(): {_BUS}")
+        if fn in _SERVICE_FNS or fn.startswith("sample_"):
+            raise DevgenError(f"@{dev.section} uses {fn}(): {_SERVICES}")
+        if fn in _FORBIDDEN:
+            raise DevgenError(f"@{dev.section} uses {fn}(): {_NEVER}")
+        raise DevgenError(f"@{dev.section} builtin {fn}() not "
+                          f"device-executable: {_NEVER}")
+
+    def _size(self, fn: str, node: Node) -> int:
+        v = self.fold(node)
+        if v is None:
+            raise DevgenError(f"{fn} with non-static size")
+        return FO._round_index(v)
+
+    def _fft(self, fn: str, A: Sequence[Node]) -> str:
+        n = self._size(fn, A[1])
+        dest = self.ex(A[0])
+        if not FO._pow2_ok(n):
+            return f"((void)({dest}), 0.0)"   # the WDL guard: a no-op
+        dev = self.dev
+        complex_n = n // 2 if fn in ("fft_real", "ifft_real") else n
+        dev._perm_sizes.add(complex_n)
+        if fn != "fft_permute" and fn != "fft_ipermute":
+            dev.fft_max = max(dev.fft_max, n)
+        dev.scratch_cells = max(dev.scratch_cells, 2 * n)
+        perm = f"zb_perm_{complex_n}"
+        if fn in ("fft_permute", "fft_ipermute"):
+            flag = "true" if fn == "fft_ipermute" else "false"
+            return f"zb_fft_permute(S, {dest}, {n}, {perm}, {flag})"
+        return f"zb_{fn}(S, {dest}, {n}, {perm})"
+
+    def _convolve(self, A: Sequence[Node]) -> str:
+        n = self._size("convolve_c", A[2])
+        if n <= 0 or n > FO.PAGE_DOUBLES // 2:
+            return self.args(A[:2], lambda v: f"((void){v[0]}, (void){v[1]}, 0.0)")
+        self.dev.scratch_cells = max(self.dev.scratch_cells, 2 * n)
+        return self.args(A[:2],
+                         lambda v: f"zb_convolve_c(S, {v[0]}, {v[1]}, {n})")
+
+    def _midirecv(self, A: Sequence[Node]) -> str:
+        if len(A) not in (3, 4):
+            raise DevgenError("midirecv expects 3 or 4 args")
+        refs = []
+        for a in A:
+            if not isinstance(a, Name):
+                raise DevgenError("midirecv out-param must be a variable")
+            refs.append(self.lvalue(a.ident))
+        dev = self.dev
+        dev.uses_midi_in = True
+        e = self.tmp()
+        vals = [f"{e}[{k}]" for k in range(len(A))]
+        if len(A) == 3:
+            vals[2] = f"{e}[2] + {e}[3] * 256.0"
+        stores = " ".join(f"{r} = {v};" for r, v in zip(refs, vals))
+        pos = dev.slots[("var", MIDI_POS_SLOT)]
+        return (f"({{ const double* {e} = zb_midirecv(S, &S->V[{pos}]); "
+                f"if ({e}) {{ {stores} }} {e} ? 1.0 : 0.0; }})")
+
+    def _pending(self, fn: str, A: Sequence[Node]) -> str:
+        slot = {k: self.dev.slots[("var", nm)]
+                for k, nm in zip(("chg", "auto", "end"), PENDING_SLOT_NAMES)}
+        mask = self._mask_arg(A[0])
+        if fn == "sliderchange":
+            return f"zb_pend_or(&S->V[{slot['chg']}], {mask})"
+        end = self.ex(A[1]) if len(A) > 1 else "0.0"
+        m, e = self.tmp(), self.tmp()
+        return (f"({{ double {m} = ({mask}); double {e} = ({end}); "
+                f"zb_pend_or(&S->V[z_true({e}) ? {slot['end']} : "
+                f"{slot['auto']}], {m}); }})")
+
+
+class DeviceSection:
+    """One EEL2 section printed as a device function over (vars, mem)."""
+
+    def __init__(self, program: PluginProgram, snapshot, section: str,
+                 dynamic_keys: Set[Any], mem_size: int):
+        self.P = program
+        self.snap = snapshot
+        self.section = section
+        self.mem_size = int(mem_size)
+        self.body = list(program.sections.get(section, []))
+
+        # slot table, the reference's order: dynamic vars, every
+        # specialized function's params (one slot each; the C functions
+        # take them as arguments), then the pseudo slots
+        keys = sorted((k for k in dynamic_keys if k[0] != "builtin"),
+                      key=repr)
+        self.slots: Dict[Any, int] = {k: i for i, k in enumerate(keys)}
+        for fname, fdef in program.fn_defs.items():
+            for p in fdef.params:
+                self.slots[("param", fname, p)] = len(self.slots)
+        for nm in PENDING_SLOT_NAMES + (MIDI_POS_SLOT, RAND_POS_SLOT):
+            self.slots[("var", nm)] = len(self.slots)
+        self.n_vars = len(self.slots)
+
+        # what printing the body finds
+        self.uses_midi_in = False
+        self.uses_midi_out = False
+        self.fft_max = 0          # largest transform: the twiddle table's n
+        self.scratch_cells = 0    # FFT workspace a file
+        self._perm_sizes: Set[int] = set()
+        self._used_fns: Set[str] = set()
+        self._ntmp = 0
+        self.fn_name = f"zb_section_{_mangle_c(section)}"
+        g = _SectionC(self)
+        stmts = " ".join(g.stmt(s) for s in self.body)
+        self.body_source = f"ZB_DEV void {self.fn_name}(ZB* S) {{ {stmts} }}"
+        self.functions = self._print_functions()
+
+        # the MIDI out table rides the heap tail: [count | CAP rows of 4]
+        self.midi_out_base = self.mem_size
+        self.midi_out_cells = (1 + MIDI_OUT_CAP * 4) \
+            if self.uses_midi_out else 0
+        self.total_mem = self.mem_size + self.midi_out_cells
+
+    def _print_functions(self) -> Dict[str, str]:
+        """{C name: definition} of every user function the body reaches."""
+        out: Dict[str, str] = {}
+        done: Set[str] = set()
+        while self._used_fns - done:
+            fn = sorted(self._used_fns - done)[0]
+            done.add(fn)
+            proto = self.P.fn_defs[fn]
+            g = _SectionC(self, proto.params)
+            args = "".join(f", double p_{i}" for i in range(len(proto.params)))
+            name = f"uf_{_mangle_c(fn)}"
+            out[name] = (f"ZB_DEV double {name}(ZB* S{args}) "
+                         f"{{ return ({g.ex(proto.body)}); }}")
+        return out
+
+    @property
+    def perm_sizes(self) -> List[int]:
+        return sorted(self._perm_sizes)
+
+    # -- values ----------------------------------------------------------------
+
+    def _frozen_value(self, key) -> float:
+        """A key no section writes: its value in the snapshot."""
+        if key[0] == "builtin":
+            return float(getattr(self.snap, key[1]))
+        return self._snap_value(key)
+
+    def _snap_value(self, key) -> float:
+        kind = key[0]
+        if kind == "spl":
+            return float(self.snap.spl[key[1]])
+        if kind == "slider":
+            return float(self.snap.sliders[key[1]])
+        if kind == "var":
+            return float(self.snap.V.get(key[1], 0.0))
+        if kind == "param":
+            return 0.0
+        raise AssertionError(key)
+
+    def initial_vars(self) -> np.ndarray:
+        out = np.zeros(self.n_vars, dtype=np.float64)
+        for key, slot in self.slots.items():
+            out[slot] = self._snap_value(key)
+        return out
+
+    def initial_mem(self) -> np.ndarray:
+        self.snap.mem_ensure(1)
+        out = np.zeros(self.total_mem, dtype=np.float64)
+        n = min(len(self.snap.mem), self.mem_size)
+        out[:n] = self.snap.mem[:n]
+        return out

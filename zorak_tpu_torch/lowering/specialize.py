@@ -29,11 +29,15 @@ time axis:
 * data-dependent branches become `select` via per-variable branch merging.
 
 The emitted segment function runs eagerly in a host loop across
-segments.  Plugins whose @sample uses features outside this subset raise
-SpecializeError and fall back to the golden executor.  Regimes this
-package does not carry yet raise SpecializeError too, naming the work
-that brings them: the audio-coupled @block and the hop section (they
-need the device section compiler) and the gated kinds (gated rings, gated
+segments.  An audio-coupled @block (meters, accumulator resets, shared
+mem, FFTs of buffers @sample fills) runs on the device between segments
+of one block each: `lowering/devgen.py` prints it as CUDA C and K10
+(`kernels/block_section.py`) runs it, a launch a block, in the fused
+block/sample loop `_coupled_run`.  Plugins whose @sample uses features
+outside this subset raise SpecializeError and fall back to the golden
+executor.  Regimes this package does not carry yet raise SpecializeError
+too, naming the work that brings them: the hop section (the next slice,
+on the same device sections) and the gated kinds (gated rings, gated
 cursors, gated rand(), masked loop(n)).
 """
 from __future__ import annotations
@@ -2207,8 +2211,9 @@ class SpecializedSampleKernel:
         self._extract_hop()
         if self._hop_body is not None:
             raise SpecializeError(
-                "hop section at the tail of @sample: the device section "
-                "executor is not ported (queue 1, slice 5)")
+                "hop section at the tail of @sample: the hop pipeline on "
+                "the device sections is not ported (queue 1 item 5, "
+                "slice 5)")
         if self.has_block:
             _, writes_b, wmem_b, rmem_b = section_var_usage(program, "block")
             reads_b = section_genuine_reads(program, "block")
@@ -2295,6 +2300,11 @@ class SpecializedSampleKernel:
             raise SpecializeError(
                 f"gated regime ({', '.join(gated)}): not ported "
                 "(queue 1, slice 5)")
+        self._devblock = None
+        self._devslider = None
+        self._block_prog = None
+        if self.coupled:
+            self._build_devblock()
         self.n_rand = sym.rand_slots
         if self.n_rand and self.has_block:
             for stmt in program.sections.get("block", []):
@@ -2324,12 +2334,93 @@ class SpecializedSampleKernel:
         self._scan_programs: Dict[int, Any] = {}
 
     def _require_devblock(self) -> None:
-        """The coupled regime: @block must compile to device code.  The
-        device section compiler is not part of this package yet, so the
-        plugin is refused and the engine renders it through the golden."""
-        raise SpecializeError(
-            "audio-coupled @block: the device @block compiler is not "
-            "ported (queue 1, slice 6)")
+        """Switch to the coupled regime: @block must print as device code
+        (raises SpecializeError with the devgen reason if it cannot, at
+        build time, not at render time).  Also discovers block-invariant
+        constants: @block vars unconditionally re-derived from frozen
+        slider/init state each block fold as constants in @sample instead
+        of control streams."""
+        if self.coupled:
+            return
+        from .devgen import DeviceSection, DevgenError, section_dynamic_keys
+
+        try:
+            # a trial heap as large as the reference's: the sizing below
+            # needs the plan, and only a static address past it refuses
+            trial_sz = 1 << max(22, int(max(self.P.memtop or 0,
+                                            len(self.snap.mem))
+                                        - 1).bit_length())
+            DeviceSection(self.P, self.snap, "block",
+                          section_dynamic_keys(self.P, ("block", "sample")),
+                          trial_sz)
+            if self._retriggers:
+                # @block can retrigger @slider: that section must print
+                # as device code too (K10 runs it when a mask is pending)
+                DeviceSection(self.P, self.snap, "slider",
+                              section_dynamic_keys(
+                                  self.P, ("block", "slider", "sample")),
+                              trial_sz)
+        except DevgenError as exc:
+            raise SpecializeError(f"audio-coupled @block: {exc}") from None
+
+        self._discover_block_consts()
+        self.coupled = True
+
+    def _build_devblock(self) -> None:
+        """Size the device heap, print @block (and @slider where @block
+        retriggers it) and K10's exchanges with the sample side."""
+        from ..kernels.block_section import BlockSectionProgram
+        from .devgen import DeviceSection, DevgenError, section_dynamic_keys
+
+        top = len(self.snap.mem)
+        top = max(top, int(self.P.memtop or 0))
+        for origin, mod in self.carry_regions:
+            top = max(top, origin + mod)
+        for key in self.carried_vars:
+            if key[0] == "mem":
+                top = max(top, key[1] + 1)
+        for key in self.ctrl_order:
+            if key[0] == "mem":
+                top = max(top, key[1] + 1)
+        blocked = self._probe_block_mem_writes()
+        if blocked:
+            top = max(top, max(blocked) + 1)
+        size = 1 << max(12, int(top - 1).bit_length() if top > 1 else 12)
+        secs = ("block", "slider", "sample") if self._retriggers \
+            else ("block", "sample")
+        self._dev_dyn = section_dynamic_keys(self.P, secs)
+        try:
+            self._devblock = DeviceSection(self.P, self.snap, "block",
+                                           self._dev_dyn, size)
+            self._devslider = DeviceSection(
+                self.P, self.snap, "slider", self._dev_dyn, size) \
+                if self._retriggers else None
+        except DevgenError as exc:
+            raise SpecializeError(f"audio-coupled @block: {exc}") from None
+        dev = self._devblock
+        ctrl = []
+        for key in self.ctrl_order:
+            if key in dev.slots:
+                ctrl.append(("v", dev.slots[key]))
+            elif key[0] == "mem":
+                ctrl.append(("m", key[1]))
+            else:
+                raise SpecializeError(
+                    f"coupled control key {key!r} has no device source")
+        si = self.scalar_index
+        self._block_prog = BlockSectionProgram(
+            dev, self._devslider, len(self.carried_vars),
+            [(si[k], dev.slots[k]) for k in self.carried_vars
+             if k in dev.slots],
+            self.carry_regions,
+            [(si[k], k[1]) for k in self.carried_vars if k[0] == "mem"],
+            ctrl)
+        # carried scalars K10 may rewrite: the host's mirror of them is
+        # void after each block
+        self._block_rewrites = sorted(
+            si[k] for k in self.carried_vars
+            if k in self._block_writes
+            or (k[0] == "mem" and self.block_writes_mem))
 
     def _discover_block_consts(self, mem_taint: bool = True) -> None:
         if not self.has_block:
@@ -3913,9 +4004,11 @@ class SpecializedSampleKernel:
         snap = self.snap
         const = self._const
 
-        # read-only regions bake as constants, shared by every file
+        # read-only regions bake as constants, shared by every file; in the
+        # coupled regime they ride in the carry instead (@block may
+        # rewrite them)
         static_regions: Dict[Tuple[int, int], Any] = {}
-        for node in self._all_nodes(sym):
+        for node in ([] if self.coupled else self._all_nodes(sym)):
             if node.kind in ("ringref", "dynringref") \
                     and node.meta["region"] not in sym.ring_writes:
                 origin, mod = node.meta["region"]
@@ -4051,6 +4144,12 @@ class SpecializedSampleKernel:
                     return got
                 if x.kind == "in":
                     val = xseg[:, x.meta["ch"]]
+                elif x.kind == "ctrl" and ctrlseg.dim() == 3:
+                    # the coupled regime: a row a file and block, [nf,
+                    # rows, n_ctrl], from the device @block
+                    col = ctrlseg[:, :, ctrl_index[x.meta["key"]]]
+                    val = (col.expand(nf, L) if col.shape[1] == 1 else
+                           torch.repeat_interleave(col, B, dim=1)[:, :L])
                 elif x.kind == "ctrl":
                     col = ctrlseg[:, ctrl_index[x.meta["key"]]]
                     val = torch.repeat_interleave(col, B)[:L]
@@ -4512,20 +4611,29 @@ class SpecializedSampleKernel:
             self.snap.mem_ensure(origin + mod)
             rings[region] = np.asarray(self.snap.mem[origin:origin + mod],
                                        dtype=np.float64).copy()
-        return (svec, rings)
+        if not self.coupled:
+            return (svec, rings)
+        dev = self._devblock
+        return ((svec, rings), dev.initial_vars(), dev.initial_mem())
 
     def device_carry(self, carry):
         """A carry of numpy arrays or tensors -> f64 tensors on the
-        kernel's device (copies, so the caller's arrays stay as they are)."""
+        kernel's device (copies, so the caller's arrays stay as they are,
+        and contiguous: K10 updates them in place).  The coupled regime's
+        carry is ((svec, rings), bvars, bmem)."""
         import torch
-
-        svec, rings = carry
 
         def put(a):
             if not isinstance(a, torch.Tensor):
                 a = torch.from_numpy(np.array(a, dtype=np.float64))
-            return a.to(device=self.device, dtype=torch.float64, copy=True)
+            return a.to(device=self.device, dtype=torch.float64,
+                        copy=True).contiguous()
 
+        if self.coupled:
+            (svec, rings), bvars, bmem = carry
+            return ((put(svec), {tuple(r): put(a) for r, a in rings.items()}),
+                    put(bvars), put(bmem))
+        svec, rings = carry
         return (put(svec), {tuple(r): put(a) for r, a in rings.items()})
 
     def _seg_fn(self, L: int, nf: int = 1):
@@ -4587,11 +4695,100 @@ class SpecializedSampleKernel:
             y[:, :, t0:] = yseg
         return y, carry
 
+    def _coupled_run(self, carry, x, rand, midi_planes=None):
+        """The fused block/sample pipeline over a batch of files: a host
+        loop over blocks, each one K10 launch (the device @block and its
+        exchanges) then the segment program of the block's length, the
+        remainder block with samplesblock = its length.  x [nf, nch, T]
+        on the device; carry ((svec [nf, n], rings {region: [nf, mod]}),
+        bvars [nf, n_vars], bmem [nf, total_mem]) f64, updated in place;
+        rand [T, n_rand] and the MIDI planes (events [rows, K, 4] on the
+        device, counts [rows] on the host) shared by every file.  Returns
+        (y f32 [nf, nch, T], carry, the MIDI out tables [rows, nf, cells]
+        or None).  Nothing in the loop waits for the device unless @block
+        rewrites a cursor the host mirrors."""
+        import torch
+
+        from ..kernels.block_section import block_section
+
+        prog = self._block_prog
+        (svec, rings), bvars, bmem = carry
+        nf, _nch, T = x.shape
+        B = self.B
+        nfull, rem = T // B, T % B
+        n_rows = nfull + (1 if rem else 0)
+        f64 = torch.float64
+        # the one device-to-host read of a render: the scalars it starts
+        # from, which every file must agree on where the host mirrors them
+        known = _shared_known(svec.tolist(), self.mirrored_slots(),
+                              self.carried_vars)
+        y = torch.empty((nf, self.nch, T), dtype=torch.float32,
+                        device=self.device)
+        ctrl = torch.empty((n_rows, nf, len(self.ctrl_order)), dtype=f64,
+                           device=self.device)
+        mouts = torch.empty((n_rows, nf, prog.midi_out_cells), dtype=f64,
+                            device=self.device) \
+            if prog.midi_out_cells else None
+        for b in range(n_rows):
+            L = B if b < nfull else rem
+            t0 = b * B
+            midi = None if midi_planes is None else \
+                (midi_planes[0][b], float(midi_planes[1][b]))
+            block_section(prog, svec, [rings[r] for r in prog.regions],
+                          bvars, bmem, float(L), midi, ctrl=ctrl[b],
+                          mout=None if mouts is None else mouts[b])
+            for i in self._block_rewrites:
+                known[i] = None
+            (svec, rings), yseg, known = self._seg_fn(L, nf)(
+                (svec, rings), (x[:, :, t0:t0 + L].to(f64), ctrl[b][:, None],
+                                rand[t0:t0 + L]), known)
+            y[:, :, t0:t0 + L] = yseg
+        return y, ((svec, rings), bvars, bmem), mouts
+
     @property
     def accepts_midi(self) -> bool:
-        """True when host MIDI events can reach @block: through the
-        host-interpreted control trajectory."""
+        """True when host MIDI events can reach @block: staged per-block
+        device planes in the coupled regime, or the host-interpreted
+        control trajectory in the uncoupled one."""
+        if self.coupled:
+            return bool(self._block_prog.uses_midi_in)
         return bool(self.has_block and self._block_has_midi)
+
+    def _midi_planes(self, midi, T: int):
+        """[(offset,b1,b2,b3)] at engine rate -> per-block planes
+        (ev f64[rows, K, 4] with in-block offsets, n f64[rows])."""
+        B = self.B
+        rows = T // B + (1 if T % B else 0)
+        per: List[List[Tuple[float, float, float, float]]] = \
+            [[] for _ in range(rows)]
+        for ev in sorted(midi or [], key=lambda e: e[0]):
+            off = max(0, min(int(ev[0]), T - 1))
+            per[off // B].append((float(off - (off // B) * B),
+                                  float(int(ev[1]) & 0xFF),
+                                  float(int(ev[2]) & 0xFF),
+                                  float(int(ev[3]) & 0xFF)))
+        K = max(1, max((len(p) for p in per), default=1))
+        mev = np.zeros((rows, K, 4), dtype=np.float64)
+        mn = np.zeros((rows,), dtype=np.float64)
+        for b, evs in enumerate(per):
+            mn[b] = len(evs)
+            for k, e in enumerate(evs):
+                mev[b, k] = e
+        return mev, mn
+
+    def _decode_midi_out(self, mo: np.ndarray):
+        """Staged per-block OUT tables [rows, cells] -> [(abs_offset, b1,
+        b2, b3)]."""
+        from .devgen import MIDI_OUT_CAP
+
+        events = []
+        for b in range(mo.shape[0]):
+            n = int(mo[b, 0])
+            for k in range(min(n, MIDI_OUT_CAP)):
+                ofs, b1, b2, b3 = mo[b, 1 + 4 * k: 5 + 4 * k]
+                events.append((b * self.B + int(ofs), int(b1), int(b2),
+                               int(b3)))
+        return events
 
     def render_device(self, x, carry=None, midi=None, ctrl=None):
         """x: float32 [nch, T], a numpy array or a tensor.  Returns
@@ -4618,6 +4815,8 @@ class SpecializedSampleKernel:
                 self._carry0 = self.device_carry(self.initial_carry())
             carry = self._carry0
         carry = self.device_carry(carry)
+        if self.coupled:
+            return self._render_coupled(x, carry, fresh, midi, ctrl)
         L = self.segment_length(T)
         if ctrl is None:
             self._traj_midi_out = []
@@ -4645,6 +4844,40 @@ class SpecializedSampleKernel:
             self.put_audio(x)[None], self.put_f64(ctrl), self.put_f64(rand),
             L)
         return y[0], (svec[0], {r: a[0] for r, a in rings.items()})
+
+    def _render_coupled(self, x, carry, fresh: bool, midi, ctrl):
+        """render_device's coupled branch: the solo render is the batch of
+        one file through `_coupled_run`."""
+        import torch
+
+        if ctrl is not None:
+            raise SpecializeError("a precomputed control matrix is the "
+                                  "uncoupled path's")
+        if midi and not self.accepts_midi:
+            raise SpecializeError(
+                "MIDI events supplied but this kernel has no @block "
+                "midirecv path")
+        nch, T = x.shape
+        self._traj_midi_out = []
+        self.last_midi_out = []
+        rand = self._rand_streams(T, reset=fresh)
+        if T == 0:
+            return torch.zeros((nch, 0), dtype=torch.float32,
+                               device=self.device), carry
+        planes = None
+        if self.accepts_midi:
+            mev, mn = self._midi_planes(midi, T)
+            planes = (self.put_f64(mev), mn)
+        (svec, rings), bvars, bmem = carry
+        y, ((svec, rings), bvars, bmem), mouts = self._coupled_run(
+            ((svec[None], {r: a[None] for r, a in rings.items()}),
+             bvars[None], bmem[None]),
+            self.put_audio(x)[None], self.put_f64(rand), planes)
+        if mouts is not None:
+            self.last_midi_out = self._decode_midi_out(
+                mouts[:, 0].cpu().numpy())
+        return y[0], ((svec[0], {r: a[0] for r, a in rings.items()}),
+                      bvars[0], bmem[0])
 
     def segment_length(self, T: int) -> int:
         """The segment length of a render of T samples: the kernel's,
@@ -4722,7 +4955,11 @@ class SpecializedSampleKernel:
                 state.mem_ensure(ts.mem_used)
                 state.mem[:ts.mem_used] = np.asarray(
                     ts.mem[:ts.mem_used], dtype=np.float64)
-        svec, rings = carry
+        if self.coupled:
+            (svec, rings), bvars, bmem = carry
+            self._writeback_device_view(bvars, bmem, state)
+        else:
+            svec, rings = carry
         svec_np = np.asarray(svec.cpu() if hasattr(svec, "cpu") else svec)
         for key in self.carried_vars:
             v = float(svec_np[self.scalar_index[key]])
@@ -4743,6 +4980,36 @@ class SpecializedSampleKernel:
             state.mem_ensure(origin + mod)
             state.mem[origin:origin + mod] = np.asarray(
                 arr.cpu() if hasattr(arr, "cpu") else arr)
+
+    def _writeback_device_view(self, bvars, bmem, state) -> None:
+        """The device @block's heap and var slots -> the state (the
+        sample-carried values, written after, are newer)."""
+        from .devgen import MIDI_POS_SLOT, PENDING_SLOT_NAMES, RAND_POS_SLOT
+
+        devsec = self._devblock
+        bm = np.asarray(bmem.cpu() if hasattr(bmem, "cpu") else bmem)
+        bm = bm[:devsec.mem_size]
+        state.mem_ensure(len(bm))
+        state.mem[:len(bm)] = bm
+        bv = np.asarray(bvars.cpu() if hasattr(bvars, "cpu") else bvars)
+        masks = ("pending_change_mask", "pending_automate_mask",
+                 "pending_automate_end_mask")
+        for key, slot in devsec.slots.items():
+            if key in self.scalar_index or key[0] == "param":
+                continue
+            if key[0] == "var" and key[1] in PENDING_SLOT_NAMES:
+                setattr(state, masks[PENDING_SLOT_NAMES.index(key[1])],
+                        int(max(0.0, float(bv[slot]))))
+                continue
+            if key[0] == "var" and key[1] in (MIDI_POS_SLOT, RAND_POS_SLOT):
+                continue
+            v = float(bv[slot])
+            if key[0] == "var":
+                state.V[key[1]] = v
+            elif key[0] == "spl":
+                state.spl[key[1]] = v
+            elif key[0] == "slider":
+                state.sliders[key[1]] = v
 
 
 def specialize_sample_kernel(program: PluginProgram, snapshot, nch: int,

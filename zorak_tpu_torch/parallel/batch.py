@@ -9,8 +9,11 @@ written out through the segment emitter and through the kernels it
 launches, K2 (`linrec_scan`), K3 (`ring_tap_sum`) and K4
 (`scan_group`), so a batch of nf files launches each kernel as often as
 one file does, and each file's audio equals its solo render bit for bit.
-The host mirror of the carried cursors is shared by the files; a batched
-run checks at its start that every file agrees on it.
+A plugin whose @block is audio-coupled runs the fused block/sample loop,
+`SpecializedSampleKernel._coupled_run`, whose device @block (K10,
+`block_section`) takes the files as its grid.  The host mirror of the
+carried cursors is shared by the files; a batched run checks at its start
+that every file agrees on it.
 
 The catalog functions keep the reference's API and returns.  The
 reference fuses each group of plugins into one XLA program, capped at
@@ -53,7 +56,7 @@ class BatchRenderer:
         self.srate = srate
         self.nch = max(1, program.io_channels["process"])
         shadow = make_initialized_shadow(program, srate, sliders)
-        # coupled, hop and gated plugins raise here, as the solo path does
+        # hop and gated plugins raise here, as the solo path does
         self.kernel = specialize_sample_kernel(
             program, shadow.state, self.nch, segment_len=segment_len,
             block_size=block_size, device=device)
@@ -68,13 +71,21 @@ class BatchRenderer:
         if got is not None:
             return got
         kern = self.kernel
-        svec, rings = kern.initial_carry()
-        carry = kern.device_carry((
-            np.broadcast_to(svec, (nf,) + svec.shape),
-            {r: np.broadcast_to(a, (nf,) + a.shape)
-             for r, a in rings.items()}))
-        got = (carry, kern.put_f64(kern.fresh_control(T)),
-               kern.put_f64(kern._rand_streams(T, reset=True)))
+
+        def files(a):
+            return np.broadcast_to(a, (nf,) + np.shape(a))
+
+        def sample_side(c):
+            svec, rings = c
+            return files(svec), {r: files(a) for r, a in rings.items()}
+
+        c0 = kern.initial_carry()
+        carry = kern.device_carry(
+            (sample_side(c0[0]), files(c0[1]), files(c0[2])) if kern.coupled
+            else sample_side(c0))
+        # the coupled regime's control rows come from the device @block
+        ctrl = None if kern.coupled else kern.put_f64(kern.fresh_control(T))
+        got = (carry, ctrl, kern.put_f64(kern._rand_streams(T, reset=True)))
         if len(self._staged) < MAX_STAGED:
             self._staged[(nf, T)] = got
         return got
@@ -95,6 +106,11 @@ class BatchRenderer:
                                device=self.device)
         kern = self.kernel
         carry, ctrl, rand = self.staged(nf, T)
+        if kern.coupled:
+            # K10 updates its carry in place: the staging stays fresh
+            y, _carry, _mo = kern._coupled_run(kern.device_carry(carry), x,
+                                               rand)
+            return y
         y, _carry = kern._run(carry, x, ctrl, rand, kern.segment_length(T))
         return y
 
@@ -190,11 +206,16 @@ def _upload(x: np.ndarray, nch: int, device, lead: tuple = ()):
 
 
 def _one_file(kern, L: int):
-    """The kernel's segment loop in segments of L for one file [nch, T]:
-    run(carry, x, ctrl, rand) -> (y f32 [nch, T], carry)."""
+    """The kernel's segment loop in segments of L for one file [nch, T]
+    (the fused block/sample loop for a coupled kernel, from a copy of the
+    staged carry): run(carry, x, ctrl, rand) -> (y f32 [nch, T], carry)."""
 
     def run(carry, x32, ctrl, rand):
-        y, carry = kern._run(carry, x32[None], ctrl, rand, L)
+        if kern.coupled:
+            y, carry, _mo = kern._coupled_run(kern.device_carry(carry),
+                                              x32[None], rand)
+        else:
+            y, carry = kern._run(carry, x32[None], ctrl, rand, L)
         return y[0], carry
 
     return run
@@ -205,9 +226,9 @@ def catalog_stacked_render(renderers: Dict[str, Any], x: np.ndarray,
     """Render one input x [ch, T] through many plugins.
 
     The renderers are planned in groups: by default groups of five, as the
-    reference fuses them; a group's renderers run in turn.  (The
-    reference gives a heavy kernel, coupled or with a hop section, a group
-    of its own; the port refuses those kernels until slices 5 and 6.)  Inputs are
+    reference fuses them, and a group of its own for each heavy kernel (a
+    coupled @block), as the reference gives one; a group's renderers run
+    in turn.  Inputs are
     staged on the device once: per channel count for the audio, per
     plugin for its carry, control and draws, kept in `plan` across calls
     where one is given.  Returns ({slug: device audio [nch, T]},
@@ -232,8 +253,12 @@ def catalog_stacked_render(renderers: Dict[str, Any], x: np.ndarray,
     if groups is None:
         # group from THIS call's renderers: a shared plan's entries hold
         # every slug ever staged
-        slugs = [s for s in renderers if s in entries]
-        groups = [slugs[i:i + 5] for i in range(0, len(slugs), 5)]
+        heavy = [s for s in renderers if s in entries
+                 and not renderers[s].is_faust
+                 and renderers[s].kernel.coupled]
+        light = [s for s in renderers if s in entries and s not in heavy]
+        groups = [light[i:i + 5] for i in range(0, len(light), 5)]
+        groups += [[s] for s in heavy]
     groups = [[s for s in g if s in entries] for g in groups]
     groups = [g for g in groups if g]
 

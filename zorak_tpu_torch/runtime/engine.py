@@ -7,7 +7,9 @@ audio path executes on the GPU through the vectorizing specializer when
 the plugin qualifies (engine "torch-vector"), with the Python golden
 shadow as fallback and as the always-available reference (engine
 "cpu-shadow"; `RenderResult.engine` and `PluginInstance.spec_error` say
-which ran and why).  `device=None` means CUDA and raises without a GPU;
+which ran and why).  A plugin whose @block is audio-coupled renders as
+"torch-vector" too, its @block on the device between sample segments
+(K10), with host MIDI staged into per-block planes for its midirecv.  `device=None` means CUDA and raises without a GPU;
 only `device="cpu"` runs the vector engine on the CPU.
 """
 from __future__ import annotations
@@ -107,7 +109,7 @@ class PluginInstance:
         if prefer == "devexec":
             raise SpecializeError(
                 "prefer='devexec': the sequential device executor is not "
-                "ported (queue 1, slice 6)")
+                "ported (queue 1 item 7, slice 6b)")
         self.device = resolve_device(device)
         self.program = program
         self.srate = float(srate)
