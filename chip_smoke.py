@@ -128,22 +128,32 @@ always run; `k4sweep` is described at the end):
 4c. coupled  the audio-coupled @block of builtin_plugins'
             spectral_tilt_leveler(2048) (a Hann-windowed fft_real of a
             2,048-cell ring every block): K10 (block_section, generated
-            CUDA C from lowering/devgen.py and csrc/block_ops.cuh) against
-            its plain version on the inputs it met at the first and the
-            middle block of 60 s renders, of 1 and of 8 files: the
-            exchanges bit for bit, the heap outside the FFT buffer bit for
-            bit, the FFT buffer, vars and control row within FFT_TOL_REL
-            x the heap's largest magnitude; then PluginInstance.render on
-            60 s of stereo: engine torch-vector, K10 and K3 launched once
-            a block, K2 a fixed number of times a block, the time with the
-            spread of four more renders, the whole render (audio, vars
-            and heap after the writeback) held to the native golden, the
-            golden's own time; K10's time a launch, the sections' chain
-            on one thread and the one-thread fft_real's share (probes),
-            its bound; the idle share of a traced 10 s render; a batch of
-            8 files x 60 s beside one file's time (K10 held at its first
-            and middle block), and each file of an 8-file batch of 10 s
-            torch.equal to its solo render;
+            CUDA C from lowering/devgen.py and csrc/block_ops.cuh: the
+            window loop, fft_real and fft_permute on every thread of a
+            file's block, the band loop and the scalar updates on thread
+            0), its phases checked, built beside its probe build (the
+            earlier design, thread 0 alone, and the probes) and the
+            thread sweep's builds (128 to 1,024), all nvcc runs together;
+            PluginInstance.render on 60 s of stereo: engine torch-vector,
+            K10 and K3 launched once a block, K2 a fixed number of times a
+            block, no block loop run on thread 0 (K10's counter), the time
+            with the spread of four more renders, the whole render (audio,
+            vars and heap after the writeback) held to the native golden,
+            the golden's own time; on the inputs K10 met at the first and
+            the middle block of 60 s renders of 1 and of 8 files, K10
+            against the earlier design bit for bit (vars, the heap with
+            the FFT buffer, the exchanges, control row, MIDI out) and
+            against its plain version (the exchanges and the heap outside
+            the FFT buffer bit for bit, the FFT buffer, vars and control
+            row within FFT_TOL_REL x the heap's largest magnitude); the
+            two designs timed in turns (earlier, K10, K10, earlier) for 1
+            and 8 files; the thread sweep; the probes: the sections on
+            one thread, thread 0's ordered code alone, fft_real on one
+            thread and in block form beside torch.fft.rfft, a dependent
+            f64 add and a barrier (the chain bound); the idle share and
+            K10's share of a traced 10 s render; a batch of 8 files x 60 s
+            beside one file's time, and each file of an 8-file batch of
+            10 s torch.equal to its solo render;
 5. kernels (faust)  the switching scan (K1) must be bit-identical
             (integer views equal), in f64 and f32: at modest shapes, at
             the batch and main paths' shapes (its one-chunk case too),
@@ -1789,13 +1799,16 @@ def batch_phase(torch, cuda, rng, card):
 
 COUPLED_FFT = 2048      # the stand-in's FFT (spectral_tilt_leveler)
 COUPLED_FILES = 8
+COUPLED_THREADS = (128, 256, 512, 1024)   # K10's thread sweep
 
 
 def coupled_phase(torch, cuda, rng, card):
     """The audio-coupled @block: K10 (block_section) against its plain
-    version at the first and a middle block of 1 and 8 files, then
-    spectral_tilt_leveler through PluginInstance.render on 60 s of
-    stereo, held to the native golden; returns K10's `kernels` entry."""
+    version and, bit for bit, against its earlier design (thread 0 alone)
+    at the first and a middle block of 1 and 8 files, the two designs in
+    turns, the thread sweep, the probes; then spectral_tilt_leveler
+    through PluginInstance.render on 60 s of stereo, held to the native
+    golden; returns K10's `kernels` entry."""
     from zorak_tpu_torch import builtin_plugins as BP
     from zorak_tpu_torch.ir import compile_plugin_source
     from zorak_tpu_torch.kernels import _build
@@ -1820,16 +1833,32 @@ def coupled_phase(torch, cuda, rng, card):
     B = kern.B
     blocks = -(-MAIN_T // B)
     k10 = kern._block_prog
-    probe = BS.BlockSectionProgram(k10.block, k10.slider, k10.n_svec,
-                                   k10.inter, k10.regions, k10.cells,
-                                   k10.ctrl, probe=True)
+    phases = [(ph.kind, ph.label) for ph in k10.block.phases]
+    check([k for k, _l in phases] == ["serial", "loop", "fft", "fft",
+                                      "serial"],
+          f"coupled: K10's phases {phases}")
+    print(f"[coupled] K10's phases: {phases}; kept on thread 0: "
+          f"{k10.block.serial_loops}; {BS.barriers_a_launch(k10)} barriers "
+          f"a launch; {k10.threads} threads")
+
+    def like(threads, probe=False):
+        return BS.BlockSectionProgram(k10.block, k10.slider, k10.n_svec,
+                                      k10.inter, k10.regions, k10.cells,
+                                      k10.ctrl, probe=probe, threads=threads)
+    probe = like(k10.threads, probe=True)   # the earlier design, the probes
+    sweep = {n: (k10 if n == k10.threads else like(n))
+             for n in COUPLED_THREADS}
     t0 = time.perf_counter()
-    logs = _build.build_generated([k10.source, probe.source])
-    print(f"[coupled] K10 and its probe build built in "
+    logs = _build.build_generated([k10.source, probe.source]
+                                  + [p.source for p in sweep.values()])
+    print(f"[coupled] K10, its probe build (the earlier design) and the "
+          f"thread sweep's {len(sweep)} builds built together in "
           f"{time.perf_counter() - t0:.2f} s")
-    for line in logs[k10.source].splitlines():
-        if "registers" in line or "spill" in line or "stack" in line:
-            print(f"[build] block_section: {line.strip()}")
+    for label, source in [("block_section", k10.source),
+                          ("block_section probe build", probe.source)]:
+        for line in logs[source].splitlines():
+            if "registers" in line or "spill" in line or "stack" in line:
+                print(f"[build] {label}: {line.strip()}")
 
     # K10's inputs at chosen launches of a render, copied before the launch
     def recording(wanted):
@@ -1847,34 +1876,49 @@ def coupled_phase(torch, cuda, rng, card):
                         midi, ctrl, mout)
         return got, spy, real
 
-    def held(label, inputs):
-        """K10 on the card against its plain version on the same inputs:
-        the exchanges and the heap outside the FFT buffer bit for bit, the
-        FFT buffer, vars and control row within FFT_TOL_REL (the buffer of
-        the heap's largest magnitude, a value of its own); returns (max
-        |delta|, plain version's ms)."""
+    def run_on(fn, program, inputs):
+        """fn (block_section or its earlier design) on copies of inputs:
+        (svec, rings, bvars, bmem, ctrl, mout) after it."""
         svec, rings, bvars, bmem, sb = inputs
-        dev = [t.clone() for t in (svec, bvars, bmem)]
-        dev_r = [r.clone() for r in rings]
+        out = [svec.clone(), [r.clone() for r in rings], bvars.clone(),
+               bmem.clone()]
         saved = BS.LAUNCHES
-        ctrl, _mo = BS.block_section(k10, dev[0], dev_r, dev[1], dev[2], sb)
+        ctrl, mout = fn(program, out[0], out[1], out[2], out[3], sb)
         BS.LAUNCHES = saved          # a comparison, not the main path
         torch.cuda.synchronize()
+        return out + [ctrl, mout]
+
+    def held(label, inputs):
+        """K10 on the card against its earlier design (vars, heap with the
+        FFT buffer, the exchanges, control row and MIDI out bit for bit)
+        and against its plain version on the same inputs (the exchanges
+        and the heap outside the FFT buffer bit for bit, the FFT buffer,
+        vars and control row within FFT_TOL_REL); returns (max |delta|
+        from the plain version, the plain version's ms)."""
+        svec, rings, bvars, bmem, sb = inputs
+        new = run_on(BS.block_section, k10, inputs)
+        old = run_on(BS.block_section_earlier, probe, inputs)
+        names = ("svec", "rings", "vars", "heap", "control row", "MIDI out")
+        for name, a, b in zip(names, new, old):
+            pairs = zip(a, b) if name == "rings" else [(a, b)]
+            check(all((x is None and y is None) or same_values(x, y)
+                      for x, y in pairs),
+                  f"K10 {label}: {name} differs from the earlier design")
         cpu = [t.cpu() for t in (svec, bvars, bmem)]
         cpu_r = [r.cpu() for r in rings]
         t_p = time.perf_counter()
         ctrl_p, _ = BS.block_section_plain(k10, cpu[0], cpu_r, cpu[1],
                                            cpu[2], sb)
         plain_ms = (time.perf_counter() - t_p) * 1e3
-        check(same_values(dev[0].cpu(), cpu[0]) and all(
-            same_values(a.cpu(), b) for a, b in zip(dev_r, cpu_r)),
+        check(same_values(new[0].cpu(), cpu[0]) and all(
+            same_values(a.cpu(), b) for a, b in zip(new[1], cpu_r)),
             f"K10 {label}: the sample side differs from the plain version")
-        heap, heap_p = dev[2].cpu(), cpu[2]
+        heap, heap_p = new[3].cpu(), cpu[2]
         off = ~(heap == heap_p)
         off[:, spec] = False
         check(not bool(off.any()), f"K10 {label}: heap cells outside the "
               "FFT buffer differ from the plain version")
-        vals = torch.cat([dev[1].cpu(), ctrl.cpu()], dim=1)
+        vals = torch.cat([new[2].cpu(), new[4].cpu()], dim=1)
         vals_p = torch.cat([cpu[1], ctrl_p], dim=1)
         excess = BS.fft_excess(heap, heap_p, vals, vals_p)
         errs = [float((heap - heap_p).abs().max()),
@@ -1882,12 +1926,28 @@ def coupled_phase(torch, cuda, rng, card):
         check(excess <= 0.0, f"K10 {label}: heap {errs[0]:.3e}, vars and "
               f"control row {errs[1]:.3e} from the plain version, beyond "
               f"FFT_TOL_REL {BS.FFT_TOL_REL}")
-        print(f"[coupled] K10 {label} (samplesblock {sb:g}): exchanges and "
-              f"the heap outside the FFT buffer bit-identical; FFT buffer "
-              f"within {errs[0]:.3e} (of max {float(heap_p.abs().max()):.3e})"
-              f", vars and control row within {errs[1]:.3e} of the plain "
-              f"version; plain version {plain_ms:.1f} ms")
+        print(f"[coupled] K10 {label} (samplesblock {sb:g}): bit-identical "
+              f"to the earlier design (vars, heap and FFT buffer, "
+              f"exchanges, control row); against the plain version the exchanges and "
+              f"the heap outside the FFT buffer bit-identical, the FFT "
+              f"buffer within {errs[0]:.3e} (of max "
+              f"{float(heap_p.abs().max()):.3e}), vars and control row "
+              f"within {errs[1]:.3e}; plain version {plain_ms:.1f} ms")
         return max(errs), plain_ms
+
+    def in_turns(inputs, reps=50):
+        """(the earlier design's ms, K10's ms) a launch, timed old, new,
+        new, old on the same inputs (changed in place: each launch a
+        block)."""
+        svec, rings, bvars, bmem, sb = inputs
+        runs = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            fn, p = (BS.block_section_earlier, probe) if which == "old" \
+                else (BS.block_section, k10)
+            runs[which].append(cuda_ms(
+                lambda: fn(p, svec, rings, bvars, bmem, sb), reps=reps))
+        BS.LAUNCHES = 0
+        return runs["old"], runs["new"]
 
     x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
     x_dev = torch.from_numpy(x).to(cuda)
@@ -1905,6 +1965,7 @@ def coupled_phase(torch, cuda, rng, card):
     warm_s = time.perf_counter() - t0
 
     # the main path: counts zeroed just before, read just after
+    BS.zero_serial_runs()
     BS.LAUNCHES = LS.LAUNCHES = RT.LAUNCHES = 0
     out = []
     t0 = time.perf_counter()
@@ -1912,6 +1973,7 @@ def coupled_phase(torch, cuda, rng, card):
     wall = time.perf_counter() - t0
     launches = {"block_section": BS.LAUNCHES, "linrec_scan": LS.LAUNCHES,
                 "ring_tap_sum": RT.LAUNCHES}
+    serial = BS.serial_runs(cuda)
     res = out[0]
     check(res.engine == "torch-vector", f"coupled: rendered by {res.engine}")
     check(launches["block_section"] == blocks
@@ -1919,6 +1981,8 @@ def coupled_phase(torch, cuda, rng, card):
           and launches["linrec_scan"] > 0
           and launches["linrec_scan"] % blocks == 0,
           f"coupled: launches {launches} for {blocks} blocks")
+    check(serial == 0, f"coupled: K10 ran the window loop on thread 0 "
+          f"{serial} times")
     more_ms = sorted(cuda_ms(lambda: inst.render(x)) for _ in range(4))
     y = res.audio
     check(y.shape == (2, MAIN_T) and bool(np.isfinite(y).all()),
@@ -1927,8 +1991,9 @@ def coupled_phase(torch, cuda, rng, card):
           f"engine={res.engine} device_ms={ms:.2f} wall_s={wall:.4f} "
           f"audio_s_per_s={sec / (ms / 1e3):.2f} launches={launches} "
           f"blocks={blocks} ({launches['linrec_scan'] // blocks} K2 a block)"
-          f" warm-up render (builds included) {warm_s:.2f} s; four more "
-          f"renders {' '.join(f'{m:.2f}' for m in more_ms)} ms card='{card}'")
+          f" block loops on thread 0: {serial}; warm-up render (builds "
+          f"included) {warm_s:.2f} s; four more renders "
+          f"{' '.join(f'{m:.2f}' for m in more_ms)} ms card='{card}'")
 
     # the native golden on the same 60 s, timed alone; the render above
     # (the instance's audio and its state after the writeback) held to it
@@ -1952,52 +2017,104 @@ def coupled_phase(torch, cuda, rng, card):
     check(rep.passed, "coupled: the 60 s render disagrees with the native "
           "golden")
 
-    # K10 against its plain version at the first and the middle block
+    # K10 against the earlier design and its plain version at the first
+    # and the middle block
     err1, _ = held("1 file, block 0", got[0])
     err2, plain_ms = held(f"1 file, block {mid}", got[mid])
 
-    # K10 alone: its time a launch at the middle block's inputs, the
-    # section's chain on one thread, and the one-thread FFT's share
-    svec, rings, bvars, bmem, sb = got[mid]
-    k10_ms = cuda_ms(lambda: BS.block_section(k10, svec, rings, bvars, bmem,
-                                              sb), reps=50)
+    # K10 alone at the middle block's inputs: the two designs in turns,
+    # the thread sweep, and the probes
+    inputs = got[mid]
+    old_ms, new_ms = in_turns(inputs)
+    k10_ms = sum(new_ms) / len(new_ms)
+    svec, rings, bvars, bmem, sb = inputs
+    sweep_ms = {}
+    for n, p in sweep.items():
+        BS.block_section(p, svec, rings, bvars, bmem, sb)       # loads it
+        sweep_ms[n] = cuda_ms(lambda: BS.block_section(
+            p, svec, rings, bvars, bmem, sb), reps=50)
     BS.LAUNCHES = 0
+    print(f"[coupled] K10 a launch, 1 file, block {mid}'s inputs, mean of "
+          f"50, in turns: earlier design {old_ms[0] * 1e3:.1f}, K10 "
+          f"{new_ms[0] * 1e3:.1f}, K10 {new_ms[1] * 1e3:.1f}, earlier "
+          f"{old_ms[1] * 1e3:.1f} us; thread sweep "
+          + ", ".join(f"{n}: {v * 1e3:.1f}" for n, v in sweep_ms.items())
+          + f" us card='{card}'")
     reps = 20
     names = BS.fft_probe_names(probe)
     which = names.index(f"fft_real({n_fft})")
     BS.block_section_chain_probe(probe, bvars, bmem, sb, 1)    # first launch
+    BS.block_section_chain_probe(probe, bvars, bmem, sb, 1, ordered_only=True)
     BS.block_section_fft_probe(probe, bvars, bmem, which, 1)   # loads each
     chain_ms = cuda_ms(lambda: BS.block_section_chain_probe(
         probe, bvars, bmem, sb, reps)) / reps
+    ordered_ms = cuda_ms(lambda: BS.block_section_chain_probe(
+        probe, bvars, bmem, sb, reps, ordered_only=True)) / reps
     fft_ms = cuda_ms(lambda: BS.block_section_fft_probe(
         probe, bvars, bmem, which, reps)) / reps
+    fft_block_ms = cuda_ms(lambda: BS.block_section_fft_probe(
+        probe, bvars, bmem, which, reps, block=True)) / reps
+    sig = torch.randn((COUPLED_FILES, n_fft), dtype=torch.float64,
+                      device=cuda)
+    rfft_ms = {}
+    for nf in (1, COUPLED_FILES):
+        torch.fft.rfft(sig[:nf])                 # cuFFT's plan, uncounted
+        rfft_ms[nf] = cuda_ms(lambda: torch.fft.rfft(sig[:nf]), reps=50)
+    # the ordered chain: the band loop kept on thread 0, per iteration its
+    # compare (k < LOW), its add into lo or hi and k += 1, three dependent
+    # f64 operations, and each other top-level statement of thread 0 one;
+    # at a dependent add's latency, plus the barriers at theirs
+    lat = torch.zeros(1, dtype=torch.float64, device=cuda)
+    n_lat = 1 << 16
+    BS.block_section_latency_probe(probe, lat, 16)
+    BS.block_section_latency_probe(probe, lat, 16, barriers=True)
+    add_ns = cuda_ms(lambda: BS.block_section_latency_probe(
+        probe, lat, n_lat)) * 1e6 / n_lat
+    bar_ns = cuda_ms(lambda: BS.block_section_latency_probe(
+        probe, lat, n_lat, barriers=True)) * 1e6 / n_lat
+    block_phases = sum(ph.kind != "serial" for ph in k10.block.phases)
+    chain_ops = 3 * (n_fft // 2) + len(k10.block.body) - block_phases - 1
+    n_bar = BS.barriers_a_launch(k10)
+    chain_bound = (chain_ops * add_ns + n_bar * bar_ns) / 1e6
     n_inter, ring_cells = len(k10.inter), sum(m for _o, m in k10.regions)
     nbytes = 8 * (2 * (n_inter + ring_cells + len(k10.cells))
                   + len(k10.ctrl) + 2 * k10.n_vars + 3 * n_fft)
     ops = 5 * n_fft * int(np.log2(n_fft)) + 3 * n_fft
     b_ms, b_by = bound_ms(nbytes, ops)
-    print(f"[coupled] K10 a launch {k10_ms * 1e3:.1f} us (1 file, block "
-          f"{mid}'s inputs, mean of 50); the sections alone on one thread "
-          f"{chain_ms * 1e3:.1f} us; fft_real({n_fft}) alone on one thread "
-          f"{fft_ms * 1e3:.1f} us, {fft_ms / k10_ms:.2f} of K10; bound "
-          f"{b_ms * 1e3:.3f} us by {b_by} ({nbytes} bytes, {ops} f64 "
-          f"operations) card='{card}'")
+    print(f"[coupled] probes: the sections alone on one thread "
+          f"{chain_ms * 1e3:.1f} us; thread 0's ordered code alone "
+          f"{ordered_ms * 1e3:.1f} us; fft_real({n_fft}) on one thread "
+          f"{fft_ms * 1e3:.1f} us, in block form on {probe.threads} threads "
+          f"{fft_block_ms * 1e3:.2f} us; torch.fft.rfft [1, {n_fft}] f64 "
+          f"{rfft_ms[1] * 1e3:.2f} us, [{COUPLED_FILES}, {n_fft}] "
+          f"{rfft_ms[COUPLED_FILES] * 1e3:.2f} us; a dependent f64 add "
+          f"{add_ns:.2f} ns, a barrier of {probe.threads} threads "
+          f"{bar_ns:.2f} ns; chain bound {chain_bound * 1e3:.2f} us "
+          f"({chain_ops} dependent operations, {n_bar} barriers); bytes and "
+          f"operations bound {b_ms * 1e3:.4f} us by {b_by} ({nbytes} bytes, "
+          f"{ops} f64 operations) card='{card}'")
 
     # one traced render of 10 s: the device idle share
     n10 = 10 * int(SR)
     _events, by_name = profile_render(
         lambda: kern.render_device(x_dev[:, :n10]), "coupled 10 s",
         traces=1)
+    busy_ms = sum(us for _n, us in by_name.values()) / 1e3
     k10_traced = [(n, us) for name, (n, us) in by_name.items()
                   if "zb_kernel" in name]
+    traced = {}
     if k10_traced:
         n, us = k10_traced[0]
+        traced = {"traced_launches": n, "traced_k10_us": us / n,
+                  "traced_k10_share": us / 1e3 / busy_ms,
+                  "traced_busy_ms_a_block": busy_ms / n}
         print(f"[coupled] K10 in the trace: {n} launches, {us / n:.1f} us a "
-              "launch")
+              f"launch, {us / 1e3 / busy_ms:.3f} of the busy time; busy "
+              f"{busy_ms / n:.4f} ms a block")
 
     # 8 files: the batch render of 60 s beside one file's, K10 at the
-    # batch's first and middle blocks; every file of a 10 s batch equal to
-    # its solo render
+    # batch's first and middle blocks (held, and the two designs in
+    # turns); every file of a 10 s batch equal to its solo render
     x8 = torch.from_numpy((rng.randn(COUPLED_FILES, 2, MAIN_T) * 0.25)
                           .astype(np.float32)).to(cuda)
     br = BatchRenderer(prog, srate=SR)
@@ -2010,15 +2127,25 @@ def coupled_phase(torch, cuda, rng, card):
         BS.block_section = real
     solo_ms = cuda_ms(lambda: br.kernel.render_device(x8[0]))
     err3, _ = held(f"{COUPLED_FILES} files, block 0", got8[0])
-    err4, _ = held(f"{COUPLED_FILES} files, block {mid}", got8[mid])
+    err4, plain8_ms = held(f"{COUPLED_FILES} files, block {mid}", got8[mid])
+    old8_ms, new8_ms = in_turns(got8[mid])
+    k10_8_ms = sum(new8_ms) / len(new8_ms)
     y8 = br.render_files(x8[:, :, :n10])
     for f in range(COUPLED_FILES):
         solo, _ = br.kernel.render_device(x8[f, :, :n10])
         check(torch.equal(y8[f], solo),
               f"coupled batch: file {f} differs from its solo render")
-    print(f"[coupled] batch of {COUPLED_FILES} x 60 s: {batch_ms:.2f} ms "
-          f"beside one file's {solo_ms:.2f} ms; every file of a 10 s batch "
-          f"torch.equal to its solo render card='{card}'")
+    serial_all = BS.serial_runs(cuda)
+    check(serial_all == 0, f"coupled: K10 ran a block loop on thread 0 "
+          f"{serial_all} times in the phase")
+    print(f"[coupled] K10 a launch, {COUPLED_FILES} files, in turns: "
+          f"earlier {old8_ms[0] * 1e3:.1f}, K10 {new8_ms[0] * 1e3:.1f}, K10 "
+          f"{new8_ms[1] * 1e3:.1f}, earlier {old8_ms[1] * 1e3:.1f} us "
+          f"({k10_8_ms / k10_ms:.2f}x one file's); batch of "
+          f"{COUPLED_FILES} x 60 s: {batch_ms:.2f} ms beside one file's "
+          f"{solo_ms:.2f} ms; every file of a 10 s batch torch.equal to its "
+          f"solo render; block loops on thread 0 in the phase: "
+          f"{serial_all} card='{card}'")
     return {
         "name": "block_section", "route": "cuda",
         "source": "zorak_tpu_torch/csrc/block_ops.cuh",
@@ -2026,9 +2153,19 @@ def coupled_phase(torch, cuda, rng, card):
         "launches": launches["block_section"],
         "max_abs_err": max(err1, err2, err3, err4), "ms": k10_ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "chain_ms": chain_ms, "fft_ms": fft_ms,
-        "render_ms": ms, "render_more_ms": more_ms, "golden_s": gold_s,
-        "batch_ms": batch_ms, "solo_ms": solo_ms, "blocks": blocks,
+        "library_ms": None, "threads": k10.threads,
+        "earlier_ms": sum(old_ms) / len(old_ms), "turns_ms": {
+            "earlier": old_ms, "new": new_ms},
+        "sweep_ms": sweep_ms, "ms_8_files": k10_8_ms,
+        "earlier_ms_8_files": sum(old8_ms) / len(old8_ms),
+        "plain_ms_8_files": plain8_ms,
+        "chain_bound_ms": chain_bound, "chain_ops": chain_ops,
+        "barriers": n_bar, "add_ns": add_ns, "barrier_ns": bar_ns,
+        "chain_ms": chain_ms, "ordered_ms": ordered_ms, "fft_ms": fft_ms,
+        "fft_block_ms": fft_block_ms, "fft_library_ms": rfft_ms,
+        "serial_runs": serial, "render_ms": ms, "render_more_ms": more_ms,
+        "golden_s": gold_s, "batch_ms": batch_ms, "solo_ms": solo_ms,
+        "blocks": blocks, **traced,
         "launches_linrec_scan": launches["linrec_scan"],
         "launches_ring_tap_sum": launches["ring_tap_sum"],
     }

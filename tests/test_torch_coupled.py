@@ -273,6 +273,74 @@ def test_k10_launches_once_a_block_on_the_cpu_path(monkeypatch):
     assert BS.LAUNCHES == 0        # the plain version is no launch
 
 
+def test_k10_phases_on_the_stand_in_equal_the_one_thread_form(monkeypatch):
+    """K10's inputs at every block of the stand-in's CPU render, 2 files,
+    through the host form: its phases with 1, 3 and 128 threads, each
+    block step's shares in ascending and in descending order, equal the
+    one-thread form bit for bit (vars, heap with the FFT buffer, the
+    sample side, the control row), and no loop runs on thread 0; the
+    one-thread form stays within FFT_TOL_REL of the plain version, the
+    sample side bit for bit."""
+    from zorak_tpu_torch.kernels import _build
+
+    try:
+        _build.find_host_compiler()
+    except RuntimeError:
+        pytest.skip("no host C++ compiler (g++, gcc, c++, cc) for K10's "
+                    "host form")
+    src, _x, seg, _ = CASES["spectral_tilt_leveler"]
+    br = BatchRenderer(compile_plugin_source(src), segment_len=seg,
+                       device="cpu")
+    k10 = br.kernel._block_prog
+    assert [ph.kind for ph in k10.block.phases] == [
+        "serial", "loop", "fft", "fft", "serial"]
+    seen = []
+    plain = BS.block_section_plain
+
+    def spy(program, svec, rings, bvars, bmem, sb, *a, **k):
+        seen.append((svec.clone(), [r.clone() for r in rings], bvars.clone(),
+                     bmem.clone(), sb))
+        return plain(program, svec, rings, bvars, bmem, sb, *a, **k)
+
+    monkeypatch.setattr(BS, "block_section_plain", spy)
+    x = np.stack([noise(2, 3 * 512 + 100, scale=0.3, seed=60 + f)
+                  for f in range(2)])
+    br.render_files(x)
+    monkeypatch.setattr(BS, "block_section_plain", plain)
+    assert len(seen) == 4
+
+    def run(inputs, **kw):
+        svec, rings, bvars, bmem, sb = (
+            t.clone() if isinstance(t, torch.Tensor) else t
+            for t in inputs)
+        rings = [r.clone() for r in rings]
+        ctrl, _mo, runs = BS.block_section_host(k10, svec, rings, bvars,
+                                                bmem, sb, **kw)
+        return [svec, *rings, bvars, bmem, ctrl], runs
+
+    def bits(t):
+        return t.numpy().view(np.int64)
+
+    for inputs in seen:
+        one, runs = run(inputs)
+        assert runs == 0
+        for threads in (1, 3, 128):
+            for desc in (False, True):
+                team, runs = run(inputs, threads=threads, descending=desc)
+                assert runs == 0
+                for a, b in zip(one, team):
+                    assert np.array_equal(bits(a), bits(b)), (threads, desc)
+        svec, rings, bvars, bmem, sb = (
+            t.clone() if isinstance(t, torch.Tensor) else t
+            for t in inputs)
+        rings = [r.clone() for r in rings]
+        ctrl = plain(k10, svec, rings, bvars, bmem, sb)[0]
+        assert torch.equal(one[0], svec)
+        assert all(torch.equal(a, b) for a, b in zip(one[1:-3], rings))
+        assert BS.fft_excess(one[-2], bmem, torch.cat([one[-3], one[-1]], 1),
+                             torch.cat([bvars, ctrl], 1)) <= 0.0
+
+
 def test_batch_of_three_files_equals_the_solo_renders():
     src, _x, seg, _ = CASES["spectral_tilt_leveler"]
     prog = compile_plugin_source(src)

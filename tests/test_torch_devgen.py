@@ -15,6 +15,7 @@ Both are held to JAX within 1e-8 on every var slot but the function
 params (the C functions take them as arguments) and on the plugin heap.
 """
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from zorak_tpu.ir.program import compile_plugin_source as jax_compile
 from zorak_tpu.lowering import devgen as jax_devgen
 from zorak_tpu.verify import make_initialized_shadow as jax_shadow
 
+from zorak_tpu_torch import builtin_plugins
 from zorak_tpu_torch.ir import compile_plugin_source
 from zorak_tpu_torch.kernels import _build
 from zorak_tpu_torch.kernels import block_section as BS
@@ -237,7 +239,119 @@ mem[lo] = ctr * 3;
 r = mem[hi + 7] + mem[lo - 9];
 memset(hi - 2, ctr, 6);
 """, 3, 1 << 12, 512),
+    # the phase split: a block loop with temporaries, a masked and a
+    # strided read, and a write at an offset
+    "block_loop_with_temporaries": ("""
+@init
+R = 0; W = 2048; O = 4096; M = 1023;
+i = 0; loop(1024, R[i] = sin(i * 0.01); W[i] = 0.5 + 0.5 * cos(i * 0.02);
+  i += 1;);
+@block
+ctr += 1;
+i = 0;
+loop(700, s = R[(ctr * 7 + i) & M]; v = s * W[i]; O[i + 3] = v * v + s;
+  i += 1;);
+last = v + s + i;
+""", 3, 1 << 14, 512),
+    "two_transform_sizes": ("""
+@init
+A = 1000; C = 3000;
+i = 0; loop(256, A[i] = sin(i * 0.37); i += 1;);
+i = 0; loop(128, C[i] = cos(i * 0.21); i += 1;);
+@block
+fft_real(A, 256);
+fft(C, 64);
+q = A[3] + C[5];
+ifft(C, 64);
+""", 2, 1 << 14, 512),
+    # block loops refused while printing: a flow from the last iteration's
+    # cell, a temporary read before it is written, a user function
+    "loop_reads_the_last_iterations_cell": ("""
+@init
+B = 100;
+i = 0; loop(60, B[i] = i * 0.25; i += 1;);
+@block
+i = 0;
+loop(50, B[i + 1] = B[i] * 0.5 + 1; i += 1;);
+""", 2, 1 << 12, 512),
+    "loop_temp_read_before_written": ("""
+@init
+T = 500;
+@block
+i = 0; p = 0.5;
+loop(30, T[i] = p; p = i * 2 + p * 0.5; i += 1;);
+""", 2, 1 << 12, 512),
+    "loop_calls_a_user_function": ("""
+@init
+T = 700;
+function f(x) ( x * 2 + 1 );
+@block
+ctr += 1;
+i = 0;
+loop(16, T[i] = f(i + ctr); i += 1;);
+""", 2, 1 << 12, 512),
+    # block loops that thread 0 runs itself where the run's values fail
+    # the checks: a start that is not an integer (odd blocks), writes past
+    # the heap (clamped), a dynamic base whose cells overlap the reads
+    # (odd blocks)
+    "loop_start_not_an_integer": ("""
+@init
+T = 200;
+@block
+ctr += 1;
+i = 0.5 * ctr;
+loop(40, T[i] = i * 2 + ctr; i += 1;);
+""", 3, 1 << 12, 512),
+    "loop_writes_past_the_heap": ("""
+@init
+T = 4070;
+@block
+ctr += 1;
+i = 0;
+loop(40, T[i] = i + ctr; i += 1;);
+""", 2, 1 << 12, 512),
+    "loop_overlap_at_run_time": ("""
+@init
+SRC = 300;
+i = 0; loop(64, SRC[i] = i; i += 1;);
+@block
+ctr += 1;
+dst = 340 - (ctr % 2) * 30;
+i = 0;
+loop(20, dst[i] = SRC[i] + ctr; i += 1;);
+""", 3, 1 << 12, 512),
 }
+
+# name -> the kinds of @block's phases (DeviceSection.phases)
+PHASES = {
+    "loops_and_mem": ["serial", "loop", "serial"],
+    "fft_roundtrip": ["fft", "fft", "serial", "fft", "fft", "serial",
+                      "loop"],
+    "fft_real_roundtrip": ["fft", "fft", "serial", "fft", "fft", "serial",
+                           "loop"],
+    "convolve_c": ["fft", "serial"],
+    "fft_under_predicate": ["serial", "loop", "serial"],
+    "block_loop_with_temporaries": ["serial", "loop", "serial"],
+    "two_transform_sizes": ["fft", "fft", "serial", "fft"],
+    "loop_reads_the_last_iterations_cell": ["serial"],
+    "loop_temp_read_before_written": ["serial"],
+    "loop_calls_a_user_function": ["serial"],
+    "loop_start_not_an_integer": ["serial", "loop"],
+    "loop_writes_past_the_heap": ["serial", "loop"],
+    "loop_overlap_at_run_time": ["serial", "loop"],
+}
+# name -> why the printer keeps its loop on thread 0
+KEPT_SERIAL = {
+    "loop_reads_the_last_iterations_cell": "another iteration's cell",
+    "loop_temp_read_before_written": "p is read before it is written",
+    "loop_calls_a_user_function": r"a call with an effect: \S*f\(\)",
+}
+# name -> block loops thread 0 runs itself over the case's blocks
+SERIAL_RUNS = {"loop_start_not_an_integer": 2,
+               "loop_writes_past_the_heap": 2,
+               "loop_overlap_at_run_time": 2}
+# (threads, descending) of the host form's phases
+TEAMS = [(1, False), (3, False), (3, True), (128, False), (128, True)]
 
 
 def seeded_state(dev, seed=11):
@@ -277,7 +391,7 @@ def port_program(name):
     return dev, BS.BlockSectionProgram(dev, None, 0, [], [], [], [])
 
 
-def run_port(name, form):
+def run_port(name, form, **kw):
     """The port's vars and heap after each block, through `form`."""
     _src, n_blocks, _mem, B = CASES[name]
     dev, prog = port_program(name)
@@ -287,7 +401,7 @@ def run_port(name, form):
     svec = torch.zeros((1, 0), dtype=torch.float64)
     out = []
     for _ in range(n_blocks):
-        form(prog, svec, [], v, m, float(B))
+        form(prog, svec, [], v, m, float(B), **kw)
         out.append((v[0].numpy().copy(), m[0].numpy().copy()))
     return dev, prog, out
 
@@ -328,6 +442,75 @@ def test_host_form_matches_the_plain_version(name):
             assert np.array_equal(hm, m, equal_nan=True)
     jdev, want = jax_run(name)
     held_to_jax(dev, jdev, host, want)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_host_form_phases_equal_the_one_thread_form(name):
+    """K10's phases in the host form, with 1, 3 and 128 threads whose
+    shares of each block step run in ascending and in descending order,
+    equal the one-thread form bit for bit (vars, and the heap with its FFT
+    buffers) after every block; thread 0 runs the loops it must."""
+    if host_compiler() is None:
+        pytest.skip("no host C++ compiler (g++, gcc, c++, cc) for the "
+                    "generated source's host form")
+    _dev, _prog, one = run_port(name, BS.block_section_host)
+    for threads, desc in TEAMS:
+        runs = []
+
+        def form(*a, **kw):
+            runs.append(BS.block_section_host(*a, **kw)[2])
+        _d, _p, team = run_port(name, form, threads=threads,
+                                descending=desc)
+        for (v, m), (tv, tm) in zip(one, team):
+            assert np.array_equal(v.view(np.int64), tv.view(np.int64)), \
+                (threads, desc)
+            assert np.array_equal(m.view(np.int64), tm.view(np.int64)), \
+                (threads, desc)
+        assert sum(runs) == SERIAL_RUNS.get(name, 0), (threads, desc, runs)
+
+
+@pytest.mark.parametrize("name", sorted(PHASES))
+def test_phase_split(name):
+    dev, prog = port_program(name)
+    assert [ph.kind for ph in dev.phases] == PHASES[name]
+    if name in KEPT_SERIAL:
+        assert len(dev.serial_loops) == 1
+        assert re.search(KEPT_SERIAL[name], dev.serial_loops[0])
+    # the phases print into the kernel's one team function
+    assert prog.source.count("ZB_DEV void zb_run_team(") == 1
+    assert prog.source.count("ZB_STEPS(team,") == PHASES[name].count("loop")
+
+
+def test_phases_of_the_stand_in():
+    """spectral_tilt_leveler(2048)'s @block: the window loop, fft_real
+    and fft_permute across the block, the band loop (a sum carried from
+    one iteration to the next) and the scalar updates on thread 0."""
+    prog = compile_plugin_source(builtin_plugins.spectral_tilt_leveler(2048))
+    snap = make_initialized_shadow(prog, 48000.0).state
+    dev = DeviceSection(prog, snap, "block",
+                        section_dynamic_keys(prog, ("block", "sample")),
+                        1 << 23)
+    assert [(ph.kind, ph.label) for ph in dev.phases] == [
+        ("serial", "4 statements"), ("loop", "loop over i"),
+        ("fft", "fft_real(2048)"), ("fft", "fft_permute(1024)"),
+        ("serial", "8 statements")]
+    assert len(dev.serial_loops) == 1
+    assert "no assignment" in dev.serial_loops[0]
+    k10 = BS.BlockSectionProgram(dev, None, 0, [], [], [], [])
+    # the exchanges' 3, one after each of thread 0's 4 runs, the loop's
+    # 1, fft_real's 13 (load, 11 stages, store), fft_permute's 2
+    assert BS.barriers_a_launch(k10) == 23
+
+
+def test_threads_are_a_build_parameter():
+    dev, prog = port_program("loops_and_mem")
+    assert prog.threads == BS.THREADS
+    assert f"#define ZB_THREADS {BS.THREADS}" in prog.source
+    wide = BS.BlockSectionProgram(dev, None, 0, [], [], [], [], threads=1024)
+    assert "#define ZB_THREADS 1024" in wide.source
+    for bad in (0, 1025, 2.0, True):
+        with pytest.raises(ValueError, match="threads"):
+            BS.BlockSectionProgram(dev, None, 0, [], [], [], [], threads=bad)
 
 
 def test_heap_clamp_lands_on_the_edges():
@@ -396,3 +579,10 @@ def test_generated_source_is_one_function_a_section():
     assert prog.source.count(f"double {name}(") == 2
     assert 'extern "C" int block_section_launch(' in prog.source
     assert 'extern "C" int block_section_host(' in prog.source
+    # the earlier design (thread 0 runs zb_run, the one function a
+    # section) is built beside the probes only
+    assert "zb_kernel_earlier" not in prog.source
+    probe = BS.BlockSectionProgram(dev, None, 0, [], [], [], [], probe=True)
+    assert probe.source.count("ZB_DEV void zb_section_block(ZB* S)") == 1
+    assert "if (t == 0) zb_run(&S);" in probe.source
+    assert 'extern "C" int block_section_launch_earlier(' in probe.source

@@ -12,6 +12,12 @@
 // the two give the same bits wherever no libm call is made.  Build with
 // two roundings a multiply-add (nvcc --fmad=false, g++ -ffp-contract=off).
 //
+// A section runs in phases (lowering/devgen.py): thread 0 alone runs the
+// ordered code, and every thread of the file's CUDA block runs the FFT
+// family and the loops whose iterations are independent, a strided share
+// each, between barriers.  The same text serves the host form: there a
+// block step runs the threads' shares one after another (ZB_STEPS).
+//
 // The heap follows the reference's device sections
 // (zorak_tpu/lowering/devgen.py `_mem_addr`), not the golden's growable
 // heap: a section owns `mem_size` cells, a dynamic address is clamped to
@@ -52,7 +58,36 @@ struct ZB {
   double* scratch;         // FFT workspace of this file
   const double* tw;        // cos, sin of 2 pi k / tw_n, k < tw_n / 2
   long long tw_n;
+  unsigned long long* serial_runs;  // block loops run on thread 0 (or null)
 };
+
+// -- phases: who runs what ------------------------------------------------------
+//
+// ZT is the calling thread of a file's CUDA block: t of nt.  On the card
+// every thread calls the phases with its own t.  In the host form the
+// phases are called once, and a block step runs the threads t = 0 ... nt - 1
+// (or nt - 1 ... 0 where `desc`) one after another, so that the tests see
+// every split the card makes.
+struct ZT {
+  long long t, nt;
+  int desc;
+};
+#ifdef __CUDA_ARCH__
+// thread 0 alone, then a barrier
+#define ZB_SOLO(team, ...) \
+  do { if ((team).t == 0) { __VA_ARGS__; } __syncthreads(); } while (0)
+// every thread its strided share (t, nt in scope), then a barrier
+#define ZB_STEPS(team, ...) \
+  do { const long long t = (team).t, nt = (team).nt; __VA_ARGS__; \
+       __syncthreads(); } while (0)
+#else
+#define ZB_SOLO(team, ...) do { __VA_ARGS__; } while (0)
+#define ZB_STEPS(team, ...) \
+  do { for (long long zb_k = 0; zb_k < (team).nt; ++zb_k) { \
+    const long long nt = (team).nt; \
+    const long long t = (team).desc ? nt - 1 - zb_k : zb_k; \
+    (void)t; __VA_ARGS__; } } while (0)
+#endif
 
 // -- the heap ------------------------------------------------------------------
 
@@ -315,4 +350,200 @@ ZB_FN double zb_convolve_c(ZB* S, double dest, double src, long long n) {
     x[2 * k + 1] = dr * w[2 * k + 1] + di * w[2 * k];
   }
   return 0.0;
+}
+
+// -- the FFT family in block form ----------------------------------------------
+//
+// The same transforms across a file's CUDA block: the loads, each stage's
+// butterflies and the stores are thread-strided, with a barrier between
+// steps.  A butterfly is the same four lines of arithmetic with the same
+// twiddle as zb_fft_core's, and no stage is fused, so the result equals the
+// one-thread form bit for bit.  `base` is the region's first cell, decided
+// once by thread 0 (zb_fft_region) and shared: -1 is the WDL no-op, and
+// every thread then returns alike.
+
+// zb_fft_base and zb_region_ok of the one-thread forms: the region's base,
+// or -1 where the call is a no-op.
+ZB_FN long long zb_fft_region(const ZB* S, double dest, long long span) {
+  const long long base = zb_fft_base(dest);
+  return zb_region_ok(S, base, span) ? base : -1;
+}
+// zb_bitrev with the card's bit reversal (n a power of two >= 2)
+ZB_FN long long zb_bitrev_n(long long k, long long n) {
+#ifdef __CUDA_ARCH__
+  return (long long)(__brevll((unsigned long long)k) >> (64 - (63 - __clzll(n))));
+#else
+  return zb_bitrev(k, n);
+#endif
+}
+// one stage of zb_fft_core: butterfly b = t, t + nt, ... of n / 2
+ZB_FN void zb_blk_stage(double* x, long long n, long long len, const double* tw,
+                        long long tw_n, bool inverse, long long t,
+                        long long nt) {
+  const long long half = len >> 1, step = tw_n / len;
+  for (long long b = t; b < (n >> 1); b += nt) {
+    const long long j = b & (half - 1);
+    const long long ij = 2 * b - j;            // i + j of zb_fft_core
+    const double wr = ZB_LDG(tw + 2 * j * step);
+    const double wi = inverse ? ZB_LDG(tw + 2 * j * step + 1)
+                              : -ZB_LDG(tw + 2 * j * step + 1);
+    double* a = x + 2 * ij;
+    double* c = x + 2 * (ij + half);
+    const double tr = c[0] * wr - c[1] * wi;
+    const double ti = c[0] * wi + c[1] * wr;
+    c[0] = a[0] - tr;
+    c[1] = a[1] - ti;
+    a[0] = a[0] + tr;
+    a[1] = a[1] + ti;
+  }
+}
+ZB_FN void zb_blk_fft_core(double* x, long long n, const double* tw,
+                           long long tw_n, bool inverse, ZT team) {
+  for (long long len = 2; len <= n; len <<= 1)
+    ZB_STEPS(team, zb_blk_stage(x, n, len, tw, tw_n, inverse, t, nt));
+}
+
+ZB_FN void zb_blk_fft(ZB* S, long long base, long long n, const int* perm,
+                      ZT team) {
+  if (base < 0) return;
+  double* x = S->M + base;
+  double* w = S->scratch;
+  ZB_STEPS(team, for (long long k = t; k < n; k += nt) {
+    const long long r = zb_bitrev_n(k, n);
+    w[2 * r] = x[2 * k];
+    w[2 * r + 1] = x[2 * k + 1];
+  });
+  zb_blk_fft_core(w, n, S->tw, S->tw_n, false, team);
+  ZB_STEPS(team, for (long long k = t; k < n; k += nt) {
+    x[2 * ZB_LDG(perm + k)] = w[2 * k];
+    x[2 * ZB_LDG(perm + k) + 1] = w[2 * k + 1];
+  });
+}
+ZB_FN void zb_blk_ifft(ZB* S, long long base, long long n, const int* perm,
+                       ZT team) {
+  if (base < 0) return;
+  double* x = S->M + base;
+  double* w = S->scratch;
+  ZB_STEPS(team, for (long long k = t; k < n; k += nt) {
+    const long long r = zb_bitrev_n(k, n);
+    w[2 * r] = x[2 * ZB_LDG(perm + k)];
+    w[2 * r + 1] = x[2 * ZB_LDG(perm + k) + 1];
+  });
+  zb_blk_fft_core(w, n, S->tw, S->tw_n, true, team);
+  ZB_STEPS(team, for (long long k = t; k < 2 * n; k += nt) x[k] = w[k]);
+}
+ZB_FN void zb_blk_fft_permute(ZB* S, long long base, long long n,
+                              const int* perm, bool ipermute, ZT team) {
+  if (base < 0) return;
+  double* x = S->M + base;
+  double* w = S->scratch;
+  ZB_STEPS(team, for (long long k = t; k < n; k += nt) {
+    const long long from = ipermute ? k : ZB_LDG(perm + k);
+    const long long to = ipermute ? ZB_LDG(perm + k) : k;
+    w[2 * to] = x[2 * from];
+    w[2 * to + 1] = x[2 * from + 1];
+  });
+  ZB_STEPS(team, for (long long k = t; k < 2 * n; k += nt) x[k] = w[k]);
+}
+ZB_FN void zb_blk_fft_real(ZB* S, long long base, long long n, const int* perm,
+                           ZT team) {
+  if (base < 0) return;
+  const long long half = n / 2;
+  double* x = S->M + base;
+  double* w = S->scratch;
+  ZB_STEPS(team, for (long long k = t; k < n; k += nt) {
+    const long long r = zb_bitrev_n(k, n);
+    w[2 * r] = x[k];
+    w[2 * r + 1] = 0.0;
+  });
+  zb_blk_fft_core(w, n, S->tw, S->tw_n, false, team);
+  ZB_STEPS(team, for (long long k = t; k < half; k += nt) {
+    x[2 * ZB_LDG(perm + k)] = 2.0 * w[2 * k];
+    x[2 * ZB_LDG(perm + k) + 1] = 2.0 * w[k == 0 ? 2 * half : 2 * k + 1];
+  });
+}
+ZB_FN void zb_blk_ifft_real(ZB* S, long long base, long long n,
+                            const int* perm, ZT team) {
+  if (base < 0) return;
+  const long long half = n / 2;
+  double* x = S->M + base;
+  double* w = S->scratch;
+  ZB_STEPS(team, for (long long k = t; k < half; k += nt) {
+    const long long pk = ZB_LDG(perm + k);
+    if (k == 0) {
+      const long long r0 = zb_bitrev_n(0, n), rh = zb_bitrev_n(half, n);
+      w[2 * r0] = x[2 * pk] / 2.0;
+      w[2 * r0 + 1] = 0.0;
+      w[2 * rh] = x[2 * pk + 1] / 2.0;
+      w[2 * rh + 1] = 0.0;
+    } else {
+      const double re = x[2 * pk] / 2.0, im = x[2 * pk + 1] / 2.0;
+      const long long rk = zb_bitrev_n(k, n), rn = zb_bitrev_n(n - k, n);
+      w[2 * rk] = re;
+      w[2 * rk + 1] = im;
+      w[2 * rn] = re;
+      w[2 * rn + 1] = 0.0 - im;
+    }
+  });
+  zb_blk_fft_core(w, n, S->tw, S->tw_n, true, team);
+  ZB_STEPS(team, for (long long k = t; k < n; k += nt) x[k] = 2.0 * w[2 * k]);
+}
+ZB_FN void zb_blk_convolve_c(ZB* S, long long d, long long s, long long n,
+                             ZT team) {
+  if (d < 0 || s < 0) return;
+  double* w = S->scratch;
+  double* x = S->M + d;
+  ZB_STEPS(team, for (long long k = t; k < 2 * n; k += nt) w[k] = S->M[s + k]);
+  ZB_STEPS(team, for (long long k = t; k < n; k += nt) {
+    const double dr = x[2 * k], di = x[2 * k + 1];
+    x[2 * k] = dr * w[2 * k] - di * w[2 * k + 1];
+    x[2 * k + 1] = dr * w[2 * k + 1] + di * w[2 * k];
+  });
+}
+
+// -- block loops: thread 0's run-time decision ----------------------------------
+//
+// A loop that devgen.py prints for the whole block runs there only if its
+// iterations provably touch no common heap cell; thread 0 checks that on
+// the values of this run and otherwise runs the loop itself, counted here.
+
+ZB_FN void zb_count_serial(ZB* S) {
+  if (!S->serial_runs) return;
+#ifdef __CUDA_ARCH__
+  atomicAdd(S->serial_runs, 1ull);
+#else
+  *S->serial_runs += 1;
+#endif
+}
+#define ZB_EXACT 9007199254740992.0   // 2^53: integers in doubles stay exact
+// start + k equals k increments of the induction from an integer start.
+ZB_FN bool zb_trip_ok(double start, long long n) {
+  return n <= 0 || (start == floor(start)
+                    && fabs(start) + (double)n < ZB_EXACT);
+}
+// base[iv + c] over the trip: the cells b + start + c + k, k < n, all
+// inside [0, mem_size - 1], so that the clamp folds no two of them (an
+// integer base keeps the address exact).
+ZB_FN bool zb_unit_span(const ZB* S, double b, double start, double c,
+                        long long n, long long* lo, long long* hi) {
+  if (!(b == floor(b) && fabs(b) < ZB_EXACT
+        && fabs(start) + fabs(c) + (double)n < ZB_EXACT)) return false;
+  const double first = b + (start + c);
+  if (!(first >= 0.0 && first + (double)(n - 1) <= (double)(S->mem_size - 1)))
+    return false;
+  *lo = (long long)first;
+  *hi = *lo + n - 1;
+  return true;
+}
+// The cells zb_addr(S, b, i) can reach for i in [i_lo, i_hi]: zb_addr is
+// non-decreasing in i where b + i stays finite.
+ZB_FN bool zb_read_span(const ZB* S, double b, double i_lo, double i_hi,
+                        long long* lo, long long* hi) {
+  if (!(fabs(b) < ZB_EXACT)) return false;
+  *lo = zb_addr(S, b, i_lo);
+  *hi = zb_addr(S, b, i_hi);
+  return true;
+}
+ZB_FN bool zb_apart(long long lo0, long long hi0, long long lo1, long long hi1) {
+  return hi0 < lo1 || hi1 < lo0;
 }

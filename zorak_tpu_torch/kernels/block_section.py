@@ -10,13 +10,20 @@ into the sample state, and the control row of the next segment is
 gathered.
 
 On a CUDA tensor `block_section` launches one generated kernel: a CUDA
-block a file, whose threads copy the exchanges, and whose thread 0 alone
-runs the section's CUDA C (`lowering/devgen.py`, `csrc/block_ops.cuh`)
-between two barriers.  On a CPU tensor it runs `block_section_plain`, the
-same exchanges in torch and the sections through the port's Python golden
-(`shadow/pyexec.py`) with the device heap's addressing.  Nothing falls
-back from one to the other.  `block_section_host` runs the generated text
-compiled with a host C++ compiler, for the tests.
+block a file, whose threads copy the exchanges and then run the
+section's phases (`lowering/devgen.py`, `csrc/block_ops.cuh`): thread 0
+alone the ordered code, every thread the FFT calls and the loops with
+independent iterations, between barriers.  On a CPU tensor it runs
+`block_section_plain`, the same exchanges in torch and the sections
+through the port's Python golden (`shadow/pyexec.py`) with the device
+heap's addressing.  Nothing falls back from one to the other.
+`block_section_host` runs the generated text compiled with a host C++
+compiler, for the tests: the phases with any number of threads, their
+shares in either order, or the one-thread form.
+
+A build made with `probe=True` also holds the earlier design, thread 0
+running the whole section (`block_section_earlier`), and timing probes;
+chip_smoke.py holds K10 to it bit for bit and times the two in turns.
 """
 from __future__ import annotations
 
@@ -36,9 +43,14 @@ from ..runtime import fftops as FO
 # before a path and reads it after to show the path went through the kernel.
 LAUNCHES = 0
 
-# Threads of a file's CUDA block: they share the exchanges; thread 0 runs
-# the section.
-THREADS = 128
+# Threads of a file's CUDA block (a build parameter, `threads=`): they
+# share the exchanges, the block FFTs and the block loops.
+THREADS = 256
+
+# Block loops that thread 0 ran alone because this run's values failed
+# their checks, by device (an int64 counter on the device, added to by the
+# kernel); `serial_runs` reads it.
+SERIAL_RUNS: dict = {}
 
 # The most shared memory a block takes (of an H100's 227 KB, after the
 # opt-in above 48 KB): the var row and the FFT workspace live there when
@@ -66,18 +78,22 @@ _DESIGN = """\
 // fused block/sample pipeline (zorak_tpu/lowering/devgen.py:463
 // DeviceSection.step inside specialize.py _coupled_run's scan).
 //
-// What bounds it: the section is scalar control code, one dependent chain
-// (a loop over a buffer, an FFT) that runs on one thread; the exchanges
-// move (rings + scalars) x 16 bytes a file, far less.  One launch a block
-// costs the launch itself, a few microseconds.
+// What bounds it: the section's ordered code, one dependent chain on one
+// thread (a loop that carries a sum, the scalar updates), and the
+// barriers between phases; the exchanges move (rings + scalars) x 16
+// bytes a file, far less.
 //
 // What the design does: a CUDA block a file.  Its threads copy the
 // sample side into the device view (carried scalars -> var slots, each
-// ring region and carried cell -> the heap), then thread 0 alone runs
-// the section (and @slider when a pending mask is set) between two
-// barriers, and the threads copy the view back and gather the next
-// segment's control row.  No barrier sits in code that only thread 0
-// runs.
+// ring region and carried cell -> the heap), then run the section's
+// phases (zb_run_team): thread 0 alone the ordered statements (ZB_SOLO),
+// every thread a strided share of each top-level FFT call and of each
+// loop whose iterations touch no common cell (ZB_STEPS), with a barrier
+// after each; @slider, where @block retriggered it, on thread 0.  Then
+// the threads copy the view back and gather the next segment's control
+// row.  A butterfly and an iteration do the same arithmetic as on one
+// thread, so the result is the same bits.  No barrier sits in code that
+// only thread 0 runs.
 """
 
 
@@ -92,14 +108,17 @@ class BlockSectionProgram:
     inter           [(svec index, slot)]: carried scalars the section sees;
     regions         [(origin, mod)]: the carried heap regions (the rings);
     cells           [(svec index, address)]: carried single heap cells;
-    ctrl            [("v", slot) or ("m", address)]: the control row.
+    ctrl            [("v", slot) or ("m", address)]: the control row;
+    probe           also build the earlier design and the timing probes;
+    threads         threads of a file's CUDA block (1 to 1,024).
     """
 
     def __init__(self, block: DeviceSection, slider: Optional[DeviceSection],
                  n_svec: int, inter: Sequence[Tuple[int, int]],
                  regions: Sequence[Tuple[int, int]],
                  cells: Sequence[Tuple[int, int]],
-                 ctrl: Sequence[Tuple[str, int]], probe: bool = False):
+                 ctrl: Sequence[Tuple[str, int]], probe: bool = False,
+                 threads: int = THREADS):
         if slider is not None and (slider.slots != block.slots
                                    or slider.mem_size != block.mem_size):
             raise ValueError("@block and @slider must share slots and heap")
@@ -121,6 +140,11 @@ class BlockSectionProgram:
         self.scratch_cells = max(1, max(s.scratch_cells for s in secs))
         self.perm_sizes = sorted({n for s in secs for n in s.perm_sizes})
         self.probe = probe
+        if isinstance(threads, bool) or not isinstance(threads, int) \
+                or not 1 <= threads <= 1024:
+            raise ValueError(f"threads must be an int in [1, 1024], got "
+                             f"{threads!r}")
+        self.threads = threads
         # thread 0's working set on chip: the var row (its loop counters and
         # accumulators), and the FFT workspace where both fit
         self.v_shared = self.n_vars * 8 <= SMEM_MAX
@@ -195,7 +219,9 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
         f"#define ZB_MO_CELLS {p.midi_out_cells}",
         f"#define ZB_NC {len(p.ctrl)}",
         f"#define ZB_SCRATCH {p.scratch_cells}",
-        f"#define ZB_THREADS {THREADS}",
+        f"#define ZB_THREADS {p.threads}",
+        f"#define ZB_NQ {max(1, p.block.n_pub)}",
+        f"#define ZB_NP {max(1, p.block.n_pub_double)}",
         f"#define ZB_V_SHARED {int(p.v_shared)}",
         f"#define ZB_SCRATCH_SHARED {int(p.scratch_shared)}",
         f"#define ZB_SMEM {p.smem_bytes}",
@@ -261,8 +287,9 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
         "mout[f * ZB_MO_CELLS + i] = M[ZB_MO + i];",
         "}", ""]
     out += view_in + cells_in + view_out
+    out += _team_function(p)
     make_s = ("ZB S = {V, M, ZB_MEM, ZB_MO, samplesblock, midi_ev, midi_n, "
-              "W, tw, tw_n};")
+              "W, tw, tw_n, runs};")
     # the kernels' var row and FFT workspace: shared memory where it fits
     on_chip = [
         "  extern __shared__ double zb_sh[];",
@@ -287,7 +314,7 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
     args = ("void* svec, void* bvars, void* bmem, void* ctrl, void* mout, "
             "const void* midi_ev, double midi_n, void* scratch, "
             "const void* tw, long long tw_n, double samplesblock, "
-            "long long nf")
+            "long long nf, void* serial_runs")
     casts = [
         "  double* sv0 = static_cast<double*>(svec);",
         "  double* bv = static_cast<double*>(bvars);",
@@ -297,58 +324,81 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
         "  const double* ev = static_cast<const double*>(midi_ev);",
         "  double* sc = static_cast<double*>(scratch);",
         "  const double* twd = static_cast<const double*>(tw);",
+        "  unsigned long long* runs = static_cast<unsigned long long*>("
+        "serial_runs);",
     ] + [f"  double* r{i} = static_cast<double*>(ring{i});"
          for i in range(nr)]
     ring_void = "".join(f", void* ring{i}" for i in range(nr))
-    out += [
-        "#ifdef __CUDACC__",
-        "__global__ void __launch_bounds__(ZB_THREADS) zb_kernel(",
-        "    double* svec, double* bvars, double* bmem, double* ctrl,",
-        "    double* mout, const double* midi_ev, double midi_n,",
-        "    double* scratch, const double* tw, long long tw_n,",
-        f"    double samplesblock{ring_params}) {{",
-        "  const long long f = blockIdx.x, t = threadIdx.x, nt = blockDim.x;",
-        *on_chip,
-        "  double* M = bmem + f * ZB_TM;",
-        "  double* sv = svec + f * ZB_NS;",
-        f"  zb_view_in(f, t, nt, V, M, sv{ring_args});",
-        "  __syncthreads();",
-        "  zb_cells_in(t, nt, M, sv);   // a cell may lie in a ring region",
-        "  __syncthreads();",
-        "  if (t == 0) {",
-        f"    {make_s}",
-        "    zb_run(&S);",
-        "  }",
-        "  __syncthreads();",
-        f"  zb_view_out(f, t, nt, V, M, sv{ring_args}, ctrl, mout);",
-        *off_chip,
-        "}",
-        "",
-    ]
+
+    def kernel(name: str, run: List[str]) -> List[str]:
+        return [
+            f"__global__ void __launch_bounds__(ZB_THREADS) {name}(",
+            "    double* svec, double* bvars, double* bmem, double* ctrl,",
+            "    double* mout, const double* midi_ev, double midi_n,",
+            "    double* scratch, const double* tw, long long tw_n,",
+            "    double samplesblock, unsigned long long* runs"
+            f"{ring_params}) {{",
+            "  const long long f = blockIdx.x, t = threadIdx.x, nt = blockDim.x;",
+            *on_chip,
+            "  double* M = bmem + f * ZB_TM;",
+            "  double* sv = svec + f * ZB_NS;",
+            f"  zb_view_in(f, t, nt, V, M, sv{ring_args});",
+            "  __syncthreads();",
+            "  zb_cells_in(t, nt, M, sv);   // a cell may lie in a ring region",
+            "  __syncthreads();",
+            f"  {make_s}",
+            *run,
+            f"  zb_view_out(f, t, nt, V, M, sv{ring_args}, ctrl, mout);",
+            *off_chip,
+            "}",
+            "",
+        ]
+
+    def launcher(name: str, kern: str) -> List[str]:
+        return [
+            f'extern "C" int {name}({args}, void* stream{ring_void}) {{',
+            "  cudaGetLastError();  // clear an error left by an earlier call",
+            "  if (nf <= 0) return 0;",
+            "  if (nf > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);",
+            *casts,
+            "  static bool opted_in = false;   // above 48 KB only after this",
+            "  if (!opted_in && ZB_SMEM > 48 * 1024) {",
+            f"    cudaFuncSetAttribute({kern},",
+            "        cudaFuncAttributeMaxDynamicSharedMemorySize, ZB_SMEM);",
+            "    opted_in = true;",
+            "  }",
+            f"  {kern}<<<static_cast<unsigned>(nf), ZB_THREADS, ZB_SMEM,",
+            "              static_cast<cudaStream_t>(stream)>>>(sv0, bv, bm, cr,",
+            f"      mo, ev, midi_n, sc, twd, tw_n, samplesblock, runs{ring_args});",
+            "  return static_cast<int>(cudaGetLastError());",
+            "}",
+            "",
+        ]
+
+    out += ["#ifdef __CUDACC__", ""]
+    out += kernel("zb_kernel", [
+        "  __shared__ double zb_p[ZB_NP];      // what thread 0 shares",
+        "  __shared__ long long zb_q[ZB_NQ];",
+        "  const ZT team = {t, nt, 0};",
+        "  zb_run_team(&S, team, zb_p, zb_q);  // ends at a barrier",
+    ])
+    out += launcher("block_section_launch", "zb_kernel")
     if p.probe:
+        out += ["// the earlier design: thread 0 runs the sections alone"]
+        out += kernel("zb_kernel_earlier", [
+            "  if (t == 0) zb_run(&S);",
+            "  __syncthreads();",
+        ])
+        out += launcher("block_section_launch_earlier", "zb_kernel_earlier")
         out += _probe_kernels(p, make_s, on_chip, off_chip)
     out += [
-        f'extern "C" int block_section_launch({args}, void* stream'
-        f'{ring_void}) {{',
-        "  cudaGetLastError();  // clear an error left by an earlier call",
-        "  if (nf <= 0) return 0;",
-        "  if (nf > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);",
-        *casts,
-        "  static bool opted_in = false;   // above 48 KB only after this",
-        "  if (!opted_in && ZB_SMEM > 48 * 1024) {",
-        "    cudaFuncSetAttribute(zb_kernel,",
-        "        cudaFuncAttributeMaxDynamicSharedMemorySize, ZB_SMEM);",
-        "    opted_in = true;",
-        "  }",
-        "  zb_kernel<<<static_cast<unsigned>(nf), ZB_THREADS, ZB_SMEM,",
-        "              static_cast<cudaStream_t>(stream)>>>(sv0, bv, bm, cr,",
-        f"      mo, ev, midi_n, sc, twd, tw_n, samplesblock{ring_args});",
-        "  return static_cast<int>(cudaGetLastError());",
-        "}",
-        "",
         "#else  // a host compiler: the same phases, a file after another",
         "",
-        f'extern "C" int block_section_host({args}{ring_void}) {{',
+        "// nt <= 0: the one-thread form (zb_run); else the phases with nt",
+        "// threads, each block step's shares in ascending t, or descending",
+        "// where desc",
+        f'extern "C" int block_section_host({args}, long long nt, int desc'
+        f'{ring_void}) {{',
         *casts,
         "  for (long long f = 0; f < nf; ++f) {",
         "    double* V = bv + f * ZB_NV;",
@@ -361,7 +411,14 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
         "      const double* tw = twd;",
         "      double* W = sc + f * ZB_SCRATCH;",
         f"      {make_s}",
-        "      zb_run(&S);",
+        "      if (nt <= 0) {",
+        "        zb_run(&S);",
+        "      } else {",
+        "        double zp[ZB_NP];",
+        "        long long zq[ZB_NQ];",
+        "        const ZT team = {0, nt, desc};",
+        "        zb_run_team(&S, team, zp, zq);",
+        "      }",
         "    }",
         f"    zb_view_out(f, 0, 1, V, M, sv{ring_args}, cr, mo);",
         "  }",
@@ -374,15 +431,72 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
     return "\n".join(out)
 
 
+def _team_function(p: BlockSectionProgram) -> List[str]:
+    """zb_run_team: @block's phases (`DeviceSection.phases`), thread 0's
+    code in ZB_SOLO, the block's in ZB_STEPS, then @slider where @block
+    retriggered it, on thread 0."""
+    lines = ["ZB_DEV void zb_run_team(ZB* S, ZT team, double* zp, "
+             "long long* zq) {",
+             "  (void)zp; (void)zq;"]
+    solo: List[str] = []
+    for ph in p.block.phases:
+        solo.append(ph.solo)
+        if ph.kind == "serial":
+            continue
+        lines += [f"  // {ph.label}, across the block",
+                  f"  ZB_SOLO(team, {' '.join(solo)});", f"  {ph.team}"]
+        solo = []
+    if p.slider is not None:
+        a, b, c = p.pend_slots
+        solo.append(
+            f"if (S->V[{a}] + S->V[{b}] + S->V[{c}] != 0.0) {{ "
+            f"{p.slider.fn_name}(S); S->V[{a}] = 0.0; S->V[{b}] = 0.0; "
+            f"S->V[{c}] = 0.0; }}")
+    if solo:
+        lines += ["  // the ordered rest, on thread 0",
+                  f"  ZB_SOLO(team, {' '.join(solo)});"]
+    lines += ["}", ""]
+    if p.probe:
+        # thread 0's share alone, no block work and no barrier: the
+        # ordered code's own time (a probe; the block phases' results are
+        # not made, so the data the ordered code reads differs)
+        solos = [ph.solo for ph in p.block.phases]
+        lines += ["ZB_DEV void zb_run_solo(ZB* S, double* zp, long long* zq) {",
+                  "  (void)zp; (void)zq;", *[f"  {{ {x} }}" for x in solos],
+                  "}", ""]
+    return lines
+
+
+def barriers_a_launch(p: BlockSectionProgram) -> int:
+    """__syncthreads() a file's block passes in one K10 launch, as
+    `zb_kernel` and `_team_function` place them: the exchanges' (3, or 2
+    with the var row in device memory), one after each of thread 0's
+    runs, and each block phase's steps."""
+    n = 3 if p.v_shared else 2
+    solo = False
+    for ph in p.block.phases:
+        solo = True
+        if ph.kind != "serial":
+            n += 1 + ph.steps
+            solo = False
+    return n + int(solo or p.slider is not None)
+
+
 def _probe_kernels(p: BlockSectionProgram, make_s: str, on_chip: List[str],
                    off_chip: List[str]) -> List[str]:
     """Timing probes (chip_smoke.py): the sections alone on one thread,
     `reps` times on file 0's view (its dependent chain with no exchange);
-    and each transform the section calls, alone, at the heap's start.
-    Both keep the var row and workspace where the kernel keeps them."""
+    and each transform the section calls, alone, at the heap's start, on
+    one thread or in its block form.  Both keep the var row and workspace
+    where the kernel keeps them."""
     calls = _fft_calls(p)
-    head = ["  const long long f = 0, t = 0, nt = 1;", *on_chip,
+    head = ["  const long long f = 0, t = threadIdx.x, nt = blockDim.x;",
+            "  unsigned long long* runs = nullptr;", *on_chip,
             "  double* M = bmem;", f"  {make_s}"]
+    cases = []
+    for i, (_label, one, block) in enumerate(calls):
+        cases += [f"      case {2 * i}: if (t == 0) {one}; break;",
+                  f"      case {2 * i + 1}: {block}; break;"]
     out = [
         "__global__ void zb_chain_kernel(double* bvars, double* bmem,",
         "    const double* midi_ev, double midi_n, double* scratch,",
@@ -399,14 +513,47 @@ def _probe_kernels(p: BlockSectionProgram, make_s: str, on_chip: List[str],
         "  const double* midi_ev = nullptr;",
         "  const double midi_n = 0.0, samplesblock = 0.0;",
         *head,
+        "  const ZT team = {t, nt, 0};",
         "  for (long long r = 0; r < reps; ++r) {",
         "    switch (which) {",
-        *[f"      case {i}: {call}; break;"
-          for i, (_label, call) in enumerate(calls)],
+        *cases,
         "      default: break;",
         "    }",
+        "    __syncthreads();",
         "  }",
         *off_chip,
+        "}",
+        "",
+        "__global__ void zb_solo_kernel(double* bvars, double* bmem,",
+        "    const double* midi_ev, double midi_n, double* scratch,",
+        "    const double* tw, long long tw_n, double samplesblock,",
+        "    long long reps) {",
+        *head,
+        "  double zp[ZB_NP];",
+        "  long long zq[ZB_NQ];",
+        "  for (long long r = 0; r < reps; ++r) zb_run_solo(&S, zp, zq);",
+        *off_chip,
+        "}",
+        "",
+        "// what = 0: `reps` dependent f64 adds on one thread; 1: `reps`",
+        "// barriers of a block of ZB_THREADS threads",
+        "__global__ void zb_latency_kernel(double* out, double y, long long reps,",
+        "                                  int what) {",
+        "  double x = out[0];",
+        "  if (what == 1) {",
+        "    for (long long r = 0; r < reps; ++r) __syncthreads();",
+        "  } else if (threadIdx.x == 0) {",
+        "    for (long long r = 0; r < reps; ++r) x = x + y;",
+        "  }",
+        "  if (threadIdx.x == 0) out[0] = x;",
+        "}",
+        "",
+        'extern "C" int block_section_latency(void* out, double y,',
+        "    long long reps, int what, void* stream) {",
+        "  zb_latency_kernel<<<1, what == 1 ? ZB_THREADS : 1, 0,",
+        "                      static_cast<cudaStream_t>(stream)>>>(",
+        "      static_cast<double*>(out), y, reps, what);",
+        "  return static_cast<int>(cudaGetLastError());",
         "}",
         "",
         'extern "C" int block_section_chain(void* bvars, void* bmem,',
@@ -423,13 +570,29 @@ def _probe_kernels(p: BlockSectionProgram, make_s: str, on_chip: List[str],
         "  return static_cast<int>(cudaGetLastError());",
         "}",
         "",
+        'extern "C" int block_section_solo(void* bvars, void* bmem,',
+        "    const void* midi_ev, double midi_n, void* scratch, const void* tw,",
+        "    long long tw_n, double samplesblock, long long reps, void* stream) {",
+        "  if (ZB_SMEM > 48 * 1024)",
+        "    cudaFuncSetAttribute(zb_solo_kernel,",
+        "        cudaFuncAttributeMaxDynamicSharedMemorySize, ZB_SMEM);",
+        "  zb_solo_kernel<<<1, 1, ZB_SMEM, static_cast<cudaStream_t>(stream)>>>(",
+        "      static_cast<double*>(bvars), static_cast<double*>(bmem),",
+        "      static_cast<const double*>(midi_ev), midi_n,",
+        "      static_cast<double*>(scratch), static_cast<const double*>(tw),",
+        "      tw_n, samplesblock, reps);",
+        "  return static_cast<int>(cudaGetLastError());",
+        "}",
+        "",
+        "// which = 2 i: transform i on one thread; 2 i + 1: its block form on",
+        "// ZB_THREADS threads",
         'extern "C" int block_section_fft_probe(void* bvars, void* bmem,',
         "    void* scratch, const void* tw, long long tw_n, int which,",
         "    long long reps, void* stream) {",
         "  if (ZB_SMEM > 48 * 1024)",
         "    cudaFuncSetAttribute(zb_fft_probe_kernel,",
         "        cudaFuncAttributeMaxDynamicSharedMemorySize, ZB_SMEM);",
-        "  zb_fft_probe_kernel<<<1, 1, ZB_SMEM,",
+        "  zb_fft_probe_kernel<<<1, (which & 1) ? ZB_THREADS : 1, ZB_SMEM,",
         "                        static_cast<cudaStream_t>(stream)>>>(",
         "      static_cast<double*>(bvars), static_cast<double*>(bmem),",
         "      static_cast<double*>(scratch), static_cast<const double*>(tw),",
@@ -441,23 +604,25 @@ def _probe_kernels(p: BlockSectionProgram, make_s: str, on_chip: List[str],
     return out
 
 
-def _fft_calls(p: BlockSectionProgram) -> List[Tuple[str, str]]:
-    """The probe's (label, call) pairs: for each complex size n the
-    section's tables serve, fft(n) and fft_real(2n), where the twiddle
-    table and the heap are large enough."""
+def _fft_calls(p: BlockSectionProgram) -> List[Tuple[str, str, str]]:
+    """The probe's (label, one-thread call, block call) triples: for each
+    complex size n the section's tables serve, fft(n) and fft_real(2n),
+    where the twiddle table and the heap are large enough."""
     calls = []
     for n in p.perm_sizes:
         if 2 * n <= p.fft_max and 2 * n <= p.mem_size:
             calls.append((f"fft_real({2 * n})",
-                          f"zb_fft_real(&S, 0.0, {2 * n}, zb_perm_{n})"))
+                          f"zb_fft_real(&S, 0.0, {2 * n}, zb_perm_{n})",
+                          f"zb_blk_fft_real(&S, 0, {2 * n}, zb_perm_{n}, team)"))
         if n <= p.fft_max and 2 * n <= p.mem_size:
-            calls.append((f"fft({n})", f"zb_fft(&S, 0.0, {n}, zb_perm_{n})"))
+            calls.append((f"fft({n})", f"zb_fft(&S, 0.0, {n}, zb_perm_{n})",
+                          f"zb_blk_fft(&S, 0, {n}, zb_perm_{n}, team)"))
     return calls
 
 
 def fft_probe_names(program: BlockSectionProgram) -> List[str]:
     """What each `which` of `block_section_fft_probe` runs."""
-    return [label for label, _call in _fft_calls(program)]
+    return [label for label, _one, _block in _fft_calls(program)]
 
 
 # -- the checks shared by every form ---------------------------------------------
@@ -526,51 +691,129 @@ def block_section(program: BlockSectionProgram, svec: torch.Tensor,
         return ctrl, mout
     if dev.type != "cuda":
         raise ValueError(f"block_section runs on cuda or cpu, not {dev}")
-    ev, n_ev = _midi_args(program, midi)
-    lib = _library(program.source, len(program.regions))
-    tw = program.twiddles_on(dev)
-    scratch = program.scratch_on(dev, nf)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.block_section_launch(
-            svec.data_ptr(), bvars.data_ptr(), bmem.data_ptr(),
-            ctrl.data_ptr(), 0 if mout is None else mout.data_ptr(),
-            0 if ev is None else ev.data_ptr(), n_ev, scratch.data_ptr(),
-            tw.data_ptr(), max(program.fft_max, 2), float(samplesblock), nf,
-            stream, *[r.data_ptr() for r in rings])
-    if err != 0:
-        raise RuntimeError(f"block_section kernel launch failed: cudaError "
-                           f"{err}")
+    _launch(program, "block_section_launch", svec, rings, bvars, bmem,
+            samplesblock, midi, ctrl, mout)
     LAUNCHES += 1
     return ctrl, mout
 
 
+def block_section_earlier(program: BlockSectionProgram, svec, rings, bvars,
+                          bmem, samplesblock: float, midi=None, ctrl=None,
+                          mout=None):
+    """The earlier design of K10, in place as `block_section`: thread 0
+    runs the whole section, the other threads wait at a barrier.  Needs a
+    program made with `probe=True`; chip_smoke.py holds the kernel to it
+    and times the two in turns.  Not a kernel of any path: LAUNCHES and
+    the serial-run counter stay."""
+    if not program.probe:
+        raise ValueError("the earlier design is built with probe=True")
+    nf = _check(program, svec, rings, bvars, bmem)
+    dev = bvars.device
+    if dev.type != "cuda":
+        raise ValueError("block_section_earlier takes CUDA tensors")
+    if ctrl is None:
+        ctrl = torch.empty((nf, len(program.ctrl)), dtype=torch.float64,
+                           device=dev)
+    if mout is None and program.midi_out_cells:
+        mout = torch.empty((nf, program.midi_out_cells), dtype=torch.float64,
+                           device=dev)
+    _launch(program, "block_section_launch_earlier", svec, rings, bvars,
+            bmem, samplesblock, midi, ctrl, mout, count=False)
+    return ctrl, mout
+
+
+def _launch(program, entry: str, svec, rings, bvars, bmem, samplesblock,
+            midi, ctrl, mout, count: bool = True) -> None:
+    dev = bvars.device
+    ev, n_ev = _midi_args(program, midi)
+    lib = _library(program.source, len(program.regions))
+    tw = program.twiddles_on(dev)
+    scratch = program.scratch_on(dev, bvars.shape[0])
+    runs = _serial_counter(dev) if count else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(
+            svec.data_ptr(), bvars.data_ptr(), bmem.data_ptr(),
+            ctrl.data_ptr(), 0 if mout is None else mout.data_ptr(),
+            0 if ev is None else ev.data_ptr(), n_ev, scratch.data_ptr(),
+            tw.data_ptr(), max(program.fft_max, 2), float(samplesblock),
+            bvars.shape[0], 0 if runs is None else runs.data_ptr(), stream,
+            *[r.data_ptr() for r in rings])
+    if err != 0:
+        raise RuntimeError(f"block_section kernel launch failed ({entry}): "
+                           f"cudaError {err}")
+
+
+def _device_key(device) -> str:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+def _serial_counter(device: torch.device) -> torch.Tensor:
+    key = _device_key(device)
+    if key not in SERIAL_RUNS:
+        SERIAL_RUNS[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return SERIAL_RUNS[key]
+
+
+def serial_runs(device) -> int:
+    """Block loops that K10 ran on thread 0 alone on `device` since the
+    counter was made or zeroed (`zero_serial_runs`); reads the device, so
+    it waits for the launches before it."""
+    t = SERIAL_RUNS.get(_device_key(device))
+    return 0 if t is None else int(t.item())
+
+
+def zero_serial_runs() -> None:
+    """Set every device's serial-run counter to 0."""
+    for t in SERIAL_RUNS.values():
+        t.zero_()
+
+
+# svec, bvars, bmem, ctrl, mout, midi_ev; midi_n; scratch, tw; tw_n;
+# samplesblock; nf; serial_runs
 _HEAD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p,
                                       ctypes.c_void_p, ctypes.c_longlong,
-                                      ctypes.c_double, ctypes.c_longlong]
+                                      ctypes.c_double, ctypes.c_longlong,
+                                      ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
 def _library(source: str, n_rings: int) -> ctypes.CDLL:
     lib = _build.load_generated(source)
-    lib.block_section_launch.argtypes = _HEAD_ARGS + [ctypes.c_void_p] * (
-        1 + n_rings)
-    lib.block_section_launch.restype = ctypes.c_int
+    entries = [lib.block_section_launch]
+    if "block_section_launch_earlier" in source:
+        entries.append(lib.block_section_launch_earlier)
+    for fn in entries:
+        fn.argtypes = _HEAD_ARGS + [ctypes.c_void_p] * (1 + n_rings)
+        fn.restype = ctypes.c_int
     return lib
 
 
 def block_section_host(program: BlockSectionProgram, svec, rings, bvars,
-                       bmem, samplesblock: float, midi=None):
+                       bmem, samplesblock: float, midi=None,
+                       threads: int = 0, descending: bool = False):
     """The generated source compiled for the CPU with a host C++ compiler
-    (its host form), on CPU tensors, in place as `block_section`.  Shows
-    without a GPU that the printed sections and exchanges repeat
-    `block_section_plain`; no render path calls it, and it leaves
-    LAUNCHES alone."""
+    (its host form), on CPU tensors, in place as `block_section`.  With
+    `threads` = 0 it runs the one-thread form (`zb_run`, the earlier
+    design's); else the kernel's phases with that many threads, each block
+    step running the threads' shares one after another, in ascending t or,
+    where `descending`, in descending t.  Shows without a GPU that the
+    printed sections, their phases and exchanges repeat
+    `block_section_plain` and each other; no render path calls it, and it
+    leaves LAUNCHES alone.  Returns (ctrl, mout or None, block loops run
+    on thread 0)."""
     nf = _check(program, svec, rings, bvars, bmem)
     if bvars.device.type != "cpu":
         raise ValueError("block_section_host takes CPU tensors")
+    if isinstance(threads, bool) or not isinstance(threads, int) \
+            or threads < 0:
+        raise ValueError(f"threads must be an int >= 0, got {threads!r}")
     fn = _build.load_generated_host(program.source).block_section_host
-    fn.argtypes = _HEAD_ARGS + [ctypes.c_void_p] * len(program.regions)
+    fn.argtypes = _HEAD_ARGS + [ctypes.c_longlong, ctypes.c_int] + [
+        ctypes.c_void_p] * len(program.regions)
     fn.restype = ctypes.c_int
     ctrl = torch.empty((nf, len(program.ctrl)), dtype=torch.float64)
     mout = torch.empty((nf, max(program.midi_out_cells, 1)),
@@ -579,31 +822,38 @@ def block_section_host(program: BlockSectionProgram, svec, rings, bvars,
     ev = None if ev is None else ev.contiguous()
     scratch = torch.zeros((nf, program.scratch_cells), dtype=torch.float64)
     tw = torch.from_numpy(program.twiddles.copy())
+    runs = torch.zeros(1, dtype=torch.int64)
     fn(svec.data_ptr(), bvars.data_ptr(), bmem.data_ptr(), ctrl.data_ptr(),
        mout.data_ptr(), 0 if ev is None else ev.data_ptr(), n_ev,
        scratch.data_ptr(), tw.data_ptr(), max(program.fft_max, 2),
-       float(samplesblock), nf, *[r.data_ptr() for r in rings])
-    return ctrl, (mout if program.midi_out_cells else None)
+       float(samplesblock), nf, runs.data_ptr(), threads, int(descending),
+       *[r.data_ptr() for r in rings])
+    return ctrl, (mout if program.midi_out_cells else None), int(runs)
 
 
 def block_section_chain_probe(program: BlockSectionProgram, bvars, bmem,
-                              samplesblock: float, reps: int, midi=None):
+                              samplesblock: float, reps: int, midi=None,
+                              ordered_only: bool = False):
     """Timing probe (chip_smoke.py): the sections alone on one thread,
     `reps` times on file 0's view, which they change.  Its time a rep is
-    the section's dependent chain with no exchange.  Needs a program made
-    with `probe=True`; not a kernel of any path, so LAUNCHES stays."""
+    the section's dependent chain with no exchange.  Where `ordered_only`,
+    thread 0's share of the phases alone (no block phase runs): the
+    ordered code's time.  Needs a program made with `probe=True`; not a
+    kernel of any path, so LAUNCHES stays."""
     if not program.probe or bvars.device.type != "cuda":
         raise ValueError("a probe program and CUDA tensors are needed")
     lib = _library(program.source, len(program.regions))
-    lib.block_section_chain.argtypes = [ctypes.c_void_p] * 3 + [
+    entry = lib.block_section_solo if ordered_only else \
+        lib.block_section_chain
+    entry.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_double, ctypes.c_longlong,
         ctypes.c_void_p]
-    lib.block_section_chain.restype = ctypes.c_int
+    entry.restype = ctypes.c_int
     ev, n_ev = _midi_args(program, midi)
     dev = bvars.device
     with torch.cuda.device(dev):
-        err = lib.block_section_chain(
+        err = entry(
             bvars.data_ptr(), bmem.data_ptr(),
             0 if ev is None else ev.data_ptr(), n_ev,
             program.scratch_on(dev, 1).data_ptr(),
@@ -615,10 +865,11 @@ def block_section_chain_probe(program: BlockSectionProgram, bvars, bmem,
 
 
 def block_section_fft_probe(program: BlockSectionProgram, bvars, bmem,
-                            which: int, reps: int):
+                            which: int, reps: int, block: bool = False):
     """Timing probe (chip_smoke.py): transform `which` of
-    `fft_probe_names(program)` alone on one thread, `reps` times, on the
-    start of file 0's heap (which it overwrites)."""
+    `fft_probe_names(program)` alone, `reps` times, on the start of file
+    0's heap (which it overwrites): on one thread, or where `block` in its
+    block form on the build's threads."""
     if not program.probe or bmem.device.type != "cuda":
         raise ValueError("a probe program and CUDA tensors are needed")
     lib = _library(program.source, len(program.regions))
@@ -631,9 +882,32 @@ def block_section_fft_probe(program: BlockSectionProgram, bvars, bmem,
             bvars.data_ptr(), bmem.data_ptr(),
             program.scratch_on(dev, 1).data_ptr(),
             program.twiddles_on(dev).data_ptr(), max(program.fft_max, 2),
-            int(which), int(reps), torch.cuda.current_stream(dev).cuda_stream)
+            2 * int(which) + int(bool(block)), int(reps),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_section FFT probe failed: cudaError {err}")
+
+
+def block_section_latency_probe(program: BlockSectionProgram, out,
+                                reps: int, barriers: bool = False):
+    """Timing probe (chip_smoke.py): `reps` dependent f64 adds on one
+    thread into out[0] (a CUDA f64 tensor), or, where `barriers`, `reps`
+    barriers of a block of the build's threads.  Its time a rep is the
+    latency the ordered chain and the phases' barriers pay."""
+    if not program.probe or out.device.type != "cuda":
+        raise ValueError("a probe program and a CUDA tensor are needed")
+    lib = _library(program.source, len(program.regions))
+    lib.block_section_latency.argtypes = [
+        ctypes.c_void_p, ctypes.c_double, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.block_section_latency.restype = ctypes.c_int
+    with torch.cuda.device(out.device):
+        err = lib.block_section_latency(
+            out.data_ptr(), 1.0e-9, int(reps), int(bool(barriers)),
+            torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block_section latency probe failed: cudaError "
+                           f"{err}")
 
 
 # -- the plain version -------------------------------------------------------------

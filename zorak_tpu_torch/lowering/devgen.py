@@ -27,15 +27,36 @@ What the section may not use raises DevgenError naming the work that
 brings it; the specializer turns that into a SpecializeError, and the
 engine renders the plugin through the golden.  `kernels/block_section.py`
 wraps the printed sections into K10.
+
+A section prints twice.  `body_source` is one function for one thread
+(`zb_section_<name>`).  `phases` splits the top-level statements, in
+source order, into what thread 0 runs alone and what a file's whole CUDA
+block runs between barriers:
+
+* a static FFT call (`fft` ... `fft_ipermute`, `convolve_c`): thread 0
+  evaluates its arguments and decides its region, then every thread runs
+  the transform's block form;
+* a `loop(n, ...; iv += 1)` whose body is assignments and passes
+  `_BlockLoop`'s checks: every thread runs a strided share of the
+  iterations where thread 0 finds, on this run's values, that no two
+  iterations touch one heap cell; else thread 0 runs the loop itself
+  (and counts it);
+* everything else, a serial phase on thread 0.
+
+Either way the arithmetic of every FFT butterfly and every iteration is
+the same, so both forms give the same bits.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Set
+from dataclasses import fields
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence, Set,
+                    Tuple)
 
 import numpy as np
 
 from ..frontend.astnodes import (
-    Asn, Bin, CallExpr, Const, Mem, Name, Node, Str, Un, walk,
+    Asn, Bin, Block, CallExpr, Cond, Const, LoopExpr, Mem, Name, Node, Str,
+    Un, walk,
 )
 from ..ir.program import PluginProgram
 from ..ir.symbols import dollar_const
@@ -156,9 +177,12 @@ class _SectionC(_CGen):
     evaluated in the golden's order (left to right, an assignment's value
     before its target), which C leaves unspecified."""
 
-    def __init__(self, dev: "DeviceSection", params: Sequence[str] = ()):
+    def __init__(self, dev: "DeviceSection", params: Sequence[str] = (),
+                 local: Optional[Dict[Any, str]] = None):
         super().__init__(dev.P, params)
         self.dev = dev
+        # var keys a block loop keeps in a thread's own C variables
+        self.local = local or {}
 
     def tmp(self) -> str:
         self.dev._ntmp += 1
@@ -190,6 +214,8 @@ class _SectionC(_CGen):
         if c is not None:
             return c_double(c)
         key = _env_key(ident)
+        if key in self.local:
+            return self.local[key]
         if key == ("builtin", "samplesblock"):
             return "S->samplesblock"
         slot = self.dev.slots.get(key)
@@ -203,6 +229,8 @@ class _SectionC(_CGen):
         if ident in ("mem", "gmem") or dollar_const(ident) is not None:
             raise DevgenError(f"cannot assign to {ident}")
         key = _env_key(ident)
+        if key in self.local:
+            return self.local[key]
         slot = self.dev.slots.get(key)
         if slot is None:
             raise DevgenError(f"write to unclassified state {key!r}")
@@ -402,18 +430,23 @@ class _SectionC(_CGen):
             raise DevgenError(f"{fn} with non-static size")
         return FO._round_index(v)
 
-    def _fft(self, fn: str, A: Sequence[Node]) -> str:
-        n = self._size(fn, A[1])
-        dest = self.ex(A[0])
-        if not FO._pow2_ok(n):
-            return f"((void)({dest}), 0.0)"   # the WDL guard: a no-op
+    def _fft_sizes(self, fn: str, n: int) -> int:
+        """Note a transform of size n (its permutation table, twiddles and
+        workspace); returns the size of its permutation table."""
         dev = self.dev
         complex_n = n // 2 if fn in ("fft_real", "ifft_real") else n
         dev._perm_sizes.add(complex_n)
         if fn != "fft_permute" and fn != "fft_ipermute":
             dev.fft_max = max(dev.fft_max, n)
         dev.scratch_cells = max(dev.scratch_cells, 2 * n)
-        perm = f"zb_perm_{complex_n}"
+        return complex_n
+
+    def _fft(self, fn: str, A: Sequence[Node]) -> str:
+        n = self._size(fn, A[1])
+        dest = self.ex(A[0])
+        if not FO._pow2_ok(n):
+            return f"((void)({dest}), 0.0)"   # the WDL guard: a no-op
+        perm = f"zb_perm_{self._fft_sizes(fn, n)}"
         if fn in ("fft_permute", "fft_ipermute"):
             flag = "true" if fn == "fft_ipermute" else "false"
             return f"zb_fft_permute(S, {dest}, {n}, {perm}, {flag})"
@@ -459,6 +492,273 @@ class _SectionC(_CGen):
                 f"{slot['auto']}], {m}); }})")
 
 
+class Phase(NamedTuple):
+    """One phase of a section.  `solo` is thread 0's C: a run of serial
+    statements, or what a block phase needs first (its arguments, its
+    region, its run-time checks).  `team` is what every thread of the
+    file's block then runs ("" for a serial phase), `steps` the barriers
+    it passes."""
+    kind: str     # "serial", "loop" or "fft"
+    label: str
+    solo: str
+    team: str
+    steps: int = 0
+
+
+class _KeepSerial(Exception):
+    """Why a top-level loop stays on thread 0."""
+
+
+# a write's offset c and a read's mask M stay below 2^31: the cells
+# base + iv + c stay exact integers, and z_and's int32 of M is M itself
+_EXACT_OFFSET = float(1 << 31)
+
+
+def _shape(n) -> Any:
+    """A node's structure without positions: equal shapes print equal C
+    and, where pure, give equal values."""
+    if isinstance(n, Name):
+        return ("Name", _env_key(n.ident))
+    if isinstance(n, Node):
+        return (type(n).__name__,) + tuple(
+            _shape(getattr(n, f.name)) for f in fields(n)
+            if f.name not in ("pos", "nid"))
+    if isinstance(n, list):
+        return tuple(_shape(x) for x in n)
+    return n
+
+
+def _unit_increment(st: Node) -> Optional[str]:
+    """`i += 1` / `i = i + 1` / `i = 1 + i` -> 'i' (the reference's
+    `_match_unit_increment`)."""
+    if not (isinstance(st, Asn) and isinstance(st.target, Name)):
+        return None
+    iv = st.target.ident
+    one = lambda n: isinstance(n, Const) and n.value == 1.0  # noqa: E731
+    mine = lambda n: isinstance(n, Name) and n.ident == iv  # noqa: E731
+    if st.op == "+=" and one(st.value):
+        return iv
+    if st.op == "=" and isinstance(st.value, Bin) and st.value.op == "+" \
+            and ((mine(st.value.lhs) and one(st.value.rhs))
+                 or (one(st.value.lhs) and mine(st.value.rhs))):
+        return iv
+    return None
+
+
+class _BlockLoop:
+    """A top-level `loop(count, body)` run across the block.
+
+    Print-time checks (else _KeepSerial): the body is assignments ending in
+    `iv += 1`, the only assignment of iv; every other name it assigns is
+    written before it is read in an iteration (a thread's own temporary,
+    stored by the thread that runs the last iteration); no call with an
+    effect, no nested loop, block or `&&`/`||`; every heap write is
+    `base[iv + c]` with a loop-invariant base and an integer c, one c a
+    base; every heap read is a cell some write of the same iteration
+    writes, or has cells thread 0 can bound on the run's values: `C[iv +
+    c]` over the trip, `C[e & M]` in [C, C + M] for a constant M >= 0, a
+    loop-invariant address.  Thread 0 then checks the run's values (see
+    `solo`) and runs the loop itself where they fail."""
+
+    def __init__(self, dev: "DeviceSection", g: "_SectionC", loop: LoopExpr):
+        self.dev, self.g, self.loop = dev, g, loop
+        body = loop.body.items if isinstance(loop.body, Block) \
+            else [loop.body]
+        iv = _unit_increment(body[-1]) if body else None
+        if iv is None:
+            raise _KeepSerial("the body does not end in iv += 1")
+        if not all(isinstance(it, Asn) for it in body):
+            raise _KeepSerial("a statement of the body is no assignment")
+        self.items = body
+        self.iv = _env_key(iv)
+        if self.iv not in dev.slots:
+            raise _KeepSerial(f"the induction {iv} has no var slot")
+        temps: List[Any] = []
+        for it in body[:-1]:
+            if isinstance(it.target, Name):
+                key = _env_key(it.target.ident)
+                if key == self.iv:
+                    raise _KeepSerial(f"{iv} is assigned in the body")
+                if key not in temps:
+                    temps.append(key)
+            elif not isinstance(it.target, Mem):
+                raise _KeepSerial("an assignment to slider() or spl()")
+        self.temps = temps
+        self.changing = set(temps) | {self.iv}
+        for it in body:
+            self._pure(it.value)
+            self._pure(it.target)
+        self._temps_written_first()
+        # heap writes: (base shape, c) -> (base, c)
+        self.writes: Dict[Tuple[Any, int], Tuple[Node, int]] = {}
+        for it in body[:-1]:
+            if isinstance(it.target, Mem):
+                self._write(it.target)
+        self.reads: List[Tuple[str, Node, Any]] = []   # (form, base, extra)
+        for it in body:
+            for part in (it.value, it.target):
+                for m in walk(part):
+                    if isinstance(m, Mem) and m is not it.target:
+                        self._read(m)
+
+    # -- print-time checks -------------------------------------------------------
+
+    def _pure(self, node: Node) -> None:
+        for n in walk(node):
+            if isinstance(n, Asn):
+                raise _KeepSerial("an assignment inside an expression")
+            if isinstance(n, CallExpr) and (n.func not in _PURE_CALLS
+                                            or n.func in self.dev.P.fn_defs):
+                raise _KeepSerial(f"a call with an effect: {n.func}()")
+            if not isinstance(n, (Asn, Bin, CallExpr, Cond, Const, Mem, Name,
+                                  Str, Un)):
+                raise _KeepSerial(f"a nested {type(n).__name__}")
+            if isinstance(n, Bin) and n.op in ("&&", "||"):
+                raise _KeepSerial(f"a short-circuit {n.op}")
+            if isinstance(n, Mem) and self.g._is_gmem(n):
+                raise _KeepSerial("gmem")
+
+    def _temps_written_first(self) -> None:
+        written: Set[Any] = set()
+        for it in self.items[:-1]:
+            parts = [it.value] + ([it.target] if isinstance(it.target, Mem)
+                                  or it.op != "=" else [])
+            for part in parts:
+                for n in walk(part):
+                    if isinstance(n, Name) and _env_key(n.ident) in \
+                            self.temps and _env_key(n.ident) not in written:
+                        raise _KeepSerial(f"{n.ident} is read before it is "
+                                          "written in an iteration")
+            if isinstance(it.target, Name):
+                written.add(_env_key(it.target.ident))
+
+    def _invariant(self, node: Node) -> bool:
+        return not any(isinstance(n, Mem) or (
+            isinstance(n, Name) and _env_key(n.ident) in self.changing)
+            for n in walk(node))
+
+    def _offset(self, idx: Node) -> Optional[int]:
+        """c where idx is iv, iv + c, c + iv or iv - c with c an integer
+        constant; else None."""
+        def is_iv(n):
+            return isinstance(n, Name) and _env_key(n.ident) == self.iv
+
+        if is_iv(idx):
+            return 0
+        if not isinstance(idx, Bin) or idx.op not in ("+", "-"):
+            return None
+        if is_iv(idx.lhs):
+            k, sign = idx.rhs, (1 if idx.op == "+" else -1)
+        elif is_iv(idx.rhs) and idx.op == "+":
+            k, sign = idx.lhs, 1
+        else:
+            return None
+        c = self.g.fold(k)
+        if c is None or c != np.floor(c) or abs(c) >= _EXACT_OFFSET:
+            return None
+        return sign * int(c)
+
+    def _write(self, m: Mem) -> None:
+        c = self._offset(m.index)
+        if c is None or not self._invariant(m.base):
+            raise _KeepSerial("a heap write that is not base[iv + c] with "
+                              "a loop-invariant base")
+        shape = _shape(m.base)
+        if any(s == shape and k != c for s, k in self.writes):
+            raise _KeepSerial("writes to one base at two offsets")
+        self.writes[(shape, c)] = (m.base, c)
+
+    def _read(self, m: Mem) -> None:
+        g = self.g
+        if g.static_addr(m.base, m.index) is not None:
+            self.reads.append(("cell", m.base, m.index))
+            return
+        if not self._invariant(m.base):
+            raise _KeepSerial("a heap read with a base the loop changes")
+        c = self._offset(m.index)
+        if c is not None:
+            shape = _shape(m.base)
+            if (shape, c) in self.writes:
+                return              # the cell a write of this iteration writes
+            if any(s == shape for s, _k in self.writes):
+                raise _KeepSerial("a read of another iteration's cell "
+                                  "(base[iv + c] beside a write at another c)")
+            self.reads.append(("trip", m.base, m.index))
+            return
+        ix = m.index
+        if isinstance(ix, Bin) and ix.op == "&":
+            for k in (ix.rhs, ix.lhs):
+                v = g.fold(k)
+                if v is not None and v == np.floor(v) and \
+                        0 <= v < _EXACT_OFFSET:
+                    self.reads.append(("mask", m.base, v))
+                    return
+        if self._invariant(ix):
+            self.reads.append(("cell", m.base, m.index))
+            return
+        raise _KeepSerial("a heap read whose cells cannot be bounded")
+
+    # -- the C ---------------------------------------------------------------------
+
+    def phase(self) -> Phase:
+        dev, g = self.dev, self.g
+        q, p = dev._publish(2), dev._publish_double(1)
+        names = {self.iv: "zi"}
+        names.update({k: f"zl{j}" for j, k in enumerate(self.temps)})
+        gl = _SectionC(dev, local=names)
+        spans = len(self.writes) + len(self.reads)
+        checks = []
+        for j, (base, c) in enumerate(self.writes.values()):
+            checks.append(f"zok = zok && zb_unit_span(S, ({g.ex(base)}), zs, "
+                          f"{c_double(float(c))}, zn, &zlo[{j}], &zhi[{j}]);")
+        for j, (form, base, extra) in enumerate(self.reads, len(self.writes)):
+            at = f"&zlo[{j}], &zhi[{j}]"
+            if form == "trip":
+                ix = gl.ex(extra)
+                checks.append(
+                    f"zok = zok && ({{ double zi = zs; const double za = "
+                    f"({ix}); zi = zs + (double)(zn - 1); const double zb = "
+                    f"({ix}); zb_read_span(S, ({g.ex(base)}), za, zb, {at}); "
+                    "});")
+            elif form == "mask":
+                checks.append(f"zok = zok && zb_read_span(S, ({g.ex(base)}), "
+                              f"0.0, {c_double(extra)}, {at});")
+            else:
+                a = g.static_addr(base, extra)
+                cell = str(a) if a is not None else \
+                    f"zb_addr(S, ({g.ex(base)}), ({g.ex(extra)}))"
+                checks.append(f"zlo[{j}] = zhi[{j}] = {cell};")
+        nw = len(self.writes)
+        for a in range(nw):
+            for b in range(a + 1, spans):
+                checks.append(f"zok = zok && zb_apart(zlo[{a}], zhi[{a}], "
+                              f"zlo[{b}], zhi[{b}]);")
+        slot = dev.slots[self.iv]
+        spans_c = (f"long long zlo[{spans}], zhi[{spans}]; "
+                   f"if (zok && zn > 0) {{ {' '.join(checks)} }} "
+                   if spans else "")
+        solo = (
+            f"{{ const long long zn = zt_i64({g.ex(self.loop.count)}); "
+            f"const double zs = S->V[{slot}]; bool zok = zb_trip_ok(zs, zn); "
+            f"{spans_c}"
+            f"zq[{q}] = zn; zq[{q + 1}] = zok ? 1 : 0; zp[{p}] = zs; "
+            f"if (!zok) {{ zb_count_serial(S); "
+            f"for (long long zk = 0; zk < zn; ++zk) "
+            f"{{ (void)({g.ex(self.loop.body)}); }} }} }}")
+        decl = "".join(f" double {nm} = 0.0;" for k, nm in names.items()
+                       if k != self.iv)
+        body = " ".join(f"(void)({gl.ex(it)});" for it in self.items)
+        stores = " ".join(f"S->V[{dev.slots[k]}] = {nm};"
+                          for k, nm in names.items())
+        team = (
+            f"ZB_STEPS(team, if (zq[{q + 1}]) {{ const long long zn = "
+            f"zq[{q}]; const double zs = zp[{p}]; "
+            "for (long long zk = t; zk < zn; zk += nt) { "
+            f"double zi = zk == 0 ? zs : zs + (double)zk;{decl} {body} "
+            f"if (zk == zn - 1) {{ {stores} }} }} }});")
+        return Phase("loop", f"loop over {self.iv[1]}", solo, team, 1)
+
+
 class DeviceSection:
     """One EEL2 section printed as a device function over (vars, mem)."""
 
@@ -495,6 +795,13 @@ class DeviceSection:
         g = _SectionC(self)
         stmts = " ".join(g.stmt(s) for s in self.body)
         self.body_source = f"ZB_DEV void {self.fn_name}(ZB* S) {{ {stmts} }}"
+        # the phases: what thread 0 shares with the block (`zq` integers,
+        # `zp` doubles, in shared memory on the card), and why each
+        # top-level loop that stays serial does
+        self.n_pub = 0
+        self.n_pub_double = 0
+        self.serial_loops: List[str] = []
+        self.phases = self._print_phases()
         self.functions = self._print_functions()
 
         # the MIDI out table rides the heap tail: [count | CAP rows of 4]
@@ -502,6 +809,78 @@ class DeviceSection:
         self.midi_out_cells = (1 + MIDI_OUT_CAP * 4) \
             if self.uses_midi_out else 0
         self.total_mem = self.mem_size + self.midi_out_cells
+
+    def _publish(self, k: int) -> int:
+        self.n_pub += k
+        return self.n_pub - k
+
+    def _publish_double(self, k: int) -> int:
+        self.n_pub_double += k
+        return self.n_pub_double - k
+
+    def _print_phases(self) -> List[Phase]:
+        """The top-level statements as phases, in source order: runs of
+        serial statements, block FFTs and block loops."""
+        g = _SectionC(self)
+        phases: List[Phase] = []
+        run: List[str] = []
+
+        def serial() -> None:
+            if run:
+                phases.append(Phase("serial", f"{len(run)} statements",
+                                    " ".join(run), ""))
+                run.clear()
+        for s in self.body:
+            ph = self._fft_phase(g, s)
+            if ph is None and isinstance(s, LoopExpr):
+                try:
+                    ph = _BlockLoop(self, g, s).phase()
+                except _KeepSerial as why:
+                    self.serial_loops.append(f"loop at line {s.pos[0]}: {why}")
+            if ph is None:
+                run.append(g.stmt(s))
+                continue
+            serial()
+            phases.append(ph)
+        serial()
+        return phases
+
+    def _fft_phase(self, g: _SectionC, s: Node) -> Optional[Phase]:
+        """A top-level static FFT call as a block phase: thread 0 evaluates
+        the arguments and decides the region (-1: the no-op), then every
+        thread runs the block form."""
+        if not isinstance(s, CallExpr) or s.func in self.P.fn_defs:
+            return None
+        fn, A = s.func, s.args
+        if fn in _FFT_FNS and len(A) == 2:
+            n = g._size(fn, A[1])
+            if not FO._pow2_ok(n):
+                return None
+            perm = f"zb_perm_{g._fft_sizes(fn, n)}"
+            span = n if fn in ("fft_real", "ifft_real") else 2 * n
+            q = self._publish(1)
+            solo = f"zq[{q}] = zb_fft_region(S, ({g.ex(A[0])}), {span});"
+            if fn in ("fft_permute", "fft_ipermute"):
+                flag = "true" if fn == "fft_ipermute" else "false"
+                team = (f"zb_blk_fft_permute(S, zq[{q}], {n}, {perm}, {flag}, "
+                        "team);")
+                steps = 2                         # gather, copy back
+            else:
+                team = f"zb_blk_{fn}(S, zq[{q}], {n}, {perm}, team);"
+                steps = n.bit_length() + 1        # load, log2(n) stages, store
+            return Phase("fft", f"{fn}({n})", solo, team, steps)
+        if fn == "convolve_c" and len(A) == 3:
+            n = g._size(fn, A[2])
+            if n <= 0 or n > FO.PAGE_DOUBLES // 2:
+                return None
+            self.scratch_cells = max(self.scratch_cells, 2 * n)
+            q = self._publish(2)
+            solo = (f"{{ const double zd = ({g.ex(A[0])}); const double zs = "
+                    f"({g.ex(A[1])}); zq[{q}] = zb_fft_region(S, zd, {2 * n}); "
+                    f"zq[{q + 1}] = zb_fft_region(S, zs, {2 * n}); }}")
+            team = f"zb_blk_convolve_c(S, zq[{q}], zq[{q + 1}], {n}, team);"
+            return Phase("fft", f"convolve_c({n})", solo, team, 2)
+        return None
 
     def _print_functions(self) -> Dict[str, str]:
         """{C name: definition} of every user function the body reaches."""
