@@ -7,11 +7,12 @@
     python3 chip_smoke.py --phases batch     # the batch phases alone
     python3 chip_smoke.py --phases spectral  # the spectral phase alone
     python3 chip_smoke.py --phases coupled   # the coupled @block alone
+    python3 chip_smoke.py --phases gated,hop # the gated and hop regimes
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result (`--phases` takes any of `jsfx`, `batch`,
-`spectral`, `coupled` and `faust`, all five by default; device and build
-always run; `k4sweep` is described at the end):
+`spectral`, `coupled`, `gated`, `hop` and `faust`, all seven by default;
+device and build always run; `k4sweep` is described at the end):
 
 1. device   the card's name and power limit (nvidia-smi);
 2. build    every CUDA kernel of the paths, from csrc/ in this checkout,
@@ -137,7 +138,7 @@ always run; `k4sweep` is described at the end):
             PluginInstance.render on 60 s of stereo: engine torch-vector,
             K10 and K3 launched once a block, K2 a fixed number of times a
             block, no block loop run on thread 0 (K10's counter), the time
-            with the spread of four more renders, the whole render (audio,
+            with the spread of two more renders, the whole render (audio,
             vars and heap after the writeback) held to the native golden,
             the golden's own time; on the inputs K10 met at the first and
             the middle block of 60 s renders of 1 and of 8 files, K10
@@ -154,6 +155,31 @@ always run; `k4sweep` is described at the end):
             K10's share of a traced 10 s render; a batch of 8 files x 60 s
             beside one file's time, and each file of an 8-file batch of
             10 s torch.equal to its solo render;
+4d. gated   builtin_plugins' gated_fdn_tank(8, 8192) (eight rings whose
+            shared cursor advances only where the input level passes a
+            threshold, taps 1,500 to 4,000 cells behind it, one of them
+            from the control, a one-pole in the gate's branch, a gated
+            rand() dither) through PluginInstance.render on 60 s of
+            stereo: engine torch-vector, the segment length the plan cut
+            (1,024) and the segments, K2's launches, the whole render
+            (audio, vars and heap) held to the native golden, its first
+            second to the port's CPU render, a traced 2 s render with
+            K6's share (the prefix sums, gathers and scatters, plain
+            torch) of the busy device time; the masked-loop ladder on
+            10 s of stereo from a guessed bound of 2 (the rebuilds
+            counted, the render held to the native golden); 8 files of
+            2 s through BatchRenderer, each torch.equal to its solo
+            render;
+4e. hop     builtin_plugins' hop_convolver(1024, 8) (a partitioned
+            convolver whose FFT work fires every 1,024 samples from
+            inside @sample) through PluginInstance.render on 60 s of
+            stereo: engine torch-vector, K10 launched once a hop, the
+            render held to the native golden; K10 on the hop section at
+            the first and the middle hop against its plain version (the
+            scalars and vars bit for bit, heap and rings within
+            FFT_TOL_REL), its time a hop by CUDA events beside its bound;
+            8 files of 2 s through BatchRenderer, each torch.equal to its
+            solo render;
 5. kernels (faust)  the switching scan (K1) must be bit-identical
             (integer views equal), in f64 and f32: at modest shapes, at
             the batch and main paths' shapes (its one-chunk case too),
@@ -183,7 +209,9 @@ bound of T steps in one thread, `chunk_chain_ms`, that of the chunked
 scan's warmup + chunk steps, `earlier_ms`, the one-chunk time, the
 worst case, and the program-like render's re-run steps; K2, K3 and K4
 carry `launches_batched`, their launches in the batch phase's render of 8
-files) and, last, the device JSON line.  Each phase prints the seconds
+files, K2 `launches_gated`, its launches in the gated render, and K10 the
+hop section's `hop_ms`, `hop_launches` and the rest) and, last, the
+device JSON line.  Each phase prints the seconds
 it took.
 
     python3 chip_smoke.py --phases k4sweep
@@ -390,17 +418,24 @@ def scan_bound_ms(n_t: int, lanes: int, dtype: str):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def device_kernels(events):
+    """The device events of a trace that are kernels or copies: not the
+    device side of a `record_function` range."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("zorak.")]
+
+
 def profile_render(render, label: str, segments: int = 0, traces: int = 3):
     """Device busy time, idle share and top kernels of one render, from
     the fullest of `traces` torch.profiler traces of the kernels it ran
     (a trace can miss a few of a render's launches); returns the device
     events a segment (None where the trace holds none or `segments` is 0)
     and (launches, device us) in the trace by kernel name."""
-    from torch.autograd import DeviceType
-
-    kernels = max(([e for e in traced(render)
-                    if e.device_type == DeviceType.CUDA]
-                   for _ in range(traces)), key=len)
+    kernels = max((device_kernels(traced(render)) for _ in range(traces)),
+                  key=len)
     if not kernels:
         print("[profile] the trace holds no device events: busy time and "
               "idle share not measured")
@@ -1816,11 +1851,7 @@ def coupled_phase(torch, cuda, rng, card):
     from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
     from zorak_tpu_torch.parallel import BatchRenderer
     from zorak_tpu_torch.runtime.engine import PluginInstance
-    from zorak_tpu_torch.shadow import compile_native_shadow
-    from zorak_tpu_torch.verify import (AUDIO_EPS, SCALAR_EPS,
-                                        apply_slider_state, compare_audio)
-    from zorak_tpu_torch.verify.nulltest import (compare_memory_pages,
-                                                 compare_states)
+    from zorak_tpu_torch.verify import AUDIO_EPS, SCALAR_EPS
 
     sec = MAIN_T / SR
     n_fft = COUPLED_FFT
@@ -1983,7 +2014,7 @@ def coupled_phase(torch, cuda, rng, card):
           f"coupled: launches {launches} for {blocks} blocks")
     check(serial == 0, f"coupled: K10 ran the window loop on thread 0 "
           f"{serial} times")
-    more_ms = sorted(cuda_ms(lambda: inst.render(x)) for _ in range(4))
+    more_ms = sorted(cuda_ms(lambda: inst.render(x)) for _ in range(2))
     y = res.audio
     check(y.shape == (2, MAIN_T) and bool(np.isfinite(y).all()),
           "coupled: output not finite or of the wrong shape")
@@ -1992,24 +2023,12 @@ def coupled_phase(torch, cuda, rng, card):
           f"audio_s_per_s={sec / (ms / 1e3):.2f} launches={launches} "
           f"blocks={blocks} ({launches['linrec_scan'] // blocks} K2 a block)"
           f" block loops on thread 0: {serial}; warm-up render (builds "
-          f"included) {warm_s:.2f} s; four more renders "
+          f"included) {warm_s:.2f} s; two more renders "
           f"{' '.join(f'{m:.2f}' for m in more_ms)} ms card='{card}'")
 
     # the native golden on the same 60 s, timed alone; the render above
     # (the instance's audio and its state after the writeback) held to it
-    gold = compile_native_shadow(prog)
-    gold.state.srate = SR
-    apply_slider_state(gold.state, prog, None)
-    gold.run_init()
-    gold.run_slider()
-    y_gold = np.zeros_like(x)
-    t0 = time.perf_counter()
-    for start in range(0, MAIN_T, B):
-        gold.process_block(x[:, start:start + B], y_gold[:, start:start + B])
-    gold_s = time.perf_counter() - t0
-    rep = compare_audio(y_gold, y)
-    compare_states(gold.state, inst.shadow.state, report=rep)
-    compare_memory_pages(gold.state, inst.shadow.state, report=rep)
+    rep, gold_s = held_to_native_golden(prog, x, y, inst.shadow.state, B)
     print(f"[main] coupled whole 60 s, PluginInstance.render on the card vs "
           f"the native golden (audio {AUDIO_EPS}, vars and heap "
           f"{SCALAR_EPS}): {rep.summary()}; the golden alone "
@@ -2169,6 +2188,393 @@ def coupled_phase(torch, cuda, rng, card):
         "launches_linrec_scan": launches["linrec_scan"],
         "launches_ring_tap_sum": launches["ring_tap_sum"],
     }
+
+
+GATED_LINES, GATED_BUF = 8, 8192   # builtin_plugins.gated_fdn_tank
+HOP_PART, HOP_PARTS = 1024, 8       # builtin_plugins.hop_convolver
+# guessed loop(n) bounds: @block's count runs 3 to 9, the guess starts at 2
+LADDER_SRC = ("@block\nr = r + 1; r > 9 ? r = 3;\n@sample\nacc = 0;\n"
+              "loop(r, acc = acc * 0.5 + spl0;);\nspl1 = acc * 0.3;\n")
+LADDER_K0 = 2
+# K2 launches a segment of the tank: its plan's two waves of recurrences
+# (25 rows a file with a per-sample a, the values held and filtered inside
+# the gate, then 1)
+GATED_K2_PER_SEGMENT = 2
+
+
+def held_to_native_golden(prog, x, y, state, B=512):
+    """The native golden's render of x (blocks of B) against audio y and
+    the state after a writeback: a NullReport (audio 1e-5, vars and heap
+    1e-8) and the golden's seconds."""
+    from zorak_tpu_torch.shadow import compile_native_shadow
+    from zorak_tpu_torch.verify import apply_slider_state, compare_audio
+    from zorak_tpu_torch.verify.nulltest import (compare_memory_pages,
+                                                 compare_states)
+
+    gold = compile_native_shadow(prog)
+    gold.state.srate = SR
+    apply_slider_state(gold.state, prog, None)
+    gold.run_init()
+    gold.run_slider()
+    y_gold = np.zeros_like(x)
+    t0 = time.perf_counter()
+    for start in range(0, x.shape[1], B):
+        gold.process_block(x[:, start:start + B], y_gold[:, start:start + B])
+    gold_s = time.perf_counter() - t0
+    rep = compare_audio(y_gold, y)
+    compare_states(gold.state, state, report=rep)
+    compare_memory_pages(gold.state, state, report=rep)
+    return rep, gold_s
+
+
+def batch_equals_solo(torch, label, prog, x8):
+    """BatchRenderer on the files x8 [nf, 2, T] on the card: each file
+    torch.equal to its solo render; returns (the batch's audio, batch ms,
+    one file's ms)."""
+    from zorak_tpu_torch.parallel import BatchRenderer
+
+    br = BatchRenderer(prog, srate=SR)
+    br.render_files(x8[:, :, :1024])                 # stage and warm up
+    y8 = []
+    batch_ms = cuda_ms(lambda: y8.append(br.render_files(x8)))
+    solo_ms = None
+    for f in range(x8.shape[0]):
+        out = []
+        ms = cuda_ms(lambda: out.append(br.kernel.render_device(x8[f])))
+        solo_ms = ms if solo_ms is None else solo_ms
+        check(torch.equal(y8[0][f], out[0][0]),
+              f"{label} batch: file {f} differs from its solo render")
+    return y8[0], batch_ms, solo_ms
+
+
+def gated_phase(torch, cuda, rng, card):
+    """The gated regime: builtin_plugins.gated_fdn_tank through
+    PluginInstance.render on 60 s of stereo (the segment length the plan
+    cut, K2's launches, the render held to the native golden and its
+    first second to the port's CPU render, a profiler pass with K6's
+    share), the masked-loop ladder on 10 s from K = 2, and 8 files through
+    BatchRenderer, K2's launches of a middle segment of 1 and of 8 files
+    held to `linrec_chunked` on the same inputs; returns K2's launches in
+    the render."""
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
+    from zorak_tpu_torch.kernels import scan_group as SG
+    from zorak_tpu_torch.lowering import specialize as SP
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+    from zorak_tpu_torch.verify import AUDIO_EPS, SCALAR_EPS, compare_audio
+    from torch.autograd import DeviceType
+
+    sec = MAIN_T / SR
+    n1, n10 = int(SR), 10 * int(SR)
+    src = BP.gated_fdn_tank(GATED_LINES, GATED_BUF)
+    prog = compile_plugin_source(src)
+    x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+    t0 = time.perf_counter()
+    PluginInstance(prog, srate=SR).render(x[:, :n1])     # warm-up, 1 s
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    # the main path, on an instance of its own: a fresh render draws from
+    # the snapshot's generator, which a render's writeback advances
+    inst = PluginInstance(prog, srate=SR)
+    kern = inst.kernel
+    check(inst.engine == "torch-vector" and kern.rand_gated
+          and len(kern.sym.gring_writes) == GATED_LINES
+          and kern.plans[("var", "w")].kind == "gmodind",
+          f"gated: engine {inst.engine} ({inst.spec_error})")
+    L = kern.segment_length(MAIN_T)
+    segments = -(-MAIN_T // L)
+    check(L == 1024, f"gated: the plan's segment length is {L}")
+    LS.LAUNCHES = RT.LAUNCHES = SG.LAUNCHES = 0
+    out = []
+    t0 = time.perf_counter()
+    ms = cuda_ms(lambda: out.append(inst.render(x)))
+    wall = time.perf_counter() - t0
+    launches = {"linrec_scan": LS.LAUNCHES, "ring_tap_sum": RT.LAUNCHES,
+                "scan_group": SG.LAUNCHES}
+    res = out[0]
+    y = res.audio
+    check(res.engine == "torch-vector", f"gated: rendered by {res.engine}")
+    check(launches == {"linrec_scan": GATED_K2_PER_SEGMENT * segments,
+                       "ring_tap_sum": 0, "scan_group": 0},
+          f"gated: launches {launches} for {segments} segments, "
+          f"{GATED_K2_PER_SEGMENT} K2 a segment expected")
+    check(y.shape == (2, MAIN_T) and bool(np.isfinite(y).all()),
+          "gated: output not finite or of the wrong shape")
+    print(f"[gated] gated_fdn_tank({GATED_LINES}, {GATED_BUF}) 60 s stereo: "
+          f"engine={res.engine} segment length {L} (taps 1,500 to 4,000 "
+          f"cells behind the cursor in rings of {GATED_BUF}), {segments} "
+          f"segments; device_ms={ms:.2f} wall_s={wall:.4f} "
+          f"audio_s_per_s={sec / (ms / 1e3):.2f} launches={launches} "
+          f"({launches['linrec_scan'] / segments:.2f} K2 a segment); 1 s "
+          f"warm-up render {warm_s:.2f} s card='{card}'")
+    rep, gold_s = held_to_native_golden(prog, x, y, inst.shadow.state)
+    print(f"[gated] whole 60 s, PluginInstance.render on the card vs the "
+          f"native golden (audio {AUDIO_EPS}, vars and heap {SCALAR_EPS}): "
+          f"{rep.summary()}; the golden alone {gold_s:.2f} s")
+    check(rep.passed, "gated: the 60 s render disagrees with the native "
+          "golden")
+    y_cpu = PluginInstance(prog, srate=SR, device="cpu").render(
+        x[:, :n1]).audio
+    rep = compare_audio(y_cpu, y[:, :n1])
+    print(f"[gated] first 1 s, CUDA vs CPU render: {rep.summary()}")
+    check(rep.audio_passed, "gated: CUDA render disagrees with the CPU's")
+
+    # K6's share of a traced 1 s render's busy device time: the device
+    # time of the kernels launched inside the emitter's K6 ranges (gate
+    # masks, prefix sums, cursor arithmetic, the gathers, the gated
+    # scatter), against every kernel's (about 1,200 device events a
+    # segment: the trace's own processing grows with them)
+    x_dev = torch.from_numpy(x).to(cuda)
+    t_tr = time.perf_counter()
+    events = traced(lambda: kern.render_device(x_dev[:, :n1]))
+    kernels = device_kernels(events)
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    ranges = [e for e in events if e.name == SP.K6_RANGE
+              and e.device_type == DeviceType.CPU]
+
+    def inside(e):
+        for ch in e.cpu_children:
+            yield ch
+            yield from inside(ch)
+
+    # the kernels of the ops inside each range; a range's own device
+    # record is its span on the card, gaps included, and is not counted
+    k6_kernels = [k for r in ranges for op in inside(r) for k in op.kernels]
+    k6_us = sum(k.duration for k in k6_kernels)
+    span_own_us = sum(k.duration for r in ranges for k in r.kernels)
+    k6_share = k6_us / busy_us if busy_us else None
+    k2_us = sum(e.time_range.elapsed_us() for e in kernels
+                if "linrec" in e.name)
+    if kernels:
+        span_us = (max(e.time_range.end for e in kernels)
+                   - min(e.time_range.start for e in kernels))
+        check(ranges and k6_us > 0, f"gated: the trace's {len(ranges)} K6 "
+              f"ranges hold no device time")
+        print(f"[profile] gated 1 s render: {len(kernels)} device events "
+              f"({len(kernels) / -(-n1 // L):.1f} a segment), busy "
+              f"{busy_us / 1e3:.2f} ms of a {span_us / 1e3:.2f} ms span, "
+              f"idle share {1.0 - busy_us / span_us:.3f}")
+    print(f"[gated] K6 (the kernels launched inside the emitter's "
+          f"{SP.K6_RANGE} ranges: gate masks, prefix sums, cursors, "
+          f"gathers, the gated scatter): {k6_us / 1e3:.3f} ms of "
+          f"{busy_us / 1e3:.3f} ms busy, share "
+          + (f"{k6_share:.3f}" if k6_share is not None else "not measured")
+          + f" ({len(ranges)} ranges, {len(k6_kernels)} kernels; the "
+          f"ranges' own spans on the card {span_own_us / 1e3:.3f} ms, not "
+          f"counted); K2 {k2_us / 1e3:.3f} ms; the trace "
+          f"took {time.perf_counter() - t_tr:.1f} s card='{card}'")
+
+    # the masked-loop ladder on the card: a guess of K = 2 for a count
+    # that reaches 9, rebuilt and replayed on the same device
+    t0 = time.perf_counter()
+    lprog = compile_plugin_source(LADDER_SRC)
+    os.environ["ZORAK_MASKED_LOOP_K"] = str(LADDER_K0)
+    try:
+        linst = PluginInstance(lprog, srate=SR)
+    finally:
+        del os.environ["ZORAK_MASKED_LOOP_K"]
+    check(linst.engine == "torch-vector" and linst.kernel.sym.masked_loops
+          and linst.kernel.masked_loop_k == LADDER_K0,
+          f"ladder: engine {linst.engine} ({linst.spec_error})")
+    rebuilds = [0]
+    real = SP.specialize_sample_kernel
+
+    def counted(*a, **k):
+        rebuilds[0] += 1
+        return real(*a, **k)
+
+    SP.specialize_sample_kernel = counted
+    try:
+        lres = linst.render(x[:, :n10])
+    finally:
+        SP.specialize_sample_kernel = real
+    lk = linst.kernel
+    check(lres.engine == "torch-vector" and rebuilds[0] >= 1
+          and lk.masked_loop_k >= 9 and lk.device.type == "cuda",
+          f"ladder: {rebuilds[0]} rebuilds, K {lk.masked_loop_k}")
+    rep, _s = held_to_native_golden(lprog, x[:, :n10], lres.audio,
+                                    linst.shadow.state)
+    print(f"[gated] masked-loop ladder, 10 s stereo from K = {LADDER_K0}: "
+          f"{rebuilds[0]} rebuild(s), K = {lk.masked_loop_k}; vs the native "
+          f"golden: {rep.summary()} ({time.perf_counter() - t0:.1f} s)")
+    check(rep.passed, "ladder: the render disagrees with the native golden")
+
+    # 8 files of 2 s through BatchRenderer, each its solo render
+    x8 = torch.from_numpy((rng.randn(8, 2, 2 * n1) * 0.25).astype(np.float32)
+                          ).to(cuda)
+    y8, batch_ms, solo_ms = batch_equals_solo(torch, "gated", prog, x8)
+    print(f"[gated] 8 files x 2 s through BatchRenderer: every file "
+          f"torch.equal to its solo render; batch {batch_ms:.2f} ms, one "
+          f"file {solo_ms:.2f} ms card='{card}'")
+    # K2 at the shapes and inputs the gated path gives it (per-sample a,
+    # g ? 0.6 : 1 and g ? 0 : 1), for 1 file and for 8
+    middle = -(-x8.shape[2] // L) // 2
+    for files in (1, 8):
+        t0 = time.perf_counter()
+        shapes = held_at_the_batch_shapes(
+            torch, f"gated {files} file(s)", src, L, x8[:files], y8[:files],
+            (GATED_K2_PER_SEGMENT, 0, 0), middle)
+        print(f"[gated] {files} file(s): segment {middle}'s K2 launches "
+              f"({'; '.join(shapes)}) bit-identical to linrec_chunked on "
+              f"the same inputs ({time.perf_counter() - t0:.1f} s)")
+    return {"launches_gated": launches["linrec_scan"], "gated_segment": L,
+            "gated_render_ms": ms, "k6_share": k6_share,
+            "ladder_rebuilds": rebuilds[0]}
+
+
+def hop_phase(torch, cuda, rng, card):
+    """The hop pipeline: builtin_plugins.hop_convolver through
+    PluginInstance.render on 60 s of stereo (K10 once a hop, the render
+    held to the native golden), K10 on the hop section at the first and
+    the middle hop against its plain version and timed, and 8 files
+    through BatchRenderer; returns K10's hop entries for the `kernels`
+    line."""
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import block_section as BS
+    from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+    from zorak_tpu_torch.verify import AUDIO_EPS, SCALAR_EPS
+
+    sec = MAIN_T / SR
+    n1 = int(SR)
+    prog = compile_plugin_source(BP.hop_convolver(HOP_PART, HOP_PARTS))
+    inst = PluginInstance(prog, srate=SR)
+    kern = inst.kernel
+    check(inst.engine == "torch-vector" and kern._hop is not None
+          and kern._hop_len == HOP_PART,
+          f"hop: engine {inst.engine} ({inst.spec_error})")
+    hop = kern._hop_prog
+    hops = MAIN_T // HOP_PART          # the counter starts at 0
+    phases = [(ph.kind, ph.label) for ph in hop.block.phases]
+    print(f"[hop] the hop section: {len(hop.block.body)} top-level "
+          f"statement(s) ({phases}), every one on thread 0 (the transforms "
+          f"run inside the user function process(), one-thread forms); heap "
+          f"{hop.mem_size} cells, {len(hop.regions)} carried regions; "
+          f"{hop.threads} threads")
+    x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+
+    # K10's inputs at the first and the middle hop, copied before the launch
+    wanted, got = {0, hops // 2}, {}
+    real = BS.block_section
+    count = [0]
+
+    def spy(program, svec, rings, bvars, bmem, sb, *a, **k):
+        if count[0] in wanted:
+            got[count[0]] = (svec.clone(), [r.clone() for r in rings],
+                             bvars.clone(), bmem.clone(), sb)
+        count[0] += 1
+        return real(program, svec, rings, bvars, bmem, sb, *a, **k)
+
+    t0 = time.perf_counter()
+    PluginInstance(prog, srate=SR).render(x[:, :n1])     # warm-up, 1 s
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    # the main path: counts zeroed just before, read just after (the spy
+    # copies K10's inputs at two hops and launches K10 itself)
+    BS.zero_serial_runs()
+    BS.LAUNCHES = LS.LAUNCHES = RT.LAUNCHES = 0
+    out = []
+    BS.block_section = spy
+    t0 = time.perf_counter()
+    try:
+        ms = cuda_ms(lambda: out.append(inst.render(x)))
+    finally:
+        BS.block_section = real
+    wall = time.perf_counter() - t0
+    launches = BS.LAUNCHES
+    res = out[0]
+    y = res.audio
+    check(res.engine == "torch-vector", f"hop: rendered by {res.engine}")
+    check(launches == hops and LS.LAUNCHES == 0 and RT.LAUNCHES == 0,
+          f"hop: K10 launched {launches} times for {hops} hops")
+    check(y.shape == (2, MAIN_T) and bool(np.isfinite(y).all()),
+          "hop: output not finite or of the wrong shape")
+    wet = float(np.abs(y - 0.5 * x).max())
+    check(wet > 1e-3, f"hop: the convolution is silent ({wet})")
+    print(f"[hop] hop_convolver({HOP_PART}, {HOP_PARTS}) 60 s stereo: "
+          f"engine={res.engine} device_ms={ms:.2f} wall_s={wall:.4f} "
+          f"audio_s_per_s={sec / (ms / 1e3):.2f} K10 launches {launches} "
+          f"for {hops} hops; wet peak {wet:.3f}; 1 s warm-up render (K10's "
+          f"build included) {warm_s:.2f} s card='{card}'")
+    rep, gold_s = held_to_native_golden(prog, x, y, inst.shadow.state)
+    print(f"[hop] whole 60 s, PluginInstance.render on the card vs the "
+          f"native golden (audio {AUDIO_EPS}, vars and heap {SCALAR_EPS}): "
+          f"{rep.summary()}; the golden alone {gold_s:.2f} s")
+    check(rep.passed, "hop: the 60 s render disagrees with the native golden")
+
+    # K10 on the hop section at the first and the middle hop: against its
+    # plain version (the sample side's scalars and the hop's vars bit for
+    # bit, the heap and the rings within FFT_TOL_REL: they hold the
+    # transforms' output), then timed at the middle hop
+    errs, plain_ms = [], None
+    for i in sorted(got):
+        svec, rings, bvars, bmem, sb = got[i]
+        new = [svec.clone(), [r.clone() for r in rings], bvars.clone(),
+               bmem.clone()]
+        saved = BS.LAUNCHES
+        BS.block_section(hop, *new, sb)
+        BS.LAUNCHES = saved          # a comparison, not the main path
+        cpu = [svec.cpu(), [r.cpu() for r in rings], bvars.cpu(), bmem.cpu()]
+        t_p = time.perf_counter()
+        BS.block_section_plain(hop, *cpu, sb)
+        plain_ms = (time.perf_counter() - t_p) * 1e3
+        check(same_values(new[0].cpu(), cpu[0])
+              and same_values(new[2].cpu(), cpu[2]),
+              f"K10 hop {i}: scalars or vars differ from the plain version")
+        ring, ring_p = torch.cat(new[1], 1).cpu(), torch.cat(cpu[1], 1)
+        heap = new[3].cpu()
+        excess = max(BS.fft_excess(heap, cpu[3], new[2].cpu(), cpu[2]),
+                     BS.fft_excess(ring, ring_p, new[2].cpu(), cpu[2]))
+        err = max(float((heap - cpu[3]).abs().max()),
+                  float((ring - ring_p).abs().max()))
+        errs.append(err)
+        check(excess <= 0.0, f"K10 hop {i}: {err:.3e} from the plain "
+              f"version, beyond FFT_TOL_REL {BS.FFT_TOL_REL}")
+        print(f"[hop] K10 at hop {i}: scalars and vars bit-identical to the "
+              f"plain version, heap and rings within {err:.3e} (of max "
+              f"{float(cpu[3].abs().max()):.3e}); plain version "
+              f"{plain_ms:.1f} ms")
+    svec, rings, bvars, bmem, sb = got[hops // 2]
+    reps = 20
+    hop_ms = cuda_ms(lambda: BS.block_section(hop, svec, rings, bvars, bmem,
+                                              sb), reps=reps)
+    BS.LAUNCHES = 0
+    serial = BS.serial_runs(cuda)
+    # the least time for a hop: the exchanges (the carried rings in and
+    # out, the vars in and out) and the section's heap traffic (the input
+    # block, the partitions' spectra, the delay line and the overlap read;
+    # the output ring, the overlap, the delay line and two work buffers
+    # written) at the card's memory rate, beside two real transforms of
+    # 2 * part, `parts` complex products and the accumulation at its f64
+    # rate
+    n2 = 2 * HOP_PART
+    ring_cells = sum(m for _o, m in hop.regions)
+    nbytes = 8 * (2 * ring_cells + 2 * hop.n_vars
+                  + (HOP_PART + 2 * HOP_PARTS * n2 + HOP_PART)
+                  + (HOP_PART + HOP_PART + HOP_PARTS * n2 + 2 * n2))
+    ops = (2 * (5 * HOP_PART * int(np.log2(HOP_PART)) + 4 * n2)
+           + HOP_PARTS * 6 * HOP_PART + HOP_PARTS * n2 + 3 * HOP_PART)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    print(f"[hop] K10 a hop, middle hop's inputs, mean of {reps} by CUDA "
+          f"events: {hop_ms * 1e3:.1f} us ({hops} hops: "
+          f"{hop_ms * hops:.1f} ms of a render); bound {b_ms * 1e3:.4f} us "
+          f"by {b_by} ({nbytes} bytes, {ops} f64 operations); block loops "
+          f"on thread 0 counted: {serial} card='{card}'")
+
+    x8 = torch.from_numpy((rng.randn(8, 2, 2 * n1) * 0.25).astype(np.float32)
+                          ).to(cuda)
+    _y8, batch_ms, solo_ms = batch_equals_solo(torch, "hop", prog, x8)
+    print(f"[hop] 8 files x 2 s through BatchRenderer: every file "
+          f"torch.equal to its solo render; batch {batch_ms:.2f} ms, one "
+          f"file {solo_ms:.2f} ms card='{card}'")
+    return {"hop_launches": launches, "hop_ms": hop_ms,
+            "hop_plain_ms": plain_ms, "hop_max_abs_err": max(errs),
+            "hop_bound_ms": b_ms, "hop_bound_by": b_by,
+            "hop_render_ms": ms, "hop_statements_thread0": len(
+                hop.block.body)}
 
 
 def smi_under_load(torch, fn, reps: int) -> str:
@@ -2941,15 +3347,16 @@ def faust_phases(torch, cuda, rng, card):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="jsfx,batch,spectral,coupled,faust",
+    ap.add_argument("--phases",
+                    default="jsfx,batch,spectral,coupled,gated,hop,faust",
                     help="comma-separated: jsfx, batch, spectral, coupled, "
-                         "faust (default all five); k4sweep times K4 "
-                         "across register block sizes")
+                         "gated, hop, faust (default all seven); k4sweep "
+                         "times K4 across register block sizes")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not phases or phases - {"jsfx", "batch", "spectral", "coupled",
-                               "faust", "k4sweep"}:
-        ap.error("--phases takes jsfx, batch, spectral, coupled, faust or "
-                 "k4sweep")
+                               "gated", "hop", "faust", "k4sweep"}:
+        ap.error("--phases takes jsfx, batch, spectral, coupled, gated, hop, "
+                 "faust or k4sweep")
     t_start = time.perf_counter()
     import torch
 
@@ -3039,6 +3446,33 @@ def main(argv=None) -> int:
         kernels.append(coupled_phase(torch, cuda,
                                      np.random.RandomState(SEED + 10), card))
         print(f"[done] coupled phase in {time.perf_counter() - t0:.1f} s")
+    if "gated" in phases:
+        t0 = time.perf_counter()
+        gated = gated_phase(torch, cuda, np.random.RandomState(SEED + 11),
+                            card)
+        for entry in kernels:
+            if entry["name"] == "linrec_scan":
+                entry["launches_gated"] = gated["launches_gated"]
+        print(f"[done] gated phase in {time.perf_counter() - t0:.1f} s: "
+              f"{json.dumps(gated)}")
+    if "hop" in phases:
+        t0 = time.perf_counter()
+        hop = hop_phase(torch, cuda, np.random.RandomState(SEED + 12), card)
+        k10 = [e for e in kernels if e["name"] == "block_section"]
+        if k10:
+            k10[0].update(hop)
+        else:
+            # the coupled phase did not run: K10's entry is the hop's
+            kernels.append({
+                "name": "block_section", "route": "cuda",
+                "source": "zorak_tpu_torch/csrc/block_ops.cuh",
+                "replaces": "zorak_tpu/lowering/devgen.py:463",
+                "launches": hop["hop_launches"],
+                "max_abs_err": hop["hop_max_abs_err"], "ms": hop["hop_ms"],
+                "plain_ms": hop["hop_plain_ms"],
+                "bound_ms": hop["hop_bound_ms"],
+                "bound_by": hop["hop_bound_by"], "library_ms": None, **hop})
+        print(f"[done] hop phase in {time.perf_counter() - t0:.1f} s")
     if "k4sweep" in phases:
         scan_group_sweep(torch, cuda, np.random.RandomState(SEED))
     if "faust" in phases:

@@ -234,8 +234,6 @@ def test_the_mirror_check_refuses_files_whose_cursors_differ():
 
 @pytest.mark.parametrize("src,match", [
     (COUPLED_GMEM_SRC, "coupled @block.*slice 6b"),
-    (HOP_SRC, "hop section.*slice 5"),
-    (GATED_SRC, "gated regime.*slice 5"),
 ])
 def test_unported_regimes_raise_the_solo_error(src, match):
     prog = compile_plugin_source(src)
@@ -243,6 +241,58 @@ def test_unported_regimes_raise_the_solo_error(src, match):
         BatchRenderer(prog, device="cpu")
     with pytest.raises(SpecializeError, match=match):
         render_batch(prog, files(2, 1, 512), device="cpu")
+
+
+# the hop and gated regimes, refused before they were ported, render as a
+# batch: against the JAX BatchRenderer and each file's solo render
+@pytest.mark.parametrize("src,block", [(HOP_SRC, 32), (GATED_SRC, 512)],
+                         ids=["hop", "gated"])
+def test_hop_and_gated_regimes_render_as_a_batch(src, block):
+    prog = compile_plugin_source(src)
+    br = BatchRenderer(prog, segment_len=512, block_size=block, device="cpu")
+    kern = br.kernel
+    assert (kern._hop is not None) == (src is HOP_SRC)
+    assert any(p.kind == "gmodind" for p in kern.plans.values()) == \
+        (src is GATED_SRC)
+    x = files(3, 1, 1500, seed=21)
+    y = br.render_files(x)
+    yj = JaxBatchRenderer(jax_compile(src), segment_len=512,
+                          block_size=block).render_files(x)
+    assert audio_excess(y.numpy(), yj) <= 0.0
+    for f in range(3):
+        solo, _ = kern.render_device(x[f])
+        assert torch.equal(y[f], solo)
+    assert torch.equal(render_batch(prog, x, segment_len=512,
+                                    block_size=block, device="cpu"), y)
+
+
+def test_files_whose_gated_cursors_differ_render_as_alone():
+    # a gated cursor moves with each file's audio: the device holds it, a
+    # value a file, so files that start apart (and drift further apart)
+    # render as they would alone, and the mirror never lists it
+    src = ("@init\nMASK = 2047;\n@sample\ng = abs(spl0) > 0.2;\n"
+           "g ? (\n  t = mem[(w - 600) & MASK];\n  z = 0.5*z + 0.5*t;\n"
+           "  mem[w] = spl0 + 0.4*z;\n  w = (w + 1) & MASK;\n);\n"
+           "spl0 = spl0 + z;\n")
+    br = BatchRenderer(compile_plugin_source(src), segment_len=1024,
+                       device="cpu")
+    kern = br.kernel
+    w = kern.scalar_index[("var", "w")]
+    assert kern.plans[("var", "w")].kind == "gmodind"
+    assert w not in kern.mirrored_slots() and kern.L == 512
+    x = torch.from_numpy(files(3, 1, 2048, seed=9))
+    carry, ctrl, rand = br.staged(3, 2048)
+    svec, rings = carry
+    start = svec.clone()
+    start[1, w] = 700.0
+    start[2, w] = 2047.0
+    y, (end, _r) = kern._run((start, rings), x, ctrl, rand, 512)
+    assert len({float(v) for v in end[:, w]}) == 3
+    for f in range(3):
+        solo, (solo_end, _) = kern.render_device(
+            x[f], carry=(start[f], {r: a[f] for r, a in rings.items()}))
+        assert torch.equal(y[f], solo)
+        assert torch.equal(end[f], solo_end)
 
 
 def test_mesh_is_refused():

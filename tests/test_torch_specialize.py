@@ -344,19 +344,26 @@ def test_coupled_block_is_refused_with_its_slice():
 
 def test_gated_regime_is_refused_with_its_slice():
     # a decimated metering history: a gated cursor and a gated dynamic
-    # write, which the JAX package plans with gate prefix sums
+    # write, which both packages plan with gate prefix sums.  The gated
+    # regime was refused until its slice came; it now renders, against the
+    # JAX kernel and the native golden (state and heap)
     src = ("@init\nHIST = 900;\n"
            "@sample\npeak = max(peak, abs(spl0));\ncnt += 1;\n"
            "cnt >= 37 ? (\n  HIST[wpos] = peak;\n"
            "  wpos += 1; wpos >= 50 ? wpos = 0;\n  cnt = 0; peak = 0;\n"
            ");\nspl0 = spl0 * 0.5;\n")
-    prog = compile_plugin_source(src)
-    with pytest.raises(SpecializeError, match="gated regime.*slice 5"):
-        specialize_sample_kernel(prog, make_initialized_shadow(prog).state, 1,
-                                 device="cpu")
-    jprog = jax_compile(src)
-    jkern = jax_specialize(jprog, jax_shadow(jprog).state, 1)
-    assert any(p.kind == "gmodind" for p in jkern.plans.values())
+    x = noise(1, 5000, seed=17)
+    prog, kern, jkern = kernels_for(src, 1, segment_len=1024)
+    assert any(p.kind == "gmodind" for p in kern.plans.values())
+    assert {k: p.kind for k, p in kern.plans.items()} == \
+        {k: p.kind for k, p in jkern.plans.items()}
+    y, carry = kern.render(x)
+    yj, jcarry = jkern.render(x)
+    assert audio_excess(y, yj) <= 0.0
+    assert carry_delta(carry, jcarry) <= CARRY_EPS
+    rep = null_test_plugin(prog, x, segment_len=1024, golden="native",
+                           compare_state=True, compare_mem=True, device="cpu")
+    assert rep.passed, rep.summary()
 
 
 @pytest.mark.parametrize("name", ["attack_release_envelope",

@@ -11,6 +11,12 @@ left one within a sample.  `spectral_tilt_leveler(fft_size)` has an
 audio-coupled @block of a catalog plugin's width (the shape of the
 catalog's SpectralStabilizer and ERBTilt): @block reads and resets the
 meters @sample accumulates and takes the FFT of the ring @sample fills.
+`gated_fdn_tank(lines, buf)` is a feedback delay network whose cursor
+advances only while the input is loud (the gated regime, the shape of
+the catalog's 3DPanner sceneverb tank), and `hop_convolver(part, parts)`
+a partitioned convolver that fires its FFT work every `part` samples
+from inside @sample (the hop regime, the shape of the catalog's
+PsychoConvolver).
 """
 from __future__ import annotations
 
@@ -182,4 +188,146 @@ lp0 += coef * (spl0 - lp0);
 lp1 += coef * (spl1 - lp1);
 spl0 = gain * (lp0 + hg * (spl0 - lp0)) + 0.1 * dly;
 spl1 = gain * (lp1 + hg * (spl1 - lp1)) + 0.1 * dly;
+"""
+
+
+def gated_fdn_tank(lines: int = 8, buf: int = 8192) -> str:
+    """A stereo feedback delay network in the gated regime.
+
+    `lines` rings of `buf` cells share one write cursor `w` that advances
+    only in samples whose input level passes a threshold (the gate).  In
+    the gate's branch each line reads a static tap (1,500 to 4,000 cells
+    behind the cursor) and a tap whose delay comes from @block's control
+    and is clamped through selects (2,000 to 3,500 cells, plus 37 a line),
+    runs a one-pole lowpass over the two, and writes the input, a
+    Householder mix of the lowpasses and a gated rand() dither into its
+    ring.  The taps reach 4,000 cells, so the plan cuts the segment to
+    1,024 samples (L <= the shortest delay, L <= buf - the longest)."""
+    n, m = int(lines), int(buf)
+    delays = [1500 + (i * 2500) // max(1, n - 1) for i in range(n)]
+    taps = "\n".join(
+        f"  t{i} = mem[{i * m} + ((w - {d}) & MASK)];\n"
+        f"  u{i} = mem[{i * m} + ((w - d{i}) & MASK)];\n"
+        f"  lp{i} = 0.6 * lp{i} + 0.4 * (0.7 * t{i} + 0.3 * u{i});"
+        for i, d in enumerate(delays))
+    dyn = "\n".join(f"d{i} = floor({2000 + 37 * i} + 1500 * sz);"
+                    for i in range(n))
+    total = " + ".join(f"lp{i}" for i in range(n))
+    writes = "\n".join(
+        f"  mem[{i * m} + w] = spl{i % 2} * 0.5 + 0.3 * (lp{i} - mix) + dn;"
+        for i in range(n))
+    left = " + ".join(f"lp{i}" for i in range(0, n, 2))
+    right = " + ".join(f"lp{i}" for i in range(1, n, 2)) or "0"
+    return f"""\
+desc:gated FDN tank (gated cursor, taps in carry history, gated rand)
+
+@init
+MASK = {m - 1};
+w = 0; bsize = 0;
+
+@block
+bsize = bsize + 0.013;
+bsize > 1 ? bsize = 0;
+
+@sample
+sz = bsize;
+sz < 0 ? sz = 0;
+sz > 1 ? sz = 1;
+{dyn}
+g = max(abs(spl0), abs(spl1)) > 0.05;
+g ? (
+{taps}
+  mix = {2.0 / n} * ({total});
+  dn = (rand(2) - 1) * 1e-4;
+{writes}
+  w = (w + 1) & MASK;
+);
+spl0 = spl0 + {2.0 / n} * ({left});
+spl1 = spl1 + {2.0 / n} * ({right});
+"""
+
+
+def hop_convolver(part: int = 1024, parts: int = 8) -> str:
+    """A stereo-in, mono-convolved partitioned convolver in the hop
+    regime.
+
+    @init makes an impulse response of `part * parts` samples from a
+    seeded formula (a decaying, sign-alternating tail), cuts it into
+    `parts` partitions and keeps each one's spectrum (`fft_real` of the
+    partition zero-padded to 2 * part, then `fft_permute`).  @sample
+    writes the mid signal into an input block and reads the output ring;
+    every `part` samples it calls `process()`, which copies the input
+    block into a zero-padded buffer, transforms it, shifts a frequency
+    -domain delay line of `parts` spectra, accumulates each partition's
+    product with `convolve_c` against the delay line, transforms back and
+    overlap-adds into the output ring @sample reads in the next `part`
+    samples."""
+    n, p = int(part), int(parts)
+    return f"""\
+desc:hop convolver (partitioned convolution fired every {n} samples)
+
+@init
+N = {n}; N2 = 2 * N; P = {p};
+INB = 0; OUTR = N; OVL = 2 * N; WORK = 4 * N; ACC = 6 * N;
+IRS = 8 * N; FDL = IRS + P * N2;
+p = 0;
+loop(P,
+  memset(WORK, 0, N2);
+  j = 0;
+  loop(N,
+    t = p * N + j;
+    WORK[j] = exp(-t / 6000) * (((t * 7919) % 13) / 13 - 0.5) * 0.02;
+    j += 1;
+  );
+  p == 0 ? WORK[0] = 1;
+  fft_real(WORK, N2);
+  fft_permute(WORK, N);
+  memcpy(IRS + p * N2, WORK, N2);
+  p += 1;
+);
+ctr = 0; rpos = 0;
+
+function process() local(q, i) (
+  memcpy(WORK, INB, N);
+  memset(WORK + N, 0, N);
+  fft_real(WORK, N2);
+  fft_permute(WORK, N);
+  q = P - 1;
+  while (q > 0) (
+    memcpy(FDL + q * N2, FDL + (q - 1) * N2, N2);
+    q -= 1;
+  );
+  memcpy(FDL, WORK, N2);
+  memset(ACC, 0, N2);
+  q = 0;
+  while (q < P) (
+    memcpy(WORK, FDL + q * N2, N2);
+    convolve_c(WORK, IRS + q * N2, N);
+    i = 0;
+    while (i < N2) ( ACC[i] += WORK[i]; i += 1; );
+    q += 1;
+  );
+  fft_ipermute(ACC, N);
+  ifft_real(ACC, N2);
+  i = 0;
+  while (i < N) (
+    OUTR[i] = (ACC[i] + OVL[i]) / N2;
+    OVL[i] = ACC[N + i];
+    i += 1;
+  );
+  hops += 1;
+);
+
+@sample
+y = OUTR[rpos];
+INB[ctr] = 0.5 * (spl0 + spl1);
+spl0 = 0.5 * spl0 + y;
+spl1 = 0.5 * spl1 + y;
+rpos += 1;
+rpos >= N ? rpos = 0;
+ctr += 1;
+ctr >= N ? (
+  process();
+  ctr = 0;
+);
 """

@@ -45,19 +45,23 @@ def carry_from_numpy(kernel, svec, rings=None):
     {(origin, mod): [mod]}, e.g. a JAX kernel's `initial_carry()` or the
     carry one of its renders returned, for the port's `kernel` (a
     `SpecializedSampleKernel` planned from the same program and state).
-    A coupled kernel's carry comes as one argument, the JAX package's
-    ((svec, rings), bvars, bmem): its var slots are laid out alike, and
-    the port's device heap is the head of the JAX one (the plugin heap,
-    then the MIDI out table; the JAX tail holds nothing of a solo render).
+    A coupled kernel's carry, or a hop kernel's, comes as one argument,
+    the JAX package's ((svec, rings), bvars, bmem): its var slots are laid
+    out alike, and the port's device heap is the head of the JAX one (the
+    plugin heap, then the MIDI out table; the JAX tail holds nothing of a
+    solo render).  A hop kernel's render resumes at the counter's phase
+    the kernel tracks (`_hop_phase`), as the JAX kernel's does.
 
     Raises if the two plans do not carry the same scalars and regions.
     """
     if rings is not None:
         return kernel.device_carry(_sample_carry(kernel, svec, rings))
-    if not kernel.coupled:
-        raise ValueError("a coupled carry takes a coupled kernel")
+    if not kernel.has_device_view:
+        raise ValueError("a coupled or hop carry takes a coupled or hop "
+                         "kernel")
     (svec, rings), bvars, bmem = svec
-    n_vars, total = kernel._devblock.n_vars, kernel._block_prog.total_mem
+    prog = kernel._block_prog if kernel.coupled else kernel._hop_prog
+    n_vars, total = prog.n_vars, prog.total_mem
     bvars = np.asarray(bvars, dtype=np.float64)
     bmem = np.asarray(bmem, dtype=np.float64)
     if bvars.shape != (n_vars,) or bmem.ndim != 1 or len(bmem) < total:

@@ -1039,8 +1039,9 @@ def _plain_functions(program: BlockSectionProgram):
         for spec_name, proto in P.fn_defs.items():
             PX._compile_callable(P, ns, PX._py_fn_name(spec_name),
                                  proto.params, [proto.body], return_last=True)
-        fns = [PX._compile_callable(P, ns, f"jsfx_{s.section}", (), s.body,
-                                    return_last=False)
+        fns = [PX._compile_callable(P, ns,
+                                    f"jsfx_{s.section.replace('-', '_')}",
+                                    (), s.body, return_last=False)
                if s is not None else None
                for s in (program.block, program.slider)]
         program._plain_fns = tuple(fns)

@@ -412,7 +412,8 @@ class _SectionC(_CGen):
             return c_double(float(self.P.memtop))
         if fn == "rand":
             raise DevgenError(
-                "rand() in a coupled @block: the reference stages no draw "
+                f"rand() in @{dev.section} on the device: the reference "
+                "stages no draw "
                 "pool there; the sequential executor's pool comes with "
                 "queue 1 item 7 (slice 6b)")
         if fn in _COMM_FNS or fn in _GMEM_FNS:
@@ -763,12 +764,17 @@ class DeviceSection:
     """One EEL2 section printed as a device function over (vars, mem)."""
 
     def __init__(self, program: PluginProgram, snapshot, section: str,
-                 dynamic_keys: Set[Any], mem_size: int):
+                 dynamic_keys: Set[Any], mem_size: int,
+                 body: Optional[Sequence[Node]] = None):
+        """body: an explicit statement list (the hop body extracted from
+        @sample, printed as the section "sample-hop") in place of the
+        named section's."""
         self.P = program
         self.snap = snapshot
         self.section = section
         self.mem_size = int(mem_size)
-        self.body = list(program.sections.get(section, []))
+        self.body = list(body) if body is not None \
+            else list(program.sections.get(section, []))
 
         # slot table, the reference's order: dynamic vars, every
         # specialized function's params (one slot each; the C functions

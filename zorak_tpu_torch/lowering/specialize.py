@@ -33,12 +33,18 @@ segments.  An audio-coupled @block (meters, accumulator resets, shared
 mem, FFTs of buffers @sample fills) runs on the device between segments
 of one block each: `lowering/devgen.py` prints it as CUDA C and K10
 (`kernels/block_section.py`) runs it, a launch a block, in the fused
-block/sample loop `_coupled_run`.  Plugins whose @sample uses features
+block/sample loop `_coupled_run`.  A hop section (FFT block work fired
+every N samples from inside @sample) is extracted and printed the same
+way, and K10 runs it after each hop's segment in the fused sample/hop
+loop `_hop_run`.  The gated regime runs in the segment program: cursors
+that advance only where a gate fires (positions from the gate's int64
+prefix sum), taps gathered from ring history at those positions, gated
+ring writes scattered to consecutive positions, rand() drawn only where
+its gate fires (the draw pool indexed by a fire-count prefix sum), and
+loop(n) unrolled to a guessed bound behind an overflow monitor that
+`render_device`'s ladder reads.  Plugins whose @sample uses features
 outside this subset raise SpecializeError and fall back to the golden
-executor.  Regimes this package does not carry yet raise SpecializeError
-too, naming the work that brings them: the hop section (the next slice,
-on the same device sections) and the gated kinds (gated rings, gated
-cursors, gated rand(), masked loop(n)).
+executor.
 """
 from __future__ import annotations
 
@@ -62,6 +68,23 @@ from ..semantics import scalar as SC
 MAX_UNROLL = 65536
 MAX_WHILE_CONCRETE = 1 << 22
 MAX_INLINE_DEPTH = 64
+# the guessed loop(n) bounds' overflow ladder: rebuilds before it gives up
+LADDER_ATTEMPTS = 8
+# the profiler range over K6's ops: the gated regime's gate masks, prefix
+# sums, cursor arithmetic, gathers and ring scatter (no other work inside)
+K6_RANGE = "zorak.k6"
+
+
+def _k6_range():
+    """A `torch.profiler` range named K6_RANGE while a profiler runs, else
+    nothing: a range costs microseconds of host time a call even then."""
+    import contextlib
+
+    import torch
+
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(K6_RANGE)
+    return contextlib.nullcontext()
 
 
 class _CoupledUpgrade(Exception):
@@ -1738,10 +1761,6 @@ def _norm_loop(v, meta):
         v = torch.where(p, v + S, v)
 
 
-# the gated regimes wait for the slice that brings gate prefix sums
-_GATED_KINDS = ("gringidx", "gringref", "gdynringref")
-
-
 
 def _block_var_dataflow(program: PluginProgram, sample_writes: Set[Any],
                         mem_taint: bool = True, sb_taint: bool = True,
@@ -2206,14 +2225,10 @@ class SpecializedSampleKernel:
         self._hop_body: Optional[List[Node]] = None
         self._hop_ctr: Optional[Tuple[str, str]] = None
         self._hop_len = 0
+        self._mirrored: Optional[List[int]] = None
         self._sample_stmts: List[Node] = list(
             program.sections.get("sample") or [])
         self._extract_hop()
-        if self._hop_body is not None:
-            raise SpecializeError(
-                "hop section at the tail of @sample: the hop pipeline on "
-                "the device sections is not ported (queue 1 item 5, "
-                "slice 5)")
         if self.has_block:
             _, writes_b, wmem_b, rmem_b = section_var_usage(program, "block")
             reads_b = section_genuine_reads(program, "block")
@@ -2290,21 +2305,14 @@ class SpecializedSampleKernel:
                 raise
         self._plan(sym)
         self.ctrl_order = sorted(sym.ctrl_nodes.keys(), key=repr)
-        gated = sorted(
-            {n.kind for n in self._all_nodes(sym) if n.kind in _GATED_KINDS}
-            | {p.kind for p in self.plans.values() if p.kind == "gmodind"}
-            | ({"gated ring write"} if sym.gring_writes else set())
-            | ({"rand_gated"} if self.rand_gated else set())
-            | ({"masked loop(n)"} if sym.masked_loops else set()))
-        if gated:
-            raise SpecializeError(
-                f"gated regime ({', '.join(gated)}): not ported "
-                "(queue 1, slice 5)")
         self._devblock = None
         self._devslider = None
         self._block_prog = None
+        self._hop_prog = None
         if self.coupled:
             self._build_devblock()
+        if self._hop_body is not None:
+            self._build_hop()
         self.n_rand = sym.rand_slots
         if self.n_rand and self.has_block:
             for stmt in program.sections.get("block", []):
@@ -2319,11 +2327,14 @@ class SpecializedSampleKernel:
         self._traj_cache: Dict[Tuple[int, int], Any] = {}
         # device-resident master of the fresh-render carry
         self._carry0 = None
+        # the generator state after this kernel's draws; in the gated
+        # regime also the state before the pool (only `used` of its draws
+        # are real, see _advance_rng_by_used)
         self._rng_state = None
+        self._rng_prestate = None
         self._traj_plugin = None
         self.last_control_state = None
         self._seg_fns: Dict[Any, Callable] = {}
-        self._mirrored: Optional[List[int]] = None
         # per-kernel device constants: 0-d tensors by value, and, by
         # segment length, the ring tap chains' launches (or None) by `+`
         # node (`_tap_plan`)
@@ -2421,6 +2432,129 @@ class SpecializedSampleKernel:
             si[k] for k in self.carried_vars
             if k in self._block_writes
             or (k[0] == "mem" and self.block_writes_mem))
+
+    def _build_hop(self) -> None:
+        """Print the extracted hop body (FFT block work fired every N
+        samples from inside @sample) as the device section "sample-hop",
+        and K10's program for it: `_hop_run` launches it after each hop's
+        segment (ref: PsychoConvolver.jsfx:355-420
+        process_convolution_block behind the block_fill counter).  The
+        refusals are the reference's; its check is printing the
+        section."""
+        from ..kernels.block_section import BlockSectionProgram
+        from .devgen import DeviceSection, DevgenError
+
+        sym = self.sym
+        key, N = self._hop_ctr, self._hop_len
+        if key not in sym.writes and key not in sym.mod_inductions:
+            # the guarded region folded away (e.g. no IR loaded): the hop
+            # can never fire — plain pipeline
+            self._hop_body = None
+            self._hop = None
+            return
+        if self.coupled:
+            raise SpecializeError(
+                "hop section alongside a device @block — not supported yet")
+        if sym.mod_inductions.get(key) != N:
+            raise SpecializeError(
+                "hop counter did not classify as a mod-N cursor")
+        c0 = int(sym._state_value(key))
+        if N % self.B or (N - c0) % self.B:
+            raise SpecializeError(
+                f"hop length {N} (phase {c0}) not aligned to the "
+                f"block grid ({self.B})")
+        self._hop_phase = c0
+        self._hop_phase0 = c0
+
+        # vars the hop body writes: the vector side must never touch them
+        hop_writes: Set[Any] = set()
+        seen_fns: Set[str] = set()
+
+        def scan(roots):
+            for root in roots:
+                for x in walk(root):
+                    if isinstance(x, Asn) and isinstance(x.target, Name):
+                        hop_writes.add(_env_key_for_name(x.target.ident))
+                    elif isinstance(x, CallExpr) \
+                            and x.func in self.P.fn_defs \
+                            and x.func not in seen_fns:
+                        seen_fns.add(x.func)
+                        scan([self.P.fn_defs[x.func].body])
+
+        scan(self._hop_body)
+        if any(k[0] != "var" for k in hop_writes):
+            raise SpecializeError("hop body writes spl/slider state")
+        touched = set(sym.env.keys()) | set(self.control_vars) \
+            | set(self._block_consts)
+        clash = hop_writes & touched
+        if clash:
+            raise SpecializeError(
+                f"hop body state {sorted(clash)[:3]} is also used by the "
+                "vectorized sample path")
+
+        # vars the hop body READS: anything the vectorized sample path
+        # writes per-sample is not in the hop's dynamic keys, so the
+        # device section would fold it to its static snapshot value —
+        # silently wrong audio. Reject honestly instead.
+        hop_reads: Set[Any] = set()
+        seen_fns.clear()
+
+        def scan_reads(roots):
+            for root in roots:
+                for x in walk(root):
+                    if isinstance(x, Name):
+                        hop_reads.add(_env_key_for_name(x.ident))
+                    elif isinstance(x, CallExpr) \
+                            and x.func in self.P.fn_defs \
+                            and x.func not in seen_fns:
+                        seen_fns.add(x.func)
+                        scan_reads([self.P.fn_defs[x.func].body])
+
+        scan_reads(self._hop_body)
+        hop_reads -= hop_writes
+        varying = (set(sym.writes) | set(self.carried_vars)
+                   | set(self.control_vars))
+        stale = {k for k in hop_reads & varying if k[0] != "mem"}
+        if stale:
+            raise SpecializeError(
+                f"hop body reads {sorted(stale)[:3]} which the sample/"
+                "control path updates — the device section would fold it "
+                "to a stale snapshot")
+
+        top = len(self.snap.mem)
+        top = max(top, int(self.P.memtop or 0))
+        for origin, mod in self.carry_regions:
+            top = max(top, origin + mod)
+        for k in self.carried_vars:
+            if k[0] == "mem":
+                top = max(top, k[1] + 1)
+        for k in self.ctrl_order:
+            if k[0] == "mem":
+                top = max(top, k[1] + 1)
+        size = 1 << max(12, int(top - 1).bit_length() if top > 1 else 12)
+        snap_h = self._bake_state if self._bake_state is not None \
+            else self.snap
+        try:
+            # samplesblock is K10's argument: `_hop_run` passes the
+            # kernel's B, the value the reference folds through `consts`
+            self._hop = DeviceSection(self.P, snap_h, "sample-hop",
+                                      hop_writes, size, body=self._hop_body)
+        except DevgenError as exc:
+            self._hop = None
+            raise SpecializeError(f"hop section: {exc}") from None
+        si = self.scalar_index
+        # the hop sees no carried scalar but the mem cells: its vars are
+        # its own, written by nothing on the sample side (checked above)
+        self._hop_prog = BlockSectionProgram(
+            self._hop, None, len(self.carried_vars), [],
+            self.carry_regions,
+            [(si[k], k[1]) for k in self.carried_vars if k[0] == "mem"], [])
+        # carried scalars K10 rewrites that the host mirrors: the
+        # reference's refusals leave none (its cells are heap cells, and
+        # the mirror holds cursors and counters)
+        hop_rewrites = set(si[k] for k in self.carried_vars
+                           if k[0] == "mem") & set(self.mirrored_slots())
+        assert not hop_rewrites, hop_rewrites
 
     def _discover_block_consts(self, mem_taint: bool = True) -> None:
         if not self.has_block:
@@ -4005,12 +4139,15 @@ class SpecializedSampleKernel:
         const = self._const
 
         # read-only regions bake as constants, shared by every file; in the
-        # coupled regime they ride in the carry instead (@block may
-        # rewrite them)
+        # coupled and hop regimes they ride in the carry instead (@block or
+        # the hop section may rewrite them)
         static_regions: Dict[Tuple[int, int], Any] = {}
-        for node in ([] if self.coupled else self._all_nodes(sym)):
-            if node.kind in ("ringref", "dynringref") \
-                    and node.meta["region"] not in sym.ring_writes:
+        baked = not (self.coupled or self._hop_body is not None)
+        for node in (self._all_nodes(sym) if baked else []):
+            if (node.kind in ("ringref", "dynringref")
+                    and node.meta["region"] not in sym.ring_writes) \
+                    or (node.kind in ("gringref", "gdynringref")
+                        and node.meta["region"] not in sym.gring_writes):
                 origin, mod = node.meta["region"]
                 if (origin, mod) in static_regions:
                     continue
@@ -4023,8 +4160,11 @@ class SpecializedSampleKernel:
         scan_levels = self.scan_levels
         ctrl_index = {k: i for i, k in enumerate(self.ctrl_order)}
         B = self.B
+        rand_gated = self.rand_gated
+        rand_sites = self.rand_sites
         t64 = torch.arange(L, dtype=torch.int64, device=dev)
         tf = t64.to(F64)
+        file_row = torch.arange(nf, dtype=torch.int64, device=dev)[:, None]
 
         def upload(values, dtype):
             """A host list as a tensor on the kernel's device, without
@@ -4113,6 +4253,86 @@ class SpecializedSampleKernel:
                     return arr[idx.expand(nf, L)]
                 return torch.gather(arr, 1, idx.expand(nf, L))
 
+            def anchor_i64(var):
+                """A gated cursor's value at the segment's start as int64:
+                a host int where every file holds it, else [nf, 1]."""
+                v = sc(var)
+                return _host_i64(v) if isinstance(v, float) else EM.to_i64(v)
+
+            gate_cache: Dict[Any, Any] = {}
+
+            def gate_mask(var):
+                """The 0/1 gate of a gated cursor as int64 [nf, L], made
+                once a segment."""
+                got = gate_cache.get(var)
+                if got is None:
+                    gate = _arr(emit(sym.gate_of[var]))
+                    with _k6_range():
+                        got = EM.truthy_mask(gate).to(torch.int64).expand(
+                            nf, L)
+                    gate_cache[var] = got
+                return got
+
+            def gate_prefix(var, incl):
+                """The gate's fires up to each sample, int64 [nf, L]: after
+                it (incl) or before it.  An int64 cumsum, exact (the
+                reference takes it in f64, a dodge for the TPU's vmem);
+                one a gate and segment, shared by every tap and write."""
+                got = gate_cache.get((var, incl))
+                if got is None:
+                    m = gate_mask(var)
+                    after = None if incl else gate_prefix(var, True)
+                    with _k6_range():
+                        got = torch.cumsum(m, dim=1) if incl else after - m
+                    gate_cache[(var, incl)] = got
+                return got
+
+            def gcursor_idx(var, offset, mod, incl):
+                """Gated cursor positions (anchor + gate prefix + offset)
+                mod M, int64 [nf, L]; incl is the value after the
+                advance."""
+                prefix = gate_prefix(var, incl)
+                with _k6_range():
+                    pos = anchor_i64(var) + prefix + offset
+                    if mod & (mod - 1) == 0:
+                        return pos & (mod - 1)
+                    return torch.remainder(pos, mod)
+
+            # gated rand: sites draw only when their branch gate holds, so
+            # the flat MT19937 pool (randseg: the whole render's) is
+            # indexed by a fire-count prefix sum, from each file's own
+            # consumed-draw count (carried)
+            rand_ctx: Dict[str, Any] = {}
+
+            def gated_rand_vals():
+                """The draws [nf, L, sites] of every rand site."""
+                got = rand_ctx.get("vals")
+                if got is not None:
+                    return got
+                if rand_ctx.get("building"):
+                    raise SpecializeError(
+                        "rand draw feeds its own gating — draw compaction "
+                        "is not expressible")
+                rand_ctx["building"] = True
+                gates = [None if gate is None else _arr(emit(gate))
+                         for _slot, gate in rand_sites]
+                rand_ctx["building"] = False
+                with _k6_range():
+                    fires = torch.stack(
+                        [torch.ones((nf, L), dtype=torch.int64, device=dev)
+                         if gate is None else
+                         EM.truthy_mask(gate).to(torch.int64).expand(nf, L)
+                         for gate in gates], dim=2)
+                    within = torch.cumsum(fires, dim=2) - fires
+                    per_t = fires.sum(dim=2)
+                    before = torch.cumsum(per_t, dim=1) - per_t
+                    idx = (anchor_i64(("rand", "used")) + before)[:, :, None] \
+                        + within
+                    rand_ctx["vals"] = randseg[
+                        idx.clamp(0, randseg.numel() - 1)]
+                    rand_ctx["fires"] = per_t.sum(dim=1, keepdim=True)
+                return rand_ctx["vals"]
+
             tap_emitting: Set[int] = set()
 
             def emit_tap_group(group):
@@ -4154,7 +4374,8 @@ class SpecializedSampleKernel:
                     col = ctrlseg[:, ctrl_index[x.meta["key"]]]
                     val = torch.repeat_interleave(col, B)[:L]
                 elif x.kind == "rand":
-                    val = randseg[:, x.meta["slot"]]
+                    val = (gated_rand_vals()[:, :, x.meta["slot"]]
+                           if rand_gated else randseg[:, x.meta["slot"]])
                 elif x.kind == "prev":
                     val = prev_of(x.meta["key"])
                 elif x.kind == "ind":
@@ -4163,6 +4384,32 @@ class SpecializedSampleKernel:
                     idx = cursor_idx(x.meta["var"], x.meta["offset"],
                                      x.meta["mod"], 0, L)
                     val = idx.to(F64) + float(x.meta["origin"])
+                elif x.kind == "gringidx":
+                    idx = gcursor_idx(x.meta["var"], x.meta["offset"],
+                                      x.meta["mod"], x.meta["incl"])
+                    with _k6_range():
+                        val = idx.to(F64) + float(x.meta["origin"])
+                elif x.kind == "gringref":
+                    # plan time pinned every tap of a written gated region
+                    # into carry history (G-space delay >= L), so the
+                    # gather never reads this segment's writes
+                    region = x.meta["region"]
+                    src_arr = (rings[region] if region not in
+                               static_regions else static_regions[region])
+                    idx = gcursor_idx(x.meta["var"], x.meta["offset"],
+                                      region[1], x.meta.get("incl", False))
+                    with _k6_range():
+                        val = _take(src_arr, idx)
+                elif x.kind == "gdynringref":
+                    # bounded dynamic-delay tap off a gated cursor: the
+                    # masked index expression is the absolute slot, which
+                    # plan time proved reaches only carry history
+                    region = x.meta["region"]
+                    src_arr = (rings[region] if region not in
+                               static_regions else static_regions[region])
+                    slot = _arr(emit(x.args[0]))
+                    with _k6_range():
+                        val = _take(src_arr, EM.to_i64(slot))
                 elif x.kind == "bin":
                     # the plan is static, so a `+` node is matched once
                     # for the kernel's life, not once a segment
@@ -4417,6 +4664,11 @@ class SpecializedSampleKernel:
                 elif plan.kind == "modind":
                     # end-of-sample cursor value: (c0 + t + step) mod M
                     val = cursor_idx(key, plan.out, plan.A, 0, L).to(F64)
+                elif plan.kind == "gmodind":
+                    # end-of-sample gated cursor: anchor + inclusive prefix
+                    idx = gcursor_idx(key, 0, plan.A, True)
+                    with _k6_range():
+                        val = idx.to(F64)
                 elif plan.kind == "stream":
                     val = _full(emit(plan.out))
                 elif plan.kind == "linrec":
@@ -4469,7 +4721,24 @@ class SpecializedSampleKernel:
             # into one vector
             new_vals = []
             for key in carried_vars:
-                if key in P_plans:
+                if key == ("rand", "used"):
+                    # force the gate masks even if every draw is dead code:
+                    # the golden still consumes those draws
+                    gated_rand_vals()
+                    with _k6_range():
+                        new_vals.append(sc(key) + rand_ctx["fires"].to(F64))
+                elif key == ("mloop", "ovf"):
+                    # masked-loop overflow monitor: a running max of
+                    # (realised loop count - guessed bound K); a positive
+                    # value voids the render and render_device's ladder
+                    # rebuilds with a doubled K and replays
+                    acc = _arr(sc(key))
+                    for cnt_node, k_lim in sym.masked_loops:
+                        acc = torch.maximum(
+                            acc, _full(emit(cnt_node)).amax(
+                                dim=1, keepdim=True) - float(k_lim))
+                    new_vals.append(acc)
+                elif key in P_plans:
                     plan = P_plans[key]
                     if plan.kind == "induction":
                         # value after the last sample: w0 + final_offset + (L-1)
@@ -4479,6 +4748,13 @@ class SpecializedSampleKernel:
                         new_vals.append(
                             (host_scalar(key) + float(plan.out + L - 1))
                             % float(plan.A))
+                    elif plan.kind == "gmodind":
+                        # a value a file: the device keeps it
+                        prefix = gate_prefix(key, True)
+                        with _k6_range():
+                            new_vals.append(torch.remainder(
+                                _arr(sc(key)) + prefix[:, -1:].to(F64),
+                                float(plan.A)))
                     elif plan.kind == "const":
                         new_vals.append(float(plan.out))
                     else:
@@ -4495,6 +4771,30 @@ class SpecializedSampleKernel:
                 ws_r = sym.ring_writes.get(region)
                 w = ws_r[-1] if ws_r else None
                 if w is None:
+                    gws = sym.gring_writes.get(region)
+                    if gws is not None:
+                        # gated ring write: the segment's writes land at
+                        # consecutive G-space positions (the cursor
+                        # advances exactly when the write fires); a file's
+                        # inactive samples go to one spare cell past every
+                        # row, dropped.  Active positions are distinct
+                        # (the plan enforces M >= L), so one scatter is
+                        # exact, each file in its own row.
+                        g = gws[0]
+                        mod = region[1]
+                        gm = gate_mask(g.var)
+                        cur = gcursor_idx(g.var, g.offset, mod, False)
+                        value = _full(emit(g.value))
+                        with _k6_range():
+                            pos = torch.where(gm > 0, cur + file_row * mod,
+                                              torch.full_like(gm, nf * mod))
+                            flat = torch.empty(nf * mod + 1, dtype=F64,
+                                               device=dev)
+                            flat[:nf * mod] = rings[region].reshape(-1)
+                            flat.scatter_(0, pos.reshape(-1),
+                                          value.reshape(-1))
+                        new_rings[region] = flat[:nf * mod].view(nf, mod)
+                        continue
                     dw = dyn_write_map.get(region)
                     if dw is None:  # carried read-only region: pass through
                         new_rings[region] = rings[region]
@@ -4611,16 +4911,25 @@ class SpecializedSampleKernel:
             self.snap.mem_ensure(origin + mod)
             rings[region] = np.asarray(self.snap.mem[origin:origin + mod],
                                        dtype=np.float64).copy()
+        if self._hop is not None:
+            return ((svec, rings), self._hop.initial_vars(),
+                    self._hop.initial_mem())
         if not self.coupled:
             return (svec, rings)
         dev = self._devblock
         return ((svec, rings), dev.initial_vars(), dev.initial_mem())
 
+    @property
+    def has_device_view(self) -> bool:
+        """Whether the carry holds a device section's view, ((svec,
+        rings), vars, heap): the coupled @block's or the hop section's."""
+        return self.coupled or self._hop is not None
+
     def device_carry(self, carry):
         """A carry of numpy arrays or tensors -> f64 tensors on the
         kernel's device (copies, so the caller's arrays stay as they are,
-        and contiguous: K10 updates them in place).  The coupled regime's
-        carry is ((svec, rings), bvars, bmem)."""
+        and contiguous: K10 updates them in place).  The coupled and hop
+        regimes' carry is ((svec, rings), bvars, bmem)."""
         import torch
 
         def put(a):
@@ -4629,7 +4938,7 @@ class SpecializedSampleKernel:
             return a.to(device=self.device, dtype=torch.float64,
                         copy=True).contiguous()
 
-        if self.coupled:
+        if self.has_device_view:
             (svec, rings), bvars, bmem = carry
             return ((put(svec), {tuple(r): put(a) for r, a in rings.items()}),
                     put(bvars), put(bmem))
@@ -4648,7 +4957,10 @@ class SpecializedSampleKernel:
         float for the whole batch (`known` of the segment program): the
         induction and modular-induction counters, and the cursors of
         every ring access.  A batch holds them as one value for all its
-        files, so every file must start with the same."""
+        files, so every file must start with the same.  A gated cursor
+        (a `gmodind` plan, the cursor of a gated ring) moves with the
+        audio: no plain ring access reads it, so it is not listed, and
+        the device holds it, a value a file."""
         if self._mirrored is None:
             keys = {k for k, p in self.plans.items()
                     if p.kind in ("induction", "modind")}
@@ -4679,21 +4991,32 @@ class SpecializedSampleKernel:
         rem = T - nfull * L
         rows_per_seg = L // self.B
         f64 = torch.float64
+        draws = self._draws_of(rand)
         y = torch.empty((nf, self.nch, T), dtype=torch.float32,
                         device=self.device)
         for s in range(nfull):
             t0, r0 = s * L, s * rows_per_seg
             carry, yseg, known = self._seg_fn(L, nf)(
                 carry, (x[:, :, t0:t0 + L].to(f64),
-                        ctrl[r0:r0 + rows_per_seg], rand[t0:t0 + L]), known)
+                        ctrl[r0:r0 + rows_per_seg], draws(t0, t0 + L)), known)
             y[:, :, t0:t0 + L] = yseg
         if rem:
             t0 = nfull * L
             carry, yseg, known = self._seg_fn(rem, nf)(
                 carry, (x[:, :, t0:].to(f64), ctrl[nfull * rows_per_seg:],
-                        rand[t0:]), known)
+                        draws(t0, T)), known)
             y[:, :, t0:] = yseg
         return y, carry
+
+    def _draws_of(self, rand):
+        """draws(t0, t1): a segment's draw input from the render's draw
+        matrix rand [T, n_rand]: its rows, or in the gated regime the whole
+        render's flat pool, which each segment indexes by its files'
+        consumed-draw counts."""
+        if self.rand_gated:
+            pool = rand.reshape(-1)
+            return lambda t0, t1: pool
+        return lambda t0, t1: rand[t0:t1]
 
     def _coupled_run(self, carry, x, rand, midi_planes=None):
         """The fused block/sample pipeline over a batch of files: a host
@@ -4729,6 +5052,7 @@ class SpecializedSampleKernel:
         mouts = torch.empty((n_rows, nf, prog.midi_out_cells), dtype=f64,
                             device=self.device) \
             if prog.midi_out_cells else None
+        draws = self._draws_of(rand)
         for b in range(n_rows):
             L = B if b < nfull else rem
             t0 = b * B
@@ -4741,9 +5065,68 @@ class SpecializedSampleKernel:
                 known[i] = None
             (svec, rings), yseg, known = self._seg_fn(L, nf)(
                 (svec, rings), (x[:, :, t0:t0 + L].to(f64), ctrl[b][:, None],
-                                rand[t0:t0 + L]), known)
+                                draws(t0, t0 + L)), known)
             y[:, :, t0:t0 + L] = yseg
         return y, ((svec, rings), bvars, bmem), mouts
+
+    def _hop_run(self, carry, x, ctrl, rand, phase: int):
+        """The fused sample/hop pipeline over a batch of files, a host loop
+        (the reference's `_hop_run` scans it): a lead segment up to the hop
+        counter's wrap, full segments of H samples, each followed by one
+        K10 launch of the hop section (the sample state into its heap, the
+        section, the heap back), then a tail.  phase is the counter's value
+        entering the render.  x [nf, nch, T] on the device; carry ((svec
+        [nf, n], rings {region: [nf, mod]}), hvars [nf, n_vars], hmem [nf,
+        total_mem]) f64, updated in place; ctrl and rand shared by every
+        file.  Returns (y f32 [nf, nch, T], carry)."""
+        import torch
+
+        from ..kernels.block_section import block_section
+
+        H, B = self._hop_len, self.B
+        prog = self._hop_prog
+        (svec, rings), hvars, hmem = carry
+        nf, _nch, T = x.shape
+        lead = (H - phase) % H
+        if lead % B and self.ctrl_order:
+            raise SpecializeError(
+                "resumed hop phase misaligned with the control-block grid")
+        if T < lead:
+            # the render ends inside the lead: the counter never wraps
+            spans = [(T, False)]
+        else:
+            # T == lead takes the whole lead, so the hop fires at its end
+            # (the golden runs the hop body inside that sample)
+            nfull = (T - lead) // H
+            tail = T - lead - nfull * H
+            spans = ([(lead, True)] if lead else []) + [(H, True)] * nfull \
+                + ([(tail, False)] if tail else [])
+        # the one device-to-host read of a render: the scalars it starts
+        # from, which every file must agree on where the host mirrors them
+        known = _shared_known(svec.tolist(), self.mirrored_slots(),
+                              self.carried_vars)
+        cells = [a for a, _addr in prog.cells]
+        draws = self._draws_of(rand)
+        f64 = torch.float64
+        y = torch.empty((nf, self.nch, T), dtype=torch.float32,
+                        device=self.device)
+        t0 = r0 = 0
+        for n, fires in spans:
+            rows = -(-n // B)
+            (svec, rings), yseg, known = self._seg_fn(n, nf)(
+                (svec, rings), (x[:, :, t0:t0 + n].to(f64), ctrl[r0:r0 + rows],
+                                draws(t0, t0 + n)), known)
+            y[:, :, t0:t0 + n] = yseg
+            if fires:
+                block_section(prog, svec, [rings[r] for r in prog.regions],
+                              hvars, hmem, float(B))
+                # the section may rewrite the carried cells; none is
+                # mirrored (checked at build), so the device holds them
+                for i in cells:
+                    known[i] = None
+            t0 += n
+            r0 += rows
+        return y, ((svec, rings), hvars, hmem)
 
     @property
     def accepts_midi(self) -> bool:
@@ -4790,6 +5173,27 @@ class SpecializedSampleKernel:
                                int(b3)))
         return events
 
+    def loop_overflow(self, carry) -> float:
+        """The guessed loop(n) bounds' overflow monitor in a render's final
+        carry, the largest of its files': how far a realised count passed
+        the bound K, <= 0 where every count fit.  One device read."""
+        c0 = carry[0]
+        svec = c0[0] if isinstance(c0, tuple) else c0
+        return float(svec[..., self.scalar_index[("mloop", "ovf")]].max())
+
+    def with_larger_loop_bound(self, ovf: float):
+        """This kernel rebuilt from its snapshot on the same device, with
+        K doubled past the realised count K + ovf: the ladder's step, for
+        the solo and the batch render."""
+        old_k = self.masked_loop_k
+        new_k = 1 << max(1, int(old_k + ovf - 1).bit_length())
+        print(f"[specialize] masked-loop bound {old_k} exceeded by "
+              f"{ovf:.0f}; rebuilding with K={new_k} and replaying",
+              file=sys.stderr, flush=True)
+        return specialize_sample_kernel(
+            self.P, self.snap, self.nch, segment_len=self.L,
+            block_size=self.B, masked_loop_k=new_k, device=self.device)
+
     def render_device(self, x, carry=None, midi=None, ctrl=None):
         """x: float32 [nch, T], a numpy array or a tensor.  Returns
         (y float32 tensor [nch, T] on the kernel's device, carry).
@@ -4801,7 +5205,56 @@ class SpecializedSampleKernel:
         ctrl: optional precomputed control matrix from an external
         trajectory_stepper pass; the stepper's finish() already recorded
         last_control_state/_traj_midi_out.
+
+        A kernel with guessed data-dependent loop(n) bounds
+        (sym.masked_loops) renders behind the overflow ladder: it reads
+        the carried overflow monitor after the render (one device read,
+        only on such kernels), and where a sample's realised count passed
+        the bound K, rebuilds with K doubled past it on the same device
+        and replays with the generator state, the hop phase and the
+        trajectory state it started from.
         """
+        if not self.sym.masked_loops:
+            return self._render_device_once(x, carry, midi, ctrl)
+        T = x.shape[1]
+        fresh = carry is None
+        if ctrl is None and self.has_block and not self.coupled:
+            # the host trajectory runs once: a replay must not advance the
+            # trajectory's state again or re-run @block
+            nfb = T // self.B
+            self._traj_midi_out = []
+            if midi or not fresh:
+                ctrl = self.control_trajectory(nfb, T - nfb * self.B,
+                                               midi=midi, resume=not fresh)
+            else:
+                ctrl = self.cached_trajectory(nfb, T - nfb * self.B)
+        rng_save = (self._rng_state, self._rng_prestate)
+        hop_save = self._hop_phase if self._hop is not None else None
+        for _attempt in range(LADDER_ATTEMPTS):
+            out = self._render_device_once(x, carry, midi, ctrl)
+            ovf = self.loop_overflow(out[1])
+            if ovf <= 0.0:
+                return out
+            traj_save = (self.last_control_state, self._traj_midi_out,
+                         self.last_midi_out, self._traj_plugin)
+            carry0 = self._carry0
+            bigger = self.with_larger_loop_bound(ovf)
+            same_carry = (bigger.carried_vars == self.carried_vars
+                          and bigger.carry_regions == self.carry_regions)
+            self.__dict__.update(bigger.__dict__)
+            if same_carry:
+                # fresh renders keep starting from the planned state
+                self._carry0 = carry0
+            self._rng_state, self._rng_prestate = rng_save
+            if hop_save is not None:
+                self._hop_phase = hop_save
+            (self.last_control_state, self._traj_midi_out,
+             self.last_midi_out, self._traj_plugin) = traj_save
+        raise SpecializeError("masked-loop overflow ladder did not "
+                              "converge")
+
+    def _render_device_once(self, x, carry, midi, ctrl):
+        """One render, `render_device` without the ladder."""
         import torch
 
         nch, T = x.shape
@@ -4814,7 +5267,17 @@ class SpecializedSampleKernel:
             if self._carry0 is None:
                 self._carry0 = self.device_carry(self.initial_carry())
             carry = self._carry0
+            if self._hop is not None:
+                self._hop_phase = self._hop_phase0
         carry = self.device_carry(carry)
+        if not fresh and self.rand_gated:
+            # a resumed render draws from a new pool: the generator
+            # advances by the draws the last pool gave (one device read),
+            # and the carried count starts again at the new pool's head
+            svec = carry[0][0] if self.has_device_view else carry[0]
+            slot = self.scalar_index[("rand", "used")]
+            self._advance_rng_by_used(int(svec[slot].item()))
+            svec[slot] = 0.0
         if self.coupled:
             return self._render_coupled(x, carry, fresh, midi, ctrl)
         L = self.segment_length(T)
@@ -4837,6 +5300,19 @@ class SpecializedSampleKernel:
         if T == 0:
             return torch.zeros((nch, 0), dtype=torch.float32,
                                device=self.device), carry
+        if self._hop is not None:
+            # the counter's phase advances by T, and the next resumed
+            # render segments from there
+            phase = self._hop_phase
+            self._hop_phase = (phase + T) % self._hop_len
+            (svec, rings), hvars, hmem = carry
+            y, ((svec, rings), hvars, hmem) = self._hop_run(
+                ((svec[None], {r: a[None] for r, a in rings.items()}),
+                 hvars[None], hmem[None]),
+                self.put_audio(x)[None], self.put_f64(ctrl),
+                self.put_f64(rand), phase)
+            return y[0], ((svec[0], {r: a[0] for r, a in rings.items()}),
+                          hvars[0], hmem[0])
         # the solo render is the batch of one file
         svec, rings = carry
         y, (svec, rings) = self._run(
@@ -4916,16 +5392,40 @@ class SpecializedSampleKernel:
 
     def _rand_streams(self, T: int, reset: bool) -> np.ndarray:
         """Pregenerate the exact MT19937 draw matrix [T, n_rand] (f64 u32
-        values), continuing the per-instance generator state."""
+        values), continuing the per-instance generator state.  In the gated
+        regime the matrix is a flat pool that bounds what a render draws;
+        the generator's state after the render follows from the carried
+        consumed-draw count (`_advance_rng_by_used`)."""
         if self.n_rand == 0:
             return np.zeros((T, 0), dtype=np.float64)
         from ..semantics import mt19937np as MT
 
         if reset or self._rng_state is None:
             self._rng_state = MT.eelrng_state_tuple(self.snap.rng)
-        draws, self._rng_state = MT.generate(T * self.n_rand,
-                                             self._rng_state)
+        if self.rand_gated:
+            # keep the pre-pool state: only `used` of these draws are real
+            self._rng_prestate = self._rng_state
+            draws, _ = MT.generate(T * self.n_rand, self._rng_state)
+        else:
+            draws, self._rng_state = MT.generate(T * self.n_rand,
+                                                 self._rng_state)
         return draws.astype(np.float64).reshape(T, self.n_rand)
+
+    def _rng_after(self, used: int):
+        """The generator state after a gated render drew `used` of its
+        pool."""
+        from ..semantics import mt19937np as MT
+
+        if self._rng_prestate is None:
+            self._rng_prestate = MT.eelrng_state_tuple(self.snap.rng)
+        if used > 0:
+            return MT.generate(int(used), self._rng_prestate)[1]
+        return self._rng_prestate
+
+    def _advance_rng_by_used(self, used: int) -> None:
+        """Fix up the generator state after a gated render consumed `used`
+        draws of the pregenerated pool."""
+        self._rng_state = self._rng_after(used)
 
     def render(self, x, carry=None, midi=None, ctrl=None):
         """x: float32 [nch, T].  Returns (y float32 np [nch, T], final_carry)."""
@@ -4937,7 +5437,12 @@ class SpecializedSampleKernel:
         if self.n_rand and self._rng_state is not None:
             from ..semantics import mt19937np as MT
 
-            MT.restore_eelrng(state.rng, self._rng_state)
+            rng_state = self._rng_state
+            if self.rand_gated:
+                svec0 = carry[0][0] if self.has_device_view else carry[0]
+                rng_state = self._rng_after(
+                    int(svec0[self.scalar_index[("rand", "used")]]))
+            MT.restore_eelrng(state.rng, rng_state)
         if self.last_control_state is not None:
             ts = self.last_control_state
             state.V.update(ts.V)
@@ -4955,7 +5460,7 @@ class SpecializedSampleKernel:
                 state.mem_ensure(ts.mem_used)
                 state.mem[:ts.mem_used] = np.asarray(
                     ts.mem[:ts.mem_used], dtype=np.float64)
-        if self.coupled:
+        if self.has_device_view:
             (svec, rings), bvars, bmem = carry
             self._writeback_device_view(bvars, bmem, state)
         else:
@@ -4982,11 +5487,12 @@ class SpecializedSampleKernel:
                 arr.cpu() if hasattr(arr, "cpu") else arr)
 
     def _writeback_device_view(self, bvars, bmem, state) -> None:
-        """The device @block's heap and var slots -> the state (the
-        sample-carried values, written after, are newer)."""
+        """The device section's heap and var slots (the coupled @block's or
+        the hop section's) -> the state (the sample-carried values,
+        written after, are newer)."""
         from .devgen import MIDI_POS_SLOT, PENDING_SLOT_NAMES, RAND_POS_SLOT
 
-        devsec = self._devblock
+        devsec = self._devblock if self.coupled else self._hop
         bm = np.asarray(bmem.cpu() if hasattr(bmem, "cpu") else bmem)
         bm = bm[:devsec.mem_size]
         state.mem_ensure(len(bm))

@@ -11,7 +11,11 @@ launches, K2 (`linrec_scan`), K3 (`ring_tap_sum`) and K4
 one file does, and each file's audio equals its solo render bit for bit.
 A plugin whose @block is audio-coupled runs the fused block/sample loop,
 `SpecializedSampleKernel._coupled_run`, whose device @block (K10,
-`block_section`) takes the files as its grid.  The host mirror of the
+`block_section`) takes the files as its grid; a plugin with a hop section
+runs the fused sample/hop loop, `_hop_run`, K10 after each hop the same
+way.  A kernel with guessed loop(n) bounds checks its overflow monitor
+after a batch and rebuilds with a larger bound, as the solo render does.
+The host mirror of the
 carried cursors is shared by the files; a batched run checks at its start
 that every file agrees on it.
 
@@ -32,6 +36,7 @@ import torch
 from ..device import resolve_device
 from ..ir.program import PluginProgram
 from ..lowering import SpecializeError, specialize_sample_kernel
+from ..lowering.specialize import LADDER_ATTEMPTS
 from ..models import get_faust_module
 from ..verify.nulltest import make_initialized_shadow
 
@@ -56,7 +61,7 @@ class BatchRenderer:
         self.srate = srate
         self.nch = max(1, program.io_channels["process"])
         shadow = make_initialized_shadow(program, srate, sliders)
-        # hop and gated plugins raise here, as the solo path does
+        # what the solo path refuses raises here too
         self.kernel = specialize_sample_kernel(
             program, shadow.state, self.nch, segment_len=segment_len,
             block_size=block_size, device=device)
@@ -81,8 +86,8 @@ class BatchRenderer:
 
         c0 = kern.initial_carry()
         carry = kern.device_carry(
-            (sample_side(c0[0]), files(c0[1]), files(c0[2])) if kern.coupled
-            else sample_side(c0))
+            (sample_side(c0[0]), files(c0[1]), files(c0[2]))
+            if kern.has_device_view else sample_side(c0))
         # the coupled regime's control rows come from the device @block
         ctrl = None if kern.coupled else kern.put_f64(kern.fresh_control(T))
         got = (carry, ctrl, kern.put_f64(kern._rand_streams(T, reset=True)))
@@ -104,15 +109,38 @@ class BatchRenderer:
         if nf == 0 or T == 0:
             return torch.zeros((nf, nch, T), dtype=torch.float32,
                                device=self.device)
-        kern = self.kernel
-        carry, ctrl, rand = self.staged(nf, T)
-        if kern.coupled:
-            # K10 updates its carry in place: the staging stays fresh
-            y, _carry, _mo = kern._coupled_run(kern.device_carry(carry), x,
-                                               rand)
-            return y
-        y, _carry = kern._run(carry, x, ctrl, rand, kern.segment_length(T))
-        return y
+        for _attempt in range(LADDER_ATTEMPTS):
+            kern = self.kernel
+            carry, ctrl, rand = self.staged(nf, T)
+            y, fcarry = _one_pass(kern, carry, x, ctrl, rand)
+            # the guessed loop(n) bounds: one device read of the overflow
+            # monitor, the largest of the files', and on overflow a
+            # rebuild with K doubled past it and a replay (the solo
+            # render's ladder, batched)
+            if not kern.sym.masked_loops:
+                return y
+            ovf = kern.loop_overflow(fcarry)
+            if ovf <= 0.0:
+                return y
+            self.kernel = kern.with_larger_loop_bound(ovf)
+            self._staged.clear()
+        raise SpecializeError("masked-loop overflow ladder did not "
+                              "converge")
+
+
+def _one_pass(kern, carry, x, ctrl, rand):
+    """The kernel's whole render of x [nf, nch, T] from a staged carry:
+    the fused block/sample loop (coupled), the fused sample/hop loop from
+    the counter's planned phase (hop; K10 updates its carry in place, so
+    both take a copy and the staging stays fresh), or the segment loop.
+    Returns (y f32 [nf, nch, T], carry)."""
+    if kern.coupled:
+        y, carry, _mo = kern._coupled_run(kern.device_carry(carry), x, rand)
+        return y, carry
+    if kern._hop is not None:
+        return kern._hop_run(kern.device_carry(carry), x, ctrl, rand,
+                             kern._hop_phase0)
+    return kern._run(carry, x, ctrl, rand, kern.segment_length(x.shape[2]))
 
 
 def render_batch(program: PluginProgram, x_files, srate: float = 48000.0,
@@ -205,18 +233,13 @@ def _upload(x: np.ndarray, nch: int, device, lead: tuple = ()):
     return torch.from_numpy(xf).to(device)
 
 
-def _one_file(kern, L: int):
-    """The kernel's segment loop in segments of L for one file [nch, T]
-    (the fused block/sample loop for a coupled kernel, from a copy of the
-    staged carry): run(carry, x, ctrl, rand) -> (y f32 [nch, T], carry)."""
+def _one_file(renderer):
+    """The renderer's whole render of one file [nch, T] from its staging,
+    behind its loop(n) ladder (`BatchRenderer.render_files`): run(x) ->
+    (y f32 [nch, T], None)."""
 
-    def run(carry, x32, ctrl, rand):
-        if kern.coupled:
-            y, carry, _mo = kern._coupled_run(kern.device_carry(carry),
-                                              x32[None], rand)
-        else:
-            y, carry = kern._run(carry, x32[None], ctrl, rand, L)
-        return y[0], carry
+    def run(x32):
+        return renderer.render_files(x32[None])[0], None
 
     return run
 
@@ -227,12 +250,12 @@ def catalog_stacked_render(renderers: Dict[str, Any], x: np.ndarray,
 
     The renderers are planned in groups: by default groups of five, as the
     reference fuses them, and a group of its own for each heavy kernel (a
-    coupled @block), as the reference gives one; a group's renderers run
-    in turn.  Inputs are
-    staged on the device once: per channel count for the audio, per
-    plugin for its carry, control and draws, kept in `plan` across calls
-    where one is given.  Returns ({slug: device audio [nch, T]},
-    number of groups)."""
+    coupled @block or a hop section), as the reference gives one; a
+    group's renderers run in turn, a JSFX plugin's behind its loop(n)
+    ladder.  Inputs are staged on the device once: per channel count for
+    the audio, kept in `plan` across calls where one is given, and per
+    plugin for its carry, control and draws, in its renderer.  Returns
+    ({slug: device audio [nch, T]}, number of groups)."""
     T = int(x.shape[1])
     entries = {} if plan is None else plan.setdefault(("entries", T), {})
     x_dev: Dict[int, Any] = {} if plan is None \
@@ -245,17 +268,15 @@ def catalog_stacked_render(renderers: Dict[str, Any], x: np.ndarray,
         if r.is_faust:
             entries[slug] = (r.raw_render(T), (x_dev[r.nch],))
             continue
-        kern = r.kernel
-        carry, ctrl, rand = r.staged(1, T)
-        entries[slug] = (_one_file(kern, kern.segment_length(T)),
-                         (carry, x_dev[r.nch], ctrl, rand))
+        r.staged(1, T)
+        entries[slug] = (_one_file(r), (x_dev[r.nch],))
 
     if groups is None:
         # group from THIS call's renderers: a shared plan's entries hold
         # every slug ever staged
         heavy = [s for s in renderers if s in entries
                  and not renderers[s].is_faust
-                 and renderers[s].kernel.coupled]
+                 and renderers[s].kernel.has_device_view]
         light = [s for s in renderers if s in entries and s not in heavy]
         groups = [light[i:i + 5] for i in range(0, len(light), 5)]
         groups += [[s] for s in heavy]
