@@ -8,10 +8,12 @@
     python3 chip_smoke.py --phases spectral  # the spectral phase alone
     python3 chip_smoke.py --phases coupled   # the coupled @block alone
     python3 chip_smoke.py --phases gated,hop # the gated and hop regimes
+    python3 chip_smoke.py --phases devexec   # the sequential executor
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result (`--phases` takes any of `jsfx`, `batch`,
-`spectral`, `coupled`, `gated`, `hop` and `faust`, all seven by default;
+`spectral`, `coupled`, `gated`, `hop`, `devexec` and `faust`, all eight
+by default;
 device and build always run; `k4sweep` is described at the end):
 
 1. device   the card's name and power limit (nvidia-smi);
@@ -180,6 +182,32 @@ device and build always run; `k4sweep` is described at the end):
             FFT_TOL_REL), its time a hop by CUDA events beside its bound;
             8 files of 2 s through BatchRenderer, each torch.equal to its
             solo render;
+4f. devexec  the sequential device executor: K11 (device_exec, CUDA C
+            generated from a plugin's @block, @slider and @sample by
+            lowering/devgen.py with the reduced heap and the staged draw
+            pool of csrc/block_ops.cuh, one thread a file) built for
+            builtin_plugins' grain_texture(16, 131072) (the stand-in for
+            the catalog's Texture: grain records through an order table,
+            ring reads clamped by a block-rate fill level, rand() in
+            @block and @sample) and for the cases of tests/test_devexec.py
+            that need no host service, all nvcc runs together (registers
+            and spills printed); K11 against its plain version on 1 and 8
+            files of 1,100 samples with note-ons (bit for bit, but the
+            cells and slots the stand-in's sin reaches within 1e-8 and the
+            audio within one f32 ulp, the differing ones named); the cases
+            against the native golden; PluginInstance.render of the
+            stand-in on 60 s of stereo with a note-on every 0.5 s: engine
+            torch-devexec, K11 launched 1 + the heap ladder's replays
+            (4,096 -> 262,144 -> 524,288 cells), each launch timed, the
+            draws against the pool, the whole render (audio, vars, heap)
+            held to the native golden and the golden's host seconds; 8
+            files x 2 s through render_files, each torch.equal to its solo
+            render; one file a warp against 32 a warp in turns at 256
+            files x 2 s; audio-s per s at 1 (the render's launch), 8, 64
+            and 256 files (10 s each where one 60 s file takes over 30 s)
+            beside the golden's, and where the card overtakes it; K11's
+            chain bound from a dependent-add probe and the @sample syntax
+            tree (`device_exec.sample_chain_ops`);
 5. kernels (faust)  the switching scan (K1) must be bit-identical
             (integer views equal), in f64 and f32: at modest shapes, at
             the batch and main paths' shapes (its one-chunk case too),
@@ -207,7 +235,9 @@ device and build always run; `k4sweep` is described at the end):
 then one `kernels` JSON line (beside `bound_ms`: `chain_ms`, the chain
 bound of T steps in one thread, `chunk_chain_ms`, that of the chunked
 scan's warmup + chunk steps, `earlier_ms`, the one-chunk time, the
-worst case, and the program-like render's re-run steps; K2, K3 and K4
+worst case, and the program-like render's re-run steps; K11 the
+render's launches, the golden's seconds, audio-s per s by files; K2, K3
+and K4
 carry `launches_batched`, their launches in the batch phase's render of 8
 files, K2 `launches_gated`, its launches in the gated render, and K10 the
 hop section's `hop_ms`, `hop_launches` and the rest) and, last, the
@@ -2202,11 +2232,13 @@ LADDER_K0 = 2
 GATED_K2_PER_SEGMENT = 2
 
 
-def held_to_native_golden(prog, x, y, state, B=512):
-    """The native golden's render of x (blocks of B) against audio y and
-    the state after a writeback: a NullReport (audio 1e-5, vars and heap
-    1e-8) and the golden's seconds."""
+def held_to_native_golden(prog, x, y, state, B=512, midi=None, trace=None):
+    """The native golden's render of x (blocks of B, with the host's MIDI
+    events where given) against audio y and the state after a writeback: a
+    NullReport (audio 1e-5, vars and heap 1e-8) and the golden's seconds,
+    and where `trace` names a var, its value after each block."""
     from zorak_tpu_torch.shadow import compile_native_shadow
+    from zorak_tpu_torch.shadow.state import MidiEvent
     from zorak_tpu_torch.verify import apply_slider_state, compare_audio
     from zorak_tpu_torch.verify.nulltest import (compare_memory_pages,
                                                  compare_states)
@@ -2217,13 +2249,27 @@ def held_to_native_golden(prog, x, y, state, B=512):
     gold.run_init()
     gold.run_slider()
     y_gold = np.zeros_like(x)
+    queues = {}
+    for ev in sorted(midi or [], key=lambda e: e[0]):
+        start = int(ev[0]) // B * B
+        queues.setdefault(start, []).append(MidiEvent(
+            int(ev[0]) - start, int(ev[1]) & 0xFF, int(ev[2]) & 0xFF,
+            int(ev[3]) & 0xFF))
+    traced_values = []
     t0 = time.perf_counter()
     for start in range(0, x.shape[1], B):
+        if midi is not None:
+            gold.state.midi_in = queues.get(start, [])
+            gold.state.midi_in_pos = 0
         gold.process_block(x[:, start:start + B], y_gold[:, start:start + B])
+        if trace is not None:
+            traced_values.append(gold.state.V.get(trace, 0.0))
     gold_s = time.perf_counter() - t0
     rep = compare_audio(y_gold, y)
     compare_states(gold.state, state, report=rep)
     compare_memory_pages(gold.state, state, report=rep)
+    if trace is not None:
+        return rep, gold_s, np.asarray(traced_values)
     return rep, gold_s
 
 
@@ -2418,9 +2464,20 @@ def gated_phase(torch, cuda, rng, card):
         print(f"[gated] {files} file(s): segment {middle}'s K2 launches "
               f"({'; '.join(shapes)}) bit-identical to linrec_chunked on "
               f"the same inputs ({time.perf_counter() - t0:.1f} s)")
+    # K6's least time a segment of one file: the gate mask, the pool's
+    # draws and the rings read once, the rings, the draws and the cursor
+    # positions written once, at the card's memory rate
+    k6_bytes = 4 * L * 8 + 2 * GATED_LINES * GATED_BUF * 8
+    k6_bound = k6_bytes / HBM_BYTES_PER_S * 1e3
+    k6_seg_ms = k6_us / 1e3 / -(-n1 // L)
+    print(f"[gated] K6 a segment: {k6_seg_ms:.4f} ms in the traced 1 s, "
+          f"bound {k6_bound:.6f} ms (bytes: {k6_bytes}, the mask, draws and "
+          f"cursors of {L} samples and {GATED_LINES} rings of {GATED_BUF} "
+          f"read and written once) card='{card}'")
     return {"launches_gated": launches["linrec_scan"], "gated_segment": L,
             "gated_render_ms": ms, "k6_share": k6_share,
-            "ladder_rebuilds": rebuilds[0]}
+            "k6_bound_ms": k6_bound, "ladder_rebuilds": rebuilds[0],
+            "gated_golden_s": gold_s}
 
 
 def hop_phase(torch, cuda, rng, card):
@@ -2573,8 +2630,319 @@ def hop_phase(torch, cuda, rng, card):
     return {"hop_launches": launches, "hop_ms": hop_ms,
             "hop_plain_ms": plain_ms, "hop_max_abs_err": max(errs),
             "hop_bound_ms": b_ms, "hop_bound_by": b_by,
-            "hop_render_ms": ms, "hop_statements_thread0": len(
-                hop.block.body)}
+            "hop_render_ms": ms, "hop_golden_s": gold_s,
+            "hop_statements_thread0": len(hop.block.body)}
+
+
+DEVEXEC_GRAINS, DEVEXEC_RING = 16, 131072   # the Texture stand-in
+DEVEXEC_NOTE_EVERY = 24000      # a note-on every 0.5 s
+DEVEXEC_SHORT_T = 1100          # two blocks and a remainder of 76
+DEVEXEC_FILES = (1, 8, 64, 256)
+DEVEXEC_LIBM_TOL = 1e-8         # where the body calls the device's libm
+DEVEXEC_SLOW_S = 30.0           # one 60 s file slower: time the batches on 10 s
+DEVEXEC_SHORT_FILES_T = 480000  # 10 s: the batches' where one 60 s file is slow
+DEVEXEC_SPREAD = (256, 96000)   # files a warp timed in turns: 256 files x 2 s
+
+
+def devexec_cases():
+    """The cases of tests/test_devexec.py that need no host service:
+    name -> (source, input, renders)."""
+    def noise(ch, n, seed=5):
+        return (np.random.RandomState(seed).randn(ch, n) * 0.6).astype(
+            np.float32)
+
+    return {
+        "voice loop": (
+            "@init\nbuf = 1000;\nn_active = 0;\n@block\nctr += 1;\n"
+            "@sample\nx = abs(spl0);\n"
+            "x > 0.5 ? n_active = min(n_active + 2, 8) :"
+            " (n_active > 0 ? n_active -= 1);\n"
+            "acc = 0; i = 0;\nloop(n_active,\n"
+            "  acc += buf[i] * 0.1 + x * 0.01;\n  buf[i] = x;\n  i += 1;\n);\n"
+            "spl0 = spl0 * 0.7 + acc * 0.05;\nspl1 = spl1 * 0.7;\n",
+            noise(2, 3000), 1),
+        "rand() across resumed renders": (
+            "@init\nnz = 0;\n@block\nwant = 2 + (bc % 3);\nbc += 1;\ni = 0;\n"
+            "loop(want, noise[i] = rand(2) - 1; i += 1; );\n"
+            "@sample\np = abs(spl0) > 0.4 ? rand() * 0.1 : 0;\n"
+            "spl0 = spl0 * 0.8 + p + noise[0] * 0.01;\n", noise(1, 3000), 3),
+        "pending retrigger": (
+            "slider1:10<0,100,1>Amt\n@init\nq = 0;\n@slider\n"
+            "g = slider1 / 100;\n@block\nbc += 1;\n"
+            "bc == 3 ? ( slider1 = 50; sliderchange(slider1); );\n"
+            "@sample\nspl0 *= g;\n", noise(1, 4000), 1),
+        "FFT at a traced base": (
+            "@init\nbufA = 1024; bufB = 2048;\nacc = 0;\n@sample\n"
+            "sel = spl0 > 0 ? bufA : bufB;\nsel[w] = spl0;\nw += 1;\n"
+            "w >= 64 ? (\n  w = 0;\n  fft_real(sel, 64);\n"
+            "  fft_permute(sel, 16);\n  acc = sel[0] * 0.01 + sel[2] * 0.005;\n"
+            "  j = 0; loop(64, sel[j] = 0; j += 1;);\n);\n"
+            "spl0 = spl0 * 0.5 + acc * 0.001;\n", noise(1, 2000), 1),
+        "heap that grows": (
+            "@init\nbuf = 100;\nctr = 0;\n@sample\n"
+            "n = abs(spl0) > 0.2 ? 3 : 1;\n"
+            "loop(n, buf[ctr] = spl0; ctr += 1; );\n"
+            "spl0 = spl0 * 0.5 + buf[ctr > 3000 ? ctr - 3000 : 0] * 0.1;\n",
+            noise(1, 6000), 1),
+    }
+
+
+def devexec_phase(torch, cuda, rng, card):
+    """The sequential device executor: K11 built (nvcc seconds, registers
+    and spills), held to its plain version on the card (the stand-in, 1 and
+    8 files, 1,100 samples) and the test cases to the native golden; then
+    grain_texture(16, 131072) through PluginInstance.render on 60 s of
+    stereo (engine torch-devexec, the heap's ladder, the draws, held to the
+    native golden), 8 files against their solo renders, audio-s per s at 1
+    to 256 files beside the golden's, and K11's entry for the `kernels`
+    line."""
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import device_exec as DX
+    from zorak_tpu_torch.lowering.devexec import DeviceExecKernel
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+    from zorak_tpu_torch.verify import AUDIO_EPS, SCALAR_EPS
+    from zorak_tpu_torch.verify.nulltest import make_initialized_shadow
+
+    sec = MAIN_T / SR
+    prog = compile_plugin_source(BP.grain_texture(DEVEXEC_GRAINS,
+                                                  DEVEXEC_RING))
+
+    def kernel_of(p, nch):
+        return DeviceExecKernel(p, make_initialized_shadow(p, SR).state, nch)
+
+    # 1. build: the stand-in's K11 and the cases', one nvcc each, together
+    cases = {name: (compile_plugin_source(src), x, renders)
+             for name, (src, x, renders) in devexec_cases().items()}
+    stand = kernel_of(prog, 2)
+    case_kernels = {name: kernel_of(p, x.shape[0])
+                    for name, (p, x, _r) in cases.items()}
+    t0 = time.perf_counter()
+    logs = DX.build([stand.program]
+                    + [k.program for k in case_kernels.values()])
+    print(f"[devexec] K11 builds: {len(logs)} generated sources in "
+          f"{time.perf_counter() - t0:.2f} s of nvcc, all together "
+          f"(the stand-in's source {len(stand.program.source)} characters)")
+    for line in logs[stand.program.source].splitlines():
+        if any(w in line for w in ("registers", "spill", "entry function")):
+            print(f"[devexec] K11 build: {line.strip()}")
+
+    # 2. K11 against its plain version on the card: the stand-in at the
+    # heap's top rung, 1 and 8 files of 1,100 samples with note-ons
+    stand.grow_to(1 << 19)
+    T = DEVEXEC_SHORT_T
+    x8 = torch.from_numpy((rng.randn(8, 2, T) * 0.25).astype(np.float32))
+    mev, mn = stand._midi_planes([(5, 0x90, 60, 100), (700, 0x90, 64, 80)], T)
+    planes = (torch.from_numpy(mev), torch.from_numpy(mn))
+    bv0, bm0 = stand.initial_carry()
+    pool = stand._stage_rand_pool(None)
+    names = {slot: key for key, slot in stand.sample.slots.items()}
+    errs, plain_ms = [], None
+    for nf in (1, 8):
+        bv = bv0.expand(nf, -1).contiguous()
+        bv[:, stand._rpos] = 0.0
+        bm = bm0.expand(nf, -1).contiguous()
+        bv_c, bm_c = bv.to("cpu", copy=True), bm.to("cpu", copy=True)
+        y, _mo = DX.device_exec(stand.program, x8[:nf].to(cuda), bv, bm, pool,
+                                tuple(p.to(cuda) for p in planes))
+        t_p = time.perf_counter()
+        y_c, _mo_c = DX.device_exec(stand.program, x8[:nf], bv_c, bm_c,
+                                    pool.cpu(), planes)
+        if nf == 1:
+            plain_ms = (time.perf_counter() - t_p) * 1e3
+        y, bv, bm = y.cpu(), bv.cpu(), bm.cpu()
+        d_y = (y.double() - y_c.double()).abs()
+        ulp = torch.clamp(y_c.double().abs() * 2.0 ** -23, min=DEVEXEC_LIBM_TOL)
+        d_v, d_m = (bv - bv_c).abs(), (bm - bm_c).abs()
+        slots = sorted({names[int(i)] for i in torch.nonzero(d_v.amax(0))[:, 0]},
+                       key=repr)
+        cells = torch.nonzero(d_m.amax(0))[:, 0]
+        err = max(float(d_y.max()), float(d_v.max()), float(d_m.max()))
+        errs.append(err)
+        print(f"[devexec] K11 vs its plain version, {nf} file(s) x {T} "
+              f"samples, note-ons: audio {int((d_y > 0).sum())} of "
+              f"{d_y.numel()} samples differ (max {float(d_y.max()):.3e}), "
+              f"vars {len(slots)} slot(s) differ {slots[:12]}, heap "
+              f"{len(cells)} cell(s) differ"
+              + (f" in [{int(cells.min())}, {int(cells.max())}]"
+                 if len(cells) else "")
+              + f" (max {max(float(d_v.max()), float(d_m.max())):.3e}); "
+              f"draws {bv_c[:, stand._rpos].tolist()[:8]}, high water "
+              f"{float(bv_c[:, stand._hw].max()):.0f}")
+        check(bool((d_y <= ulp).all()) and float(d_v.max()) <= DEVEXEC_LIBM_TOL
+              and float(d_m.max()) <= DEVEXEC_LIBM_TOL,
+              f"K11 {nf} file(s): {err:.3e} from the plain version")
+        check(float(bv_c[:, stand._rpos].min()) > 0
+              and float(bv_c[:, stand._hw].max()) < stand.mem_size,
+              f"K11 {nf} file(s): no draw, or the heap overflowed")
+    print(f"[devexec] the plain version of 1 file x {T} samples: "
+          f"{plain_ms:.1f} ms on the host (the Python golden a file)")
+
+    # the cases of tests/test_devexec.py against the native golden
+    for name, (p, x, renders) in cases.items():
+        kern = case_kernels[name]
+        owner_state = kern.snap
+        cut = max(512, (x.shape[1] // renders // 512) * 512)
+        parts, carry, pos = [], None, 0
+        while pos < x.shape[1]:
+            stop = x.shape[1] if len(parts) == renders - 1 \
+                else min(pos + cut, x.shape[1])
+            yp, carry = kern.render(x[:, pos:stop], carry=carry)
+            parts.append(yp)
+            pos = stop
+        kern.writeback(carry, owner_state)
+        y = np.concatenate(parts, axis=1)
+        rep, _s = held_to_native_golden(p, x, y, owner_state)
+        check(rep.passed and rep.max_abs_delta <= 1e-6,
+              f"devexec {name}: {rep.summary()}")
+        print(f"[devexec] {name} ({renders} render(s), heap {kern.mem_size}"
+              f", climbs {kern.heap_climbs}) on the card vs the native "
+              f"golden: {rep.summary()}")
+
+    # 3. the slice at full width: PluginInstance.render of the stand-in
+    x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+    notes = [(o, 0x90, 48 + (o // DEVEXEC_NOTE_EVERY) % 24, 100)
+             for o in range(100, MAIN_T, DEVEXEC_NOTE_EVERY)]
+    inst = PluginInstance(prog, srate=SR)
+    kern = inst.kernel
+    check(inst.engine == "torch-devexec" and kern.device.type == "cuda",
+          f"devexec: engine {inst.engine} ({inst.spec_error})")
+    # each K11 launch of the render timed by CUDA events around it (the
+    # last one is the render the ladder kept)
+    real, launch_ev = DX.device_exec, []
+
+    def timed(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = real(*a, **k)
+        ev[1].record()
+        launch_ev.append(ev)
+        return got
+
+    DX.LAUNCHES = 0
+    out = []
+    DX.device_exec = timed
+    t0 = time.perf_counter()
+    try:
+        ms = cuda_ms(lambda: out.append(inst.render(x, midi=notes)))
+    finally:
+        DX.device_exec = real
+    wall = time.perf_counter() - t0
+    launches = DX.LAUNCHES
+    launch_ms = [a.elapsed_time(b) for a, b in launch_ev]
+    k_ms = launch_ms[-1]
+    res = out[0]
+    y = res.audio
+    check(res.engine == "torch-devexec", f"devexec: rendered by {res.engine}")
+    check(y.shape == (2, MAIN_T) and bool(np.isfinite(y).all()),
+          "devexec: output not finite or of the wrong shape")
+    check(launches == 1 + len(kern.heap_climbs) and kern.heap_climbs
+          and kern.mem_size == 1 << 19,
+          f"devexec: {launches} launches, climbs {kern.heap_climbs}")
+    draws = kern.last_draws
+    check(0 < draws < kern._rand_cap // 2,
+          f"devexec: {draws} draws of a pool of {kern._rand_cap}")
+    print(f"[devexec] grain_texture({DEVEXEC_GRAINS}, {DEVEXEC_RING}) 60 s "
+          f"stereo, {len(notes)} note-ons: engine={res.engine} "
+          f"device_ms={ms:.2f} wall_s={wall:.4f} "
+          f"audio_s_per_s={sec / (ms / 1e3):.3f} K11 launches {launches} (1 "
+          f"+ {len(kern.heap_climbs)} ladder replays; "
+          f"{', '.join(f'{v:.2f}' for v in launch_ms)} ms); heap 4096 -> "
+          f"{' -> '.join(str(c) for c in kern.heap_climbs)} cells; draws "
+          f"{draws} of a pool of {kern._rand_cap} card='{card}'")
+    rep, gold_s, nact = held_to_native_golden(
+        prog, x, y, inst.shadow.state, midi=notes, trace="nact")
+    print(f"[devexec] whole 60 s, PluginInstance.render on the card vs the "
+          f"native golden (audio {AUDIO_EPS}, vars and heap {SCALAR_EPS}): "
+          f"{rep.summary()}; the golden alone {gold_s:.2f} s on one host "
+          f"core ({sec / gold_s:.2f} audio-s per s)")
+    check(rep.passed, "devexec: the 60 s render disagrees with the native "
+          "golden")
+    B = stand.B
+    lens = np.minimum(B, MAIN_T - B * np.arange(len(nact)))
+    mean_nact = float(np.dot(nact, lens) / MAIN_T)
+
+    # 4. files: each of 8 files x 2 s torch.equal to its solo render, then
+    # the throughput at 1 to 256 files (each kernel already at its rung)
+    n2 = 2 * int(SR)
+    xf = torch.from_numpy((rng.randn(8, 2, n2) * 0.25).astype(np.float32))
+    many = kernel_of(prog, 2)
+    y8, _c = many.render_files(xf)
+    for f in range(8):
+        solo, _c = many.render_device(xf[f])
+        check(torch.equal(y8[f], solo),
+              f"devexec batch: file {f} differs from its solo render")
+    print(f"[devexec] 8 files x 2 s through render_files (one K11 launch): "
+          f"every file torch.equal to its solo render; climbs "
+          f"{many.heap_climbs}")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(SEED)
+    T_files = MAIN_T if k_ms / 1e3 <= DEVEXEC_SLOW_S else DEVEXEC_SHORT_FILES_T
+
+    def files_of(n, t):
+        return torch.randn((n, 2, t), generator=gen, device=cuda) * 0.25
+
+    # one file a warp against 32 a warp, in turns, at 256 files of 2 s
+    x256 = files_of(*DEVEXEC_SPREAD)
+    spread_ms = {1: [], 32: []}
+    default = DX.FILES_PER_WARP
+    try:
+        for s in (1, 32, 32, 1):
+            DX.FILES_PER_WARP = s
+            spread_ms[s].append(cuda_ms(lambda: many.render_files(x256)))
+    finally:
+        DX.FILES_PER_WARP = default
+    del x256
+    print(f"[devexec] {DEVEXEC_SPREAD[0]} files x "
+          f"{DEVEXEC_SPREAD[1] / SR:.0f} s in turns: one file a warp "
+          f"{spread_ms[1]} ms, 32 a warp {spread_ms[32]} ms (default "
+          f"{default}) card='{card}'")
+    rates = {1: sec / (k_ms / 1e3)}     # one file: the main render's launch
+    for n in DEVEXEC_FILES[1:]:
+        xn = files_of(n, T_files)
+        f_ms = cuda_ms(lambda: many.render_files(xn))
+        rates[n] = n * T_files / SR / (f_ms / 1e3)
+        print(f"[devexec] {n} file(s) x {T_files / SR:.0f} s: {f_ms:.1f} ms, "
+              f"{rates[n]:.3f} audio-s per s (the golden {sec / gold_s:.2f} on "
+              f"one host core); heap rows {n * many.sample.total_mem * 8 / 1e9:.3f}"
+              f" GB card='{card}'")
+        del xn
+    over = [n for n in DEVEXEC_FILES if rates[n] >= sec / gold_s]
+    print(f"[devexec] the card overtakes the golden on one host core at "
+          + (f"{over[0]} files" if over else
+             f"no file count up to {DEVEXEC_FILES[-1]}"))
+
+    # 5. K11's entry: the main render's kept launch, its bounds
+    probe = torch.zeros(1, dtype=torch.float64, device=cuda)
+    reps = 1 << 24
+    ns_op = cuda_ms(lambda: DX.latency_probe(kern.program, probe, reps)) \
+        * 1e6 / reps
+    ops = DX.sample_chain_ops(kern.program, {"nact": mean_nact})
+    chain_ms = MAIN_T * ops * ns_op / 1e6
+    g, r = DEVEXEC_GRAINS, DEVEXEC_RING
+    cells = 2 * min(MAIN_T, r) + 20 * g + 8      # rings, records, tables
+    nbytes = 2 * (2 * MAIN_T * 4) + 2 * cells * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms = max(bytes_ms, chain_ms)
+    by = "operations" if chain_ms >= bytes_ms else "bytes"
+    print(f"[devexec] K11, the main render's kept launch (1 file x 60 s): "
+          f"{k_ms:.2f} ms; chain bound {chain_ms:.2f} ms ({MAIN_T} samples x "
+          f"{ops:.2f} dependent f64 operations a step, counted on the "
+          f"@sample syntax tree with the run's mean of {mean_nact:.3f} active "
+          f"grains, x {ns_op:.3f} ns a dependent add by the probe), bytes "
+          f"bound {bytes_ms:.4f} ms ({nbytes} bytes: audio in and out, "
+          f"{cells} heap cells read and written once) card='{card}'")
+    return {"name": "device_exec", "route": "cuda",
+            "source": "zorak_tpu_torch/kernels/device_exec.py",
+            "replaces": "zorak_tpu/lowering/devexec.py:491",
+            "launches": launches, "max_abs_err": max(errs), "ms": k_ms,
+            "plain_ms": plain_ms, "plain_T": T, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None, "render_ms": ms,
+            "golden_s": gold_s, "chain_ops": ops, "ns_per_op": ns_op,
+            "bytes_ms": bytes_ms, "heap_climbs": kern.heap_climbs,
+            "draws": draws, "pool": kern._rand_cap,
+            "audio_s_per_s": rates, "files_T": T_files,
+            "spread_ms": spread_ms, "overtakes_at": over[0] if over else None}
 
 
 def smi_under_load(torch, fn, reps: int) -> str:
@@ -3348,15 +3716,16 @@ def faust_phases(torch, cuda, rng, card):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="jsfx,batch,spectral,coupled,gated,hop,faust",
+                    default="jsfx,batch,spectral,coupled,gated,hop,devexec,"
+                            "faust",
                     help="comma-separated: jsfx, batch, spectral, coupled, "
-                         "gated, hop, faust (default all seven); k4sweep "
-                         "times K4 across register block sizes")
+                         "gated, hop, devexec, faust (default all eight); "
+                         "k4sweep times K4 across register block sizes")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not phases or phases - {"jsfx", "batch", "spectral", "coupled",
-                               "gated", "hop", "faust", "k4sweep"}:
+                               "gated", "hop", "devexec", "faust", "k4sweep"}:
         ap.error("--phases takes jsfx, batch, spectral, coupled, gated, hop, "
-                 "faust or k4sweep")
+                 "devexec, faust or k4sweep")
     t_start = time.perf_counter()
     import torch
 
@@ -3473,6 +3842,11 @@ def main(argv=None) -> int:
                 "bound_ms": hop["hop_bound_ms"],
                 "bound_by": hop["hop_bound_by"], "library_ms": None, **hop})
         print(f"[done] hop phase in {time.perf_counter() - t0:.1f} s")
+    if "devexec" in phases:
+        t0 = time.perf_counter()
+        kernels.append(devexec_phase(torch, cuda,
+                                     np.random.RandomState(SEED + 13), card))
+        print(f"[done] devexec phase in {time.perf_counter() - t0:.1f} s")
     if "k4sweep" in phases:
         scan_group_sweep(torch, cuda, np.random.RandomState(SEED))
     if "faust" in phases:

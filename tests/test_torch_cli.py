@@ -247,6 +247,9 @@ _BATCH_MODULES = ["parallel", "parallel.batch", "catalog.discovery",
 # the audio-coupled @block: the device section compiler and K10
 _COUPLED_MODULES = ["lowering.devgen", "kernels.block_section"]
 
+# the sequential device executor and K11
+_DEVEXEC_MODULES = ["lowering.devexec", "kernels.device_exec"]
+
 
 def test_port_imports_neither_jax_nor_zorak_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -256,7 +259,7 @@ def test_port_imports_neither_jax_nor_zorak_tpu():
     bad, names = rest.split("] [", 1)
     assert int(n) >= 54 and bad.strip() == "["
     for mod in (_JSFX_MODULES + _SPECTRAL_MODULES + _BATCH_MODULES
-                + _COUPLED_MODULES):
+                + _COUPLED_MODULES + _DEVEXEC_MODULES):
         assert f"'zorak_tpu_torch.{mod}'" in names, mod
 
 

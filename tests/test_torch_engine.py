@@ -215,14 +215,31 @@ def test_device_none_needs_a_gpu_and_unported_engines_say_so():
         with pytest.raises(RuntimeError, match="CUDA"):
             specialize_sample_kernel(prog, make_initialized_shadow(prog).state,
                                      2)
-    with pytest.raises(SpecializeError, match="slice 6"):
-        PluginInstance(prog, prefer="devexec", device="cpu")
-    # an audio-coupled @block that writes gmem (slice 6b)
+    # prefer="devexec" skips the vectorizer: the sequential executor renders
+    # the delay network, equal to the golden
+    dev = PluginInstance(prog, prefer="devexec", smart_idle="always_awake",
+                         device="cpu")
+    assert dev.engine == "torch-devexec" and dev.spec_error == \
+        "devexec requested"
+    x = noise(2, 1100)
+    rd = dev.render(x)
+    assert rd.engine == "torch-devexec"
+    gold = PluginInstance(prog, prefer="none", device="cpu")
+    rep = compare_audio(gold.render(x, block_size=512).audio, rd.audio)
+    compare_states(gold.shadow.state, dev.shadow.state, report=rep)
+    compare_memory_pages(gold.shadow.state, dev.shadow.state, report=rep)
+    assert rep.passed and rep.max_abs_delta <= 1e-6, rep.summary()
+    # an audio-coupled @block that writes gmem: both device engines refuse
+    # it (the graph lockstep, slice 6b), and the golden renders it
     coupled = compile_plugin_source(
         "@sample\nacc += abs(spl0);\nspl0 *= g;\n"
         "@block\ng = 1/(1 + acc*0.001);\ngmem[0] = g;\n")
     inst = PluginInstance(coupled, device="cpu")
     assert inst.engine == "cpu-shadow" and "slice 6" in inst.spec_error
+    assert inst.spec_error.count("gmem") >= 2 and "; devexec: " in \
+        inst.spec_error
+    with pytest.raises(SpecializeError, match="devexec: .*gmem"):
+        PluginInstance(coupled, prefer="devexec", device="cpu")
     res = inst.render(noise(1, 1200))
     assert res.engine == "cpu-shadow"
     assert res.details["spec_error"] == inst.spec_error

@@ -16,7 +16,11 @@ advances only while the input is loud (the gated regime, the shape of
 the catalog's 3DPanner sceneverb tank), and `hop_convolver(part, parts)`
 a partitioned convolver that fires its FFT work every `part` samples
 from inside @sample (the hop regime, the shape of the catalog's
-PsychoConvolver).
+PsychoConvolver).  `grain_texture(grains, ring)` is a granular texture at
+the catalog's Texture widths (grain records of 19 doubles, reached
+through an order table in memory; ring reads clamped by a block-rate fill
+level; rand() in @block and @sample): the vectorizer rejects it, and the
+sequential device executor (devexec, K11) renders it.
 """
 from __future__ import annotations
 
@@ -330,4 +334,122 @@ ctr >= N ? (
   process();
   ctr = 0;
 );
+"""
+
+
+def grain_texture(grains: int = 16, ring: int = 131072) -> str:
+    """A stereo granular texture, the stand-in for the catalog's Texture.
+
+    @sample writes both input channels into two capture rings of `ring`
+    cells (at 4,096 and 4,096 + ring, past the grain tables) and plays up
+    to `grains` grains: a `loop(nact)` over the active grains, each
+    grain's record (19 doubles, Texture's record width) found through an
+    order table in memory (Texture's mem-value indirection), a linear
+    ring read whose upper index is clamped by the block-rate fill level,
+    `pos + 1 >= n ? n - 1 : floor(pos) + 1` (Texture's ctrl-bounded
+    clamp), a sine window, a one-pole smoother and a pan.  A gate at
+    |spl0| > 0.5 marks input onsets (at most one a 600 samples) and
+    draws a rate jitter with rand() on every fourth gated sample.  @block
+    drops the grains that ended from the order table and spawns a grain
+    for each host note-on (`midirecv`, at most 8 a block) and for a marked
+    onset, with rand() for its start, rate, length and pan.  On 0.25 rms
+    noise the gate fires on about 4.6 % of the samples, so a 60 s render
+    draws about 50,000 numbers.  `options: maxmem=33554432` is Texture's
+    heap; the grain tables lie below 4,096 cells, so the executor's heap
+    starts at 4,096 and climbs past the rings."""
+    g, m = int(grains), int(ring)
+    if not 1 <= g <= 200 or m < 128:
+        raise ValueError(f"grains in [1, 200] and ring >= 128, not {g}, {m}")
+    return f"""\
+desc:grain texture (grain records, capture rings, rand in @block and @sample)
+options:maxmem=33554432
+
+@init
+NG = {g}; RING = {m};
+REC = 0; ORD = {19 * g}; SPN = ORD + NG;
+RL = 4096; RR = RL + RING;
+nact = 0; wpos = 0; wtotal = 0; nfill = 0;
+cool = 0; onsets = 0; gc = 0; jit = 0; steal = 0; spawned = 0;
+k = 0;
+loop(NG,
+  REC[k * 19] = 0;
+  ORD[k] = k;
+  k += 1;
+);
+
+@block
+nfill = min(wtotal, RING);
+k = 0; j = 0;
+loop(nact,
+  REC[ORD[j] * 19] > 0 ? ( ORD[k] = ORD[j]; k += 1; );
+  j += 1;
+);
+nact = k;
+ns = 0;
+while (midirecv(ofs, m1, m2, m3)) (
+  (m1 & 240) == 144 && m3 > 0 && ns < 8 ? ( SPN[ns] = m3 / 127; ns += 1; );
+);
+onsets > 0 && ns < 8 ? ( SPN[ns] = 0.5; ns += 1; );
+onsets = 0;
+j = 0;
+loop(ns,
+  nfill > 64 ? (
+    slot = -1; q = 0;
+    loop(NG, slot < 0 && REC[q * 19] <= 0 ? slot = q; q += 1; );
+    slot < 0 ? ( slot = steal; steal = (steal + 1) % NG; )
+             : ( ORD[nact] = slot; nact += 1; );
+    r = REC + slot * 19;
+    r[0] = 1;
+    r[1] = rand(nfill - 2);
+    r[2] = 0.5 + rand(3) * 0.5;
+    r[3] = 1024 * (1 + floor(rand(8)));
+    r[4] = 0;
+    r[5] = SPN[j];
+    r[6] = rand();
+    r[7] = spawned & 1;
+    r[8] = 0.05 + 0.9 * SPN[j];
+    r[9] = 0; r[10] = 0;
+    r[11] = spawned; r[12] = nfill; r[13] = slot; r[14] = j;
+    r[15] = wpos; r[16] = ns; r[17] = nact; r[18] = steal;
+    spawned += 1;
+  );
+  j += 1;
+);
+
+@sample
+x0 = spl0; x1 = spl1;
+RL[wpos] = x0; RR[wpos] = x1;
+wpos += 1; wpos >= RING ? wpos = 0;
+wtotal += 1;
+abs(x0) > 0.5 ? (
+  cool <= 0 ? ( onsets += 1; cool = 600; );
+  gc += 1;
+  (gc & 3) == 0 ? jit = (rand(2) - 1) * 0.001;
+);
+cool -= 1;
+oL = 0; oR = 0; j = 0;
+loop(nact,
+  r = REC + ORD[j] * 19;
+  r[0] > 0 ? (
+    pos = r[1];
+    base = r[7] > 0.5 ? RR : RL;
+    i0 = floor(pos);
+    i1 = pos + 1 >= nfill ? nfill - 1 : floor(pos) + 1;
+    fr = pos - i0;
+    s = base[i0] * (1 - fr) + base[i1] * fr;
+    w = sin($pi * r[4] / r[3]);
+    r[9] = r[9] + r[8] * (s * w - r[9]);
+    v = r[9] * r[5];
+    oL += v * (1 - r[6]);
+    oR += v * r[6];
+    pos += r[2] + jit;
+    pos >= nfill ? pos -= nfill;
+    r[1] = pos;
+    r[4] += 1;
+    r[4] >= r[3] ? r[0] = 0;
+  );
+  j += 1;
+);
+spl0 = 0.5 * x0 + 0.5 * oL;
+spl1 = 0.5 * x1 + 0.5 * oR;
 """

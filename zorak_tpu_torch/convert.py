@@ -10,7 +10,8 @@ A JSFX plugin's state is a `ShadowState` (vars, sliders, spl registers,
 mem) and, mid-render, a vector kernel's carry `(svec, rings)`.
 `shadow_state_from_numpy` and `carry_from_numpy` rebuild both on the
 port's side from plain numpy, so that two renders can start from the
-same numbers.
+same numbers; `devexec_carry_from_numpy` does the same for the sequential
+device executor's carry `(vars, mem)`.
 """
 from __future__ import annotations
 
@@ -103,3 +104,43 @@ def shadow_state_from_numpy(state, variables: Mapping, sliders, mem,
     if spl is not None:
         state.spl = [float(v) for v in spl]
     return state
+
+
+def devexec_carry_from_numpy(kernel, carry, mem_size: int, rng_state=None):
+    """A JAX `DeviceExecKernel`'s carry `(vars, mem)` for the port's
+    `kernel` (a `DeviceExecKernel` built from the same program and state),
+    as tensors on its device.
+
+    The var slots are laid out alike (the reference's table, the high-water
+    slot last).  The JAX heap row is [plugin heap of `mem_size` cells | MIDI
+    out table | draw pool | ...] (`mem_size` is the JAX kernel's
+    `sample.mem_size`); the port's is [plugin heap | MIDI out table] and
+    its pool a table of its own, so the plugin heap and the MIDI out table
+    are moved across, re-laid out as `_migrate_carry` does where the two
+    heaps differ in size: the port's kernel climbs to the JAX heap where
+    that is larger, and a smaller one is zero-filled above.  rng_state:
+    the JAX kernel's `_rng_prestate` (the generator its last pool came
+    from), so that the port's next render continues the JAX generator by
+    the draws the carry's cursor counts.
+    """
+    bv, bm = carry
+    bv = np.asarray(bv, dtype=np.float64)
+    bm = np.asarray(bm, dtype=np.float64)
+    samp = kernel.sample
+    mem_size = int(mem_size)
+    if bv.shape != (samp.n_vars,) or bm.ndim != 1 \
+            or len(bm) < mem_size + samp.midi_out_cells:
+        raise ValueError(f"vars {bv.shape} and mem {bm.shape} do not hold "
+                         f"{samp.n_vars} slots and a heap of {mem_size} "
+                         "cells with its MIDI out table")
+    kernel.grow_to(mem_size)
+    samp = kernel.sample
+    out = np.zeros(samp.total_mem, dtype=np.float64)
+    out[:mem_size] = bm[:mem_size]
+    mo = samp.midi_out_cells
+    out[samp.mem_size:samp.mem_size + mo] = bm[mem_size:mem_size + mo]
+    if rng_state is not None:
+        state = (np.array(rng_state[0], dtype=np.uint32), int(rng_state[1]))
+        kernel._rng_state = kernel._rng_prestate = state
+    return (torch.from_numpy(bv.copy()).to(kernel.device),
+            torch.from_numpy(out).to(kernel.device))

@@ -1,4 +1,5 @@
-// The device side of a generated @block section (K10, block_section).
+// The device side of a generated section: K10's @block (block_section)
+// and K11's whole plugin (device_exec).
 //
 // zorak_tpu_torch/lowering/devgen.py prints each audio-coupled section as
 // CUDA C through shadow/cgen.py's expression emitter; what that emitter
@@ -25,6 +26,14 @@
 // run stays inside, and an FFT whose region leaves the heap is a silent
 // no-op.  (A static address past the heap is refused when the source is
 // generated.)
+//
+// K11's sections use the reference's reduced heap instead (devgen.py
+// `_mem_addr`, `_mem_get`, `_mem_set` under reduced_heap): a dynamic
+// address is raised to at least 0 and not clamped above, a read at or
+// past mem_size gives 0, and a write there is dropped; every dynamic write
+// and every FFT region that leaves the heap inside its page raise the
+// high-water slot (`hiwater`) to its address, so that the executor can
+// see that the render needs a larger heap.  K10 leaves `hiwater` null.
 
 #pragma once
 
@@ -59,6 +68,10 @@ struct ZB {
   const double* tw;        // cos, sin of 2 pi k / tw_n, k < tw_n / 2
   long long tw_n;
   unsigned long long* serial_runs;  // block loops run on thread 0 (or null)
+  // K11 only (K10 leaves them zero):
+  const double* pool;      // the staged MT19937 draws (u32 values), shared
+  long long pool_n;        // how many
+  double* hiwater;         // the reduced heap's high-water slot (or null)
 };
 
 // -- phases: who runs what ------------------------------------------------------
@@ -104,6 +117,45 @@ ZB_FN double zb_mget(const ZB* S, double base, double idx) {
 ZB_FN double zb_mset(ZB* S, double v, double base, double idx) {
   S->M[zb_addr(S, base, idx)] = v;
   return v;
+}
+
+// The reduced heap: trunc(base + idx + 1e-5), raised to 0 and not clamped
+// above; reads past the heap give 0, writes there drop and mark the high
+// water (every dynamic write raises it to its address, as the reference's
+// does).
+ZB_FN long long zb_raddr(const ZB* S, double base, double idx) {
+  (void)S;
+  const long long a = zt_i64(base + idx + 1.0e-5);
+  return a < 0 ? 0 : a;
+}
+ZB_FN double zb_rat(const ZB* S, long long a) {
+  return a < S->mem_size ? S->M[a] : 0.0;
+}
+ZB_FN double zb_rmget(const ZB* S, double base, double idx) {
+  return zb_rat(S, zb_raddr(S, base, idx));
+}
+ZB_FN void zb_rmset(ZB* S, long long a, double v) {
+  const double hw = (double)a;
+  if (*S->hiwater < hw) *S->hiwater = hw;
+  if (a < S->mem_size) S->M[a] = v;
+}
+
+// -- rand() over the staged pool ------------------------------------------------
+//
+// rand(limit) = u32 * (1/4294967295) * max(floor(limit), 1), the u32 the
+// pool's cell at the cursor (*pos, a var slot).  The cursor counts past the
+// pool's end and the read clamps; the executor refuses a render that used
+// more draws than the pool held.
+ZB_FN double zb_rand(ZB* S, double* pos, double limit) {
+  const double c = *pos;
+  long long i = zt_i64(c);
+  if (i < 0) i = 0;
+  if (i > S->pool_n - 1) i = S->pool_n - 1;
+  const double u = ZB_LDG(S->pool + i);
+  *pos = c + 1.0;
+  double top = floor(limit);
+  if (!(top >= 1.0)) top = 1.0;
+  return u * (1.0 / 4294967295.0) * top;
 }
 
 // memset/memcpy's run: n = max(0, trunc(len)) cells (at most the heap)
@@ -198,11 +250,16 @@ ZB_FN long long zb_round_index(double v) {
   if (!(v == v) || v - v != 0.0) return -1;
   return zt_i64(v + (v >= 0.0 ? 1.0e-5 : -1.0e-5));
 }
-// A region of `span` cells from `base` inside one page and the heap.
+// A region of `span` cells from `base` inside one page and the heap.  On
+// a reduced heap a region inside its page that leaves the heap marks the
+// high water with its last cell (the golden grows its heap for it).
 ZB_FN bool zb_region_ok(const ZB* S, long long base, long long span) {
   if (base < 0 || span <= 0) return false;
   if (base / ZB_PAGE != (base + span - 1) / ZB_PAGE) return false;
-  return base + span <= S->mem_size;
+  if (base + span <= S->mem_size) return true;
+  if (S->hiwater && *S->hiwater < (double)(base + span - 1))
+    *S->hiwater = (double)(base + span - 1);
+  return false;
 }
 ZB_FN long long zb_fft_base(double dest) {
   const long long b = zb_round_index(dest);

@@ -9,6 +9,10 @@
     stft             STFT overlap-add and the spectral gate (csrc/stft_ola.cu)
     convolution      direct FIR and partitioned convolution
                      (csrc/partition_mac.cu)
+    block_section    the audio-coupled @block (K10, generated by
+                     lowering/devgen.py, csrc/block_ops.cuh)
+    device_exec      the sequential executor's whole render (K11, generated
+                     by lowering/devgen.py, csrc/block_ops.cuh)
 """
 from .stft import stft, istft, stft_process  # noqa: F401
 from .convolution import fir_conv, partitioned_convolve  # noqa: F401

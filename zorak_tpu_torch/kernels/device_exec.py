@@ -1,0 +1,821 @@
+"""The sequential device executor's render: K11 + its plain version.
+
+Replaces the fused XLA program of the reference's sequential executor
+(`DeviceExecKernel._make_run`, zorak_tpu/lowering/devexec.py:491-586): an
+outer scan over the host's blocks, then @block, then the pending-mask
+@slider retrigger, then an inner scan of @sample over the block's samples.
+Plain torch for that work would pay several launches for every sample, so
+the whole render is one generated kernel.
+
+On a CUDA tensor `device_exec` launches it: one thread runs one file's
+whole render, block after block, through the sections that
+`lowering/devgen.py` prints as C (`DeviceSection.body_source`, with the
+reduced heap's addressing and the staged draw pool of `csrc/block_ops.cuh`).
+On a CPU tensor it runs `device_exec_plain`: for each file the port's
+Python golden (`shadow/pyexec.py`) with the same heap, pool and block
+loop.  Nothing falls back from one to the other.  `device_exec_host` runs
+the generated text compiled with a host C++ compiler, for the tests.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from ..lowering.devgen import (
+    MEM_HIWATER_SLOT, MIDI_OUT_CAP, MIDI_POS_SLOT, PENDING_SLOT_NAMES,
+    RAND_POS_SLOT, DeviceSection)
+from ..runtime import fftops as FO
+
+# Kernel launches since the counter was last set; chip_smoke.py zeroes it
+# before a path and reads it after to show the path went through the kernel.
+LAUNCHES = 0
+
+# Threads of a CUDA block of K11.
+THREADS = 128
+
+# How the files lie on the card: 1, one file a warp (its other 31 lanes
+# idle, so no two files share a warp's instruction stream); 32, a file a
+# lane.  chip_smoke.py times the two in turns at 256 files; the faster is
+# the default.
+FILES_PER_WARP = 1
+
+_DESIGN = """\
+// K11 device_exec: replaces the fused XLA program of the reference's
+// sequential executor (zorak_tpu/lowering/devexec.py:491-586 _make_run:
+// a scan over blocks of @block, the @slider retrigger and a scan of
+// @sample over the block's samples).
+//
+// What bounds it: one thread's dependent chain of f64 operations through
+// every @sample step of the render, one sample after another; the bytes
+// (the audio in and out, the heap cells the sections touch) are far less.
+//
+// What the design does: one thread runs one file's whole render in one
+// launch.  For each block it clears the MIDI position and the MIDI out
+// table where they are used, runs @block, runs @slider where a pending
+// mask is set (and clears the masks), then runs @sample over the block's
+// samples: each f32 input widened into its spl slot, the body, the spl
+// slot rounded to f32 on output.  The remainder block's length is an
+// argument, and so are the heap's size and the row strides: one build
+// serves every length and every rung of the heap ladder.  A file whose
+// reduced heap overflowed (its high-water slot at or past the heap) stops
+// at the end of that block: the executor discards the render and replays
+// it on a larger heap.  The files lie one a warp or one a lane (`spread`).
+"""
+
+
+class DeviceExecProgram:
+    """K11's generated source for one plugin: its @sample section and,
+    where the plugin has them, @block and @slider (DeviceSections over one
+    slot table and heap, made with `reduced_heap`).
+
+    nch   the channels of the render (spl0 ... spl{nch-1} in and out);
+    B     the host's block size (samples a full block).
+    """
+
+    def __init__(self, sample: DeviceSection,
+                 block: Optional[DeviceSection] = None,
+                 slider: Optional[DeviceSection] = None,
+                 nch: int = 1, block_size: int = 512):
+        secs = [s for s in (block, slider, sample) if s is not None]
+        for s in secs:
+            if not s.reduced_heap:
+                raise ValueError(f"@{s.section} is not a reduced-heap section")
+            if s.slots != sample.slots or s.total_mem != sample.total_mem \
+                    or s.mem_size != sample.mem_size:
+                raise ValueError("the sections must share slots and heap")
+        if slider is not None and block is None:
+            raise ValueError("@slider reruns only after @block")
+        self.sample, self.block, self.slider = sample, block, slider
+        self.nch = int(nch)
+        self.B = int(block_size)
+        if not 1 <= self.nch <= 64 or self.B < 1:
+            raise ValueError(f"nch {nch} and block size {block_size}")
+        self.n_vars = sample.n_vars
+        self.mem_size = sample.mem_size
+        self.total_mem = sample.total_mem
+        self.midi_out_cells = sample.midi_out_cells
+        self.uses_midi_in = block is not None and block.uses_midi_in
+        self.uses_rand = any(s.uses_rand for s in secs)
+        self.spl_slots = [sample.slots[("spl", c)] for c in range(self.nch)]
+        self.pend_slots = [sample.slots[("var", nm)]
+                           for nm in PENDING_SLOT_NAMES]
+        self.pos_slot = sample.slots[("var", MIDI_POS_SLOT)]
+        self.hw_slot = sample.slots[("var", MEM_HIWATER_SLOT)]
+        self.fft_max = max(s.fft_max for s in secs)
+        self.scratch_cells = max(1, max(s.scratch_cells for s in secs))
+        self.perm_sizes = sorted({n for s in secs for n in s.perm_sizes})
+        self.source = _emit_source(self)
+        n = max(self.fft_max, 2)
+        ang = 2.0 * np.pi * np.arange(n // 2, dtype=np.float64) / n
+        self.twiddles = np.stack([np.cos(ang), np.sin(ang)], axis=1).reshape(-1)
+        self._tables: Dict[str, torch.Tensor] = {}
+        self._plain_fns = None
+        self._plain_state = None
+
+    def rows(self, T: int) -> Tuple[int, int, int]:
+        """(full blocks, remainder, blocks) of a render of T samples."""
+        nfull, rem = divmod(int(T), self.B)
+        return nfull, rem, nfull + (1 if rem else 0)
+
+    def twiddles_on(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._tables:
+            self._tables[key] = torch.from_numpy(self.twiddles.copy()).to(device)
+        return self._tables[key]
+
+
+def _c_table(name: str, values: Sequence[int], ctype: str = "long long") -> str:
+    vals = ", ".join(str(int(v)) for v in values) or "0"
+    return f"ZB_DEV const {ctype} {name}[] = {{{vals}}};"
+
+
+def _emit_source(p: DeviceExecProgram) -> str:
+    """K11's text: the sections, one file's render (`zx_file`), the kernel
+    and its launcher, and for a host compiler the files one after
+    another.  Nothing in it depends on the heap's size."""
+    secs = [s for s in (p.block, p.slider, p.sample) if s is not None]
+    functions: Dict[str, str] = {}
+    for s in secs:
+        for name, text in s.functions.items():
+            if functions.setdefault(name, text) != text:
+                raise ValueError(f"{name} prints differently in two sections")
+    out = [
+        _DESIGN,
+        '#include "block_ops.cuh"',
+        "",
+        "#ifdef __CUDACC__",
+        "#define ZB_DEV static __device__",
+        "#else",
+        "#define ZB_DEV static",
+        "#endif",
+        "",
+        f"#define ZX_NCH {p.nch}",
+        f"#define ZX_B {p.B}",
+        f"#define ZX_MO_CELLS {p.midi_out_cells}",
+        f"#define ZX_HW {p.hw_slot}",
+        "",
+    ]
+    for n in p.perm_sizes:
+        out.append(_c_table(f"zb_perm_{n}", FO.perm_table(n), "int"))
+    out.append(_c_table("zx_spl", p.spl_slots))
+    out.append("")
+    out += [text.split(" {", 1)[0] + ";" for text in functions.values()]
+    out += list(functions.values())
+    out += [s.body_source for s in secs]
+    blk: List[str] = []
+    if p.midi_out_cells:
+        blk.append("    for (long long i = 0; i < ZX_MO_CELLS; ++i) "
+                   "M[mo + i] = 0.0;   // the block's MIDI out table")
+    if p.block is not None:
+        if p.uses_midi_in:
+            blk += [f"    V[{p.pos_slot}] = 0.0;   // a fresh host queue a block",
+                    "    S.midi_ev = mev + b * mk * 4;",
+                    "    S.midi_n = mn[b];"]
+        blk.append(f"    {p.block.fn_name}(&S);")
+        if p.slider is not None:
+            a, b, c = p.pend_slots
+            blk += ["    // @block retriggered @slider: run it, clear the masks",
+                    f"    if (V[{a}] + V[{b}] + V[{c}] != 0.0) {{",
+                    f"      {p.slider.fn_name}(&S);",
+                    f"      V[{a}] = 0.0; V[{b}] = 0.0; V[{c}] = 0.0;",
+                    "    }"]
+    mout = []
+    if p.midi_out_cells:
+        mout = ["    for (long long i = 0; i < ZX_MO_CELLS; ++i)",
+                "      mout[(f * rows + b) * ZX_MO_CELLS + i] = M[mo + i];"]
+    args = ("const float* x, float* y, double* bvars, double* bmem, "
+            "double* mout, const double* mev, const double* mn, long long mk, "
+            "const double* pool, long long pool_n, double* scratch, "
+            "long long scratch_n, const double* tw, long long tw_n, "
+            "long long T, long long nfull, long long rem, long long mem_size, "
+            "long long total_mem")
+    names = ("x, y, bvars, bmem, mout, mev, mn, mk, pool, pool_n, scratch, "
+             "scratch_n, tw, tw_n, T, nfull, rem, mem_size, total_mem")
+    out += [
+        "",
+        "// One file's whole render; returns 1 where its heap overflowed.",
+        f"ZB_DEV int zx_file(long long f, {args}) {{",
+        "  (void)mev; (void)mn; (void)mk; (void)mout;",
+        "  double* V = bvars + f * " + str(p.n_vars) + ";",
+        "  double* M = bmem + f * total_mem;",
+        "  const long long mo = mem_size;   // the MIDI out table",
+        "  (void)mo;",
+        "  ZB S = {V, M, mem_size, mo, (double)ZX_B, nullptr, 0.0,",
+        "          scratch + f * scratch_n, tw, tw_n, nullptr, pool, pool_n,",
+        "          V + ZX_HW};",
+        "  const long long rows = nfull + (rem > 0 ? 1 : 0);",
+        "  const float* xf = x + f * ZX_NCH * T;",
+        "  float* yf = y + f * ZX_NCH * T;",
+        "  for (long long b = 0; b < rows; ++b) {",
+        "    const long long n = b < nfull ? ZX_B : rem;",
+        "    S.samplesblock = (double)n;",
+        *blk,
+        "    for (long long i = 0; i < n; ++i) {",
+        "      const long long t = b * ZX_B + i;",
+        "      for (int c = 0; c < ZX_NCH; ++c) V[zx_spl[c]] = (double)xf[c * T + t];",
+        f"      {p.sample.fn_name}(&S);",
+        "      for (int c = 0; c < ZX_NCH; ++c) yf[c * T + t] = (float)V[zx_spl[c]];",
+        "    }",
+        *mout,
+        "    // a dropped write: the render is discarded and replayed",
+        "    if (V[ZX_HW] >= (double)mem_size) return 1;",
+        "  }",
+        "  return 0;",
+        "}",
+        "",
+        "#ifdef __CUDACC__",
+        "",
+        f"__global__ void __launch_bounds__({THREADS}) zx_kernel({args}, "
+        "long long nf, int spread) {",
+        "  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;",
+        "  long long f = g;",
+        "  if (spread) {   // one file a warp: lane 0 runs it",
+        "    if (g & 31) return;",
+        "    f = g >> 5;",
+        "  }",
+        "  if (f >= nf) return;",
+        f"  zx_file(f, {names});",
+        "}",
+        "",
+        "// a probe of the chain bound: `reps` dependent f64 adds on one thread",
+        "__global__ void zx_latency_kernel(double* out, double y, long long reps) {",
+        "  double v = out[0];",
+        "  for (long long r = 0; r < reps; ++r) v = v + y;",
+        "  out[0] = v;",
+        "}",
+        "",
+        'extern "C" int device_exec_latency(void* out, double y, long long reps,',
+        "                                   void* stream) {",
+        "  zx_latency_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(",
+        "      static_cast<double*>(out), y, reps);",
+        "  return static_cast<int>(cudaGetLastError());",
+        "}",
+        "",
+        'extern "C" int device_exec_launch(const void* x, void* y, void* bvars,',
+        "    void* bmem, void* mout, const void* mev, const void* mn, long long mk,",
+        "    const void* pool, long long pool_n, void* scratch, long long scratch_n,",
+        "    const void* tw, long long tw_n, long long T, long long nfull,",
+        "    long long rem, long long mem_size, long long total_mem, long long nf,",
+        "    int spread, void* stream) {",
+        "  cudaGetLastError();  // clear an error left by an earlier call",
+        "  if (nf <= 0) return 0;",
+        f"  const long long threads = nf * (spread ? 32 : 1);",
+        f"  const long long grid = (threads + {THREADS} - 1) / {THREADS};",
+        "  if (grid > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);",
+        f"  zx_kernel<<<static_cast<unsigned>(grid), {THREADS}, 0,",
+        "              static_cast<cudaStream_t>(stream)>>>(",
+        "      static_cast<const float*>(x), static_cast<float*>(y),",
+        "      static_cast<double*>(bvars), static_cast<double*>(bmem),",
+        "      static_cast<double*>(mout), static_cast<const double*>(mev),",
+        "      static_cast<const double*>(mn), mk, static_cast<const double*>(pool),",
+        "      pool_n, static_cast<double*>(scratch), scratch_n,",
+        "      static_cast<const double*>(tw), tw_n, T, nfull, rem, mem_size,",
+        "      total_mem, nf, spread);",
+        "  return static_cast<int>(cudaGetLastError());",
+        "}",
+        "",
+        "#else  // a host compiler: the files one after another",
+        "",
+        'extern "C" int device_exec_host(const void* x, void* y, void* bvars,',
+        "    void* bmem, void* mout, const void* mev, const void* mn, long long mk,",
+        "    const void* pool, long long pool_n, void* scratch, long long scratch_n,",
+        "    const void* tw, long long tw_n, long long T, long long nfull,",
+        "    long long rem, long long mem_size, long long total_mem, long long nf) {",
+        "  for (long long f = 0; f < nf; ++f)",
+        "    zx_file(f, static_cast<const float*>(x), static_cast<float*>(y),",
+        "            static_cast<double*>(bvars), static_cast<double*>(bmem),",
+        "            static_cast<double*>(mout), static_cast<const double*>(mev),",
+        "            static_cast<const double*>(mn), mk,",
+        "            static_cast<const double*>(pool), pool_n,",
+        "            static_cast<double*>(scratch), scratch_n,",
+        "            static_cast<const double*>(tw), tw_n, T, nfull, rem, mem_size,",
+        "            total_mem);",
+        "  return 0;",
+        "}",
+        "",
+        "#endif",
+        "",
+    ]
+    return "\n".join(out)
+
+
+# -- the checks shared by every form -----------------------------------------------
+
+def _check(program: DeviceExecProgram, x, bvars, bmem, pool) -> Tuple[int, int]:
+    """(files, samples) after checking the shapes, types and devices."""
+    if x.dim() != 3 or x.dtype != torch.float32 or x.shape[1] != program.nch:
+        raise ValueError(f"x must be float32 [files, {program.nch}, T], got "
+                         f"{x.dtype} {list(x.shape)}")
+    nf, _, T = x.shape
+    dev = x.device
+    for name, t, shape in (("bvars", bvars, (nf, program.n_vars)),
+                           ("bmem", bmem, (nf, program.total_mem))):
+        if tuple(t.shape) != shape or t.dtype != torch.float64 \
+                or t.device != dev:
+            raise ValueError(f"{name} must be float64 {list(shape)} on {dev}, "
+                             f"got {t.dtype} {list(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (updated in place)")
+    if program.uses_rand:
+        if pool is None or pool.dim() != 1 or pool.numel() < 1 \
+                or pool.dtype != torch.float64 or pool.device != dev:
+            raise ValueError(f"a float64 draw pool on {dev} is needed")
+    return nf, T
+
+
+def _midi(program: DeviceExecProgram, midi, rows: int, dev):
+    """(events [rows, K, 4], counts [rows], K) of the staged host queue, or
+    empty stand-ins where the plugin reads no MIDI."""
+    if program.uses_midi_in and midi is not None:
+        mev, mn = midi
+        if mev.shape[0] != rows or mn.shape != (rows,) or mev.shape[2] != 4:
+            raise ValueError(f"MIDI planes {list(mev.shape)}, {list(mn.shape)}"
+                             f" for {rows} blocks")
+        return (mev.to(dev, torch.float64).contiguous(),
+                mn.to(dev, torch.float64).contiguous(), int(mev.shape[1]))
+    z = torch.zeros((max(rows, 1), 1, 4), dtype=torch.float64, device=dev)
+    return z, torch.zeros(max(rows, 1), dtype=torch.float64, device=dev), 1
+
+
+def device_exec(program: DeviceExecProgram, x: torch.Tensor,
+                bvars: torch.Tensor, bmem: torch.Tensor,
+                pool: Optional[torch.Tensor] = None, midi=None):
+    """One render of nf files.
+
+    x [nf, nch, T] float32 is the input; bvars [nf, n_vars] and bmem [nf,
+    total_mem] (float64, contiguous) are each file's var row and heap row,
+    updated in place; pool [cap] float64 is the staged draw pool every file
+    reads (each keeps its own cursor), where the plugin draws rand(); midi
+    is (events [blocks, K, 4], counts [blocks]) of the host's queue, shared
+    by the files.  Returns (y [nf, nch, T] float32, MIDI out tables [nf,
+    blocks, cells] or None).  The files lie FILES_PER_WARP a warp.
+
+    CUDA tensors go to the generated kernel, CPU tensors to the plain
+    version; nothing falls back from one to the other.
+    """
+    global LAUNCHES
+    nf, T = _check(program, x, bvars, bmem, pool)
+    dev = x.device
+    nfull, rem, rows = program.rows(T)
+    mout = (torch.zeros((nf, rows, program.midi_out_cells),
+                        dtype=torch.float64, device=dev)
+            if program.midi_out_cells else None)
+    if dev.type == "cpu":
+        y = device_exec_plain(program, x, bvars, bmem, pool, midi, mout)
+        return y, mout
+    if dev.type != "cuda":
+        raise ValueError(f"device_exec runs on cuda or cpu, not {dev}")
+    if FILES_PER_WARP not in (1, 32):
+        raise ValueError(f"FILES_PER_WARP is 1 or 32, not {FILES_PER_WARP}")
+    y = torch.empty_like(x)
+    mev, mn, mk = _midi(program, midi, rows, dev)
+    if pool is None:
+        pool = torch.zeros(1, dtype=torch.float64, device=dev)
+    scratch = torch.zeros((nf, program.scratch_cells), dtype=torch.float64,
+                          device=dev)
+    tw = program.twiddles_on(dev)
+    lib = _library(program.source)
+    x = x.contiguous()
+    with torch.cuda.device(dev):
+        err = lib.device_exec_launch(
+            x.data_ptr(), y.data_ptr(), bvars.data_ptr(), bmem.data_ptr(),
+            0 if mout is None else mout.data_ptr(), mev.data_ptr(),
+            mn.data_ptr(), mk, pool.data_ptr(), pool.numel(),
+            scratch.data_ptr(), program.scratch_cells, tw.data_ptr(),
+            max(program.fft_max, 2), T, nfull, rem, program.mem_size,
+            program.total_mem, nf, int(FILES_PER_WARP == 1),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"device_exec kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return y, mout
+
+
+# x, y, bvars, bmem, mout, mev, mn; mk; pool; pool_n; scratch; scratch_n;
+# tw; tw_n, T, nfull, rem, mem_size, total_mem, nf
+_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p,
+                                   ctypes.c_longlong, ctypes.c_void_p,
+                                   ctypes.c_longlong, ctypes.c_void_p]
+         + [ctypes.c_longlong] * 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _library(source: str) -> ctypes.CDLL:
+    lib = _build.load_generated(source)
+    lib.device_exec_launch.argtypes = _ARGS + [ctypes.c_int, ctypes.c_void_p]
+    lib.device_exec_launch.restype = ctypes.c_int
+    return lib
+
+
+def latency_probe(program: DeviceExecProgram, out: torch.Tensor,
+                  reps: int) -> None:
+    """Timing probe (chip_smoke.py): `reps` dependent f64 adds on one
+    thread into out[0] (a CUDA f64 tensor); its time a rep is the latency
+    of one link of K11's dependent chain.  Not a kernel of any path, so
+    LAUNCHES stays."""
+    if out.device.type != "cuda":
+        raise ValueError("the latency probe takes a CUDA tensor")
+    lib = _library(program.source)
+    lib.device_exec_latency.argtypes = [ctypes.c_void_p, ctypes.c_double,
+                                        ctypes.c_longlong, ctypes.c_void_p]
+    lib.device_exec_latency.restype = ctypes.c_int
+    with torch.cuda.device(out.device):
+        err = lib.device_exec_latency(
+            out.data_ptr(), 1.0e-9, int(reps),
+            torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"device_exec latency probe failed: cudaError {err}")
+
+
+def build(programs: Sequence[DeviceExecProgram]) -> Dict[str, str]:
+    """Build the programs' kernels (one nvcc each, all started together)
+    before their first launch; returns nvcc's log by source text."""
+    return _build.build_generated([p.source for p in programs])
+
+
+def device_exec_host(program: DeviceExecProgram, x, bvars, bmem, pool=None,
+                     midi=None):
+    """The generated source compiled for the CPU with a host C++ compiler
+    (its host form), on CPU tensors, in place as `device_exec`: shows
+    without a GPU that the printed sections and the block loop repeat
+    `device_exec_plain`.  No render path calls it, and it leaves LAUNCHES
+    alone.  Returns (y, MIDI out tables or None)."""
+    nf, T = _check(program, x, bvars, bmem, pool)
+    if x.device.type != "cpu":
+        raise ValueError("device_exec_host takes CPU tensors")
+    fn = _build.load_generated_host(program.source).device_exec_host
+    fn.argtypes = _ARGS
+    fn.restype = ctypes.c_int
+    nfull, rem, rows = program.rows(T)
+    y = torch.empty_like(x)
+    mout = torch.zeros((nf, rows, max(program.midi_out_cells, 1)),
+                       dtype=torch.float64)
+    mev, mn, mk = _midi(program, midi, rows, x.device)
+    pool = torch.zeros(1, dtype=torch.float64) if pool is None \
+        else pool.contiguous()
+    scratch = torch.zeros((nf, program.scratch_cells), dtype=torch.float64)
+    tw = torch.from_numpy(program.twiddles.copy())
+    x = x.contiguous()
+    fn(x.data_ptr(), y.data_ptr(), bvars.data_ptr(), bmem.data_ptr(),
+       mout.data_ptr(), mev.data_ptr(), mn.data_ptr(), mk, pool.data_ptr(),
+       pool.numel(), scratch.data_ptr(), program.scratch_cells, tw.data_ptr(),
+       max(program.fft_max, 2), T, nfull, rem, program.mem_size,
+       program.total_mem, nf)
+    return y, (mout if program.midi_out_cells else None)
+
+
+# -- the plain version ---------------------------------------------------------------
+
+class _PoolDraws:
+    """rand() of the plain version: the staged pool at the cursor slot,
+    as `zb_rand` draws it (the state's `rng`)."""
+
+    def __init__(self, pool: np.ndarray, state):
+        self.pool, self.state = pool, state
+
+    def rand(self, limit: float = 1.0) -> float:
+        V = self.state.V
+        c = V[RAND_POS_SLOT]          # a count of draws: a whole number
+        i = min(max(int(c), 0), len(self.pool) - 1)
+        V[RAND_POS_SLOT] = c + 1.0
+        top = float(np.floor(limit))
+        if not top >= 1.0:
+            top = 1.0
+        return float(self.pool[i]) * (1.0 / 4294967295.0) * top
+
+
+def device_exec_plain(program: DeviceExecProgram, x, bvars, bmem, pool=None,
+                      midi=None, mout=None):
+    """Plain version: for each file the sections through the port's Python
+    golden (`shadow/pyexec.py`) on a ShadowState built from the file's
+    slots and heap row, with the reduced heap's addressing and the staged
+    pool's draws, block after block as the kernel runs them.  In place,
+    as `device_exec`; CPU tensors.  Returns y."""
+    nf, T = _check(program, x, bvars, bmem, pool)
+    nfull, rem, rows = program.rows(T)
+    fns = _plain_functions(program)
+    xs = x.numpy()
+    y = np.zeros(xs.shape, dtype=np.float32)
+    pool_np = None if pool is None else pool.numpy()
+    events: List[list] = [[] for _ in range(rows)]
+    if midi is not None and program.uses_midi_in:
+        mev, mn = midi
+        mev, mn = mev.cpu().numpy(), mn.cpu().numpy()
+        events = [mev[b, :int(mn[b])].tolist() for b in range(rows)]
+    masks = ("pending_change_mask", "pending_automate_mask",
+             "pending_automate_end_mask")
+    sec = program.sample
+    for f in range(nf):
+        st = program._plain_state.clone()
+        vals = bvars[f].tolist()
+        for key, slot in sec.slots.items():
+            _put(st, key, vals[slot], masks)
+        m_row = bmem[f]
+        st.mem = m_row[:program.mem_size].numpy()     # shares the row
+        st.mem_used = program.mem_size
+        if pool_np is not None:
+            st.rng = _PoolDraws(pool_np, st)
+        _plain_file(program, fns, st, xs[f], y[f], events, nfull, rem,
+                    m_row, None if mout is None else mout[f])
+        out = list(vals)
+        for key, slot in sec.slots.items():
+            got = _get(st, key, masks)
+            if got is not None:
+                out[slot] = got
+        out[program.pos_slot] = float(st.midi_in_pos) \
+            if program.uses_midi_in else vals[program.pos_slot]
+        bvars[f] = torch.tensor(out, dtype=torch.float64)
+    return torch.from_numpy(y)
+
+
+def _plain_file(program, fns, st, xf, yf, events, nfull, rem, m_row,
+                mout) -> None:
+    from ..shadow.state import MidiEvent
+
+    block_fn, slider_fn, sample_fn = fns
+    B, nch = program.B, program.nch
+    mo = program.mem_size
+    spl = st.spl
+    for b in range(nfull + (1 if rem else 0)):
+        n = B if b < nfull else rem
+        st.samplesblock = float(n)
+        st.midi_out = []            # the kernel clears the table a block
+        if block_fn is not None:
+            if program.uses_midi_in:
+                st.midi_in = [MidiEvent(int(e[0]), int(e[1]), int(e[2]),
+                                        int(e[3])) for e in events[b]]
+                st.midi_in_pos = 0
+            block_fn(st)
+            if slider_fn is not None and (st.pending_change_mask
+                                          or st.pending_automate_mask
+                                          or st.pending_automate_end_mask):
+                slider_fn(st)
+                st.pending_change_mask = 0
+                st.pending_automate_mask = 0
+                st.pending_automate_end_mask = 0
+        t0 = b * B
+        for i in range(n):
+            for c in range(nch):
+                spl[c] = float(xf[c, t0 + i])
+            sample_fn(st)
+            for c in range(nch):
+                yf[c, t0 + i] = np.float32(spl[c])
+        if program.midi_out_cells:
+            table = np.zeros(program.midi_out_cells)
+            sent = st.midi_out[:MIDI_OUT_CAP]
+            table[0] = float(len(sent))
+            for k, ev in enumerate(sent):
+                table[1 + 4 * k:5 + 4 * k] = (ev.offset, ev.b1, ev.b2, ev.b3)
+            m_row[mo:mo + program.midi_out_cells] = torch.from_numpy(table)
+            if mout is not None:
+                mout[b] = torch.from_numpy(table)
+        if st.V[MEM_HIWATER_SLOT] >= mo:
+            return
+
+
+def _put(st, key, v: float, masks) -> None:
+    kind = key[0]
+    if kind == "var" and key[1] in PENDING_SLOT_NAMES:
+        setattr(st, masks[PENDING_SLOT_NAMES.index(key[1])],
+                int(max(0.0, v)) if v == v else 0)
+    elif kind == "var":
+        st.V[key[1]] = v
+    elif kind == "spl":
+        st.spl[key[1]] = v
+    elif kind == "slider":
+        st.sliders[key[1]] = v
+
+
+def _get(st, key, masks):
+    kind = key[0]
+    if kind == "var" and key[1] in PENDING_SLOT_NAMES:
+        return float(getattr(st, masks[PENDING_SLOT_NAMES.index(key[1])]))
+    if kind == "var":
+        return float(st.V.get(key[1], 0.0))
+    if kind == "spl":
+        return float(st.spl[key[1]])
+    if kind == "slider":
+        return float(st.sliders[key[1]])
+    return None   # params: the C functions take them as arguments
+
+
+def _plain_functions(program: DeviceExecProgram):
+    """(@block or None, @slider or None, @sample) compiled by pyexec with
+    the reduced heap's addressing in place of the golden's growable heap."""
+    if program._plain_fns is None:
+        from ..shadow import pyexec as PX
+
+        P = program.sample.P
+        ns = PX._exec_namespace(P)
+        ns.update(_reduced_heap_helpers())
+        for spec_name, proto in P.fn_defs.items():
+            PX._compile_callable(P, ns, PX._py_fn_name(spec_name),
+                                 proto.params, [proto.body], return_last=True)
+        program._plain_fns = tuple(
+            PX._compile_callable(P, ns, f"jsfx_{s.section}", (), s.body,
+                                 return_last=False)
+            if s is not None else None
+            for s in (program.block, program.slider, program.sample))
+        program._plain_state = program.sample.snap.clone()
+        program._plain_state.mem = np.zeros(1)
+    return program._plain_fns
+
+
+def _reduced_heap_helpers():
+    """pyexec's heap helpers with `csrc/block_ops.cuh`'s reduced heap: the
+    heap is the state's fixed row (len(S.mem) = mem_size); dynamic reads
+    past it give 0, writes there drop, and every dynamic write raises the
+    high-water var to its address."""
+    from ..semantics import scalar as SC
+    from ..shadow import pyexec as PX
+
+    def mark(S, a):
+        if S.V[MEM_HIWATER_SLOT] < float(a):
+            S.V[MEM_HIWATER_SLOT] = float(a)
+
+    def mget(S, base, idx):
+        a = SC.mem_address(base, idx)
+        return float(S.mem[a]) if a < len(S.mem) else 0.0
+
+    def mset(S, val, base, idx):
+        a = SC.mem_address(base, idx)
+        mark(S, a)
+        if a < len(S.mem):
+            S.mem[a] = val
+        return val
+
+    def mrmw(S, rhs, base, idx, op):
+        a = SC.mem_address(base, idx)
+        cur = float(S.mem[a]) if a < len(S.mem) else 0.0
+        out = PX._COMPOUND[op](cur, rhs)
+        mark(S, a)
+        if a < len(S.mem):
+            S.mem[a] = out
+        return out
+
+    def maddr(S, base, idx):
+        return min(SC.mem_address(base, idx), len(S.mem) - 1)
+
+    def run(S, v, length):
+        n = min(max(0, SC.trunc_i64(length)), len(S.mem))
+        return min(SC.blob_address(v), len(S.mem) - n), n
+
+    def memset(S, dest, value, length):
+        d, n = run(S, dest, length)
+        S.mem[d:d + n] = value
+        return dest
+
+    def memcpy(S, dest, src, length):
+        d, n = run(S, dest, length)
+        s, _n = run(S, src, length)
+        S.mem[d:d + n] = S.mem[s:s + n].copy()
+        return dest
+
+    def inside(S, base, span):
+        if not FO._same_page(base, span):
+            return False
+        if base + span <= len(S.mem):
+            return True
+        mark(S, base + span - 1)
+        return False
+
+    def fft_call(S, which, a0, a1):
+        n = FO._round_index(a1)
+        if not FO._pow2_ok(n):
+            return 0.0
+        span = n if which in ("fft_real", "ifft_real") else 2 * n
+        if not inside(S, max(0, FO._round_index(a0)), span):
+            return 0.0
+        return FO.dispatch(S, which, a0, a1)
+
+    def convolve_c(S, dest, src, size):
+        n = FO._round_index(size)
+        if n <= 0 or n > FO.PAGE_DOUBLES // 2:
+            return 0.0
+        if not (inside(S, max(0, FO._round_index(dest)), 2 * n)
+                and inside(S, max(0, FO._round_index(src)), 2 * n)):
+            return 0.0
+        return FO.convolve_c(S, dest, src, size)
+
+    return {"_mget": mget, "_mset": mset, "_mrmw": mrmw, "_maddr": maddr,
+            "_memset": memset, "_memcpy": memcpy, "_fft_call": fft_call,
+            "_convolve_c": convolve_c}
+
+
+# -- the chain bound ---------------------------------------------------------------
+
+# rand() counts its floor and two multiplies; every other builtin call one
+# (a libm call counts one, which keeps the count a lower bound)
+_RAND_OPS = 3
+
+
+def sample_chain_ops(program: DeviceExecProgram,
+                     trips: Optional[Dict[str, float]] = None) -> float:
+    """The dependent f64 operations on the longest path through one
+    @sample step, counted on the section's syntax tree, which
+    `DeviceSection.body_source` prints one to one: an arithmetic or
+    comparison operator, a compound assignment and a builtin call each add
+    one link, a heap address (base + index + 1e-5) two, rand() three; a
+    load, a store, a select and a branch add none (each arm is followed,
+    the longer kept).  A value from an earlier step starts at depth 0.
+    `loop(n, ...)` runs its body trips[n] times where n is a var named in
+    `trips` (the run's mean count a sample: what this run's data needs),
+    its constant count otherwise, else once; a fractional mean
+    interpolates between its floor and the next count.  A lower bound:
+    nothing on the longest path can overlap."""
+    from ..frontend.astnodes import (
+        Asn, Bin, Block, CallExpr, Cond, Const, IfStmt, LoopExpr, Mem, Name,
+        Str, Un, WhileStmt)
+
+    trips = dict(trips or {})
+    P = program.sample.P
+    fracs = [t - np.floor(t) for t in trips.values()]
+    frac = float(np.mean(fracs)) if fracs else 0.0
+
+    def step(up: int) -> float:
+        deepest = [0.0]
+
+        def note(d: float) -> float:
+            deepest[0] = max(deepest[0], d)
+            return d
+
+        def count(n) -> int:
+            if isinstance(n, Name) and n.ident in trips:
+                return int(np.floor(trips[n.ident])) + up
+            if isinstance(n, Const):
+                return max(0, int(n.value))
+            return 1
+
+        def ex(n, env) -> float:  # noqa: C901 (one dispatch)
+            if n is None or isinstance(n, (Const, Str)):
+                return 0.0
+            if isinstance(n, Name):
+                return env.get(n.ident, 0.0)
+            if isinstance(n, Mem):
+                return note(max(ex(n.base, env), ex(n.index, env)) + 2)
+            if isinstance(n, Un):
+                d = ex(n.operand, env)
+                return note(d if n.op == "+" else d + 1)
+            if isinstance(n, Bin):
+                return note(max(ex(n.lhs, env), ex(n.rhs, env)) + 1)
+            if isinstance(n, Asn):
+                v = ex(n.value, env)
+                if isinstance(n.target, Mem):
+                    ex(n.target, env)
+                if n.op != "=":
+                    v = max(v, ex(n.target, env)) + 1
+                if isinstance(n.target, Name):
+                    env[n.target.ident] = v
+                return note(v)
+            if isinstance(n, CallExpr):
+                args = [ex(a, env) for a in n.args]
+                if n.func in P.fn_defs:
+                    proto = P.fn_defs[n.func]
+                    inner = dict(env)
+                    inner.update(zip(proto.params, args))
+                    d = ex(proto.body, inner)
+                    env.update({k: v for k, v in inner.items()
+                                if k not in proto.params})
+                    return note(d)
+                return note(max(args, default=0.0)
+                            + (_RAND_OPS if n.func == "rand" else 1))
+            if isinstance(n, (Cond, IfStmt)):
+                ex(n.pred, env)
+                arms = []
+                for arm in (n.then, n.other):
+                    e = dict(env)
+                    arms.append((ex(arm, e), e))
+                for k in set(arms[0][1]) | set(arms[1][1]):
+                    env[k] = max(arms[0][1].get(k, 0.0),
+                                 arms[1][1].get(k, 0.0))
+                return max(arms[0][0], arms[1][0])
+            if isinstance(n, Block):
+                d = 0.0
+                for it in n.items:
+                    d = ex(it, env)
+                return d
+            if isinstance(n, LoopExpr):
+                d = 0.0
+                for _ in range(count(n.count)):
+                    d = ex(n.body, env)
+                return d
+            if isinstance(n, WhileStmt):
+                d = 0.0
+                for _ in range(int(trips.get("while", 1))):
+                    ex(n.pred, env)
+                    d = ex(n.body, env)
+                return d
+            return 0.0
+
+        env: Dict[str, float] = {}
+        for st in program.sample.body:
+            ex(st, env)
+        return deepest[0]
+
+    lo = step(0)
+    return lo + frac * (step(1) - lo) if frac else lo

@@ -21,7 +21,14 @@ scalar semantics, with the state retargeted at a device view:
 Heap addressing follows the reference's device sections, not the
 golden's growable heap: a static address at or past `mem_size` raises
 DevgenError while the source is printed, a dynamic one is clamped to
-[0, mem_size - 1] (`csrc/block_ops.cuh`).
+[0, mem_size - 1] (`csrc/block_ops.cuh`).  A section made with
+`reduced_heap` (the sequential executor's, K11) addresses its heap as the
+reference's reduced heap does instead: a dynamic address is raised to at
+least 0, a read at or past `mem_size` gives 0, and a write there is
+dropped and its address kept in the high-water slot, which the executor
+reads after a render to climb its heap ladder.  Such a section may also
+draw `rand()` from a staged pool (`rand_pool` > 0): K10's sections draw
+nothing.
 
 What the section may not use raises DevgenError naming the work that
 brings it; the specializer turns that into a SpecializeError, and the
@@ -74,11 +81,17 @@ class DevgenError(Exception):
 PENDING_SLOT_NAMES = ("__pend_chg__", "__pend_auto__", "__pend_auto_end__")
 MIDI_POS_SLOT = "__midi_pos__"
 MIDI_OUT_CAP = 64  # staged sends a block (later ones drop, like the ref queue)
-# kept for the reference's slot layout; no device section draws rand()
+# draws taken from the staged MT19937 pool: the sequential executor's
+# sections (rand_pool > 0) draw from it, K10's draw nothing
 RAND_POS_SLOT = "__rand_pos__"
+# a reduced heap's high-water mark of dynamic write addresses (the
+# reference's slot, after the others): at or past mem_size, a write was
+# dropped and the executor replays on a larger heap
+MEM_HIWATER_SLOT = "__mem_hiwater__"
 
 # where each refused construct comes from (ROADMAP.md queue 1)
-_BUS = "gmem and the message bus come with queue 1 item 7 (slice 6b)"
+_BUS = ("gmem and the message bus come with queue 1 item 7's graph "
+        "lockstep (slice 6b, runtime/graph.py)")
 _SERVICES = ("file, pool and host services come with queue 1 item 3 "
              "(the services copy)")
 _NEVER = ("the reference does not run it on the device either, and no "
@@ -297,8 +310,9 @@ class _SectionC(_CGen):
             a = self.static_addr(n.base, n.index)
             if a is not None:
                 return f"S->M[{a}]"
+            get = "zb_rmget" if self.dev.reduced_heap else "zb_mget"
             return self.args([n.base, n.index],
-                             lambda v: f"zb_mget(S, {v[0]}, {v[1]})")
+                             lambda v: f"{get}(S, {v[0]}, {v[1]})")
         if isinstance(n, Un):
             a = self.ex(n.operand)
             return {"+": a, "-": f"(0.0 - {a})"}.get(n.op, f"z_not({a})")
@@ -330,9 +344,19 @@ class _SectionC(_CGen):
                 where = f"long long {a} = {static};"
             else:
                 b, i = self.tmp(), self.tmp()
+                addr = "zb_raddr" if self.dev.reduced_heap else "zb_addr"
                 where = (f"double {b} = ({self.ex(tgt.base)}); "
                          f"double {i} = ({self.ex(tgt.index)}); "
-                         f"long long {a} = zb_addr(S, {b}, {i});")
+                         f"long long {a} = {addr}(S, {b}, {i});")
+                if self.dev.reduced_heap:
+                    # a write past the heap drops and marks the high water
+                    if n.op == "=":
+                        return (f"({{ double {r} = ({rhs}); {where} "
+                                f"zb_rmset(S, {a}, {r}); {r}; }})")
+                    o = self.tmp()
+                    new = self._binop(_COMPOUND_C[n.op], f"zb_rat(S, {a})", r)
+                    return (f"({{ double {r} = ({rhs}); {where} double {o} = "
+                            f"{new}; zb_rmset(S, {a}, {o}); {o}; }})")
             if n.op == "=":
                 return (f"({{ double {r} = ({rhs}); {where} "
                         f"S->M[{a}] = {r}; {r}; }})")
@@ -411,11 +435,16 @@ class _SectionC(_CGen):
         if fn == "__memtop":
             return c_double(float(self.P.memtop))
         if fn == "rand":
-            raise DevgenError(
-                f"rand() in @{dev.section} on the device: the reference "
-                "stages no draw "
-                "pool there; the sequential executor's pool comes with "
-                "queue 1 item 7 (slice 6b)")
+            if not dev.rand_pool:
+                raise DevgenError(
+                    f"rand() in @{dev.section} on the device: the reference "
+                    "stages no draw pool there; the engine renders the "
+                    "plugin through the sequential executor (devexec, "
+                    "slice 6b), whose sections draw from a staged pool")
+            dev.uses_rand = True
+            limit = self.ex(A[0]) if A else "1.0"
+            pos = dev.slots[("var", RAND_POS_SLOT)]
+            return f"zb_rand(S, &S->V[{pos}], {limit})"
         if fn in _COMM_FNS or fn in _GMEM_FNS:
             raise DevgenError(f"@{dev.section} uses {fn}(): {_BUS}")
         if fn in _SERVICE_FNS or fn.startswith("sample_"):
@@ -447,6 +476,8 @@ class _SectionC(_CGen):
         dest = self.ex(A[0])
         if not FO._pow2_ok(n):
             return f"((void)({dest}), 0.0)"   # the WDL guard: a no-op
+        span = n if fn in ("fft_real", "ifft_real") else 2 * n
+        self._static_region(fn, A[0], span)
         perm = f"zb_perm_{self._fft_sizes(fn, n)}"
         if fn in ("fft_permute", "fft_ipermute"):
             flag = "true" if fn == "fft_ipermute" else "false"
@@ -457,9 +488,23 @@ class _SectionC(_CGen):
         n = self._size("convolve_c", A[2])
         if n <= 0 or n > FO.PAGE_DOUBLES // 2:
             return self.args(A[:2], lambda v: f"((void){v[0]}, (void){v[1]}, 0.0)")
+        self._static_region("convolve_c", A[0], 2 * n)
+        self._static_region("convolve_c", A[1], 2 * n)
         self.dev.scratch_cells = max(self.dev.scratch_cells, 2 * n)
         return self.args(A[:2],
                          lambda v: f"zb_convolve_c(S, {v[0]}, {v[1]}, {n})")
+
+    def _static_region(self, fn: str, dest: Node, span: int) -> None:
+        """A reduced heap's static FFT region past the heap (inside one
+        page) raises, as the reference's does: the golden grows its heap
+        for the call, and the executor's ladder climbs."""
+        d = self.fold(dest)
+        if not self.dev.reduced_heap or d is None:
+            return
+        base = max(0, FO._round_index(d))
+        if FO._same_page(base, span) and base + span > self.dev.mem_size:
+            raise DevgenError(f"{fn}: static mem address {base + span} "
+                              f"beyond device heap ({self.dev.mem_size})")
 
     def _midirecv(self, A: Sequence[Node]) -> str:
         if len(A) not in (3, 4):
@@ -765,14 +810,23 @@ class DeviceSection:
 
     def __init__(self, program: PluginProgram, snapshot, section: str,
                  dynamic_keys: Set[Any], mem_size: int,
-                 body: Optional[Sequence[Node]] = None):
+                 body: Optional[Sequence[Node]] = None,
+                 reduced_heap: bool = False, rand_pool: int = 0,
+                 force_midi_out: bool = False):
         """body: an explicit statement list (the hop body extracted from
         @sample, printed as the section "sample-hop") in place of the
-        named section's."""
+        named section's.  reduced_heap: the sequential executor's heap
+        addressing and its high-water slot; rand_pool: the size of the
+        staged draw pool rand() reads (0: rand() is refused);
+        force_midi_out: lay out the MIDI out table even where this section
+        sends nothing (the sections of one executor share one heap)."""
         self.P = program
         self.snap = snapshot
         self.section = section
         self.mem_size = int(mem_size)
+        self.reduced_heap = bool(reduced_heap)
+        self.rand_pool = int(rand_pool)
+        self.uses_rand = False
         self.body = list(body) if body is not None \
             else list(program.sections.get(section, []))
 
@@ -785,13 +839,16 @@ class DeviceSection:
         for fname, fdef in program.fn_defs.items():
             for p in fdef.params:
                 self.slots[("param", fname, p)] = len(self.slots)
-        for nm in PENDING_SLOT_NAMES + (MIDI_POS_SLOT, RAND_POS_SLOT):
+        names = PENDING_SLOT_NAMES + (MIDI_POS_SLOT, RAND_POS_SLOT)
+        if self.reduced_heap:
+            names += (MEM_HIWATER_SLOT,)
+        for nm in names:
             self.slots[("var", nm)] = len(self.slots)
         self.n_vars = len(self.slots)
 
         # what printing the body finds
         self.uses_midi_in = False
-        self.uses_midi_out = False
+        self.uses_midi_out = bool(force_midi_out)
         self.fft_max = 0          # largest transform: the twiddle table's n
         self.scratch_cells = 0    # FFT workspace a file
         self._perm_sizes: Set[int] = set()
@@ -896,6 +953,9 @@ class DeviceSection:
             fn = sorted(self._used_fns - done)[0]
             done.add(fn)
             proto = self.P.fn_defs[fn]
+            # a function's temporaries are its own: it prints the same in
+            # every section that calls it
+            self._ntmp = 0
             g = _SectionC(self, proto.params)
             args = "".join(f", double p_{i}" for i in range(len(proto.params)))
             name = f"uf_{_mangle_c(fn)}"

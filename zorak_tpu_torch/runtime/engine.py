@@ -5,12 +5,17 @@ the way the reference host does (ref: src/JSFXJuceProcessor.cpp:3239-3772):
 slider push before @init, @init, @slider, then block processing — but the
 audio path executes on the GPU through the vectorizing specializer when
 the plugin qualifies (engine "torch-vector"), with the Python golden
-shadow as fallback and as the always-available reference (engine
-"cpu-shadow"; `RenderResult.engine` and `PluginInstance.spec_error` say
-which ran and why).  A plugin whose @block is audio-coupled renders as
-"torch-vector" too, its @block on the device between sample segments
-(K10), with host MIDI staged into per-block planes for its midirecv.  `device=None` means CUDA and raises without a GPU;
-only `device="cpu"` runs the vector engine on the CPU.
+shadow as the always-available reference.  A plugin whose @block is
+audio-coupled renders as "torch-vector" too, its @block on the device
+between sample segments (K10), with host MIDI staged into per-block planes
+for its midirecv.  What the vectorizer rejects renders through the
+sequential device executor (engine "torch-devexec": the whole plugin in
+one kernel, K11), as the reference's engine orders them; what that also
+rejects (gmem, the message bus, host services) renders through the golden
+(engine "cpu-shadow").  `RenderResult.engine` and
+`PluginInstance.spec_error` (both refusals) say which ran and why.
+`device=None` means CUDA and raises without a GPU; only `device="cpu"`
+runs the device engines on the CPU.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ def _audio_stats(y_dev: torch.Tensor):
 class RenderResult:
     audio: np.ndarray                  # float32 [channels, samples]
     srate: float
-    engine: str                        # "torch-vector" | "cpu-shadow"
+    engine: str              # "torch-vector" | "torch-devexec" | "cpu-shadow"
     wall_seconds: float
     realtime_factor: float
     state: object = None               # final ShadowState (parity/debug)
@@ -106,10 +111,6 @@ class PluginInstance:
             raise ValueError("oversample factor must be 1, 2, 4, or 8")
         if smart_idle not in self.IDLE_MODES:
             raise ValueError(f"smart_idle must be one of {self.IDLE_MODES}")
-        if prefer == "devexec":
-            raise SpecializeError(
-                "prefer='devexec': the sequential device executor is not "
-                "ported (queue 1 item 7, slice 6b)")
         self.device = resolve_device(device)
         self.program = program
         self.srate = float(srate)
@@ -131,20 +132,42 @@ class PluginInstance:
         self.kernel = None
         self.engine = "cpu-shadow"
         self.spec_error: Optional[str] = None
-        if prefer in ("auto", "vector"):
-            try:
-                self.kernel = specialize_sample_kernel(
-                    program, self.shadow.state, self.nch,
-                    segment_len=segment_len, block_size=512,
-                    device=self.device)
-                self.engine = "torch-vector"
-            except SpecializeError as exc:
-                # the golden renders what the vectorizer rejects; the
-                # reason stays readable in spec_error and in every
-                # RenderResult's details
-                self.spec_error = str(exc)
-                if prefer == "vector":
-                    raise
+        if prefer in ("auto", "vector", "devexec"):
+            self._specialize(prefer)
+
+    def _specialize(self, prefer: str) -> None:
+        """The reference's order (zorak_tpu/runtime/engine.py:128-150):
+        the vectorizer, then the sequential device executor, then the
+        golden, which renders what both reject; spec_error keeps both
+        reasons, in every RenderResult's details too.  prefer="vector"
+        raises where the vectorizer refuses, prefer="devexec" skips it
+        and raises where devexec refuses."""
+        from ..lowering.devexec import DeviceExecKernel
+
+        self.kernel, self.engine, self.spec_error = None, "cpu-shadow", None
+        try:
+            if prefer == "devexec":
+                raise SpecializeError("devexec requested")
+            self.kernel = specialize_sample_kernel(
+                self.program, self.shadow.state, self.nch,
+                segment_len=self.segment_len, block_size=512,
+                device=self.device)
+            self.engine = "torch-vector"
+            return
+        except SpecializeError as exc:
+            self.spec_error = str(exc)
+            if prefer == "vector":
+                raise
+        try:
+            self.kernel = DeviceExecKernel(
+                self.program, self.shadow.state, self.nch,
+                segment_len=self.segment_len, block_size=512,
+                device=self.device)
+            self.engine = "torch-devexec"
+        except SpecializeError as exc:
+            self.spec_error = f"{self.spec_error}; devexec: {exc}"
+            if prefer == "devexec":
+                raise SpecializeError(self.spec_error) from None
 
     def _upsample(self, x: np.ndarray) -> np.ndarray:
         """Host audio at srate -> engine rate (the instance's factor)."""
@@ -228,9 +251,8 @@ class PluginInstance:
         self.shadow.run_slider()
         if self.kernel is not None:
             # control state changed: respecialize against the new snapshot
-            self.kernel = specialize_sample_kernel(
-                self.program, self.shadow.state, self.nch,
-                segment_len=self.segment_len, device=self.device)
+            self._specialize("devexec" if self.engine == "torch-devexec"
+                             else "auto")
 
     MONITOR_MODES = ("compiled", "shadow", "delta")
 

@@ -287,8 +287,8 @@ def null_test_plugin(program, x: np.ndarray, srate: float = 48000.0,
                      compare_state: bool = True, golden: str = "python",
                      compare_mem: bool = False, midi=None,
                      export_dir=None, name: str = "nulltest",
-                     device=None) -> NullReport:
-    """Render x through the golden AND the vector kernel; compare.
+                     device=None, engine: str = "vector") -> NullReport:
+    """Render x through the golden AND a device kernel; compare.
 
     x: float32 [channels, samples].  golden: "python" (exact reference
     semantics, slow) or "native" (C-compiled, bit-identical, fast).
@@ -297,10 +297,15 @@ def null_test_plugin(program, x: np.ndarray, srate: float = 48000.0,
     (ref: JSFXCorrectnessCheck.h:915-1040).  midi: optional
     [(abs_offset, b1, b2, b3)] events fed to both sides.  export_dir: where
     to write the export bundle (`export_bundle`), named `name`.
-    device: where the kernel runs (None means CUDA).
+    device: where the kernel runs (None means CUDA).  engine: "vector"
+    (the time-vectorizing specializer) or "devexec" (the sequential
+    whole-plugin device executor, K11).
     """
     from ..lowering import specialize_sample_kernel
 
+    if engine not in ("vector", "devexec"):
+        raise ValueError(f"engine must be 'vector' or 'devexec', not "
+                         f"{engine!r}")
     nch, total = x.shape
 
     # golden render (block loop like a host would drive)
@@ -340,9 +345,16 @@ def null_test_plugin(program, x: np.ndarray, srate: float = 48000.0,
 
     # vectorized render from an identical snapshot
     snap_owner = make_initialized_shadow(program, srate, slider_overrides)
-    kern = specialize_sample_kernel(program, snap_owner.state, nch,
-                                    segment_len=segment_len,
-                                    block_size=block_size, device=device)
+    if engine == "devexec":
+        from ..lowering.devexec import DeviceExecKernel
+
+        kern = DeviceExecKernel(program, snap_owner.state, nch,
+                                segment_len=segment_len,
+                                block_size=block_size, device=device)
+    else:
+        kern = specialize_sample_kernel(program, snap_owner.state, nch,
+                                        segment_len=segment_len,
+                                        block_size=block_size, device=device)
     y_test, carry = kern.render(x, midi=midi if midi else None)
 
     rep = compare_audio(y_ref, y_test)
