@@ -185,29 +185,40 @@ device and build always run; `k4sweep` is described at the end):
 4f. devexec  the sequential device executor: K11 (device_exec, CUDA C
             generated from a plugin's @block, @slider and @sample by
             lowering/devgen.py with the reduced heap and the staged draw
-            pool of csrc/block_ops.cuh, one thread a file) built for
+            pool of csrc/block_ops.cuh; a file a CUDA block of one warp,
+            its var row and its heap's first 4,096 cells staged in
+            shared memory, lane 0 running the render) built for
             builtin_plugins' grain_texture(16, 131072) (the stand-in for
             the catalog's Texture: grain records through an order table,
             ring reads clamped by a block-rate fill level, rand() in
             @block and @sample) and for the cases of tests/test_devexec.py
-            that need no host service, all nvcc runs together (registers
-            and spills printed); K11 against its plain version on 1 and 8
-            files of 1,100 samples with note-ons (bit for bit, but the
-            cells and slots the stand-in's sin reaches within 1e-8 and the
-            audio within one f32 ulp, the differing ones named); the cases
-            against the native golden; PluginInstance.render of the
+            that need no host service and the page-edge case, all nvcc
+            runs together, with the probe build (registers, stack frames
+            and spills printed; the registers, shared memory a block and
+            blocks an SM the card reports; the counts of LDG, STG, LDS,
+            STS, LDL, STL and CALL in zx_kernel's SASS, the listing in
+            chiprun_out/devexec_sass.txt: no local memory but the libm's
+            own, no call to a section); K11 against its plain version on
+            1 and 8 files of 1,100 samples with note-ons (bit for bit, but
+            the cells and slots the stand-in's sin reaches within 1e-8 and
+            the audio within one f32 ulp, the differing ones named); the
+            cases against the native golden; PluginInstance.render of the
             stand-in on 60 s of stereo with a note-on every 0.5 s: engine
             torch-devexec, K11 launched 1 + the heap ladder's replays
             (4,096 -> 262,144 -> 524,288 cells), each launch timed, the
             draws against the pool, the whole render (audio, vars, heap)
             held to the native golden and the golden's host seconds; 8
             files x 2 s through render_files, each torch.equal to its solo
-            render; one file a warp against 32 a warp in turns at 256
-            files x 2 s; audio-s per s at 1 (the render's launch), 8, 64
-            and 256 files (10 s each where one 60 s file takes over 30 s)
-            beside the golden's, and where the card overtakes it; K11's
-            chain bound from a dependent-add probe and the @sample syntax
-            tree (`device_exec.sample_chain_ops`);
+            render; audio-s per s at 1 (the render's launch), 8, 64 and
+            256 files (10 s each) beside the golden's, and where the card
+            overtakes it; the section probe (the text built again with
+            ZX_PROBE: clock64() around each section call and the sample
+            loop's I/O, 1 file x 10 s, the shares of the render's
+            cycles); the latency probe's links (a dependent f64 add, sin,
+            shared, L1 and L2 load, a heap read through K11's accessor);
+            K11's chain bound from the add and the @sample syntax tree
+            (`device_exec.sample_chain_ops`), and the chain priced with
+            its loads and its sin;
 5. kernels (faust)  the switching scan (K1) must be bit-identical
             (integer views equal), in f64 and f32: at modest shapes, at
             the batch and main paths' shapes (its one-chunk case too),
@@ -2639,9 +2650,32 @@ DEVEXEC_NOTE_EVERY = 24000      # a note-on every 0.5 s
 DEVEXEC_SHORT_T = 1100          # two blocks and a remainder of 76
 DEVEXEC_FILES = (1, 8, 64, 256)
 DEVEXEC_LIBM_TOL = 1e-8         # where the body calls the device's libm
-DEVEXEC_SLOW_S = 30.0           # one 60 s file slower: time the batches on 10 s
-DEVEXEC_SHORT_FILES_T = 480000  # 10 s: the batches' where one 60 s file is slow
-DEVEXEC_SPREAD = (256, 96000)   # files a warp timed in turns: 256 files x 2 s
+DEVEXEC_FILES_T = 480000        # 10 s a file in the batches' timing
+DEVEXEC_PROBE_T = 480000        # the section probe: 1 file x 10 s
+DEVEXEC_LINK_REPS = {"add": 1 << 24, "sin": 1 << 22, "shared": 1 << 22,
+                     "l1": 1 << 22, "l2": 1 << 22, "heap": 1 << 22}
+
+
+# cells 4,090 to 4,100 read and written, and memcpy, memset and the FFT
+# family on runs inside K11's on-chip page, past it and across cell 4,096
+# (tests/test_torch_devexec.py's "page_edge")
+DEVEXEC_PAGE_EDGE_SRC = (
+    "options:maxmem=16384\n@init\n"
+    "e = 4090; A = 3000; B = 8000; C = 4080; D = 4088;\nn = 0;\n"
+    "@sample\nk = 0;\n"
+    "loop(11, e[k] = e[k] * 0.5 + spl0 * (k + 1) * 0.1; k += 1;);\n"
+    "acc = e[2] + e[7] + e[k - 1];\nn += 1;\nm = n % 128;\n"
+    "m == 10 ? ( memcpy(1000, 4088, 16); memset(6000, acc, 16);\n"
+    "            memcpy(4070, 6000, 40); memcpy(5200, 6000, 16); );\n"
+    "m == 20 ? ( memcpy(5000, 4085, 24); memset(4091, spl0, 8);\n"
+    "            memcpy(2000, 1000, 16); memset(5100, acc * 2, 8);\n"
+    "            memset(2100, acc, 8); );\n"
+    "m == 30 ? ( i = 0; loop(32, A[i] = e[i % 11] * 0.01 + i * 0.001;\n"
+    "            B[i] = A[i] * 2; C[i] = A[i] * 3; i += 1;);\n"
+    "            fft(A, 16); ifft(A, 16); fft(B, 16); ifft(B, 16);\n"
+    "            fft(C, 16); ifft(C, 16); );\n"
+    "m == 40 ? ( convolve_c(D, A, 8); fft_real(C, 32); );\n"
+    "spl0 = spl0 * 0.5 + acc * 0.01;\n")
 
 
 def devexec_cases():
@@ -2684,7 +2718,140 @@ def devexec_cases():
             "loop(n, buf[ctr] = spl0; ctr += 1; );\n"
             "spl0 = spl0 * 0.5 + buf[ctr > 3000 ? ctr - 3000 : 0] * 0.1;\n",
             noise(1, 6000), 1),
+        "the page edge": (DEVEXEC_PAGE_EDGE_SRC, noise(1, 3000), 1),
+        # 2,100 var slots: the row and the page in dynamic shared memory
+        "a wide var row": ("@sample\nv0 = spl0 * 0.5;\n" + "".join(
+            f"v{k} = v{k - 1} * 0.999 + {k} * 0.000001;\n"
+            for k in range(1, 2100)) + "spl0 = v2099;\n", noise(1, 2000), 1),
     }
+
+
+# the SASS instructions counted in K11's kernel
+SASS_OPS = ("LDG", "STG", "LDS", "STS", "LDL", "STL", "CALL")
+
+
+def sass_counts(text: str, function: str):
+    """One function of cuobjdump -sass's listing: (the opcode counts of
+    SASS_OPS in its body, the same in the subroutines it calls, the call
+    targets).  The subroutines (the libm's slow paths, which nvcc does not
+    inline) lie after the body: from the lowest call target on."""
+    import re
+
+    ins, inside = [], False
+    for line in text.splitlines():
+        if "Function : " in line:
+            inside = function in line.split("Function : ", 1)[1]
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9]*)([^;]*)", line)
+        if inside and m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    targets = sorted({int(t, 16) for _a, op, rest in ins if op == "CALL"
+                      for t in re.findall(r"0x([0-9a-f]+)", rest)})
+    edge = targets[0] if targets else float("inf")
+    body, subs = dict.fromkeys(SASS_OPS, 0), dict.fromkeys(SASS_OPS, 0)
+    for a, op, _rest in ins:
+        if op in body:
+            (body if a < edge else subs)[op] += 1
+    return body, subs, [hex(t) for t in targets]
+
+
+def ptxas_functions(log: str):
+    """The functions ptxas compiled on their own (-Xptxas -v's "Function
+    properties for" lines): the kernels and what they call."""
+    return [line.split("Function properties for", 1)[1].strip()
+            for line in log.splitlines() if "Function properties for" in line]
+
+
+def k11_sass(programs, logs):
+    """K11's SASS (cuobjdump -sass on each built library): the memory
+    instructions and calls of zx_kernel's body and of the subroutines it
+    calls.  Checks that no K11 function was compiled apart from the
+    kernels (every section, user function and helper is inlined), so
+    that every call goes to the libm's own (`__internal_*`), and that the
+    stand-in's body touches no local memory: the only local memory is the
+    libm's (the trig reduction's array for huge arguments, also in the
+    latency probe's kernel, whose one sin brings it).  The stand-in's
+    listing goes to chiprun_out/."""
+    from zorak_tpu_torch.kernels import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    out = {}
+    for label, prog in programs.items():
+        lib = _build.generated_paths(prog.source)[1]
+        text = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        if label == "stand-in":
+            Path("chiprun_out").mkdir(exist_ok=True)
+            Path("chiprun_out/devexec_sass.txt").write_text(text)
+        body, subs, targets = sass_counts(text, "zx_kernel")
+        funcs = ptxas_functions(logs[prog.source])
+        apart = [f for f in funcs if "zx_kernel" not in f
+                 and "zx_latency_kernel" not in f
+                 and not f.startswith("__internal")]
+        out[label] = {"body": body, "subroutines": subs, "targets": targets,
+                      "functions": funcs}
+        print(f"[devexec] K11 SASS, {label}: zx_kernel's body "
+              + ", ".join(f"{k} {v}" for k, v in body.items())
+              + f"; its {len(targets)} subroutine(s) (the libm's) "
+              + ", ".join(f"{k} {v}" for k, v in subs.items() if v)
+              + f"; compiled apart: {funcs}")
+        check(not apart, f"K11 {label}: {apart} compiled apart, not inlined")
+        # the main path's kernel keeps its state out of local memory (a
+        # case's register spills, as the wide var row's, are printed)
+        check(label != "stand-in" or (body["LDL"] == 0 and body["STL"] == 0),
+              f"K11 {label}: local memory in zx_kernel's body ({body})")
+    return out
+
+
+def devexec_section_probe(torch, cuda, rng, DX, kern, notes, card):
+    """K11's section probe: one file x DEVEXEC_PROBE_T samples of the
+    stand-in with note-ons through the ZX_PROBE build, clock64() around
+    each section call and the sample loop's I/O; the shares of the
+    render's cycles, and its cycles and time a sample."""
+    T = DEVEXEC_PROBE_T
+    x = torch.from_numpy((rng.randn(1, 2, T) * 0.25).astype(np.float32)).to(cuda)
+    mev, mn = kern._midi_planes([n for n in notes if n[0] < T], T)
+    planes = (torch.from_numpy(mev).to(cuda), torch.from_numpy(mn).to(cuda))
+    bv, bm = kern.initial_carry()
+    bv, bm = bv[None].contiguous(), bm[None].contiguous()
+    pool = kern._stage_rand_pool(None)
+    bv[:, kern._rpos] = 0.0
+    got = []
+    ms = cuda_ms(lambda: got.append(DX.section_probe(
+        kern.program, x, bv, bm, pool, planes)))
+    cyc = got[0][0].tolist()
+    total = cyc[DX.PROBE_NAMES.index("render")]
+    shares = {nm: c / total for nm, c in zip(DX.PROBE_NAMES, cyc)
+              if nm != "render"}
+    shares["other"] = 1.0 - sum(shares.values())
+    ghz = total / (ms * 1e6)
+    print(f"[devexec] section probe, 1 file x {T / SR:.0f} s (clock64() "
+          f"around each call): " + ", ".join(
+              f"{nm} {v:.4f}" for nm, v in shares.items())
+          + f" of {total} cycles ({total / T:.1f} a sample; the probe build "
+          f"{ms:.2f} ms, {ms * 1e6 / T:.1f} ns a sample, {ghz:.3f} GHz); "
+          f"high water {float(bv[0, kern._hw]):.0f} card='{card}'")
+    return {"shares": shares, "cycles": cyc, "ms": ms,
+            "cycles_per_sample": total / T, "ns_per_sample": ms * 1e6 / T}
+
+
+def devexec_links(torch, cuda, DX, program, card):
+    """The latency probe's links, ns each: a dependent f64 add, an f64 sin
+    with its add, and dependent loads from shared memory, L1 and L2."""
+    out = torch.zeros(1, dtype=torch.float64, device=cuda)
+    chase = torch.from_numpy(DX.chase_table()).to(cuda)
+    ns = {}
+    for link in DX.LINKS:
+        reps = DEVEXEC_LINK_REPS[link]
+        DX.latency_probe(program, out, 1 << 10, link, chase)   # warm
+        ns[link] = cuda_ms(lambda: DX.latency_probe(
+            program, out, reps, link, chase)) * 1e6 / reps
+    print("[devexec] latency probe, ns a dependent link on one thread: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ns.items())
+          + f" card='{card}'")
+    return ns
 
 
 def devexec_phase(torch, cuda, rng, card):
@@ -2719,13 +2886,24 @@ def devexec_phase(torch, cuda, rng, card):
                     for name, (p, x, _r) in cases.items()}
     t0 = time.perf_counter()
     logs = DX.build([stand.program]
-                    + [k.program for k in case_kernels.values()])
+                    + [k.program for k in case_kernels.values()],
+                    probes=[stand.program])
     print(f"[devexec] K11 builds: {len(logs)} generated sources in "
           f"{time.perf_counter() - t0:.2f} s of nvcc, all together "
           f"(the stand-in's source {len(stand.program.source)} characters)")
     for line in logs[stand.program.source].splitlines():
-        if any(w in line for w in ("registers", "spill", "entry function")):
+        if any(w in line for w in ("registers", "spill", "entry function",
+                                   "Function properties")):
             print(f"[devexec] K11 build: {line.strip()}")
+    occ = DX.occupancy(stand.program)
+    print(f"[devexec] K11 on the card: {occ['registers']} registers a "
+          f"thread, {occ['smem_bytes']} bytes of shared memory a block "
+          f"({'dynamic' if stand.program.dynamic_smem else 'static'}), "
+          f"{occ['blocks_per_sm']} blocks (files) an SM at once")
+    check(occ["blocks_per_sm"] >= 1, "K11: no block fits an SM")
+    sass = k11_sass({"stand-in": stand.program,
+                     **{name: k.program for name, k in case_kernels.items()}},
+                    logs)
 
     # 2. K11 against its plain version on the card: the stand-in at the
     # heap's top rung, 1 and 8 files of 1,100 samples with note-ons
@@ -2796,8 +2974,10 @@ def devexec_phase(torch, cuda, rng, card):
         check(rep.passed and rep.max_abs_delta <= 1e-6,
               f"devexec {name}: {rep.summary()}")
         print(f"[devexec] {name} ({renders} render(s), heap {kern.mem_size}"
-              f", climbs {kern.heap_climbs}) on the card vs the native "
-              f"golden: {rep.summary()}")
+              f", climbs {kern.heap_climbs}, {kern.program.smem_bytes} bytes "
+              f"of {'dynamic' if kern.program.dynamic_smem else 'static'} "
+              f"shared memory) on the card vs the native golden: "
+              f"{rep.summary()}")
 
     # 3. the slice at full width: PluginInstance.render of the stand-in
     x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
@@ -2877,26 +3057,11 @@ def devexec_phase(torch, cuda, rng, card):
           f"{many.heap_climbs}")
     gen = torch.Generator(device=cuda)
     gen.manual_seed(SEED)
-    T_files = MAIN_T if k_ms / 1e3 <= DEVEXEC_SLOW_S else DEVEXEC_SHORT_FILES_T
+    T_files = DEVEXEC_FILES_T
 
     def files_of(n, t):
         return torch.randn((n, 2, t), generator=gen, device=cuda) * 0.25
 
-    # one file a warp against 32 a warp, in turns, at 256 files of 2 s
-    x256 = files_of(*DEVEXEC_SPREAD)
-    spread_ms = {1: [], 32: []}
-    default = DX.FILES_PER_WARP
-    try:
-        for s in (1, 32, 32, 1):
-            DX.FILES_PER_WARP = s
-            spread_ms[s].append(cuda_ms(lambda: many.render_files(x256)))
-    finally:
-        DX.FILES_PER_WARP = default
-    del x256
-    print(f"[devexec] {DEVEXEC_SPREAD[0]} files x "
-          f"{DEVEXEC_SPREAD[1] / SR:.0f} s in turns: one file a warp "
-          f"{spread_ms[1]} ms, 32 a warp {spread_ms[32]} ms (default "
-          f"{default}) card='{card}'")
     rates = {1: sec / (k_ms / 1e3)}     # one file: the main render's launch
     for n in DEVEXEC_FILES[1:]:
         xn = files_of(n, T_files)
@@ -2913,12 +3078,25 @@ def devexec_phase(torch, cuda, rng, card):
              f"no file count up to {DEVEXEC_FILES[-1]}"))
 
     # 5. K11's entry: the main render's kept launch, its bounds
-    probe = torch.zeros(1, dtype=torch.float64, device=cuda)
-    reps = 1 << 24
-    ns_op = cuda_ms(lambda: DX.latency_probe(kern.program, probe, reps)) \
-        * 1e6 / reps
+    sections = devexec_section_probe(torch, cuda, rng, DX, kern, notes, card)
+    links = devexec_links(torch, cuda, DX, kern.program, card)
+    ns_op = links["add"]
     ops = DX.sample_chain_ops(kern.program, {"nact": mean_nact})
     chain_ms = MAIN_T * ops * ns_op / 1e6
+    # the same chain with its loads and its sin priced at the probe's
+    # latencies: every heap load from shared memory, L1 or L2, or at what
+    # K11's accessor takes beyond the address's two adds
+    loads = {k: links[k] for k in ("shared", "l1", "l2")}
+    loads["heap"] = links["heap"] - 2 * ns_op
+    priced = {where: MAIN_T * DX.sample_chain_ops(
+        kern.program, {"nact": mean_nact},
+        {"op": ns_op, "libm": links["sin"], "load": ns}) / 1e6
+        for where, ns in loads.items()}
+    print(f"[devexec] K11's chain priced (an add {ns_op:.3f} ns, sin "
+          f"{links['sin']:.3f} ns, every heap load from shared memory, L1, "
+          f"L2 or through K11's accessor): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in priced.items())
+          + f" for 1 file x 60 s card='{card}'")
     g, r = DEVEXEC_GRAINS, DEVEXEC_RING
     cells = 2 * min(MAIN_T, r) + 20 * g + 8      # rings, records, tables
     nbytes = 2 * (2 * MAIN_T * 4) + 2 * cells * 8
@@ -2942,7 +3120,9 @@ def devexec_phase(torch, cuda, rng, card):
             "bytes_ms": bytes_ms, "heap_climbs": kern.heap_climbs,
             "draws": draws, "pool": kern._rand_cap,
             "audio_s_per_s": rates, "files_T": T_files,
-            "spread_ms": spread_ms, "overtakes_at": over[0] if over else None}
+            "overtakes_at": over[0] if over else None,
+            "sections": sections, "links_ns": links, "priced_chain_ms": priced,
+            "sass": sass, "occupancy": occ}
 
 
 def smi_under_load(torch, fn, reps: int) -> str:

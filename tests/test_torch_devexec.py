@@ -83,6 +83,36 @@ MIDI_SRC = ("@init\nlast = 0;\n"
             ");\n"
             "@sample\nspl0 = spl0 * 0.5 + last / 254;\n")
 
+# K11 keeps the heap's first 4,096 cells on chip: cells 4,090 to 4,100
+# read and written, statically and dynamically, and memcpy, memset and the
+# FFT family on runs inside that page, past it and across cell 4,096
+PAGE_EDGE_SRC = (
+    "options:maxmem=16384\n"
+    "@init\n"
+    "e = 4090; A = 3000; B = 8000; C = 4080; D = 4088;\n"
+    "n = 0;\n"
+    "@sample\n"
+    "k = 0;\n"
+    "loop(11, e[k] = e[k] * 0.5 + spl0 * (k + 1) * 0.1; k += 1;);\n"
+    "acc = e[2] + e[7] + e[k - 1];\n"
+    "n += 1;\n"
+    "m = n % 128;\n"
+    "m == 10 ? ( memcpy(1000, 4088, 16); memset(6000, acc, 16);\n"
+    "            memcpy(4070, 6000, 40); memcpy(5200, 6000, 16); );\n"
+    "m == 20 ? ( memcpy(5000, 4085, 24); memset(4091, spl0, 8);\n"
+    "            memcpy(2000, 1000, 16); memset(5100, acc * 2, 8);\n"
+    "            memset(2100, acc, 8); );\n"
+    "m == 30 ? ( i = 0; loop(32, A[i] = e[i % 11] * 0.01 + i * 0.001;\n"
+    "            B[i] = A[i] * 2; C[i] = A[i] * 3; i += 1;);\n"
+    "            fft(A, 16); ifft(A, 16); fft(B, 16); ifft(B, 16);\n"
+    "            fft(C, 16); ifft(C, 16); );\n"
+    "m == 40 ? ( convolve_c(D, A, 8); fft_real(C, 32); );\n"
+    "spl0 = spl0 * 0.5 + acc * 0.01;\n")
+
+# the cases whose heap holds FFT results: K11's radix-2 against NumPy's
+# FFT, within FFT_TOL_REL
+FFT_CASES = ("fft_traced_base", "page_edge")
+
 # name -> (source, input, renders, MIDI in)
 CASES = {
     "voice_loop": (
@@ -141,6 +171,7 @@ CASES = {
     "static_while": (_while_src(), noise(1, 2000), 1, None),
     "midi_in_and_out": (MIDI_SRC, noise(1, 1024), 1,
                         [(10, 0x90, 60, 100), (600, 0x80, 60, 0)]),
+    "page_edge": (PAGE_EDGE_SRC, noise(1, 3000), 1, None),
 }
 
 
@@ -239,6 +270,9 @@ def test_three_ways(name, monkeypatch):
         assert kern.mem_size > 4096 and kern.heap_climbs
     if name == "rand_resumed":
         assert kern.uses_rand and kern.last_draws > 0
+    if name == "page_edge":
+        assert kern.mem_size == 8192 and "S->P[4092]" in \
+            kern.program.source and "S->M[4097]" in kern.program.source
 
 
 def test_engine_falls_back_to_devexec():
@@ -320,13 +354,107 @@ def test_host_form_bit_for_bit(name):
     y, mo = DX.device_exec(kern.program, x, bv, bm, pool, planes)
     y2, mo2 = DX.device_exec_host(kern.program, x, bv2, bm2, pool, planes)
     assert torch.equal(y, y2) and torch.equal(bv, bv2)
-    if name == "fft_traced_base":
+    if name in FFT_CASES:
         # the FFT regions: radix-2 against NumPy's FFT
         assert BS.fft_excess(bm2, bm, bv2, bv) <= 0.0
     else:
         assert torch.equal(bm, bm2)
     if mo is not None:
         assert torch.equal(mo, mo2) and float(mo[:, :, 0].sum()) > 0
+
+
+@pytest.mark.parametrize("rung", [2048, 4096, 8192])
+def test_host_form_overflow_stop_equals_plain(rung):
+    # a growing heap overflows its rung inside the render: the host form
+    # stops at the end of that block as the plain version does, leaving
+    # the same var row (the high water stored from its register) and the
+    # same heap (the on-chip page and the row past it written back; a
+    # heap smaller than the page keeps the page's cells past it at 0)
+    host_compiler_or_skip()
+    # the growing heap, reading back the cell it wrote last: 0 once the
+    # write fell past the heap
+    src = CASES["growing_heap"][0].replace(
+        "buf[ctr > 3000 ? ctr - 3000 : 0]", "buf[ctr - 1]")
+    prog = compile_plugin_source(src)
+    kern = DeviceExecKernel(prog, make_initialized_shadow(prog, SR).state, 1,
+                            heap_size=rung, device="cpu")
+    assert kern.mem_size == rung
+    T = 6000
+    x, bv, bm, pool = _program_and_inputs(kern, 2, T, seed=21)
+    bv2, bm2 = bv.clone(), bm.clone()
+    y, _ = DX.device_exec(kern.program, x, bv, bm, pool)
+    y2, _ = DX.device_exec_host(kern.program, x, bv2, bm2, pool)
+    hw = bv[:, kern._hw]
+    assert bool((hw >= rung).all()) and torch.equal(bv, bv2) \
+        and torch.equal(bm, bm2)
+    ctr = kern.sample.slots[("var", "ctr")]
+    assert float(bv[:, ctr].min()) > rung - 100   # the heap was full
+    for f in range(2):
+        # the samples up to the end of the block that overflowed
+        stop = int(np.nonzero(np.asarray(y[f, 0]) != 0.0)[0].max()) + 1
+        assert stop % kern.B == 0 and stop < T
+        assert torch.equal(y[f, :, :stop], y2[f, :, :stop])
+
+
+def test_host_form_heap_address_equals_the_plain_version():
+    # K11's branch-free address (zx_raddr) against the plain version's
+    # SC.mem_address on the edges: NaN, the infinities, 2^62 and past it,
+    # negatives, the 1e-5 bias, the page's edge
+    import ctypes
+
+    from zorak_tpu_torch.semantics import scalar as SC
+
+    host_compiler_or_skip()
+    prog = compile_plugin_source(CASES["voice_loop"][0])
+    kern = DeviceExecKernel(prog, make_initialized_shadow(prog, SR).state, 2,
+                            device="cpu")
+    lib = _build.load_generated_host(kern.program.source)
+    fn, fk = lib.device_exec_raddr, lib.device_exec_raddr_k
+    fn.argtypes = [ctypes.c_double, ctypes.c_double]
+    fk.argtypes = [ctypes.c_double, ctypes.c_longlong]
+    fn.restype = fk.restype = ctypes.c_longlong
+    big = float(1 << 62)
+    edges = [0.0, -0.0, 1e-6, -1e-6, -0.99999, -1.0, 4095.99999, 4095.999991,
+             4096.0, 4095.0, 1e300, -1e300, big, np.nextafter(big, 0.0),
+             np.nextafter(big, np.inf), 2.0 ** 63, -big, float("nan"),
+             float("inf"), float("-inf"), 3.5, 2.0 ** 53, -2.0 ** 53,
+             2.0 ** 31, 2.0 ** 31 - 1.0, 2.0 ** 31 - 0.5, 2.0 ** 32 + 3.0,
+             2.0 ** 51 + 1.0, 2.0 ** 52 - 1.0]
+    for b in edges:
+        for i in (0.0, 1.0, -1.0, 0.5, 4090.0, float("inf"), float("nan")):
+            assert fn(b, i) == SC.mem_address(b, i), (b, i)
+        # a whole constant operand, added as an integer
+        for k in (0, 1, -1, 18, 4095, -4096, 2 ** 31 - 1, -(2 ** 31 - 1)):
+            assert fk(b, k) == SC.mem_address(b, float(k)), (b, k)
+
+
+def wide_src(n):
+    """A chain through n vars: a var row past the static shared memory
+    beside K11's page once n passes about 2,040."""
+    body = "".join(f"v{k} = v{k - 1} * 0.999 + {k} * 0.000001;\n"
+                   for k in range(1, n))
+    return f"@sample\nv0 = spl0 * 0.5;\n{body}spl0 = v{n - 1};\n"
+
+
+def test_a_var_row_past_the_static_limit_takes_dynamic_shared_memory():
+    # chosen when the text is printed: 2,100 slots and the page pass 48 KB
+    small = DeviceExecKernel(compile_plugin_source(wide_src(8)),
+                             make_initialized_shadow(
+                                 compile_plugin_source(wide_src(8))).state, 1,
+                             device="cpu").program
+    assert not small.dynamic_smem and "#define ZX_DYN 0" in small.source
+    prog = compile_plugin_source(wide_src(2100))
+    kern = DeviceExecKernel(prog, make_initialized_shadow(prog, SR).state, 1,
+                            device="cpu")
+    p = kern.program
+    assert p.dynamic_smem and p.smem_bytes > DX.SMEM_STATIC
+    assert "#define ZX_DYN 1" in p.source
+    host_compiler_or_skip()
+    x, bv, bm, pool = _program_and_inputs(kern, 2, 700, seed=4)
+    bv2, bm2 = bv.clone(), bm.clone()
+    y, _ = DX.device_exec(p, x, bv, bm, pool)
+    y2, _ = DX.device_exec_host(p, x, bv2, bm2, pool)
+    assert torch.equal(y, y2) and torch.equal(bv, bv2) and torch.equal(bm, bm2)
 
 
 def test_host_form_stand_in_eight_files():
@@ -496,7 +624,7 @@ def test_device_sections_refuse_rand_without_a_pool():
         DeviceSection(prog, snap, "block", dyn, 4096)
     sec = DeviceSection(prog, snap, "block", dyn, 4096, reduced_heap=True,
                         rand_pool=64)
-    assert sec.uses_rand and "zb_rand(" in sec.body_source
+    assert sec.uses_rand and "zx_rand(" in sec.body_source
     assert ("var", "__mem_hiwater__") in sec.slots
 
 
@@ -511,3 +639,23 @@ def test_sample_chain_ops_counts_the_longest_path():
     assert DX.sample_chain_ops(kern.program, {"n": 3}) == 7.0
     assert DX.sample_chain_ops(kern.program, {"n": 2}) == 6.0
     assert DX.sample_chain_ops(kern.program, {"n": 2.5}) == 6.5
+
+
+def test_k10_sources_stay_as_they_were():
+    # the reduced heap's printing (K11) leaves K10's sections alone: the
+    # generated K10 text of the coupled and hop stand-ins, byte for byte
+    import hashlib
+
+    want = {
+        "spectral_tilt_leveler(2048)": (
+            builtin_plugins.spectral_tilt_leveler(2048), "_block_prog",
+            "71e58b53aafff3087538b6996dee311c3412675f349563ab212933fc6a15b1f2"),
+        "hop_convolver(1024, 8)": (
+            builtin_plugins.hop_convolver(1024, 8), "_hop_prog",
+            "6e241925258f90efc50d3f8972d1b895ae067cf009091d935a7a6998fda80ee9"),
+    }
+    for name, (src, attr, digest) in want.items():
+        inst = PluginInstance(compile_plugin_source(src), device="cpu")
+        k10 = getattr(inst.kernel, attr)
+        got = hashlib.sha256(k10.source.encode()).hexdigest()
+        assert got == digest, name

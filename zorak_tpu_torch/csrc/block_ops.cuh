@@ -28,18 +28,23 @@
 // generated.)
 //
 // K11's sections use the reference's reduced heap instead (devgen.py
-// `_mem_addr`, `_mem_get`, `_mem_set` under reduced_heap): a dynamic
-// address is raised to at least 0 and not clamped above, a read at or
-// past mem_size gives 0, and a write there is dropped; every dynamic write
-// and every FFT region that leaves the heap inside its page raise the
-// high-water slot (`hiwater`) to its address, so that the executor can
-// see that the render needs a larger heap.  K10 leaves `hiwater` null.
+// `_mem_addr`, `_mem_get`, `_mem_set` under reduced_heap), over a view of
+// their own (ZX, at the end of this file, compiled where ZX_PAGE is
+// defined): a dynamic address is raised to at least 0 and not clamped
+// above, a read at or past mem_size gives 0, and a write there is
+// dropped; every dynamic write and every FFT region that leaves the heap
+// inside its page raise the high-water mark to its address, so that the
+// executor can see that the render needs a larger heap.
 
 #pragma once
 
 #include "scan_ops.cuh"
 
-#ifdef __CUDACC__
+// K11 defines ZB_FORCE_INLINE: its one kernel inlines every helper, so
+// that the view stays in registers.
+#if defined(__CUDACC__) && defined(ZB_FORCE_INLINE)
+#define ZB_FN static __host__ __device__ __forceinline__
+#elif defined(__CUDACC__)
 #define ZB_FN static __host__ __device__
 #else
 #define ZB_FN static inline
@@ -68,10 +73,6 @@ struct ZB {
   const double* tw;        // cos, sin of 2 pi k / tw_n, k < tw_n / 2
   long long tw_n;
   unsigned long long* serial_runs;  // block loops run on thread 0 (or null)
-  // K11 only (K10 leaves them zero):
-  const double* pool;      // the staged MT19937 draws (u32 values), shared
-  long long pool_n;        // how many
-  double* hiwater;         // the reduced heap's high-water slot (or null)
 };
 
 // -- phases: who runs what ------------------------------------------------------
@@ -119,53 +120,17 @@ ZB_FN double zb_mset(ZB* S, double v, double base, double idx) {
   return v;
 }
 
-// The reduced heap: trunc(base + idx + 1e-5), raised to 0 and not clamped
-// above; reads past the heap give 0, writes there drop and mark the high
-// water (every dynamic write raises it to its address, as the reference's
-// does).
-ZB_FN long long zb_raddr(const ZB* S, double base, double idx) {
-  (void)S;
-  const long long a = zt_i64(base + idx + 1.0e-5);
-  return a < 0 ? 0 : a;
-}
-ZB_FN double zb_rat(const ZB* S, long long a) {
-  return a < S->mem_size ? S->M[a] : 0.0;
-}
-ZB_FN double zb_rmget(const ZB* S, double base, double idx) {
-  return zb_rat(S, zb_raddr(S, base, idx));
-}
-ZB_FN void zb_rmset(ZB* S, long long a, double v) {
-  const double hw = (double)a;
-  if (*S->hiwater < hw) *S->hiwater = hw;
-  if (a < S->mem_size) S->M[a] = v;
-}
-
-// -- rand() over the staged pool ------------------------------------------------
-//
-// rand(limit) = u32 * (1/4294967295) * max(floor(limit), 1), the u32 the
-// pool's cell at the cursor (*pos, a var slot).  The cursor counts past the
-// pool's end and the read clamps; the executor refuses a render that used
-// more draws than the pool held.
-ZB_FN double zb_rand(ZB* S, double* pos, double limit) {
-  const double c = *pos;
-  long long i = zt_i64(c);
-  if (i < 0) i = 0;
-  if (i > S->pool_n - 1) i = S->pool_n - 1;
-  const double u = ZB_LDG(S->pool + i);
-  *pos = c + 1.0;
-  double top = floor(limit);
-  if (!(top >= 1.0)) top = 1.0;
-  return u * (1.0 / 4294967295.0) * top;
-}
-
 // memset/memcpy's run: n = max(0, trunc(len)) cells (at most the heap)
-// from blob_address(dest), the start clamped so that the run stays inside.
-ZB_FN long long zb_run_len(const ZB* S, double len) {
+// from blob_address(dest), the start clamped so that the run stays inside
+// (either view: K10's ZB, K11's ZX).
+template <class View>
+ZB_FN long long zb_run_len(const View* S, double len) {
   long long n = zt_i64(len);
   if (n < 0) n = 0;
   return n > S->mem_size ? S->mem_size : n;
 }
-ZB_FN long long zb_run_start(const ZB* S, double x, long long n) {
+template <class View>
+ZB_FN long long zb_run_start(const View* S, double x, long long n) {
   long long a = zt_i64(x + 1.0e-5);
   if (a < 0) a = 0;
   return a > S->mem_size - n ? S->mem_size - n : a;
@@ -206,7 +171,8 @@ ZB_FN double zb_pend_or(double* slot, double mask) {
 
 // The next staged host event at cursor slot *pos, or nullptr when the
 // block's queue is spent (the out-params are then left as they were).
-ZB_FN const double* zb_midirecv(ZB* S, double* pos) {
+template <class View>
+ZB_FN const double* zb_midirecv(View* S, double* pos) {
   const double p = *pos;
   if (!(p < S->midi_n)) return nullptr;
   *pos = p + 1.0;
@@ -215,7 +181,8 @@ ZB_FN const double* zb_midirecv(ZB* S, double* pos) {
 
 // Append (offset, b1, b2, b3) to the block's OUT table, bytes masked as
 // the golden masks them; past ZB_MIDI_OUT_CAP sends drop.  Returns b1.
-ZB_FN double zb_midisend(ZB* S, double ofs, double b1, double b2, double b3) {
+template <class View>
+ZB_FN double zb_midisend(View* S, double ofs, double b1, double b2, double b3) {
   double* T = S->M + S->mo_base;
   const long long n = zt_i64(T[0]);
   if (n < ZB_MIDI_OUT_CAP) {
@@ -230,7 +197,8 @@ ZB_FN double zb_midisend(ZB* S, double ofs, double b1, double b2, double b3) {
   return b1;
 }
 // The three-argument form: msg23 = b2 + 256 * b3.
-ZB_FN double zb_midisend3(ZB* S, double ofs, double b1, double m23) {
+template <class View>
+ZB_FN double zb_midisend3(View* S, double ofs, double b1, double m23) {
   const long long m = zt_i64(m23);
   return zb_midisend(S, ofs, b1, (double)(m & 255), (double)((m >> 8) & 255));
 }
@@ -250,16 +218,11 @@ ZB_FN long long zb_round_index(double v) {
   if (!(v == v) || v - v != 0.0) return -1;
   return zt_i64(v + (v >= 0.0 ? 1.0e-5 : -1.0e-5));
 }
-// A region of `span` cells from `base` inside one page and the heap.  On
-// a reduced heap a region inside its page that leaves the heap marks the
-// high water with its last cell (the golden grows its heap for it).
+// A region of `span` cells from `base` inside one page and the heap.
 ZB_FN bool zb_region_ok(const ZB* S, long long base, long long span) {
   if (base < 0 || span <= 0) return false;
   if (base / ZB_PAGE != (base + span - 1) / ZB_PAGE) return false;
-  if (base + span <= S->mem_size) return true;
-  if (S->hiwater && *S->hiwater < (double)(base + span - 1))
-    *S->hiwater = (double)(base + span - 1);
-  return false;
+  return base + span <= S->mem_size;
 }
 ZB_FN long long zb_fft_base(double dest) {
   const long long b = zb_round_index(dest);
@@ -294,47 +257,39 @@ ZB_FN void zb_fft_core(double* x, long long n, const double* tw,
   }
 }
 
+// The transforms on a region x that passed its checks, through the
+// workspace w: what zb_fft ... zb_convolve_c (K10's view) and zx_fft ...
+// zx_convolve_c (K11's) run.
+
 // fft: natural-order DFT of n complex, stored in WDL order.
-ZB_FN double zb_fft(ZB* S, double dest, long long n, const int* perm) {
-  const long long base = zb_fft_base(dest);
-  if (!zb_region_ok(S, base, 2 * n)) return 0.0;
-  double* x = S->M + base;
-  double* w = S->scratch;
+ZB_FN void zb_fft_on(double* x, double* w, long long n, const int* perm,
+                     const double* tw, long long tw_n) {
   for (long long k = 0; k < n; ++k) {
     const long long r = zb_bitrev(k, n);
     w[2 * r] = x[2 * k];
     w[2 * r + 1] = x[2 * k + 1];
   }
-  zb_fft_core(w, n, S->tw, S->tw_n, false);
+  zb_fft_core(w, n, tw, tw_n, false);
   for (long long k = 0; k < n; ++k) {
     x[2 * ZB_LDG(perm + k)] = w[2 * k];
     x[2 * ZB_LDG(perm + k) + 1] = w[2 * k + 1];
   }
-  return 0.0;
 }
 // ifft: WDL order in, the unnormalized inverse in natural order out.
-ZB_FN double zb_ifft(ZB* S, double dest, long long n, const int* perm) {
-  const long long base = zb_fft_base(dest);
-  if (!zb_region_ok(S, base, 2 * n)) return 0.0;
-  double* x = S->M + base;
-  double* w = S->scratch;
+ZB_FN void zb_ifft_on(double* x, double* w, long long n, const int* perm,
+                      const double* tw, long long tw_n) {
   for (long long k = 0; k < n; ++k) {
     const long long r = zb_bitrev(k, n);
     w[2 * r] = x[2 * ZB_LDG(perm + k)];
     w[2 * r + 1] = x[2 * ZB_LDG(perm + k) + 1];
   }
-  zb_fft_core(w, n, S->tw, S->tw_n, true);
+  zb_fft_core(w, n, tw, tw_n, true);
   for (long long k = 0; k < 2 * n; ++k) x[k] = w[k];
-  return 0.0;
 }
 // fft_permute (ipermute = false): buf = buf[perm]; fft_ipermute:
 // buf[perm] = buf.
-ZB_FN double zb_fft_permute(ZB* S, double dest, long long n, const int* perm,
-                            bool ipermute) {
-  const long long base = zb_fft_base(dest);
-  if (!zb_region_ok(S, base, 2 * n)) return 0.0;
-  double* x = S->M + base;
-  double* w = S->scratch;
+ZB_FN void zb_fft_permute_on(double* x, double* w, long long n,
+                             const int* perm, bool ipermute) {
   for (long long k = 0; k < n; ++k) {
     const long long from = ipermute ? k : ZB_LDG(perm + k);
     const long long to = ipermute ? ZB_LDG(perm + k) : k;
@@ -342,39 +297,31 @@ ZB_FN double zb_fft_permute(ZB* S, double dest, long long n, const int* perm,
     w[2 * to + 1] = x[2 * from + 1];
   }
   for (long long k = 0; k < 2 * n; ++k) x[k] = w[k];
-  return 0.0;
 }
 // fft_real(N): N/2 bins of 2 * rfft(x), bin 0 packing (2 DC, 2 Nyquist),
 // in WDL order of N/2 (`perm` is perm_table(N / 2)).
-ZB_FN double zb_fft_real(ZB* S, double dest, long long n, const int* perm) {
-  const long long base = zb_fft_base(dest);
-  if (!zb_region_ok(S, base, n)) return 0.0;
+ZB_FN void zb_fft_real_on(double* x, double* w, long long n, const int* perm,
+                          const double* tw, long long tw_n) {
   const long long half = n / 2;
-  double* x = S->M + base;
-  double* w = S->scratch;
   for (long long t = 0; t < n; ++t) {
     const long long r = zb_bitrev(t, n);
     w[2 * r] = x[t];
     w[2 * r + 1] = 0.0;
   }
-  zb_fft_core(w, n, S->tw, S->tw_n, false);
+  zb_fft_core(w, n, tw, tw_n, false);
   x[2 * ZB_LDG(perm)] = 2.0 * w[0];
   x[2 * ZB_LDG(perm) + 1] = 2.0 * w[2 * half];
   for (long long k = 1; k < half; ++k) {
     x[2 * ZB_LDG(perm + k)] = 2.0 * w[2 * k];
     x[2 * ZB_LDG(perm + k) + 1] = 2.0 * w[2 * k + 1];
   }
-  return 0.0;
 }
 // ifft_real(N): the inverse of fft_real scaled by 2N (the caller applies
 // 0.5 / N): x = 2 Re(the unnormalized inverse DFT of the hermitian
 // spectrum whose bins are the WDL bins / 2).
-ZB_FN double zb_ifft_real(ZB* S, double dest, long long n, const int* perm) {
-  const long long base = zb_fft_base(dest);
-  if (!zb_region_ok(S, base, n)) return 0.0;
+ZB_FN void zb_ifft_real_on(double* x, double* w, long long n, const int* perm,
+                           const double* tw, long long tw_n) {
   const long long half = n / 2;
-  double* x = S->M + base;
-  double* w = S->scratch;
   const long long r0 = zb_bitrev(0, n), rh = zb_bitrev(half, n);
   w[2 * r0] = x[2 * ZB_LDG(perm)] / 2.0;
   w[2 * r0 + 1] = 0.0;
@@ -389,23 +336,56 @@ ZB_FN double zb_ifft_real(ZB* S, double dest, long long n, const int* perm) {
     w[2 * rn] = re;
     w[2 * rn + 1] = 0.0 - im;
   }
-  zb_fft_core(w, n, S->tw, S->tw_n, true);
+  zb_fft_core(w, n, tw, tw_n, true);
   for (long long t = 0; t < n; ++t) x[t] = 2.0 * w[2 * t];
-  return 0.0;
 }
-// convolve_c: dest[k] *= src[k] over n complex (the source read first,
-// through the scratch row, so that overlapping regions read as before).
-ZB_FN double zb_convolve_c(ZB* S, double dest, double src, long long n) {
-  const long long d = zb_fft_base(dest), s = zb_fft_base(src);
-  if (!zb_region_ok(S, d, 2 * n) || !zb_region_ok(S, s, 2 * n)) return 0.0;
-  double* w = S->scratch;
-  for (long long k = 0; k < 2 * n; ++k) w[k] = S->M[s + k];
-  double* x = S->M + d;
+// convolve_c: x[k] *= src[k] over n complex (the source read first, into
+// the workspace, so that overlapping regions read as before).
+ZB_FN void zb_convolve_c_on(double* x, const double* src, double* w,
+                            long long n) {
+  for (long long k = 0; k < 2 * n; ++k) w[k] = src[k];
   for (long long k = 0; k < n; ++k) {
     const double dr = x[2 * k], di = x[2 * k + 1];
     x[2 * k] = dr * w[2 * k] - di * w[2 * k + 1];
     x[2 * k + 1] = dr * w[2 * k + 1] + di * w[2 * k];
   }
+}
+
+ZB_FN double zb_fft(ZB* S, double dest, long long n, const int* perm) {
+  const long long base = zb_fft_base(dest);
+  if (zb_region_ok(S, base, 2 * n))
+    zb_fft_on(S->M + base, S->scratch, n, perm, S->tw, S->tw_n);
+  return 0.0;
+}
+ZB_FN double zb_ifft(ZB* S, double dest, long long n, const int* perm) {
+  const long long base = zb_fft_base(dest);
+  if (zb_region_ok(S, base, 2 * n))
+    zb_ifft_on(S->M + base, S->scratch, n, perm, S->tw, S->tw_n);
+  return 0.0;
+}
+ZB_FN double zb_fft_permute(ZB* S, double dest, long long n, const int* perm,
+                            bool ipermute) {
+  const long long base = zb_fft_base(dest);
+  if (zb_region_ok(S, base, 2 * n))
+    zb_fft_permute_on(S->M + base, S->scratch, n, perm, ipermute);
+  return 0.0;
+}
+ZB_FN double zb_fft_real(ZB* S, double dest, long long n, const int* perm) {
+  const long long base = zb_fft_base(dest);
+  if (zb_region_ok(S, base, n))
+    zb_fft_real_on(S->M + base, S->scratch, n, perm, S->tw, S->tw_n);
+  return 0.0;
+}
+ZB_FN double zb_ifft_real(ZB* S, double dest, long long n, const int* perm) {
+  const long long base = zb_fft_base(dest);
+  if (zb_region_ok(S, base, n))
+    zb_ifft_real_on(S->M + base, S->scratch, n, perm, S->tw, S->tw_n);
+  return 0.0;
+}
+ZB_FN double zb_convolve_c(ZB* S, double dest, double src, long long n) {
+  const long long d = zb_fft_base(dest), s = zb_fft_base(src);
+  if (zb_region_ok(S, d, 2 * n) && zb_region_ok(S, s, 2 * n))
+    zb_convolve_c_on(S->M + d, S->M + s, S->scratch, n);
   return 0.0;
 }
 
@@ -604,3 +584,245 @@ ZB_FN bool zb_read_span(const ZB* S, double b, double i_lo, double i_hi,
 ZB_FN bool zb_apart(long long lo0, long long hi0, long long lo1, long long hi1) {
   return hi0 < lo1 || hi1 < lo0;
 }
+
+// -- K11's view: the reduced heap, its first page on chip -----------------------
+//
+// K11 (kernels/device_exec.py) runs a file's whole render on lane 0 of the
+// file's warp.  Its hot state stays on chip: the var row and the heap's
+// first ZX_PAGE cells (a plugin's tables, records and counters lie low)
+// are the warp's copies in shared memory (arrays of the render in the host
+// form), staged at the file's start and written back at its end, and the
+// high-water mark is a register, stored to its slot where the executor's
+// overflow check reads it.  The rest of the heap (rings, buffers), the
+// MIDI out table and the draw pool stay in device memory.  Every helper is
+// inlined into the kernel, so the view itself lives in registers.
+
+#ifdef ZX_PAGE
+
+struct ZX {
+  double* P;               // the heap's first ZX_PAGE cells, on chip
+  double* M;               // the heap row: [plugin heap | MIDI out table]
+  long long mem_size;      // plugin heap cells
+  long long page_n;        // the page's cells that are heap: min(ZX_PAGE, mem_size)
+  long long mo_base;       // the MIDI out table: [count | CAP rows of 4]
+  double samplesblock;
+  const double* midi_ev;   // this block's staged host events [k][4]
+  double midi_n;           // how many there are
+  double* scratch;         // FFT workspace of this file
+  const double* tw;        // cos, sin of 2 pi k / tw_n, k < tw_n / 2
+  long long tw_n;
+  const double* pool;      // the staged MT19937 draws (u32 values), shared
+  long long pool_n;        // how many
+  long long hw;            // the high-water mark of dynamic writes: its
+                           // slot holds it as a double (max and the
+                           // rounding to double commute)
+};
+
+// A dynamic access is on the chain of every heap read.  Its address is
+// trunc(base + idx + 1e-5) raised to 0 and not clamped above (zt_i64:
+// NaN and +-inf give 0, past 2^62 saturates).  Where s = base + idx (the
+// golden's first addition) is a whole number in [0, 2^31), as a plugin's
+// indices are, that is s itself: adding 2^52 + 2^51 puts s's integer in
+// the low word of the sum, exactly, and subtracting it again gives s back
+// only where s is whole.  Two adds and a compare, and no conversion.
+#define ZX_MAGIC 6755399441055744.0   // 2^52 + 2^51
+ZB_FN int zx_low(double t) {
+#ifdef __CUDA_ARCH__
+  return __double2loint(t);
+#else
+  unsigned long long b;
+  memcpy(&b, &t, 8);
+  return (int)(unsigned)(b & 0xffffffffull);
+#endif
+}
+ZB_FN bool zx_small(double s, double t) {
+  return t - ZX_MAGIC == s && s >= 0.0 && s < 2147483648.0;
+}
+ZB_FN long long zx_raddr(double base, double idx) {
+  const double s = base + idx;
+  const double t = s + ZX_MAGIC;
+  if (zx_small(s, t)) return zx_low(t);
+  const double x = s + 1.0e-5;
+  const double top = 4.611686018427387904e18;   // 2^62
+  return (long long)(x >= 0.0 && x <= top ? x
+                     : (x > top && x < INFINITY ? top : 0.0));
+}
+// The same address where idx is a whole constant k, |k| < 2^31 (a record's
+// field, a table's base): where base is whole in [0, 2^31), base's integer
+// (from base + ZX_MAGIC, which the accesses of one base share) plus k.
+ZB_FN long long zx_raddr_k(double base, long long k) {
+  const double tb = base + ZX_MAGIC;
+  const long long a = (long long)zx_low(tb) + k;
+  if (zx_small(base, tb) && a >= 0 && a < 2147483648LL) return a;
+  return zx_raddr(base, (double)k);
+}
+// Cell a >= 0: the page's below ZX_PAGE (a page cell past a small heap
+// stays 0), the row's below the heap, else 0.
+ZB_FN double zx_rat(const ZX* S, long long a) {
+  return a < ZX_PAGE ? S->P[a] : (a < S->mem_size ? S->M[a] : 0.0);
+}
+// A read: the page's cell at a small whole address is read ahead, while
+// the address is checked; any other address takes the general way.
+ZB_FN double zx_rmget(const ZX* S, double base, double idx) {
+  const double s = base + idx;
+  const double t = s + ZX_MAGIC;
+  const int a = zx_low(t);
+  const double ahead = S->P[a & (ZX_PAGE - 1)];
+  if (zx_small(s, t) && a < ZX_PAGE) return ahead;
+  return zx_rat(S, zx_raddr(base, idx));
+}
+ZB_FN double zx_rmget_k(const ZX* S, double base, long long k) {
+  const double tb = base + ZX_MAGIC;
+  const long long a = (long long)zx_low(tb) + k;
+  const double ahead = S->P[a & (ZX_PAGE - 1)];
+  if (zx_small(base, tb) && a >= 0 && a < ZX_PAGE) return ahead;
+  return zx_rat(S, zx_raddr(base, (double)k));
+}
+// A dynamic write: it raises the high water to its address (as the
+// reference's does) and drops past the heap.
+ZB_FN void zx_rmset(ZX* S, long long a, double v) {
+  S->hw = S->hw < a ? a : S->hw;
+  if (a < S->mem_size) {
+    if (a < ZX_PAGE) S->P[a] = v;
+    else S->M[a] = v;
+  }
+}
+
+// rand(limit) = u32 * (1/4294967295) * max(floor(limit), 1), the u32 the
+// pool's cell at the cursor (*pos, a var slot).  The cursor counts past the
+// pool's end and the read clamps; the executor refuses a render that used
+// more draws than the pool held.
+ZB_FN double zx_rand(const ZX* S, double* pos, double limit) {
+  const double c = *pos;
+  long long i = zt_i64(c);
+  if (i < 0) i = 0;
+  if (i > S->pool_n - 1) i = S->pool_n - 1;
+  const double u = ZB_LDG(S->pool + i);
+  *pos = c + 1.0;
+  double top = floor(limit);
+  if (!(top >= 1.0)) top = 1.0;
+  return u * (1.0 / 4294967295.0) * top;
+}
+
+// -- bulk operations: runs of cells in the page or in the row --
+
+// The page's cells back into the row, and from it.
+ZB_FN void zx_page_out(ZX* S) {
+  for (long long i = 0; i < S->page_n; ++i) S->M[i] = S->P[i];
+}
+ZB_FN void zx_page_in(ZX* S) {
+  for (long long i = 0; i < S->page_n; ++i) S->P[i] = S->M[i];
+}
+ZB_FN bool zx_across(long long a, long long n) {
+  return a < ZX_PAGE && a + n > ZX_PAGE;
+}
+// Before an operation on the runs [a, a + n) and [b, b + m): where a run
+// crosses cell ZX_PAGE (rare), the page is written back and every run is
+// worked in the row (returns true; zx_close loads the page again).
+ZB_FN bool zx_open(ZX* S, long long a, long long n, long long b, long long m) {
+  const bool across = zx_across(a, n) || zx_across(b, m);
+  if (across) zx_page_out(S);
+  return across;
+}
+// Where run [a, a + n) is worked: the page's cells where it lies inside
+// the page, else the row's.
+ZB_FN double* zx_cells(const ZX* S, bool across, long long a, long long n) {
+  return !across && a + n <= ZX_PAGE ? S->P + a : S->M + a;
+}
+ZB_FN void zx_close(ZX* S, bool across) {
+  if (across) zx_page_in(S);
+}
+
+ZB_FN double zx_memset(ZX* S, double dest, double val, double len) {
+  const long long n = zb_run_len(S, len);
+  const long long d = zb_run_start(S, dest, n);
+  const bool across = zx_open(S, d, n, d, n);
+  double* x = zx_cells(S, across, d, n);
+  for (long long i = 0; i < n; ++i) x[i] = val;
+  zx_close(S, across);
+  return dest;
+}
+// overlap-safe, as memmove (runs in the page and in the row never overlap)
+ZB_FN double zx_memcpy(ZX* S, double dest, double src, double len) {
+  const long long n = zb_run_len(S, len);
+  const long long d = zb_run_start(S, dest, n);
+  const long long s = zb_run_start(S, src, n);
+  const bool across = zx_open(S, d, n, s, n);
+  double* x = zx_cells(S, across, d, n);
+  const double* y = zx_cells(S, across, s, n);
+  if (d < s) {
+    for (long long i = 0; i < n; ++i) x[i] = y[i];
+  } else if (d > s) {
+    for (long long i = n - 1; i >= 0; --i) x[i] = y[i];
+  }
+  zx_close(S, across);
+  return dest;
+}
+
+// zb_region_ok on the reduced heap: a region inside its WDL page that
+// leaves the heap marks the high water with its last cell (the golden
+// grows its heap for it).
+ZB_FN bool zx_region_ok(ZX* S, long long base, long long span) {
+  if (base < 0 || span <= 0) return false;
+  if (base / ZB_PAGE != (base + span - 1) / ZB_PAGE) return false;
+  if (base + span <= S->mem_size) return true;
+  if (S->hw < base + span - 1) S->hw = base + span - 1;
+  return false;
+}
+ZB_FN double zx_fft(ZX* S, double dest, long long n, const int* perm) {
+  const long long a = zb_fft_base(dest);
+  if (!zx_region_ok(S, a, 2 * n)) return 0.0;
+  const bool across = zx_open(S, a, 2 * n, a, 2 * n);
+  zb_fft_on(zx_cells(S, across, a, 2 * n), S->scratch, n, perm, S->tw,
+            S->tw_n);
+  zx_close(S, across);
+  return 0.0;
+}
+ZB_FN double zx_ifft(ZX* S, double dest, long long n, const int* perm) {
+  const long long a = zb_fft_base(dest);
+  if (!zx_region_ok(S, a, 2 * n)) return 0.0;
+  const bool across = zx_open(S, a, 2 * n, a, 2 * n);
+  zb_ifft_on(zx_cells(S, across, a, 2 * n), S->scratch, n, perm, S->tw,
+             S->tw_n);
+  zx_close(S, across);
+  return 0.0;
+}
+ZB_FN double zx_fft_permute(ZX* S, double dest, long long n, const int* perm,
+                            bool ipermute) {
+  const long long a = zb_fft_base(dest);
+  if (!zx_region_ok(S, a, 2 * n)) return 0.0;
+  const bool across = zx_open(S, a, 2 * n, a, 2 * n);
+  zb_fft_permute_on(zx_cells(S, across, a, 2 * n), S->scratch, n, perm,
+                    ipermute);
+  zx_close(S, across);
+  return 0.0;
+}
+ZB_FN double zx_fft_real(ZX* S, double dest, long long n, const int* perm) {
+  const long long a = zb_fft_base(dest);
+  if (!zx_region_ok(S, a, n)) return 0.0;
+  const bool across = zx_open(S, a, n, a, n);
+  zb_fft_real_on(zx_cells(S, across, a, n), S->scratch, n, perm, S->tw,
+                 S->tw_n);
+  zx_close(S, across);
+  return 0.0;
+}
+ZB_FN double zx_ifft_real(ZX* S, double dest, long long n, const int* perm) {
+  const long long a = zb_fft_base(dest);
+  if (!zx_region_ok(S, a, n)) return 0.0;
+  const bool across = zx_open(S, a, n, a, n);
+  zb_ifft_real_on(zx_cells(S, across, a, n), S->scratch, n, perm, S->tw,
+                  S->tw_n);
+  zx_close(S, across);
+  return 0.0;
+}
+ZB_FN double zx_convolve_c(ZX* S, double dest, double src, long long n) {
+  const long long d = zb_fft_base(dest), s = zb_fft_base(src);
+  if (!zx_region_ok(S, d, 2 * n) || !zx_region_ok(S, s, 2 * n)) return 0.0;
+  const bool across = zx_open(S, d, 2 * n, s, 2 * n);
+  zb_convolve_c_on(zx_cells(S, across, d, 2 * n),
+                   zx_cells(S, across, s, 2 * n), S->scratch, n);
+  zx_close(S, across);
+  return 0.0;
+}
+
+#endif  // ZX_PAGE

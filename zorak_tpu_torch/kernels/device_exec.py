@@ -7,10 +7,12 @@ outer scan over the host's blocks, then @block, then the pending-mask
 Plain torch for that work would pay several launches for every sample, so
 the whole render is one generated kernel.
 
-On a CUDA tensor `device_exec` launches it: one thread runs one file's
-whole render, block after block, through the sections that
-`lowering/devgen.py` prints as C (`DeviceSection.body_source`, with the
-reduced heap's addressing and the staged draw pool of `csrc/block_ops.cuh`).
+On a CUDA tensor `device_exec` launches it: a CUDA block of one warp a
+file, whose lanes stage the file's var row and its heap's first
+PAGE_CELLS cells in shared memory and whose lane 0 runs the whole
+render, block after block, through the sections that `lowering/devgen.py`
+prints as C (`DeviceSection.body_source`, with the reduced heap's
+addressing and the staged draw pool of `csrc/block_ops.cuh`), inlined.
 On a CPU tensor it runs `device_exec_plain`: for each file the port's
 Python golden (`shadow/pyexec.py`) with the same heap, pool and block
 loop.  Nothing falls back from one to the other.  `device_exec_host` runs
@@ -27,22 +29,22 @@ import torch
 
 from . import _build
 from ..lowering.devgen import (
-    MEM_HIWATER_SLOT, MIDI_OUT_CAP, MIDI_POS_SLOT, PENDING_SLOT_NAMES,
-    RAND_POS_SLOT, DeviceSection)
+    MEM_HIWATER_SLOT, MIDI_OUT_CAP, MIDI_POS_SLOT, PAGE_CELLS,
+    PENDING_SLOT_NAMES, RAND_POS_SLOT, DeviceSection)
 from ..runtime import fftops as FO
 
 # Kernel launches since the counter was last set; chip_smoke.py zeroes it
 # before a path and reads it after to show the path went through the kernel.
 LAUNCHES = 0
 
-# Threads of a CUDA block of K11.
-THREADS = 128
+# Threads of a CUDA block of K11: one warp, one file.
+THREADS = 32
 
-# How the files lie on the card: 1, one file a warp (its other 31 lanes
-# idle, so no two files share a warp's instruction stream); 32, a file a
-# lane.  chip_smoke.py times the two in turns at 256 files; the faster is
-# the default.
-FILES_PER_WARP = 1
+# Shared memory a block takes without opting in; a plugin whose var row
+# does not fit beside the heap's page there takes dynamic shared memory,
+# up to SMEM_OPT_IN (decided when the text is printed).
+SMEM_STATIC = 48 * 1024
+SMEM_OPT_IN = 227 * 1024
 
 _DESIGN = """\
 // K11 device_exec: replaces the fused XLA program of the reference's
@@ -50,22 +52,60 @@ _DESIGN = """\
 // a scan over blocks of @block, the @slider retrigger and a scan of
 // @sample over the block's samples).
 //
-// What bounds it: one thread's dependent chain of f64 operations through
-// every @sample step of the render, one sample after another; the bytes
-// (the audio in and out, the heap cells the sections touch) are far less.
+// What bounds it: one thread's dependent chain of f64 operations and
+// loads through every @sample step of the render, one sample after
+// another; the bytes (the audio in and out, the heap cells the sections
+// touch) are far less.
 //
-// What the design does: one thread runs one file's whole render in one
-// launch.  For each block it clears the MIDI position and the MIDI out
-// table where they are used, runs @block, runs @slider where a pending
-// mask is set (and clears the masks), then runs @sample over the block's
-// samples: each f32 input widened into its spl slot, the body, the spl
-// slot rounded to f32 on output.  The remainder block's length is an
+// What the design does: one file a CUDA block of one warp.  The lanes
+// stage the file's var row and its heap's first ZX_PAGE cells into shared
+// memory, coalesced; lane 0 runs the whole render over them; the lanes
+// write both back.  Every section and helper is inlined into the kernel,
+// so the view (ZX, csrc/block_ops.cuh) lives in registers, the var row
+// is reached through its own __restrict__ pointer (nothing the heap does
+// aliases it), and the high-water mark is a register stored to its slot
+// at each block's end.  For each block lane 0 clears the MIDI position and
+// the MIDI out table where they are used, runs @block, runs @slider where
+// a pending mask is set (and clears the masks), then runs @sample over the
+// block's samples: each f32 input widened into its spl slot, the body, the
+// spl slot rounded to f32 on output.  The remainder block's length is an
 // argument, and so are the heap's size and the row strides: one build
 // serves every length and every rung of the heap ladder.  A file whose
-// reduced heap overflowed (its high-water slot at or past the heap) stops
-// at the end of that block: the executor discards the render and replays
-// it on a larger heap.  The files lie one a warp or one a lane (`spread`).
+// reduced heap overflowed (its high water at or past the heap) stops at
+// the end of that block, its row and page written back: the executor
+// discards the render and replays it on a larger heap.
 """
+
+
+# The section probe: the same text built again with ZX_PROBE defined
+# (`section_probe`, chip_smoke.py).  clock64() around each section call and
+# the sample loop's I/O, summed a file into cycles[f * PROBE_SLOTS + k]:
+# @block, @slider, @sample, the I/O, the whole render.
+PROBE_SLOTS = 5
+PROBE_NAMES = ("block", "slider", "sample", "io", "render")
+_PROBE_MACROS = """\
+#if defined(ZX_PROBE) && defined(__CUDA_ARCH__)
+#define ZX_CYCLES unsigned long long zc[4] = {0, 0, 0, 0}; \\
+  const long long zt_all = clock64();
+#define ZX_TICK(t) const long long t = clock64();
+#define ZX_TOCK(k, t) zc[k] += (unsigned long long)(clock64() - t);
+#define ZX_FLUSH { for (int k = 0; k < 4; ++k) cycles[f * 5 + k] = zc[k]; \\
+  cycles[f * 5 + 4] = (unsigned long long)(clock64() - zt_all); }
+#else
+#define ZX_CYCLES
+#define ZX_TICK(t)
+#define ZX_TOCK(k, t)
+#define ZX_FLUSH
+#endif
+"""
+
+# The links the latency probe times, each a dependent chain on one thread:
+# an f64 add, an f64 sin (with its add), a shared-memory load, a global
+# load that hits L1 and one that hits L2 (a pointer chase through
+# CHASE_CELLS cells), and a heap read through K11's accessor (zx_rmget,
+# the chase in the on-chip page: the address and the load).
+LINKS = ("add", "sin", "shared", "l1", "l2", "heap")
+CHASE_CELLS = 1024
 
 
 class DeviceExecProgram:
@@ -109,6 +149,13 @@ class DeviceExecProgram:
         self.fft_max = max(s.fft_max for s in secs)
         self.scratch_cells = max(1, max(s.scratch_cells for s in secs))
         self.perm_sizes = sorted({n for s in secs for n in s.perm_sizes})
+        # a block's shared memory: the var row and the heap's first page
+        self.smem_bytes = 8 * (self.n_vars + PAGE_CELLS)
+        if self.smem_bytes > SMEM_OPT_IN:
+            raise ValueError(f"{self.n_vars} var slots do not fit in shared "
+                             f"memory beside the heap's page "
+                             f"({self.smem_bytes} > {SMEM_OPT_IN} bytes)")
+        self.dynamic_smem = self.smem_bytes > SMEM_STATIC
         self.source = _emit_source(self)
         n = max(self.fft_max, 2)
         ang = 2.0 * np.pi * np.arange(n // 2, dtype=np.float64) / n
@@ -134,10 +181,10 @@ def _c_table(name: str, values: Sequence[int], ctype: str = "long long") -> str:
     return f"ZB_DEV const {ctype} {name}[] = {{{vals}}};"
 
 
-def _emit_source(p: DeviceExecProgram) -> str:
-    """K11's text: the sections, one file's render (`zx_file`), the kernel
-    and its launcher, and for a host compiler the files one after
-    another.  Nothing in it depends on the heap's size."""
+def _emit_source(p: DeviceExecProgram) -> str:  # noqa: C901 (one file)
+    """K11's text: the sections, one file's render (`zx_file`), the warp's
+    staging, the kernel and its launcher, and for a host compiler the files
+    one after another.  Nothing in it depends on the heap's size."""
     secs = [s for s in (p.block, p.slider, p.sample) if s is not None]
     functions: Dict[str, str] = {}
     for s in secs:
@@ -146,19 +193,28 @@ def _emit_source(p: DeviceExecProgram) -> str:
                 raise ValueError(f"{name} prints differently in two sections")
     out = [
         _DESIGN,
+        f"#define ZX_PAGE {PAGE_CELLS}",
+        "#define ZB_FORCE_INLINE",
         '#include "block_ops.cuh"',
         "",
         "#ifdef __CUDACC__",
         "#define ZB_DEV static __device__",
+        "#define ZX_DEV static __device__ __forceinline__",
         "#else",
         "#define ZB_DEV static",
+        "#define ZX_DEV static inline",
         "#endif",
         "",
         f"#define ZX_NCH {p.nch}",
         f"#define ZX_B {p.B}",
         f"#define ZX_MO_CELLS {p.midi_out_cells}",
         f"#define ZX_HW {p.hw_slot}",
+        f"#define ZX_NV {p.n_vars}",
+        f"#define ZX_DYN {int(p.dynamic_smem)}   // the row and page in "
+        "dynamic shared memory",
+        f"#define ZX_SMEM {p.smem_bytes}",
         "",
+        _PROBE_MACROS,
     ]
     for n in p.perm_sizes:
         out.append(_c_table(f"zb_perm_{n}", FO.perm_table(n), "int"))
@@ -176,12 +232,13 @@ def _emit_source(p: DeviceExecProgram) -> str:
             blk += [f"    V[{p.pos_slot}] = 0.0;   // a fresh host queue a block",
                     "    S.midi_ev = mev + b * mk * 4;",
                     "    S.midi_n = mn[b];"]
-        blk.append(f"    {p.block.fn_name}(&S);")
+        blk.append(f"    ZX_TICK(zt_b) {p.block.fn_name}(&S, V); ZX_TOCK(0, zt_b)")
         if p.slider is not None:
             a, b, c = p.pend_slots
             blk += ["    // @block retriggered @slider: run it, clear the masks",
                     f"    if (V[{a}] + V[{b}] + V[{c}] != 0.0) {{",
-                    f"      {p.slider.fn_name}(&S);",
+                    f"      ZX_TICK(zt_r) {p.slider.fn_name}(&S, V); "
+                    "ZX_TOCK(1, zt_r)",
                     f"      V[{a}] = 0.0; V[{b}] = 0.0; V[{c}] = 0.0;",
                     "    }"]
     mout = []
@@ -196,18 +253,35 @@ def _emit_source(p: DeviceExecProgram) -> str:
             "long long total_mem")
     names = ("x, y, bvars, bmem, mout, mev, mn, mk, pool, pool_n, scratch, "
              "scratch_n, tw, tw_n, T, nfull, rem, mem_size, total_mem")
+    casts = [
+        "static_cast<const float*>(x), static_cast<float*>(y),",
+        "static_cast<double*>(bvars), static_cast<double*>(bmem),",
+        "static_cast<double*>(mout), static_cast<const double*>(mev),",
+        "static_cast<const double*>(mn), mk, static_cast<const double*>(pool),",
+        "pool_n, static_cast<double*>(scratch), scratch_n,",
+        "static_cast<const double*>(tw), tw_n, T, nfull, rem, mem_size,",
+        "total_mem,"]
+    c_args = ("const void* x, void* y, void* bvars, void* bmem, void* mout, "
+              "const void* mev, const void* mn, long long mk, const void* pool, "
+              "long long pool_n, void* scratch, long long scratch_n, "
+              "const void* tw, long long tw_n, long long T, long long nfull, "
+              "long long rem, long long mem_size, long long total_mem, "
+              "long long nf")
     out += [
         "",
-        "// One file's whole render; returns 1 where its heap overflowed.",
-        f"ZB_DEV int zx_file(long long f, {args}) {{",
-        "  (void)mev; (void)mn; (void)mk; (void)mout;",
-        "  double* V = bvars + f * " + str(p.n_vars) + ";",
+        "// One file's whole render on lane 0 of its warp, over the warp's",
+        "// copies of its var row V and its heap's first page P; returns 1",
+        "// where the heap overflowed.",
+        "ZX_DEV int zx_file(long long f, double* __restrict__ V, "
+        f"double* __restrict__ P, {args}, unsigned long long* cycles) {{",
+        "  (void)bvars; (void)mev; (void)mn; (void)mk; (void)mout; (void)cycles;",
+        "  ZX_CYCLES",
         "  double* M = bmem + f * total_mem;",
         "  const long long mo = mem_size;   // the MIDI out table",
         "  (void)mo;",
-        "  ZB S = {V, M, mem_size, mo, (double)ZX_B, nullptr, 0.0,",
-        "          scratch + f * scratch_n, tw, tw_n, nullptr, pool, pool_n,",
-        "          V + ZX_HW};",
+        "  ZX S = {P, M, mem_size, mem_size < ZX_PAGE ? mem_size : ZX_PAGE, mo,",
+        "          (double)ZX_B, nullptr, 0.0, scratch + f * scratch_n, tw, tw_n,",
+        "          pool, pool_n, (long long)V[ZX_HW]};",
         "  const long long rows = nfull + (rem > 0 ? 1 : 0);",
         "  const float* xf = x + f * ZX_NCH * T;",
         "  float* yf = y + f * ZX_NCH * T;",
@@ -217,84 +291,155 @@ def _emit_source(p: DeviceExecProgram) -> str:
         *blk,
         "    for (long long i = 0; i < n; ++i) {",
         "      const long long t = b * ZX_B + i;",
+        "      ZX_TICK(zt_i)",
         "      for (int c = 0; c < ZX_NCH; ++c) V[zx_spl[c]] = (double)xf[c * T + t];",
-        f"      {p.sample.fn_name}(&S);",
+        "      ZX_TOCK(3, zt_i) ZX_TICK(zt_s)",
+        f"      {p.sample.fn_name}(&S, V);",
+        "      ZX_TOCK(2, zt_s) ZX_TICK(zt_o)",
         "      for (int c = 0; c < ZX_NCH; ++c) yf[c * T + t] = (float)V[zx_spl[c]];",
+        "      ZX_TOCK(3, zt_o)",
         "    }",
         *mout,
-        "    // a dropped write: the render is discarded and replayed",
-        "    if (V[ZX_HW] >= (double)mem_size) return 1;",
+        "    // the high water's slot, where the overflow check reads it; a",
+        "    // dropped write: the render is discarded and replayed",
+        "    V[ZX_HW] = (double)S.hw;",
+        "    if (S.hw >= mem_size) { ZX_FLUSH return 1; }",
         "  }",
+        "  ZX_FLUSH",
         "  return 0;",
+        "}",
+        "",
+        "// The warp's copies of file f's var row and heap page, lane `lane` of",
+        "// `lanes` a strided share: in at the file's start (the page's cells",
+        "// past a small heap 0), out at its end or its overflow stop.",
+        "ZX_DEV void zx_stage_in(long long f, double* V, double* P, "
+        "const double* bvars,",
+        "                        const double* M, long long pn, long long lane,",
+        "                        long long lanes) {",
+        "  for (long long i = lane; i < ZX_NV; i += lanes) V[i] = bvars[f * ZX_NV + i];",
+        "  for (long long i = lane; i < ZX_PAGE; i += lanes) P[i] = i < pn ? M[i] : 0.0;",
+        "}",
+        "ZX_DEV void zx_stage_out(long long f, const double* V, const double* P,",
+        "                         double* bvars, double* M, long long pn,",
+        "                         long long lane, long long lanes) {",
+        "  for (long long i = lane; i < ZX_NV; i += lanes) bvars[f * ZX_NV + i] = V[i];",
+        "  for (long long i = lane; i < pn; i += lanes) M[i] = P[i];",
         "}",
         "",
         "#ifdef __CUDACC__",
         "",
+        "// a file a block of one warp: the lanes stage, lane 0 renders",
         f"__global__ void __launch_bounds__({THREADS}) zx_kernel({args}, "
-        "long long nf, int spread) {",
-        "  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;",
-        "  long long f = g;",
-        "  if (spread) {   // one file a warp: lane 0 runs it",
-        "    if (g & 31) return;",
-        "    f = g >> 5;",
-        "  }",
-        "  if (f >= nf) return;",
-        f"  zx_file(f, {names});",
+        "unsigned long long* cycles) {",
+        "#if ZX_DYN",
+        "  extern __shared__ double zx_sh[];",
+        "  double* const zV = zx_sh;",
+        "  double* const zP = zx_sh + ZX_NV;",
+        "#else",
+        "  __shared__ double zV[ZX_NV];",
+        "  __shared__ double zP[ZX_PAGE];",
+        "#endif",
+        "  const long long f = blockIdx.x, lane = threadIdx.x;",
+        "  double* M = bmem + f * total_mem;",
+        "  const long long pn = mem_size < ZX_PAGE ? mem_size : ZX_PAGE;",
+        f"  zx_stage_in(f, zV, zP, bvars, M, pn, lane, {THREADS});",
+        "  __syncwarp();",
+        f"  if (lane == 0) zx_file(f, zV, zP, {names}, cycles);",
+        "  __syncwarp();",
+        f"  zx_stage_out(f, zV, zP, bvars, M, pn, lane, {THREADS});",
         "}",
         "",
-        "// a probe of the chain bound: `reps` dependent f64 adds on one thread",
-        "__global__ void zx_latency_kernel(double* out, double y, long long reps) {",
-        "  double v = out[0];",
-        "  for (long long r = 0; r < reps; ++r) v = v + y;",
-        "  out[0] = v;",
+        "// a probe of the chain bound: `reps` dependent links of one kind on",
+        "// one thread (LINKS: 0 an f64 add, 1 an f64 sin and its add, 2 a shared",
+        "// load, 3 a global load that hits L1, 4 one that hits L2, 5 a heap read",
+        "// through zx_rmget from the page)",
+        "__global__ void zx_latency_kernel(double* out, double y, long long reps,",
+        "                                  int link, const long long* chase) {",
+        f"  __shared__ long long zs[{CHASE_CELLS}];",
+        f"  __shared__ double zh[{CHASE_CELLS}];",
+        f"  if (link == 2) for (int i = 0; i < {CHASE_CELLS}; ++i) zs[i] = chase[i];",
+        f"  if (link == 5) for (int i = 0; i < {CHASE_CELLS}; ++i) zh[i] = (double)chase[i];",
+        f"  const ZX S = {{zh, nullptr, {CHASE_CELLS}, {CHASE_CELLS}, {CHASE_CELLS}, 0.0,",
+        "                nullptr, 0.0, nullptr, nullptr, 0, nullptr, 0, 0};",
+        "  double v = out[0], d = 0.0;",
+        "  long long i = 0;",
+        "  if (link == 5) for (long long r = 0; r < reps; ++r) d = zx_rmget(&S, d, 0.0);",
+        "  if (link == 0) for (long long r = 0; r < reps; ++r) v = v + y;",
+        "  if (link == 1) for (long long r = 0; r < reps; ++r) v = sin(v + 1.0);",
+        "  if (link == 2) for (long long r = 0; r < reps; ++r) i = zs[i];",
+        "  if (link == 3) for (long long r = 0; r < reps; ++r) i = __ldca(chase + i);",
+        "  if (link == 4) for (long long r = 0; r < reps; ++r) i = __ldcg(chase + i);",
+        "  out[0] = v + d + (double)i;",
         "}",
         "",
         'extern "C" int device_exec_latency(void* out, double y, long long reps,',
+        "                                   int link, const void* chase,",
         "                                   void* stream) {",
         "  zx_latency_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(",
-        "      static_cast<double*>(out), y, reps);",
+        "      static_cast<double*>(out), y, reps, link,",
+        "      static_cast<const long long*>(chase));",
         "  return static_cast<int>(cudaGetLastError());",
         "}",
         "",
-        'extern "C" int device_exec_launch(const void* x, void* y, void* bvars,',
-        "    void* bmem, void* mout, const void* mev, const void* mn, long long mk,",
-        "    const void* pool, long long pool_n, void* scratch, long long scratch_n,",
-        "    const void* tw, long long tw_n, long long T, long long nfull,",
-        "    long long rem, long long mem_size, long long total_mem, long long nf,",
-        "    int spread, void* stream) {",
+        "// the dynamic shared memory the kernel takes (0 for the static row",
+        "// and page), opted in above 48 KB",
+        "static int zx_dyn_bytes() {",
+        "  if (!ZX_DYN) return 0;",
+        "  cudaFuncSetAttribute(zx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,",
+        "                       ZX_SMEM);",
+        "  return ZX_SMEM;",
+        "}",
+        "",
+        "// what the card makes of the kernel: its registers, its shared memory",
+        "// a block and the blocks an SM holds at once",
+        'extern "C" int device_exec_occupancy(int* regs, long long* smem,',
+        "                                     int* blocks) {",
+        "  cudaGetLastError();",
+        "  const int dyn = zx_dyn_bytes();",
+        "  cudaFuncAttributes a;",
+        "  cudaFuncGetAttributes(&a, zx_kernel);",
+        "  *regs = a.numRegs;",
+        "  *smem = static_cast<long long>(a.sharedSizeBytes) + dyn;",
+        f"  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, zx_kernel, {THREADS},",
+        "                                                dyn);",
+        "  return static_cast<int>(cudaGetLastError());",
+        "}",
+        "",
+        f'extern "C" int device_exec_launch({c_args}, void* cycles,',
+        "                                  void* stream) {",
         "  cudaGetLastError();  // clear an error left by an earlier call",
         "  if (nf <= 0) return 0;",
-        f"  const long long threads = nf * (spread ? 32 : 1);",
-        f"  const long long grid = (threads + {THREADS} - 1) / {THREADS};",
-        "  if (grid > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);",
-        f"  zx_kernel<<<static_cast<unsigned>(grid), {THREADS}, 0,",
+        "  if (nf > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);",
+        "  const int dyn = zx_dyn_bytes();",
+        f"  zx_kernel<<<static_cast<unsigned>(nf), {THREADS}, dyn,",
         "              static_cast<cudaStream_t>(stream)>>>(",
-        "      static_cast<const float*>(x), static_cast<float*>(y),",
-        "      static_cast<double*>(bvars), static_cast<double*>(bmem),",
-        "      static_cast<double*>(mout), static_cast<const double*>(mev),",
-        "      static_cast<const double*>(mn), mk, static_cast<const double*>(pool),",
-        "      pool_n, static_cast<double*>(scratch), scratch_n,",
-        "      static_cast<const double*>(tw), tw_n, T, nfull, rem, mem_size,",
-        "      total_mem, nf, spread);",
+        *(f"      {c}" for c in casts),
+        "      static_cast<unsigned long long*>(cycles));",
         "  return static_cast<int>(cudaGetLastError());",
         "}",
         "",
-        "#else  // a host compiler: the files one after another",
+        "#else  // a host compiler: the files one after another, as a warp would",
         "",
-        'extern "C" int device_exec_host(const void* x, void* y, void* bvars,',
-        "    void* bmem, void* mout, const void* mev, const void* mn, long long mk,",
-        "    const void* pool, long long pool_n, void* scratch, long long scratch_n,",
-        "    const void* tw, long long tw_n, long long T, long long nfull,",
-        "    long long rem, long long mem_size, long long total_mem, long long nf) {",
-        "  for (long long f = 0; f < nf; ++f)",
-        "    zx_file(f, static_cast<const float*>(x), static_cast<float*>(y),",
-        "            static_cast<double*>(bvars), static_cast<double*>(bmem),",
-        "            static_cast<double*>(mout), static_cast<const double*>(mev),",
-        "            static_cast<const double*>(mn), mk,",
-        "            static_cast<const double*>(pool), pool_n,",
-        "            static_cast<double*>(scratch), scratch_n,",
-        "            static_cast<const double*>(tw), tw_n, T, nfull, rem, mem_size,",
-        "            total_mem);",
+        "// the reduced heap's addresses, for the tests",
+        'extern "C" long long device_exec_raddr(double base, double idx) {',
+        "  return zx_raddr(base, idx);",
+        "}",
+        'extern "C" long long device_exec_raddr_k(double base, long long k) {',
+        "  return zx_raddr_k(base, k);",
+        "}",
+        "",
+        f'extern "C" int device_exec_host({c_args}) {{',
+        "  double zV[ZX_NV], zP[ZX_PAGE];",
+        "  double* B = static_cast<double*>(bvars);",
+        "  for (long long f = 0; f < nf; ++f) {",
+        "    double* M = static_cast<double*>(bmem) + f * total_mem;",
+        "    const long long pn = mem_size < ZX_PAGE ? mem_size : ZX_PAGE;",
+        "    zx_stage_in(f, zV, zP, B, M, pn, 0, 1);",
+        "    zx_file(f, zV, zP,",
+        *(f"            {c}" for c in casts),
+        "            nullptr);",
+        "    zx_stage_out(f, zV, zP, B, M, pn, 0, 1);",
+        "  }",
         "  return 0;",
         "}",
         "",
@@ -353,7 +498,7 @@ def device_exec(program: DeviceExecProgram, x: torch.Tensor,
     reads (each keeps its own cursor), where the plugin draws rand(); midi
     is (events [blocks, K, 4], counts [blocks]) of the host's queue, shared
     by the files.  Returns (y [nf, nch, T] float32, MIDI out tables [nf,
-    blocks, cells] or None).  The files lie FILES_PER_WARP a warp.
+    blocks, cells] or None).  One file a CUDA block of one warp.
 
     CUDA tensors go to the generated kernel, CPU tensors to the plain
     version; nothing falls back from one to the other.
@@ -361,17 +506,48 @@ def device_exec(program: DeviceExecProgram, x: torch.Tensor,
     global LAUNCHES
     nf, T = _check(program, x, bvars, bmem, pool)
     dev = x.device
-    nfull, rem, rows = program.rows(T)
-    mout = (torch.zeros((nf, rows, program.midi_out_cells),
-                        dtype=torch.float64, device=dev)
-            if program.midi_out_cells else None)
     if dev.type == "cpu":
+        nfull, rem, rows = program.rows(T)
+        mout = (torch.zeros((nf, rows, program.midi_out_cells),
+                            dtype=torch.float64)
+                if program.midi_out_cells else None)
         y = device_exec_plain(program, x, bvars, bmem, pool, midi, mout)
         return y, mout
     if dev.type != "cuda":
         raise ValueError(f"device_exec runs on cuda or cpu, not {dev}")
-    if FILES_PER_WARP not in (1, 32):
-        raise ValueError(f"FILES_PER_WARP is 1 or 32, not {FILES_PER_WARP}")
+    y, mout = _launch(program, _library(program.source), x, bvars, bmem,
+                      pool, midi, None)
+    LAUNCHES += 1
+    return y, mout
+
+
+def section_probe(program: DeviceExecProgram, x, bvars, bmem, pool=None,
+                  midi=None) -> torch.Tensor:
+    """Timing probe (chip_smoke.py): `device_exec` on CUDA tensors through
+    the text built again with ZX_PROBE defined; returns the clock64()
+    cycles a file spent in each of PROBE_NAMES, [nf, PROBE_SLOTS] int64.
+    Not a kernel of any path, so LAUNCHES stays."""
+    nf, _T = _check(program, x, bvars, bmem, pool)
+    if x.device.type != "cuda":
+        raise ValueError("the section probe takes CUDA tensors")
+    cycles = torch.zeros((nf, PROBE_SLOTS), dtype=torch.int64,
+                         device=x.device)
+    _launch(program, _library(probe_source(program)), x, bvars, bmem, pool,
+            midi, cycles)
+    return cycles
+
+
+def probe_source(program: DeviceExecProgram) -> str:
+    return "#define ZX_PROBE\n" + program.source
+
+
+def _launch(program, lib, x, bvars, bmem, pool, midi, cycles):
+    nf, T = x.shape[0], x.shape[2]
+    dev = x.device
+    nfull, rem, rows = program.rows(T)
+    mout = (torch.zeros((nf, rows, program.midi_out_cells),
+                        dtype=torch.float64, device=dev)
+            if program.midi_out_cells else None)
     y = torch.empty_like(x)
     mev, mn, mk = _midi(program, midi, rows, dev)
     if pool is None:
@@ -379,7 +555,6 @@ def device_exec(program: DeviceExecProgram, x: torch.Tensor,
     scratch = torch.zeros((nf, program.scratch_cells), dtype=torch.float64,
                           device=dev)
     tw = program.twiddles_on(dev)
-    lib = _library(program.source)
     x = x.contiguous()
     with torch.cuda.device(dev):
         err = lib.device_exec_launch(
@@ -388,11 +563,11 @@ def device_exec(program: DeviceExecProgram, x: torch.Tensor,
             mn.data_ptr(), mk, pool.data_ptr(), pool.numel(),
             scratch.data_ptr(), program.scratch_cells, tw.data_ptr(),
             max(program.fft_max, 2), T, nfull, rem, program.mem_size,
-            program.total_mem, nf, int(FILES_PER_WARP == 1),
+            program.total_mem, nf,
+            0 if cycles is None else cycles.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"device_exec kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
     return y, mout
 
 
@@ -407,35 +582,73 @@ _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p,
 @functools.lru_cache(maxsize=None)
 def _library(source: str) -> ctypes.CDLL:
     lib = _build.load_generated(source)
-    lib.device_exec_launch.argtypes = _ARGS + [ctypes.c_int, ctypes.c_void_p]
+    lib.device_exec_launch.argtypes = _ARGS + [ctypes.c_void_p,
+                                               ctypes.c_void_p]
     lib.device_exec_launch.restype = ctypes.c_int
     return lib
 
 
+def occupancy(program: DeviceExecProgram) -> Dict[str, int]:
+    """What the card makes of K11's kernel (chip_smoke.py): its registers
+    a thread, its shared memory a block and the blocks an SM holds."""
+    lib = _library(program.source)
+    regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    smem = ctypes.c_longlong(0)
+    lib.device_exec_occupancy.argtypes = [ctypes.c_void_p] * 3
+    lib.device_exec_occupancy.restype = ctypes.c_int
+    err = lib.device_exec_occupancy(ctypes.byref(regs), ctypes.byref(smem),
+                                    ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"device_exec occupancy query failed: cudaError "
+                           f"{err}")
+    return {"registers": regs.value, "smem_bytes": smem.value,
+            "blocks_per_sm": blocks.value}
+
+
+def chase_table(seed: int = 0) -> np.ndarray:
+    """One cycle through CHASE_CELLS cells in a seeded order: next[i]."""
+    order = np.random.RandomState(seed).permutation(CHASE_CELLS)
+    out = np.empty(CHASE_CELLS, dtype=np.int64)
+    out[order] = np.roll(order, -1)
+    return out
+
+
 def latency_probe(program: DeviceExecProgram, out: torch.Tensor,
-                  reps: int) -> None:
-    """Timing probe (chip_smoke.py): `reps` dependent f64 adds on one
-    thread into out[0] (a CUDA f64 tensor); its time a rep is the latency
-    of one link of K11's dependent chain.  Not a kernel of any path, so
+                  reps: int, link: str = "add",
+                  chase: Optional[torch.Tensor] = None) -> None:
+    """Timing probe (chip_smoke.py): `reps` dependent links of one kind
+    (LINKS) on one thread into out[0] (a CUDA f64 tensor); its time a rep
+    is the latency of one link of K11's dependent chain.  The loads chase
+    `chase` (a CUDA int64 `chase_table`).  Not a kernel of any path, so
     LAUNCHES stays."""
     if out.device.type != "cuda":
         raise ValueError("the latency probe takes a CUDA tensor")
+    if link not in LINKS:
+        raise ValueError(f"link is one of {LINKS}, not {link!r}")
+    if chase is None or chase.device != out.device \
+            or chase.dtype != torch.int64 or chase.numel() != CHASE_CELLS:
+        raise ValueError(f"chase must be {CHASE_CELLS} int64 on {out.device}")
     lib = _library(program.source)
     lib.device_exec_latency.argtypes = [ctypes.c_void_p, ctypes.c_double,
-                                        ctypes.c_longlong, ctypes.c_void_p]
+                                        ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_void_p]
     lib.device_exec_latency.restype = ctypes.c_int
     with torch.cuda.device(out.device):
         err = lib.device_exec_latency(
-            out.data_ptr(), 1.0e-9, int(reps),
+            out.data_ptr(), 1.0e-9, int(reps), LINKS.index(link),
+            chase.data_ptr(),
             torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"device_exec latency probe failed: cudaError {err}")
 
 
-def build(programs: Sequence[DeviceExecProgram]) -> Dict[str, str]:
-    """Build the programs' kernels (one nvcc each, all started together)
-    before their first launch; returns nvcc's log by source text."""
-    return _build.build_generated([p.source for p in programs])
+def build(programs: Sequence[DeviceExecProgram],
+          probes: Sequence[DeviceExecProgram] = ()) -> Dict[str, str]:
+    """Build the programs' kernels and the probe builds of `probes` (one
+    nvcc each, all started together) before their first launch; returns
+    nvcc's log by source text."""
+    return _build.build_generated([p.source for p in programs]
+                                  + [probe_source(p) for p in probes])
 
 
 def device_exec_host(program: DeviceExecProgram, x, bvars, bmem, pool=None,
@@ -712,10 +925,14 @@ def _reduced_heap_helpers():
 # rand() counts its floor and two multiplies; every other builtin call one
 # (a libm call counts one, which keeps the count a lower bound)
 _RAND_OPS = 3
+# the libm's calls (priced as a link of kind "libm" by sample_chain_ops)
+_LIBM = frozenset({"sin", "cos", "tan", "asin", "acos", "atan", "atan2",
+                   "exp", "log", "log10", "pow", "sqrt"})
 
 
 def sample_chain_ops(program: DeviceExecProgram,
-                     trips: Optional[Dict[str, float]] = None) -> float:
+                     trips: Optional[Dict[str, float]] = None,
+                     cost: Optional[Dict[str, float]] = None) -> float:
     """The dependent f64 operations on the longest path through one
     @sample step, counted on the section's syntax tree, which
     `DeviceSection.body_source` prints one to one: an arithmetic or
@@ -727,7 +944,14 @@ def sample_chain_ops(program: DeviceExecProgram,
     `trips` (the run's mean count a sample: what this run's data needs),
     its constant count otherwise, else once; a fractional mean
     interpolates between its floor and the next count.  A lower bound:
-    nothing on the longest path can overlap."""
+    nothing on the longest path can overlap.
+
+    `cost` prices the links instead ({"op": ..., "libm": ..., "load":
+    ...}, e.g. ns each): an operation, a libm call, and a heap load (a
+    heap read, and the read of a compound assignment to the heap), which
+    the count leaves at 0."""
+    w = {"op": 1.0, "libm": 1.0, "load": 0.0}
+    w.update(cost or {})
     from ..frontend.astnodes import (
         Asn, Bin, Block, CallExpr, Cond, Const, IfStmt, LoopExpr, Mem, Name,
         Str, Un, WhileStmt)
@@ -751,24 +975,27 @@ def sample_chain_ops(program: DeviceExecProgram,
                 return max(0, int(n.value))
             return 1
 
+        def addr(m, env) -> float:
+            return max(ex(m.base, env), ex(m.index, env)) + 2 * w["op"]
+
         def ex(n, env) -> float:  # noqa: C901 (one dispatch)
             if n is None or isinstance(n, (Const, Str)):
                 return 0.0
             if isinstance(n, Name):
                 return env.get(n.ident, 0.0)
             if isinstance(n, Mem):
-                return note(max(ex(n.base, env), ex(n.index, env)) + 2)
+                return note(addr(n, env) + w["load"])
             if isinstance(n, Un):
                 d = ex(n.operand, env)
-                return note(d if n.op == "+" else d + 1)
+                return note(d if n.op == "+" else d + w["op"])
             if isinstance(n, Bin):
-                return note(max(ex(n.lhs, env), ex(n.rhs, env)) + 1)
+                return note(max(ex(n.lhs, env), ex(n.rhs, env)) + w["op"])
             if isinstance(n, Asn):
                 v = ex(n.value, env)
-                if isinstance(n.target, Mem):
-                    ex(n.target, env)
+                if isinstance(n.target, Mem) and n.op == "=":
+                    note(addr(n.target, env))
                 if n.op != "=":
-                    v = max(v, ex(n.target, env)) + 1
+                    v = max(v, ex(n.target, env)) + w["op"]
                 if isinstance(n.target, Name):
                     env[n.target.ident] = v
                 return note(v)
@@ -782,8 +1009,9 @@ def sample_chain_ops(program: DeviceExecProgram,
                     env.update({k: v for k, v in inner.items()
                                 if k not in proto.params})
                     return note(d)
-                return note(max(args, default=0.0)
-                            + (_RAND_OPS if n.func == "rand" else 1))
+                link = (_RAND_OPS * w["op"] if n.func == "rand"
+                        else w["libm"] if n.func in _LIBM else w["op"])
+                return note(max(args, default=0.0) + link)
             if isinstance(n, (Cond, IfStmt)):
                 ex(n.pred, env)
                 arms = []

@@ -26,7 +26,10 @@ DevgenError while the source is printed, a dynamic one is clamped to
 reference's reduced heap does instead: a dynamic address is raised to at
 least 0, a read at or past `mem_size` gives 0, and a write there is
 dropped and its address kept in the high-water slot, which the executor
-reads after a render to climb its heap ladder.  Such a section may also
+reads after a render to climb its heap ladder.  Such a section prints
+for K11's view of a file (`csrc/block_ops.cuh` ZX): the var row `V`
+beside the view, the heap's first PAGE_CELLS cells on chip, a dynamic
+address with a whole constant operand added as an integer.  It may also
 draw `rand()` from a staged pool (`rand_pool` > 0): K10's sections draw
 nothing.
 
@@ -88,6 +91,9 @@ RAND_POS_SLOT = "__rand_pos__"
 # reference's slot, after the others): at or past mem_size, a write was
 # dropped and the executor replays on a larger heap
 MEM_HIWATER_SLOT = "__mem_hiwater__"
+# the reduced heap's first cells, which K11 keeps on chip (ZX_PAGE); the
+# lowest rung of the executor's heap ladder holds them all
+PAGE_CELLS = 4096
 
 # where each refused construct comes from (ROADMAP.md queue 1)
 _BUS = ("gmem and the message bus come with queue 1 item 7's graph "
@@ -186,9 +192,11 @@ def _impure(node: Node) -> bool:
 class _SectionC(_CGen):
     """cgen's expression emitter with the state of a device section: var
     slots `S->V[i]`, the clamped heap `S->M`, `csrc/block_ops.cuh` for what
-    cgen sends to its host callback.  Operands that change the state are
-    evaluated in the golden's order (left to right, an assignment's value
-    before its target), which C leaves unspecified."""
+    cgen sends to its host callback (on a reduced heap, K11's view: slots
+    `V[i]`, the heap's first page `S->P`, the `zx_` helpers).  Operands
+    that change the state are evaluated in the golden's order (left to
+    right, an assignment's value before its target), which C leaves
+    unspecified."""
 
     def __init__(self, dev: "DeviceSection", params: Sequence[str] = (),
                  local: Optional[Dict[Any, str]] = None):
@@ -233,7 +241,7 @@ class _SectionC(_CGen):
             return "S->samplesblock"
         slot = self.dev.slots.get(key)
         if slot is not None:
-            return f"S->V[{slot}]"
+            return f"{self.dev.vrow}[{slot}]"
         return c_double(self.dev._frozen_value(key))
 
     def lvalue(self, ident: str) -> str:
@@ -247,7 +255,7 @@ class _SectionC(_CGen):
         slot = self.dev.slots.get(key)
         if slot is None:
             raise DevgenError(f"write to unclassified state {key!r}")
-        return f"S->V[{slot}]"
+        return f"{self.dev.vrow}[{slot}]"
 
     def fold(self, n: Node) -> Optional[float]:
         """n's value when it is known while printing (constants and frozen
@@ -288,6 +296,17 @@ class _SectionC(_CGen):
                               f"({self.dev.mem_size})")
         return a
 
+    def whole_operand(self, m: Mem):
+        """(the other operand, k) where one operand of a dynamic heap
+        address folds to a whole constant k, |k| < 2^31 (a record's field,
+        a table's base): K11 adds it as an integer (zx_raddr_k, the same
+        address); else None."""
+        for node, other in ((m.index, m.base), (m.base, m.index)):
+            v = self.fold(node)
+            if v is not None and v == np.floor(v) and abs(v) < 2.0 ** 31:
+                return other, int(v)
+        return None
+
     def static_run(self, what: str, start: Node, length: Node) -> None:
         """A bulk operation's static run must lie inside the heap."""
         s, n = self.fold(start), self.fold(length)
@@ -309,8 +328,11 @@ class _SectionC(_CGen):
                 raise DevgenError(f"gmem in a device section: {_BUS}")
             a = self.static_addr(n.base, n.index)
             if a is not None:
-                return f"S->M[{a}]"
-            get = "zb_rmget" if self.dev.reduced_heap else "zb_mget"
+                return self.dev.cell(a)
+            k = self.whole_operand(n) if self.dev.reduced_heap else None
+            if k is not None:
+                return f"zx_rmget_k(S, {self.ex(k[0])}, {k[1]})"
+            get = "zx_rmget" if self.dev.reduced_heap else "zb_mget"
             return self.args([n.base, n.index],
                              lambda v: f"{get}(S, {v[0]}, {v[1]})")
         if isinstance(n, Un):
@@ -342,27 +364,38 @@ class _SectionC(_CGen):
             static = self.static_addr(tgt.base, tgt.index)
             if static is not None:
                 where = f"long long {a} = {static};"
+                # (K10's text names the cell through the temporary)
+                cell = self.dev.cell(static) if self.dev.reduced_heap \
+                    else f"S->M[{a}]"
             else:
                 b, i = self.tmp(), self.tmp()
-                addr = "zb_raddr" if self.dev.reduced_heap else "zb_addr"
-                where = (f"double {b} = ({self.ex(tgt.base)}); "
-                         f"double {i} = ({self.ex(tgt.index)}); "
-                         f"long long {a} = {addr}(S, {b}, {i});")
                 if self.dev.reduced_heap:
+                    k = self.whole_operand(tgt)
+                    if k is not None:
+                        where = (f"double {b} = ({self.ex(k[0])}); "
+                                 f"long long {a} = zx_raddr_k({b}, {k[1]});")
+                    else:
+                        where = (f"double {b} = ({self.ex(tgt.base)}); "
+                                 f"double {i} = ({self.ex(tgt.index)}); "
+                                 f"long long {a} = zx_raddr({b}, {i});")
                     # a write past the heap drops and marks the high water
                     if n.op == "=":
                         return (f"({{ double {r} = ({rhs}); {where} "
-                                f"zb_rmset(S, {a}, {r}); {r}; }})")
+                                f"zx_rmset(S, {a}, {r}); {r}; }})")
                     o = self.tmp()
-                    new = self._binop(_COMPOUND_C[n.op], f"zb_rat(S, {a})", r)
+                    new = self._binop(_COMPOUND_C[n.op], f"zx_rat(S, {a})", r)
                     return (f"({{ double {r} = ({rhs}); {where} double {o} = "
-                            f"{new}; zb_rmset(S, {a}, {o}); {o}; }})")
+                            f"{new}; zx_rmset(S, {a}, {o}); {o}; }})")
+                where = (f"double {b} = ({self.ex(tgt.base)}); "
+                         f"double {i} = ({self.ex(tgt.index)}); "
+                         f"long long {a} = zb_addr(S, {b}, {i});")
+                cell = f"S->M[{a}]"
             if n.op == "=":
                 return (f"({{ double {r} = ({rhs}); {where} "
-                        f"S->M[{a}] = {r}; {r}; }})")
-            new = self._binop(_COMPOUND_C[n.op], f"S->M[{a}]", r)
+                        f"{cell} = {r}; {r}; }})")
+            new = self._binop(_COMPOUND_C[n.op], cell, r)
             return (f"({{ double {r} = ({rhs}); {where} "
-                    f"S->M[{a}] = {new}; S->M[{a}]; }})")
+                    f"{cell} = {new}; {cell}; }})")
         if isinstance(tgt, CallExpr) and tgt.func in ("slider", "spl"):
             raise DevgenError(f"dynamic {tgt.func}() assignment in a device "
                               f"section: {_NEVER}")
@@ -384,14 +417,16 @@ class _SectionC(_CGen):
             dev._used_fns.add(fn)
             k = len(proto.params)
             name = f"uf_{_mangle_c(fn)}"
+            view = dev.view_args
             if not k:
-                return f"{name}(S)"
+                return f"{name}({view})"
             # the golden drops extra arguments unevaluated and pads with 0
             nodes = list(A[:k])
             pad = ", 0.0" * (k - len(nodes))
             if not nodes:
-                return f"{name}(S{pad})"
-            return self.args(nodes, lambda v: f"{name}(S, {', '.join(v)}{pad})")
+                return f"{name}({view}{pad})"
+            return self.args(nodes,
+                             lambda v: f"{name}({view}, {', '.join(v)}{pad})")
         if fn in ("slider", "spl") and len(A) == 1:
             i = self.fold(A[0])
             if i is None:
@@ -413,7 +448,7 @@ class _SectionC(_CGen):
             self.static_run(fn, A[0], A[2])
             if fn == "memcpy":
                 self.static_run(fn, A[1], A[2])
-            return self.args(A, lambda v: f"zb_{fn}(S, {', '.join(v)})")
+            return self.args(A, lambda v: f"{dev.ops}_{fn}(S, {', '.join(v)})")
         if fn in _FFT_FNS and len(A) == 2:
             return self._fft(fn, A)
         if fn == "convolve_c" and len(A) == 3:
@@ -444,7 +479,7 @@ class _SectionC(_CGen):
             dev.uses_rand = True
             limit = self.ex(A[0]) if A else "1.0"
             pos = dev.slots[("var", RAND_POS_SLOT)]
-            return f"zb_rand(S, &S->V[{pos}], {limit})"
+            return f"zx_rand(S, &{dev.vrow}[{pos}], {limit})"
         if fn in _COMM_FNS or fn in _GMEM_FNS:
             raise DevgenError(f"@{dev.section} uses {fn}(): {_BUS}")
         if fn in _SERVICE_FNS or fn.startswith("sample_"):
@@ -479,10 +514,11 @@ class _SectionC(_CGen):
         span = n if fn in ("fft_real", "ifft_real") else 2 * n
         self._static_region(fn, A[0], span)
         perm = f"zb_perm_{self._fft_sizes(fn, n)}"
+        ops = self.dev.ops
         if fn in ("fft_permute", "fft_ipermute"):
             flag = "true" if fn == "fft_ipermute" else "false"
-            return f"zb_fft_permute(S, {dest}, {n}, {perm}, {flag})"
-        return f"zb_{fn}(S, {dest}, {n}, {perm})"
+            return f"{ops}_fft_permute(S, {dest}, {n}, {perm}, {flag})"
+        return f"{ops}_{fn}(S, {dest}, {n}, {perm})"
 
     def _convolve(self, A: Sequence[Node]) -> str:
         n = self._size("convolve_c", A[2])
@@ -491,8 +527,9 @@ class _SectionC(_CGen):
         self._static_region("convolve_c", A[0], 2 * n)
         self._static_region("convolve_c", A[1], 2 * n)
         self.dev.scratch_cells = max(self.dev.scratch_cells, 2 * n)
+        ops = self.dev.ops
         return self.args(A[:2],
-                         lambda v: f"zb_convolve_c(S, {v[0]}, {v[1]}, {n})")
+                         lambda v: f"{ops}_convolve_c(S, {v[0]}, {v[1]}, {n})")
 
     def _static_region(self, fn: str, dest: Node, span: int) -> None:
         """A reduced heap's static FFT region past the heap (inside one
@@ -522,19 +559,20 @@ class _SectionC(_CGen):
             vals[2] = f"{e}[2] + {e}[3] * 256.0"
         stores = " ".join(f"{r} = {v};" for r, v in zip(refs, vals))
         pos = dev.slots[("var", MIDI_POS_SLOT)]
-        return (f"({{ const double* {e} = zb_midirecv(S, &S->V[{pos}]); "
+        return (f"({{ const double* {e} = zb_midirecv(S, &{dev.vrow}[{pos}]); "
                 f"if ({e}) {{ {stores} }} {e} ? 1.0 : 0.0; }})")
 
     def _pending(self, fn: str, A: Sequence[Node]) -> str:
         slot = {k: self.dev.slots[("var", nm)]
                 for k, nm in zip(("chg", "auto", "end"), PENDING_SLOT_NAMES)}
         mask = self._mask_arg(A[0])
+        V = self.dev.vrow
         if fn == "sliderchange":
-            return f"zb_pend_or(&S->V[{slot['chg']}], {mask})"
+            return f"zb_pend_or(&{V}[{slot['chg']}], {mask})"
         end = self.ex(A[1]) if len(A) > 1 else "0.0"
         m, e = self.tmp(), self.tmp()
         return (f"({{ double {m} = ({mask}); double {e} = ({end}); "
-                f"zb_pend_or(&S->V[z_true({e}) ? {slot['end']} : "
+                f"zb_pend_or(&{V}[z_true({e}) ? {slot['end']} : "
                 f"{slot['auto']}], {m}); }})")
 
 
@@ -826,7 +864,20 @@ class DeviceSection:
         self.mem_size = int(mem_size)
         self.reduced_heap = bool(reduced_heap)
         self.rand_pool = int(rand_pool)
+        if self.rand_pool and not self.reduced_heap:
+            raise ValueError("a draw pool comes with the reduced heap (K11)")
         self.uses_rand = False
+        # how the printed C reaches the state: K10's ZB view (vars S->V,
+        # heap S->M) or, on a reduced heap, K11's (csrc/block_ops.cuh ZX):
+        # the var row V passed beside the view, the heap's first page S->P,
+        # the zx_ helpers
+        if self.reduced_heap:
+            self.fn_kw, self.view, self.view_args = \
+                "ZX_DEV", "ZX* S, double* __restrict__ V", "S, V"
+            self.vrow, self.ops = "V", "zx"
+        else:
+            self.fn_kw, self.view, self.view_args = "ZB_DEV", "ZB* S", "S"
+            self.vrow, self.ops = "S->V", "zb"
         self.body = list(body) if body is not None \
             else list(program.sections.get(section, []))
 
@@ -857,7 +908,8 @@ class DeviceSection:
         self.fn_name = f"zb_section_{_mangle_c(section)}"
         g = _SectionC(self)
         stmts = " ".join(g.stmt(s) for s in self.body)
-        self.body_source = f"ZB_DEV void {self.fn_name}(ZB* S) {{ {stmts} }}"
+        self.body_source = (f"{self.fn_kw} void {self.fn_name}({self.view}) "
+                            f"{{ {stmts} }}")
         # the phases: what thread 0 shares with the block (`zq` integers,
         # `zp` doubles, in shared memory on the card), and why each
         # top-level loop that stays serial does
@@ -872,6 +924,13 @@ class DeviceSection:
         self.midi_out_cells = (1 + MIDI_OUT_CAP * 4) \
             if self.uses_midi_out else 0
         self.total_mem = self.mem_size + self.midi_out_cells
+
+    def cell(self, a: int) -> str:
+        """Static heap cell a (below the heap): K11 keeps the first
+        PAGE_CELLS on chip."""
+        if self.reduced_heap and a < PAGE_CELLS:
+            return f"S->P[{a}]"
+        return f"S->M[{a}]"
 
     def _publish(self, k: int) -> int:
         self.n_pub += k
@@ -959,7 +1018,7 @@ class DeviceSection:
             g = _SectionC(self, proto.params)
             args = "".join(f", double p_{i}" for i in range(len(proto.params)))
             name = f"uf_{_mangle_c(fn)}"
-            out[name] = (f"ZB_DEV double {name}(ZB* S{args}) "
+            out[name] = (f"{self.fn_kw} double {name}({self.view}{args}) "
                          f"{{ return ({g.ex(proto.body)}); }}")
         return out
 
