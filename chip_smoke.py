@@ -9,11 +9,12 @@
     python3 chip_smoke.py --phases coupled   # the coupled @block alone
     python3 chip_smoke.py --phases gated,hop # the gated and hop regimes
     python3 chip_smoke.py --phases devexec   # the sequential executor
+    python3 chip_smoke.py --phases graph     # the render graph's lockstep
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result (`--phases` takes any of `jsfx`, `batch`,
-`spectral`, `coupled`, `gated`, `hop`, `devexec` and `faust`, all eight
-by default;
+`spectral`, `coupled`, `gated`, `hop`, `devexec`, `graph` and `faust`,
+all nine by default;
 device and build always run; `k4sweep` is described at the end):
 
 1. device   the card's name and power limit (nvidia-smi);
@@ -219,6 +220,28 @@ device and build always run; `k4sweep` is described at the end):
             K11's chain bound from the add and the @sample syntax tree
             (`device_exec.sample_chain_ops`), and the chain priced with
             its loads and its sin;
+4g. graph  the render graph (runtime/graph.py): 4 instances of
+            builtin_plugins.crossmix_declutter (slots 0 to 3: a shared
+            gmem segment, a broadcast channel drained with a while loop,
+            a coupled @block) on 60 s of seeded stereo noise each at block
+            512, all four torch-lockstep: K10 with the lockstep's staging
+            (the bus's prologue and epilogue, the segment in place)
+            launched 22,500 times, each node's audio within AUDIO_EPS and
+            its vars and the segment's cells within SCALAR_EPS of the
+            all-shadow graph through the native golden, the ring's tail,
+            the cursors, zero drops and zero overflow; K10 at the first and
+            middle block of every member bit for bit against its plain
+            version (vars, heap with its queues, OUT table and gmem window,
+            the segment, the ring window, its count and cursors); the
+            render's seconds and node-audio-s per s beside the golden
+            graph's host seconds, K10's time a launch beside its bound
+            (the window, queues, OUT table and segment bytes; thread 0's
+            chain at a dependent add's latency), device events and host ms
+            a block, the idle share of a traced second; then a 3-node
+            graph (the IPC-probe shape) of 2 s at block 64: a coupled
+            lockstep pair beside an uncoupled torch-vector node on another
+            bus (its @block on the host in lockstep), held to the native
+            golden graph;
 5. kernels (faust)  the switching scan (K1) must be bit-identical
             (integer views equal), in f64 and f32: at modest shapes, at
             the batch and main paths' shapes (its one-chunk case too),
@@ -251,7 +274,8 @@ render's launches, the golden's seconds, audio-s per s by files; K2, K3
 and K4
 carry `launches_batched`, their launches in the batch phase's render of 8
 files, K2 `launches_gated`, its launches in the gated render, and K10 the
-hop section's `hop_ms`, `hop_launches` and the rest) and, last, the
+hop section's `hop_ms`, `hop_launches` and the rest, and the graph's
+`launches_graph`, `graph_ms_a_launch` and the rest) and, last, the
 device JSON line.  Each phase prints the seconds
 it took.
 
@@ -1939,13 +1963,13 @@ def coupled_phase(torch, cuda, rng, card):
         count = [0]
 
         def spy(program, svec, rings, bvars, bmem, samplesblock, midi=None,
-                ctrl=None, mout=None):
+                ctrl=None, mout=None, stage=None):
             if count[0] in wanted:
                 got[count[0]] = (svec.clone(), [r.clone() for r in rings],
                                  bvars.clone(), bmem.clone(), samplesblock)
             count[0] += 1
             return real(program, svec, rings, bvars, bmem, samplesblock,
-                        midi, ctrl, mout)
+                        midi, ctrl, mout, stage)
         return got, spy, real
 
     def run_on(fn, program, inputs):
@@ -3125,6 +3149,358 @@ def devexec_phase(torch, cuda, rng, card):
             "sass": sass, "occupancy": occ}
 
 
+GRAPH_NODES = 4           # builtin_plugins.crossmix_declutter slots
+GRAPH_BLOCK = 512         # the reference RenderGraph's default block
+GRAPH_PROBE_T = 96_000    # the 3-node graph: 2 s at block 64
+# the 3-node graph's uncoupled node: a sender on a bus of its own, its
+# @block on the host in lockstep (the catalog's IPCProbeA shape)
+GRAPH_SENDER_SRC = """\
+@init
+comm_join("probe");
+msg_subscribe("ctl");
+gmem_attach("probe");
+seq = 0;
+@block
+seq += 1;
+msg_send("ctl", 42, seq, seq * 2, 0, 0);
+gmem[5] = seq;
+peers = msg_peer_count("ctl", 1);
+@sample
+spl0 = spl0 * 0.5;
+spl1 = spl1 * 0.5;
+"""
+
+
+def graph_held(label, gd, gs, outs_d, outs_s):
+    """The device graph gd against the all-shadow graph gs after the same
+    renders: each node's audio (AUDIO_EPS), vars and segment cells
+    (SCALAR_EPS), the ring's tail (its sequence numbers, senders,
+    channels and tags equal, payloads within SCALAR_EPS) and the cursors
+    equal; returns the largest audio and value differences."""
+    from zorak_tpu_torch.verify import AUDIO_EPS, SCALAR_EPS, compare_audio
+
+    worst_audio = worst_val = 0.0
+    for node in gd.nodes:
+        rep = compare_audio(outs_s[node.name], outs_d[node.name])
+        check(rep.audio_passed, f"graph {label}: node {node.name}: "
+              f"{rep.summary()}")
+        worst_audio = max(worst_audio, rep.max_abs_delta)
+    for i, (ps, pd) in enumerate(zip(gs.plugins, gd.plugins)):
+        for k, v in ps.state.V.items():
+            if v >= (1 << 40) or v != v:
+                continue                        # string handles, NaN
+            d = abs(pd.state.V[k] - v)
+            check(d <= SCALAR_EPS * max(1.0, abs(v)),
+                  f"graph {label}: node {i} var {k}: {pd.state.V[k]} vs {v}")
+            worst_val = max(worst_val, d)
+    for hs, hd in zip(gs.hosts, gd.hosts):
+        if hs.attached_gmem is not None:
+            d = float(np.abs(hd.attached_gmem.cells
+                             - hs.attached_gmem.cells).max())
+            check(d <= SCALAR_EPS, f"graph {label}: segment cells {d:.3e}")
+            worst_val = max(worst_val, d)
+    for hs, hd in zip(gs.hosts, gd.hosts):
+        ring_d = list(hd.domain.ring)
+        ring_s = list(hs.domain.ring)[-len(ring_d):] if ring_d else []
+        if ring_d:
+            check([(m.seq, m.sender, m.dest, m.channel, m.tag)
+                   for m in ring_d]
+                  == [(m.seq, m.sender, m.dest, m.channel, m.tag)
+                      for m in ring_s], f"graph {label}: the ring's tail")
+            d = max(abs(a - b) for md, ms in zip(ring_d, ring_s)
+                    for a, b in zip(md.scalars, ms.scalars))
+            check(d <= SCALAR_EPS, f"graph {label}: ring payloads {d:.3e}")
+    check([h.cursor for h in gd.hosts] == [h.cursor for h in gs.hosts],
+          f"graph {label}: cursors {[h.cursor for h in gd.hosts]} vs "
+          f"{[h.cursor for h in gs.hosts]}")
+    return worst_audio, worst_val
+
+
+def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
+    """The render graph: builtin_plugins.crossmix_declutter on 4 nodes x
+    60 s at block 512 through RenderGraph (all torch-lockstep) against the
+    all-shadow graph through the native golden, K10 with the staging at
+    each member's first and middle block against its plain version, the
+    times, the bound, the trace; then the 3-node graph.  Returns the
+    entries K10's `kernels` line gains."""
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import _build
+    from zorak_tpu_torch.kernels import block_section as BS
+    from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
+    from zorak_tpu_torch.runtime.graph import RenderGraph
+
+    names = [f"n{i}" for i in range(GRAPH_NODES)]
+    progs = [compile_plugin_source(BP.crossmix_declutter(i, GRAPH_NODES))
+             for i in range(GRAPH_NODES)]
+    x = {nm: (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+         for nm in names}
+    lead = 2 * GRAPH_BLOCK                 # a first render that builds all
+    x_lead = {nm: (rng.randn(2, lead) * 0.25).astype(np.float32)
+              for nm in names}
+
+    def graph(prefer, golden="python"):
+        g = RenderGraph(srate=SR, block_size=GRAPH_BLOCK, prefer=prefer,
+                        golden=golden)
+        for nm, prog in zip(names, progs):
+            g.add(nm, prog)
+        g.init_all()
+        return g
+
+    t0 = time.perf_counter()
+    gd = graph("auto")
+    check(gd.node_engines == ["torch-lockstep"] * GRAPH_NODES,
+          f"graph: engines {gd.node_engines} ({gd.spec_errors})")
+    k10s = [k._block_prog for k in gd.kernels]
+    check(all(p.staged and p.uses_msg and p.uses_gmem for p in k10s),
+          "graph: a member's K10 is not staged for gmem and the bus")
+    # the members' K10 builds and a probe build of the first (its latency
+    # probe), one nvcc each, all together
+    probe = BS.BlockSectionProgram(
+        k10s[0].block, k10s[0].slider, k10s[0].n_svec, k10s[0].inter,
+        k10s[0].regions, k10s[0].cells, k10s[0].ctrl, probe=True)
+    logs = _build.build_generated([p.source for p in k10s] + [probe.source])
+    for line in logs[k10s[0].source].splitlines():
+        if "registers" in line or "spill" in line or "stack" in line:
+            print(f"[build] block_section (graph member): {line.strip()}")
+    gd.run(x_lead)
+    torch.cuda.synchronize()
+    print(f"[graph] 4 nodes built, K10 built for each (nvcc together) and a "
+          f"{lead}-sample render in {time.perf_counter() - t0:.2f} s; "
+          f"K10's phases {[ph.kind for ph in k10s[0].block.phases]}, kept "
+          f"on thread 0: {k10s[0].block.serial_loops}")
+
+    # the main render, K10's inputs kept at each member's first and middle
+    # block (the copies are made between launches, outside the count)
+    blocks = -(-MAIN_T // GRAPH_BLOCK)
+    mid = blocks // 2
+    wanted = {b * GRAPH_NODES + j for b in (0, mid)
+              for j in range(GRAPH_NODES)}
+    got = {}
+    real = BS.block_section
+    count = [0]
+
+    def spy(program, svec, rings, bvars, bmem, samplesblock, midi=None,
+            ctrl=None, mout=None, stage=None):
+        if count[0] in wanted:
+            st = stage._replace(**{k: getattr(stage, k).clone() for k in
+                                   ("gseg", "window", "ctl", "sub")})
+            got[count[0]] = (program, svec.clone(),
+                             [r.clone() for r in rings], bvars.clone(),
+                             bmem.clone(), samplesblock, st)
+        count[0] += 1
+        return real(program, svec, rings, bvars, bmem, samplesblock, midi,
+                    ctrl, mout, stage)
+
+    BS.block_section = spy
+    BS.LAUNCHES = LS.LAUNCHES = RT.LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        outs_d = gd.run(x)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+    finally:
+        BS.block_section = real
+    launches = {"block_section": BS.LAUNCHES, "linrec_scan": LS.LAUNCHES,
+                "ring_tap_sum": RT.LAUNCHES}
+    check(launches["block_section"] == GRAPH_NODES * blocks == 22_500,
+          f"graph: K10 launched {launches['block_section']} times for "
+          f"{GRAPH_NODES} x {blocks} blocks")
+    check(launches["linrec_scan"] > 0 and launches["ring_tap_sum"] > 0,
+          f"graph: launches {launches}")
+    for nm in names:
+        y = outs_d[nm]
+        check(y.shape == (2, MAIN_T) and bool(np.isfinite(y).all()),
+              f"graph: node {nm}'s output not finite or of the wrong shape")
+    stats = gd.last_ring
+    check(stats["overflow"] == 0.0 and not any(stats["drops"]),
+          f"graph: the ring window overflowed or a queue dropped: {stats}")
+    node_s = GRAPH_NODES * MAIN_T / SR
+    print(f"[main] graph crossmix_declutter x{GRAPH_NODES} 60 s stereo, "
+          f"block {GRAPH_BLOCK}: engines {gd.node_engines} render "
+          f"{render_s:.2f} s ({render_s * 1e3:.1f} ms) node_audio_s_per_s="
+          f"{node_s / render_s:.2f} launches={launches} host_ms_a_block="
+          f"{render_s * 1e3 / blocks:.4f} ring {stats} card='{card}'")
+
+    # the all-shadow graph through the native golden, the same renders
+    gs = graph("shadow", golden="native")
+    gs.run(x_lead)
+    t0 = time.perf_counter()
+    outs_s = gs.run(x)
+    gold_s = time.perf_counter() - t0
+    err_audio, err_val = graph_held("crossmix x4", gd, gs, outs_d, outs_s)
+    print(f"[main] graph held to the all-shadow native golden graph: audio "
+          f"max |delta| {err_audio:.3e}, vars and segment {err_val:.3e}, "
+          f"ring tail and cursors equal; the golden graph alone "
+          f"{gold_s:.2f} s on the host ({node_s / gold_s:.2f} node-audio-s "
+          f"per s)")
+
+    # K10 with the staging against its plain version, each member's first
+    # and middle block
+    plain_ms = []
+    err = 0.0
+    for key in sorted(got):
+        program, svec, rings, bvars, bmem, sb, st = got[key]
+        dev_in = [svec.clone(), [r.clone() for r in rings], bvars.clone(),
+                  bmem.clone()]
+        st_dev = st._replace(**{k: getattr(st, k).clone() for k in
+                                ("gseg", "window", "ctl", "sub")})
+        saved = BS.LAUNCHES
+        ctrl, _ = BS.block_section(program, *dev_in, sb, stage=st_dev)
+        BS.LAUNCHES = saved                # a comparison, not the path
+        cpu_in = [svec.to("cpu", copy=True),
+                  [r.to("cpu", copy=True) for r in rings],
+                  bvars.to("cpu", copy=True), bmem.to("cpu", copy=True)]
+        st_cpu = st._replace(**{k: getattr(st, k).to("cpu", copy=True)
+                                for k in ("gseg", "window", "ctl", "sub")})
+        t0 = time.perf_counter()
+        ctrl_p, _ = BS.block_section_plain(program, *cpu_in, sb,
+                                           stage=st_cpu)
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        pairs = [("svec", dev_in[0], cpu_in[0]), ("vars", dev_in[2], cpu_in[2]),
+                 ("heap", dev_in[3], cpu_in[3]), ("control row", ctrl, ctrl_p),
+                 ("segment", st_dev.gseg, st_cpu.gseg),
+                 ("ring window", st_dev.window, st_cpu.window),
+                 ("window count and cursors", st_dev.ctl, st_cpu.ctl)]
+        pairs += [(f"ring {i}", a, b)
+                  for i, (a, b) in enumerate(zip(dev_in[1], cpu_in[1]))]
+        for name, a, b in pairs:
+            check(same_values(a.cpu(), b), f"graph: K10 member "
+                  f"{key % GRAPH_NODES} block {key // GRAPH_NODES}: {name} "
+                  "differs from the plain version")
+            err = max(err, float((a.cpu() - b).abs().nan_to_num().max()))
+    print(f"[graph] K10 with the staging at the first and middle block of "
+          f"each of the {GRAPH_NODES} members: bit-identical to the plain "
+          f"version (vars, heap with queues, OUT table and gmem window, "
+          f"segment, ring window, count and cursors, control row, rings); "
+          f"plain version {min(plain_ms):.1f} to {max(plain_ms):.1f} ms")
+
+    # K10 a launch at member 0's middle block, and its bound
+    program, svec, rings, bvars, bmem, sb, st = got[mid * GRAPH_NODES]
+    reps = 50
+    st_t = st._replace(**{k: getattr(st, k).clone() for k in
+                          ("gseg", "window", "ctl", "sub")})
+    args = [svec.clone(), [r.clone() for r in rings], bvars.clone(),
+            bmem.clone()]
+    BS.block_section(program, *args, sb, stage=st_t)        # loads it
+    # the device's time a launch (20 launches replayed from a CUDA graph),
+    # and the host-paced rate of eager launches
+    k10_ms = graph_ms(lambda: BS.block_section(program, *args, sb,
+                                               stage=st_t))
+    eager_ms = cuda_ms(lambda: BS.block_section(program, *args, sb,
+                                                stage=st_t), reps=reps)
+    BS.LAUNCHES = 0
+    lat = torch.zeros(1, dtype=torch.float64, device=cuda)
+    n_lat = 1 << 16
+    BS.block_section_latency_probe(probe, lat, 16)
+    add_ns = cuda_ms(lambda: BS.block_section_latency_probe(
+        probe, lat, n_lat)) * 1e6 / n_lat
+    # this launch's work: the window rows the prologue walks and routes,
+    # the rows the epilogue appends, the queues and OUT table, the
+    # segment's cells the section reads and writes, the exchanges
+    ctl0, win0 = st.ctl.cpu().numpy(), st.window.cpu().numpy()
+    sub0 = st.sub.cpu().numpy()
+    dev = program.block
+    cur0 = int(ctl0[BS.CTL_CURSORS + st.member])
+    walked = int(ctl0[BS.CTL_COUNT]) - cur0
+    rows0 = win0[cur0:int(ctl0[BS.CTL_COUNT])]
+    heard = int(sum(1 for r in rows0 if r[1] > 0.5 and r[0] != st.my_id
+                    and sub0[int(r[3])] != 0.0))
+    sent = 1                               # msg_send once a block
+    seg_cells = 2 * GRAPH_NODES            # gmem[slot] written, NS read
+    n_inter = len(program.inter) + len(program.cells)
+    ring_cells = sum(m for _o, m in program.regions)
+    nbytes = 8 * (BS.WINDOW_ENT * (walked + sent) + 6 * 2 * heard
+                  + 8 * 2 * sent + seg_cells
+                  + 2 * (n_inter + ring_cells) + len(program.ctrl)
+                  + 2 * program.n_vars)
+    # thread 0's chain: a dependent step a walked row, routed row and
+    # appended row, three a slot of the loop over the slots, three a
+    # received message (pop, compare, add), one a top-level statement
+    chain_ops = walked + heard + sent + 3 * GRAPH_NODES + 3 * heard \
+        + len(dev.body)
+    chain_ms = chain_ops * add_ns / 1e6
+    bytes_ms, _by = bound_ms(nbytes, 0)
+    graph_bound = max(bytes_ms, chain_ms)
+    graph_by = "bytes" if bytes_ms >= chain_ms else "operations"
+    print(f"[graph] K10 a launch in the graph (member 0, block {mid}'s "
+          f"inputs, a CUDA graph of 20): {k10_ms * 1e3:.2f} us; eager, mean "
+          f"of {reps}: {eager_ms * 1e3:.2f} us"
+          + (f", beside the coupled phase's {coupled_k10_ms * 1e3:.2f} us"
+             if coupled_k10_ms is not None else "")
+          + f"; bound {graph_bound * 1e3:.4f} us by {graph_by} ({nbytes} "
+          f"bytes: {walked} window rows walked, {heard} routed, {sent} "
+          f"appended; thread 0's chain {chain_ops} dependent f64 operations "
+          f"at {add_ns:.2f} ns) card='{card}'")
+
+    # a traced second of the graph: device events and idle share
+    n1 = int(SR)
+    x1 = {nm: a[:, :n1] for nm, a in x.items()}
+    blocks1 = -(-n1 // GRAPH_BLOCK)
+    _per, by_name = profile_render(lambda: gd.run(x1), "graph 1 s",
+                                   traces=1)
+    events = sum(n for n, _us in by_name.values())
+    busy_ms = sum(us for _n, us in by_name.values()) / 1e3
+    k10_traced = [(n, us) for name, (n, us) in by_name.items()
+                  if "zb_kernel" in name]
+    print(f"[graph] traced 1 s: {events} device events, "
+          f"{events / blocks1:.1f} a graph block ({events / blocks1 / GRAPH_NODES:.1f} "
+          f"a member block), busy {busy_ms:.2f} ms"
+          + (f"; K10 {k10_traced[0][0]} launches, "
+             f"{k10_traced[0][1] / k10_traced[0][0]:.2f} us a launch"
+             if k10_traced else ""))
+
+    # the 3-node graph: a coupled lockstep pair beside an uncoupled node
+    # on a bus of its own, 2 s at block 64
+    small = [("a", BP.crossmix_declutter(0, 2)),
+             ("b", BP.crossmix_declutter(1, 2)), ("tx", GRAPH_SENDER_SRC)]
+    xs = {nm: (rng.randn(2, GRAPH_PROBE_T) * 0.25).astype(np.float32)
+          for nm, _src in small}
+    res = {}
+    for prefer, golden in (("auto", "python"), ("shadow", "native")):
+        g = RenderGraph(srate=SR, block_size=64, prefer=prefer,
+                        golden=golden)
+        for nm, src in small:
+            g.add(nm, compile_plugin_source(src))
+        g.init_all()
+        BS.LAUNCHES = 0
+        t0 = time.perf_counter()
+        outs = g.run(xs)
+        torch.cuda.synchronize()
+        res[prefer] = (g, outs, time.perf_counter() - t0, BS.LAUNCHES)
+    g3, outs3, s3, k10_3 = res["auto"]
+    check(g3.node_engines == ["torch-lockstep", "torch-lockstep",
+                              "torch-vector"],
+          f"graph 3 nodes: engines {g3.node_engines} ({g3.spec_errors})")
+    blocks3 = -(-GRAPH_PROBE_T // 64)
+    check(k10_3 == 2 * blocks3, f"graph 3 nodes: K10 launched {k10_3}")
+    err3 = graph_held("3 nodes", g3, res["shadow"][0], outs3,
+                      res["shadow"][1])
+    check(g3.plugins[2].state.V["seq"] == float(blocks3),
+          "graph 3 nodes: the host-lockstep sender's @block ran "
+          f"{g3.plugins[2].state.V['seq']} times")
+    print(f"[graph] 3 nodes (a lockstep pair beside a host-lockstep sender) "
+          f"2 s at block 64: engines {g3.node_engines}, K10 {k10_3} "
+          f"launches, {s3:.2f} s on the card, the golden graph "
+          f"{res['shadow'][2]:.2f} s; held to the native golden graph "
+          f"(audio {err3[0]:.3e}, vars and segments {err3[1]:.3e})")
+    return {
+        "launches_graph": launches["block_section"],
+        "graph_ms_a_launch": k10_ms, "graph_eager_ms_a_launch": eager_ms,
+        "graph_plain_ms": float(np.median(
+            plain_ms)), "graph_bound_ms": graph_bound,
+        "graph_bound_by": graph_by, "graph_max_abs_err": err,
+        "graph_render_s": render_s, "graph_golden_s": gold_s,
+        "graph_node_audio_s_per_s": node_s / render_s,
+        "graph_host_ms_a_block": render_s * 1e3 / blocks,
+        "graph_events_a_block": events / blocks1,
+        "graph_launches_linrec_scan": launches["linrec_scan"],
+        "graph_launches_ring_tap_sum": launches["ring_tap_sum"],
+        "graph_add_ns": add_ns, "graph_chain_ops": chain_ops,
+        "graph3_render_s": s3, "graph3_launches": k10_3,
+    }
+
+
 def smi_under_load(torch, fn, reps: int) -> str:
     """nvidia-smi's SM clock, power draw and power limit, read while the
     card works through `reps` queued calls of fn."""
@@ -3897,15 +4273,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="jsfx,batch,spectral,coupled,gated,hop,devexec,"
-                            "faust",
+                            "graph,faust",
                     help="comma-separated: jsfx, batch, spectral, coupled, "
-                         "gated, hop, devexec, faust (default all eight); "
-                         "k4sweep times K4 across register block sizes")
+                         "gated, hop, devexec, graph, faust (default all "
+                         "nine); k4sweep times K4 across register block "
+                         "sizes")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not phases or phases - {"jsfx", "batch", "spectral", "coupled",
-                               "gated", "hop", "devexec", "faust", "k4sweep"}:
+                               "gated", "hop", "devexec", "graph", "faust",
+                               "k4sweep"}:
         ap.error("--phases takes jsfx, batch, spectral, coupled, gated, hop, "
-                 "devexec, faust or k4sweep")
+                 "devexec, graph, faust or k4sweep")
     t_start = time.perf_counter()
     import torch
 
@@ -4027,6 +4405,29 @@ def main(argv=None) -> int:
         kernels.append(devexec_phase(torch, cuda,
                                      np.random.RandomState(SEED + 13), card))
         print(f"[done] devexec phase in {time.perf_counter() - t0:.1f} s")
+    if "graph" in phases:
+        t0 = time.perf_counter()
+        k10 = [e for e in kernels if e["name"] == "block_section"]
+        graph = graph_phase(torch, cuda, np.random.RandomState(SEED + 14),
+                            card, coupled_k10_ms=k10[0]["ms"] if k10
+                            else None)
+        if k10:
+            k10[0].update(graph)
+        else:
+            # neither the coupled nor the hop phase ran: K10's entry is
+            # the graph's
+            kernels.append({
+                "name": "block_section", "route": "cuda",
+                "source": "zorak_tpu_torch/csrc/block_ops.cuh",
+                "replaces": "zorak_tpu/lowering/devgen.py:463",
+                "launches": graph["launches_graph"],
+                "max_abs_err": graph["graph_max_abs_err"],
+                "ms": graph["graph_ms_a_launch"],
+                "plain_ms": graph["graph_plain_ms"],
+                "bound_ms": graph["graph_bound_ms"],
+                "bound_by": graph["graph_bound_by"], "library_ms": None,
+                **graph})
+        print(f"[done] graph phase in {time.perf_counter() - t0:.1f} s")
     if "k4sweep" in phases:
         scan_group_sweep(torch, cuda, np.random.RandomState(SEED))
     if "faust" in phases:

@@ -72,8 +72,11 @@ CASES = {
 
 COUPLED_SRC = ("@sample\nacc += abs(spl0);\nspl0 *= g;\n"
                "@block\ng = 1/(1 + acc*0.001);\n")
-# an audio-coupled @block that writes gmem: still refused (slice 6b)
-COUPLED_GMEM_SRC = COUPLED_SRC + "gmem[0] = g;\n"
+# an audio-coupled @block that reads a gmem page's sequence number: left to
+# the golden, as the reference leaves it
+COUPLED_GMEM_SRC = COUPLED_SRC + "y = gmem_seq(0);\n"
+# one that writes gmem: each file's gmem is its heap's window
+COUPLED_GMEM_WRITE_SRC = COUPLED_SRC + "gmem[0] = g;\n"
 GATED_SRC = ("@init\nHIST = 900;\n"
              "@sample\npeak = max(peak, abs(spl0));\ncnt += 1;\n"
              "cnt >= 37 ? (\n  HIST[wpos] = peak;\n"
@@ -233,7 +236,7 @@ def test_the_mirror_check_refuses_files_whose_cursors_differ():
 
 
 @pytest.mark.parametrize("src,match", [
-    (COUPLED_GMEM_SRC, "coupled @block.*slice 6b"),
+    (COUPLED_GMEM_SRC, "coupled @block.*through the golden"),
 ])
 def test_unported_regimes_raise_the_solo_error(src, match):
     prog = compile_plugin_source(src)
@@ -241,6 +244,19 @@ def test_unported_regimes_raise_the_solo_error(src, match):
         BatchRenderer(prog, device="cpu")
     with pytest.raises(SpecializeError, match=match):
         render_batch(prog, files(2, 1, 512), device="cpu")
+
+
+def test_coupled_gmem_files_keep_their_own_window():
+    # a batch's files are separate instances: each writes the gmem of its
+    # own heap window, and each equals its solo render
+    prog = compile_plugin_source(COUPLED_GMEM_WRITE_SRC)
+    br = BatchRenderer(prog, device="cpu")
+    assert br.kernel._block_prog.uses_gmem
+    x = files(3, 1, 1300, seed=9)
+    y = br.render_files(x)
+    for f in range(3):
+        solo, _ = br.kernel.render_device(x[f])
+        assert torch.equal(y[f], solo), f"file {f}"
 
 
 # the hop and gated regimes, refused before they were ported, render as a

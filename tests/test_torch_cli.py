@@ -89,10 +89,11 @@ def test_render_cpu_round_trips_a_wav_like_jax_cli(catalog, capsys, tmp_path,
 
 
 def test_render_jsfx_on_torch_vector_or_cpu_shadow(catalog, capsys, tmp_path):
-    # a JSFX plugin whose regime the vector engine does not carry yet (an
-    # audio-coupled @block that writes gmem) renders through the golden,
-    # and the CLI says so with the reason; one the engine carries says
-    # torch-vector
+    # a JSFX plugin whose regime the vector engine does not carry (an
+    # audio-coupled @block that reads a gmem page's sequence number, which
+    # the device sections leave to the golden, as the reference's do)
+    # renders through the golden, and the CLI says so with the reason; one
+    # the engine carries says torch-vector
     x = (np.random.RandomState(2).randn(2, 1500) * 0.25).astype(np.float32)
     wav_in = tmp_path / "in.wav"
     wavio.write_wav(wav_in, x, SR, float_fmt=True)
@@ -102,11 +103,12 @@ def test_render_jsfx_on_torch_vector_or_cpu_shadow(catalog, capsys, tmp_path):
     assert rc == 0 and "via torch-vector" in out
     echo = catalog / "plugins" / "Delay" / "Echo" / "src" / "Echo.jsfx"
     echo.write_text("desc:Echo\n@sample\nacc += abs(spl0);\nspl0 *= g;\n"
-                    "@block\ng = 1/(1 + acc*0.001);\ngmem[0] = g;\n")
+                    "@block\ng = 1/(1 + acc*0.001);\ny = gmem_seq(0);\n")
     rc, out, _ = _run(main, common, capsys)
     assert rc == 0 and "via cpu-shadow" in out
-    assert "vector engine refused the plugin" in out and "slice 6" in out
-    with pytest.raises(Exception, match="slice 6"):
+    assert "vector engine refused the plugin" in out and \
+        "through the golden" in out
+    with pytest.raises(Exception, match="through the golden"):
         main([*common, "--engine", "vector"])
 
 
@@ -167,15 +169,17 @@ def test_verify_prints_skip_where_the_vector_engine_refuses(catalog, capsys,
     from zorak_tpu_torch.shadow import cgen
 
     monkeypatch.setattr(cgen, "CACHE_DIR", tmp_path / "cgen")
-    # an audio-coupled @block that writes gmem: not ported yet
+    # an audio-coupled @block that reads a gmem page's sequence number:
+    # the device sections leave it to the golden, as the reference's do
     _echo_source(catalog, "desc:Echo\n@sample\nacc += abs(spl0);\n"
                  "spl0 *= g;\n@block\ng = 1/(1 + acc*0.001);\n"
-                 "gmem[0] = g;\n")
+                 "y = gmem_seq(0);\n")
     rc, out, _ = _run(main, ["verify", "--catalog", str(catalog), "--only",
                              "Echo", "--seconds", "0.05", "--device", "cpu"],
                       capsys)
     assert rc == 0
-    assert out.startswith("Echo: SKIP vector engine (") and "slice 6" in out
+    assert out.startswith("Echo: SKIP vector engine (") and \
+        "through the golden" in out
     assert out.rstrip().endswith(") — shadow-only")
 
 
@@ -250,6 +254,9 @@ _COUPLED_MODULES = ["lowering.devgen", "kernels.block_section"]
 # the sequential device executor and K11
 _DEVEXEC_MODULES = ["lowering.devexec", "kernels.device_exec"]
 
+# the render graph and its golden bus
+_GRAPH_MODULES = ["comm", "comm.bus", "runtime.graph"]
+
 
 def test_port_imports_neither_jax_nor_zorak_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -257,9 +264,9 @@ def test_port_imports_neither_jax_nor_zorak_tpu():
     assert res.returncode == 0, res.stderr
     n, rest = res.stdout.split(" ", 1)
     bad, names = rest.split("] [", 1)
-    assert int(n) >= 54 and bad.strip() == "["
+    assert int(n) >= 57 and bad.strip() == "["
     for mod in (_JSFX_MODULES + _SPECTRAL_MODULES + _BATCH_MODULES
-                + _COUPLED_MODULES + _DEVEXEC_MODULES):
+                + _COUPLED_MODULES + _DEVEXEC_MODULES + _GRAPH_MODULES):
         assert f"'zorak_tpu_torch.{mod}'" in names, mod
 
 

@@ -554,9 +554,9 @@ def test_forbidden_builtins_raise():
 
 
 @pytest.mark.parametrize("body,match", [
-    ("gmem[3] = x;", "slice 6b"),
-    ("y = gmem_size();", "slice 6b"),
-    ("msg_send(1, 2, 3, 4, 5, 6);", "slice 6b"),
+    ("y = gmem_seq(0);", "through the golden"),
+    ("y = gmem_page(x);", "through the golden"),
+    ("n = msg_recv_buf(1, s, t, 0, 8);", "through the golden"),
     ("h = file_open(0);", "item 3"),
     ("n = sample_len(0);", "item 3"),
     ("t = time();", "item 3"),

@@ -229,13 +229,15 @@ def test_device_none_needs_a_gpu_and_unported_engines_say_so():
     compare_states(gold.shadow.state, dev.shadow.state, report=rep)
     compare_memory_pages(gold.shadow.state, dev.shadow.state, report=rep)
     assert rep.passed and rep.max_abs_delta <= 1e-6, rep.summary()
-    # an audio-coupled @block that writes gmem: both device engines refuse
-    # it (the graph lockstep, slice 6b), and the golden renders it
+    # an audio-coupled @block that reads a gmem page's sequence number: both
+    # device engines refuse it (the reference's sections leave it to the
+    # golden; K11 takes no gmem yet), and the golden renders it
     coupled = compile_plugin_source(
         "@sample\nacc += abs(spl0);\nspl0 *= g;\n"
-        "@block\ng = 1/(1 + acc*0.001);\ngmem[0] = g;\n")
+        "@block\ng = 1/(1 + acc*0.001);\ny = gmem_seq(0);\n")
     inst = PluginInstance(coupled, device="cpu")
-    assert inst.engine == "cpu-shadow" and "slice 6" in inst.spec_error
+    assert inst.engine == "cpu-shadow" and \
+        "through the golden" in inst.spec_error
     assert inst.spec_error.count("gmem") >= 2 and "; devexec: " in \
         inst.spec_error
     with pytest.raises(SpecializeError, match="devexec: .*gmem"):
@@ -243,8 +245,16 @@ def test_device_none_needs_a_gpu_and_unported_engines_say_so():
     res = inst.render(noise(1, 1200))
     assert res.engine == "cpu-shadow"
     assert res.details["spec_error"] == inst.spec_error
-    with pytest.raises(SpecializeError, match="slice 6"):
+    with pytest.raises(SpecializeError, match="through the golden"):
         PluginInstance(coupled, prefer="vector", device="cpu")
+    # one that writes gmem renders on the card now (the heap's window)
+    writes = compile_plugin_source(
+        "@sample\nacc += abs(spl0);\nspl0 *= g;\n"
+        "@block\ng = 1/(1 + acc*0.001);\ngmem[0] = g;\n")
+    on_card = PluginInstance(writes, device="cpu")
+    assert on_card.engine == "torch-vector"
+    with pytest.raises(SpecializeError, match="devexec: .*K11 bus"):
+        PluginInstance(writes, prefer="devexec", device="cpu")
 
 
 def _jsfx_catalog(root, src):

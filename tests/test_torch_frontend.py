@@ -22,6 +22,7 @@ VERBATIM = [
     *(f"semantics/{m}.py" for m in ("__init__", "scalar", "mt19937np")),
     "shadow/state.py", "shadow/pyexec.py", "runtime/fftops.py",
     "shadow/__init__.py", "shadow/cgen.py",
+    "comm/__init__.py", "comm/bus.py",
 ]
 
 PLUGINS = {

@@ -331,13 +331,28 @@ def test_rejected_in_both(name):
 
 
 def test_coupled_block_is_refused_with_its_slice():
-    # an audio-coupled @block runs on the card now; one that writes gmem
-    # still waits for the message bus and gmem (slice 6b), and the port
-    # names that work and leaves the plugin to the golden
+    # an audio-coupled @block that writes gmem renders on the card since the
+    # graph lockstep came (its gmem the heap's window, as the reference's),
+    # equal to the golden; one that reads a page's sequence number is left
+    # to the golden, as the reference leaves it, and the port says so
     src = ("@sample\nacc += abs(spl0);\nspl0 *= g;\n"
            "@block\ng = 1/(1 + acc*0.001);\ngmem[0] = g;\n")
     prog = compile_plugin_source(src)
-    with pytest.raises(SpecializeError, match="slice 6b"):
+    st = make_initialized_shadow(prog).state
+    kern = specialize_sample_kernel(prog, st, 1, device="cpu")
+    assert kern.coupled and kern._block_prog.uses_gmem
+    x = noise(1, 1300, seed=5)
+    y, carry = kern.render(x)
+    kern.writeback(carry, st)
+    gold = make_initialized_shadow(prog)
+    y_g = np.zeros_like(x)
+    for b in range(0, x.shape[1], kern.B):
+        gold.process_block(x[:, b:b + kern.B], y_g[:, b:b + kern.B])
+    assert np.array_equal(y, y_g)
+    assert np.array_equal(st.gmem, gold.state.gmem) and st.gmem[0] != 0.0
+    refused = src.replace("gmem[0] = g;", "y = gmem_seq(0);")
+    prog = compile_plugin_source(refused)
+    with pytest.raises(SpecializeError, match="through the golden"):
         specialize_sample_kernel(prog, make_initialized_shadow(prog).state, 1,
                                  device="cpu")
 

@@ -21,6 +21,11 @@ the catalog's Texture widths (grain records of 19 doubles, reached
 through an order table in memory; ring reads clamped by a block-rate fill
 level; rand() in @block and @sample): the vectorizer rejects it, and the
 sequential device executor (devexec, K11) renders it.
+`crossmix_declutter(slot, n_slots)` is one instance of a cross-mix
+declutter session (the shape of the catalog's CMD pair): each instance
+publishes its block energy into a shared gmem slot, ducks against the
+loudest of its peers' slots, broadcasts its energy on a bus channel and
+drains what its peers sent, so a graph of them renders in the lockstep.
 """
 from __future__ import annotations
 
@@ -452,4 +457,52 @@ loop(nact,
 );
 spl0 = 0.5 * x0 + 0.5 * oL;
 spl1 = 0.5 * x1 + 0.5 * oR;
+"""
+
+
+def crossmix_declutter(slot: int = 0, n_slots: int = 4) -> str:
+    """One instance of a cross-mix declutter session, for a render graph.
+
+    @init attaches the gmem segment "declutter" and subscribes to the bus
+    channel "meter".  @block, every block: takes the block's energy from
+    the meters @sample accumulates, writes it to gmem[slot], reads the
+    other slots in a loop and sets a ducking gain from the loudest,
+    broadcasts its energy on "meter" and drains its queue with
+    `while (msg_recv(...))`, counting what it hears and keeping the last
+    value.  @sample sums the energy, smooths the gain with a one-pole
+    and delays each channel by 64 samples of lookahead, smeared by two
+    later taps (80 and 96 samples; a 128-cell ring each)."""
+    return f"""\
+desc:crossmix declutter (gmem slots, meter bus, coupled @block)
+
+@init
+gmem_attach("declutter");
+msg_subscribe("meter");
+SLOT = {int(slot)}; NS = {int(n_slots)};
+MASK = 127; RL = 0; RR = 128; LOOK = 64;
+duck = 1; g = 1; heard = 0; last = 0; lsrc = 0;
+
+@block
+e = (e0 + e1) / max(2 * samplesblock, 1);
+e0 = 0; e1 = 0;
+gmem[SLOT] = e;
+loud = 0; i = 0;
+loop(NS, i != SLOT ? loud = max(loud, gmem[i]); i += 1;);
+duck = 1 / (1 + 8 * sqrt(loud));
+msg_send("meter", SLOT, e, loud, 0, 0);
+while (msg_recv("meter", src, tg, pa, pb, pc, pd)) (
+  heard += 1; last = pa; lsrc = src;
+);
+
+@sample
+e0 += spl0 * spl0;
+e1 += spl1 * spl1;
+g += 0.01 * (duck - g);
+RL[wp & MASK] = spl0;
+RR[wp & MASK] = spl1;
+dl = 0.6 * RL[(wp - LOOK) & MASK] + 0.25 * RL[(wp - 80) & MASK] + 0.15 * RL[(wp - 96) & MASK];
+dr = 0.6 * RR[(wp - LOOK) & MASK] + 0.25 * RR[(wp - 80) & MASK] + 0.15 * RR[(wp - 96) & MASK];
+spl0 = g * dl;
+spl1 = g * dr;
+wp += 1;
 """

@@ -49,8 +49,9 @@ def carry_from_numpy(kernel, svec, rings=None):
     A coupled kernel's carry, or a hop kernel's, comes as one argument,
     the JAX package's ((svec, rings), bvars, bmem): its var slots are laid
     out alike, and the port's device heap is the head of the JAX one (the
-    plugin heap, then the MIDI out table; the JAX tail holds nothing of a
-    solo render).  A hop kernel's render resumes at the counter's phase
+    plugin heap, then, where the section uses them, the gmem window, the
+    MIDI out table and the message bus's OUT table and queues; the JAX
+    tail beyond holds nothing the port's sections read).  A hop kernel's render resumes at the counter's phase
     the kernel tracks (`_hop_phase`), as the JAX kernel's does.
 
     Raises if the two plans do not carry the same scalars and regions.

@@ -73,6 +73,12 @@ struct ZB {
   const double* tw;        // cos, sin of 2 pi k / tw_n, k < tw_n / 2
   long long tw_n;
   unsigned long long* serial_runs;  // block loops run on thread 0 (or null)
+  // set where a section uses gmem or the message bus (zero-initialised
+  // where the generated text leaves them out)
+  double* G;               // gmem: a graph's shared segment, or the heap's window
+  long long gmem_cells;
+  long long msg_out;       // the msg OUT table in M: [count | CAP rows of 8]
+  long long msg_in;        // the msg IN region in M: [drop cell | queues]
 };
 
 // -- phases: who runs what ------------------------------------------------------
@@ -201,6 +207,119 @@ template <class View>
 ZB_FN double zb_midisend3(View* S, double ofs, double b1, double m23) {
   const long long m = zt_i64(m23);
   return zb_midisend(S, ofs, b1, (double)(m & 255), (double)((m >> 8) & 255));
+}
+
+// -- gmem (shadow/state.py's HostServices.gmem_*) -------------------------------
+//
+// An index is max(0, trunc(x + 1e-5)) (0 for NaN and inf); a read past the
+// segment gives 0 and a write there is dropped; a bulk operation's count is
+// cut at the segment's end.  Counts come static from the printer, so the
+// heap side of gmem_get and gmem_put was checked to lie inside the heap.
+
+ZB_FN long long zb_gidx(double x) {
+  const long long i = zt_i64(x + 1.0e-5);
+  return i > 0 ? i : 0;
+}
+ZB_FN double zb_gmem_get(const ZB* S, double idx) {
+  const long long i = zb_gidx(idx);
+  return i < S->gmem_cells ? S->G[i] : 0.0;
+}
+ZB_FN double zb_gmem_set(ZB* S, double idx, double v) {
+  const long long i = zb_gidx(idx);
+  if (i < S->gmem_cells) S->G[i] = v;
+  return v;
+}
+// gmem_get (to_mem) and gmem_put: n <= count cells between the heap at m
+// and the segment at g; returns n.
+ZB_FN double zb_gmem_bulk(ZB* S, long long m, double g, long long count,
+                          int to_mem) {
+  const long long gi = zb_gidx(g);
+  if (gi >= S->gmem_cells) return 0.0;
+  const long long n = count < S->gmem_cells - gi ? count : S->gmem_cells - gi;
+  if (n <= 0) return 0.0;
+  for (long long k = 0; k < n; ++k) {
+    if (to_mem) S->M[m + k] = S->G[gi + k];
+    else S->G[gi + k] = S->M[m + k];
+  }
+  return (double)n;
+}
+ZB_FN double zb_gmem_fill(ZB* S, double dst, double v, long long count) {
+  const long long i = zb_gidx(dst);
+  if (i >= S->gmem_cells) return 0.0;
+  const long long n = count < S->gmem_cells - i ? count : S->gmem_cells - i;
+  for (long long k = 0; k < n; ++k) S->G[i + k] = v;
+  return (double)(n > 0 ? n : 0);
+}
+// overlap-safe; d, s and n (> 0) checked when printed
+ZB_FN double zb_gmem_copy(ZB* S, long long d, long long s, long long n) {
+  if (d < s) {
+    for (long long k = 0; k < n; ++k) S->G[d + k] = S->G[s + k];
+  } else if (d > s) {
+    for (long long k = n - 1; k >= 0; --k) S->G[d + k] = S->G[s + k];
+  }
+  return (double)n;
+}
+
+// -- the message bus of a graph's lockstep member (comm/bus.py) -----------------
+//
+// Sends append [bc, dest, chan, tag, a, b, c, d] to the heap's OUT table
+// (past ZB_MSG_OUT_CAP they count into the drop cell, the IN region's first
+// cell); K10's epilogue publishes the table to the graph's ring window.
+// K10's prologue routes the window's matched entries into the queues,
+// [head, count, ZB_MSG_QUEUE_CAP rows of 6: sender, tag, a, b, c, d], which
+// the receives pop.
+
+#define ZB_MSG_OUT_CAP 32
+#define ZB_MSG_QUEUE_CAP 64
+#define ZB_MSG_ENT 8
+#define ZB_MSG_QENT 6
+
+ZB_FN void zb_msg_out(ZB* S, double bc, double dest, double chan, double tag,
+                      double a, double b, double c, double d) {
+  double* T = S->M + S->msg_out;
+  const long long n = zt_i64(T[0]);
+  if (n < ZB_MSG_OUT_CAP) {
+    double* r = T + 1 + ZB_MSG_ENT * n;
+    r[0] = bc; r[1] = dest; r[2] = chan; r[3] = tag;
+    r[4] = a; r[5] = b; r[6] = c; r[7] = d;
+    T[0] = (double)(n + 1);
+  } else {
+    S->M[S->msg_in] += 1.0;
+  }
+}
+ZB_FN double zb_msg_send(ZB* S, double chan, double tag, double a, double b,
+                         double c, double d) {
+  zb_msg_out(S, 1.0, 0.0, chan, tag, a, b, c, d);
+  return 1.0;
+}
+// a direct send: int(dest) fails on NaN and inf, and then nothing is sent
+ZB_FN double zb_msg_sendto(ZB* S, double dest, double chan, double tag,
+                           double a, double b, double c, double d) {
+  if (!(dest == dest) || dest - dest != 0.0) return 0.0;
+  zb_msg_out(S, 0.0, trunc(dest), chan, tag, a, b, c, d);
+  return 1.0;
+}
+// The queue at q's next row, popped, or nullptr where it is empty.
+ZB_FN const double* zb_msg_pop(ZB* S, long long q) {
+  double* Q = S->M + q;
+  const double cnt = Q[1];
+  if (!(cnt > 0.0)) return nullptr;
+  const long long h = zt_i64(Q[0]);
+  const double nh = Q[0] + 1.0;
+  Q[0] = nh >= ZB_MSG_QUEUE_CAP ? 0.0 : nh;
+  Q[1] = cnt - 1.0;
+  return Q + 2 + ZB_MSG_QENT * h;
+}
+ZB_FN double zb_msg_clear(ZB* S, long long q) {
+  double* Q = S->M + q;
+  const double cnt = Q[1];
+  Q[0] = fmod(Q[0] + cnt, (double)ZB_MSG_QUEUE_CAP);
+  Q[1] = 0.0;
+  return cnt;
+}
+// int(x) of a finite x (saturated), else `bad`
+ZB_FN long long zb_int_or(double x, long long bad) {
+  return (x == x && x - x == 0.0) ? zt_i64(x) : bad;
 }
 
 // -- the WDL FFT family (runtime/fftops.py's contract) -------------------------

@@ -24,20 +24,35 @@ shares in either order, or the one-thread form.
 A build made with `probe=True` also holds the earlier design, thread 0
 running the whole section (`block_section_earlier`), and timing probes;
 chip_smoke.py holds K10 to it bit for bit and times the two in turns.
+
+A section that uses gmem or the message bus is staged (`Stage`): in a
+graph's lockstep (runtime/graph.py) its gmem is the shared segment, read
+and written in place, and its launch also runs the bus's prologue and
+epilogue on thread 0.  The prologue compacts the graph's ring window by
+the members' smallest cursor (at the block's first member), routes the
+window's entries that match this member into its heap queues, in ring
+order, and zeroes its OUT table; the epilogue, after the section and any
+@slider rerun, appends the OUT rows to the window with the member's
+sender id.  The window, its count, the cursors and the overflow counter
+are device tensors for the whole render, so a render's members run one
+after another on one stream with no copy to the host between them.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
 from ..lowering.devgen import (
-    MIDI_OUT_CAP, MIDI_POS_SLOT, PENDING_SLOT_NAMES, DeviceSection)
+    MIDI_OUT_CAP, MIDI_POS_SLOT, MSG_ENT, MSG_OUT_CAP, MSG_QENT, MSG_QUEUE_CAP,
+    PENDING_SLOT_NAMES, DeviceSection)
 from ..runtime import fftops as FO
+from ..shadow.state import HostServices
 
 # Kernel launches since the counter was last set; chip_smoke.py zeroes it
 # before a path and reads it after to show the path went through the kernel.
@@ -97,6 +112,32 @@ _DESIGN = """\
 """
 
 
+# a ring window row: [sender, bc, dest, chan_id, tag, a, b, c, d]
+WINDOW_ENT = 9
+# the window's control row: [count, overflow, compacted, cursor of each
+# member that uses the bus]
+CTL_COUNT, CTL_OVERFLOW, CTL_COMPACTED, CTL_CURSORS = 0, 1, 2, 3
+
+
+class Stage(NamedTuple):
+    """What one lockstep member's launch shares with the graph (one file).
+
+    gseg     the shared gmem segment, f64 [cells] (None: the heap's window)
+    window   the ring window, f64 [rows, WINDOW_ENT] (None: no bus)
+    ctl      its control row, f64 [CTL_CURSORS + members]
+    member   this member's cursor among the bus's members
+    compact  compact the window first (the block's first bus member)
+    sub      this member's subscriptions by channel id, f64 [channels]
+    my_id    this member's instance id"""
+    gseg: Optional[torch.Tensor] = None
+    window: Optional[torch.Tensor] = None
+    ctl: Optional[torch.Tensor] = None
+    member: int = 0
+    compact: bool = False
+    sub: Optional[torch.Tensor] = None
+    my_id: float = 0.0
+
+
 class BlockSectionProgram:
     """K10's generated source for one coupled plugin, made once for the
     kernel's life.
@@ -128,9 +169,23 @@ class BlockSectionProgram:
         self.mem_size = block.mem_size
         self.uses_midi_in = any(s.uses_midi_in for s in secs)
         self.uses_midi_out = any(s.uses_midi_out for s in secs)
-        self.midi_out_cells = (1 + MIDI_OUT_CAP * 4) \
-            if self.uses_midi_out else 0
-        self.total_mem = self.mem_size + self.midi_out_cells
+        # the heap's tail, laid out by @block for both sections
+        layout = ("gmem_base", "gmem_cells", "midi_out_base",
+                  "msg_out_base", "msg_out_cells", "msg_in_base",
+                  "msg_queues", "total_mem")
+        if slider is not None and any(getattr(slider, k) != getattr(block, k)
+                                      for k in layout):
+            raise ValueError("@block and @slider must share the heap's layout")
+        if self.uses_midi_out != block.uses_midi_out:
+            raise ValueError("@block's layout has no MIDI out table")
+        for k in layout:
+            setattr(self, k, getattr(block, k))
+        self.midi_out_cells = block.midi_out_cells
+        self.uses_gmem = block.uses_gmem
+        self.uses_msg = block.msg_cfg is not None
+        # a staged launch: gmem through the view, the bus's prologue and
+        # epilogue (the text and the launch take more arguments)
+        self.staged = self.uses_gmem or self.uses_msg
         self.n_svec = int(n_svec)
         self.inter = [(int(a), int(b)) for a, b in inter]
         self.regions = [(int(o), int(m)) for o, m in regions]
@@ -215,7 +270,7 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
         f"#define ZB_NV {p.n_vars}",
         f"#define ZB_TM {p.total_mem}",
         f"#define ZB_MEM {p.mem_size}",
-        f"#define ZB_MO {p.mem_size if p.uses_midi_out else -1}",
+        f"#define ZB_MO {p.midi_out_base if p.uses_midi_out else -1}",
         f"#define ZB_MO_CELLS {p.midi_out_cells}",
         f"#define ZB_NC {len(p.ctrl)}",
         f"#define ZB_SCRATCH {p.scratch_cells}",
@@ -288,8 +343,35 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
         "}", ""]
     out += view_in + cells_in + view_out
     out += _team_function(p)
+    out += _staging_functions(p)
     make_s = ("ZB S = {V, M, ZB_MEM, ZB_MO, samplesblock, midi_ev, midi_n, "
               "W, tw, tw_n, runs};")
+    # a staged launch: the view's gmem and bus, then the bus's prologue
+    # (thread 0; the section's bus calls run on thread 0 after it)
+    stage_in, stage_out, stage_params, stage_args, stage_void = \
+        [], [], "", "", ""
+    if p.staged:
+        stage_params = (", double* gseg, double* mwin, double* mctl, "
+                        "long long mrows, long long nmem, long long member, "
+                        "int compact, const double* msub, long long nsub, "
+                        "double my_id")
+        stage_args = (", gseg, mwin, mctl, mrows, nmem, member, compact, "
+                      "msub, nsub, my_id")
+        stage_void = (", void* gseg_, void* mwin_, void* mctl_, "
+                      "long long mrows, long long nmem, long long member, "
+                      "int compact, const void* msub_, long long nsub, "
+                      "double my_id")
+        stage_in = [
+            "  S.G = gseg ? gseg : M + ZB_GBASE;",
+            "  S.gmem_cells = ZB_GCELLS;",
+            "  S.msg_out = ZB_MSG_OUT;",
+            "  S.msg_in = ZB_MSG_IN;",
+        ]
+        if p.uses_msg:
+            stage_in.append("  if (t == 0) zb_msg_begin(M, mwin, mctl, mrows, "
+                            "nmem, member, compact, msub, nsub, my_id);")
+            stage_out.append("  if (t == 0) zb_msg_end(M, mwin, mctl, mrows, "
+                             "my_id);")
     # the kernels' var row and FFT workspace: shared memory where it fits
     on_chip = [
         "  extern __shared__ double zb_sh[];",
@@ -314,8 +396,14 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
     args = ("void* svec, void* bvars, void* bmem, void* ctrl, void* mout, "
             "const void* midi_ev, double midi_n, void* scratch, "
             "const void* tw, long long tw_n, double samplesblock, "
-            "long long nf, void* serial_runs")
-    casts = [
+            "long long nf, void* serial_runs" + stage_void)
+    stage_casts = [
+        "  double* gseg = static_cast<double*>(gseg_);",
+        "  double* mwin = static_cast<double*>(mwin_);",
+        "  double* mctl = static_cast<double*>(mctl_);",
+        "  const double* msub = static_cast<const double*>(msub_);",
+    ] if p.staged else []
+    casts = stage_casts + [
         "  double* sv0 = static_cast<double*>(svec);",
         "  double* bv = static_cast<double*>(bvars);",
         "  double* bm = static_cast<double*>(bmem);",
@@ -337,7 +425,7 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
             "    double* mout, const double* midi_ev, double midi_n,",
             "    double* scratch, const double* tw, long long tw_n,",
             "    double samplesblock, unsigned long long* runs"
-            f"{ring_params}) {{",
+            f"{stage_params}{ring_params}) {{",
             "  const long long f = blockIdx.x, t = threadIdx.x, nt = blockDim.x;",
             *on_chip,
             "  double* M = bmem + f * ZB_TM;",
@@ -347,7 +435,9 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
             "  zb_cells_in(t, nt, M, sv);   // a cell may lie in a ring region",
             "  __syncthreads();",
             f"  {make_s}",
+            *stage_in,
             *run,
+            *stage_out,
             f"  zb_view_out(f, t, nt, V, M, sv{ring_args}, ctrl, mout);",
             *off_chip,
             "}",
@@ -369,7 +459,8 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
             "  }",
             f"  {kern}<<<static_cast<unsigned>(nf), ZB_THREADS, ZB_SMEM,",
             "              static_cast<cudaStream_t>(stream)>>>(sv0, bv, bm, cr,",
-            f"      mo, ev, midi_n, sc, twd, tw_n, samplesblock, runs{ring_args});",
+            f"      mo, ev, midi_n, sc, twd, tw_n, samplesblock, runs"
+            f"{stage_args}{ring_args});",
             "  return static_cast<int>(cudaGetLastError());",
             "}",
             "",
@@ -411,6 +502,7 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
         "      const double* tw = twd;",
         "      double* W = sc + f * ZB_SCRATCH;",
         f"      {make_s}",
+        *["    " + line.replace("if (t == 0) ", "") for line in stage_in],
         "      if (nt <= 0) {",
         "        zb_run(&S);",
         "      } else {",
@@ -419,6 +511,7 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
         "        const ZT team = {0, nt, desc};",
         "        zb_run_team(&S, team, zp, zq);",
         "      }",
+        *["    " + line.replace("if (t == 0) ", "") for line in stage_out],
         "    }",
         f"    zb_view_out(f, 0, 1, V, M, sv{ring_args}, cr, mo);",
         "  }",
@@ -429,6 +522,109 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
         "",
     ]
     return "\n".join(out)
+
+
+def _staging_functions(p: BlockSectionProgram) -> List[str]:
+    """A staged program's layout and, where it uses the bus, the launch's
+    prologue and epilogue (thread 0): the reference's joint-scan steps
+    (zorak_tpu/lowering/specialize.py `_msg_route`, `_in_mask`, `_publish`
+    and the compaction by the smallest cursor)."""
+    if not p.staged:
+        return []
+    out = [
+        "// the heap's tail: gmem window, msg OUT table, msg IN region",
+        f"#define ZB_GBASE {p.gmem_base}",
+        f"#define ZB_GCELLS {p.gmem_cells}",
+        f"#define ZB_MSG_OUT {p.msg_out_base if p.uses_msg else -1}",
+        f"#define ZB_MSG_IN {p.msg_in_base if p.uses_msg else -1}",
+        "",
+    ]
+    if not p.uses_msg:
+        return out
+    queues = sorted(p.msg_queues.items())
+    out += [
+        f"#define ZB_NQUEUE {len(queues)}",
+        _c_table("zb_q_chan", [c for c, _b in queues]),
+        _c_table("zb_q_base", [b for _c, b in queues]),
+        "",
+        "// Begin-block: compact the ring window by the smallest cursor where",
+        "// `compact` (the block's first bus member), route the entries past",
+        "// this member's cursor that match it (a direct dest, or a broadcast",
+        "// on a subscribed channel it did not send) into its queues in ring",
+        "// order, a full queue counting into the drop cell, and start a",
+        "// fresh OUT table.  Without a window (a render outside a graph) only",
+        "// the OUT table is reset: sends go nowhere.",
+        "ZB_DEV void zb_msg_begin(double* M, double* win, double* ctl,",
+        "    long long rows, long long nmem, long long member, int compact,",
+        "    const double* sub, long long nsub, double my) {",
+        "  (void)rows;",
+        "  M[ZB_MSG_OUT] = 0.0;",
+        "  if (!ctl) return;",
+        "  if (compact) {",
+        f"    double lo = ctl[{CTL_CURSORS}];",
+        "    for (long long j = 1; j < nmem; ++j)",
+        f"      lo = ctl[{CTL_CURSORS} + j] < lo ? ctl[{CTL_CURSORS} + j] : lo;",
+        f"    const long long m = (long long)lo, n = (long long)ctl[{CTL_COUNT}];",
+        "    if (m > 0) {",
+        "      for (long long g = m; g < n; ++g)",
+        f"        for (int k = 0; k < {WINDOW_ENT}; ++k)",
+        f"          win[{WINDOW_ENT} * (g - m) + k] = win[{WINDOW_ENT} * g + k];",
+        f"      ctl[{CTL_COUNT}] = (double)(n - m);",
+        f"      ctl[{CTL_COMPACTED}] += (double)m;",
+        f"      for (long long j = 0; j < nmem; ++j) ctl[{CTL_CURSORS} + j] -= "
+        "(double)m;",
+        "    }",
+        "  }",
+        f"  const long long n = (long long)ctl[{CTL_COUNT}];",
+        f"  for (long long g = (long long)ctl[{CTL_CURSORS} + member]; g < n; "
+        "++g) {",
+        f"    const double* e = win + {WINDOW_ENT} * g;",
+        "    const long long c = (long long)e[3];",
+        "    const bool hit = e[1] > 0.5",
+        "        ? (c >= 0 && c < nsub && sub[c] != 0.0 && e[0] != my)",
+        "        : e[2] == my;",
+        "    if (!hit) continue;",
+        "    for (int q = 0; q < ZB_NQUEUE; ++q) {",
+        "      if (zb_q_chan[q] != c) continue;",
+        "      double* Q = M + zb_q_base[q];",
+        "      if (Q[1] < ZB_MSG_QUEUE_CAP) {",
+        "        double pos = Q[0] + Q[1];",
+        "        if (pos >= ZB_MSG_QUEUE_CAP) pos -= ZB_MSG_QUEUE_CAP;",
+        "        double* r = Q + 2 + ZB_MSG_QENT * (long long)pos;",
+        "        r[0] = e[0]; r[1] = e[4]; r[2] = e[5];",
+        "        r[3] = e[6]; r[4] = e[7]; r[5] = e[8];",
+        "        Q[1] += 1.0;",
+        "      } else {",
+        "        M[ZB_MSG_IN] += 1.0;",
+        "      }",
+        "    }",
+        "  }",
+        f"  ctl[{CTL_CURSORS} + member] = (double)n;",
+        "}",
+        "",
+        "// End-block: the OUT rows appended to the window with the sender's id;",
+        "// rows past the window count into the overflow counter.",
+        "ZB_DEV void zb_msg_end(const double* M, double* win, double* ctl,",
+        "    long long rows, double my) {",
+        "  if (!ctl) return;",
+        "  const long long cnt = (long long)M[ZB_MSG_OUT];",
+        f"  long long n = (long long)ctl[{CTL_COUNT}];",
+        "  for (long long k = 0; k < cnt; ++k) {",
+        "    if (n < rows) {",
+        f"      double* r = win + {WINDOW_ENT} * n;",
+        "      r[0] = my;",
+        "      for (int i = 0; i < ZB_MSG_ENT; ++i)",
+        "        r[1 + i] = M[ZB_MSG_OUT + 1 + ZB_MSG_ENT * k + i];",
+        "      ++n;",
+        "    } else {",
+        f"      ctl[{CTL_OVERFLOW}] += 1.0;",
+        "    }",
+        "  }",
+        f"  ctl[{CTL_COUNT}] = (double)n;",
+        "}",
+        "",
+    ]
+    return out
 
 
 def _team_function(p: BlockSectionProgram) -> List[str]:
@@ -627,12 +823,28 @@ def fft_probe_names(program: BlockSectionProgram) -> List[str]:
 
 # -- the checks shared by every form ---------------------------------------------
 
-def _check(program: BlockSectionProgram, svec, rings, bvars, bmem) -> int:
+def _check(program: BlockSectionProgram, svec, rings, bvars, bmem,
+           stage: Optional[Stage] = None) -> int:
     nf = bvars.shape[0]
     dev = bvars.device
     want = [("svec", svec, (nf, program.n_svec)),
             ("bvars", bvars, (nf, program.n_vars)),
             ("bmem", bmem, (nf, program.total_mem))]
+    if stage is not None:
+        if not program.staged or nf != 1:
+            raise ValueError("a stage takes one file of a program that uses "
+                             "gmem or the message bus")
+        if stage.gseg is not None:
+            want.append(("gseg", stage.gseg, (program.gmem_cells,)))
+        if stage.window is not None:
+            if stage.ctl is None or stage.sub is None:
+                raise ValueError("a ring window comes with its ctl and sub")
+            want += [("window", stage.window,
+                      (stage.window.shape[0], WINDOW_ENT)),
+                     ("ctl", stage.ctl, (stage.ctl.shape[0],)),
+                     ("sub", stage.sub, (stage.sub.shape[0],))]
+            if not 0 <= stage.member < stage.ctl.shape[0] - CTL_CURSORS:
+                raise ValueError(f"member {stage.member} has no cursor")
     if len(rings) != len(program.regions):
         raise ValueError(f"{len(rings)} rings for {len(program.regions)} "
                          "regions")
@@ -660,7 +872,8 @@ def block_section(program: BlockSectionProgram, svec: torch.Tensor,
                   rings: Sequence[torch.Tensor], bvars: torch.Tensor,
                   bmem: torch.Tensor, samplesblock: float, midi=None,
                   ctrl: Optional[torch.Tensor] = None,
-                  mout: Optional[torch.Tensor] = None):
+                  mout: Optional[torch.Tensor] = None,
+                  stage: Optional[Stage] = None):
     """One block of the coupled pipeline for nf files, in place.
 
     svec [nf, n_svec] and rings (one [nf, mod] a region, in
@@ -671,13 +884,15 @@ def block_section(program: BlockSectionProgram, svec: torch.Tensor,
     shared by the files, where the section calls midirecv.  Returns
     (ctrl [nf, n_ctrl], mout [nf, midi_out_cells] or None): the control
     row of the next segment and the block's MIDI out table (written into
-    `ctrl` and `mout` where given).
+    `ctrl` and `mout` where given).  stage: a graph's lockstep member's
+    shared segment and ring window (one file; see `Stage`), updated in
+    place.
 
     CUDA tensors go to the generated kernel, CPU tensors to the plain
     version; nothing falls back from one to the other.
     """
     global LAUNCHES
-    nf = _check(program, svec, rings, bvars, bmem)
+    nf = _check(program, svec, rings, bvars, bmem, stage)
     dev = bvars.device
     if ctrl is None:
         ctrl = torch.empty((nf, len(program.ctrl)), dtype=torch.float64,
@@ -687,19 +902,19 @@ def block_section(program: BlockSectionProgram, svec: torch.Tensor,
                            device=dev)
     if dev.type == "cpu":
         block_section_plain(program, svec, rings, bvars, bmem, samplesblock,
-                            midi, ctrl, mout)
+                            midi, ctrl, mout, stage)
         return ctrl, mout
     if dev.type != "cuda":
         raise ValueError(f"block_section runs on cuda or cpu, not {dev}")
     _launch(program, "block_section_launch", svec, rings, bvars, bmem,
-            samplesblock, midi, ctrl, mout)
+            samplesblock, midi, ctrl, mout, stage=stage)
     LAUNCHES += 1
     return ctrl, mout
 
 
 def block_section_earlier(program: BlockSectionProgram, svec, rings, bvars,
                           bmem, samplesblock: float, midi=None, ctrl=None,
-                          mout=None):
+                          mout=None, stage: Optional[Stage] = None):
     """The earlier design of K10, in place as `block_section`: thread 0
     runs the whole section, the other threads wait at a barrier.  Needs a
     program made with `probe=True`; chip_smoke.py holds the kernel to it
@@ -707,7 +922,7 @@ def block_section_earlier(program: BlockSectionProgram, svec, rings, bvars,
     the serial-run counter stay."""
     if not program.probe:
         raise ValueError("the earlier design is built with probe=True")
-    nf = _check(program, svec, rings, bvars, bmem)
+    nf = _check(program, svec, rings, bvars, bmem, stage)
     dev = bvars.device
     if dev.type != "cuda":
         raise ValueError("block_section_earlier takes CUDA tensors")
@@ -718,15 +933,38 @@ def block_section_earlier(program: BlockSectionProgram, svec, rings, bvars,
         mout = torch.empty((nf, program.midi_out_cells), dtype=torch.float64,
                            device=dev)
     _launch(program, "block_section_launch_earlier", svec, rings, bvars,
-            bmem, samplesblock, midi, ctrl, mout, count=False)
+            bmem, samplesblock, midi, ctrl, mout, count=False, stage=stage)
     return ctrl, mout
 
 
+def _stage_args(program, stage: Optional[Stage]) -> list:
+    """A staged program's launch arguments after the head's (none for
+    another program)."""
+    if not program.staged:
+        return []
+    st = stage or Stage()
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    rows = 0 if st.window is None else st.window.shape[0]
+    nmem = 0 if st.ctl is None else st.ctl.shape[0] - CTL_CURSORS
+    nsub = 0 if st.sub is None else st.sub.shape[0]
+    return [ptr(st.gseg), ptr(st.window), ptr(st.ctl), rows, nmem,
+            int(st.member), int(bool(st.compact)), ptr(st.sub), nsub,
+            float(st.my_id)]
+
+
+# gseg, mwin, mctl; rows, members, member; compact; msub; nsub; my_id
+_STAGE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double]
+
+
 def _launch(program, entry: str, svec, rings, bvars, bmem, samplesblock,
-            midi, ctrl, mout, count: bool = True) -> None:
+            midi, ctrl, mout, count: bool = True,
+            stage: Optional[Stage] = None) -> None:
     dev = bvars.device
     ev, n_ev = _midi_args(program, midi)
-    lib = _library(program.source, len(program.regions))
+    lib = _library(program.source, len(program.regions), program.staged)
     tw = program.twiddles_on(dev)
     scratch = program.scratch_on(dev, bvars.shape[0])
     runs = _serial_counter(dev) if count else None
@@ -737,7 +975,8 @@ def _launch(program, entry: str, svec, rings, bvars, bmem, samplesblock,
             ctrl.data_ptr(), 0 if mout is None else mout.data_ptr(),
             0 if ev is None else ev.data_ptr(), n_ev, scratch.data_ptr(),
             tw.data_ptr(), max(program.fft_max, 2), float(samplesblock),
-            bvars.shape[0], 0 if runs is None else runs.data_ptr(), stream,
+            bvars.shape[0], 0 if runs is None else runs.data_ptr(),
+            *_stage_args(program, stage), stream,
             *[r.data_ptr() for r in rings])
     if err != 0:
         raise RuntimeError(f"block_section kernel launch failed ({entry}): "
@@ -781,20 +1020,22 @@ _HEAD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p,
 
 
 @functools.lru_cache(maxsize=None)
-def _library(source: str, n_rings: int) -> ctypes.CDLL:
+def _library(source: str, n_rings: int, staged: bool = False) -> ctypes.CDLL:
     lib = _build.load_generated(source)
     entries = [lib.block_section_launch]
     if "block_section_launch_earlier" in source:
         entries.append(lib.block_section_launch_earlier)
     for fn in entries:
-        fn.argtypes = _HEAD_ARGS + [ctypes.c_void_p] * (1 + n_rings)
+        fn.argtypes = _HEAD_ARGS + (_STAGE_ARGS if staged else []) + [
+            ctypes.c_void_p] * (1 + n_rings)
         fn.restype = ctypes.c_int
     return lib
 
 
 def block_section_host(program: BlockSectionProgram, svec, rings, bvars,
                        bmem, samplesblock: float, midi=None,
-                       threads: int = 0, descending: bool = False):
+                       threads: int = 0, descending: bool = False,
+                       stage: Optional[Stage] = None):
     """The generated source compiled for the CPU with a host C++ compiler
     (its host form), on CPU tensors, in place as `block_section`.  With
     `threads` = 0 it runs the one-thread form (`zb_run`, the earlier
@@ -805,14 +1046,15 @@ def block_section_host(program: BlockSectionProgram, svec, rings, bvars,
     `block_section_plain` and each other; no render path calls it, and it
     leaves LAUNCHES alone.  Returns (ctrl, mout or None, block loops run
     on thread 0)."""
-    nf = _check(program, svec, rings, bvars, bmem)
+    nf = _check(program, svec, rings, bvars, bmem, stage)
     if bvars.device.type != "cpu":
         raise ValueError("block_section_host takes CPU tensors")
     if isinstance(threads, bool) or not isinstance(threads, int) \
             or threads < 0:
         raise ValueError(f"threads must be an int >= 0, got {threads!r}")
     fn = _build.load_generated_host(program.source).block_section_host
-    fn.argtypes = _HEAD_ARGS + [ctypes.c_longlong, ctypes.c_int] + [
+    fn.argtypes = _HEAD_ARGS + (_STAGE_ARGS if program.staged else []) + [
+        ctypes.c_longlong, ctypes.c_int] + [
         ctypes.c_void_p] * len(program.regions)
     fn.restype = ctypes.c_int
     ctrl = torch.empty((nf, len(program.ctrl)), dtype=torch.float64)
@@ -826,7 +1068,8 @@ def block_section_host(program: BlockSectionProgram, svec, rings, bvars,
     fn(svec.data_ptr(), bvars.data_ptr(), bmem.data_ptr(), ctrl.data_ptr(),
        mout.data_ptr(), 0 if ev is None else ev.data_ptr(), n_ev,
        scratch.data_ptr(), tw.data_ptr(), max(program.fft_max, 2),
-       float(samplesblock), nf, runs.data_ptr(), threads, int(descending),
+       float(samplesblock), nf, runs.data_ptr(),
+       *_stage_args(program, stage), threads, int(descending),
        *[r.data_ptr() for r in rings])
     return ctrl, (mout if program.midi_out_cells else None), int(runs)
 
@@ -914,13 +1157,15 @@ def block_section_latency_probe(program: BlockSectionProgram, out,
 
 def block_section_plain(program: BlockSectionProgram, svec, rings, bvars,
                         bmem, samplesblock: float, midi=None, ctrl=None,
-                        mout=None):
+                        mout=None, stage: Optional[Stage] = None):
     """Plain version: the exchanges in torch, and for each file the
     sections through the port's Python golden (`shadow/pyexec.py`) on a
     ShadowState built from the file's slots and heap row, with the device
     heap's addressing (clamped addresses, runs and FFT regions inside the
-    heap).  In place, as `block_section`; CPU tensors."""
-    nf = _check(program, svec, rings, bvars, bmem)
+    heap), and the host calls of gmem and the bus as K10 makes them
+    (`_StagedHost`); a stage's prologue and epilogue as the kernel runs
+    them.  In place, as `block_section`; CPU tensors."""
+    nf = _check(program, svec, rings, bvars, bmem, stage)
     if ctrl is None:
         ctrl = torch.empty((nf, len(program.ctrl)), dtype=torch.float64)
     if mout is None and program.midi_out_cells:
@@ -931,7 +1176,7 @@ def block_section_plain(program: BlockSectionProgram, svec, rings, bvars,
         bvars[:, sl_i] = svec[:, sv_i]
     for (o, m), r in zip(program.regions, rings):
         bmem[:, o:o + m] = r
-    mo = program.mem_size
+    mo = program.midi_out_base
     bmem[:, mo:mo + program.midi_out_cells] = 0.0
     if program.uses_midi_in:
         bvars[:, program.pos_slot] = 0.0
@@ -942,9 +1187,19 @@ def block_section_plain(program: BlockSectionProgram, svec, rings, bvars,
         ev, n = midi
         events = ev.detach().cpu().numpy()[:int(n)].tolist()
     block_fn, slider_fn = _plain_functions(program)
+    st = stage or Stage()
     for f in range(nf):
+        row = bmem[f].numpy()
+        if program.uses_msg:
+            _msg_begin_plain(program, row, st)
+        gmem = None
+        if program.uses_gmem:
+            gmem = st.gseg.numpy() if st.gseg is not None else \
+                row[program.gmem_base:program.gmem_base + program.gmem_cells]
         _plain_file(program, block_fn, slider_fn, bvars[f], bmem[f],
-                    float(samplesblock), events)
+                    float(samplesblock), events, gmem)
+        if program.uses_msg:
+            _msg_end_plain(program, row, st)
     if program.inter:
         svec[:, sv_i] = bvars[:, sl_i]
     for (o, m), r in zip(program.regions, rings):
@@ -958,12 +1213,171 @@ def block_section_plain(program: BlockSectionProgram, svec, rings, bvars,
     return ctrl, mout
 
 
+def _msg_begin_plain(program, M: np.ndarray, stage: Stage) -> None:
+    """The staged prologue (`zb_msg_begin`) on a heap row."""
+    M[program.msg_out_base] = 0.0
+    if stage.ctl is None:
+        return
+    win, ctl = stage.window.numpy(), stage.ctl.numpy()
+    cur = ctl[CTL_CURSORS:]
+    if stage.compact:
+        m, n = int(cur.min()), int(ctl[CTL_COUNT])
+        if m > 0:
+            win[:n - m] = win[m:n].copy()
+            ctl[CTL_COUNT] = float(n - m)
+            ctl[CTL_COMPACTED] += float(m)
+            cur -= float(m)
+    n = int(ctl[CTL_COUNT])
+    sub = stage.sub.numpy()
+    queues = dict(sorted(program.msg_queues.items()))
+    for g in range(int(cur[stage.member]), n):
+        e = win[g]
+        c = int(e[3])
+        if e[1] > 0.5:
+            hit = 0 <= c < len(sub) and sub[c] != 0.0 and e[0] != stage.my_id
+        else:
+            hit = e[2] == stage.my_id
+        qb = queues.get(c)
+        if not hit or qb is None:
+            continue
+        if M[qb + 1] < MSG_QUEUE_CAP:
+            pos = M[qb] + M[qb + 1]
+            if pos >= MSG_QUEUE_CAP:
+                pos -= MSG_QUEUE_CAP
+            r = qb + 2 + MSG_QENT * int(pos)
+            M[r:r + MSG_QENT] = (e[0], e[4], e[5], e[6], e[7], e[8])
+            M[qb + 1] += 1.0
+        else:
+            M[program.msg_in_base] += 1.0
+    cur[stage.member] = float(n)
+
+
+def _msg_end_plain(program, M: np.ndarray, stage: Stage) -> None:
+    """The staged epilogue (`zb_msg_end`) on a heap row."""
+    if stage.ctl is None:
+        return
+    win, ctl = stage.window.numpy(), stage.ctl.numpy()
+    base = program.msg_out_base
+    n = int(ctl[CTL_COUNT])
+    for k in range(int(M[base])):
+        if n < win.shape[0]:
+            win[n, 0] = stage.my_id
+            win[n, 1:] = M[base + 1 + MSG_ENT * k:base + 1 + MSG_ENT * (k + 1)]
+            n += 1
+        else:
+            ctl[CTL_OVERFLOW] += 1.0
+    ctl[CTL_COUNT] = float(n)
+
+
+class _StagedHost(HostServices):
+    """The golden's host calls of gmem and the bus as K10 makes them, for
+    the plain version: gmem is the golden's own (HostServices on the
+    state's `gmem`, the shared segment or the heap's window; attaching is
+    a no-op), and a lone instance's bus is HostServices' (inert)."""
+
+    def __init__(self, sec: DeviceSection, M: np.ndarray):
+        super().__init__()
+        self.sec, self.M = sec, M
+        self.comm = getattr(sec.snap, "host", None)
+        self.instance_id_value = float(getattr(self.comm, "instance_id_value",
+                                               0.0))
+
+    def gmem_attach(self, st, handle) -> float:
+        return 0.0 if self.sec.comm_solo else 1.0
+
+    def gmem_attach_size(self, st, handle, size) -> float:
+        return self.gmem_attach(st, handle)
+
+
+class _StagedBus(_StagedHost):
+    """A lockstep member's: its sends go into the heap row's OUT table,
+    its receives pop the row's queues, and the topology is read from its
+    frozen InstanceComm."""
+
+    def msg_dropped(self, st, chan) -> float:
+        return self.comm.msg_dropped(st, chan)
+
+    def msg_peer_count(self, st, chan, role) -> float:
+        return self.comm.msg_peer_count(st, chan, role)
+
+    def msg_peer_id(self, st, chan, role, idx) -> float:
+        return self.comm.msg_peer_id(st, chan, role, idx)
+
+    def msg_peer_caps(self, st, peer) -> float:
+        return self.comm.msg_peer_caps(st, peer)
+
+    def msg_peer_alive(self, st, peer) -> float:
+        return self.comm.msg_peer_alive(st, peer)
+
+    def _cid(self, st, chan) -> int:
+        text = st.string_for_handle(chan)
+        name = text if text is not None else repr(float(chan))
+        return self.sec.msg_cfg.chan_ids[name]
+
+    def _out(self, bc, dest, cid, vals) -> None:
+        M, base = self.M, self.sec.msg_out_base
+        n = int(M[base])
+        if n < MSG_OUT_CAP:
+            r = base + 1 + MSG_ENT * n
+            M[r:r + MSG_ENT] = [bc, dest, float(cid)] + [float(v) for v in vals]
+            M[base] = float(n + 1)
+        else:
+            M[self.sec.msg_in_base] += 1.0
+
+    def msg_send(self, st, chan, tag, a, b, c, d) -> float:
+        self._out(1.0, 0.0, self._cid(st, chan), (tag, a, b, c, d))
+        return 1.0
+
+    def msg_sendto(self, st, dest, chan, tag, a, b, c, d) -> float:
+        try:
+            dest_i = int(dest)
+        except (ValueError, OverflowError):
+            return 0.0
+        self._out(0.0, float(dest_i), self._cid(st, chan), (tag, a, b, c, d))
+        return 1.0
+
+    def _queue(self, st, chan) -> int:
+        return self.sec.msg_queues[self._cid(st, chan)]
+
+    def msg_recv(self, st, chan):
+        M, qb = self.M, self._queue(st, chan)
+        cnt = M[qb + 1]
+        if not cnt > 0.0:
+            return None
+        h = int(M[qb])
+        nh = M[qb] + 1.0
+        M[qb] = 0.0 if nh >= MSG_QUEUE_CAP else nh
+        M[qb + 1] = cnt - 1.0
+        r = qb + 2 + MSG_QENT * h
+        return tuple(float(v) for v in M[r:r + MSG_QENT])
+
+    def msg_avail(self, st, chan) -> float:
+        return float(self.M[self._queue(st, chan) + 1])
+
+    def msg_kind(self, st, chan) -> float:
+        return 1.0 if self.msg_avail(st, chan) > 0.0 else 0.0
+
+    def msg_length(self, st, chan) -> float:
+        return 4.0 if self.msg_avail(st, chan) > 0.0 else 0.0
+
+    def msg_clear(self, st, chan) -> float:
+        M, qb = self.M, self._queue(st, chan)
+        cnt = float(M[qb + 1])
+        M[qb] = math.fmod(M[qb] + cnt, float(MSG_QUEUE_CAP))
+        M[qb + 1] = 0.0
+        return cnt
+
+
 def _plain_file(program, block_fn, slider_fn, v_row, m_row,
-                samplesblock: float, events) -> None:
+                samplesblock: float, events, gmem=None) -> None:
     from ..shadow.state import MidiEvent
 
     sec = program.block
     st = program._plain_state.clone()
+    if program.staged:
+        host = _StagedBus if program.uses_msg else _StagedHost
+        st.host = host(sec, m_row.numpy())
+        st.gmem = gmem if gmem is not None else np.zeros(0)
     vals = v_row.tolist()
     masks = ("pending_change_mask", "pending_automate_mask",
              "pending_automate_end_mask")
@@ -998,7 +1412,8 @@ def _plain_file(program, block_fn, slider_fn, v_row, m_row,
         table[0] = float(len(sent))
         for k, ev in enumerate(sent):
             table[1 + 4 * k:5 + 4 * k] = (ev.offset, ev.b1, ev.b2, ev.b3)
-        m_row[program.mem_size:] = torch.from_numpy(table)
+        mo = program.midi_out_base
+        m_row[mo:mo + program.midi_out_cells] = torch.from_numpy(table)
 
 
 def _put(st, key, v: float, masks) -> None:

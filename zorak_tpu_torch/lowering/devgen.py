@@ -14,9 +14,21 @@ scalar semantics, with the state retargeted at a device view:
   the dynamic keys sorted by repr, then every user function's params,
   then the pseudo slots), anything else is frozen @init/@slider state and
   prints as a constant;
-* mem is a heap row of `mem_size` cells, then the MIDI out table;
+* mem is a heap row of `mem_size` cells, then (the reference's layout)
+  the gmem window where a section uses gmem, the MIDI out table where one
+  sends MIDI, and the message bus's OUT table and IN region (its queues)
+  where a graph's lockstep member uses the bus;
 * `samplesblock` is an argument, so one source serves full blocks and the
   remainder.
+
+gmem is the view's `G`: the attached segment of a graph's lockstep
+members (K10 reads and writes it in place, the members in node order on
+one stream), else the heap's gmem window.  The message bus follows the
+reference's live-bus subset (`MSG_DEVICE_FNS`): sends append to the OUT
+table, receives pop the queues K10's prologue filled from the graph's ring
+window, and the topology queries fold against the frozen registry of the
+member's `InstanceComm` (`MsgConfig.host`).  A lone instance (no live bus
+host) folds the bus calls inert, as the golden's host does.
 
 Heap addressing follows the reference's device sections, not the
 golden's growable heap: a static address at or past `mem_size` raises
@@ -64,6 +76,7 @@ from typing import (Any, Dict, List, NamedTuple, Optional, Sequence, Set,
 
 import numpy as np
 
+from ..comm.bus import InstanceComm
 from ..frontend.astnodes import (
     Asn, Bin, Block, CallExpr, Cond, Const, LoopExpr, Mem, Name, Node, Str,
     Un, walk,
@@ -95,28 +108,81 @@ MEM_HIWATER_SLOT = "__mem_hiwater__"
 # lowest rung of the executor's heap ladder holds them all
 PAGE_CELLS = 4096
 
-# where each refused construct comes from (ROADMAP.md queue 1)
-_BUS = ("gmem and the message bus come with queue 1 item 7's graph "
-        "lockstep (slice 6b, runtime/graph.py)")
+# device message-bus staging (a graph's lockstep members, the reference's
+# devgen.py:62-76): a member's sends land in a heap OUT table, [count |
+# MSG_OUT_CAP rows of MSG_ENT: bc, dest, chan_id, tag, a, b, c, d], that
+# K10's epilogue appends to the graph's ring window; its prologue routes the
+# window's matched entries into the member's queues, [drop cell | a queue a
+# receive channel: head, count, MSG_QUEUE_CAP rows of MSG_QENT: sender, tag,
+# a, b, c, d].  The drop cell counts sends past the OUT table and messages
+# past a full queue: the graph refuses a render that dropped one (the
+# golden's outbox and inbox are unbounded).
+MSG_OUT_CAP = 32
+MSG_QUEUE_CAP = 64
+MSG_ENT = 8
+MSG_QENT = 6
+
+
+class MsgConfig:
+    """The live bus of a graph's lockstep member.
+
+    chan_ids: the channel-name -> small-int registry of the graph's
+    CommWorld (one dict a world, so every member prints the same ids);
+    host: the member's InstanceComm, whose frozen registry folds
+    instance_id, msg_peer_* and msg_dropped while the source is printed."""
+
+    def __init__(self, chan_ids: Dict[str, int], host):
+        self.chan_ids = chan_ids
+        self.host = host
+
+    def intern(self, name: str) -> int:
+        got = self.chan_ids.get(name)
+        if got is None:
+            got = len(self.chan_ids)
+            self.chan_ids[name] = got
+        return got
+
+
+# where each refused construct comes from (ROADMAP.md)
+_BUS = ("the device sections stage scalar messages and fold the registry "
+        "only (the reference's DeviceSection._MSG_DEVICE_FNS and _GMEM_FNS): "
+        "buffer messages, registry changes, names, uids and page sequence "
+        "numbers render through the golden, as in the reference")
+_BUS_K11 = ("gmem and the message bus in the sequential executor come with "
+            "ROADMAP queue 2's K11 bus entry")
 _SERVICES = ("file, pool and host services come with queue 1 item 3 "
              "(the services copy)")
 _NEVER = ("the reference does not run it on the device either, and no "
           "slice brings it: the golden renders the plugin")
 
-_COMM_FNS = frozenset({
+# the reference's sets (zorak_tpu/lowering/devgen.py:356, :369, :416),
+# which decide what a section may use and how a graph routes its nodes:
+# the bus calls a lone instance folds inert, the live-bus subset of a
+# lockstep member, and the gmem builtins
+COMM_FNS = frozenset({
     "msg_send", "msg_sendto", "msg_recv", "msg_peek",
-    "msg_send_buf", "msg_sendto_buf", "msg_recv_buf",
+    "msg_send_buf", "msg_sendto_buf",
     "msg_advertise", "msg_subscribe", "msg_unsubscribe",
     "msg_avail", "msg_kind", "msg_length", "msg_dropped", "msg_clear",
-    "msg_peer_count", "msg_peer_id", "msg_peer_name", "msg_peer_uid",
-    "msg_peer_caps", "msg_peer_alive",
-    "comm_join", "instance_id", "instance_uid", "instance_set_name",
-    "instance_get_name",
+    "msg_peer_count", "msg_peer_id", "msg_peer_caps", "msg_peer_alive",
+    "comm_join", "instance_id", "instance_set_name",
 })
-_GMEM_FNS = frozenset({
+MSG_DEVICE_FNS = frozenset({
+    "msg_send", "msg_sendto", "msg_recv",
+    "msg_avail", "msg_kind", "msg_length", "msg_dropped", "msg_clear",
+    "msg_peer_count", "msg_peer_id", "msg_peer_caps", "msg_peer_alive",
+    "instance_id",
+})
+GMEM_FNS = frozenset({
     "gmem_attach", "gmem_attach_size", "gmem_size", "gmem_get",
-    "gmem_put", "gmem_fill", "gmem_zero", "gmem_copy", "gmem_seq",
-    "gmem_page"})
+    "gmem_put", "gmem_fill", "gmem_zero", "gmem_copy"})
+# every bus and gmem builtin of the golden's host: what the sets above do
+# not take is refused (_BUS)
+_BUS_FNS = COMM_FNS | GMEM_FNS | {
+    "msg_recv_buf", "msg_peer_name", "msg_peer_uid", "instance_uid",
+    "instance_get_name", "gmem_seq", "gmem_page"}
+_MSG_RECV_SIDE = frozenset({
+    "msg_recv", "msg_avail", "msg_kind", "msg_length", "msg_clear"})
 _SERVICE_FNS = frozenset({
     "file_open", "file_open_multi", "file_close", "file_rewind",
     "file_seek", "file_avail", "file_text", "file_riff", "file_var",
@@ -189,6 +255,50 @@ def _impure(node: Node) -> bool:
     return False
 
 
+def reach(program: PluginProgram, bodies):
+    """The nodes of the statement lists, and of each user function they
+    call at its first call, in walk order (the reference's scans)."""
+    seen: Set[str] = set()
+
+    def scan(nodes):
+        for root in nodes:
+            for n in walk(root):
+                yield n
+                if isinstance(n, CallExpr) and n.func in program.fn_defs \
+                        and n.func not in seen:
+                    seen.add(n.func)
+                    yield from scan([program.fn_defs[n.func].body])
+    for b in bodies:
+        yield from scan(b)
+
+
+def bus_touch(program: PluginProgram,
+              sections: Sequence[str] = ("slider", "block", "sample")
+              ) -> Tuple[bool, bool]:
+    """(touches the message bus, touches gmem) in the sections or the user
+    functions they call, by the reference's sets: how a graph routes a
+    node and whether a section gets the live bus."""
+    msg = gmem = False
+    for n in reach(program, [program.sections.get(s) or []
+                             for s in sections]):
+        if isinstance(n, Mem) and isinstance(n.base, Name) \
+                and n.base.ident == "gmem":
+            gmem = True
+        elif isinstance(n, CallExpr):
+            msg = msg or n.func in COMM_FNS
+            gmem = gmem or n.func in GMEM_FNS
+    return msg, gmem
+
+
+def _gidx(x: float) -> int:
+    """shadow/state.py's `_gmem_index`: max(0, int(x + 1e-5)), 0 where the
+    conversion fails."""
+    try:
+        return max(0, int(x + 1.0e-5))
+    except (ValueError, OverflowError):
+        return 0
+
+
 class _SectionC(_CGen):
     """cgen's expression emitter with the state of a device section: var
     slots `S->V[i]`, the clamped heap `S->M`, `csrc/block_ops.cuh` for what
@@ -230,7 +340,7 @@ class _SectionC(_CGen):
         if ident == "mem":
             return "0.0"
         if ident == "gmem":
-            raise DevgenError(f"gmem in a device section: {_BUS}")
+            raise DevgenError("gmem may only be used as gmem[index]")
         c = dollar_const(ident)
         if c is not None:
             return c_double(c)
@@ -325,7 +435,8 @@ class _SectionC(_CGen):
             return c_double(float(self.P.string_handle(n.text)))
         if isinstance(n, Mem):
             if self._is_gmem(n):
-                raise DevgenError(f"gmem in a device section: {_BUS}")
+                self.dev.gmem_allowed("gmem[]")
+                return f"zb_gmem_get(S, {self.ex(n.index)})"
             a = self.static_addr(n.base, n.index)
             if a is not None:
                 return self.dev.cell(a)
@@ -359,7 +470,16 @@ class _SectionC(_CGen):
             return f"({{ double {r} = ({rhs}); {ref} = {new}; {ref}; }})"
         if isinstance(tgt, Mem):
             if self._is_gmem(tgt):
-                raise DevgenError(f"gmem in a device section: {_BUS}")
+                # the golden's order: the value, the index, then the cell
+                self.dev.gmem_allowed("gmem[]")
+                r, i = self.tmp(), self.tmp()
+                head = f"double {r} = ({rhs}); double {i} = ({self.ex(tgt.index)});"
+                if n.op == "=":
+                    return f"({{ {head} zb_gmem_set(S, {i}, {r}); }})"
+                o = self.tmp()
+                new = self._binop(_COMPOUND_C[n.op], f"zb_gmem_get(S, {i})", r)
+                return (f"({{ {head} double {o} = {new}; "
+                        f"zb_gmem_set(S, {i}, {o}); }})")
             r, a = self.tmp(), self.tmp()
             static = self.static_addr(tgt.base, tgt.index)
             if static is not None:
@@ -458,7 +578,7 @@ class _SectionC(_CGen):
         if fn == "midisend":
             if len(A) not in (3, 4):
                 raise DevgenError("midisend expects 3 or 4 args")
-            dev.uses_midi_out = True
+            assert dev.uses_midi_out, "the layout's scan missed a midisend"
             name = "zb_midisend" if len(A) == 4 else "zb_midisend3"
             return self.args(A, lambda v: f"{name}(S, {', '.join(v)})")
         if fn in ("sliderchange", "slider_automate") and A:
@@ -480,14 +600,193 @@ class _SectionC(_CGen):
             limit = self.ex(A[0]) if A else "1.0"
             pos = dev.slots[("var", RAND_POS_SLOT)]
             return f"zx_rand(S, &{dev.vrow}[{pos}], {limit})"
-        if fn in _COMM_FNS or fn in _GMEM_FNS:
-            raise DevgenError(f"@{dev.section} uses {fn}(): {_BUS}")
+        if fn in _BUS_FNS:
+            return self._bus_call(fn, A)
         if fn in _SERVICE_FNS or fn.startswith("sample_"):
             raise DevgenError(f"@{dev.section} uses {fn}(): {_SERVICES}")
         if fn in _FORBIDDEN:
             raise DevgenError(f"@{dev.section} uses {fn}(): {_NEVER}")
         raise DevgenError(f"@{dev.section} builtin {fn}() not "
                           f"device-executable: {_NEVER}")
+
+    # -- gmem and the message bus --------------------------------------------------
+
+    def _voids(self, A: Sequence[Node], value: str) -> str:
+        """The arguments evaluated in order for their effects, then value."""
+        return "(" + "".join(f"(void)({self.ex(a)}), " for a in A) + value + ")"
+
+    def _bus_call(self, fn: str, A: Sequence[Node]) -> str:
+        """gmem builtins, a lockstep member's live bus, a lone instance's
+        inert bus; what the reference's sets do not take is refused."""
+        dev = self.dev
+        if dev.reduced_heap:
+            raise DevgenError(f"@{dev.section} uses {fn}(): {_BUS_K11}")
+        if fn in GMEM_FNS:
+            return self._gmem_call(fn, A)
+        if fn in MSG_DEVICE_FNS and dev.msg_cfg is not None:
+            return self._msg_call(fn, A)
+        if fn in COMM_FNS and dev.comm_solo:
+            # the golden host of a lone instance: nothing is sent or
+            # received (out-params stay), every call gives 0 but the id
+            value = "0.0"
+            if fn == "instance_id":
+                value = c_double(float(getattr(dev.snap.host,
+                                               "instance_id_value", 0.0)))
+            return self._voids(A, value)
+        raise DevgenError(f"@{dev.section} uses {fn}(): {_BUS}")
+
+    def _static(self, node: Node, fn: str) -> float:
+        v = float(self.P.string_handle(node.text)) if isinstance(node, Str) \
+            else self.fold(node)
+        if v is None:
+            raise DevgenError(f"{fn}: argument must fold static on the device")
+        return v
+
+    def _gmem_call(self, fn: str, A: Sequence[Node]) -> str:
+        """shadow/state.py's gmem builtins on the view's segment: counts,
+        and the heap side of gmem_get/gmem_put, static (as the reference's
+        `_gmem_call` takes them), the segment side clamped as the golden
+        clamps it."""
+        dev = self.dev
+        argc = {"gmem_attach": 1, "gmem_attach_size": 2, "gmem_size": 0,
+                "gmem_get": 3, "gmem_put": 3, "gmem_fill": 3, "gmem_zero": 2,
+                "gmem_copy": 3}[fn]
+        if len(A) != argc:
+            raise DevgenError(f"{fn} expects {argc} args")
+        dev.gmem_allowed(fn)
+        G = dev.gmem_cells
+        if fn in ("gmem_attach", "gmem_attach_size"):
+            if dev.comm_solo:
+                return self._voids(A, "0.0")
+            # a lockstep member stays on the segment the graph attached
+            seg = dev.snap.host.attached_gmem
+            name = self._chan_name(A[0], fn)
+            size = SC.trunc_i64(self._static(A[1], fn)) if len(A) > 1 else 0
+            if seg is None or name != seg.name or size > len(seg.cells):
+                raise DevgenError(f"{fn}: a device section stays on the "
+                                  "segment its graph attached")
+            return self._voids(A, "1.0")
+        if fn == "gmem_size":
+            return c_double(float(G))
+        n = max(0, _gidx(self._static(A[-1], fn)))
+        if fn == "gmem_copy":
+            d, s = (_gidx(self._static(a, fn)) for a in A[:2])
+            n = min(n, G - max(d, s))
+            return self._voids(A, f"zb_gmem_copy(S, {d}, {s}, {n})"
+                               if n > 0 else "0.0")
+        if fn in ("gmem_fill", "gmem_zero"):
+            if fn == "gmem_zero":
+                return self.args([A[0], A[1]], lambda v: (
+                    f"zb_gmem_fill(S, {v[0]}, 0.0, {n})"))
+            return self.args(A, lambda v: f"zb_gmem_fill(S, {v[0]}, {v[1]}, {n})")
+        at_mem = 0 if fn == "gmem_get" else 1
+        m = _gidx(self._static(A[at_mem], fn))
+        if m + min(n, G) > dev.mem_size:
+            raise DevgenError(f"{fn}: static mem address {m + min(n, G)} "
+                              f"beyond device heap ({dev.mem_size})")
+        to_mem = int(fn == "gmem_get")
+        return self.args(A, lambda v: (
+            f"zb_gmem_bulk(S, {m}, {v[1 - at_mem]}, {n}, {to_mem})"))
+
+    def _chan_name(self, node: Node, fn: str) -> str:
+        """A channel (or segment) argument's name, as InstanceComm's
+        `_chan_name` gives it: a string's text, else the numeric repr."""
+        if isinstance(node, Str):
+            return node.text
+        return self.dev.handle_name(self._static(node, fn))
+
+    def _msg_call(self, fn: str, A: Sequence[Node]) -> str:
+        """A lockstep member's live bus (comm/bus.py's semantics): sends
+        into the heap's OUT table, receives from its queues, the topology
+        folded against the frozen registry."""
+        dev = self.dev
+        host = dev.msg_cfg.host
+        argc = {"instance_id": 0, "msg_peer_count": 2, "msg_peer_id": 3,
+                "msg_peer_caps": 1, "msg_peer_alive": 1, "msg_send": 6,
+                "msg_sendto": 7, "msg_recv": 7}.get(fn, 1)
+        if len(A) != argc:
+            raise DevgenError(f"{fn} expects {argc} args")
+        if fn == "instance_id":
+            return c_double(float(host.instance_id_value))
+        if fn in ("msg_peer_caps", "msg_peer_alive"):
+            ids = sorted(host.domain.instances)
+            vals = [float(host.domain.instances[i].caps) if fn ==
+                    "msg_peer_caps" else 1.0 for i in ids]
+            return self._pick(A[0], ids, vals)
+        if fn in ("msg_peer_count", "msg_peer_id"):
+            name = self._chan_name(A[0], fn)
+            try:
+                role = int(self._static(A[1], fn))
+            except (ValueError, OverflowError):
+                if fn == "msg_peer_id":
+                    return self._voids(A, "0.0")
+                role = 3
+            peers = host.domain.peers_for(name, role,
+                                          exclude=host.instance_id_int)
+            if fn == "msg_peer_count":
+                return c_double(float(len(peers)))
+            return self._pick(A[2], list(range(len(peers))),
+                              [float(p) for p in peers])
+        cid = dev.msg_cfg.intern(self._chan_name(A[0 if fn != "msg_sendto"
+                                                    else 1], fn))
+        if fn == "msg_send":
+            return self.args(A[1:], lambda v: (
+                f"zb_msg_send(S, {cid}.0, {', '.join(v)})"))
+        if fn == "msg_sendto":
+            return self.args([A[0]] + list(A[2:]), lambda v: (
+                f"zb_msg_sendto(S, {v[0]}, {cid}.0, {', '.join(v[1:])})"))
+        if fn == "msg_dropped":
+            return c_double(float(host.dropped.get(self._chan_name(A[0], fn),
+                                                   0)))
+        qb = dev.msg_queues.get(cid)
+        if qb is None:
+            raise DevgenError(f"{fn}: channel not in the static receive set "
+                              "of this section")
+        if fn == "msg_avail":
+            return f"S->M[{qb + 1}]"
+        if fn == "msg_kind":       # only scalar messages reach a device queue
+            return f"(S->M[{qb + 1}] > 0.0 ? 1.0 : 0.0)"
+        if fn == "msg_length":
+            return f"(S->M[{qb + 1}] > 0.0 ? 4.0 : 0.0)"
+        if fn == "msg_clear":
+            return f"zb_msg_clear(S, {qb})"
+        return self._msg_recv(A, qb)
+
+    def _pick(self, node: Node, keys: Sequence[int],
+              vals: Sequence[float]) -> str:
+        """vals[keys.index(int(x))] for x = node's value, 0 where int(x)
+        fails or is not a key (a peer id, a peer list's index)."""
+        k = self.tmp()
+        arms = "".join(f"{k} == {key} ? {c_double(v)} : "
+                       for key, v in zip(keys, vals))
+        return (f"({{ const long long {k} = zb_int_or(({self.ex(node)}), "
+                f"-1); ({arms}0.0); }})")
+
+    def _msg_recv(self, A: Sequence[Node], qb: int) -> str:
+        """msg_recv(chan, src, tag, a, b, c, d): the out-params' cells are
+        found first (the golden's order), written only when a message
+        arrives."""
+        decls, outs = [], []
+        for a in A[1:]:
+            o = self.tmp()
+            if isinstance(a, Name) and a.ident not in ("mem", "gmem"):
+                decls.append(f"double* {o} = &({self.lvalue(a.ident)});")
+            elif isinstance(a, Mem) and not self._is_gmem(a):
+                at = self.static_addr(a.base, a.index)
+                if at is None:
+                    b, i = self.tmp(), self.tmp()
+                    decls.append(f"double {b} = ({self.ex(a.base)}); "
+                                 f"double {i} = ({self.ex(a.index)});")
+                    at = f"zb_addr(S, {b}, {i})"
+                decls.append(f"double* {o} = &S->M[{at}];")
+            else:
+                raise DevgenError("msg_recv: out-arg must be a variable or "
+                                  "mem[] slot")
+            outs.append(o)
+        e = self.tmp()
+        stores = " ".join(f"*{o} = {e}[{k}];" for k, o in enumerate(outs))
+        return (f"({{ {' '.join(decls)} const double* {e} = zb_msg_pop(S, "
+                f"{qb}); if ({e}) {{ {stores} }} {e} ? 1.0 : 0.0; }})")
 
     def _size(self, fn: str, node: Node) -> int:
         v = self.fold(node)
@@ -691,6 +990,8 @@ class _BlockLoop:
         for n in walk(node):
             if isinstance(n, Asn):
                 raise _KeepSerial("an assignment inside an expression")
+            if isinstance(n, CallExpr) and n.func in _BUS_FNS:
+                raise _KeepSerial(f"gmem or the message bus: {n.func}()")
             if isinstance(n, CallExpr) and (n.func not in _PURE_CALLS
                                             or n.func in self.dev.P.fn_defs):
                 raise _KeepSerial(f"a call with an effect: {n.func}()")
@@ -850,14 +1151,22 @@ class DeviceSection:
                  dynamic_keys: Set[Any], mem_size: int,
                  body: Optional[Sequence[Node]] = None,
                  reduced_heap: bool = False, rand_pool: int = 0,
-                 force_midi_out: bool = False):
+                 force_midi_out: bool = False,
+                 msg_cfg: Optional[MsgConfig] = None,
+                 layout_bodies: Optional[Sequence[Sequence[Node]]] = None):
         """body: an explicit statement list (the hop body extracted from
         @sample, printed as the section "sample-hop") in place of the
         named section's.  reduced_heap: the sequential executor's heap
         addressing and its high-water slot; rand_pool: the size of the
         staged draw pool rand() reads (0: rand() is refused);
         force_midi_out: lay out the MIDI out table even where this section
-        sends nothing (the sections of one executor share one heap)."""
+        sends nothing (the sections of one executor share one heap);
+        msg_cfg: the live bus of a graph's lockstep member (ignored where
+        the snapshot's host is no live InstanceComm: a lone instance's
+        bus folds inert); layout_bodies: the statement lists whose gmem,
+        MIDI out and receive channels lay out the heap's tail (default
+        this section's; @block and the @slider it retriggers share one
+        heap, so each is given both)."""
         self.P = program
         self.snap = snapshot
         self.section = section
@@ -880,6 +1189,12 @@ class DeviceSection:
             self.vrow, self.ops = "S->V", "zb"
         self.body = list(body) if body is not None \
             else list(program.sections.get(section, []))
+        host = getattr(snapshot, "host", None)
+        self.comm_solo = (not isinstance(host, InstanceComm)
+                          or bool(getattr(host, "comm_solo", False)))
+        self.msg_cfg = msg_cfg if (msg_cfg is not None and not self.comm_solo
+                                   and not self.reduced_heap) else None
+        self._layout(layout_bodies or [self.body], force_midi_out)
 
         # slot table, the reference's order: dynamic vars, every
         # specialized function's params (one slot each; the C functions
@@ -899,7 +1214,6 @@ class DeviceSection:
 
         # what printing the body finds
         self.uses_midi_in = False
-        self.uses_midi_out = bool(force_midi_out)
         self.fft_max = 0          # largest transform: the twiddle table's n
         self.scratch_cells = 0    # FFT workspace a file
         self._perm_sizes: Set[int] = set()
@@ -919,11 +1233,73 @@ class DeviceSection:
         self.phases = self._print_phases()
         self.functions = self._print_functions()
 
-        # the MIDI out table rides the heap tail: [count | CAP rows of 4]
-        self.midi_out_base = self.mem_size
+    def _layout(self, bodies: Sequence[Sequence[Node]],
+                force_midi_out: bool) -> None:
+        """The heap row, the reference's layout (its devgen.py:269-331):
+        [plugin heap | gmem window | MIDI out table | msg OUT table | msg
+        IN region], each part present where a section uses it."""
+        self.uses_gmem = not self.reduced_heap and self._detect(
+            bodies, lambda n: (isinstance(n, Mem) and isinstance(n.base, Name)
+                               and n.base.ident == "gmem")
+            or (isinstance(n, CallExpr) and n.func in GMEM_FNS))
+        self.gmem_base = self.mem_size
+        self.gmem_cells = len(self.snap.gmem) if self.uses_gmem else 0
+        self.uses_midi_out = bool(force_midi_out) or self._detect(
+            bodies, lambda n: isinstance(n, CallExpr) and n.func == "midisend")
+        # the MIDI out table: [count | CAP rows of 4]
+        self.midi_out_base = self.gmem_base + self.gmem_cells
         self.midi_out_cells = (1 + MIDI_OUT_CAP * 4) \
             if self.uses_midi_out else 0
-        self.total_mem = self.mem_size + self.midi_out_cells
+        self.msg_out_base = self.midi_out_base + self.midi_out_cells
+        self.msg_out_cells = (1 + MSG_OUT_CAP * MSG_ENT) \
+            if self.msg_cfg is not None else 0
+        self.msg_in_base = self.msg_out_base + self.msg_out_cells
+        self.msg_queues: Dict[int, int] = {}   # channel id -> queue base
+        off = self.msg_in_base
+        if self.msg_cfg is not None:
+            off += 1                            # the drop cell
+            for name in self._recv_channel_names(bodies):
+                self.msg_queues[self.msg_cfg.intern(name)] = off
+                off += 2 + MSG_QUEUE_CAP * MSG_QENT
+        self.msg_in_cells = off - self.msg_in_base
+        self.total_mem = off
+
+    def _detect(self, bodies, hit) -> bool:
+        """Whether hit(node) holds for a node of the bodies or of a user
+        function they call."""
+        return any(hit(n) for n in reach(self.P, bodies))
+
+    def _recv_channel_names(self, bodies) -> List[str]:
+        """The receive channels the bodies name statically, in source order
+        (the reference's `_msg_recv_channel_names`): each gets a queue."""
+        names: List[str] = []
+        for n in reach(self.P, bodies):
+            if not (isinstance(n, CallExpr) and n.func in _MSG_RECV_SIDE
+                    and n.args):
+                continue
+            a, nm = n.args[0], None
+            if isinstance(a, Str):
+                nm = a.text
+            elif isinstance(a, Name):
+                try:
+                    nm = self.handle_name(self._snap_value(_env_key(a.ident)))
+                except AssertionError:
+                    nm = None
+            elif isinstance(a, Const):
+                nm = self.handle_name(float(a.value))
+            if nm is not None and nm not in names:
+                names.append(nm)
+        return names
+
+    def handle_name(self, handle: float) -> str:
+        """InstanceComm's `_chan_name` of a handle: its interned text, else
+        the numeric repr (numeric channel handles are legal)."""
+        text = self.snap.string_for_handle(float(handle))
+        return text if text is not None else repr(float(handle))
+
+    def gmem_allowed(self, what: str) -> None:
+        if self.reduced_heap:
+            raise DevgenError(f"{what} in @{self.section}: {_BUS_K11}")
 
     def cell(self, a: int) -> str:
         """Static heap cell a (below the heap): K11 keeps the first
@@ -1057,4 +1433,7 @@ class DeviceSection:
         out = np.zeros(self.total_mem, dtype=np.float64)
         n = min(len(self.snap.mem), self.mem_size)
         out[:n] = self.snap.mem[:n]
+        if self.gmem_cells:
+            out[self.gmem_base:self.gmem_base + self.gmem_cells] = \
+                self.snap.gmem[:self.gmem_cells]
         return out

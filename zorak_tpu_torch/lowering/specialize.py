@@ -2361,16 +2361,18 @@ class SpecializedSampleKernel:
             trial_sz = 1 << max(22, int(max(self.P.memtop or 0,
                                             len(self.snap.mem))
                                         - 1).bit_length())
+            msg_cfg = self._make_msg_cfg()
+            layout = self._devblock_layout()
             DeviceSection(self.P, self.snap, "block",
                           section_dynamic_keys(self.P, ("block", "sample")),
-                          trial_sz)
+                          trial_sz, msg_cfg=msg_cfg, layout_bodies=layout)
             if self._retriggers:
                 # @block can retrigger @slider: that section must print
                 # as device code too (K10 runs it when a mask is pending)
                 DeviceSection(self.P, self.snap, "slider",
                               section_dynamic_keys(
                                   self.P, ("block", "slider", "sample")),
-                              trial_sz)
+                              trial_sz, msg_cfg=msg_cfg, layout_bodies=layout)
         except DevgenError as exc:
             raise SpecializeError(f"audio-coupled @block: {exc}") from None
 
@@ -2400,11 +2402,15 @@ class SpecializedSampleKernel:
         secs = ("block", "slider", "sample") if self._retriggers \
             else ("block", "sample")
         self._dev_dyn = section_dynamic_keys(self.P, secs)
+        msg_cfg = self._make_msg_cfg()
+        layout = self._devblock_layout()
         try:
-            self._devblock = DeviceSection(self.P, self.snap, "block",
-                                           self._dev_dyn, size)
+            self._devblock = DeviceSection(
+                self.P, self.snap, "block", self._dev_dyn, size,
+                msg_cfg=msg_cfg, layout_bodies=layout)
             self._devslider = DeviceSection(
-                self.P, self.snap, "slider", self._dev_dyn, size) \
+                self.P, self.snap, "slider", self._dev_dyn, size,
+                msg_cfg=msg_cfg, layout_bodies=layout) \
                 if self._retriggers else None
         except DevgenError as exc:
             raise SpecializeError(f"audio-coupled @block: {exc}") from None
@@ -2432,6 +2438,32 @@ class SpecializedSampleKernel:
             si[k] for k in self.carried_vars
             if k in self._block_writes
             or (k[0] == "mem" and self.block_writes_mem))
+
+    def _devblock_layout(self) -> List[List[Node]]:
+        """The sections that share K10's heap: @block, and the @slider it
+        retriggers."""
+        secs = ("block", "slider") if self._retriggers else ("block",)
+        return [list(self.P.sections.get(sec) or []) for sec in secs]
+
+    def _make_msg_cfg(self):
+        """The live bus of the device @block (the reference's
+        `_make_msg_cfg`, its specialize.py:2732): where the snapshot's
+        host is a live InstanceComm and a DSP section touches the bus.
+        The channel ids are one dict a CommWorld, so every member of a
+        graph prints the same ids."""
+        from ..comm.bus import InstanceComm
+        from .devgen import MsgConfig, bus_touch
+
+        host = getattr(self.snap, "host", None)
+        if not isinstance(host, InstanceComm) \
+                or getattr(host, "comm_solo", False) \
+                or not bus_touch(self.P)[0]:
+            return None
+        world = host.world
+        ids = getattr(world, "msg_chan_ids", None)
+        if ids is None:
+            ids = world.msg_chan_ids = {}
+        return MsgConfig(ids, host)
 
     def _build_hop(self) -> None:
         """Print the extracted hop body (FFT block work fired every N
@@ -5030,44 +5062,10 @@ class SpecializedSampleKernel:
         (y f32 [nf, nch, T], carry, the MIDI out tables [rows, nf, cells]
         or None).  Nothing in the loop waits for the device unless @block
         rewrites a cursor the host mirrors."""
-        import torch
-
-        from ..kernels.block_section import block_section
-
-        prog = self._block_prog
-        (svec, rings), bvars, bmem = carry
-        nf, _nch, T = x.shape
-        B = self.B
-        nfull, rem = T // B, T % B
-        n_rows = nfull + (1 if rem else 0)
-        f64 = torch.float64
-        # the one device-to-host read of a render: the scalars it starts
-        # from, which every file must agree on where the host mirrors them
-        known = _shared_known(svec.tolist(), self.mirrored_slots(),
-                              self.carried_vars)
-        y = torch.empty((nf, self.nch, T), dtype=torch.float32,
-                        device=self.device)
-        ctrl = torch.empty((n_rows, nf, len(self.ctrl_order)), dtype=f64,
-                           device=self.device)
-        mouts = torch.empty((n_rows, nf, prog.midi_out_cells), dtype=f64,
-                            device=self.device) \
-            if prog.midi_out_cells else None
-        draws = self._draws_of(rand)
-        for b in range(n_rows):
-            L = B if b < nfull else rem
-            t0 = b * B
-            midi = None if midi_planes is None else \
-                (midi_planes[0][b], float(midi_planes[1][b]))
-            block_section(prog, svec, [rings[r] for r in prog.regions],
-                          bvars, bmem, float(L), midi, ctrl=ctrl[b],
-                          mout=None if mouts is None else mouts[b])
-            for i in self._block_rewrites:
-                known[i] = None
-            (svec, rings), yseg, known = self._seg_fn(L, nf)(
-                (svec, rings), (x[:, :, t0:t0 + L].to(f64), ctrl[b][:, None],
-                                draws(t0, t0 + L)), known)
-            y[:, :, t0:t0 + L] = yseg
-        return y, ((svec, rings), bvars, bmem), mouts
+        steps = _CoupledSteps(self, carry, x, rand, midi_planes)
+        for b in range(steps.n_rows):
+            steps.step(b)
+        return steps.result()
 
     def _hop_run(self, carry, x, ctrl, rand, phase: int):
         """The fused sample/hop pipeline over a batch of files, a host loop
@@ -5432,8 +5430,10 @@ class SpecializedSampleKernel:
         y_dev, carry = self.render_device(x, carry, midi=midi, ctrl=ctrl)
         return y_dev.cpu().numpy(), carry
 
-    def writeback(self, carry, state) -> None:
-        """Flush final carry into a ShadowState (for state parity checks)."""
+    def writeback(self, carry, state, sync_gmem: bool = True) -> None:
+        """Flush final carry into a ShadowState (for state parity checks).
+        sync_gmem=False leaves gmem alone: a graph's lockstep owns the
+        shared segment, and a member's heap window is not it."""
         if self.n_rand and self._rng_state is not None:
             from ..semantics import mt19937np as MT
 
@@ -5462,7 +5462,7 @@ class SpecializedSampleKernel:
                     ts.mem[:ts.mem_used], dtype=np.float64)
         if self.has_device_view:
             (svec, rings), bvars, bmem = carry
-            self._writeback_device_view(bvars, bmem, state)
+            self._writeback_device_view(bvars, bmem, state, sync_gmem)
         else:
             svec, rings = carry
         svec_np = np.asarray(svec.cpu() if hasattr(svec, "cpu") else svec)
@@ -5486,15 +5486,35 @@ class SpecializedSampleKernel:
             state.mem[origin:origin + mod] = np.asarray(
                 arr.cpu() if hasattr(arr, "cpu") else arr)
 
-    def _writeback_device_view(self, bvars, bmem, state) -> None:
+    def _writeback_device_view(self, bvars, bmem, state,
+                               sync_gmem: bool = True) -> None:
         """The device section's heap and var slots (the coupled @block's or
         the hop section's) -> the state (the sample-carried values,
-        written after, are newer)."""
+        written after, are newer); the heap's gmem window -> the state's
+        gmem where sync_gmem, a changed span bumping the attached
+        segment's page sequence numbers once (the reference's coarse
+        attribution)."""
         from .devgen import MIDI_POS_SLOT, PENDING_SLOT_NAMES, RAND_POS_SLOT
 
         devsec = self._devblock if self.coupled else self._hop
-        bm = np.asarray(bmem.cpu() if hasattr(bmem, "cpu") else bmem)
-        bm = bm[:devsec.mem_size]
+
+        def to_host(a):
+            return np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+        # the heap's head alone crosses to the host (a window of a
+        # million cells need not, where the graph owns the segment)
+        bm = to_host(bmem[:devsec.mem_size])
+        if devsec.uses_gmem and sync_gmem:
+            gm = to_host(bmem[devsec.gmem_base:
+                           devsec.gmem_base + devsec.gmem_cells])
+            old = np.asarray(state.gmem, dtype=np.float64)
+            n = min(len(old), len(gm))
+            changed = np.nonzero(old[:n] != gm[:n])[0]
+            state.gmem[:n] = gm[:n]
+            host = getattr(state, "host", None)
+            seg = getattr(host, "attached_gmem", None)
+            if seg is not None and changed.size:
+                seg.bump(int(changed.min()), int(changed.max()),
+                         getattr(host, "instance_id_int", 0))
         state.mem_ensure(len(bm))
         state.mem[:len(bm)] = bm
         bv = np.asarray(bvars.cpu() if hasattr(bvars, "cpu") else bvars)
@@ -5603,3 +5623,173 @@ class _TrajStepper:
         if not self.rows:
             return np.zeros((0, len(kern.ctrl_order)), dtype=np.float64)
         return np.stack(self.rows)
+
+
+class _CoupledSteps:
+    """The fused block/sample pipeline of one render, a block at a time:
+    one K10 launch (the device @block and its exchanges, with a graph's
+    staging where given) then the segment program of the block's length,
+    the remainder block with samplesblock = its length.  `_coupled_run`
+    steps its blocks in order; a graph's lockstep (`lockstep_gmem_run`)
+    steps its members' blocks in turn.
+
+    x [nf, nch, T] on the device; carry ((svec [nf, n], rings {region:
+    [nf, mod]}), bvars [nf, n_vars], bmem [nf, total_mem]) f64, updated in
+    place; rand [T, n_rand] and the MIDI planes (events [rows, K, 4] on the
+    device, counts [rows] on the host) shared by every file.  Nothing
+    waits for the device unless @block rewrites a cursor the host
+    mirrors."""
+
+    def __init__(self, kern, carry, x, rand, midi_planes=None):
+        import torch
+
+        self.kern, self.x, self.midi_planes = kern, x, midi_planes
+        prog = kern._block_prog
+        (self.svec, self.rings), self.bvars, self.bmem = carry
+        self.nf, _nch, T = x.shape
+        B = kern.B
+        self.nfull, self.rem = T // B, T % B
+        self.n_rows = self.nfull + (1 if self.rem else 0)
+        f64 = torch.float64
+        # the one device-to-host read of a render: the scalars it starts
+        # from, which every file must agree on where the host mirrors them
+        self.known = _shared_known(self.svec.tolist(), kern.mirrored_slots(),
+                                   kern.carried_vars)
+        self.y = torch.empty((self.nf, kern.nch, T), dtype=torch.float32,
+                             device=kern.device)
+        self.ctrl = torch.empty((self.n_rows, self.nf, len(kern.ctrl_order)),
+                                dtype=f64, device=kern.device)
+        self.mouts = torch.empty(
+            (self.n_rows, self.nf, prog.midi_out_cells), dtype=f64,
+            device=kern.device) if prog.midi_out_cells else None
+        self.draws = kern._draws_of(rand)
+
+    def step(self, b: int, stage=None) -> None:
+        """Block b: K10 (with `stage`, a lockstep member's share of the
+        graph), then the block's segment."""
+        import torch
+
+        from ..kernels.block_section import block_section
+
+        kern, prog = self.kern, self.kern._block_prog
+        L = kern.B if b < self.nfull else self.rem
+        t0 = b * kern.B
+        midi = None if self.midi_planes is None else \
+            (self.midi_planes[0][b], float(self.midi_planes[1][b]))
+        block_section(prog, self.svec, [self.rings[r] for r in prog.regions],
+                      self.bvars, self.bmem, float(L), midi,
+                      ctrl=self.ctrl[b],
+                      mout=None if self.mouts is None else self.mouts[b],
+                      stage=stage)
+        for i in kern._block_rewrites:
+            self.known[i] = None
+        (self.svec, self.rings), yseg, self.known = kern._seg_fn(L, self.nf)(
+            (self.svec, self.rings),
+            (self.x[:, :, t0:t0 + L].to(torch.float64), self.ctrl[b][:, None],
+             self.draws(t0, t0 + L)), self.known)
+        self.y[:, :, t0:t0 + L] = yseg
+
+    def result(self):
+        """(y f32 [nf, nch, T], carry, the MIDI out tables [rows, nf,
+        cells] or None)."""
+        return self.y, ((self.svec, self.rings), self.bvars, self.bmem), \
+            self.mouts
+
+
+def lockstep_gmem_run(kernels: Sequence[SpecializedSampleKernel],
+                      seg_ids: Sequence[int], carries, xs, rands, planes, g0,
+                      msg=None, m0=None):
+    """The joint render of a graph's lockstep members (the reference's
+    `lockstep_gmem_run`, its specialize.py:5522).
+
+    The all-shadow graph gives gmem sequential same-block visibility:
+    every member's gmem is the shared segment, so in host processing order
+    member i's @block sees member j < i's writes of the same block and j >
+    i's of the block before.  This renders that schedule with one loop over
+    blocks: in each, every member's K10 launch and segment in node order,
+    on one stream, each K10 reading and writing its shared segment in
+    place.  kernels: coupled kernels in node order, one block size;
+    seg_ids: each member's shared segment (-1: none, its gmem is its own
+    heap window).
+
+    msg: SimpleNamespace(W, nc, my_ids, sub_masks) where a member uses the
+    bus.  The members then share a ring window of W rows [sender, bc, dest,
+    chan_id, tag, a, b, c, d], its count, a cursor a bus member and an
+    overflow counter (`block_section.Stage`): K10's prologue routes a
+    member's matched entries past its cursor into its queues and its
+    epilogue publishes its OUT table; the block's first bus member first
+    drops the entries every member has seen, so W bounds two blocks of
+    traffic and the graph refuses a render that overflowed it.
+
+    carries as `initial_carry()` gives them, xs f32 [nch, T], rands [T,
+    n_rand], planes each member's MIDI planes or None, g0 each shared
+    segment's cells, m0 (rows [n, 9], n, the bus members' cursors) where
+    the bus is on.  Returns (ys, carries, gfin, mos, msg_fin): per-member
+    f32 outputs [nch, T] and final carries, the segments, the MIDI out
+    tables [rows, cells] (None where a member sends none), and (window,
+    ctl) tensors where the bus is on (see `block_section.CTL_*`).
+    Everything stays on the members' device."""
+    import torch
+
+    from ..kernels import _build
+    from ..kernels.block_section import CTL_CURSORS, WINDOW_ENT, Stage
+
+    if not kernels:
+        raise SpecializeError("a lockstep needs a member")
+    B = kernels[0].B
+    if any(k.B != B for k in kernels):
+        raise SpecializeError("gmem lockstep needs one shared block size")
+    if any(not k.coupled for k in kernels):
+        raise SpecializeError("a lockstep member needs a coupled @block")
+    dev = kernels[0].device
+    bus = [j for j, k in enumerate(kernels) if k._block_prog.uses_msg]
+    if bus and msg is None:
+        raise SpecializeError("members use the bus: msg is needed")
+    cursor_of = {j: c for c, j in enumerate(bus)}
+    f64 = torch.float64
+    if dev.type == "cuda":
+        # one nvcc a member's K10, all started together
+        _build.build_generated([k._block_prog.source for k in kernels])
+    # copies: the host's segments stay as they were until the end
+    segs = [torch.from_numpy(np.array(g, dtype=np.float64)).to(dev)
+            for g in g0]
+    window = ctl = None
+    subs = {}
+    if bus:
+        marr0, mn0, mc0 = m0
+        window = torch.zeros((int(msg.W), WINDOW_ENT), dtype=f64, device=dev)
+        window[:len(marr0)] = torch.as_tensor(
+            np.asarray(marr0, dtype=np.float64)).to(dev)
+        ctl = torch.tensor([float(mn0), 0.0, 0.0] + [float(c) for c in mc0],
+                           dtype=f64, device=dev)
+        assert ctl.shape[0] == CTL_CURSORS + len(bus)
+        subs = {j: torch.as_tensor(np.asarray(msg.sub_masks[j],
+                                              dtype=np.float64)).to(dev)
+                for j in bus}
+    steps = []
+    for j, k in enumerate(kernels):
+        (svec, rings), bvars, bmem = k.device_carry(carries[j])
+        steps.append(_CoupledSteps(
+            k, ((svec[None], {r: a[None] for r, a in rings.items()}),
+                bvars[None], bmem[None]),
+            k.put_audio(xs[j])[None], k.put_f64(rands[j]),
+            None if planes[j] is None else
+            (k.put_f64(planes[j][0]), planes[j][1])))
+    for b in range(steps[0].n_rows):
+        for j, k in enumerate(kernels):
+            seg = segs[seg_ids[j]] if seg_ids[j] >= 0 else None
+            stage = None
+            if j in cursor_of:
+                stage = Stage(seg, window, ctl, cursor_of[j], j == bus[0],
+                              subs[j], float(msg.my_ids[j]))
+            elif seg is not None:
+                stage = Stage(gseg=seg)
+            steps[j].step(b, stage)
+    ys, fin, mos = [], [], []
+    for st in steps:
+        y, ((svec, rings), bvars, bmem), mouts = st.result()
+        ys.append(y[0])
+        fin.append(((svec[0], {r: a[0] for r, a in rings.items()}),
+                    bvars[0], bmem[0]))
+        mos.append(None if mouts is None else mouts[:, 0])
+    return ys, fin, segs, mos, (None if ctl is None else (window, ctl))

@@ -8,11 +8,14 @@ the plugin qualifies (engine "torch-vector"), with the Python golden
 shadow as the always-available reference.  A plugin whose @block is
 audio-coupled renders as "torch-vector" too, its @block on the device
 between sample segments (K10), with host MIDI staged into per-block planes
-for its midirecv.  What the vectorizer rejects renders through the
-sequential device executor (engine "torch-devexec": the whole plugin in
-one kernel, K11), as the reference's engine orders them; what that also
-rejects (gmem, the message bus, host services) renders through the golden
-(engine "cpu-shadow").  `RenderResult.engine` and
+for its midirecv; its gmem is the heap's window, and a lone instance's
+bus calls fold inert on the device, as the golden's host answers them.
+What the vectorizer rejects renders through the sequential device
+executor (engine "torch-devexec": the whole plugin in one kernel, K11), as
+the reference's engine orders them; what that also rejects (host
+services; gmem and the bus, which K11 refuses) renders through the golden
+(engine "cpu-shadow").  Instances that share gmem or the bus render
+together in a graph (runtime/graph.py).  `RenderResult.engine` and
 `PluginInstance.spec_error` (both refusals) say which ran and why.
 `device=None` means CUDA and raises without a GPU; only `device="cpu"`
 runs the device engines on the CPU.
