@@ -10,11 +10,12 @@
     python3 chip_smoke.py --phases gated,hop # the gated and hop regimes
     python3 chip_smoke.py --phases devexec   # the sequential executor
     python3 chip_smoke.py --phases graph     # the render graph's lockstep
+    python3 chip_smoke.py --phases services  # the host services (K11, K10)
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result (`--phases` takes any of `jsfx`, `batch`,
-`spectral`, `coupled`, `gated`, `hop`, `devexec`, `graph` and `faust`,
-all nine by default;
+`spectral`, `coupled`, `gated`, `hop`, `devexec`, `graph`, `services`
+and `faust`, all ten by default;
 device and build always run; `k4sweep` is described at the end):
 
 1. device   the card's name and power limit (nvidia-smi);
@@ -95,8 +96,9 @@ device and build always run; `k4sweep` is described at the end):
             render on the card, K2, K3 and K4 launched exactly as often
             as for one file, the K2, K3 and K4 launches of the middle
             segment held bit for bit to their plain versions on the same
-            inputs (linrec_chunked, ring_tap_sum_reference,
-            scan_group_plain), times beside one file's, a profiler pass;
+            inputs (linrec_chunked, ring_tap_sum_reference, and
+            scan_group_plain on the first and last file's first 16,384
+            steps), times beside one file's, a profiler pass;
             the catalog functions (catalog_batch_render,
             catalog_stacked_render) on a temporary catalog of two Faust
             modules and three JSFX plugins, CUDA against CPU, K1 to K4
@@ -141,10 +143,12 @@ device and build always run; `k4sweep` is described at the end):
             PluginInstance.render on 60 s of stereo: engine torch-vector,
             K10 and K3 launched once a block, K2 a fixed number of times a
             block, no block loop run on thread 0 (K10's counter), the time
-            with the spread of two more renders, the whole render (audio,
+            after a 1 s warm-up render (K10's inputs recorded at two blocks
+            inside it) with the spread of two more renders, the whole
+            render (audio,
             vars and heap after the writeback) held to the native golden,
             the golden's own time; on the inputs K10 met at the first and
-            the middle block of 60 s renders of 1 and of 8 files, K10
+            the middle block of renders of 1 file (60 s) and of 8 (20 s), K10
             against the earlier design bit for bit (vars, the heap with
             the FFT buffer, the exchanges, control row, MIDI out) and
             against its plain version (the exchanges and the heap outside
@@ -155,14 +159,14 @@ device and build always run; `k4sweep` is described at the end):
             one thread, thread 0's ordered code alone, fft_real on one
             thread and in block form beside torch.fft.rfft, a dependent
             f64 add and a barrier (the chain bound); the idle share and
-            K10's share of a traced 10 s render; a batch of 8 files x 60 s
+            K10's share of a traced 10 s render; a batch of 8 files x 20 s
             beside one file's time, and each file of an 8-file batch of
-            10 s torch.equal to its solo render;
+            2 s torch.equal to its solo render;
 4d. gated   builtin_plugins' gated_fdn_tank(8, 8192) (eight rings whose
             shared cursor advances only where the input level passes a
             threshold, taps 1,500 to 4,000 cells behind it, one of them
             from the control, a one-pole in the gate's branch, a gated
-            rand() dither) through PluginInstance.render on 60 s of
+            rand() dither) through PluginInstance.render on 10 s of
             stereo: engine torch-vector, the segment length the plan cut
             (1,024) and the segments, K2's launches, the whole render
             (audio, vars and heap) held to the native golden, its first
@@ -242,6 +246,26 @@ device and build always run; `k4sweep` is described at the end):
             lockstep pair beside an uncoupled torch-vector node on another
             bus (its @block on the host in lockstep), held to the native
             golden graph;
+4s. services  the host services: builtin_plugins.pool_sampler(8, 16)
+            over a sample pool its @init builds from file slot 0 (16
+            stereo entries of 10 s made from the seed, four at 44.1 kHz
+            resampled by the pool: 61.4 MB of f32 on the card) through
+            PluginInstance.render on 60 s of stereo: engine
+            torch-devexec, one K11 launch, the pool's tables staged once
+            (and once for 8 files and their solo renders), every entry
+            read; K11 bit for bit to its plain version (the Python golden
+            answering the pool through the EngineHost) at the first and
+            the middle block; the render (audio, vars and heap) held to
+            the native golden, which a child process renders from the
+            start of the script (its pool calls are Python calls:
+            minutes on one core); 8 files x 10 s through render_files,
+            each torch.equal to its solo launch; K11's bytes and chain
+            bounds; then slot_table_leveler(65536), 60 s of
+            stereo on K10 (its @block's load from file slot 0 folded into
+            the text as a copy from the file table): 5,625 launches, the
+            render held to the native golden, K10 bit for bit to its
+            plain version at the reload block and a steady one, each
+            timed;
 5. kernels (faust)  the switching scan (K1) must be bit-identical
             (integer views equal), in f64 and f32: at modest shapes, at
             the batch and main paths' shapes (its one-chunk case too),
@@ -265,7 +289,8 @@ device and build always run; `k4sweep` is described at the end):
             re-run steps;
 7. batch (faust)  all five Faust modules through FaustBatchRenderer on
             8 files of 10 s each, the first second of each file against
-            the CPU render;
+            the CPU render and file 0's first 4,800 samples against the
+            module's NumPy golden (models/faust_golden.py);
 then one `kernels` JSON line (beside `bound_ms`: `chain_ms`, the chain
 bound of T steps in one thread, `chunk_chain_ms`, that of the chunked
 scan's warmup + chunk steps, `earlier_ms`, the one-chunk time, the
@@ -275,8 +300,9 @@ and K4
 carry `launches_batched`, their launches in the batch phase's render of 8
 files, K2 `launches_gated`, its launches in the gated render, and K10 the
 hop section's `hop_ms`, `hop_launches` and the rest, and the graph's
-`launches_graph`, `graph_ms_a_launch` and the rest) and, last, the
-device JSON line.  Each phase prints the seconds
+`launches_graph`, `graph_ms_a_launch` and the rest; K11 and K10 the
+services phase's `services_*` fields: the sampler's and the leveler's
+launches, times, bounds and goldens) and, last, the device JSON line.  Each phase prints the seconds
 it took.
 
     python3 chip_smoke.py --phases k4sweep
@@ -300,6 +326,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -382,6 +409,16 @@ K4_EDGE_VALUES = [
     float("inf"), float("-inf"), float("nan"),
 ]
 K1_PLAIN_T = 288_000   # K1's plain Python loop, f64 and f32: a tenth of MAIN_T
+K4_BATCH_HELD_T = 16_384  # K4's plain loop at the batch's shapes: its steps
+FAUST_GOLDEN_T = 4_800    # the Faust NumPy goldens (a Python loop a sample)
+
+# the host services: builtin_plugins.pool_sampler over 16 stereo entries
+# of 10 s (16 x 480,000 frames x 2 channels x 4 B = 61.4 MB of f32 on the
+# card after the pool's resampling to 48 kHz), and slot_table_leveler's
+# 65,536-value table
+SERVICES_VOICES, SERVICES_SAMPLES, SERVICES_SAMPLE_S = 8, 16, 10.0
+SERVICES_TABLE = 65_536
+SERVICES_FILES, SERVICES_FILES_T = 8, 480_000    # 8 files x 10 s
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -541,6 +578,96 @@ def same_values(a, b):
     zero = torch.zeros_like(a)
     return bool(torch.equal(nan_a, nan_b) and same_bits(
         torch.where(nan_a, zero, a), torch.where(nan_b, zero, b)))
+
+
+K10_STAGED = ("gseg", "window", "ctl", "sub")   # a graph Stage's tensors
+
+
+class K10Inputs(NamedTuple):
+    """K10's inputs at one launch of a render, copied before it ran."""
+    program: Any
+    svec: Any
+    rings: list
+    bvars: Any
+    bmem: Any
+    sb: float
+    stage: Any = None
+
+    def copy(self, device=None):
+        """The tensors copied (to `device` where given)."""
+        def cp(t):
+            if t is None:
+                return None
+            return t.clone() if device is None else t.to(device, copy=True)
+        st = self.stage
+        if st is not None:
+            st = st._replace(**{k: cp(getattr(st, k)) for k in K10_STAGED})
+        return self._replace(svec=cp(self.svec),
+                             rings=[cp(r) for r in self.rings],
+                             bvars=cp(self.bvars), bmem=cp(self.bmem),
+                             stage=st)
+
+    def run(self, fn, program=None):
+        """fn (block_section, its earlier design or its plain version) on
+        these tensors, in place, with `program` (else the recorded one);
+        a comparison, so its launch is not counted: (ctrl, mout)."""
+        from zorak_tpu_torch.kernels import block_section as BS
+
+        saved = BS.LAUNCHES
+        try:
+            return fn(self.program if program is None else program,
+                      self.svec, self.rings,
+                      self.bvars, self.bmem, self.sb, stage=self.stage)
+        finally:
+            BS.LAUNCHES = saved
+
+
+def k10_recording(wanted):
+    """A stand-in for block_section that launches K10 and keeps the
+    K10Inputs of the launches numbered in `wanted` (from 0): (got, spy,
+    real), got filled as the render runs."""
+    from zorak_tpu_torch.kernels import block_section as BS
+
+    got, real, count = {}, BS.block_section, [0]
+
+    def spy(program, svec, rings, bvars, bmem, samplesblock, midi=None,
+            ctrl=None, mout=None, stage=None):
+        if count[0] in wanted:
+            got[count[0]] = K10Inputs(program, svec, rings, bvars, bmem,
+                                      samplesblock, stage).copy()
+        count[0] += 1
+        return real(program, svec, rings, bvars, bmem, samplesblock, midi,
+                    ctrl, mout, stage)
+    return got, spy, real
+
+
+def k10_plain_held(rec, what):
+    """K10 on the card and its plain version on the CPU, each on a copy of
+    one launch's inputs, held bit for bit (the sample side, vars, heap,
+    control row, rings and a Stage's tensors): (max |delta|, the plain
+    version's ms)."""
+    import torch
+    from zorak_tpu_torch.kernels import block_section as BS
+
+    dev, cpu = rec.copy(), rec.copy("cpu")
+    ctrl, _ = dev.run(BS.block_section)
+    t0 = time.perf_counter()
+    ctrl_p, _ = cpu.run(BS.block_section_plain)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    pairs = [("svec", dev.svec, cpu.svec), ("vars", dev.bvars, cpu.bvars),
+             ("heap", dev.bmem, cpu.bmem), ("control row", ctrl, ctrl_p)]
+    pairs += [(f"ring {i}", a, b)
+              for i, (a, b) in enumerate(zip(dev.rings, cpu.rings))]
+    if rec.stage is not None:
+        pairs += [(k, getattr(dev.stage, k), getattr(cpu.stage, k))
+                  for k in K10_STAGED if getattr(rec.stage, k) is not None]
+    err = 0.0
+    for name, a, b in pairs:
+        check(same_values(a.cpu(), b), f"{what}: {name} differs from the "
+              "plain version")
+        err = max(err, float((a.cpu() - b).abs().nan_to_num().max()))
+    return err, plain_ms
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str = "float64"):
@@ -1358,9 +1485,6 @@ def jsfx_phase(torch, cuda, rng, card):
                            "scan_group": SG.LAUNCHES}
         reruns[label] = sum(int(v.item()) for v in SG.RERUN_STEPS.values())
         res = out[0]
-        # the render's host side (copies, the wake scan) shares its CPU
-        # with other tenants: four more renders show the spread
-        more_ms = sorted(cuda_ms(lambda: inst.render(x)) for _ in range(4))
         check(res.engine == "torch-vector", f"{label}: rendered by {res.engine}")
         check(tuple(launches[label].values())
               == tuple(n * segments for n in per_segment),
@@ -1375,9 +1499,8 @@ def jsfx_phase(torch, cuda, rng, card):
               f"audio_s_per_s={sec / (ms / 1e3):.1f} "
               f"launches={launches[label]} segments={segments} "
               f"scan_group_rerun_steps={reruns[label]} "
-              f"warm-up render (kernel builds included) {warm_s:.2f} s; "
-              f"four more renders "
-              f"{' '.join(f'{m:.2f}' for m in more_ms)} ms card='{card}'")
+              f"warm-up render (kernel builds included) {warm_s:.2f} s "
+              f"card='{card}'")
         kern = inst.kernel
         x_dev = torch.from_numpy(x).to(cuda)
         kern.render_device(x_dev)
@@ -1719,8 +1842,15 @@ def held_at_the_batch_shapes(torch, label, src, seg, x, y, per_segment,
                 shapes.append(f"K3 {tuple(got.shape)} "
                               f"taps {list(args[0].counts)}")
             else:
+                # the plain loop (70 to 110 us a step) on the first and
+                # the last file's first K4_BATCH_HELD_T steps: K4 is causal
                 program, xs, c0 = args
-                ref = SG.scan_group_plain(program.steps, program.outs, xs, c0)
+                files = sorted({0, xs.shape[0] - 1})
+                n_t = min(xs.shape[1], K4_BATCH_HELD_T)
+                got = got[files, :n_t]
+                ref = SG.scan_group_plain(program.steps, program.outs,
+                                          xs[files, :n_t].contiguous(),
+                                          c0[files].contiguous())
                 if program.transcendental:
                     check(bool((torch.isnan(got) == torch.isnan(ref)).all())
                           and float((got - ref).nan_to_num().abs().max())
@@ -1729,7 +1859,8 @@ def held_at_the_batch_shapes(torch, label, src, seg, x, y, per_segment,
                 else:
                     check(same_values(got, ref),
                           f"{what} differs from its plain loop")
-                shapes.append(f"K4 xs {tuple(xs.shape)}")
+                shapes.append(f"K4 xs {tuple(xs.shape)} (held on files "
+                              f"{files}, {n_t} steps)")
     return shapes
 
 
@@ -1899,6 +2030,7 @@ def batch_phase(torch, cuda, rng, card):
 
 COUPLED_FFT = 2048      # the stand-in's FFT (spectral_tilt_leveler)
 COUPLED_FILES = 8
+COUPLED_FILES_T = 960_000   # the coupled batch, 8 files x 20 s
 COUPLED_THREADS = (128, 256, 512, 1024)   # K10's thread sweep
 
 
@@ -1956,73 +2088,51 @@ def coupled_phase(torch, cuda, rng, card):
             if "registers" in line or "spill" in line or "stack" in line:
                 print(f"[build] {label}: {line.strip()}")
 
-    # K10's inputs at chosen launches of a render, copied before the launch
-    def recording(wanted):
-        got = {}
-        real = BS.block_section
-        count = [0]
-
-        def spy(program, svec, rings, bvars, bmem, samplesblock, midi=None,
-                ctrl=None, mout=None, stage=None):
-            if count[0] in wanted:
-                got[count[0]] = (svec.clone(), [r.clone() for r in rings],
-                                 bvars.clone(), bmem.clone(), samplesblock)
-            count[0] += 1
-            return real(program, svec, rings, bvars, bmem, samplesblock,
-                        midi, ctrl, mout, stage)
-        return got, spy, real
-
-    def run_on(fn, program, inputs):
-        """fn (block_section or its earlier design) on copies of inputs:
-        (svec, rings, bvars, bmem, ctrl, mout) after it."""
-        svec, rings, bvars, bmem, sb = inputs
-        out = [svec.clone(), [r.clone() for r in rings], bvars.clone(),
-               bmem.clone()]
-        saved = BS.LAUNCHES
-        ctrl, mout = fn(program, out[0], out[1], out[2], out[3], sb)
-        BS.LAUNCHES = saved          # a comparison, not the main path
+    def run_on(fn, program, rec):
+        """fn (block_section or its earlier design) on a copy of rec's
+        inputs: (svec, rings, bvars, bmem, ctrl, mout) after it."""
+        out = rec.copy()
+        ctrl, mout = out.run(fn, program)
         torch.cuda.synchronize()
-        return out + [ctrl, mout]
+        return [out.svec, out.rings, out.bvars, out.bmem, ctrl, mout]
 
-    def held(label, inputs):
+    def held(label, rec):
         """K10 on the card against its earlier design (vars, heap with the
         FFT buffer, the exchanges, control row and MIDI out bit for bit)
         and against its plain version on the same inputs (the exchanges
         and the heap outside the FFT buffer bit for bit, the FFT buffer,
         vars and control row within FFT_TOL_REL); returns (max |delta|
         from the plain version, the plain version's ms)."""
-        svec, rings, bvars, bmem, sb = inputs
-        new = run_on(BS.block_section, k10, inputs)
-        old = run_on(BS.block_section_earlier, probe, inputs)
+        new = run_on(BS.block_section, k10, rec)
+        old = run_on(BS.block_section_earlier, probe, rec)
         names = ("svec", "rings", "vars", "heap", "control row", "MIDI out")
         for name, a, b in zip(names, new, old):
             pairs = zip(a, b) if name == "rings" else [(a, b)]
             check(all((x is None and y is None) or same_values(x, y)
                       for x, y in pairs),
                   f"K10 {label}: {name} differs from the earlier design")
-        cpu = [t.cpu() for t in (svec, bvars, bmem)]
-        cpu_r = [r.cpu() for r in rings]
+        cpu = rec.copy("cpu")
         t_p = time.perf_counter()
-        ctrl_p, _ = BS.block_section_plain(k10, cpu[0], cpu_r, cpu[1],
-                                           cpu[2], sb)
+        ctrl_p, _ = cpu.run(BS.block_section_plain, k10)
         plain_ms = (time.perf_counter() - t_p) * 1e3
-        check(same_values(new[0].cpu(), cpu[0]) and all(
-            same_values(a.cpu(), b) for a, b in zip(new[1], cpu_r)),
+        check(same_values(new[0].cpu(), cpu.svec) and all(
+            same_values(a.cpu(), b) for a, b in zip(new[1], cpu.rings)),
             f"K10 {label}: the sample side differs from the plain version")
-        heap, heap_p = new[3].cpu(), cpu[2]
+        heap, heap_p = new[3].cpu(), cpu.bmem
         off = ~(heap == heap_p)
         off[:, spec] = False
         check(not bool(off.any()), f"K10 {label}: heap cells outside the "
               "FFT buffer differ from the plain version")
         vals = torch.cat([new[2].cpu(), new[4].cpu()], dim=1)
-        vals_p = torch.cat([cpu[1], ctrl_p], dim=1)
+        vals_p = torch.cat([cpu.bvars, ctrl_p], dim=1)
         excess = BS.fft_excess(heap, heap_p, vals, vals_p)
         errs = [float((heap - heap_p).abs().max()),
                 float((vals - vals_p).abs().max())]
         check(excess <= 0.0, f"K10 {label}: heap {errs[0]:.3e}, vars and "
               f"control row {errs[1]:.3e} from the plain version, beyond "
               f"FFT_TOL_REL {BS.FFT_TOL_REL}")
-        print(f"[coupled] K10 {label} (samplesblock {sb:g}): bit-identical "
+        print(f"[coupled] K10 {label} (samplesblock {rec.sb:g}): "
+              f"bit-identical "
               f"to the earlier design (vars, heap and FFT buffer, "
               f"exchanges, control row); against the plain version the exchanges and "
               f"the heap outside the FFT buffer bit-identical, the FFT "
@@ -2035,7 +2145,7 @@ def coupled_phase(torch, cuda, rng, card):
         """(the earlier design's ms, K10's ms) a launch, timed old, new,
         new, old on the same inputs (changed in place: each launch a
         block)."""
-        svec, rings, bvars, bmem, sb = inputs
+        _p, svec, rings, bvars, bmem, sb, _st = inputs
         runs = {"old": [], "new": []}
         for which in ("old", "new", "new", "old"):
             fn, p = (BS.block_section_earlier, probe) if which == "old" \
@@ -2048,24 +2158,24 @@ def coupled_phase(torch, cuda, rng, card):
     x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
     x_dev = torch.from_numpy(x).to(cuda)
     mid = blocks // 2
-    # the warm-up render also records K10's inputs at the first and the
-    # middle block
-    got, spy, real = recording({0, mid})
-    BS.block_section = spy
+    # a 1 s warm-up render (the kernels' first loads), then the main path,
+    # which also records K10's inputs at the first and the middle block
+    # (the two records' clones fall inside its timed window): counts
+    # zeroed just before, read just after
     t0 = time.perf_counter()
-    try:
-        inst.render(x)
-        torch.cuda.synchronize()
-    finally:
-        BS.block_section = real
+    inst.render(x[:, :int(SR)])
+    torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-
-    # the main path: counts zeroed just before, read just after
+    got, spy, real = k10_recording({0, mid})
     BS.zero_serial_runs()
     BS.LAUNCHES = LS.LAUNCHES = RT.LAUNCHES = 0
     out = []
+    BS.block_section = spy
     t0 = time.perf_counter()
-    ms = cuda_ms(lambda: out.append(inst.render(x)))
+    try:
+        ms = cuda_ms(lambda: out.append(inst.render(x)))
+    finally:
+        BS.block_section = real
     wall = time.perf_counter() - t0
     launches = {"block_section": BS.LAUNCHES, "linrec_scan": LS.LAUNCHES,
                 "ring_tap_sum": RT.LAUNCHES}
@@ -2087,8 +2197,8 @@ def coupled_phase(torch, cuda, rng, card):
           f"engine={res.engine} device_ms={ms:.2f} wall_s={wall:.4f} "
           f"audio_s_per_s={sec / (ms / 1e3):.2f} launches={launches} "
           f"blocks={blocks} ({launches['linrec_scan'] // blocks} K2 a block)"
-          f" block loops on thread 0: {serial}; warm-up render (builds "
-          f"included) {warm_s:.2f} s; two more renders "
+          f" block loops on thread 0: {serial}; 1 s warm-up render "
+          f"(builds included) {warm_s:.2f} s; two more renders "
           f"{' '.join(f'{m:.2f}' for m in more_ms)} ms card='{card}'")
 
     # the native golden on the same 60 s, timed alone; the render above
@@ -2111,7 +2221,7 @@ def coupled_phase(torch, cuda, rng, card):
     inputs = got[mid]
     old_ms, new_ms = in_turns(inputs)
     k10_ms = sum(new_ms) / len(new_ms)
-    svec, rings, bvars, bmem, sb = inputs
+    _p, svec, rings, bvars, bmem, sb, _st = inputs
     sweep_ms = {}
     for n, p in sweep.items():
         BS.block_section(p, svec, rings, bvars, bmem, sb)       # loads it
@@ -2196,14 +2306,15 @@ def coupled_phase(torch, cuda, rng, card):
               f"launch, {us / 1e3 / busy_ms:.3f} of the busy time; busy "
               f"{busy_ms / n:.4f} ms a block")
 
-    # 8 files: the batch render of 60 s beside one file's, K10 at the
+    # 8 files: the batch render of 20 s beside one file's, K10 at the
     # batch's first and middle blocks (held, and the two designs in
-    # turns); every file of a 10 s batch equal to its solo render
-    x8 = torch.from_numpy((rng.randn(COUPLED_FILES, 2, MAIN_T) * 0.25)
-                          .astype(np.float32)).to(cuda)
+    # turns); every file of a 2 s batch equal to its solo render
+    x8 = torch.from_numpy((rng.randn(COUPLED_FILES, 2, COUPLED_FILES_T)
+                           * 0.25).astype(np.float32)).to(cuda)
+    mid8 = -(-COUPLED_FILES_T // B) // 2
     br = BatchRenderer(prog, srate=SR)
     br.render_files(x8[:, :, :B])                    # stage and warm up
-    got8, spy, real = recording({0, mid})
+    got8, spy, real = k10_recording({0, mid8})
     BS.block_section = spy
     try:
         batch_ms = cuda_ms(lambda: br.render_files(x8))
@@ -2211,12 +2322,14 @@ def coupled_phase(torch, cuda, rng, card):
         BS.block_section = real
     solo_ms = cuda_ms(lambda: br.kernel.render_device(x8[0]))
     err3, _ = held(f"{COUPLED_FILES} files, block 0", got8[0])
-    err4, plain8_ms = held(f"{COUPLED_FILES} files, block {mid}", got8[mid])
-    old8_ms, new8_ms = in_turns(got8[mid])
+    err4, plain8_ms = held(f"{COUPLED_FILES} files, block {mid8}",
+                           got8[mid8])
+    old8_ms, new8_ms = in_turns(got8[mid8])
     k10_8_ms = sum(new8_ms) / len(new8_ms)
-    y8 = br.render_files(x8[:, :, :n10])
+    n2 = 2 * int(SR)
+    y8 = br.render_files(x8[:, :, :n2])
     for f in range(COUPLED_FILES):
-        solo, _ = br.kernel.render_device(x8[f, :, :n10])
+        solo, _ = br.kernel.render_device(x8[f, :, :n2])
         check(torch.equal(y8[f], solo),
               f"coupled batch: file {f} differs from its solo render")
     serial_all = BS.serial_runs(cuda)
@@ -2226,8 +2339,9 @@ def coupled_phase(torch, cuda, rng, card):
           f"earlier {old8_ms[0] * 1e3:.1f}, K10 {new8_ms[0] * 1e3:.1f}, K10 "
           f"{new8_ms[1] * 1e3:.1f}, earlier {old8_ms[1] * 1e3:.1f} us "
           f"({k10_8_ms / k10_ms:.2f}x one file's); batch of "
-          f"{COUPLED_FILES} x 60 s: {batch_ms:.2f} ms beside one file's "
-          f"{solo_ms:.2f} ms; every file of a 10 s batch torch.equal to its "
+          f"{COUPLED_FILES} x {COUPLED_FILES_T / SR:.0f} s: {batch_ms:.2f} ms "
+          f"beside one file's {solo_ms:.2f} ms; every file of a 2 s batch "
+          f"torch.equal to its "
           f"solo render; block loops on thread 0 in the phase: "
           f"{serial_all} card='{card}'")
     return {
@@ -2256,6 +2370,7 @@ def coupled_phase(torch, cuda, rng, card):
 
 
 GATED_LINES, GATED_BUF = 8, 8192   # builtin_plugins.gated_fdn_tank
+GATED_T = 480_000   # the gated render, 10 s: host-paced, 2 to 3 s of wall a s
 HOP_PART, HOP_PARTS = 1024, 8       # builtin_plugins.hop_convolver
 # guessed loop(n) bounds: @block's count runs 3 to 9, the guess starts at 2
 LADDER_SRC = ("@block\nr = r + 1; r > 9 ? r = 3;\n@sample\nacc = 0;\n"
@@ -2267,18 +2382,20 @@ LADDER_K0 = 2
 GATED_K2_PER_SEGMENT = 2
 
 
-def held_to_native_golden(prog, x, y, state, B=512, midi=None, trace=None):
+def held_to_native_golden(prog, x, y, state, B=512, midi=None, trace=None,
+                          host=None):
     """The native golden's render of x (blocks of B, with the host's MIDI
-    events where given) against audio y and the state after a writeback: a
-    NullReport (audio 1e-5, vars and heap 1e-8) and the golden's seconds,
-    and where `trace` names a var, its value after each block."""
+    events where given, the host services of `host`) against audio y and
+    the state after a writeback: a NullReport (audio 1e-5, vars and heap
+    1e-8) and the golden's seconds, and where `trace` names a var, its
+    value after each block."""
     from zorak_tpu_torch.shadow import compile_native_shadow
     from zorak_tpu_torch.shadow.state import MidiEvent
     from zorak_tpu_torch.verify import apply_slider_state, compare_audio
     from zorak_tpu_torch.verify.nulltest import (compare_memory_pages,
                                                  compare_states)
 
-    gold = compile_native_shadow(prog)
+    gold = compile_native_shadow(prog, host=host)
     gold.state.srate = SR
     apply_slider_state(gold.state, prog, None)
     gold.run_init()
@@ -2330,7 +2447,8 @@ def batch_equals_solo(torch, label, prog, x8):
 
 def gated_phase(torch, cuda, rng, card):
     """The gated regime: builtin_plugins.gated_fdn_tank through
-    PluginInstance.render on 60 s of stereo (the segment length the plan
+    PluginInstance.render on GATED_T (10 s) of stereo (the segment length
+    the plan
     cut, K2's launches, the render held to the native golden and its
     first second to the port's CPU render, a profiler pass with K6's
     share), the masked-loop ladder on 10 s from K = 2, and 8 files through
@@ -2346,11 +2464,11 @@ def gated_phase(torch, cuda, rng, card):
     from zorak_tpu_torch.verify import AUDIO_EPS, SCALAR_EPS, compare_audio
     from torch.autograd import DeviceType
 
-    sec = MAIN_T / SR
+    sec = GATED_T / SR
     n1, n10 = int(SR), 10 * int(SR)
     src = BP.gated_fdn_tank(GATED_LINES, GATED_BUF)
     prog = compile_plugin_source(src)
-    x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+    x = (rng.randn(2, GATED_T) * 0.25).astype(np.float32)
     t0 = time.perf_counter()
     PluginInstance(prog, srate=SR).render(x[:, :n1])     # warm-up, 1 s
     torch.cuda.synchronize()
@@ -2363,8 +2481,8 @@ def gated_phase(torch, cuda, rng, card):
           and len(kern.sym.gring_writes) == GATED_LINES
           and kern.plans[("var", "w")].kind == "gmodind",
           f"gated: engine {inst.engine} ({inst.spec_error})")
-    L = kern.segment_length(MAIN_T)
-    segments = -(-MAIN_T // L)
+    L = kern.segment_length(GATED_T)
+    segments = -(-GATED_T // L)
     check(L == 1024, f"gated: the plan's segment length is {L}")
     LS.LAUNCHES = RT.LAUNCHES = SG.LAUNCHES = 0
     out = []
@@ -2380,9 +2498,10 @@ def gated_phase(torch, cuda, rng, card):
                        "ring_tap_sum": 0, "scan_group": 0},
           f"gated: launches {launches} for {segments} segments, "
           f"{GATED_K2_PER_SEGMENT} K2 a segment expected")
-    check(y.shape == (2, MAIN_T) and bool(np.isfinite(y).all()),
+    check(y.shape == (2, GATED_T) and bool(np.isfinite(y).all()),
           "gated: output not finite or of the wrong shape")
-    print(f"[gated] gated_fdn_tank({GATED_LINES}, {GATED_BUF}) 60 s stereo: "
+    print(f"[gated] gated_fdn_tank({GATED_LINES}, {GATED_BUF}) "
+          f"{GATED_T / SR:.0f} s stereo: "
           f"engine={res.engine} segment length {L} (taps 1,500 to 4,000 "
           f"cells behind the cursor in rings of {GATED_BUF}), {segments} "
           f"segments; device_ms={ms:.2f} wall_s={wall:.4f} "
@@ -2390,10 +2509,11 @@ def gated_phase(torch, cuda, rng, card):
           f"({launches['linrec_scan'] / segments:.2f} K2 a segment); 1 s "
           f"warm-up render {warm_s:.2f} s card='{card}'")
     rep, gold_s = held_to_native_golden(prog, x, y, inst.shadow.state)
-    print(f"[gated] whole 60 s, PluginInstance.render on the card vs the "
+    print(f"[gated] whole {GATED_T / SR:.0f} s, PluginInstance.render on "
+          f"the card vs the "
           f"native golden (audio {AUDIO_EPS}, vars and heap {SCALAR_EPS}): "
           f"{rep.summary()}; the golden alone {gold_s:.2f} s")
-    check(rep.passed, "gated: the 60 s render disagrees with the native "
+    check(rep.passed, "gated: the render disagrees with the native "
           "golden")
     y_cpu = PluginInstance(prog, srate=SR, device="cpu").render(
         x[:, :n1]).audio
@@ -2548,16 +2668,7 @@ def hop_phase(torch, cuda, rng, card):
     x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
 
     # K10's inputs at the first and the middle hop, copied before the launch
-    wanted, got = {0, hops // 2}, {}
-    real = BS.block_section
-    count = [0]
-
-    def spy(program, svec, rings, bvars, bmem, sb, *a, **k):
-        if count[0] in wanted:
-            got[count[0]] = (svec.clone(), [r.clone() for r in rings],
-                             bvars.clone(), bmem.clone(), sb)
-        count[0] += 1
-        return real(program, svec, rings, bvars, bmem, sb, *a, **k)
+    got, spy, real = k10_recording({0, hops // 2})
 
     t0 = time.perf_counter()
     PluginInstance(prog, srate=SR).render(x[:, :n1])     # warm-up, 1 s
@@ -2603,33 +2714,28 @@ def hop_phase(torch, cuda, rng, card):
     # transforms' output), then timed at the middle hop
     errs, plain_ms = [], None
     for i in sorted(got):
-        svec, rings, bvars, bmem, sb = got[i]
-        new = [svec.clone(), [r.clone() for r in rings], bvars.clone(),
-               bmem.clone()]
-        saved = BS.LAUNCHES
-        BS.block_section(hop, *new, sb)
-        BS.LAUNCHES = saved          # a comparison, not the main path
-        cpu = [svec.cpu(), [r.cpu() for r in rings], bvars.cpu(), bmem.cpu()]
+        new, cpu = got[i].copy(), got[i].copy("cpu")
+        new.run(BS.block_section, hop)
         t_p = time.perf_counter()
-        BS.block_section_plain(hop, *cpu, sb)
+        cpu.run(BS.block_section_plain, hop)
         plain_ms = (time.perf_counter() - t_p) * 1e3
-        check(same_values(new[0].cpu(), cpu[0])
-              and same_values(new[2].cpu(), cpu[2]),
+        check(same_values(new.svec.cpu(), cpu.svec)
+              and same_values(new.bvars.cpu(), cpu.bvars),
               f"K10 hop {i}: scalars or vars differ from the plain version")
-        ring, ring_p = torch.cat(new[1], 1).cpu(), torch.cat(cpu[1], 1)
-        heap = new[3].cpu()
-        excess = max(BS.fft_excess(heap, cpu[3], new[2].cpu(), cpu[2]),
-                     BS.fft_excess(ring, ring_p, new[2].cpu(), cpu[2]))
-        err = max(float((heap - cpu[3]).abs().max()),
+        ring, ring_p = torch.cat(new.rings, 1).cpu(), torch.cat(cpu.rings, 1)
+        heap, bvars_k = new.bmem.cpu(), new.bvars.cpu()
+        excess = max(BS.fft_excess(heap, cpu.bmem, bvars_k, cpu.bvars),
+                     BS.fft_excess(ring, ring_p, bvars_k, cpu.bvars))
+        err = max(float((heap - cpu.bmem).abs().max()),
                   float((ring - ring_p).abs().max()))
         errs.append(err)
         check(excess <= 0.0, f"K10 hop {i}: {err:.3e} from the plain "
               f"version, beyond FFT_TOL_REL {BS.FFT_TOL_REL}")
         print(f"[hop] K10 at hop {i}: scalars and vars bit-identical to the "
               f"plain version, heap and rings within {err:.3e} (of max "
-              f"{float(cpu[3].abs().max()):.3e}); plain version "
+              f"{float(cpu.bmem.abs().max()):.3e}); plain version "
               f"{plain_ms:.1f} ms")
-    svec, rings, bvars, bmem, sb = got[hops // 2]
+    _p, svec, rings, bvars, bmem, sb, _st = got[hops // 2]
     reps = 20
     hop_ms = cuda_ms(lambda: BS.block_section(hop, svec, rings, bvars, bmem,
                                               sb), reps=reps)
@@ -3276,22 +3382,7 @@ def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
     mid = blocks // 2
     wanted = {b * GRAPH_NODES + j for b in (0, mid)
               for j in range(GRAPH_NODES)}
-    got = {}
-    real = BS.block_section
-    count = [0]
-
-    def spy(program, svec, rings, bvars, bmem, samplesblock, midi=None,
-            ctrl=None, mout=None, stage=None):
-        if count[0] in wanted:
-            st = stage._replace(**{k: getattr(stage, k).clone() for k in
-                                   ("gseg", "window", "ctl", "sub")})
-            got[count[0]] = (program, svec.clone(),
-                             [r.clone() for r in rings], bvars.clone(),
-                             bmem.clone(), samplesblock, st)
-        count[0] += 1
-        return real(program, svec, rings, bvars, bmem, samplesblock, midi,
-                    ctrl, mout, stage)
-
+    got, spy, real = k10_recording(wanted)
     BS.block_section = spy
     BS.LAUNCHES = LS.LAUNCHES = RT.LAUNCHES = 0
     try:
@@ -3340,35 +3431,11 @@ def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
     plain_ms = []
     err = 0.0
     for key in sorted(got):
-        program, svec, rings, bvars, bmem, sb, st = got[key]
-        dev_in = [svec.clone(), [r.clone() for r in rings], bvars.clone(),
-                  bmem.clone()]
-        st_dev = st._replace(**{k: getattr(st, k).clone() for k in
-                                ("gseg", "window", "ctl", "sub")})
-        saved = BS.LAUNCHES
-        ctrl, _ = BS.block_section(program, *dev_in, sb, stage=st_dev)
-        BS.LAUNCHES = saved                # a comparison, not the path
-        cpu_in = [svec.to("cpu", copy=True),
-                  [r.to("cpu", copy=True) for r in rings],
-                  bvars.to("cpu", copy=True), bmem.to("cpu", copy=True)]
-        st_cpu = st._replace(**{k: getattr(st, k).to("cpu", copy=True)
-                                for k in ("gseg", "window", "ctl", "sub")})
-        t0 = time.perf_counter()
-        ctrl_p, _ = BS.block_section_plain(program, *cpu_in, sb,
-                                           stage=st_cpu)
-        plain_ms.append((time.perf_counter() - t0) * 1e3)
-        pairs = [("svec", dev_in[0], cpu_in[0]), ("vars", dev_in[2], cpu_in[2]),
-                 ("heap", dev_in[3], cpu_in[3]), ("control row", ctrl, ctrl_p),
-                 ("segment", st_dev.gseg, st_cpu.gseg),
-                 ("ring window", st_dev.window, st_cpu.window),
-                 ("window count and cursors", st_dev.ctl, st_cpu.ctl)]
-        pairs += [(f"ring {i}", a, b)
-                  for i, (a, b) in enumerate(zip(dev_in[1], cpu_in[1]))]
-        for name, a, b in pairs:
-            check(same_values(a.cpu(), b), f"graph: K10 member "
-                  f"{key % GRAPH_NODES} block {key // GRAPH_NODES}: {name} "
-                  "differs from the plain version")
-            err = max(err, float((a.cpu() - b).abs().nan_to_num().max()))
+        e, p_ms = k10_plain_held(got[key], f"graph: K10 member "
+                                 f"{key % GRAPH_NODES} block "
+                                 f"{key // GRAPH_NODES}")
+        err = max(err, e)
+        plain_ms.append(p_ms)
     print(f"[graph] K10 with the staging at the first and middle block of "
           f"each of the {GRAPH_NODES} members: bit-identical to the plain "
           f"version (vars, heap with queues, OUT table and gmem window, "
@@ -3376,12 +3443,11 @@ def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
           f"plain version {min(plain_ms):.1f} to {max(plain_ms):.1f} ms")
 
     # K10 a launch at member 0's middle block, and its bound
-    program, svec, rings, bvars, bmem, sb, st = got[mid * GRAPH_NODES]
+    st = got[mid * GRAPH_NODES].stage
+    work = got[mid * GRAPH_NODES].copy()
+    program, sb, st_t = work.program, work.sb, work.stage
+    args = [work.svec, work.rings, work.bvars, work.bmem]
     reps = 50
-    st_t = st._replace(**{k: getattr(st, k).clone() for k in
-                          ("gseg", "window", "ctl", "sub")})
-    args = [svec.clone(), [r.clone() for r in rings], bvars.clone(),
-            bmem.clone()]
     BS.block_section(program, *args, sb, stage=st_t)        # loads it
     # the device's time a launch (20 launches replayed from a CUDA graph),
     # and the host-paced rate of eager launches
@@ -3949,6 +4015,7 @@ def faust_phases(torch, cuda, rng, card):
     from zorak_tpu_torch.kernels import switching_scan as SS
     from zorak_tpu_torch.models import FAUST_MODULES, dspkit as K
     from zorak_tpu_torch.models import get_faust_module
+    from zorak_tpu_torch.models.faust_golden import GOLDENS
     from zorak_tpu_torch.parallel import FaustBatchRenderer
     from zorak_tpu_torch.verify import AUDIO_EPS, compare_audio
 
@@ -4243,6 +4310,15 @@ def faust_phases(torch, cuda, rng, card):
         print(f"[batch] {slug} first 1 s, CUDA vs CPU render: {rep.summary()}")
         check(rep.audio_passed,
               f"{slug} batch render disagrees with CPU at {AUDIO_EPS}")
+        # and the module's NumPy golden (models/faust_golden.py) on the
+        # first FAUST_GOLDEN_T samples of file 0
+        x0 = xb[0, :, :FAUST_GOLDEN_T].cpu().double().numpy()
+        rep = compare_audio(GOLDENS[slug](x0, r.values, SR),
+                            yb[0, :, :FAUST_GOLDEN_T].cpu().numpy())
+        print(f"[batch] {slug} file 0, first {FAUST_GOLDEN_T} samples, "
+              f"CUDA vs the NumPy golden: {rep.summary()}")
+        check(rep.audio_passed,
+              f"{slug} batch render disagrees with its golden at {AUDIO_EPS}")
 
     return {
         "name": "switching_scan",
@@ -4269,21 +4345,388 @@ def faust_phases(torch, cuda, rng, card):
     }
 
 
+def sampler_host(seed: int = SEED):
+    """An EngineHost whose file slot 0 holds the sampler's entries, made
+    from the seed (builtin_plugins.sampler_slot)."""
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.runtime.services import EngineHost
+
+    host = EngineHost()
+    for audio, rate in BP.sampler_slot(SERVICES_SAMPLES, SERVICES_SAMPLE_S,
+                                       seed=seed):
+        host.files.load_slot(0, audio, srate=rate)
+    return host
+
+
+def table_host(seed: int = SEED):
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.runtime.services import EngineHost
+
+    host = EngineHost()
+    host.files.load_slot(0, BP.table_slot(SERVICES_TABLE, seed=seed),
+                         srate=SR)
+    return host
+
+
+def sampler_input():
+    """The sampler's 60 s of stereo input, from the seed."""
+    rng = np.random.RandomState(SEED + 15)
+    return (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+
+
+def sampler_golden_child(out: str) -> int:
+    """The sampler's 60 s native golden (its pool read through the
+    EngineHost, a Python call a read: minutes on one core), in a process
+    of its own beside the other phases: audio, vars and heap to `out`."""
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import _build
+    from zorak_tpu_torch.shadow import compile_native_shadow
+    from zorak_tpu_torch.verify import apply_slider_state
+
+    os.environ.setdefault("ZORAK_TPU_CACHE", str(_build.BUILD_DIR))
+    prog = compile_plugin_source(BP.pool_sampler(SERVICES_VOICES,
+                                                 SERVICES_SAMPLES))
+    x = sampler_input()
+    gold = compile_native_shadow(prog, host=sampler_host())
+    gold.state.srate = SR
+    apply_slider_state(gold.state, prog, None)
+    gold.run_init()
+    gold.run_slider()
+    y = np.zeros_like(x)
+    t0 = time.perf_counter()
+    for start in range(0, MAIN_T, 512):
+        gold.process_block(x[:, start:start + 512], y[:, start:start + 512])
+    secs = time.perf_counter() - t0
+    names = sorted(gold.state.V)
+    np.savez(out, y=y, mem=np.asarray(gold.state.mem[:gold.state.mem_used]),
+             names=np.asarray(names),
+             values=np.asarray([gold.state.V[k] for k in names]),
+             spl=np.asarray(gold.state.spl), secs=secs, ended=time.time())
+    return 0
+
+
+def start_sampler_golden():
+    """The sampler's golden in a child process: (process, output path,
+    its start on the wall clock)."""
+    from zorak_tpu_torch.kernels import _build
+
+    out = Path(_build.BUILD_DIR) / f"sampler_golden_{os.getpid()}.npz"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    # at a lower priority: the host-paced phases keep their cores
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--sampler-golden", str(out)],
+                            cwd=str(Path(__file__).resolve().parent),
+                            preexec_fn=lambda: os.nice(10))
+    return proc, out, time.time()
+
+
+def sampler_golden_held(prog, y, state, golden, t_start):
+    """The 60 s render against the child's golden: audio 1e-5, vars and
+    heap 1e-8 (`compare_states`, `compare_memory_pages`); (report, the
+    golden's host seconds).  Prints the child's span in the script's
+    seconds (from `t_start`, a perf_counter), beside which the phases'
+    ends say which of them it overlapped."""
+    from zorak_tpu_torch.verify import compare_audio
+    from zorak_tpu_torch.verify.nulltest import (compare_memory_pages,
+                                                 compare_states,
+                                                 make_initialized_shadow)
+
+    proc, path, started = golden
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=1500)
+    print(f"[services] waited {time.perf_counter() - t0:.1f} s for the "
+          f"sampler's golden (rc {rc})")
+    check(rc == 0, "services: the sampler's golden process failed")
+    with np.load(path) as g:
+        y_gold, mem, names, values = g["y"], g["mem"], g["names"], g["values"]
+        spl, secs, ended = g["spl"], float(g["secs"]), float(g["ended"])
+    now = time.perf_counter() - t_start
+    print(f"[services] the sampler's golden child ran from "
+          f"{now - (time.time() - started):.1f} s to "
+          f"{now - (time.time() - ended):.1f} s of the script")
+    path.unlink()
+    gold = make_initialized_shadow(prog, SR).state
+    gold.V = {str(k): float(v) for k, v in zip(names, values)}
+    gold.mem = mem.copy()
+    gold.mem_used = len(mem)
+    gold.spl = [float(v) for v in spl]
+    rep = compare_audio(y_gold, y)
+    compare_states(gold, state, report=rep)
+    compare_memory_pages(gold, state, report=rep)
+    return rep, secs
+
+
+def services_phase(torch, cuda, rng, card, golden, t_start):
+    """The host services on the card: builtin_plugins.pool_sampler(8, 16)
+    over 61.4 MB of pool data through PluginInstance.render on K11 and
+    slot_table_leveler(65536) on K10, each 60 s of stereo, held to the
+    native golden; K11 and K10 bit for bit to their plain versions; 8
+    files against their solo renders with one staging of the tables.
+    Returns (K11's fields, K10's fields)."""
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import _build
+    from zorak_tpu_torch.kernels import block_section as BS
+    from zorak_tpu_torch.kernels import device_exec as DX
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+    from zorak_tpu_torch.verify import AUDIO_EPS, SCALAR_EPS
+
+    sec = MAIN_T / SR
+    # 1. the instances (the pool's generation built by @init on the host),
+    # then K11 and K10 built together
+    t0 = time.perf_counter()
+    sprog = compile_plugin_source(BP.pool_sampler(SERVICES_VOICES,
+                                                  SERVICES_SAMPLES))
+    sampler = PluginInstance(sprog, srate=SR, host=sampler_host(),
+                             smart_idle="always_awake")
+    skern = sampler.kernel
+    check(sampler.engine == "torch-devexec" and skern.device.type == "cuda",
+          f"services: the sampler's engine {sampler.engine} "
+          f"({sampler.spec_error})")
+    gen = sampler.shadow.state.host.pool.generation
+    pool_bytes = sum(e.data.nbytes for e in gen.entries.values())
+    frames = sorted({e.data.shape[0] for e in gen.entries.values()})
+    lprog = compile_plugin_source(BP.slot_table_leveler(SERVICES_TABLE))
+    leveler = PluginInstance(lprog, srate=SR, host=table_host(),
+                             smart_idle="always_awake")
+    lkern = leveler.kernel
+    check(leveler.engine == "torch-vector" and lkern.coupled
+          and lkern._block_prog.tabled,
+          f"services: the leveler's engine {leveler.engine} "
+          f"({leveler.spec_error})")
+    k10 = lkern._block_prog
+    print(f"[services] instances in {time.perf_counter() - t0:.2f} s: the "
+          f"sampler's pool {len(gen.entries)} entries of {frames} frames, "
+          f"{pool_bytes / 1e6:.1f} MB of f32; the leveler's file table "
+          f"{k10.tables.file_cells} cells")
+    t0 = time.perf_counter()
+    logs = _build.build_generated([skern.program.source, k10.source])
+    print(f"[services] K11 and K10 built in "
+          f"{time.perf_counter() - t0:.2f} s of nvcc, all together")
+    for line in logs[skern.program.source].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[services] K11 build: {line.strip()}")
+
+    # 2. the sampler's 60 s render, the main path: counts zeroed before
+    x = sampler_input()
+    real, launch_ev = DX.device_exec, []
+
+    def timed(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = real(*a, **k)
+        ev[1].record()
+        launch_ev.append(ev)
+        return got
+
+    DX.LAUNCHES = 0
+    out = []
+    DX.device_exec = timed
+    t0 = time.perf_counter()
+    try:
+        ms = cuda_ms(lambda: out.append(sampler.render(x)))
+    finally:
+        DX.device_exec = real
+    wall = time.perf_counter() - t0
+    launches = DX.LAUNCHES
+    k_ms = launch_ev[-1][0].elapsed_time(launch_ev[-1][1])
+    res = out[0]
+    y = res.audio
+    check(res.engine == "torch-devexec" and launches == 1
+          and not skern.heap_climbs,
+          f"services: sampler {res.engine}, {launches} K11 launches, climbs "
+          f"{skern.heap_climbs}")
+    check(y.shape == (2, MAIN_T) and bool(np.isfinite(y).all()),
+          "services: the sampler's output not finite or of the wrong shape")
+    check(skern.tables.stagings == 1, f"services: the tables staged "
+          f"{skern.tables.stagings} times")
+    trig = sampler.shadow.state.V["trig"]
+    check(trig >= SERVICES_VOICES + SERVICES_SAMPLES,
+          f"services: {trig} triggers, not every entry read")
+    print(f"[services] pool_sampler({SERVICES_VOICES}, {SERVICES_SAMPLES}) "
+          f"60 s stereo: engine={res.engine} device_ms={ms:.2f} "
+          f"wall_s={wall:.4f} K11 {k_ms:.2f} ms (1 launch) "
+          f"audio_s_per_s={sec / (k_ms / 1e3):.3f}; {int(trig)} voice "
+          f"triggers; tables staged {skern.tables.stagings} time(s) "
+          f"card='{card}'")
+
+    # 3. K11 bit for bit to its plain version at the first and the middle
+    # block (the plain version answers the pool through the EngineHost)
+    mid = (MAIN_T // 512 // 2) * 512
+    bv0, bm0 = skern.initial_carry()
+    _y_half, (bv_mid, bm_mid) = skern.render_device(x[:, :mid])
+    errs, plain_ms = [], None
+    for label, (bv, bm), at in (("first", (bv0, bm0), 0),
+                                ("middle", (bv_mid, bm_mid), mid)):
+        xb = torch.from_numpy(x[None, :, at:at + 512].copy())
+        bv, bm = bv[None].contiguous().clone(), bm[None].contiguous().clone()
+        bv_c, bm_c = bv.cpu(), bm.cpu()
+        saved = DX.LAUNCHES
+        y_k, _mo = DX.device_exec(skern.program, xb.to(cuda), bv, bm)
+        DX.LAUNCHES = saved           # a comparison, not the main path
+        t_p = time.perf_counter()
+        y_p, _mo = DX.device_exec(skern.program, xb, bv_c, bm_c)
+        if plain_ms is None:
+            plain_ms = (time.perf_counter() - t_p) * 1e3
+        ok = (same_values(y_k.cpu(), y_p) and same_values(bv.cpu(), bv_c)
+              and same_values(bm.cpu(), bm_c))
+        err = max(float((y_k.cpu() - y_p).abs().max()),
+                  float((bv.cpu() - bv_c).abs().nan_to_num().max()),
+                  float((bm.cpu() - bm_c).abs().nan_to_num().max()))
+        errs.append(err)
+        print(f"[services] K11 vs its plain version at the {label} block "
+              f"(sample {at}): {'bit-identical' if ok else 'DIFFERS'} "
+              f"(audio, vars, heap; max {err:.3e})")
+        check(ok, f"services: K11 at the {label} block differs from its "
+              "plain version")
+
+    # 4. 8 files x 10 s against their solo renders, the tables staged once
+    gen8 = torch.Generator(device=cuda)
+    gen8.manual_seed(SEED)
+    xf = torch.randn((SERVICES_FILES, 2, SERVICES_FILES_T), generator=gen8,
+                     device=cuda) * 0.25
+    got8 = []
+    f_ms = cuda_ms(lambda: got8.append(skern.render_files(xf)))
+    y8 = got8[0][0]
+    rate8 = SERVICES_FILES * SERVICES_FILES_T / SR / (f_ms / 1e3)
+    # each file alone: K11 on that one file from the fresh carry, the 8
+    # solo launches on streams of their own (a file is a warp: they run
+    # side by side); comparisons, not the main path
+    bv1, bm1 = skern.initial_carry()
+    saved, solos = DX.LAUNCHES, []
+    for f in range(SERVICES_FILES):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            solos.append(DX.device_exec(skern.program, xf[f:f + 1],
+                                        bv1[None].clone(),
+                                        bm1[None].clone())[0])
+    torch.cuda.synchronize()
+    DX.LAUNCHES = saved
+    for f in range(SERVICES_FILES):
+        check(torch.equal(y8[f], solos[f][0]),
+              f"services: file {f} differs from its solo render")
+    check(skern.tables.stagings == 1, f"services: the tables staged "
+          f"{skern.tables.stagings} times for 8 files and their solos")
+    print(f"[services] {SERVICES_FILES} files x 10 s through render_files: "
+          f"every file torch.equal to its solo render; {f_ms:.1f} ms, "
+          f"{rate8:.3f} audio-s per s; tables staged once card='{card}'")
+
+    # 5. K11's bounds: the pool's bytes once and the audio, and the
+    # voices' chain at a dependent add's latency (the latency probe)
+    links = devexec_links(torch, cuda, DX, skern.program, card)
+    ops = DX.sample_chain_ops(skern.program, {"NV": SERVICES_VOICES})
+    chain_ms = MAIN_T * ops * links["add"] / 1e6
+    nbytes = pool_bytes + 2 * (2 * MAIN_T * 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms = max(chain_ms, bytes_ms)
+    by = "operations" if chain_ms >= bytes_ms else "bytes"
+    print(f"[services] K11 bounds: bytes {bytes_ms:.4f} ms ({nbytes} bytes: "
+          f"the pool once, the audio in and out), chain {chain_ms:.2f} ms "
+          f"({ops:.1f} dependent f64 operations a sample, a pool read "
+          f"counted as one, x {links['add']:.3f} ns) card='{card}'")
+
+    # 6. the golden, from its process
+    rep, gold_s = sampler_golden_held(sprog, y, sampler.shadow.state, golden,
+                                      t_start)
+    print(f"[services] the sampler's 60 s render vs the native golden (audio "
+          f"{AUDIO_EPS}, vars and heap {SCALAR_EPS}): {rep.summary()}; the "
+          f"golden alone {gold_s:.2f} s on one host core "
+          f"({sec / gold_s:.3f} audio-s per s)")
+    check(rep.passed, "services: the sampler's render disagrees with the "
+          "native golden")
+
+    # 7. the leveler's 60 s render on K10, K10's inputs recorded at the
+    # reload block (the first) and a steady one
+    xl = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+    blocks = -(-MAIN_T // 512)
+    steady = min(1000, blocks // 2)
+    got, spy, real_k10 = k10_recording({0, steady})
+    BS.LAUNCHES = 0
+    out = []
+    BS.block_section = spy
+    t0 = time.perf_counter()
+    try:
+        l_ms = cuda_ms(lambda: out.append(leveler.render(xl)))
+    finally:
+        BS.block_section = real_k10
+    l_wall = time.perf_counter() - t0
+    l_launches = BS.LAUNCHES
+    lres = out[0]
+    check(lres.engine == "torch-vector" and l_launches == blocks,
+          f"services: leveler {lres.engine}, {l_launches} K10 launches of "
+          f"{blocks} blocks")
+    check(k10.tables.stagings == 1, f"services: the leveler's tables staged "
+          f"{k10.tables.stagings} times")
+    lrep, l_gold_s = held_to_native_golden(lprog, xl, lres.audio,
+                                           leveler.shadow.state,
+                                           host=table_host())
+    print(f"[services] slot_table_leveler({SERVICES_TABLE}) 60 s stereo: "
+          f"engine={lres.engine} device_ms={l_ms:.2f} wall_s={l_wall:.4f} "
+          f"K10 launches {l_launches}; vs the native golden: "
+          f"{lrep.summary()}; the golden {l_gold_s:.2f} s card='{card}'")
+    check(lrep.passed, "services: the leveler's render disagrees with the "
+          "native golden")
+    k10_ms, k10_errs = {}, []
+    for at, label in ((0, "reload"), (steady, "steady")):
+        err, k10_plain_ms = k10_plain_held(
+            got[at], f"services: K10 at the {label} block")
+        k10_errs.append(err)
+        if label == "reload":
+            reload_plain_ms = k10_plain_ms
+        work = got[at].copy()
+        saved = BS.LAUNCHES
+        k10_ms[label] = cuda_ms(lambda: work.run(BS.block_section), reps=20)
+        BS.LAUNCHES = saved            # timing, not the main path
+        print(f"[services] K10 at the {label} block ({at}): bit-identical to "
+              f"its plain version (sample side, vars, heap, control row); "
+              f"{k10_ms[label]:.4f} ms a launch (20 launches), the plain "
+              f"version {k10_plain_ms:.1f} ms card='{card}'")
+    copy_bytes = 2 * SERVICES_TABLE * 8
+    k10_bound = copy_bytes / HBM_BYTES_PER_S * 1e3
+    k11 = {"services_sampler_launches": launches, "services_sampler_ms": k_ms,
+           "services_sampler_render_ms": ms,
+           "services_sampler_audio_s_per_s": sec / (k_ms / 1e3),
+           "services_sampler_golden_s": gold_s,
+           "services_sampler_bound_ms": b_ms,
+           "services_sampler_bound_by": by,
+           "services_sampler_chain_ops": ops,
+           "services_sampler_max_abs_err": max(errs),
+           "services_sampler_plain_ms": plain_ms,
+           "services_files_ms": f_ms, "services_files_audio_s_per_s": rate8,
+           "services_pool_bytes": pool_bytes,
+           "services_stagings": skern.tables.stagings}
+    k10f = {"services_leveler_launches": l_launches,
+            "services_leveler_render_ms": l_ms,
+            "services_leveler_golden_s": l_gold_s,
+            "services_reload_ms": k10_ms["reload"],
+            "services_steady_ms": k10_ms["steady"],
+            "services_reload_bound_ms": k10_bound,
+            "services_plain_ms": reload_plain_ms,
+            "services_max_abs_err": max(k10_errs)}
+    return k11, k10f
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="jsfx,batch,spectral,coupled,gated,hop,devexec,"
-                            "graph,faust",
+                            "graph,services,faust",
                     help="comma-separated: jsfx, batch, spectral, coupled, "
-                         "gated, hop, devexec, graph, faust (default all "
-                         "nine); k4sweep times K4 across register block "
-                         "sizes")
-    phases = set(ap.parse_args(argv).phases.split(","))
+                         "gated, hop, devexec, graph, services, faust "
+                         "(default all ten); k4sweep times K4 across "
+                         "register block sizes")
+    ap.add_argument("--sampler-golden", metavar="OUT", default=None,
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.sampler_golden:
+        # the services phase's child: the sampler's golden, no card
+        return sampler_golden_child(args.sampler_golden)
+    phases = set(args.phases.split(","))
     if not phases or phases - {"jsfx", "batch", "spectral", "coupled",
-                               "gated", "hop", "devexec", "graph", "faust",
-                               "k4sweep"}:
+                               "gated", "hop", "devexec", "graph",
+                               "services", "faust", "k4sweep"}:
         ap.error("--phases takes jsfx, batch, spectral, coupled, gated, hop, "
-                 "devexec, graph, faust or k4sweep")
+                 "devexec, graph, services, faust or k4sweep")
     t_start = time.perf_counter()
     import torch
 
@@ -4324,7 +4767,24 @@ def main(argv=None) -> int:
                     name == "partition_mac" and "Function properties" in line):
                 print(f"[build] {name}: {line.strip()}")
 
+    # the sampler's golden takes minutes on one host core: it runs in a
+    # process of its own from here, and the services phase waits for it
+    golden = start_sampler_golden() if "services" in phases else None
+    try:
+        return run_phases(torch, cuda, rng, card, phases, golden, t_start)
+    finally:
+        if golden is not None and golden[0].poll() is None:
+            golden[0].kill()
+            golden[0].wait()
+
+
+def run_phases(torch, cuda, rng, card, phases, golden, t_start) -> int:
     kernels = []
+    ends = []          # each phase's end, in the script's seconds
+
+    def ended(name):
+        ends.append(f"{name} {time.perf_counter() - t_start:.1f}")
+
     if "jsfx" in phases:
         # 3. K2 and K3 against their plain versions; 4. the JSFX main path
         # a seeded stream of their own: the Faust phases draw the same
@@ -4335,10 +4795,12 @@ def main(argv=None) -> int:
         k3 = ring_taps_phase(torch, cuda, rng_jsfx)
         print(f"[done] K2 and K3 kernel phases in "
               f"{time.perf_counter() - t0:.1f} s")
+        ended("K2 and K3")
         t0 = time.perf_counter()
         # a stream of its own again: K4's draws do not move the others'
         k4 = scan_group_phase(torch, cuda, np.random.RandomState(SEED + 6))
         print(f"[done] K4 kernel phase in {time.perf_counter() - t0:.1f} s")
+        ended("K4")
         launches, reruns = jsfx_phase(torch, cuda, rng_jsfx, card)
         for entry in (k2, k3):
             entry["launches"] = launches["fallback"][entry["name"]]
@@ -4351,10 +4813,12 @@ def main(argv=None) -> int:
         kernels += [k2, k3, k4]
         verify_cli_phase(card)
         print(f"[done] jsfx phases at {time.perf_counter() - t_start:.1f} s")
+        ended("jsfx")
     if "batch" in phases:
         t0 = time.perf_counter()
         batch_kernels_phase(torch, cuda, np.random.RandomState(SEED + 8))
         print(f"[done] batch kernel phase in {time.perf_counter() - t0:.1f} s")
+        ended("batch kernel")
         t0 = time.perf_counter()
         batched = batch_phase(torch, cuda, np.random.RandomState(SEED + 9),
                               card)
@@ -4363,16 +4827,19 @@ def main(argv=None) -> int:
                 entry["launches_batched"] = batched[entry["name"]]
         print(f"[done] batch phase in {time.perf_counter() - t0:.1f} s; "
               f"launches of 8 files: {batched}")
+        ended("batch")
     if "spectral" in phases:
         t0 = time.perf_counter()
         kernels += spectral_phase(torch, cuda, np.random.RandomState(SEED + 7),
                                   card)
         print(f"[done] spectral phase in {time.perf_counter() - t0:.1f} s")
+        ended("spectral")
     if "coupled" in phases:
         t0 = time.perf_counter()
         kernels.append(coupled_phase(torch, cuda,
                                      np.random.RandomState(SEED + 10), card))
         print(f"[done] coupled phase in {time.perf_counter() - t0:.1f} s")
+        ended("coupled")
     if "gated" in phases:
         t0 = time.perf_counter()
         gated = gated_phase(torch, cuda, np.random.RandomState(SEED + 11),
@@ -4382,6 +4849,7 @@ def main(argv=None) -> int:
                 entry["launches_gated"] = gated["launches_gated"]
         print(f"[done] gated phase in {time.perf_counter() - t0:.1f} s: "
               f"{json.dumps(gated)}")
+        ended("gated")
     if "hop" in phases:
         t0 = time.perf_counter()
         hop = hop_phase(torch, cuda, np.random.RandomState(SEED + 12), card)
@@ -4400,11 +4868,13 @@ def main(argv=None) -> int:
                 "bound_ms": hop["hop_bound_ms"],
                 "bound_by": hop["hop_bound_by"], "library_ms": None, **hop})
         print(f"[done] hop phase in {time.perf_counter() - t0:.1f} s")
+        ended("hop")
     if "devexec" in phases:
         t0 = time.perf_counter()
         kernels.append(devexec_phase(torch, cuda,
                                      np.random.RandomState(SEED + 13), card))
         print(f"[done] devexec phase in {time.perf_counter() - t0:.1f} s")
+        ended("devexec")
     if "graph" in phases:
         t0 = time.perf_counter()
         k10 = [e for e in kernels if e["name"] == "block_section"]
@@ -4428,13 +4898,53 @@ def main(argv=None) -> int:
                 "bound_by": graph["graph_bound_by"], "library_ms": None,
                 **graph})
         print(f"[done] graph phase in {time.perf_counter() - t0:.1f} s")
+        ended("graph")
+    if "services" in phases:
+        t0 = time.perf_counter()
+        k11f, k10f = services_phase(torch, cuda,
+                                    np.random.RandomState(SEED + 16), card,
+                                    golden, t_start)
+        for name, fields, head in (
+                ("device_exec", k11f, ("services_sampler_launches",
+                                       "services_sampler_max_abs_err",
+                                       "services_sampler_ms",
+                                       "services_sampler_plain_ms",
+                                       "services_sampler_bound_ms",
+                                       "services_sampler_bound_by")),
+                ("block_section", k10f, ("services_leveler_launches",
+                                         "services_max_abs_err",
+                                         "services_reload_ms",
+                                         "services_plain_ms",
+                                         "services_reload_bound_ms", None))):
+            have = [e for e in kernels if e["name"] == name]
+            if have:
+                have[0].update(fields)
+                continue
+            # the phase that owns the kernel's entry did not run
+            launches, err, ms, plain, bound, by = (
+                fields[k] if k else None for k in head)
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": ("zorak_tpu_torch/kernels/device_exec.py"
+                           if name == "device_exec"
+                           else "zorak_tpu_torch/csrc/block_ops.cuh"),
+                "replaces": ("zorak_tpu/lowering/devexec.py:491"
+                             if name == "device_exec"
+                             else "zorak_tpu/lowering/devgen.py:463"),
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound,
+                "bound_by": by or "bytes", "library_ms": None, **fields})
+        print(f"[done] services phase in {time.perf_counter() - t0:.1f} s")
+        ended("services")
     if "k4sweep" in phases:
         scan_group_sweep(torch, cuda, np.random.RandomState(SEED))
     if "faust" in phases:
         t0 = time.perf_counter()
         kernels.insert(0, faust_phases(torch, cuda, rng, card))
         print(f"[done] faust phases in {time.perf_counter() - t0:.1f} s")
-    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        ended("faust")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s; the phases end at "
+          f"(s of the script): {', '.join(ends)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

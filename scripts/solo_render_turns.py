@@ -20,6 +20,17 @@ checkout's renders (every turn) a plugin, device and host, and new over
 old.  Each checkout builds its kernels into its own
 `zorak_tpu_torch/_build/`.  Needs a CUDA card.
 
+    python3 scripts/solo_render_turns.py OLD_DIR NEW_DIR --graph [--reps 2]
+
+times instead, the same way, chip_smoke.py's render graph and its
+sequential executor: `RenderGraph.run` of four `crossmix_declutter`
+nodes x 60 s at block 512 (all torch-lockstep; host clock to a
+synchronise, and the calling thread's CPU time), after a 1,024-sample
+render that builds them, and `grain_texture(16, 131072)` through
+`PluginInstance.render` on 60 s with a note-on every 0.5 s (each render
+a fresh instance, after a 1 s render that builds K11): the render by
+CUDA events and its last K11 launch, the one the heap ladder keeps.
+
     python3 scripts/solo_render_turns.py OLD_DIR NEW_DIR --ops
 
 counts instead, on the CPU, the top-level torch calls a segment of each
@@ -93,6 +104,81 @@ def child(reps: int) -> dict:
     return out
 
 
+GRAPH_NODES, GRAPH_BLOCK = 4, 512      # chip_smoke.py's graph phase
+TEXTURE = (16, 131072)                 # chip_smoke.py's devexec stand-in
+NOTE_EVERY = 24000                     # a note-on every 0.5 s
+
+
+def graph_child(reps: int) -> dict:
+    """One turn of `--graph`: the graph's and the Texture stand-in's
+    render times in this process's checkout."""
+    import numpy as np
+    import torch
+
+    import zorak_tpu_torch
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import device_exec as DX
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+    from zorak_tpu_torch.runtime.graph import RenderGraph
+
+    rng = np.random.RandomState(SEED)
+    out = {"package": zorak_tpu_torch.__file__}
+    g = RenderGraph(srate=SR, block_size=GRAPH_BLOCK, prefer="auto")
+    names = [f"n{i}" for i in range(GRAPH_NODES)]
+    for i, nm in enumerate(names):
+        g.add(nm, compile_plugin_source(BP.crossmix_declutter(i, GRAPH_NODES)))
+    g.init_all()
+    if g.node_engines != ["torch-lockstep"] * GRAPH_NODES:
+        raise SystemExit(f"graph engines {g.node_engines}")
+    x = {nm: (rng.randn(2, N) * 0.25).astype(np.float32) for nm in names}
+    g.run({nm: a[:, :2 * GRAPH_BLOCK] for nm, a in x.items()})   # builds
+    torch.cuda.synchronize()
+    wall, host = [], []
+    for _ in range(reps):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        g.run(x)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        host.append((time.thread_time() - c0) * 1e3)
+    out["graph"], out["graph host"] = wall, host
+
+    prog = compile_plugin_source(BP.grain_texture(*TEXTURE))
+    xt = (rng.randn(2, N) * 0.25).astype(np.float32)
+    notes = [(o, 0x90, 48 + (o // NOTE_EVERY) % 24, 100)
+             for o in range(100, N, NOTE_EVERY)]
+    one = int(SR)
+    PluginInstance(prog, srate=SR).render(                      # builds
+        xt[:, :one], midi=[n for n in notes if n[0] < one])
+    real, renders, kept = DX.device_exec, [], []
+    for _ in range(reps):
+        inst = PluginInstance(prog, srate=SR)
+        if inst.engine != "torch-devexec":
+            raise SystemExit(f"texture engine {inst.engine}")
+        launches = []
+
+        def timed(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            got = real(*a, **k)
+            ev[1].record()
+            launches.append(ev)
+            return got
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        DX.device_exec = timed
+        try:
+            start.record()
+            inst.render(xt, midi=notes)
+            end.record()
+        finally:
+            DX.device_exec = real
+        torch.cuda.synchronize()
+        renders.append(start.elapsed_time(end))
+        kept.append(launches[-1][0].elapsed_time(launches[-1][1]))
+    out["texture render"], out["texture K11"] = renders, kept
+    return out
+
+
 def run_child(tree: Path, args) -> str:
     """This script's child mode in a process that imports `tree`'s
     package; returns its last line of output."""
@@ -144,10 +230,15 @@ def main(argv=None) -> int:
                     help="old, new, new, old this many times")
     ap.add_argument("--ops", action="store_true",
                     help="count torch calls a segment on the CPU instead")
+    ap.add_argument("--graph", action="store_true",
+                    help="time the render graph and the Texture stand-in "
+                         "instead of the JSFX plugins")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        print(json.dumps(ops_child() if args.ops else child(args.reps)))
+        print(json.dumps(ops_child() if args.ops else
+                         graph_child(args.reps) if args.graph else
+                         child(args.reps)))
         return 0
     if not (args.old and args.new):
         ap.error("OLD_DIR and NEW_DIR are required")
@@ -166,8 +257,8 @@ def main(argv=None) -> int:
         return 0
     every = {"old": {}, "new": {}}        # checkout -> plugin -> all times
     for which in ("old", "new", "new", "old") * args.rounds:
-        times = json.loads(run_child(trees[which], ["--reps",
-                                                   str(args.reps)]))
+        times = json.loads(run_child(trees[which], [
+            "--reps", str(args.reps), *(["--graph"] if args.graph else [])]))
         print(json.dumps({"turn": which, "ms": times}))
         del times["package"]
         for label, ts in times.items():

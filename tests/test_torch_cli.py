@@ -257,6 +257,11 @@ _DEVEXEC_MODULES = ["lowering.devexec", "kernels.device_exec"]
 # the render graph and its golden bus
 _GRAPH_MODULES = ["comm", "comm.bus", "runtime.graph"]
 
+# the host services and the other JAX-free copies
+_SERVICES_MODULES = ["runtime.services", "runtime.import_recipes", "gfx",
+                     "gfx.interpreter", "gfx.raster", "utils", "utils.mdtext",
+                     "models.faust_golden", "kernels.host_tables"]
+
 
 def test_port_imports_neither_jax_nor_zorak_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -266,7 +271,8 @@ def test_port_imports_neither_jax_nor_zorak_tpu():
     bad, names = rest.split("] [", 1)
     assert int(n) >= 57 and bad.strip() == "["
     for mod in (_JSFX_MODULES + _SPECTRAL_MODULES + _BATCH_MODULES
-                + _COUPLED_MODULES + _DEVEXEC_MODULES + _GRAPH_MODULES):
+                + _COUPLED_MODULES + _DEVEXEC_MODULES + _GRAPH_MODULES
+                + _SERVICES_MODULES):
         assert f"'zorak_tpu_torch.{mod}'" in names, mod
 
 

@@ -20,7 +20,7 @@ from zorak_tpu.verify import make_initialized_shadow as jax_shadow
 from zorak_tpu_torch import builtin_plugins, convert
 from zorak_tpu_torch.ir import compile_plugin_source
 from zorak_tpu_torch.kernels import block_section as BS
-from zorak_tpu_torch.lowering import SpecializeError, specialize_sample_kernel
+from zorak_tpu_torch.lowering import specialize_sample_kernel
 from zorak_tpu_torch.parallel import BatchRenderer
 from zorak_tpu_torch.verify import make_initialized_shadow, null_test_plugin
 
@@ -208,14 +208,13 @@ def test_block_midisend_decodes_to_absolute_offsets():
                         for o, *ev in sent)
 
 
-def test_file_load_folds_into_coupled_block():
-    # file-slot data in @block comes with the services copy (queue 1
-    # item 3); until then the plugin is refused at build time
-    src = """
+FILE_SRC = """
 @init
 TAB = 5000;
 @block
 g = acc / max(samplesblock, 1); acc = 0;
+bc += 1;
+bc % RELOAD == 1 ? need = 1;
 need ? (
   h = file_open(0);
   h > 0 ? (
@@ -232,10 +231,127 @@ need ? (
 acc += abs(spl0);
 spl0 = spl0 * (1/(1+g)) + 0.1 * TAB[0] + 0.01 * TAB[37];
 """
+
+
+def file_hosts(services, audio):
+    h = services.EngineHost()
+    h.files.load_slot(0, audio, srate=48000.0)
+    return h
+
+
+def native_golden(prog, x, host, need=None):
+    """The native golden with `host` over x in blocks of 512 (the reload
+    flag set first where `need` is given): (golden, audio f64)."""
+    from zorak_tpu_torch.shadow import compile_native_shadow
+    from zorak_tpu_torch.verify import apply_slider_state
+
+    plug = compile_native_shadow(prog, host=host)
+    plug.state.srate = 48000.0
+    apply_slider_state(plug.state, prog, None, None)
+    plug.run_init()
+    plug.run_slider()
+    if need is not None:
+        plug.state.V["need"] = need
+    yg = np.zeros_like(x, dtype=np.float64)
+    for i in range(0, x.shape[1], 512):
+        n = min(512, x.shape[1] - i)
+        out = np.zeros((x.shape[0], n), dtype=np.float64)
+        plug.process_block(x[:, i:i + n].astype(np.float64), out,
+                           x.shape[0])
+        yg[:, i:i + n] = out
+    return plug, yg
+
+
+def file_three_ways(src, x, audio, renders=1, need=1.0, seg=2048):
+    """A plugin loading file slot 0 in its coupled @block three ways, each
+    with a host of its own: the port's kernel (CPU tensors), the JAX kernel
+    and the native golden; `need` the reload flag set before the render.
+    Audio within 1e-6 of the golden as the reference's test holds it,
+    vars and heap within 1e-8; returns the port's kernel."""
+    from zorak_tpu.runtime import services as jax_services
+    from zorak_tpu_torch.runtime import services
+
     prog = compile_plugin_source(src)
-    with pytest.raises(SpecializeError, match="item 3"):
-        specialize_sample_kernel(prog, make_initialized_shadow(prog).state, 1,
-                                 device="cpu")
+    owner = make_initialized_shadow(prog, 48000.0,
+                                    host=file_hosts(services, audio))
+    owner.state.V["need"] = need
+    kern = specialize_sample_kernel(prog, owner.state, x.shape[0],
+                                    segment_len=seg, device="cpu")
+    assert kern.coupled and kern._block_prog.tabled
+    assert "zb_file_copy(S, 5000, 0, 64)" in kern._block_prog.source
+    jprog = jax_compile(src)
+    jowner = jax_shadow(jprog, 48000.0, host=file_hosts(jax_services, audio))
+    jowner.state.V["need"] = need
+    jkern = jax_specialize(jprog, jowner.state, x.shape[0], segment_len=seg)
+    assert jkern.coupled
+
+    plug, yg = native_golden(prog, x, file_hosts(services, audio), need)
+    T = x.shape[1]
+    cut = (T // renders // 512) * 512
+    ys, yjs, carry, jcarry = [], [], None, None
+    for r in range(renders):
+        a, b = r * cut, (T if r == renders - 1 else (r + 1) * cut)
+        y, carry = kern.render(x[:, a:b], carry=carry)
+        yj, jcarry = jkern.render(x[:, a:b], carry=jcarry)
+        ys.append(y)
+        yjs.append(np.asarray(yj))
+    y, y_jax = np.concatenate(ys, axis=1), np.concatenate(yjs, axis=1)
+    assert np.abs(y.astype(np.float64) - yg).max() <= 1e-6
+    assert np.abs(y.astype(np.float64) - y_jax).max() <= 1e-6
+    kern.writeback(carry, owner.state)
+    jkern.writeback(jcarry, jowner.state)
+    for name, v in plug.state.V.items():
+        assert abs(owner.state.V.get(name, 0.0) - v) <= STATE_TOL, name
+    n = kern._block_prog.mem_size
+    got = np.zeros(n)
+    got[:min(n, len(owner.state.mem))] = owner.state.mem[:n]
+    want = np.zeros(n)
+    want[:min(n, len(plug.state.mem))] = plug.state.mem[:n]
+    assert np.abs(got - want).max() <= STATE_TOL
+    assert state_delta(owner.state, jowner.state, n) <= STATE_TOL
+    return kern
+
+
+def test_file_load_folds_into_coupled_block():
+    # the reference's case: a reload-gated open/riff/file_mem/close in
+    # @block folds while K10's text prints; the chunk is a copy from the
+    # program's file table, not literals
+    audio = np.sin(np.arange(200) * 0.21)[None, :] * 0.7
+    kern = file_three_ways(FILE_SRC.replace("RELOAD", "1000000"),
+                           noise(1, 5000, seed=7, scale=0.3), audio)
+    assert kern._block_prog.tables.file_cells == 64
+
+
+def test_file_reload_copies_the_same_chunk_in_each_render():
+    # the file cursor lives in one print: every reload, in one render and
+    # in the next, copies the same chunk again, as the golden's open and
+    # close leave it; the flag is set every 3 blocks over 2 renders
+    audio = np.cos(np.arange(300) * 0.13)[None, :] * 0.5
+    kern = file_three_ways(FILE_SRC.replace("RELOAD", "3"),
+                           noise(1, 6000, seed=11, scale=0.3), audio,
+                           renders=2, need=0.0)
+    assert kern._block_prog.tables.file_cells == 64
+
+
+def test_slot_table_leveler_stand_in_against_the_golden():
+    # the stand-in at a 256-value table, reloaded at the first block and
+    # every 2,048 after: on K10 (coupled), equal to the native golden,
+    # with the table in the heap
+    from zorak_tpu_torch.runtime import services
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+
+    table = builtin_plugins.table_slot(256, seed=4)
+    prog = compile_plugin_source(builtin_plugins.slot_table_leveler(256))
+    inst = PluginInstance(prog, host=file_hosts(services, table),
+                          device="cpu", smart_idle="always_awake")
+    assert inst.engine == "torch-vector" and inst.kernel.coupled
+    x = noise(2, 3 * 512 + 77, seed=8)
+    res = inst.render(x)
+    plug, yg = native_golden(prog, x, file_hosts(services, table))
+    assert np.abs(res.audio.astype(np.float64) - yg).max() <= 1e-6
+    for name, v in plug.state.V.items():
+        assert abs(inst.shadow.state.V.get(name, 0.0) - v) <= STATE_TOL, name
+    assert np.array_equal(inst.shadow.state.mem[:256], table[0])
 
 
 def test_uncoupled_stays_on_host_trajectory():

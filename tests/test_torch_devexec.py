@@ -296,10 +296,95 @@ def test_engine_falls_back_to_devexec():
     assert np.abs(res.audio.astype(np.float64) - jres.audio).max() <= AUDIO_MAX
 
 
+POOL_SRC = ("@init\n"
+            "pool = sample_pool_from_slot(0, #nm);\n"
+            "sample_pool_commit(pool);\n"
+            "nsel = sample_pool_loaded(pool);\n"
+            "sid = sample_get(pool, 0);\n"
+            "len0 = sample_len(pool, sid);\n"
+            "pk = sample_peak(pool, sid);\n"
+            "pos = 0;\n"
+            "@sample\n"
+            "sid2 = abs(spl0) > 0.3 ? sid : sample_get(pool, 1);\n"
+            "v = sample_read(pool, sid2, 0, pos);\n"
+            "vi = sample_read_interp(pool, sid2, 1, pos * 0.5 + 0.25);\n"
+            "ok = sample_read2_interp(pool, sid2, pos * 0.33, l, r);\n"
+            "spl0 = spl0 * 0.5 + v * 0.3 + vi * 0.1 + l * 0.05"
+            " + ok * 0.001 + pk * 0.001;\n"
+            "spl1 = spl1 * 0.5 + r * 0.2;\n"
+            "pos += 1;\n"
+            "pos >= len0 ? pos = 0;\n")
+
+
+def pool_hosts(services):
+    """A host of `services` (either package's runtime.services) whose slot
+    0 holds tests/test_devexec.py's two waves: a stereo one at 44.1 kHz,
+    which the pool resamples, and a mono one."""
+    rng = np.random.RandomState(9)
+    wave_a = rng.randn(2, 220) * 0.4
+    wave_b = rng.randn(1, 97) * 0.7
+    h = services.EngineHost()
+    h.files.load_slot(0, wave_a, srate=44100.0, name="a")
+    h.files.load_slot(0, wave_b, srate=48000.0, name="b")
+    return h
+
+
+def pool_three_ways(src, x, renders=1):
+    """A plugin over a loaded sample pool three ways, each with a host of
+    its own: the port's DeviceExecKernel (the plain version answering the
+    pool's calls through the port's EngineHost), the JAX kernel and the
+    native golden; returns the port's kernel."""
+    from zorak_tpu.runtime import services as jax_services
+    from zorak_tpu_torch.runtime import services
+
+    prog = compile_plugin_source(src)
+    gold = compile_native_shadow(prog, host=pool_hosts(services))
+    gold.state.srate = SR
+    apply_slider_state(gold.state, prog, None)
+    gold.run_init()
+    gold.run_slider()
+    y_ref = np.zeros_like(x)
+    for s0 in range(0, x.shape[1], 512):
+        e = min(s0 + 512, x.shape[1])
+        gold.process_block(x[:, s0:e], y_ref[:, s0:e])
+    owner = make_initialized_shadow(prog, SR, None,
+                                    host=pool_hosts(services))
+    assert owner.state.host.pool.generation is not None
+    kern = DeviceExecKernel(prog, owner.state, x.shape[0], device="cpu")
+    y, carry = split_render(kern, x, renders)
+    kern.writeback(carry, owner.state)
+    held(gold.state, y_ref, y, owner.state, "port")
+    assert kern.tables.pool is not None and "zb_pool_" in \
+        kern.program.source
+
+    jprog = jax_compile(src)
+    jowner = jax_shadow(jprog, SR, None, host=pool_hosts(jax_services))
+    jkern = JaxDeviceExec(jprog, jowner.state, x.shape[0], block_size=512)
+    y_jax, jcarry = split_render(jkern, x, renders)
+    jkern.writeback(jcarry, jowner.state)
+    delta = float(np.abs(y.astype(np.float64) - y_jax).max())
+    print(f"port vs JAX over the loaded pool: max |audio delta| {delta:.3e}")
+    assert delta <= AUDIO_MAX
+    for name, v in owner.state.V.items():
+        w = jowner.state.V.get(name, 0.0)
+        assert abs(v - w) <= 1e-8 * max(1.0, abs(w)) or (v != v and w != w), \
+            (name, v, w)
+    return kern
+
+
+def test_loaded_pool_device_gathers():
+    # the reference's case: reads over a loaded generation are gathers
+    # over its packed tables, bit for bit with the golden's host; two
+    # renders, the second resumed
+    pool_three_ways(POOL_SRC, noise(2, 2500), renders=2)
+
+
 def test_pool_calls_are_refused_with_the_services_slice():
-    # the reference gathers a loaded sample pool on the device; the port's
-    # host services are queue 1 item 3, so devexec refuses and the golden
-    # renders, naming both refusals
+    # once refused until the services copy came; now the engine takes the
+    # plugin to devexec (the vectorizer rejects its traced pool reads) and
+    # K11 gathers the pool: held to the golden and the JAX kernel
+    from zorak_tpu_torch.runtime import services
+
     src = ("@init\n"
            "pool = sample_pool_from_slot(0, #nm);\n"
            "sid = sample_get(pool, 0);\n"
@@ -309,14 +394,51 @@ def test_pool_calls_are_refused_with_the_services_slice():
            "spl0 = spl0 * 0.5 + v * 0.3;\n"
            "pos += 1;\n")
     prog = compile_plugin_source(src)
-    snap = make_initialized_shadow(prog, SR, None)
-    with pytest.raises(SpecializeError, match="queue 1 item 3"):
-        DeviceExecKernel(prog, snap.state, 1, device="cpu")
-    inst = PluginInstance(prog, device="cpu")
-    assert inst.engine == "cpu-shadow" and "queue 1 item 3" in inst.spec_error
-    assert "; devexec: " in inst.spec_error
-    with pytest.raises(SpecializeError, match="queue 1 item 3"):
-        PluginInstance(prog, prefer="devexec", device="cpu")
+    inst = PluginInstance(prog, host=pool_hosts(services), device="cpu",
+                          smart_idle="always_awake")
+    assert inst.engine == "torch-devexec" and "devexec" not in \
+        inst.spec_error
+    pool_three_ways(src, noise(1, 1500))
+    # with no host services the pool is empty: every call folds inert
+    assert PluginInstance(prog, device="cpu").engine == "torch-devexec"
+
+
+def test_pool_sampler_stand_in_against_the_golden():
+    # the stand-in at 4 voices over 5 entries of 0.05 s (every entry
+    # retriggered in 0.3 s): a vectorizer reject, K11's plain version
+    # equal to the native golden; 3 files equal to their solo renders
+    from zorak_tpu_torch.runtime import services
+
+    def host():
+        h = services.EngineHost()
+        for audio, rate in builtin_plugins.sampler_slot(5, 0.05, seed=2):
+            h.files.load_slot(0, audio, srate=rate)
+        return h
+
+    prog = compile_plugin_source(builtin_plugins.pool_sampler(4, 5))
+    x = noise(2, 14400, seed=3)
+    gold = compile_native_shadow(prog, host=host())
+    gold.state.srate = SR
+    apply_slider_state(gold.state, prog, None)
+    gold.run_init()
+    gold.run_slider()
+    y_ref = np.zeros_like(x)
+    for s0 in range(0, x.shape[1], 512):
+        e = min(s0 + 512, x.shape[1])
+        gold.process_block(x[:, s0:e], y_ref[:, s0:e])
+    inst = PluginInstance(prog, host=host(), device="cpu",
+                          smart_idle="always_awake")
+    assert inst.engine == "torch-devexec", inst.spec_error
+    res = inst.render(x)
+    held(gold.state, y_ref, res.audio, inst.shadow.state, "sampler")
+    assert gold.state.V["trig"] > 4 + 5      # every entry retriggered
+    xs = np.stack([noise(2, 1100, seed=k) for k in range(3)])
+    ys, _ = inst.kernel.render_files(xs)
+    stagings = inst.kernel.tables.stagings
+    for k in range(3):
+        solo, _ = inst.kernel.render_device(xs[k])
+        assert torch.equal(ys[k], solo)
+    assert inst.kernel.tables.stagings == stagings == 0   # CPU: none
 
 
 def _program_and_inputs(kern, nf, T, seed):

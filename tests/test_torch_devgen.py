@@ -557,9 +557,9 @@ def test_forbidden_builtins_raise():
     ("y = gmem_seq(0);", "through the golden"),
     ("y = gmem_page(x);", "through the golden"),
     ("n = msg_recv_buf(1, s, t, 0, 8);", "through the golden"),
-    ("h = file_open(0);", "item 3"),
-    ("n = sample_len(0);", "item 3"),
-    ("t = time();", "item 3"),
+    ("h = file_open(x);", "non-static arguments"),
+    ("s = file_string(0, x);", "no slice brings it"),
+    ("t = track_name(x);", "no slice brings it"),
     ("midisend_buf(0, 100, 3);", "no slice brings it"),
     ("slider(x) = 3;", "no slice brings it"),
 ])

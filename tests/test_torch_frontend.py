@@ -23,6 +23,9 @@ VERBATIM = [
     "shadow/state.py", "shadow/pyexec.py", "runtime/fftops.py",
     "shadow/__init__.py", "shadow/cgen.py",
     "comm/__init__.py", "comm/bus.py",
+    "runtime/services.py", "runtime/import_recipes.py",
+    "gfx/__init__.py", "gfx/interpreter.py", "gfx/raster.py",
+    "utils/__init__.py", "utils/mdtext.py", "models/faust_golden.py",
 ]
 
 PLUGINS = {

@@ -745,3 +745,30 @@ def test_files_walk_as_each_would_alone(name, nf, host_cxx):
     assert same_values(got, ref)
     assert program.host_last[0] == nf - solo_marks.count(1)
     assert SG.LAUNCHES == 0
+
+
+def test_a_mask_inside_a_group_falls_back_at_build():
+    # `(q * 3 + ...) & 255` fed by the group's own carry has no scan-group
+    # step: the port's planner refuses it when the kernel is built (the
+    # reference raises AssertionError at the first render), so the engine
+    # takes the sequential executor and the render equals the golden
+    from zorak_tpu_torch.lowering import SpecializeError
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+    from zorak_tpu_torch.verify import null_test_plugin
+
+    src = ("@sample\nq = (q * 3 + floor(abs(spl0) * 1000)) & 255;\n"
+           "spl0 = spl0 * 0.5 + q / 2550;\n")
+    prog = compile_plugin_source(src)
+    state = make_initialized_shadow(prog).state
+    with pytest.raises(SpecializeError, match="power-of-two mask"):
+        specialize_sample_kernel(prog, state, 1, device="cpu")
+    inst = PluginInstance(prog, device="cpu", smart_idle="always_awake")
+    assert inst.engine == "torch-devexec"
+    assert "power-of-two mask" in inst.spec_error
+    x = (np.random.RandomState(6).randn(1, 3000) * 0.5).astype(np.float32)
+    assert inst.render(x).engine == "torch-devexec"
+    rep = null_test_plugin(prog, x, golden="native", device="cpu",
+                           engine="devexec")
+    assert rep.passed and rep.max_abs_delta == 0.0, rep.summary()
+    with pytest.raises(SpecializeError, match="power-of-two mask"):
+        PluginInstance(prog, prefer="vector", device="cpu")

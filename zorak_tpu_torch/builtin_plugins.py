@@ -26,8 +26,19 @@ declutter session (the shape of the catalog's CMD pair): each instance
 publishes its block energy into a shared gmem slot, ducks against the
 loudest of its peers' slots, broadcasts its energy on a bus channel and
 drains what its peers sent, so a graph of them renders in the lockstep.
+`pool_sampler(voices, samples)` plays voices over the sample pool that
+its @init builds from file slot 0 (the shape of the catalog's Sample):
+the vectorizer rejects its traced pool reads, and K11 gathers them.
+`slot_table_leveler(frames)` loads a table from file slot 0 in @block
+under a reload flag and reads it through a cursor in @sample (the shape
+of PsychoConvolver's `load_raw_ir`): the load folds into K10's @block.
+`sampler_slot` and `table_slot` make the slots' audio from a seed.
 """
 from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
 
 FALLBACK_SRC = """\
 desc:multi-tap delay network (entry fallback)
@@ -506,3 +517,145 @@ spl0 = g * dl;
 spl1 = g * dr;
 wp += 1;
 """
+
+
+def pool_sampler(voices: int = 8, samples: int = 16) -> str:
+    """A stereo sampler over the sample pool, the stand-in for the
+    catalog's Sample.
+
+    @init builds the pool from file slot 0 (`sample_pool_from_slot`,
+    `sample_pool_commit`: the host resamples every entry to the engine's
+    rate) and gives each of `voices` voices a record of 6 doubles at
+    mem[0] (sample id, phase, step, gain, pan, frames), voice k on entry k
+    of the `samples` the slot holds, stepping at (0.5 + 0.125 k) x its
+    entry's rate over the engine's (`sample_srate`).  @sample reads each
+    voice with `sample_read2_interp` at its phase (voice 0 also one
+    `sample_read_interp` at half its phase), pans it into the mix, and at
+    an entry's end retriggers the voice on the next entry in turn: a
+    traced `sample_get(pool, k)` and `sample_len`, so a 60 s render of
+    10 s entries reads every entry.  The traced sample ids make it a
+    vectorizer reject that the sequential executor (K11) renders."""
+    nv, ns = int(voices), int(samples)
+    if not 1 <= nv <= 64 or ns < 1:
+        raise ValueError(f"voices in [1, 64] and samples >= 1, not {nv}, {ns}")
+    return f"""\
+desc:pool sampler ({nv} voices over the sample pool of slot 0)
+
+@init
+NV = {nv}; NS = {ns}; VREC = 0;
+pool = sample_pool_from_slot(0, "sampler");
+sample_pool_commit(pool);
+nload = sample_pool_loaded(pool);
+vi = 0;
+loop(NV,
+  rec = VREC + vi * 6;
+  rec[0] = sample_get(pool, vi % max(nload, 1));
+  rec[1] = 0;
+  rec[2] = (0.5 + 0.125 * vi) * sample_srate(pool, rec[0]) / srate;
+  rec[3] = 0.5 / NV;
+  rec[4] = vi / max(NV - 1, 1);
+  rec[5] = sample_len(pool, rec[0]);
+  vi += 1;
+);
+trig = NV;
+
+@sample
+outl = 0; outr = 0; vi = 0;
+loop(NV,
+  rec = VREC + vi * 6;
+  sid = rec[0]; ph = rec[1];
+  sample_read2_interp(pool, sid, ph, vl, vr);
+  vi == 0 ? vl = 0.5 * (vl + sample_read_interp(pool, sid, 0, ph * 0.5));
+  outl += vl * rec[3] * (1 - rec[4]);
+  outr += vr * rec[3] * rec[4];
+  ph += rec[2];
+  ph >= rec[5] - 1 ? (
+    sid = sample_get(pool, trig % max(nload, 1));
+    trig += 1;
+    rec[0] = sid;
+    rec[2] = (0.5 + 0.125 * vi) * sample_srate(pool, sid) / srate;
+    rec[5] = sample_len(pool, sid);
+    ph = 0;
+  );
+  rec[1] = ph;
+  vi += 1;
+);
+spl0 = spl0 * 0.25 + outl;
+spl1 = spl1 * 0.25 + outr;
+"""
+
+
+def sampler_slot(samples: int = 16, seconds: float = 10.0,
+                 seed: int = 0) -> List[Tuple[np.ndarray, float]]:
+    """File slot 0 of `pool_sampler`: `samples` stereo entries of
+    `seconds` made from the seed (decaying noise bursts over a tone), as
+    (audio [2, frames] float64, rate); one in four at 44,100 Hz, the rest
+    at 48,000 Hz."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for k in range(int(samples)):
+        rate = 44100.0 if k % 4 == 3 else 48000.0
+        n = int(round(seconds * rate))
+        t = np.arange(n) / rate
+        tone = 0.3 * np.sin(2 * np.pi * (110.0 * (1 + k % 5)) * t)
+        env = np.exp(-3.0 * (t % 1.0))
+        audio = np.stack([tone + 0.2 * env * rng.randn(n),
+                          tone * 0.8 + 0.2 * env * rng.randn(n)])
+        out.append((audio, rate))
+    return out
+
+
+def slot_table_leveler(frames: int = 65536) -> str:
+    """A leveler that loads a table from file slot 0 in @block, the
+    stand-in for the catalog's PsychoConvolver `load_raw_ir`.
+
+    @block levels by the meter @sample accumulates and, under a reload
+    flag set at the first block and every 2,048 blocks after, loads the
+    slot's first `frames` values into mem[0 ...]: `file_open`,
+    `file_riff`, `file_avail`, `file_mem`, `file_close`.  @sample reads
+    the table through a cursor masked to `frames` (a power of two) and
+    mixes it in.
+    The meter makes the @block audio-coupled: K10 runs it, and the load
+    folds into its text as a copy from the file table."""
+    n = int(frames)
+    if n < 16 or n & (n - 1):
+        raise ValueError(f"frames a power of two >= 16, not {n}")
+    return f"""\
+desc:slot table leveler (a {n}-value table loaded from slot 0 in @block)
+
+@init
+N = {n}; TAB = 0; MASK = N - 1; HALF = {n // 2};
+need = 1; loaded = 0; rp = 0; g = 1; acc = 0; blocks = 0;
+
+@block
+g = 1 / (1 + 4 * acc / max(samplesblock, 1));
+acc = 0;
+blocks += 1;
+blocks % 2048 == 1 ? need = 1;
+need ? (
+  h = file_open(0);
+  h > 0 ? (
+    nch = 0; sr = 0;
+    file_riff(h, nch, sr);
+    n = min(file_avail(h), N);
+    file_mem(h, TAB, n);
+    loaded = n;
+    file_close(h);
+  );
+  need = 0;
+);
+
+@sample
+acc += abs(spl0);
+spl0 = spl0 * g + 0.05 * TAB[rp & MASK];
+spl1 = spl1 * g + 0.05 * TAB[(rp + HALF) & MASK];
+rp += 1;
+"""
+
+
+def table_slot(frames: int = 65536, seed: int = 0) -> np.ndarray:
+    """File slot 0 of `slot_table_leveler`: a mono table of `frames`
+    values made from the seed (a decaying noise response), [1, frames]."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(frames), dtype=np.float64)
+    return (rng.randn(int(frames)) * np.exp(-t / (frames / 6.0)))[None, :]

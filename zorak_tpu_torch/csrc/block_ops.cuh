@@ -60,6 +60,31 @@
 #define ZB_MIDI_OUT_CAP 64   // staged sends a block; later ones drop
 #define ZB_PAGE 65536        // WDL's page: an FFT region stays inside one
 
+// The tables a section's host-service calls read (lowering/devgen.py
+// HostTables): the loaded sample pool's generation, the file table that
+// file_mem copies from, the string literals.  Built with the program,
+// staged on the device once a render, read-only and shared by the files of
+// a launch; a table no printed call reads is null.  A pool row a sample id
+// (row 0: no entry, all zeros).
+struct ZH {
+  const float* pool_data;         // every entry's [frames, channels] f32
+  const long long* pool_offs;     // an entry's first cell in pool_data
+  const long long* pool_frm;      // its frames
+  const long long* pool_nch;      // its channels
+  const long long* pool_pv_off;   // its first cell in pool_pv
+  const long long* pool_pv_bins;  // its preview bins
+  const long long* pool_order;    // the sample ids in load order
+  const double* pool_meta;        // [row][3]: srate, peak, rms
+  const double* pool_pv;          // [bin][3]: min, max, rms
+  long long pool_maxsid;          // the largest sample id
+  long long pool_n_order;
+  const double* files;            // file_mem's chunks, one after another
+  const long long* str_h;         // the literals' handles
+  const double* str_len;          // their lengths
+  const double* str_chars;        // [literal][str_w] their characters
+  long long str_n, str_w;
+};
+
 // What a section reads besides its code: one file's view and its tables.
 struct ZB {
   double* V;               // the var slots of the section (DeviceSection.slots)
@@ -79,6 +104,7 @@ struct ZB {
   long long gmem_cells;
   long long msg_out;       // the msg OUT table in M: [count | CAP rows of 8]
   long long msg_in;        // the msg IN region in M: [drop cell | queues]
+  ZH H;                    // the host-service tables (zero where unused)
 };
 
 // -- phases: who runs what ------------------------------------------------------
@@ -704,6 +730,126 @@ ZB_FN bool zb_apart(long long lo0, long long hi0, long long lo1, long long hi1) 
   return hi0 < lo1 || hi1 < lo0;
 }
 
+// -- host services: the sample pool, file_mem, the string literals -------------
+//
+// The pool's reads repeat runtime/services.py's `SamplePoolService.read`,
+// `read_interp` and `read2` on the loaded generation: int() of a sample id
+// or a bin (NaN, +-inf: no entry), Python's round() of a frame (rint in
+// the default rounding mode: half to even), a non-finite frame 0, the
+// channel truncated and clamped (NaN, +-inf: 0), anything out of range
+// 0.0, the f32 cell widened, the interpolation two roundings.  Both views
+// call them with their tables (&S->H).  The pool's data is a plain load:
+// the read-only data cache (__ldg) measured no different on the card.
+
+ZB_FN bool zb_finite(double x) { return x - x == 0.0; }
+// Python's int(x) where it fits a long long; *ok false for NaN, +-inf and
+// beyond (where every lookup below misses as Python's does)
+ZB_FN long long zb_pyint(double x, bool* ok) {
+  *ok = x > -9.2e18 && x < 9.2e18;
+  return *ok ? (long long)x : 0;
+}
+// the pool row of a sample id, 0 where no loaded entry has it
+ZB_FN long long zb_pool_row(const ZH* H, double sid) {
+  bool ok;
+  const long long s = zb_pyint(sid, &ok);
+  return ok && s >= 1 && s <= H->pool_maxsid ? s : 0;
+}
+ZB_FN double zb_pool_read(const ZH* H, double sid, double ch, double frame) {
+  const long long s = zb_pool_row(H, sid);
+  const long long nf = H->pool_frm[s], nc = H->pool_nch[s];
+  if (nf == 0 || nc == 0) return 0.0;
+  if (!zb_finite(frame)) frame = 0.0;
+  const double r = rint(frame);
+  if (!(r >= 0.0) || r >= (double)nf) return 0.0;
+  long long c = 0;
+  if (zb_finite(ch) && ch >= 1.0) c = ch >= (double)nc ? nc - 1 : (long long)ch;
+  return (double)H->pool_data[H->pool_offs[s] + (long long)r * nc + c];
+}
+ZB_FN double zb_pool_read_interp(const ZH* H, double sid, double ch,
+                                 double phase) {
+  if (!zb_finite(phase)) phase = 0.0;
+  const double base = floor(phase);
+  const double frac = phase - base;
+  const double x0 = zb_pool_read(H, sid, ch, base);
+  const double x1 = zb_pool_read(H, sid, ch, base + 1.0);
+  return x0 + (x1 - x0) * frac;
+}
+// sample_read2{,_interp}: 1.0 and (l, r) where the entry holds the phase
+// (the hard boundary: finite, 0 <= phase <= frames - 1; r = l for a mono
+// entry), else 0.0 and zeros
+ZB_FN double zb_pool_read2(const ZH* H, double sid, double phase, int interp,
+                           double* l, double* r) {
+  const long long s = zb_pool_row(H, sid);
+  const long long nf = H->pool_frm[s], nc = H->pool_nch[s];
+  *l = 0.0;
+  *r = 0.0;
+  if (nf == 0 || nc == 0 || !zb_finite(phase) || phase < 0.0
+      || phase > (double)(nf - 1))
+    return 0.0;
+  *l = interp ? zb_pool_read_interp(H, sid, 0.0, phase)
+              : zb_pool_read(H, sid, 0.0, phase);
+  *r = nc < 2 ? *l
+              : (interp ? zb_pool_read_interp(H, sid, 1.0, phase)
+                        : zb_pool_read(H, sid, 1.0, phase));
+  return 1.0;
+}
+// sample_preview_read: the bin's (min, max, rms), or nullptr (the golden
+// then leaves the out-params as they were)
+ZB_FN const double* zb_pool_preview(const ZH* H, double sid, double bin) {
+  const long long s = zb_pool_row(H, sid);
+  bool ok;
+  const long long b = zb_pyint(bin, &ok);
+  if (!ok || b < 0 || b >= H->pool_pv_bins[s]) return nullptr;
+  return H->pool_pv + H->pool_pv_off[s] + 3 * b;
+}
+ZB_FN double zb_pool_get(const ZH* H, double index) {
+  bool ok;
+  const long long i = zb_pyint(index, &ok);
+  return ok && i >= 0 && i < H->pool_n_order ? (double)H->pool_order[i] : 0.0;
+}
+ZB_FN double zb_pool_len(const ZH* H, double sid) {
+  return (double)H->pool_frm[zb_pool_row(H, sid)];
+}
+ZB_FN double zb_pool_channels(const ZH* H, double sid) {
+  return (double)H->pool_nch[zb_pool_row(H, sid)];
+}
+ZB_FN double zb_pool_bins(const ZH* H, double sid) {
+  return (double)H->pool_pv_bins[zb_pool_row(H, sid)];
+}
+// k: 0 srate, 1 peak, 2 rms
+ZB_FN double zb_pool_meta(const ZH* H, double sid, int k) {
+  return H->pool_meta[3 * zb_pool_row(H, sid) + k];
+}
+
+// strlen / str_getchar of a literal handle (shadow/state.py: int(handle);
+// an unknown handle, an index out of range, NaN or +-inf give 0)
+ZB_FN long long zb_str_row(const ZH* H, double handle) {
+  bool ok;
+  const long long h = zb_pyint(handle, &ok);
+  if (!ok) return -1;
+  for (long long i = 0; i < H->str_n; ++i)
+    if (H->str_h[i] == h) return i;
+  return -1;
+}
+ZB_FN double zb_strlen(const ZH* H, double handle) {
+  const long long r = zb_str_row(H, handle);
+  return r < 0 ? 0.0 : H->str_len[r];
+}
+ZB_FN double zb_str_getchar(const ZH* H, double handle, double index) {
+  const long long r = zb_str_row(H, handle);
+  bool ok;
+  const long long i = zb_pyint(index, &ok);
+  if (r < 0 || !ok || i < 0 || (double)i >= H->str_len[r]) return 0.0;
+  return H->str_chars[r * H->str_w + i];
+}
+
+// file_mem's copy: n cells of the file table from off into the heap at
+// dst (the printer checked that [dst, dst + n) lies in the heap)
+ZB_FN double zb_file_copy(ZB* S, long long dst, long long off, long long n) {
+  for (long long i = 0; i < n; ++i) S->M[dst + i] = S->H.files[off + i];
+  return (double)n;
+}
+
 // -- K11's view: the reduced heap, its first page on chip -----------------------
 //
 // K11 (kernels/device_exec.py) runs a file's whole render on lane 0 of the
@@ -735,6 +881,7 @@ struct ZX {
   long long hw;            // the high-water mark of dynamic writes: its
                            // slot holds it as a double (max and the
                            // rounding to double commute)
+  ZH H;                    // the host-service tables (zero where unused)
 };
 
 // A dynamic access is on the chain of every heap read.  Its address is
@@ -821,6 +968,16 @@ ZB_FN double zx_rand(const ZX* S, double* pos, double limit) {
   double top = floor(limit);
   if (!(top >= 1.0)) top = 1.0;
   return u * (1.0 / 4294967295.0) * top;
+}
+
+// file_mem's copy on the reduced heap: the page's cells below ZX_PAGE
+ZB_FN double zx_file_copy(ZX* S, long long dst, long long off, long long n) {
+  for (long long i = 0; i < n; ++i) {
+    const long long a = dst + i;
+    if (a < ZX_PAGE) S->P[a] = S->H.files[off + i];
+    else S->M[a] = S->H.files[off + i];
+  }
+  return (double)n;
 }
 
 // -- bulk operations: runs of cells in the page or in the row --

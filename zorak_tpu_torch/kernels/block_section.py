@@ -36,6 +36,12 @@ order, and zeroes its OUT table; the epilogue, after the section and any
 sender id.  The window, its count, the cursors and the overflow counter
 are device tensors for the whole render, so a render's members run one
 after another on one stream with no copy to the host between them.
+
+A section that calls the host services (a loaded sample pool, file_mem's
+copies, string gathers) reads its program's `HostTables`
+(`lowering/devgen.py`), staged on the device at the first launch and kept
+(`kernels/host_tables.py`): every launch of a render passes the same
+tables.
 """
 from __future__ import annotations
 
@@ -48,9 +54,10 @@ import numpy as np
 import torch
 
 from . import _build
+from .host_tables import tables_arg
 from ..lowering.devgen import (
     MIDI_OUT_CAP, MIDI_POS_SLOT, MSG_ENT, MSG_OUT_CAP, MSG_QENT, MSG_QUEUE_CAP,
-    PENDING_SLOT_NAMES, DeviceSection)
+    PENDING_SLOT_NAMES, DeviceSection, plain_host)
 from ..runtime import fftops as FO
 from ..shadow.state import HostServices
 
@@ -181,6 +188,15 @@ class BlockSectionProgram:
         for k in layout:
             setattr(self, k, getattr(block, k))
         self.midi_out_cells = block.midi_out_cells
+        # the host services' tables, shared by the sections: a launch
+        # passes their staged copy (the text and the launch take one more
+        # argument)
+        if slider is not None and slider.tables is not block.tables:
+            raise ValueError("@block and @slider must share their tables")
+        self.tables = block.tables
+        self.tabled = self.tables.used
+        if self.tabled and probe:
+            raise ValueError("the probe builds read no host tables")
         self.uses_gmem = block.uses_gmem
         self.uses_msg = block.msg_cfg is not None
         # a staged launch: gmem through the view, the bus's prologue and
@@ -350,6 +366,8 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
     # (thread 0; the section's bus calls run on thread 0 after it)
     stage_in, stage_out, stage_params, stage_args, stage_void = \
         [], [], "", "", ""
+    if p.tabled:
+        stage_in.append("  S.H = zh;")
     if p.staged:
         stage_params = (", double* gseg, double* mwin, double* mctl, "
                         "long long mrows, long long nmem, long long member, "
@@ -361,7 +379,7 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
                       "long long mrows, long long nmem, long long member, "
                       "int compact, const void* msub_, long long nsub, "
                       "double my_id")
-        stage_in = [
+        stage_in += [
             "  S.G = gseg ? gseg : M + ZB_GBASE;",
             "  S.gmem_cells = ZB_GCELLS;",
             "  S.msg_out = ZB_MSG_OUT;",
@@ -396,13 +414,18 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
     args = ("void* svec, void* bvars, void* bmem, void* ctrl, void* mout, "
             "const void* midi_ev, double midi_n, void* scratch, "
             "const void* tw, long long tw_n, double samplesblock, "
-            "long long nf, void* serial_runs" + stage_void)
+            "long long nf, void* serial_runs" + stage_void
+            + (", const void* tables" if p.tabled else ""))
     stage_casts = [
         "  double* gseg = static_cast<double*>(gseg_);",
         "  double* mwin = static_cast<double*>(mwin_);",
         "  double* mctl = static_cast<double*>(mctl_);",
         "  const double* msub = static_cast<const double*>(msub_);",
     ] if p.staged else []
+    if p.tabled:
+        stage_casts.append("  const ZH zh = *static_cast<const ZH*>(tables);")
+    table_param = ", ZH zh" if p.tabled else ""
+    table_arg = ", zh" if p.tabled else ""
     casts = stage_casts + [
         "  double* sv0 = static_cast<double*>(svec);",
         "  double* bv = static_cast<double*>(bvars);",
@@ -425,7 +448,7 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
             "    double* mout, const double* midi_ev, double midi_n,",
             "    double* scratch, const double* tw, long long tw_n,",
             "    double samplesblock, unsigned long long* runs"
-            f"{stage_params}{ring_params}) {{",
+            f"{stage_params}{table_param}{ring_params}) {{",
             "  const long long f = blockIdx.x, t = threadIdx.x, nt = blockDim.x;",
             *on_chip,
             "  double* M = bmem + f * ZB_TM;",
@@ -460,7 +483,7 @@ def _emit_source(p: BlockSectionProgram) -> str:  # noqa: C901 (one file)
             f"  {kern}<<<static_cast<unsigned>(nf), ZB_THREADS, ZB_SMEM,",
             "              static_cast<cudaStream_t>(stream)>>>(sv0, bv, bm, cr,",
             f"      mo, ev, midi_n, sc, twd, tw_n, samplesblock, runs"
-            f"{stage_args}{ring_args});",
+            f"{stage_args}{table_arg}{ring_args});",
             "  return static_cast<int>(cudaGetLastError());",
             "}",
             "",
@@ -959,12 +982,19 @@ _STAGE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double]
 
 
+def _table_args(program, device) -> list:
+    """A tabled program's staged tables (their addresses, by reference),
+    none for another."""
+    return [tables_arg(program.tables, device)] if program.tabled else []
+
+
 def _launch(program, entry: str, svec, rings, bvars, bmem, samplesblock,
             midi, ctrl, mout, count: bool = True,
             stage: Optional[Stage] = None) -> None:
     dev = bvars.device
     ev, n_ev = _midi_args(program, midi)
-    lib = _library(program.source, len(program.regions), program.staged)
+    lib = _library(program.source, len(program.regions), program.staged,
+                   program.tabled)
     tw = program.twiddles_on(dev)
     scratch = program.scratch_on(dev, bvars.shape[0])
     runs = _serial_counter(dev) if count else None
@@ -976,7 +1006,7 @@ def _launch(program, entry: str, svec, rings, bvars, bmem, samplesblock,
             0 if ev is None else ev.data_ptr(), n_ev, scratch.data_ptr(),
             tw.data_ptr(), max(program.fft_max, 2), float(samplesblock),
             bvars.shape[0], 0 if runs is None else runs.data_ptr(),
-            *_stage_args(program, stage), stream,
+            *_stage_args(program, stage), *_table_args(program, dev), stream,
             *[r.data_ptr() for r in rings])
     if err != 0:
         raise RuntimeError(f"block_section kernel launch failed ({entry}): "
@@ -1020,14 +1050,15 @@ _HEAD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_double, ctypes.c_void_p,
 
 
 @functools.lru_cache(maxsize=None)
-def _library(source: str, n_rings: int, staged: bool = False) -> ctypes.CDLL:
+def _library(source: str, n_rings: int, staged: bool = False,
+             tabled: bool = False) -> ctypes.CDLL:
     lib = _build.load_generated(source)
     entries = [lib.block_section_launch]
     if "block_section_launch_earlier" in source:
         entries.append(lib.block_section_launch_earlier)
     for fn in entries:
         fn.argtypes = _HEAD_ARGS + (_STAGE_ARGS if staged else []) + [
-            ctypes.c_void_p] * (1 + n_rings)
+            ctypes.c_void_p] * (1 + n_rings + int(tabled))
         fn.restype = ctypes.c_int
     return lib
 
@@ -1054,6 +1085,7 @@ def block_section_host(program: BlockSectionProgram, svec, rings, bvars,
         raise ValueError(f"threads must be an int >= 0, got {threads!r}")
     fn = _build.load_generated_host(program.source).block_section_host
     fn.argtypes = _HEAD_ARGS + (_STAGE_ARGS if program.staged else []) + [
+        ctypes.c_void_p] * int(program.tabled) + [
         ctypes.c_longlong, ctypes.c_int] + [
         ctypes.c_void_p] * len(program.regions)
     fn.restype = ctypes.c_int
@@ -1069,7 +1101,8 @@ def block_section_host(program: BlockSectionProgram, svec, rings, bvars,
        mout.data_ptr(), 0 if ev is None else ev.data_ptr(), n_ev,
        scratch.data_ptr(), tw.data_ptr(), max(program.fft_max, 2),
        float(samplesblock), nf, runs.data_ptr(),
-       *_stage_args(program, stage), threads, int(descending),
+       *_stage_args(program, stage), *_table_args(program, "cpu"), threads,
+       int(descending),
        *[r.data_ptr() for r in rings])
     return ctrl, (mout if program.midi_out_cells else None), int(runs)
 
@@ -1281,6 +1314,14 @@ class _StagedHost(HostServices):
         self.comm = getattr(sec.snap, "host", None)
         self.instance_id_value = float(getattr(self.comm, "instance_id_value",
                                                0.0))
+        # the file, pool, string and clock calls: the snapshot host's
+        services = plain_host(self.comm)
+        if services is not None:
+            for name in ("file_call", "file_var_read", "file_riff_read",
+                         "sample_pool_call", "sample_read2",
+                         "sample_preview_read", "sample_name", "now",
+                         "strlen", "str_getchar"):
+                setattr(self, name, getattr(services, name))
 
     def gmem_attach(self, st, handle) -> float:
         return 0.0 if self.sec.comm_solo else 1.0
@@ -1374,6 +1415,7 @@ def _plain_file(program, block_fn, slider_fn, v_row, m_row,
 
     sec = program.block
     st = program._plain_state.clone()
+    host = st.host
     if program.staged:
         host = _StagedBus if program.uses_msg else _StagedHost
         st.host = host(sec, m_row.numpy())
@@ -1390,10 +1432,14 @@ def _plain_file(program, block_fn, slider_fn, v_row, m_row,
                   for e in events]
     st.midi_in_pos = int(vals[program.pos_slot])
     st.midi_out = []
+    if not program.staged:
+        st.host = plain_host(host)
     block_fn(st)
     if slider_fn is not None and (st.pending_change_mask
                                   or st.pending_automate_mask
                                   or st.pending_automate_end_mask):
+        if not program.staged:
+            st.host = plain_host(host)
         slider_fn(st)
         st.pending_change_mask = 0
         st.pending_automate_mask = 0

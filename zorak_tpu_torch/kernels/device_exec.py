@@ -15,7 +15,12 @@ prints as C (`DeviceSection.body_source`, with the reduced heap's
 addressing and the staged draw pool of `csrc/block_ops.cuh`), inlined.
 On a CPU tensor it runs `device_exec_plain`: for each file the port's
 Python golden (`shadow/pyexec.py`) with the same heap, pool and block
-loop.  Nothing falls back from one to the other.  `device_exec_host` runs
+loop, its file, sample-pool, string and clock calls answered by the
+snapshot's host (`runtime/services.py` EngineHost).  Nothing falls back
+from one to the other.  The host services' tables (`lowering/devgen.py`
+HostTables: the loaded pool's generation, file_mem's chunks, the string
+literals) are staged once a render (`kernels/host_tables.py`) and read by
+every file.  `device_exec_host` runs
 the generated text compiled with a host C++ compiler, for the tests.
 """
 from __future__ import annotations
@@ -28,9 +33,10 @@ import numpy as np
 import torch
 
 from . import _build
+from .host_tables import tables_arg
 from ..lowering.devgen import (
     MEM_HIWATER_SLOT, MIDI_OUT_CAP, MIDI_POS_SLOT, PAGE_CELLS,
-    PENDING_SLOT_NAMES, RAND_POS_SLOT, DeviceSection)
+    PENDING_SLOT_NAMES, RAND_POS_SLOT, DeviceSection, plain_host)
 from ..runtime import fftops as FO
 
 # Kernel launches since the counter was last set; chip_smoke.py zeroes it
@@ -130,6 +136,9 @@ class DeviceExecProgram:
                 raise ValueError("the sections must share slots and heap")
         if slider is not None and block is None:
             raise ValueError("@slider reruns only after @block")
+        if any(s.tables is not sample.tables for s in secs):
+            raise ValueError("the sections must share their tables")
+        self.tables = sample.tables
         self.sample, self.block, self.slider = sample, block, slider
         self.nch = int(nch)
         self.B = int(block_size)
@@ -215,6 +224,12 @@ def _emit_source(p: DeviceExecProgram) -> str:  # noqa: C901 (one file)
         f"#define ZX_SMEM {p.smem_bytes}",
         "",
         _PROBE_MACROS,
+        "// the host-service tables of a launch (zero where it passes none)",
+        "static ZH zx_tables(const void* p) {",
+        "  ZH z = {};",
+        "  if (p) z = *static_cast<const ZH*>(p);",
+        "  return z;",
+        "}",
     ]
     for n in p.perm_sizes:
         out.append(_c_table(f"zb_perm_{n}", FO.perm_table(n), "int"))
@@ -250,9 +265,9 @@ def _emit_source(p: DeviceExecProgram) -> str:  # noqa: C901 (one file)
             "const double* pool, long long pool_n, double* scratch, "
             "long long scratch_n, const double* tw, long long tw_n, "
             "long long T, long long nfull, long long rem, long long mem_size, "
-            "long long total_mem")
+            "long long total_mem, ZH zh")
     names = ("x, y, bvars, bmem, mout, mev, mn, mk, pool, pool_n, scratch, "
-             "scratch_n, tw, tw_n, T, nfull, rem, mem_size, total_mem")
+             "scratch_n, tw, tw_n, T, nfull, rem, mem_size, total_mem, zh")
     casts = [
         "static_cast<const float*>(x), static_cast<float*>(y),",
         "static_cast<double*>(bvars), static_cast<double*>(bmem),",
@@ -260,13 +275,13 @@ def _emit_source(p: DeviceExecProgram) -> str:  # noqa: C901 (one file)
         "static_cast<const double*>(mn), mk, static_cast<const double*>(pool),",
         "pool_n, static_cast<double*>(scratch), scratch_n,",
         "static_cast<const double*>(tw), tw_n, T, nfull, rem, mem_size,",
-        "total_mem,"]
+        "total_mem, zx_tables(tables),"]
     c_args = ("const void* x, void* y, void* bvars, void* bmem, void* mout, "
               "const void* mev, const void* mn, long long mk, const void* pool, "
               "long long pool_n, void* scratch, long long scratch_n, "
               "const void* tw, long long tw_n, long long T, long long nfull, "
               "long long rem, long long mem_size, long long total_mem, "
-              "long long nf")
+              "long long nf, const void* tables")
     out += [
         "",
         "// One file's whole render on lane 0 of its warp, over the warp's",
@@ -282,6 +297,7 @@ def _emit_source(p: DeviceExecProgram) -> str:  # noqa: C901 (one file)
         "  ZX S = {P, M, mem_size, mem_size < ZX_PAGE ? mem_size : ZX_PAGE, mo,",
         "          (double)ZX_B, nullptr, 0.0, scratch + f * scratch_n, tw, tw_n,",
         "          pool, pool_n, (long long)V[ZX_HW]};",
+        "  S.H = zh;",
         "  const long long rows = nfull + (rem > 0 ? 1 : 0);",
         "  const float* xf = x + f * ZX_NCH * T;",
         "  float* yf = y + f * ZX_NCH * T;",
@@ -563,7 +579,7 @@ def _launch(program, lib, x, bvars, bmem, pool, midi, cycles):
             mn.data_ptr(), mk, pool.data_ptr(), pool.numel(),
             scratch.data_ptr(), program.scratch_cells, tw.data_ptr(),
             max(program.fft_max, 2), T, nfull, rem, program.mem_size,
-            program.total_mem, nf,
+            program.total_mem, nf, _tables(program, dev),
             0 if cycles is None else cycles.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -572,11 +588,19 @@ def _launch(program, lib, x, bvars, bmem, pool, midi, cycles):
 
 
 # x, y, bvars, bmem, mout, mev, mn; mk; pool; pool_n; scratch; scratch_n;
-# tw; tw_n, T, nfull, rem, mem_size, total_mem, nf
+# tw; tw_n, T, nfull, rem, mem_size, total_mem, nf; tables
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p,
                                    ctypes.c_longlong, ctypes.c_void_p,
                                    ctypes.c_longlong, ctypes.c_void_p]
-         + [ctypes.c_longlong] * 7)
+         + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
+
+
+def _tables(program: DeviceExecProgram, device):
+    """The program's host-service tables staged on `device` (once a
+    render: a later launch, file or rung reuses them), by reference, or
+    None where no printed call reads them."""
+    return tables_arg(program.tables, device) if program.tables.used \
+        else None
 
 
 @functools.lru_cache(maxsize=None)
@@ -678,7 +702,7 @@ def device_exec_host(program: DeviceExecProgram, x, bvars, bmem, pool=None,
        mout.data_ptr(), mev.data_ptr(), mn.data_ptr(), mk, pool.data_ptr(),
        pool.numel(), scratch.data_ptr(), program.scratch_cells, tw.data_ptr(),
        max(program.fft_max, 2), T, nfull, rem, program.mem_size,
-       program.total_mem, nf)
+       program.total_mem, nf, _tables(program, "cpu"))
     return y, (mout if program.midi_out_cells else None)
 
 
@@ -754,6 +778,13 @@ def _plain_file(program, fns, st, xf, yf, events, nfull, rem, m_row,
     B, nch = program.B, program.nch
     mo = program.mem_size
     spl = st.spl
+    host = st.host
+
+    def run(fn) -> None:
+        # the file API folds from no file open each print, so each
+        # section run of the plain version starts there too
+        st.host = plain_host(host)
+        fn(st)
     for b in range(nfull + (1 if rem else 0)):
         n = B if b < nfull else rem
         st.samplesblock = float(n)
@@ -763,11 +794,11 @@ def _plain_file(program, fns, st, xf, yf, events, nfull, rem, m_row,
                 st.midi_in = [MidiEvent(int(e[0]), int(e[1]), int(e[2]),
                                         int(e[3])) for e in events[b]]
                 st.midi_in_pos = 0
-            block_fn(st)
+            run(block_fn)
             if slider_fn is not None and (st.pending_change_mask
                                           or st.pending_automate_mask
                                           or st.pending_automate_end_mask):
-                slider_fn(st)
+                run(slider_fn)
                 st.pending_change_mask = 0
                 st.pending_automate_mask = 0
                 st.pending_automate_end_mask = 0
@@ -775,7 +806,7 @@ def _plain_file(program, fns, st, xf, yf, events, nfull, rem, m_row,
         for i in range(n):
             for c in range(nch):
                 spl[c] = float(xf[c, t0 + i])
-            sample_fn(st)
+            run(sample_fn)
             for c in range(nch):
                 yf[c, t0 + i] = np.float32(spl[c])
         if program.midi_out_cells:

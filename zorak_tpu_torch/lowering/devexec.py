@@ -32,9 +32,9 @@ import torch
 
 from ..device import resolve_device
 from ..ir.program import PluginProgram
-from .devgen import (DeviceSection, DevgenError, MEM_HIWATER_SLOT,
-                     MIDI_OUT_CAP, MIDI_POS_SLOT, PENDING_SLOT_NAMES,
-                     RAND_POS_SLOT, section_dynamic_keys)
+from .devgen import (DeviceSection, DevgenError, HostTables,
+                     MEM_HIWATER_SLOT, MIDI_OUT_CAP, MIDI_POS_SLOT,
+                     PENDING_SLOT_NAMES, RAND_POS_SLOT, section_dynamic_keys)
 from .specialize import SpecializeError
 
 
@@ -70,6 +70,9 @@ class DeviceExecKernel:
             size = min(self._full_size,
                        1 << max(12, (2 * max(used, 1) - 1).bit_length()))
         self.heap_climbs: List[int] = []   # the sizes each climb reached
+        # the host services' tables: one for the kernel's life, so a climb
+        # of the ladder stages nothing again
+        self.tables = HostTables()
         self._build(size)
         self._rng_state = None        # the generator the last pool came from
         self._rng_prestate = None
@@ -92,7 +95,8 @@ class DeviceExecKernel:
                     # lays out one heap and one pool for all of them
                     probe = [DeviceSection(self.P, self.snap, s, self._dyn,
                                            size, reduced_heap=True,
-                                           rand_pool=self._rand_pool_req)
+                                           rand_pool=self._rand_pool_req,
+                                           tables=self.tables)
                              for s in self._secs]
                     self.uses_rand = any(p.uses_rand for p in probe)
                     self._any_mout = any(p.uses_midi_out for p in probe)
@@ -101,7 +105,8 @@ class DeviceExecKernel:
                 secs = {s: DeviceSection(self.P, self.snap, s, self._dyn,
                                          size, reduced_heap=True,
                                          rand_pool=self._rand_cap,
-                                         force_midi_out=self._any_mout)
+                                         force_midi_out=self._any_mout,
+                                         tables=self.tables)
                         for s in self._secs}
                 break
             except DevgenError as exc:

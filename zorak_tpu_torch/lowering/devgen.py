@@ -45,6 +45,22 @@ address with a whole constant operand added as an integer.  It may also
 draw `rand()` from a staged pool (`rand_pool` > 0): K10's sections draw
 nothing.
 
+The host services print as the reference's DeviceSection traces them.
+The legacy file API folds while the text prints, on a fresh
+`FileSlotService` over the snapshot host's slots each print (a load is
+self-contained in one run of the section: open, riff, avail, file_mem,
+close); its arguments must be static, a var assigned a static value reads
+back static until the section writes it again, and a branch around a
+load whose condition is static prints only the arm it takes.  file_mem's
+chunk is no literal of the text: it is staged in the file table of the
+program's `HostTables`, which the printed code copies into the heap.  A
+loaded sample pool becomes gathers over its generation's packed tables
+(`csrc/block_ops.cuh` zb_pool_*), an empty one folds to the golden host's
+constants, and static queries fold through the host.  strlen and
+str_getchar fold where their arguments are static and gather over the
+literal pool's table where not; time() and time_precise() read the
+golden host's virtual clock, static for a render.
+
 What the section may not use raises DevgenError naming the work that
 brings it; the specializer turns that into a SpecializeError, and the
 engine renders the plugin through the golden.  `kernels/block_section.py`
@@ -70,6 +86,7 @@ the same, so both forms give the same bits.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import fields
 from typing import (Any, Dict, List, NamedTuple, Optional, Sequence, Set,
                     Tuple)
@@ -78,9 +95,10 @@ import numpy as np
 
 from ..comm.bus import InstanceComm
 from ..frontend.astnodes import (
-    Asn, Bin, Block, CallExpr, Cond, Const, LoopExpr, Mem, Name, Node, Str,
-    Un, walk,
+    Asn, Bin, Block, CallExpr, Cond, Const, IfStmt, LoopExpr, Mem, Name,
+    Node, Str, Un, WhileStmt, walk,
 )
+from ..ir.analyses import FUNSETS
 from ..ir.program import PluginProgram
 from ..ir.symbols import dollar_const
 from ..runtime import fftops as FO
@@ -143,6 +161,128 @@ class MsgConfig:
         return got
 
 
+class HostTables:
+    """The read-only tables the host-service calls of one program's
+    sections read on the device: the loaded sample pool's generation
+    packed as the reference's `_pool_tables` (f32 `data`, every entry's
+    [frames, channels] row-major one after another; int64 `offs`, `frm`,
+    `nch`, `pv_off`, `pv_bins` a row a sample id, row 0 none, and `order`;
+    f64 `meta` (srate, peak, rms) and `pv`), the file table (the chunks
+    file_mem copies, in print order, each once) and the literal pool
+    (`_str_tables`).  They fill while the sections print, and `version`
+    counts the prints that added to them.  The launch layer
+    (`kernels/host_tables.py`) stages them on a device once a version and
+    keeps its copies in `staged`, so the programs of one render (the rungs
+    of a heap ladder, a batch's files) share one staging."""
+
+    def __init__(self):
+        self.pool: Optional[Dict[str, np.ndarray]] = None
+        self._gen = None
+        self.strings: Optional[Tuple[np.ndarray, ...]] = None
+        self._chunks: List[np.ndarray] = []
+        self._chunk_at: Dict[Any, int] = {}
+        self.file_cells = 0
+        self.version = 0
+        self.staged: Dict[str, Any] = {}   # by device, the launch layer's
+        self.stagings = 0          # how often they were copied to a device
+
+    @property
+    def used(self) -> bool:
+        return (self.pool is not None or self.strings is not None
+                or self.file_cells > 0)
+
+    def pool_of(self, gen) -> Dict[str, np.ndarray]:
+        """The packed tables of a loaded generation (made once a
+        generation: a generation is immutable while it is published)."""
+        if self._gen is not gen:
+            maxsid = max(gen.entries)
+            offs, frm, nch, pv_off, pv_bins = (
+                np.zeros(maxsid + 1, np.int64) for _ in range(5))
+            meta = np.zeros((maxsid + 1, 3), np.float64)
+            datas, pvs = [], []
+            cur = pcur = 0
+            for sid in sorted(gen.entries):
+                e = gen.entries[sid]
+                offs[sid], frm[sid], nch[sid] = cur, e.data.shape[0], \
+                    e.data.shape[1]
+                meta[sid] = (float(e.srate), e.peak, e.rms)
+                datas.append(np.asarray(e.data, np.float32).reshape(-1))
+                cur += e.data.size
+                pv_off[sid], pv_bins[sid] = pcur, len(e.preview)
+                pvs.append(np.asarray(e.preview, np.float64).reshape(-1))
+                pcur += e.preview.size
+            self.pool = {
+                "maxsid": maxsid, "n_order": len(gen.order),
+                "data": np.concatenate(datas) if cur
+                else np.zeros(1, np.float32),
+                "offs": offs, "frm": frm, "nch": nch, "pv_off": pv_off,
+                "pv_bins": pv_bins,
+                "order": np.asarray(gen.order or [0], np.int64),
+                "meta": meta.reshape(-1),
+                "pv": np.concatenate(pvs) if pcur else np.zeros(3),
+            }
+            self._gen = gen
+            self.version += 1
+        return self.pool
+
+    def strings_of(self, snap) -> Tuple[np.ndarray, ...]:
+        """(handles, lengths, chars [literals, width]) of the literal pool:
+        strings are immutable in every executor, so the snapshot's are all
+        there are."""
+        if self.strings is None:
+            items = sorted((int(h), t or "") for h, t in
+                           getattr(snap, "strings_by_handle", {}).items())
+            items = items or [(-1, "")]
+            width = max(1, max(len(t) for _h, t in items))
+            chars = np.zeros((len(items), width), np.float64)
+            for r, (_h, t) in enumerate(items):
+                chars[r, :len(t)] = [float(ord(c)) for c in t]
+            self.strings = (np.asarray([h for h, _t in items], np.int64),
+                            np.asarray([len(t) for _h, t in items],
+                                       np.float64), chars.reshape(-1), width)
+            self.version += 1
+        return self.strings
+
+    def file_chunk(self, key, chunk: np.ndarray) -> int:
+        """The file table's offset of a chunk (key: its file, cursor and
+        length), appended at its first print."""
+        at = self._chunk_at.get(key)
+        if at is None:
+            at = self._chunk_at[key] = self.file_cells
+            self._chunks.append(np.asarray(chunk, np.float64))
+            self.file_cells += len(chunk)
+            self.version += 1
+        return at
+
+    def file_table(self) -> np.ndarray:
+        """The file table: every chunk, in print order."""
+        return np.concatenate(self._chunks)
+
+
+def fresh_file_service(host):
+    """A file service over the host's slots with no file open (the
+    reference's `_fresh_file_service`): each print of a section, and each
+    run of it in the plain versions, starts from it."""
+    from ..runtime.services import FileSlotService
+
+    svc = FileSlotService()
+    src = getattr(host, "files", None)
+    if src is not None:
+        svc.slots = src.slots
+    return svc
+
+
+def plain_host(host):
+    """The host a plain version's section run calls: the snapshot's, with
+    a fresh file service (the file API folds each print from no file
+    open, so each run of the section starts there too)."""
+    if getattr(host, "files", None) is None:
+        return host
+    h = copy.copy(host)
+    h.files = fresh_file_service(host)
+    return h
+
+
 # where each refused construct comes from (ROADMAP.md)
 _BUS = ("the device sections stage scalar messages and fold the registry "
         "only (the reference's DeviceSection._MSG_DEVICE_FNS and _GMEM_FNS): "
@@ -150,8 +290,6 @@ _BUS = ("the device sections stage scalar messages and fold the registry "
         "numbers render through the golden, as in the reference")
 _BUS_K11 = ("gmem and the message bus in the sequential executor come with "
             "ROADMAP queue 2's K11 bus entry")
-_SERVICES = ("file, pool and host services come with queue 1 item 3 "
-             "(the services copy)")
 _NEVER = ("the reference does not run it on the device either, and no "
           "slice brings it: the golden renders the plugin")
 
@@ -183,23 +321,35 @@ _BUS_FNS = COMM_FNS | GMEM_FNS | {
     "instance_get_name", "gmem_seq", "gmem_page"}
 _MSG_RECV_SIDE = frozenset({
     "msg_recv", "msg_avail", "msg_kind", "msg_length", "msg_clear"})
-_SERVICE_FNS = frozenset({
-    "file_open", "file_open_multi", "file_close", "file_rewind",
-    "file_seek", "file_avail", "file_text", "file_riff", "file_var",
-    "file_mem", "file_multi_count", "file_multi_select",
-    "file_string", "file_read", "file_write",
-    "strlen", "str_getchar", "time", "time_precise",
-    "track_name", "track_name_available", "track_name_seq",
-    "host_track_name", "host_track_name_available", "host_track_name_seq",
-})
-# the reference's _FORBIDDEN that no other list names
+# the reference's _FORBIDDEN that no other list names, and the host's
+# track names, which its device sections do not run either
 _FORBIDDEN = frozenset({
     "midisend_buf", "midirecv_buf", "midisend_str", "midirecv_str",
     "midisyx", "slider_show", "slider_next_chg",
+    "file_string", "file_read", "file_write",
     "get_host_placement", "export_buffer_to_project",
     "mem_set_values", "mem_get_values", "atomic_setifequal",
     "stack_push", "stack_pop", "stack_peek", "stack_exch",
-})
+}) | FUNSETS.HOST_TRACK
+# the host services the sections run (the reference's `_file_call`,
+# `_pool_call`, `_str_gather` and its virtual clock)
+_FILE_FNS = FUNSETS.LEGACY_FILE
+_POOL_FNS = FUNSETS.POOL_ALL
+_POOL_SETUP = FUNSETS.POOL_SETUP
+# the pool and string reads that touch no state: pure, like a heap read
+_POOL_READS = frozenset({
+    "sample_read", "sample_read_interp", "sample_get", "sample_len",
+    "sample_channels", "sample_srate", "sample_peak", "sample_rms",
+    "sample_preview_bins", "strlen", "str_getchar"})
+_POOL_ROW = {"sample_len": "zb_pool_len(&S->H, {})",
+             "sample_channels": "zb_pool_channels(&S->H, {})",
+             "sample_preview_bins": "zb_pool_bins(&S->H, {})",
+             "sample_srate": "zb_pool_meta(&S->H, {}, 0)",
+             "sample_peak": "zb_pool_meta(&S->H, {}, 1)",
+             "sample_rms": "zb_pool_meta(&S->H, {}, 2)"}
+_POOL_LEVEL = frozenset({
+    "sample_pool_state", "sample_pool_selected", "sample_pool_loaded",
+    "sample_pool_failed", "sample_pool_ram_mb", "sample_pool_generation"})
 _INERT = frozenset({
     "sprintf", "printf", "strcpy", "strcat", "strcmp", "str_setchar",
     "str_insert", "str_delete", "str_mid", "strncpy"})
@@ -227,7 +377,7 @@ _SC_BINARY = {
 }
 # calls with no effect on the state (their operands may still have one)
 _PURE_CALLS = frozenset(_UNARY_C) | {"min", "max", "pow", "atan2", "sqr",
-                                     "__memtop"}
+                                     "__memtop"} | _POOL_READS
 _FFT_FNS = ("fft", "ifft", "fft_real", "ifft_real", "fft_permute",
             "fft_ipermute")
 
@@ -309,11 +459,20 @@ class _SectionC(_CGen):
     unspecified."""
 
     def __init__(self, dev: "DeviceSection", params: Sequence[str] = (),
-                 local: Optional[Dict[Any, str]] = None):
+                 local: Optional[Dict[Any, str]] = None,
+                 in_function: bool = False):
         super().__init__(dev.P, params)
         self.dev = dev
         # var keys a block loop keeps in a thread's own C variables
         self.local = local or {}
+        # the print-time state of the file API (the reference's trace-time
+        # overlay): the open files, the vars known to hold a static value
+        # here, the static values of the host calls printed so far, and
+        # whether the code printed runs more than once a section run
+        self.files = fresh_file_service(getattr(dev.snap, "host", None))
+        self.known: Dict[Any, float] = {}
+        self.static_of: Dict[int, float] = {}
+        self.repeats = 1 if in_function else 0
 
     def tmp(self) -> str:
         self.dev._ntmp += 1
@@ -367,11 +526,16 @@ class _SectionC(_CGen):
             raise DevgenError(f"write to unclassified state {key!r}")
         return f"{self.dev.vrow}[{slot}]"
 
-    def fold(self, n: Node) -> Optional[float]:
+    def fold(self, n: Node, known: Optional[Dict[Any, float]] = None
+             ) -> Optional[float]:
         """n's value when it is known while printing (constants and frozen
-        state), else None."""
+        state), else None.  With `known` (the file API's overlay), a var
+        slot known to hold a static value, a host call printed static and
+        min, max and a ternary over static operands fold too."""
         if isinstance(n, Const):
             return float(n.value)
+        if isinstance(n, Str):
+            return float(self.P.string_handle(n.text))
         if isinstance(n, Name):
             if n.ident in self.params or n.ident == "gmem":
                 return None
@@ -381,20 +545,121 @@ class _SectionC(_CGen):
             if c is not None:
                 return float(c)
             key = _env_key(n.ident)
-            if key == ("builtin", "samplesblock") or key in self.dev.slots:
+            if key in self.local or key == ("builtin", "samplesblock"):
                 return None
+            if key in self.dev.slots:
+                return None if known is None else known.get(key)
             return self.dev._frozen_value(key)
         if isinstance(n, Un):
-            a = self.fold(n.operand)
+            a = self.fold(n.operand, known)
             if a is None:
                 return None
             return {"+": a, "-": 0.0 - a}.get(n.op, SC.eel_not(a))
         if isinstance(n, Bin) and n.op in _SC_BINARY:
-            a, b = self.fold(n.lhs), self.fold(n.rhs)
+            a, b = self.fold(n.lhs, known), self.fold(n.rhs, known)
             if a is None or b is None:
                 return None
             return _SC_BINARY[n.op](a, b)
+        if known is None:
+            return None
+        if isinstance(n, CallExpr):
+            if id(n) in self.static_of:
+                return self.static_of[id(n)]
+            if n.func in ("min", "max") and len(n.args) == 2:
+                a, b = (self.fold(x, known) for x in n.args)
+                if a is None or b is None:
+                    return None
+                return (SC.eel_min if n.func == "min" else SC.eel_max)(a, b)
+            return None
+        if isinstance(n, Cond):
+            c = self.fold(n.pred, known)
+            if c is None:
+                return None
+            return self.fold(n.then if SC.truthy(c) else n.other, known)
         return None
+
+    def fold_known(self, n: Node) -> Optional[float]:
+        return self.fold(n, self.known)
+
+    # -- the file API's print-time state across control flow -------------------
+
+    def forget(self, node: Optional[Node]) -> None:
+        """Drop what the overlay knows of every var node may write: an
+        assignment's target, a builtin's variable arguments (its
+        out-params); a user function call may write any."""
+        if node is None or not self.known:
+            return
+        for n in walk(node):
+            if isinstance(n, Asn) and isinstance(n.target, Name):
+                self.known.pop(_env_key(n.target.ident), None)
+            elif isinstance(n, CallExpr):
+                if n.func in self.P.fn_defs:
+                    self.known.clear()
+                    return
+                if n.func not in _PURE_CALLS:
+                    for a in n.args:
+                        if isinstance(a, Name):
+                            self.known.pop(_env_key(a.ident), None)
+
+    def _file_state(self):
+        svc = self.files
+        fp = tuple(sorted((k, h.cursor, h.selected)
+                          for k, h in svc.open_handles.items()))
+        clone = fresh_file_service(getattr(self.dev.snap, "host", None))
+        clone.open_handles = {k: copy.copy(h)
+                              for k, h in svc.open_handles.items()}
+        clone._next_handle = svc._next_handle
+        clone._free_handles = list(svc._free_handles)
+        return fp, clone
+
+    def arms(self, a: Optional[Node], b: Optional[Node]) -> Tuple[str, str]:
+        """The two arms of a branch taken at run time: each printed from
+        the state before it; afterwards a var stays known where both arms
+        agree, and the open files must be the same after either arm (the
+        reference's `_merged`)."""
+        known0 = dict(self.known)
+        fp0, files0 = self._file_state()
+        ta = self.ex(a) if a is not None else "0.0"
+        known_a, files_a = self.known, self.files
+        fp_a = self._file_state()[0]
+        self.known, self.files = dict(known0), files0
+        tb = self.ex(b) if b is not None else "0.0"
+        fp_b = self._file_state()[0]
+        if fp_a != fp_b:
+            raise DevgenError("file cursor state diverges across a "
+                              "data-dependent branch")
+        if fp_a != fp0:
+            self.files = files_a
+        self.known = {k: v for k, v in known_a.items()
+                      if k in self.known and self.known[k] == v}
+        return ta, tb
+
+    def static_arm(self, pred: Node, arms: Sequence[Optional[Node]]):
+        """The arm a branch takes where its condition folds and an arm
+        calls the file API (which folds only on the path it runs); else
+        None."""
+        if not any(a is not None and any(
+                isinstance(n, CallExpr) and n.func in _FILE_FNS
+                for n in walk(a)) for a in arms):
+            return None
+        c = self.fold_known(pred)
+        if c is None:
+            return None
+        return (arms[0] if SC.truthy(c) else arms[1],)
+
+    def looped(self, head: Optional[Node], body: Node, fmt) -> str:
+        """A loop: the vars its body (and a while's condition) writes are
+        unknown inside it and after it."""
+        self.forget(head)
+        self.forget(body)
+        self.repeats += 1
+        try:
+            text = fmt()
+        finally:
+            self.repeats -= 1
+        self.forget(head)
+        self.forget(body)
+        return text
 
     def static_addr(self, base: Node, idx: Node) -> Optional[int]:
         b, i = self.fold(base), self.fold(idx)
@@ -456,7 +721,45 @@ class _SectionC(_CGen):
                                  lambda v: f"({v[0]} {op} {v[1]})")
             return self.args([n.lhs, n.rhs],
                              lambda v: f"{_BINARY_C[op]}({v[0]}, {v[1]})")
+        if isinstance(n, Bin):
+            lhs = self.ex(n.lhs)
+            rhs = self.arms(n.rhs, None)[0]
+            if n.op == "&&":
+                return (f"(z_true({lhs}) ? (z_true({rhs}) ? 1.0 : 0.0) "
+                        ": 0.0)")
+            return f"(z_true({lhs}) ? 1.0 : (z_true({rhs}) ? 1.0 : 0.0))"
+        if isinstance(n, Cond):
+            arm = self.static_arm(n.pred, (n.then, n.other))
+            if arm is not None:
+                return f"({self.ex(arm[0])})"
+            pred = self.ex(n.pred)
+            t, e = self.arms(n.then, n.other)
+            return f"(z_true({pred}) ? ({t}) : ({e}))"
+        if isinstance(n, LoopExpr):
+            count = self.ex(n.count)
+            return self.looped(None, n.body, lambda: (
+                "({ double _lv = 0.0; int64_t _ln = zt_i64(%s); "
+                "for (int64_t _li = 0; _li < _ln; _li++) { _lv = (%s); } "
+                "_lv; })" % (count, self.ex(n.body))))
         return super().ex(n)
+
+    def stmt(self, n: Node) -> str:
+        if isinstance(n, IfStmt):
+            arm = self.static_arm(n.pred, (n.then, n.other))
+            if arm is not None:
+                return f"(void)({self.ex(arm[0])});" \
+                    if arm[0] is not None else ""
+            pred = self.ex(n.pred)
+            t, e = self.arms(n.then, n.other)
+            out = f"if (z_true({pred})) {{ (void)({t}); }}"
+            if n.other is not None:
+                out += f" else {{ (void)({e}); }}"
+            return out
+        if isinstance(n, WhileStmt):
+            return self.looped(n.pred, n.body, lambda: (
+                f"while (z_true({self.ex(n.pred)})) "
+                f"{{ (void)({self.ex(n.body)}); }}"))
+        return super().stmt(n)
 
     def _assign(self, n: Asn) -> str:
         tgt = n.target
@@ -464,6 +767,12 @@ class _SectionC(_CGen):
         if isinstance(tgt, Name):
             ref = self.lvalue(tgt.ident)
             r = self.tmp()
+            key = _env_key(tgt.ident)
+            v = self.fold_known(n.value) if n.op == "=" else None
+            if v is None or tgt.ident in self.params:
+                self.known.pop(key, None)
+            else:
+                self.known[key] = v
             if n.op == "=":
                 return f"({{ double {r} = ({rhs}); {ref} = {r}; {r}; }})"
             new = self._binop(_COMPOUND_C[n.op], ref, r)
@@ -529,7 +838,20 @@ class _SectionC(_CGen):
 
     # -- calls -----------------------------------------------------------------
 
-    def _call(self, n: CallExpr) -> str:  # noqa: C901 (one dispatch)
+    def _call(self, n: CallExpr) -> str:
+        fn = n.func
+        if fn in _FILE_FNS:
+            return self._file_call(n)
+        if fn in ("time", "time_precise"):
+            return self._clock(n)
+        text = self._builtin(n)
+        if fn in self.P.fn_defs:
+            self.known.clear()
+        elif fn not in _PURE_CALLS:
+            self.forget(n)   # a builtin may write its variable arguments
+        return text
+
+    def _builtin(self, n: CallExpr) -> str:  # noqa: C901 (one dispatch)
         fn, A = n.func, n.args
         dev = self.dev
         if fn in self.P.fn_defs:
@@ -602,12 +924,288 @@ class _SectionC(_CGen):
             return f"zx_rand(S, &{dev.vrow}[{pos}], {limit})"
         if fn in _BUS_FNS:
             return self._bus_call(fn, A)
-        if fn in _SERVICE_FNS or fn.startswith("sample_"):
-            raise DevgenError(f"@{dev.section} uses {fn}(): {_SERVICES}")
+        if fn in _POOL_FNS:
+            return self._pool_call(n)
+        if fn in ("strlen", "str_getchar"):
+            return self._string_call(n)
         if fn in _FORBIDDEN:
             raise DevgenError(f"@{dev.section} uses {fn}(): {_NEVER}")
         raise DevgenError(f"@{dev.section} builtin {fn}() not "
                           f"device-executable: {_NEVER}")
+
+    # -- host services: files, the sample pool, strings, the clock --------------
+
+    def _host(self):
+        return getattr(self.dev.snap, "host", None)
+
+    def _static_args(self, n: CallExpr, what: str):
+        """(values, texts) of a call's arguments, each printed (a nested
+        host call folds there) and then folded through the overlay;
+        raises where one is not static."""
+        texts, vals = [], []
+        for a in n.args:
+            texts.append(self.ex(a))
+            v = self.fold_known(a)
+            if v is None:
+                raise DevgenError(f"{n.func} with non-static {what}")
+            vals.append(v)
+        return vals, texts
+
+    def _const(self, n: CallExpr, value: float, texts=(), prep: str = "") -> str:
+        """A host call folded to `value`: what its arguments printed that
+        has an effect, then the constant (known to the overlay)."""
+        self.static_of[id(n)] = float(value)
+        keep = "".join(f"(void)({t}), " for t, a in zip(texts, n.args)
+                       if _impure(a))
+        if prep:
+            return f"({{ {prep} ({keep}{c_double(float(value))}); }})"
+        return f"({keep}{c_double(float(value))})"
+
+    def _out_param(self, node: Node, fn: str) -> Tuple[str, Any]:
+        """An out-parameter's (declarations, store(value text) -> C): its
+        cell found now (the golden's order), written by the store."""
+        if isinstance(node, Name) and node.ident not in ("mem", "gmem"):
+            ref = self.lvalue(node.ident)
+            key = _env_key(node.ident)
+
+            def store(v: str, static: Optional[float] = None) -> str:
+                if static is None or node.ident in self.params:
+                    self.known.pop(key, None)
+                else:
+                    self.known[key] = static
+                return f"{ref} = {v};"
+            return "", store
+        if isinstance(node, Mem) and not self._is_gmem(node):
+            a = self.static_addr(node.base, node.index)
+            if a is not None:
+                cell = self.dev.cell(a) if self.dev.reduced_heap \
+                    else f"S->M[{a}]"
+                return "", lambda v, static=None: f"{cell} = {v};"
+            t, b, i = self.tmp(), self.tmp(), self.tmp()
+            head = (f"double {b} = ({self.ex(node.base)}); "
+                    f"double {i} = ({self.ex(node.index)}); ")
+            if self.dev.reduced_heap:
+                return (head + f"long long {t} = zx_raddr({b}, {i});",
+                        lambda v, static=None: f"zx_rmset(S, {t}, {v});")
+            return (head + f"long long {t} = zb_addr(S, {b}, {i});",
+                    lambda v, static=None: f"S->M[{t}] = {v};")
+        raise DevgenError(f"{fn}: out-arg must be a variable or mem[] slot")
+
+    def _file_call(self, n: CallExpr) -> str:
+        """The legacy file API folded while the text prints (the
+        reference's `_file_call`): the handle and every argument static,
+        the answers FileSlotService's on the print's own service; a
+        file_mem chunk goes into the file table and prints as a copy from
+        it.  Once a print: not inside a loop or a user function, where the
+        golden would call it again."""
+        f, A = n.func, n.args
+        dev = self.dev
+        if self.repeats:
+            raise DevgenError(
+                f"@{dev.section} calls {f}() inside a loop or a user "
+                "function: the file API folds once a print (as the "
+                "reference's trace does), and the golden calls it each time")
+        svc = self.files
+        if (f, len(A)) in (("file_riff", 3), ("file_var", 2)):
+            # file_riff(h, nch, srate), file_var(h, value)
+            ht = self.ex(A[0])
+            h = self.fold_known(A[0])
+            if h is None:
+                raise DevgenError(f"{f} with non-static handle")
+            outs = [self._out_param(a, f) for a in A[1:]]
+            prep = (f"(void)({ht}); " if _impure(A[0]) else "") + " ".join(
+                d for d, _s in outs)
+            r = svc.riff(h) if f == "file_riff" else svc.var_read(h)
+            if r is None:
+                return self._const(n, 0.0, prep=prep)
+            vals = list(r) if f == "file_riff" else [r[1]]
+            prep += " " + " ".join(st(c_double(float(v)), float(v))
+                                   for (_d, st), v in zip(outs, vals))
+            return self._const(n, 1.0 if f == "file_riff" else float(r[0]),
+                               prep=prep)
+        vals, texts = self._static_args(n, "arguments")
+        if f in ("file_open", "file_open_multi"):
+            return self._const(n, svc.open(vals[0] if vals else -1.0), texts)
+        if f == "file_text":
+            return self._const(n, 0.0, texts)
+        if f == "file_mem" and len(vals) == 3:
+            return self._file_mem(n, vals, texts)
+        calls = {"file_close": (svc.close, 1), "file_avail": (svc.avail, 1),
+                 "file_rewind": (svc.rewind, 1), "file_seek": (svc.seek, 2),
+                 "file_multi_count": (svc.multi_count, 1),
+                 "file_multi_select": (svc.multi_select, 2)}
+        if f in calls and len(vals) >= calls[f][1]:
+            fn, k = calls[f]
+            return self._const(n, float(fn(*vals[:k])), texts)
+        raise DevgenError(f"file builtin {f} not supported")
+
+    def _file_mem(self, n: CallExpr, vals, texts) -> str:
+        """file_mem(h, dst, want): min(want, avail) cells from the cursor,
+        copied from the file table into the heap at dst."""
+        dev = self.dev
+        h = self.files._h(vals[0])
+        if h is None or h.current is None:
+            return self._const(n, 0.0, texts)
+        try:
+            dst = max(0, int(vals[1] + 1e-5))
+            want = max(0, int(vals[2]))
+        except (ValueError, OverflowError):
+            return self._const(n, 0.0, texts)
+        inter = h.current.audio.T.reshape(-1)
+        k = min(want, max(0, len(inter) - h.cursor))
+        if not k:
+            return self._const(n, 0.0, texts)
+        if dst + k > dev.mem_size:
+            raise DevgenError(f"file_mem: static mem address {dst + k} "
+                              f"beyond device heap ({dev.mem_size})")
+        off = dev.tables.file_chunk(
+            (h.slot, h.selected, id(h.current), h.cursor, k),
+            inter[h.cursor:h.cursor + k])
+        h.cursor += k
+        self.static_of[id(n)] = float(k)
+        keep = "".join(f"(void)({t}), " for t, a in zip(texts, n.args)
+                       if _impure(a))
+        return f"({keep}{dev.ops}_file_copy(S, {dst}, {off}, {k}))"
+
+    def _clock(self, n: CallExpr) -> str:
+        """time() / time_precise(): the golden host's virtual clock, static
+        for a render; the optional argument receives it."""
+        host = self._host()
+        v = float(host.now(n.func == "time_precise")) \
+            if host is not None else 0.0
+        if not n.args:
+            return self._const(n, v)
+        decl, store = self._out_param(n.args[0], n.func)
+        return self._const(n, v, prep=f"{decl} {store(c_double(v), v)}")
+
+    def _string_call(self, n: CallExpr) -> str:
+        """strlen / str_getchar: folded through the golden host where the
+        arguments are static, else gathers over the literal pool."""
+        texts = [self.ex(a) for a in n.args]
+        vals = [self.fold(a) for a in n.args]
+        host = self._host()
+        if all(v is not None for v in vals):
+            if host is None:
+                return self._const(n, 0.0, texts)
+            try:
+                v = (host.strlen(self.dev.snap, vals[0]) if n.func == "strlen"
+                     else host.str_getchar(self.dev.snap, vals[0], vals[1]))
+            except (ValueError, OverflowError, IndexError):
+                v = 0.0
+            return self._const(n, float(v), texts)
+        self.dev.tables.strings_of(self.dev.snap)
+        if n.func == "strlen":
+            return self._seq_texts(texts, n.args,
+                                   lambda v: f"zb_strlen(&S->H, {v[0]})")
+        return self._seq_texts(
+            texts, n.args, lambda v: f"zb_str_getchar(&S->H, {v[0]}, {v[1]})")
+
+    def _seq_texts(self, texts: Sequence[str], nodes: Sequence[Node], fmt):
+        """`args` over texts already printed."""
+        if len(nodes) > 1 and any(_impure(a) for a in nodes):
+            return self.seq(texts, fmt)
+        return fmt(texts)
+
+    def _pool_call(self, n: CallExpr) -> str:  # noqa: C901 (one dispatch)
+        """The sample pool (the reference's `_pool_call` and
+        `_pool_gather_call`): with no loaded generation every call folds
+        to the golden host's answer; with one, reads and per-entry queries
+        gather over its packed tables, pool-level queries fold."""
+        fn, A = n.func, n.args
+        host = self._host()
+        pool = getattr(host, "pool", None)
+        gen = getattr(pool, "generation", None) if pool is not None else None
+        loaded = bool(gen is not None and getattr(gen, "entries", None))
+        if fn in _POOL_SETUP:
+            if loaded:
+                raise DevgenError(
+                    f"{fn} with a loaded sample pool — a device section "
+                    "cannot re-commit generations (host golden handles "
+                    "pool mutation)")
+            files = getattr(host, "files", None)
+            if files is not None and any(files.slots.values()):
+                raise DevgenError(
+                    f"{fn} with populated file slots — pool setup would "
+                    "load at trace time (host golden handles it)")
+        if loaded and fn in ("sample_export_mem", "sample_export_mem2"):
+            raise DevgenError(
+                f"{fn} with a loaded pool — device heap export not "
+                "implemented (host golden handles it)")
+        if fn in ("sample_read2", "sample_read2_interp") and len(A) == 5:
+            return self._pool_read2(n, loaded)
+        if fn == "sample_preview_read" and len(A) == 6:
+            return self._pool_preview(n, loaded)
+        if fn == "sample_name" and len(A) >= 2:
+            # the golden's host gives 0 (its dispatch has no case for it)
+            return self._voids([A[0]] + list(A[2:]), "0.0")
+        texts = [self.ex(a) for a in A]
+        vals = [self.fold(a) for a in A]
+        if host is None:
+            return self._const(n, 0.0, texts)
+        if all(v is not None for v in vals):
+            # static arguments against a static generation: the host's
+            # answer is a constant of the render
+            try:
+                v = float(host.sample_pool_call(self.dev.snap, fn, vals))
+            except Exception:  # noqa: BLE001 (inert like the golden's host)
+                v = 0.0
+            return self._const(n, v, texts)
+        if not loaded:
+            # traced arguments over an empty pool: reads and queries are 0
+            return self._const(n, 0.0, texts)
+        self.dev.tables.pool_of(gen)
+        if fn in _POOL_LEVEL:
+            return self._const(n, float(host.sample_pool_call(
+                self.dev.snap, fn, [0.0])), texts)
+        if fn == "sample_get" and len(A) >= 2:
+            return self._seq_texts(texts, A,
+                                   lambda v: f"zb_pool_get(&S->H, {v[1]})")
+        if fn in _POOL_ROW and len(A) >= 2:
+            return self._seq_texts(texts, A,
+                                   lambda v: _POOL_ROW[fn].format(v[1]))
+        if fn in ("sample_read", "sample_read_interp") and len(A) >= 4:
+            name = "zb_pool_read_interp" if fn.endswith("interp") \
+                else "zb_pool_read"
+            return self._seq_texts(texts, A, lambda v: (
+                f"{name}(&S->H, {v[1]}, {v[2]}, {v[3]})"))
+        raise DevgenError(f"loaded-pool call {fn} not supported on device")
+
+    def _pool_read2(self, n: CallExpr, loaded: bool) -> str:
+        """sample_read2{,_interp}(pool, sid, phase, l, r): the arguments,
+        then the out-params' cells, then the read (zeros where it
+        fails)."""
+        A = n.args
+        vs = [self.tmp() for _ in range(3)]
+        head = " ".join(f"double {t} = ({self.ex(a)});"
+                        for t, a in zip(vs, A[:3]))
+        (dl, sl), (dr, sr) = (self._out_param(a, n.func) for a in A[3:])
+        if not loaded:
+            return (f"({{ {head} {dl} {dr} {sl('0.0', 0.0)} "
+                    f"{sr('0.0', 0.0)} 0.0; }})")
+        self.dev.tables.pool_of(self._host().pool.generation)
+        l, r, ok = self.tmp(), self.tmp(), self.tmp()
+        interp = int(n.func.endswith("interp"))
+        return (f"({{ {head} {dl} {dr} double {l}, {r}; const double {ok} = "
+                f"zb_pool_read2(&S->H, {vs[1]}, {vs[2]}, {interp}, &{l}, "
+                f"&{r}); {sl(l)} {sr(r)} {ok}; }})")
+
+    def _pool_preview(self, n: CallExpr, loaded: bool) -> str:
+        """sample_preview_read(pool, sid, bin, min, max, rms): the golden
+        writes the out-params only where the bin exists."""
+        A = n.args
+        vs = [self.tmp() for _ in range(3)]
+        head = " ".join(f"double {t} = ({self.ex(a)});"
+                        for t, a in zip(vs, A[:3]))
+        outs = [self._out_param(a, n.func) for a in A[3:]]
+        decls = " ".join(d for d, _s in outs)
+        if not loaded:
+            return f"({{ {head} {decls} 0.0; }})"
+        self.dev.tables.pool_of(self._host().pool.generation)
+        e = self.tmp()
+        stores = " ".join(st(f"{e}[{k}]") for k, (_d, st) in enumerate(outs))
+        return (f"({{ {head} {decls} const double* {e} = zb_pool_preview("
+                f"&S->H, {vs[1]}, {vs[2]}); if ({e}) {{ {stores} }} "
+                f"{e} ? 1.0 : 0.0; }})")
 
     # -- gmem and the message bus --------------------------------------------------
 
@@ -1153,7 +1751,8 @@ class DeviceSection:
                  reduced_heap: bool = False, rand_pool: int = 0,
                  force_midi_out: bool = False,
                  msg_cfg: Optional[MsgConfig] = None,
-                 layout_bodies: Optional[Sequence[Sequence[Node]]] = None):
+                 layout_bodies: Optional[Sequence[Sequence[Node]]] = None,
+                 tables: Optional[HostTables] = None):
         """body: an explicit statement list (the hop body extracted from
         @sample, printed as the section "sample-hop") in place of the
         named section's.  reduced_heap: the sequential executor's heap
@@ -1166,8 +1765,11 @@ class DeviceSection:
         bus folds inert); layout_bodies: the statement lists whose gmem,
         MIDI out and receive channels lay out the heap's tail (default
         this section's; @block and the @slider it retriggers share one
-        heap, so each is given both)."""
+        heap, so each is given both); tables: the program's HostTables,
+        shared by the sections of one program (default: this section's
+        own)."""
         self.P = program
+        self.tables = tables if tables is not None else HostTables()
         self.snap = snapshot
         self.section = section
         self.mem_size = int(mem_size)
@@ -1333,6 +1935,7 @@ class DeviceSection:
             if ph is None and isinstance(s, LoopExpr):
                 try:
                     ph = _BlockLoop(self, g, s).phase()
+                    g.forget(s)
                 except _KeepSerial as why:
                     self.serial_loops.append(f"loop at line {s.pos[0]}: {why}")
             if ph is None:
@@ -1391,7 +1994,7 @@ class DeviceSection:
             # a function's temporaries are its own: it prints the same in
             # every section that calls it
             self._ntmp = 0
-            g = _SectionC(self, proto.params)
+            g = _SectionC(self, proto.params, in_function=True)
             args = "".join(f", double p_{i}" for i in range(len(proto.params)))
             name = f"uf_{_mangle_c(fn)}"
             out[name] = (f"{self.fn_kw} double {name}({self.view}{args}) "

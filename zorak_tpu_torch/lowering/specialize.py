@@ -2343,6 +2343,14 @@ class SpecializedSampleKernel:
         # the lowered scan-group levels (step list, externals, generated
         # source) by DAG level
         self._scan_programs: Dict[int, Any] = {}
+        # the scan groups' DAGs lowered now, by DAG level: a group K4
+        # cannot run refuses here, at build, where the engine falls back,
+        # not at the first render (the program text is made at the first
+        # segment, from these steps)
+        self._scan_steps: Dict[int, Any] = {
+            level: self._scan_level_steps(level)
+            for level in sorted({self.scan_levels.get(i, 0)
+                                 for i in range(len(self.scan_groups))})}
 
     def _require_devblock(self) -> None:
         """Switch to the coupled regime: @block must print as device code
@@ -2383,7 +2391,8 @@ class SpecializedSampleKernel:
         """Size the device heap, print @block (and @slider where @block
         retriggers it) and K10's exchanges with the sample side."""
         from ..kernels.block_section import BlockSectionProgram
-        from .devgen import DeviceSection, DevgenError, section_dynamic_keys
+        from .devgen import (DeviceSection, DevgenError, HostTables,
+                             section_dynamic_keys)
 
         top = len(self.snap.mem)
         top = max(top, int(self.P.memtop or 0))
@@ -2404,13 +2413,15 @@ class SpecializedSampleKernel:
         self._dev_dyn = section_dynamic_keys(self.P, secs)
         msg_cfg = self._make_msg_cfg()
         layout = self._devblock_layout()
+        # one program's host-service tables (K10 passes them every block)
+        tables = HostTables()
         try:
             self._devblock = DeviceSection(
                 self.P, self.snap, "block", self._dev_dyn, size,
-                msg_cfg=msg_cfg, layout_bodies=layout)
+                msg_cfg=msg_cfg, layout_bodies=layout, tables=tables)
             self._devslider = DeviceSection(
                 self.P, self.snap, "slider", self._dev_dyn, size,
-                msg_cfg=msg_cfg, layout_bodies=layout) \
+                msg_cfg=msg_cfg, layout_bodies=layout, tables=tables) \
                 if self._retriggers else None
         except DevgenError as exc:
             raise SpecializeError(f"audio-coupled @block: {exc}") from None
@@ -4050,6 +4061,18 @@ class SpecializedSampleKernel:
         lowered = self._scan_programs.get(level)
         if lowered is not None:
             return lowered
+        scan_group_keys, externals, steps, outs = self._scan_steps[level]
+        lowered = self._scan_programs[level] = (
+            scan_group_keys, externals,
+            ScanGroupProgram(steps, outs, len(externals)),
+            torch.tensor([self.scalar_index[g] for g in scan_group_keys],
+                         dtype=torch.int64).to(self.device))
+        return lowered
+
+    def _scan_level_steps(self, level: int):
+        """One DAG level's internal DAG in evaluation order: (carried
+        keys, external GNodes, steps, outputs); raises SpecializeError
+        where a node has no scan-group step."""
         P_plans = self.plans
         scan_group_keys = [k for i, grp in enumerate(self.scan_groups)
                            if self.scan_levels.get(i, 0) == level
@@ -4102,7 +4125,10 @@ class SpecializedSampleKernel:
             if got is None:
                 if x.kind not in ("bin", "call", "select",
                                   "normloop"):
-                    raise AssertionError(f"scan-internal {x.kind}")
+                    raise SpecializeError(
+                        f"a {x.kind} node inside a sequential recurrence "
+                        "group has no scan-group step (ROADMAP queue 3: "
+                        "a power-of-two mask fed by a group carry)")
                 args = [lower(a) for a in x.args]
                 got = len(steps)
                 slot_of[id(x)] = got
@@ -4110,19 +4136,12 @@ class SpecializedSampleKernel:
             return ("s", got)
 
         outs = [lower(targets[g]) for g in scan_group_keys]
-        lowered = self._scan_programs[level] = (
-            scan_group_keys, externals,
-            ScanGroupProgram(steps, outs, len(externals)),
-            torch.tensor([self.scalar_index[g] for g in scan_group_keys],
-                         dtype=torch.int64).to(self.device))
-        return lowered
+        return scan_group_keys, externals, steps, outs
 
     def scan_level_programs(self) -> Dict[int, Any]:
         """Every DAG level of scan groups, lowered: {level:
         `scan_level_program(level)`}; empty for a plan without them."""
-        levels = sorted({self.scan_levels.get(i, 0)
-                         for i in range(len(self.scan_groups))})
-        return {lv: self.scan_level_program(lv) for lv in levels}
+        return {lv: self.scan_level_program(lv) for lv in self._scan_steps}
 
     def _make_seg_fn(self, L: int, nf: int = 1) -> Callable:
         """The per-segment program of length L over a batch of nf files,

@@ -12,9 +12,14 @@ for its midirecv; its gmem is the heap's window, and a lone instance's
 bus calls fold inert on the device, as the golden's host answers them.
 What the vectorizer rejects renders through the sequential device
 executor (engine "torch-devexec": the whole plugin in one kernel, K11), as
-the reference's engine orders them; what that also rejects (host
-services; gmem and the bus, which K11 refuses) renders through the golden
-(engine "cpu-shadow").  Instances that share gmem or the bus render
+the reference's engine orders them; what that also rejects (gmem and the
+bus, which K11 refuses; a host-service call neither device printer
+takes) renders through the golden (engine "cpu-shadow").  A plugin of an
+instance made with `host=EngineHost()` (runtime/services.py) reads its
+file slots and sample pool on the device: a load from a file slot in an
+audio-coupled @block folds into K10's text, and a loaded sample pool is
+gathered by K11 (the vectorizer rejects traced pool reads), each from
+tables staged once a render.  Instances that share gmem or the bus render
 together in a graph (runtime/graph.py).  `RenderResult.engine` and
 `PluginInstance.spec_error` (both refusals) say which ran and why.
 `device=None` means CUDA and raises without a GPU; only `device="cpu"`
@@ -96,6 +101,10 @@ class PluginInstance:
     * MIDI event streams per render, offsets in samples,
     * state save/load — sliders + string sliders + idle mode as a dict
       (:3777-3960's parameter/FILES persistence, offline flavor).
+
+    A file loaded after the instance is built (`load_file`) reaches the
+    host's slots, as the reference's does; a device program built before
+    keeps the data it folded until it is built again (`load_state`).
     """
 
     IDLE_MODES = ("auto", "input_driven", "event_driven", "free_running",
@@ -231,9 +240,14 @@ class PluginInstance:
         """Serializable instance state: parameters + FILES (slot paths and
         selection) + import recipes + recents, the offline mirror of the
         reference's getStateInformation blob
-        (ref: src/JSFXJuceProcessor.cpp:3777-3879).  The FILES service is
-        not part of this package yet, so `files` stays empty."""
+        (ref: src/JSFXJuceProcessor.cpp:3777-3879)."""
         files = {}
+        svc = getattr(self.shadow.state.host, "files", None)
+        if svc is not None:
+            for slot, entries in sorted(svc.slots.items()):
+                paths = [e.path for e in entries if e.path]
+                if paths:
+                    files[int(slot)] = {"paths": paths}
         return {
             "sliders": {d.index0: self.shadow.state.sliders[d.index0]
                         for d in self.program.slider_decls if not d.is_string},
@@ -251,11 +265,36 @@ class PluginInstance:
         self.smart_idle = blob.get("smart_idle", self.smart_idle)
         self.import_recipes = list(blob.get("import_recipes") or ())
         self.recent_files = list(blob.get("recent_files") or ())
+        svc = getattr(self.shadow.state.host, "files", None)
+        if svc is not None:
+            for slot, entry in (blob.get("files") or {}).items():
+                have = {e.path for e in svc.slots.get(int(slot), ())}
+                for p in entry.get("paths", ()):
+                    if p not in have and Path(p).exists():
+                        svc.load_slot(int(slot), p)
+                        self.note_recent_file(p)
         self.shadow.run_slider()
         if self.kernel is not None:
             # control state changed: respecialize against the new snapshot
             self._specialize("devexec" if self.engine == "torch-devexec"
                              else "auto")
+
+    def note_recent_file(self, path: str) -> None:
+        p = str(path)
+        if p in self.recent_files:
+            self.recent_files.remove(p)
+        self.recent_files.append(p)
+        del self.recent_files[:-10]
+
+    def load_file(self, slot: int, source, srate: Optional[float] = None,
+                  name: str = "") -> None:
+        """Load audio into a file slot (and the recents list)."""
+        svc = getattr(self.shadow.state.host, "files", None)
+        if svc is None:
+            raise RuntimeError("instance host has no file service")
+        svc.load_slot(int(slot), source, srate=srate, name=name)
+        if isinstance(source, (str, Path)):
+            self.note_recent_file(str(source))
 
     MONITOR_MODES = ("compiled", "shadow", "delta")
 
