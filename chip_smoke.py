@@ -9,13 +9,14 @@
     python3 chip_smoke.py --phases coupled   # the coupled @block alone
     python3 chip_smoke.py --phases gated,hop # the gated and hop regimes
     python3 chip_smoke.py --phases devexec   # the sequential executor
+    python3 chip_smoke.py --phases tooling   # bench, help, new-plugin, dumps
     python3 chip_smoke.py --phases graph     # the render graph's lockstep
     python3 chip_smoke.py --phases services  # the host services (K11, K10)
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result (`--phases` takes any of `jsfx`, `batch`,
-`spectral`, `coupled`, `gated`, `hop`, `devexec`, `graph`, `services`
-and `faust`, all ten by default;
+`spectral`, `coupled`, `gated`, `hop`, `devexec`, `tooling`, `graph`,
+`services` and `faust`, all eleven by default;
 device and build always run; `k4sweep` is described at the end):
 
 1. device   the card's name and power limit (nvidia-smi);
@@ -196,8 +197,10 @@ device and build always run; `k4sweep` is described at the end):
             builtin_plugins' grain_texture(16, 131072) (the stand-in for
             the catalog's Texture: grain records through an order table,
             ring reads clamped by a block-rate fill level, rand() in
-            @block and @sample) and for the cases of tests/test_devexec.py
-            that need no host service and the page-edge case, all nvcc
+            @block and @sample), for the gmem stand-in
+            scene_voice_panner(8, 256) and for the cases of
+            tests/test_devexec.py that need no host service, the
+            page-edge case and gmem with a lone instance's bus, all nvcc
             runs together, with the probe build (registers, stack frames
             and spills printed; the registers, shared memory a block and
             blocks an SM the card reports; the counts of LDG, STG, LDS,
@@ -207,12 +210,17 @@ device and build always run; `k4sweep` is described at the end):
             1 and 8 files of 1,100 samples with note-ons (bit for bit, but
             the cells and slots the stand-in's sin reaches within 1e-8 and
             the audio within one f32 ulp, the differing ones named); the
-            cases against the native golden; PluginInstance.render of the
+            gmem and lone-bus case on 3 files bit for bit to its plain
+            version (the high-water slot aside); the cases against the
+            native golden, gmem included; PluginInstance.render of the
             stand-in on 60 s of stereo with a note-on every 0.5 s: engine
             torch-devexec, K11 launched 1 + the heap ladder's replays
             (4,096 -> 262,144 -> 524,288 cells), each launch timed, the
             draws against the pool, the whole render (audio, vars, heap)
-            held to the native golden and the golden's host seconds; 8
+            held to the native golden and the golden's host seconds; the
+            gmem stand-in the same way on 60 s of stereo (engine
+            torch-devexec, its launches timed, audio, vars, heap and gmem
+            held to the native golden, the golden's seconds); 8
             files x 2 s through render_files, each torch.equal to its solo
             render; audio-s per s at 1 (the render's launch), 8, 64 and
             256 files (10 s each) beside the golden's, and where the card
@@ -224,6 +232,11 @@ device and build always run; `k4sweep` is described at the end):
             K11's chain bound from the add and the @sample syntax tree
             (`device_exec.sample_chain_ops`), and the chain priced with
             its loads and its sin;
+4t. tooling  the CLI's new-plugin into a temporary catalog, the gmem
+            stand-in and grain_texture as its leaves, help, bench
+            --seconds 10 --json on the card (a vector and a devexec
+            entry), and utils.dumps.dump_stages of a vector, a coupled
+            and a devexec kernel with nvcc's register and spill lines;
 4g. graph  the render graph (runtime/graph.py): 4 instances of
             builtin_plugins.crossmix_declutter (slots 0 to 3: a shared
             gmem segment, a broadcast channel drained with a while loop,
@@ -2383,12 +2396,13 @@ GATED_K2_PER_SEGMENT = 2
 
 
 def held_to_native_golden(prog, x, y, state, B=512, midi=None, trace=None,
-                          host=None):
+                          host=None, gmem=False):
     """The native golden's render of x (blocks of B, with the host's MIDI
     events where given, the host services of `host`) against audio y and
     the state after a writeback: a NullReport (audio 1e-5, vars and heap
     1e-8) and the golden's seconds, and where `trace` names a var, its
-    value after each block."""
+    value after each block; where `gmem`, last the largest difference
+    between the two states' gmem (held to 1e-8 by the caller)."""
     from zorak_tpu_torch.shadow import compile_native_shadow
     from zorak_tpu_torch.shadow.state import MidiEvent
     from zorak_tpu_torch.verify import apply_slider_state, compare_audio
@@ -2420,9 +2434,13 @@ def held_to_native_golden(prog, x, y, state, B=512, midi=None, trace=None,
     rep = compare_audio(y_gold, y)
     compare_states(gold.state, state, report=rep)
     compare_memory_pages(gold.state, state, report=rep)
+    out = (rep, gold_s)
     if trace is not None:
-        return rep, gold_s, np.asarray(traced_values)
-    return rep, gold_s
+        out += (np.asarray(traced_values),)
+    if gmem:
+        out += (float(np.abs(np.asarray(gold.state.gmem, dtype=np.float64)
+                             - np.asarray(state.gmem)).max()),)
+    return out
 
 
 def batch_equals_solo(torch, label, prog, x8):
@@ -2808,9 +2826,44 @@ DEVEXEC_PAGE_EDGE_SRC = (
     "spl0 = spl0 * 0.5 + acc * 0.01;\n")
 
 
+# gmem and a lone instance's bus on K11 (tests/test_torch_devexec_comm.py's
+# "gmem_bulk" and "lone_bus"): gmem_get and gmem_put across cell 4,096,
+# inside the page and past it, fill, zero and both overlaps of copy, counts
+# cut at the segment's end, dynamic and static gmem[] with -1 and NaN, the
+# inert bus with its out-params, a voice count the vectorizers reject
+DEVEXEC_GMEM_CASE = "gmem and a lone bus"
+DEVEXEC_GMEM_SRC = (
+    "options:maxmem=65536\n@init\nk = 0;\n"
+    "loop(64, gmem[1000 + k] = k * 0.5 + 1; k += 1;);\n"
+    "me = instance_id(); comm_join(\"d\"); msg_advertise(\"c\", 1);\n"
+    "@block\ngmem_get(4070, 1000, 40);\ngmem_get(100, 1010, 8);\n"
+    "gmem_get(5000, 1000, 16);\n"
+    "4075[0] += bc; 4100[0] -= bc * 0.5; 5003[0] *= 1.5; 101[0] += 0.25;\n"
+    "gmem_put(2000, 4080, 30);\ngmem_put(2100, 5000, 16);\n"
+    "gmem_fill(3000, bc * 0.1, 10);\ngmem_zero(3004, 3);\n"
+    "gmem_copy(3100, 3000, 10);\ngmem_copy(2005, 2000, 20);\n"
+    "gmem_copy(2200, 2203, 6);\n"
+    "r = gmem_put(1048570, 4090, 20) + gmem_get(4085, 1048572, 8);\n"
+    "gmem[-1] += 1; gmem[0/0] += 0.5;\n"
+    "me2 = instance_id(); sv = 11; tg = 12; pa = 13;\n"
+    "r3 = msg_recv(\"c\", sv, tg, pa, 7000[0], 7001[0], 7002[bc % 3]);\n"
+    "r4 = msg_send(\"c\", 1, 2, 3, 4, 5) + msg_avail(\"c\")"
+    " + msg_peer_count(\"c\", 1) + comm_join(\"d\");\n"
+    "while (msg_recv(\"c\", sv, tg, pa, pb, pc, pd)) ( cnt += 1; );\n"
+    "gmem[me2 + 10] = bc + r3 + r4;\nbc += 1;\n"
+    "@sample\nn = abs(spl0) > 0.3 ? 3 : 1; i = 0;\n"
+    "loop(n, 200[i] = 200[i] * 0.5 + spl0; i += 1;);\n"
+    "j = 0; loop(n, acc2 += gmem[abs(spl0) * 8 + j] * 0.01; j += 1;);\n"
+    "acc = acc * 0.99 + 4090[0] * 0.001 + gmem[2010] * 0.001"
+    " + gmem[3102] * 0.01 + 4100[0] * 0.0001 + (sv + tg + pa) * 1e-6;\n"
+    "spl0 = spl0 * 0.5 + acc + acc2 * 0.001 + r * 0.0001 + 200[1] * 0.1;\n")
+# the gmem stand-in at full width (builtin_plugins.scene_voice_panner)
+DEVEXEC_PANNER = (8, 256)
+
+
 def devexec_cases():
-    """The cases of tests/test_devexec.py that need no host service:
-    name -> (source, input, renders)."""
+    """The cases of tests/test_devexec.py that need no host service, and
+    gmem and a lone instance's bus: name -> (source, input, renders)."""
     def noise(ch, n, seed=5):
         return (np.random.RandomState(seed).randn(ch, n) * 0.6).astype(
             np.float32)
@@ -2853,6 +2906,7 @@ def devexec_cases():
         "a wide var row": ("@sample\nv0 = spl0 * 0.5;\n" + "".join(
             f"v{k} = v{k - 1} * 0.999 + {k} * 0.000001;\n"
             for k in range(1, 2100)) + "spl0 = v2099;\n", noise(1, 2000), 1),
+        DEVEXEC_GMEM_CASE: (DEVEXEC_GMEM_SRC, noise(1, 3000), 2),
     }
 
 
@@ -2990,9 +3044,10 @@ def devexec_phase(torch, cuda, rng, card):
     8 files, 1,100 samples) and the test cases to the native golden; then
     grain_texture(16, 131072) through PluginInstance.render on 60 s of
     stereo (engine torch-devexec, the heap's ladder, the draws, held to the
-    native golden), 8 files against their solo renders, audio-s per s at 1
-    to 256 files beside the golden's, and K11's entry for the `kernels`
-    line."""
+    native golden), the gmem stand-in scene_voice_panner(8, 256) the same
+    way (gmem held too), 8 files against their solo renders, audio-s per s
+    at 1 to 256 files beside the golden's, and K11's entry for the
+    `kernels` line."""
     from zorak_tpu_torch import builtin_plugins as BP
     from zorak_tpu_torch.ir import compile_plugin_source
     from zorak_tpu_torch.kernels import device_exec as DX
@@ -3008,14 +3063,16 @@ def devexec_phase(torch, cuda, rng, card):
     def kernel_of(p, nch):
         return DeviceExecKernel(p, make_initialized_shadow(p, SR).state, nch)
 
-    # 1. build: the stand-in's K11 and the cases', one nvcc each, together
+    # 1. build: the stand-ins' K11 and the cases', one nvcc each, together
     cases = {name: (compile_plugin_source(src), x, renders)
              for name, (src, x, renders) in devexec_cases().items()}
     stand = kernel_of(prog, 2)
+    pprog = compile_plugin_source(BP.scene_voice_panner(*DEVEXEC_PANNER))
+    panner = kernel_of(pprog, 2)
     case_kernels = {name: kernel_of(p, x.shape[0])
                     for name, (p, x, _r) in cases.items()}
     t0 = time.perf_counter()
-    logs = DX.build([stand.program]
+    logs = DX.build([stand.program, panner.program]
                     + [k.program for k in case_kernels.values()],
                     probes=[stand.program])
     print(f"[devexec] K11 builds: {len(logs)} generated sources in "
@@ -3032,6 +3089,7 @@ def devexec_phase(torch, cuda, rng, card):
           f"{occ['blocks_per_sm']} blocks (files) an SM at once")
     check(occ["blocks_per_sm"] >= 1, "K11: no block fits an SM")
     sass = k11_sass({"stand-in": stand.program,
+                     "gmem stand-in": panner.program,
                      **{name: k.program for name, k in case_kernels.items()}},
                     logs)
 
@@ -3086,6 +3144,38 @@ def devexec_phase(torch, cuda, rng, card):
     print(f"[devexec] the plain version of 1 file x {T} samples: "
           f"{plain_ms:.1f} ms on the host (the Python golden a file)")
 
+    # the gmem and lone-bus case: K11 on 3 files, each file's gmem window in
+    # its heap row, bit for bit to its plain version (the var row but the
+    # high-water slot: the kernel marks dynamic writes only, as the
+    # reference does, the plain version static ones too, all inside the
+    # heap)
+    gk = case_kernels[DEVEXEC_GMEM_CASE]
+    xg = torch.from_numpy((rng.randn(3, 1, T) * 0.4).astype(np.float32))
+    bvg, bmg = gk.initial_carry()
+    bvg, bmg = bvg.expand(3, -1).contiguous(), bmg.expand(3, -1).contiguous()
+    bvg_c, bmg_c = bvg.to("cpu", copy=True), bmg.to("cpu", copy=True)
+    yg, _ = DX.device_exec(gk.program, xg.to(cuda), bvg, bmg)
+    yg_c, _ = DX.device_exec(gk.program, xg, bvg_c, bmg_c)
+    rest = [i for i in range(gk.sample.n_vars) if i != gk._hw]
+    yg, bvg, bmg = yg.cpu(), bvg.cpu(), bmg.cpu()
+    gmem_case_err = max(float((yg - yg_c).abs().max()),
+                        float((bvg[:, rest] - bvg_c[:, rest]).abs().max()),
+                        float((bmg - bmg_c).abs().max()))
+    g0, G = gk.sample.gmem_base, gk.sample.gmem_cells
+    print(f"[devexec] K11 vs its plain version, {DEVEXEC_GMEM_CASE}, 3 files "
+          f"x {T} samples, gmem windows of {G} cells at {g0} in rows of "
+          f"{gk.sample.total_mem}: audio, vars (the high water aside: "
+          f"{bvg[:, gk._hw].tolist()} and {bvg_c[:, gk._hw].tolist()}) and "
+          f"rows bit for bit: {gmem_case_err == 0.0} (max {gmem_case_err:.3e}"
+          f"); {int((bmg[:, g0:g0 + G] != gk.initial_carry()[1][g0:g0 + G].cpu()).sum())}"
+          f" window cells written")
+    check(torch.equal(yg, yg_c) and torch.equal(bvg[:, rest], bvg_c[:, rest])
+          and torch.equal(bmg, bmg_c)
+          and float(bvg[:, gk._hw].max()) < gk.mem_size,
+          f"K11 {DEVEXEC_GMEM_CASE}: {gmem_case_err:.3e} from the plain "
+          "version")
+    errs.append(gmem_case_err)
+
     # the cases of tests/test_devexec.py against the native golden
     for name, (p, x, renders) in cases.items():
         kern = case_kernels[name]
@@ -3100,14 +3190,17 @@ def devexec_phase(torch, cuda, rng, card):
             pos = stop
         kern.writeback(carry, owner_state)
         y = np.concatenate(parts, axis=1)
-        rep, _s = held_to_native_golden(p, x, y, owner_state)
-        check(rep.passed and rep.max_abs_delta <= 1e-6,
-              f"devexec {name}: {rep.summary()}")
+        rep, _s, g_err = held_to_native_golden(p, x, y, owner_state,
+                                               gmem=True)
+        check(rep.passed and rep.max_abs_delta <= 1e-6
+              and g_err <= SCALAR_EPS, f"devexec {name}: {rep.summary()}, "
+              f"gmem {g_err:.3e}")
         print(f"[devexec] {name} ({renders} render(s), heap {kern.mem_size}"
-              f", climbs {kern.heap_climbs}, {kern.program.smem_bytes} bytes "
-              f"of {'dynamic' if kern.program.dynamic_smem else 'static'} "
-              f"shared memory) on the card vs the native golden: "
-              f"{rep.summary()}")
+              f", climbs {kern.heap_climbs}, gmem window "
+              f"{kern.sample.gmem_cells} cells, {kern.program.smem_bytes} "
+              f"bytes of {'dynamic' if kern.program.dynamic_smem else 'static'}"
+              f" shared memory) on the card vs the native golden: "
+              f"{rep.summary()}; gmem max |delta| {g_err:.3e}")
 
     # 3. the slice at full width: PluginInstance.render of the stand-in
     x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
@@ -3171,6 +3264,49 @@ def devexec_phase(torch, cuda, rng, card):
     B = stand.B
     lens = np.minimum(B, MAIN_T - B * np.arange(len(nact)))
     mean_nact = float(np.dot(nact, lens) / MAIN_T)
+
+    # 3b. the gmem stand-in at full width: scene_voice_panner through
+    # PluginInstance.render on 60 s of stereo, its gmem window, inert bus
+    # and level-driven voice loop on K11, held to the native golden with
+    # the state's gmem
+    xp = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+    pinst = PluginInstance(pprog, srate=SR)
+    check(pinst.engine == "torch-devexec"
+          and pinst.kernel.sample.gmem_cells == 1 << 20,
+          f"devexec gmem stand-in: engine {pinst.engine} ({pinst.spec_error})")
+    launch_ev.clear()
+    outp = []
+    climbs0 = len(pinst.kernel.heap_climbs)     # the build's climbs
+    DX.LAUNCHES = 0
+    DX.device_exec = timed
+    t0 = time.perf_counter()
+    try:
+        p_ms = cuda_ms(lambda: outp.append(pinst.render(xp)))
+    finally:
+        DX.device_exec = real
+    p_wall = time.perf_counter() - t0
+    p_launches = DX.LAUNCHES
+    p_launch_ms = [a.elapsed_time(b) for a, b in launch_ev]
+    pres = outp[0]
+    check(pres.engine == "torch-devexec" and p_launches >= 1
+          and p_launches == 1 + len(pinst.kernel.heap_climbs) - climbs0
+          and pres.audio.shape == (2, MAIN_T)
+          and bool(np.isfinite(pres.audio).all()),
+          f"devexec gmem stand-in: {pres.engine}, {p_launches} launches")
+    prep, p_gold_s, p_gerr = held_to_native_golden(
+        pprog, xp, pres.audio, pinst.shadow.state, gmem=True)
+    print(f"[devexec] scene_voice_panner{DEVEXEC_PANNER} 60 s stereo: "
+          f"engine={pres.engine} device_ms={p_ms:.2f} wall_s={p_wall:.4f} "
+          f"K11 launches {p_launches} ({', '.join(f'{v:.2f}' for v in p_launch_ms)}"
+          f" ms; heap {pinst.kernel.mem_size}, window "
+          f"{pinst.kernel.sample.gmem_cells} cells); vs the native golden "
+          f"(audio {AUDIO_EPS}, vars, heap and gmem {SCALAR_EPS}): "
+          f"{prep.summary()}, gmem max |delta| {p_gerr:.3e}; the golden alone "
+          f"{p_gold_s:.2f} s on one host core ({sec / p_gold_s:.2f} audio-s "
+          f"per s) card='{card}'")
+    check(prep.passed and p_gerr <= SCALAR_EPS,
+          "devexec gmem stand-in: the 60 s render disagrees with the native "
+          "golden")
 
     # 4. files: each of 8 files x 2 s torch.equal to its solo render, then
     # the throughput at 1 to 256 files (each kernel already at its rung)
@@ -3252,7 +3388,11 @@ def devexec_phase(torch, cuda, rng, card):
             "audio_s_per_s": rates, "files_T": T_files,
             "overtakes_at": over[0] if over else None,
             "sections": sections, "links_ns": links, "priced_chain_ms": priced,
-            "sass": sass, "occupancy": occ}
+            "sass": sass, "occupancy": occ,
+            "gmem_case_max_abs_err": gmem_case_err,
+            "gmem_launches": p_launches, "gmem_ms": p_launch_ms[-1],
+            "gmem_render_ms": p_ms, "gmem_golden_s": p_gold_s,
+            "gmem_max_abs_err": max(prep.max_abs_delta, p_gerr)}
 
 
 GRAPH_NODES = 4           # builtin_plugins.crossmix_declutter slots
@@ -4345,6 +4485,106 @@ def faust_phases(torch, cuda, rng, card):
     }
 
 
+TOOLING_BENCH_S = 10.0     # bench --seconds on the card
+
+
+def tooling_phase(torch, cuda, card):
+    """Slice 7's tooling on the card, as a user calls it: the CLI's
+    new-plugin into a temporary catalog (in the checkout's build folder),
+    the gmem stand-in and grain_texture written there as leaves, help
+    (--plain) on every entry, bench --seconds 10 --json on one vector
+    entry (the scaffold) and one sequential-executor entry (the stand-in),
+    then utils.dumps.dump_stages of a vector kernel with a scan group
+    (K4), a coupled one (K10) and a devexec one (K11), nvcc's register and
+    spill lines printed."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.cli.main import main as cli
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import _build
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+    from zorak_tpu_torch.utils.dumps import dump_stages
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        return rc, buf.getvalue()
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="tooling-", dir=_build.BUILD_DIR))
+    try:
+        rc, out = run(["new-plugin", "--catalog", str(root), "--category",
+                       "Bench", "--key", "Gain", "--name", "Gain"])
+        check(rc == 0 and "scaffolded" in out, f"new-plugin: rc {rc} {out}")
+        for cat, slug, src in (
+                ("Bench", "Pan", BP.scene_voice_panner(*DEVEXEC_PANNER)),
+                ("Texture", "Grain", BP.grain_texture(DEVEXEC_GRAINS,
+                                                      DEVEXEC_RING))):
+            leaf = root / "plugins" / cat / slug
+            (leaf / "src").mkdir(parents=True)
+            (leaf / "plugin.json").write_text(json.dumps({
+                "name": slug, "slug": slug, "pluginCode": f"Z{slug[:3]}",
+                "pluginType": "jsfx"}))
+            (leaf / "README.md").write_text(f"# {slug}\n\nThe {slug} "
+                                            "stand-in.\n")
+            (leaf / "src" / f"{slug}.jsfx").write_text(src)
+        rc, out = run(["help", "--catalog", str(root), "--plain"])
+        check(rc == 0 and out.count("Controls") == 1 and "Gain\n====" in out
+              and "The Pan stand-in." in out and "slider1" in out,
+              f"help: rc {rc}, {len(out)} characters")
+        print(f"[tooling] new-plugin scaffolded Bench/Gain; help --plain on "
+              f"3 entries: {len(out.splitlines())} lines, the scaffold's "
+              f"Controls reference included")
+        t0 = time.perf_counter()
+        rc, out = run(["bench", "--catalog", str(root), "--only", "Bench",
+                       "--seconds", str(TOOLING_BENCH_S), "--json"])
+        wall = time.perf_counter() - t0
+        lines = out.strip().splitlines()
+        got = json.loads(lines[-1]) if lines else {}
+        for ln in lines:
+            print(f"[tooling] bench: {ln}")
+        check(rc == 0 and set(got) == {"Gain", "Pan"}
+              and min(got.values()) > 0,
+              f"bench: rc {rc}, {out}")
+        print(f"[tooling] bench --seconds {TOOLING_BENCH_S:.0f} --json on the "
+              f"card (best of 3, synchronised): Gain (torch-vector) "
+              f"{got['Gain']}x, Pan (torch-devexec) {got['Pan']}x realtime; "
+              f"{wall:.1f} s with the builds and warm-ups card='{card}'")
+        kernels = {
+            "vector": PluginInstance(compile_plugin_source(SCAN_GROUP_SRC),
+                                     srate=SR),
+            "coupled": PluginInstance(compile_plugin_source(
+                BP.spectral_tilt_leveler(COUPLED_FFT)), srate=SR),
+            "devexec": PluginInstance(compile_plugin_source(
+                BP.scene_voice_panner(*DEVEXEC_PANNER)), srate=SR),
+        }
+        for label, inst in kernels.items():
+            t0 = time.perf_counter()
+            paths = dump_stages(inst.kernel, root / "dumps" / label)
+            build = Path(paths["06_build.txt"]).read_text()
+            cu = Path(paths["05_cuda.cu"]).read_text()
+            heads = [ln for ln in cu.splitlines() if ln.startswith("// ====")]
+            ptxas = [ln for ln in build.splitlines()
+                     if "registers" in ln or "spill" in ln]
+            check(len(paths) == 6 and inst.engine != "cpu-shadow" and heads
+                  and build.count("nvcc exit 0") == len(heads) and ptxas,
+                  f"dumps of the {label} kernel: {build[:400]}")
+            print(f"[tooling] dump_stages, {label} kernel ({inst.engine}): "
+                  f"{len(paths)} files in {time.perf_counter() - t0:.1f} s; "
+                  f"05 holds {heads or 'no generated source'}; "
+                  + Path(paths["04_ops.txt"]).read_text().splitlines()[0])
+            for ln in build.splitlines():
+                print(f"[tooling] 06_build.txt ({label}): {ln}")
+        return {"bench_rtx": got}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def sampler_host(seed: int = SEED):
     """An EngineHost whose file slot 0 holds the sampler's entries, made
     from the seed (builtin_plugins.sampler_slot)."""
@@ -4710,11 +4950,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="jsfx,batch,spectral,coupled,gated,hop,devexec,"
-                            "graph,services,faust",
+                            "tooling,graph,services,faust",
                     help="comma-separated: jsfx, batch, spectral, coupled, "
-                         "gated, hop, devexec, graph, services, faust "
-                         "(default all ten); k4sweep times K4 across "
-                         "register block sizes")
+                         "gated, hop, devexec, tooling, graph, services, "
+                         "faust (default all eleven); k4sweep times K4 "
+                         "across register block sizes")
     ap.add_argument("--sampler-golden", metavar="OUT", default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4723,10 +4963,10 @@ def main(argv=None) -> int:
         return sampler_golden_child(args.sampler_golden)
     phases = set(args.phases.split(","))
     if not phases or phases - {"jsfx", "batch", "spectral", "coupled",
-                               "gated", "hop", "devexec", "graph",
+                               "gated", "hop", "devexec", "tooling", "graph",
                                "services", "faust", "k4sweep"}:
         ap.error("--phases takes jsfx, batch, spectral, coupled, gated, hop, "
-                 "devexec, graph, services, faust or k4sweep")
+                 "devexec, tooling, graph, services, faust or k4sweep")
     t_start = time.perf_counter()
     import torch
 
@@ -4875,6 +5115,12 @@ def run_phases(torch, cuda, rng, card, phases, golden, t_start) -> int:
                                      np.random.RandomState(SEED + 13), card))
         print(f"[done] devexec phase in {time.perf_counter() - t0:.1f} s")
         ended("devexec")
+    if "tooling" in phases:
+        t0 = time.perf_counter()
+        tooling = tooling_phase(torch, cuda, card)
+        print(f"[done] tooling phase in {time.perf_counter() - t0:.1f} s: "
+              f"{json.dumps(tooling)}")
+        ended("tooling")
     if "graph" in phases:
         t0 = time.perf_counter()
         k10 = [e for e in kernels if e["name"] == "block_section"]

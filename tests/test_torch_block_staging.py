@@ -15,8 +15,9 @@ segment, gmem_get and gmem_put across its end, a window that compacts to
 empty, a window too small for the block's sends, the remainder block,
 and the lone instance's window.  Then the refusals: what the reference's
 device sections do not take is refused by name in both packages (the
-same routing), K11 refuses gmem and the bus, and a JAX carry of a member
-with gmem resumes in the port."""
+same routing), K11 takes gmem and a lone instance's bus and refuses what
+the reference refuses, and a JAX carry of a member with gmem resumes in
+the port."""
 import numpy as np
 import pytest
 import torch
@@ -252,7 +253,8 @@ def test_refused_in_a_lockstep_member_as_in_the_reference(tmp_path,
 
 def test_refusals_name_their_reason():
     # a lone instance: the same constructs raise DevgenError by name; K11
-    # refuses gmem and the bus with its ROADMAP entry
+    # takes gmem and the lone instance's bus, as the reference's
+    # sequential executor does
     for line, fn in REFUSED[:-1]:
         prog = compile_plugin_source(f"@block\nx = x + 1;\n{line}\n")
         snap = make_initialized_shadow(prog, 48000.0).state
@@ -263,9 +265,17 @@ def test_refusals_name_their_reason():
         prog = compile_plugin_source(
             f"@block\nx += 1;\n{body}\n@sample\nk = abs(spl0) * 3; i = 0;\n"
             f"while (i < k) ( i += 1; );\n")
-        with pytest.raises((SpecializeError, DevgenError),
-                           match="K11 bus entry"):
-            DeviceExecKernel(prog, make_initialized_shadow(prog).state, 1,
+        kern = DeviceExecKernel(prog, make_initialized_shadow(prog).state, 1,
+                                device="cpu")
+        assert kern.engine == "devexec"
+        assert ("gmem_set" in kern.program.source) == (body[0] == "g")
+    # what the reference refuses stays refused on K11, in its words
+    for line, fn in REFUSED[:-1]:
+        bad = compile_plugin_source(
+            f"@block\nx += 1;\n{line}\n@sample\nk = abs(spl0) * 3; "
+            "i = 0;\nwhile (i < k) ( i += 1; );\n")
+        with pytest.raises(SpecializeError, match=f"{fn}.*through the golden"):
+            DeviceExecKernel(bad, make_initialized_shadow(bad).state, 1,
                              device="cpu")
 
 

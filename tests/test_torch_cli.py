@@ -212,6 +212,97 @@ def test_wavio_matches_jax(tmp_path, bits, float_fmt):
 
 
 # ---------------------------------------------------------------------------
+# the tooling: new-plugin, help, bench
+
+def test_new_plugin_scaffolds_the_files_of_the_jax_cli(tmp_path, capsys):
+    made = {}
+    for name, fn in (("port", main), ("jax", jax_main)):
+        root = tmp_path / name
+        argv = ["new-plugin", "--catalog", str(root), "--category", "Dynamics",
+                "--key", "Mine", "--name", "My plugin"]
+        rc, out, _ = _run(fn, argv, capsys)
+        leaf = root / "plugins" / "Dynamics" / "Mine"
+        assert rc == 0 and out == f"scaffolded {leaf}\n"
+        made[name] = {p.relative_to(leaf): p.read_bytes()
+                      for p in sorted(leaf.rglob("*")) if p.is_file()}
+        rc, _out, err = _run(fn, argv, capsys)        # exists: refused
+        assert rc == 2 and "already exists" in err
+    assert set(made["port"]) == {pathlib.Path("plugin.json"),
+                                 pathlib.Path("README.md"),
+                                 pathlib.Path("src/Mine.jsfx")}
+    assert made["port"] == made["jax"]
+    # the scaffold is a leaf the port's catalog finds and renders
+    spec, = discover(tmp_path / "port")
+    assert spec.slug == "Mine" and spec.plugin_type == "jsfx"
+    rc, _out, _ = _run(main, ["bench", "--catalog", str(tmp_path / "port"),
+                              "--seconds", "0.02", "--device", "cpu"], capsys)
+    assert rc == 0
+
+
+HELP_ECHO = ("desc:Echo\nslider1:40<0,100,1>Amount\n"
+             "slider2:0<0,2,1{Off,Soft,Hard}>Mode\n"
+             "slider3:/ir:none.wav:IR file\n@slider\ng = slider1 / 100;\n"
+             "@sample\nspl0 *= g;\n")
+
+
+@pytest.mark.parametrize("flags", [[], ["--raw"], ["--plain"],
+                                   ["--no-controls", "--width", "40"]],
+                         ids=["default", "raw", "plain", "no-controls"])
+def test_help_prints_what_the_jax_cli_prints(catalog, capsys, flags):
+    _echo_source(catalog, HELP_ECHO)
+    (catalog / "plugins" / "Delay" / "Echo" / "README.md").write_text(
+        "# Echo\n\nA **delay** with `feedback`.\n\n- one\n- two\n")
+    outs = {}
+    for only in ("Echo", "VAR", "GTS"):
+        argv = ["help", "--catalog", str(catalog), "--only", only, *flags]
+        rc, out, _ = _run(main, [*argv, "--device", "cpu"], capsys)
+        rc_j, out_j, _ = _run(jax_main, argv, capsys)
+        assert rc == rc_j == 0 and out == out_j and out
+        outs[only] = out
+    assert ("Controls" in outs["Echo"]) == (flags in ([], ["--plain"]))
+    assert ("slider2" in outs["Echo"]) == ("Controls" in outs["Echo"])
+    rc, _out, err = _run(main, ["help", "--catalog", str(catalog), "--only",
+                                "Nothing", "--device", "cpu"], capsys)
+    assert rc == 2 and "no matching plugin" in err
+
+
+def test_bench_prints_its_line_as_the_jax_cli(catalog, capsys, tmp_path):
+    # a vectorizable entry: the same lines as the JAX CLI's bench (the
+    # factor is each engine's own); the Faust entries are skipped
+    _echo_source(catalog, ECHO_FOLLOWER)
+    argv = ["bench", "--catalog", str(catalog), "--seconds", "0.05", "--json"]
+    rc, out, _ = _run(main, [*argv, "--device", "cpu"], capsys)
+    rc_j, out_j, _ = _run(jax_main, argv, capsys)
+    assert rc == rc_j == 0
+    shape = [ln.split(":")[0] for ln in out.splitlines()]
+    assert shape == [ln.split(":")[0] for ln in out_j.splitlines()] \
+        == ["Echo", '{"Echo"']
+    assert out.splitlines()[0].endswith("x realtime (0s render)")
+    assert set(json.loads(out.splitlines()[-1])) == {"Echo"}
+    # the sequential executor's entry is timed too; one that only the
+    # golden renders is skipped, as the reference's bench skips it
+    from zorak_tpu_torch import builtin_plugins
+
+    for slug, src in (("Pan", builtin_plugins.scene_voice_panner(4, 64)),
+                      ("Gold", "desc:Gold\n@sample\nacc += abs(spl0);\n"
+                               "spl0 *= g;\n@block\ng = 1/(1 + acc*0.001);\n"
+                               "y = gmem_seq(0);\n")):
+        leaf = catalog / "plugins" / "Spatialization" / slug
+        (leaf / "src").mkdir(parents=True)
+        (leaf / "plugin.json").write_text(json.dumps({
+            "name": slug, "slug": slug, "pluginCode": f"Z{slug[:3].lower()}",
+            "pluginType": "jsfx"}))
+        (leaf / "src" / f"{slug}.jsfx").write_text(src)
+    rc, out, _ = _run(main, [*argv, "--device", "cpu"], capsys)
+    lines = out.splitlines()
+    assert rc == 0 and set(json.loads(lines[-1])) == {"Echo", "Pan"}
+    assert any(ln.startswith("Pan: ") and ln.endswith("x realtime (0s render)")
+               for ln in lines)
+    assert any(ln.startswith("Gold: no vector engine (") and "gmem_seq" in ln
+               for ln in lines)
+
+
+# ---------------------------------------------------------------------------
 # the port's rules
 
 _IMPORT_ALL = """
@@ -262,6 +353,9 @@ _SERVICES_MODULES = ["runtime.services", "runtime.import_recipes", "gfx",
                      "gfx.interpreter", "gfx.raster", "utils", "utils.mdtext",
                      "models.faust_golden", "kernels.host_tables"]
 
+# the tooling: the staged dumps (the CLI is among the JSFX path's)
+_TOOLING_MODULES = ["utils.dumps"]
+
 
 def test_port_imports_neither_jax_nor_zorak_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -272,7 +366,7 @@ def test_port_imports_neither_jax_nor_zorak_tpu():
     assert int(n) >= 57 and bad.strip() == "["
     for mod in (_JSFX_MODULES + _SPECTRAL_MODULES + _BATCH_MODULES
                 + _COUPLED_MODULES + _DEVEXEC_MODULES + _GRAPH_MODULES
-                + _SERVICES_MODULES):
+                + _SERVICES_MODULES + _TOOLING_MODULES):
         assert f"'zorak_tpu_torch.{mod}'" in names, mod
 
 
@@ -294,6 +388,9 @@ def test_entry_points_without_device_need_a_gpu(catalog, tmp_path):
               "--in", str(wav_in), "--out", str(tmp_path / "o.wav")])
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["verify", "--catalog", str(catalog), "--only", "Echo"])
+    for cmd in ("bench", "help"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main([cmd, "--catalog", str(catalog), "--only", "Echo"])
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

@@ -231,7 +231,7 @@ def test_device_none_needs_a_gpu_and_unported_engines_say_so():
     assert rep.passed and rep.max_abs_delta <= 1e-6, rep.summary()
     # an audio-coupled @block that reads a gmem page's sequence number: both
     # device engines refuse it (the reference's sections leave it to the
-    # golden; K11 takes no gmem yet), and the golden renders it
+    # golden, its sequential executor's too), and the golden renders it
     coupled = compile_plugin_source(
         "@sample\nacc += abs(spl0);\nspl0 *= g;\n"
         "@block\ng = 1/(1 + acc*0.001);\ny = gmem_seq(0);\n")
@@ -247,14 +247,19 @@ def test_device_none_needs_a_gpu_and_unported_engines_say_so():
     assert res.details["spec_error"] == inst.spec_error
     with pytest.raises(SpecializeError, match="through the golden"):
         PluginInstance(coupled, prefer="vector", device="cpu")
-    # one that writes gmem renders on the card now (the heap's window)
+    # one that writes gmem renders on the card now (the heap's window), on
+    # K11 too, as the reference's sequential executor takes it
     writes = compile_plugin_source(
         "@sample\nacc += abs(spl0);\nspl0 *= g;\n"
         "@block\ng = 1/(1 + acc*0.001);\ngmem[0] = g;\n")
     on_card = PluginInstance(writes, device="cpu")
     assert on_card.engine == "torch-vector"
-    with pytest.raises(SpecializeError, match="devexec: .*K11 bus"):
-        PluginInstance(writes, prefer="devexec", device="cpu")
+    on_k11 = PluginInstance(writes, prefer="devexec", device="cpu")
+    assert on_k11.engine == "torch-devexec"
+    r_vec, r_k11 = on_card.render(x), on_k11.render(x)
+    assert r_k11.engine == "torch-devexec"
+    assert np.abs(r_vec.audio - r_k11.audio).max() <= 1e-6
+    assert on_k11.shadow.state.gmem[0] == on_card.shadow.state.gmem[0] > 0
 
 
 def _jsfx_catalog(root, src):

@@ -21,6 +21,10 @@ the catalog's Texture widths (grain records of 19 doubles, reached
 through an order table in memory; ring reads clamped by a block-rate fill
 level; rand() in @block and @sample): the vectorizer rejects it, and the
 sequential device executor (devexec, K11) renders it.
+`scene_voice_panner(voices, scene)` is a voice panner linked to a scene
+manager through its instance id, the bus and a gmem scene table (the
+shape of the catalog's 3DPanner): a level-driven voice loop the
+vectorizers reject, rendered by K11 with gmem in its heap row's window.
 `crossmix_declutter(slot, n_slots)` is one instance of a cross-mix
 declutter session (the shape of the catalog's CMD pair): each instance
 publishes its block energy into a shared gmem slot, ducks against the
@@ -468,6 +472,84 @@ loop(nact,
 );
 spl0 = 0.5 * x0 + 0.5 * oL;
 spl1 = 0.5 * x1 + 0.5 * oR;
+"""
+
+
+def scene_voice_panner(voices: int = 8, scene: int = 256) -> str:
+    """A voice panner linked to a scene manager, the stand-in for the
+    catalog's 3DPanner (manager-linked via msg/gmem).
+
+    @init takes its instance id, joins the bus inertly (`comm_join`,
+    `msg_advertise`), attaches the "scene" segment and writes a scene of
+    `scene` azimuths into gmem.  @block drains the manager's messages
+    (`msg_recv` into out-params), copies the scene from gmem into a heap
+    table that spans cell 4,096 (`gmem_get`), publishes its meters
+    (`gmem_put` of a heap row, and a `gmem[]` store at its id's slot) and
+    drifts one scene cell a block.  @sample follows the input's level and
+    runs a voice loop whose count follows it (one to `voices` voices),
+    each voice's record of 3 doubles (two pan gains smoothed toward the
+    scene's azimuth, a head-shadow one-pole) written in the loop, over a
+    delay ring of 1,024 cells; it reads the scene's cue at the level
+    (`gmem[k]`, k dynamic).  The vectorizers reject the voice loop, and
+    the sequential device executor (devexec, K11) renders it with gmem in
+    its heap row's window.  A lone instance's bus delivers nothing, as in
+    the golden."""
+    v, n = int(voices), int(scene)
+    if not 1 <= v <= 64 or not 8 <= n <= 4096 or n % 2:
+        raise ValueError(f"voices in [1, 64] and an even scene in [8, 4096], "
+                         f"not {v}, {n}")
+    return f"""\
+desc:scene voice panner (instance id, an inert bus, a gmem scene)
+options:maxmem=65536
+
+@init
+NV = {v}; SC = {n};
+VOX = 64; MET = 1000; RING = 2048; RN = 1024; TAB = {4096 - n // 2};
+me = instance_id();
+comm_join("scene");
+msg_advertise("scene/obj", 1);
+gmem_attach("scene");
+k = 0;
+loop(SC, gmem[k] = sin(k * 2.399963); k += 1; );
+k = 0;
+loop(NV, VOX[k * 3] = 0.5; VOX[k * 3 + 1] = 0.5; VOX[k * 3 + 2] = 0; k += 1; );
+wp = 0; env = 0; bc = 0; nmsg = 0; peakL = 0; peakR = 0; nvmax = 0;
+
+@block
+while (msg_recv("scene/obj", src, tag, ma, mb, mc, md)) (
+  nmsg += 1; TAB[tag % SC] = ma;
+);
+gmem_get(TAB, 0, SC);
+MET[0] = peakL; MET[1] = peakR; MET[2] = nvmax; MET[3] = nmsg;
+gmem_put(SC, MET, 4);
+gmem[SC + 4 + me] = peakL + peakR;
+c = bc % SC;
+gmem[c] = gmem[c] * 0.99 + 0.01 * sin(bc * 0.37);
+peakL = 0; peakR = 0; nvmax = 0; bc += 1;
+
+@sample
+lev = max(abs(spl0), abs(spl1));
+env = lev > env ? lev : env * 0.9995;
+nv = min(NV, 1 + floor(env * 2 * NV));
+nv > nvmax ? nvmax = nv;
+RING[wp] = 0.5 * (spl0 + spl1);
+cue = gmem[floor(env * SC)];
+oL = 0; oR = 0; k = 0;
+loop(nv,
+  r = VOX + k * 3;
+  az = TAB[(k * 5 + bc) % SC];
+  r[0] += 0.01 * (0.5 * (1 - az) - r[0]);
+  r[1] += 0.01 * (0.5 * (1 + az) - r[1]);
+  s = RING[(wp - 1 - k * 3 + RN) % RN];
+  r[2] += 0.2 * (s - r[2]);
+  oL += r[0] * r[2];
+  oR += r[1] * r[2];
+  k += 1;
+);
+wp += 1; wp >= RN ? wp = 0;
+peakL = max(peakL, abs(oL)); peakR = max(peakR, abs(oR));
+spl0 = 0.7 * spl0 + 0.3 * oL / NV + 0.001 * cue;
+spl1 = 0.7 * spl1 + 0.3 * oR / NV + 0.001 * cue;
 """
 
 

@@ -113,13 +113,15 @@ def devexec_carry_from_numpy(kernel, carry, mem_size: int, rng_state=None):
     as tensors on its device.
 
     The var slots are laid out alike (the reference's table, the high-water
-    slot last).  The JAX heap row is [plugin heap of `mem_size` cells | MIDI
-    out table | draw pool | ...] (`mem_size` is the JAX kernel's
-    `sample.mem_size`); the port's is [plugin heap | MIDI out table] and
-    its pool a table of its own, so the plugin heap and the MIDI out table
-    are moved across, re-laid out as `_migrate_carry` does where the two
-    heaps differ in size: the port's kernel climbs to the JAX heap where
-    that is larger, and a smaller one is zero-filled above.  rng_state:
+    slot last).  The JAX heap row is [plugin heap of `mem_size` cells | gmem
+    window | MIDI out table | draw pool | ...] (`mem_size` is the JAX
+    kernel's `sample.mem_size`; the window is there where a section uses
+    gmem, as long as the snapshot's gmem); the port's is [plugin heap |
+    gmem window | MIDI out table] and its pool a table of its own, so the
+    plugin heap, the window and the MIDI out table are moved across,
+    re-laid out as `_migrate_carry` does where the two heaps differ in
+    size: the port's kernel climbs to the JAX heap where that is larger,
+    and a smaller one is zero-filled above.  rng_state:
     the JAX kernel's `_rng_prestate` (the generator its last pool came
     from), so that the port's next render continues the JAX generator by
     the draws the carry's cursor counts.
@@ -129,17 +131,19 @@ def devexec_carry_from_numpy(kernel, carry, mem_size: int, rng_state=None):
     bm = np.asarray(bm, dtype=np.float64)
     samp = kernel.sample
     mem_size = int(mem_size)
+    G, mo = samp.gmem_cells, samp.midi_out_cells
     if bv.shape != (samp.n_vars,) or bm.ndim != 1 \
-            or len(bm) < mem_size + samp.midi_out_cells:
+            or len(bm) < mem_size + G + mo:
         raise ValueError(f"vars {bv.shape} and mem {bm.shape} do not hold "
                          f"{samp.n_vars} slots and a heap of {mem_size} "
-                         "cells with its MIDI out table")
+                         "cells with its gmem window and MIDI out table")
     kernel.grow_to(mem_size)
     samp = kernel.sample
     out = np.zeros(samp.total_mem, dtype=np.float64)
     out[:mem_size] = bm[:mem_size]
-    mo = samp.midi_out_cells
-    out[samp.mem_size:samp.mem_size + mo] = bm[mem_size:mem_size + mo]
+    out[samp.gmem_base:samp.gmem_base + G] = bm[mem_size:mem_size + G]
+    out[samp.midi_out_base:samp.midi_out_base + mo] = \
+        bm[mem_size + G:mem_size + G + mo]
     if rng_state is not None:
         state = (np.array(rng_state[0], dtype=np.uint32), int(rng_state[1]))
         kernel._rng_state = kernel._rng_prestate = state

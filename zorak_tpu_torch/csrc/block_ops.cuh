@@ -241,16 +241,21 @@ ZB_FN double zb_midisend3(View* S, double ofs, double b1, double m23) {
 // segment gives 0 and a write there is dropped; a bulk operation's count is
 // cut at the segment's end.  Counts come static from the printer, so the
 // heap side of gmem_get and gmem_put was checked to lie inside the heap.
+// The segment side is the same in either view (K10's ZB, K11's ZX: G and
+// gmem_cells); the heap side of gmem_get and gmem_put is the view's own
+// (zb_gmem_bulk, zx_gmem_bulk).
 
 ZB_FN long long zb_gidx(double x) {
   const long long i = zt_i64(x + 1.0e-5);
   return i > 0 ? i : 0;
 }
-ZB_FN double zb_gmem_get(const ZB* S, double idx) {
+template <class View>
+ZB_FN double zb_gmem_get(const View* S, double idx) {
   const long long i = zb_gidx(idx);
   return i < S->gmem_cells ? S->G[i] : 0.0;
 }
-ZB_FN double zb_gmem_set(ZB* S, double idx, double v) {
+template <class View>
+ZB_FN double zb_gmem_set(View* S, double idx, double v) {
   const long long i = zb_gidx(idx);
   if (i < S->gmem_cells) S->G[i] = v;
   return v;
@@ -269,7 +274,8 @@ ZB_FN double zb_gmem_bulk(ZB* S, long long m, double g, long long count,
   }
   return (double)n;
 }
-ZB_FN double zb_gmem_fill(ZB* S, double dst, double v, long long count) {
+template <class View>
+ZB_FN double zb_gmem_fill(View* S, double dst, double v, long long count) {
   const long long i = zb_gidx(dst);
   if (i >= S->gmem_cells) return 0.0;
   const long long n = count < S->gmem_cells - i ? count : S->gmem_cells - i;
@@ -277,7 +283,8 @@ ZB_FN double zb_gmem_fill(ZB* S, double dst, double v, long long count) {
   return (double)(n > 0 ? n : 0);
 }
 // overlap-safe; d, s and n (> 0) checked when printed
-ZB_FN double zb_gmem_copy(ZB* S, long long d, long long s, long long n) {
+template <class View>
+ZB_FN double zb_gmem_copy(View* S, long long d, long long s, long long n) {
   if (d < s) {
     for (long long k = 0; k < n; ++k) S->G[d + k] = S->G[s + k];
   } else if (d > s) {
@@ -859,14 +866,15 @@ ZB_FN double zb_file_copy(ZB* S, long long dst, long long off, long long n) {
 // form), staged at the file's start and written back at its end, and the
 // high-water mark is a register, stored to its slot where the executor's
 // overflow check reads it.  The rest of the heap (rings, buffers), the
-// MIDI out table and the draw pool stay in device memory.  Every helper is
-// inlined into the kernel, so the view itself lives in registers.
+// gmem window, the MIDI out table and the draw pool stay in device
+// memory.  Every helper is inlined into the kernel, so the view itself
+// lives in registers.
 
 #ifdef ZX_PAGE
 
 struct ZX {
   double* P;               // the heap's first ZX_PAGE cells, on chip
-  double* M;               // the heap row: [plugin heap | MIDI out table]
+  double* M;               // the heap row: [plugin heap | gmem window | MIDI out table]
   long long mem_size;      // plugin heap cells
   long long page_n;        // the page's cells that are heap: min(ZX_PAGE, mem_size)
   long long mo_base;       // the MIDI out table: [count | CAP rows of 4]
@@ -881,6 +889,8 @@ struct ZX {
   long long hw;            // the high-water mark of dynamic writes: its
                            // slot holds it as a double (max and the
                            // rounding to double commute)
+  double* G;               // gmem: the heap row's window after the heap
+  long long gmem_cells;    // its cells (0 where no section uses gmem)
   ZH H;                    // the host-service tables (zero where unused)
 };
 
@@ -1033,6 +1043,27 @@ ZB_FN double zx_memcpy(ZX* S, double dest, double src, double len) {
   }
   zx_close(S, across);
   return dest;
+}
+
+// gmem_get (to_mem) and gmem_put on the reduced heap.  The window lies in
+// the row past the heap, so the page never holds it and no gmem write
+// moves the high water; the heap side is a static run inside the heap
+// (checked when printed), worked in the page, in the row, or across cell
+// ZX_PAGE as the bulk operations above.
+ZB_FN double zx_gmem_bulk(ZX* S, long long m, double g, long long count,
+                          int to_mem) {
+  const long long gi = zb_gidx(g);
+  if (gi >= S->gmem_cells) return 0.0;
+  const long long n = count < S->gmem_cells - gi ? count : S->gmem_cells - gi;
+  if (n <= 0) return 0.0;
+  const bool across = zx_open(S, m, n, m, n);
+  double* h = zx_cells(S, across, m, n);
+  for (long long k = 0; k < n; ++k) {
+    if (to_mem) h[k] = S->G[gi + k];
+    else S->G[gi + k] = h[k];
+  }
+  zx_close(S, across);
+  return (double)n;
 }
 
 // zb_region_ok on the reduced heap: a region inside its WDL page that

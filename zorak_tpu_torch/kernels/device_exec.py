@@ -36,7 +36,7 @@ from . import _build
 from .host_tables import tables_arg
 from ..lowering.devgen import (
     MEM_HIWATER_SLOT, MIDI_OUT_CAP, MIDI_POS_SLOT, PAGE_CELLS,
-    PENDING_SLOT_NAMES, RAND_POS_SLOT, DeviceSection, plain_host)
+    PENDING_SLOT_NAMES, RAND_POS_SLOT, DeviceSection)
 from ..runtime import fftops as FO
 
 # Kernel launches since the counter was last set; chip_smoke.py zeroes it
@@ -75,11 +75,12 @@ _DESIGN = """\
 // a pending mask is set (and clears the masks), then runs @sample over the
 // block's samples: each f32 input widened into its spl slot, the body, the
 // spl slot rounded to f32 on output.  The remainder block's length is an
-// argument, and so are the heap's size and the row strides: one build
-// serves every length and every rung of the heap ladder.  A file whose
-// reduced heap overflowed (its high water at or past the heap) stops at
-// the end of that block, its row and page written back: the executor
-// discards the render and replays it on a larger heap.
+// argument, and so are the heap's size, the gmem window's base and cells
+// (the row past the heap, read and written in device memory) and the row
+// strides: one build serves every length and every rung of the ladder.
+// A file whose reduced heap overflowed (its high water at or past the
+// heap) stops at the end of that block, its row and page written back:
+// the executor discards the render and replays it on a larger heap.
 """
 
 
@@ -147,6 +148,9 @@ class DeviceExecProgram:
         self.n_vars = sample.n_vars
         self.mem_size = sample.mem_size
         self.total_mem = sample.total_mem
+        # the heap row, the reference's: [heap | gmem window | MIDI out]
+        self.gmem_base, self.gmem_cells = sample.gmem_base, sample.gmem_cells
+        self.midi_out_base = sample.midi_out_base
         self.midi_out_cells = sample.midi_out_cells
         self.uses_midi_in = block is not None and block.uses_midi_in
         self.uses_rand = any(s.uses_rand for s in secs)
@@ -265,9 +269,11 @@ def _emit_source(p: DeviceExecProgram) -> str:  # noqa: C901 (one file)
             "const double* pool, long long pool_n, double* scratch, "
             "long long scratch_n, const double* tw, long long tw_n, "
             "long long T, long long nfull, long long rem, long long mem_size, "
-            "long long total_mem, ZH zh")
+            "long long gmem_base, long long gmem_cells, long long total_mem, "
+            "ZH zh")
     names = ("x, y, bvars, bmem, mout, mev, mn, mk, pool, pool_n, scratch, "
-             "scratch_n, tw, tw_n, T, nfull, rem, mem_size, total_mem, zh")
+             "scratch_n, tw, tw_n, T, nfull, rem, mem_size, gmem_base, "
+             "gmem_cells, total_mem, zh")
     casts = [
         "static_cast<const float*>(x), static_cast<float*>(y),",
         "static_cast<double*>(bvars), static_cast<double*>(bmem),",
@@ -275,13 +281,14 @@ def _emit_source(p: DeviceExecProgram) -> str:  # noqa: C901 (one file)
         "static_cast<const double*>(mn), mk, static_cast<const double*>(pool),",
         "pool_n, static_cast<double*>(scratch), scratch_n,",
         "static_cast<const double*>(tw), tw_n, T, nfull, rem, mem_size,",
-        "total_mem, zx_tables(tables),"]
+        "gmem_base, gmem_cells, total_mem, zx_tables(tables),"]
     c_args = ("const void* x, void* y, void* bvars, void* bmem, void* mout, "
               "const void* mev, const void* mn, long long mk, const void* pool, "
               "long long pool_n, void* scratch, long long scratch_n, "
               "const void* tw, long long tw_n, long long T, long long nfull, "
-              "long long rem, long long mem_size, long long total_mem, "
-              "long long nf, const void* tables")
+              "long long rem, long long mem_size, long long gmem_base, "
+              "long long gmem_cells, long long total_mem, long long nf, "
+              "const void* tables")
     out += [
         "",
         "// One file's whole render on lane 0 of its warp, over the warp's",
@@ -292,11 +299,11 @@ def _emit_source(p: DeviceExecProgram) -> str:  # noqa: C901 (one file)
         "  (void)bvars; (void)mev; (void)mn; (void)mk; (void)mout; (void)cycles;",
         "  ZX_CYCLES",
         "  double* M = bmem + f * total_mem;",
-        "  const long long mo = mem_size;   // the MIDI out table",
+        "  const long long mo = gmem_base + gmem_cells;   // the MIDI out table",
         "  (void)mo;",
         "  ZX S = {P, M, mem_size, mem_size < ZX_PAGE ? mem_size : ZX_PAGE, mo,",
         "          (double)ZX_B, nullptr, 0.0, scratch + f * scratch_n, tw, tw_n,",
-        "          pool, pool_n, (long long)V[ZX_HW]};",
+        "          pool, pool_n, (long long)V[ZX_HW], M + gmem_base, gmem_cells};",
         "  S.H = zh;",
         "  const long long rows = nfull + (rem > 0 ? 1 : 0);",
         "  const float* xf = x + f * ZX_NCH * T;",
@@ -579,7 +586,8 @@ def _launch(program, lib, x, bvars, bmem, pool, midi, cycles):
             mn.data_ptr(), mk, pool.data_ptr(), pool.numel(),
             scratch.data_ptr(), program.scratch_cells, tw.data_ptr(),
             max(program.fft_max, 2), T, nfull, rem, program.mem_size,
-            program.total_mem, nf, _tables(program, dev),
+            program.gmem_base, program.gmem_cells, program.total_mem, nf,
+            _tables(program, dev),
             0 if cycles is None else cycles.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -588,11 +596,12 @@ def _launch(program, lib, x, bvars, bmem, pool, midi, cycles):
 
 
 # x, y, bvars, bmem, mout, mev, mn; mk; pool; pool_n; scratch; scratch_n;
-# tw; tw_n, T, nfull, rem, mem_size, total_mem, nf; tables
+# tw; tw_n, T, nfull, rem, mem_size, gmem_base, gmem_cells, total_mem, nf;
+# tables
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p,
                                    ctypes.c_longlong, ctypes.c_void_p,
                                    ctypes.c_longlong, ctypes.c_void_p]
-         + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
+         + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
 
 
 def _tables(program: DeviceExecProgram, device):
@@ -702,7 +711,8 @@ def device_exec_host(program: DeviceExecProgram, x, bvars, bmem, pool=None,
        mout.data_ptr(), mev.data_ptr(), mn.data_ptr(), mk, pool.data_ptr(),
        pool.numel(), scratch.data_ptr(), program.scratch_cells, tw.data_ptr(),
        max(program.fft_max, 2), T, nfull, rem, program.mem_size,
-       program.total_mem, nf, _tables(program, "cpu"))
+       program.gmem_base, program.gmem_cells, program.total_mem, nf,
+       _tables(program, "cpu"))
     return y, (mout if program.midi_out_cells else None)
 
 
@@ -755,6 +765,8 @@ def device_exec_plain(program: DeviceExecProgram, x, bvars, bmem, pool=None,
         m_row = bmem[f]
         st.mem = m_row[:program.mem_size].numpy()     # shares the row
         st.mem_used = program.mem_size
+        g0 = program.gmem_base
+        st.gmem = m_row[g0:g0 + program.gmem_cells].numpy()   # the window
         if pool_np is not None:
             st.rng = _PoolDraws(pool_np, st)
         _plain_file(program, fns, st, xs[f], y[f], events, nfull, rem,
@@ -773,17 +785,19 @@ def device_exec_plain(program: DeviceExecProgram, x, bvars, bmem, pool=None,
 def _plain_file(program, fns, st, xf, yf, events, nfull, rem, m_row,
                 mout) -> None:
     from ..shadow.state import MidiEvent
+    from .block_section import _StagedHost
 
     block_fn, slider_fn, sample_fn = fns
     B, nch = program.B, program.nch
-    mo = program.mem_size
+    mo = program.midi_out_base
     spl = st.spl
-    host = st.host
+    sec = program.sample
 
     def run(fn) -> None:
-        # the file API folds from no file open each print, so each
-        # section run of the plain version starts there too
-        st.host = plain_host(host)
+        # the host calls as the printed text makes them (gmem on the
+        # state's window, a lone instance's bus inert), and the file API
+        # from no file open, as each print of a section folds it
+        st.host = _StagedHost(sec, None)
         fn(st)
     for b in range(nfull + (1 if rem else 0)):
         n = B if b < nfull else rem

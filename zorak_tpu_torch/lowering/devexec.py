@@ -18,9 +18,12 @@ slot (one device read) at or past the heap rebuilds with at least twice
 the heap and replays from the render's input state.  rand() draws from a
 pool of MT19937 draws staged before each render from the host's generator
 (`semantics/mt19937np.py`); a resumed render first advances that generator
-by the draws the last one used.  The reference's sectioned mode, its cond
-outlining and its DFT tables serve the TPU's remote compiler and are not
-ported.
+by the draws the last one used.  gmem is a window of the heap row past the
+heap, filled from the snapshot's gmem and written back into the state's
+(an attached segment bumped over the span that changed); a lone
+instance's bus calls fold inert, and no live bus reaches the executor, as
+in the reference.  The reference's sectioned mode, its cond outlining and
+its DFT tables serve the TPU's remote compiler and are not ported.
 """
 from __future__ import annotations
 
@@ -87,25 +90,27 @@ class DeviceExecKernel:
         lies past it."""
         from ..kernels.device_exec import DeviceExecProgram
 
+        # the sections share one heap row: its gmem window and MIDI out
+        # table are laid out over all of their bodies
+        bodies = [list(self.P.sections.get(s) or []) for s in self._secs]
         probe = None
         while True:
             try:
                 if probe is None:
-                    # which sections draw rand() or send MIDI: the union
-                    # lays out one heap and one pool for all of them
+                    # which sections draw rand(): one pool for all of them
                     probe = [DeviceSection(self.P, self.snap, s, self._dyn,
                                            size, reduced_heap=True,
                                            rand_pool=self._rand_pool_req,
+                                           layout_bodies=bodies,
                                            tables=self.tables)
                              for s in self._secs]
                     self.uses_rand = any(p.uses_rand for p in probe)
-                    self._any_mout = any(p.uses_midi_out for p in probe)
                     self._rand_cap = (self._rand_pool_req if self.uses_rand
                                       else 0)
                 secs = {s: DeviceSection(self.P, self.snap, s, self._dyn,
                                          size, reduced_heap=True,
                                          rand_pool=self._rand_cap,
-                                         force_midi_out=self._any_mout,
+                                         layout_bodies=bodies,
                                          tables=self.tables)
                         for s in self._secs}
                 break
@@ -147,16 +152,17 @@ class DeviceExecKernel:
     def _migrate_carry(self, old_sample: DeviceSection, carry):
         """An old heap's (vars, heap) re-laid out onto this kernel's larger
         heap: the plugin heap at the start, the grown region zero-filled,
-        the MIDI out table moved to its new base.  Slot tables do not
-        depend on the heap's size."""
+        the gmem window and the MIDI out table moved to their new bases.
+        Slot tables do not depend on the heap's size."""
         bv, bm = carry
         o, n = old_sample, self.sample
         out = torch.zeros(bm.shape[:-1] + (n.total_mem,), dtype=torch.float64,
                           device=bm.device)
         out[..., :o.mem_size] = bm[..., :o.mem_size]
-        if o.midi_out_cells:
-            out[..., n.mem_size:n.mem_size + o.midi_out_cells] = \
-                bm[..., o.mem_size:o.mem_size + o.midi_out_cells]
+        for cells, at_old, at_new in (
+                (o.gmem_cells, o.gmem_base, n.gmem_base),
+                (o.midi_out_cells, o.midi_out_base, n.midi_out_base)):
+            out[..., at_new:at_new + cells] = bm[..., at_old:at_old + cells]
         return bv.clone(), out
 
     def grow_to(self, size: int) -> None:
@@ -343,6 +349,20 @@ class DeviceExecKernel:
             if used > 0:
                 _, rng_state = MT.generate(used, self._rng_prestate)
             MT.restore_eelrng(state.rng, rng_state)
+        if samp.gmem_cells:
+            # the window into the state's gmem; an attached segment's pages
+            # bumped once over the span the render changed (the
+            # reference's coarse rule)
+            gm = bm[samp.gmem_base:samp.gmem_base + samp.gmem_cells]
+            old = np.asarray(state.gmem, dtype=np.float64)
+            n = min(len(old), len(gm))
+            changed = np.nonzero(old[:n] != gm[:n])[0]
+            state.gmem[:n] = gm[:n]
+            host = getattr(state, "host", None)
+            seg = getattr(host, "attached_gmem", None)
+            if seg is not None and changed.size:
+                seg.bump(int(changed.min()), int(changed.max()),
+                         getattr(host, "instance_id_int", 0))
         heap = bm[:samp.mem_size]
         state.mem_ensure(len(heap))
         state.mem[:len(heap)] = heap

@@ -23,11 +23,13 @@ scalar semantics, with the state retargeted at a device view:
 
 gmem is the view's `G`: the attached segment of a graph's lockstep
 members (K10 reads and writes it in place, the members in node order on
-one stream), else the heap's gmem window.  The message bus follows the
-reference's live-bus subset (`MSG_DEVICE_FNS`): sends append to the OUT
-table, receives pop the queues K10's prologue filled from the graph's ring
-window, and the topology queries fold against the frozen registry of the
-member's `InstanceComm` (`MsgConfig.host`).  A lone instance (no live bus
+one stream), else the heap's gmem window (K11's too: the reference's
+sequential executor lays the window out over the union of its
+sections).  The message bus follows the reference's live-bus subset
+(`MSG_DEVICE_FNS`): sends append to the OUT table, receives pop the
+queues K10's prologue filled from the graph's ring window, and the
+topology queries fold against the frozen registry of the member's
+`InstanceComm` (`MsgConfig.host`).  A lone instance (no live bus
 host) folds the bus calls inert, as the golden's host does.
 
 Heap addressing follows the reference's device sections, not the
@@ -41,9 +43,11 @@ dropped and its address kept in the high-water slot, which the executor
 reads after a render to climb its heap ladder.  Such a section prints
 for K11's view of a file (`csrc/block_ops.cuh` ZX): the var row `V`
 beside the view, the heap's first PAGE_CELLS cells on chip, a dynamic
-address with a whole constant operand added as an integer.  It may also
-draw `rand()` from a staged pool (`rand_pool` > 0): K10's sections draw
-nothing.
+address with a whole constant operand added as an integer, gmem's heap
+side through `zx_gmem_bulk` (a gmem write moves no high water), and no live
+bus (a lone instance's folds inert as K10's does; the reference's
+executor passes no message config).  It may also draw `rand()` from a
+staged pool (`rand_pool` > 0): K10's sections draw nothing.
 
 The host services print as the reference's DeviceSection traces them.
 The legacy file API folds while the text prints, on a fresh
@@ -288,8 +292,6 @@ _BUS = ("the device sections stage scalar messages and fold the registry "
         "only (the reference's DeviceSection._MSG_DEVICE_FNS and _GMEM_FNS): "
         "buffer messages, registry changes, names, uids and page sequence "
         "numbers render through the golden, as in the reference")
-_BUS_K11 = ("gmem and the message bus in the sequential executor come with "
-            "ROADMAP queue 2's K11 bus entry")
 _NEVER = ("the reference does not run it on the device either, and no "
           "slice brings it: the golden renders the plugin")
 
@@ -700,7 +702,6 @@ class _SectionC(_CGen):
             return c_double(float(self.P.string_handle(n.text)))
         if isinstance(n, Mem):
             if self._is_gmem(n):
-                self.dev.gmem_allowed("gmem[]")
                 return f"zb_gmem_get(S, {self.ex(n.index)})"
             a = self.static_addr(n.base, n.index)
             if a is not None:
@@ -780,7 +781,6 @@ class _SectionC(_CGen):
         if isinstance(tgt, Mem):
             if self._is_gmem(tgt):
                 # the golden's order: the value, the index, then the cell
-                self.dev.gmem_allowed("gmem[]")
                 r, i = self.tmp(), self.tmp()
                 head = f"double {r} = ({rhs}); double {i} = ({self.ex(tgt.index)});"
                 if n.op == "=":
@@ -1215,10 +1215,9 @@ class _SectionC(_CGen):
 
     def _bus_call(self, fn: str, A: Sequence[Node]) -> str:
         """gmem builtins, a lockstep member's live bus, a lone instance's
-        inert bus; what the reference's sets do not take is refused."""
+        inert bus; what the reference's sets do not take is refused (K11's
+        sections get no live bus: the reference's executor passes none)."""
         dev = self.dev
-        if dev.reduced_heap:
-            raise DevgenError(f"@{dev.section} uses {fn}(): {_BUS_K11}")
         if fn in GMEM_FNS:
             return self._gmem_call(fn, A)
         if fn in MSG_DEVICE_FNS and dev.msg_cfg is not None:
@@ -1251,7 +1250,6 @@ class _SectionC(_CGen):
                 "gmem_copy": 3}[fn]
         if len(A) != argc:
             raise DevgenError(f"{fn} expects {argc} args")
-        dev.gmem_allowed(fn)
         G = dev.gmem_cells
         if fn in ("gmem_attach", "gmem_attach_size"):
             if dev.comm_solo:
@@ -1284,7 +1282,7 @@ class _SectionC(_CGen):
                               f"beyond device heap ({dev.mem_size})")
         to_mem = int(fn == "gmem_get")
         return self.args(A, lambda v: (
-            f"zb_gmem_bulk(S, {m}, {v[1 - at_mem]}, {n}, {to_mem})"))
+            f"{dev.ops}_gmem_bulk(S, {m}, {v[1 - at_mem]}, {n}, {to_mem})"))
 
     def _chan_name(self, node: Node, fn: str) -> str:
         """A channel (or segment) argument's name, as InstanceComm's
@@ -1749,7 +1747,6 @@ class DeviceSection:
                  dynamic_keys: Set[Any], mem_size: int,
                  body: Optional[Sequence[Node]] = None,
                  reduced_heap: bool = False, rand_pool: int = 0,
-                 force_midi_out: bool = False,
                  msg_cfg: Optional[MsgConfig] = None,
                  layout_bodies: Optional[Sequence[Sequence[Node]]] = None,
                  tables: Optional[HostTables] = None):
@@ -1758,14 +1755,14 @@ class DeviceSection:
         named section's.  reduced_heap: the sequential executor's heap
         addressing and its high-water slot; rand_pool: the size of the
         staged draw pool rand() reads (0: rand() is refused);
-        force_midi_out: lay out the MIDI out table even where this section
-        sends nothing (the sections of one executor share one heap);
         msg_cfg: the live bus of a graph's lockstep member (ignored where
         the snapshot's host is no live InstanceComm: a lone instance's
-        bus folds inert); layout_bodies: the statement lists whose gmem,
-        MIDI out and receive channels lay out the heap's tail (default
-        this section's; @block and the @slider it retriggers share one
-        heap, so each is given both); tables: the program's HostTables,
+        bus folds inert, and on a reduced heap); layout_bodies: the
+        statement lists whose gmem, MIDI out and receive channels lay out
+        the heap's tail (default this section's; sections that share one
+        heap are each given all of theirs: @block and the @slider it
+        retriggers, every section of the sequential executor, as the
+        reference's force_gmem and force_midi_out do); tables: the program's HostTables,
         shared by the sections of one program (default: this section's
         own)."""
         self.P = program
@@ -1796,7 +1793,7 @@ class DeviceSection:
                           or bool(getattr(host, "comm_solo", False)))
         self.msg_cfg = msg_cfg if (msg_cfg is not None and not self.comm_solo
                                    and not self.reduced_heap) else None
-        self._layout(layout_bodies or [self.body], force_midi_out)
+        self._layout(layout_bodies or [self.body])
 
         # slot table, the reference's order: dynamic vars, every
         # specialized function's params (one slot each; the C functions
@@ -1835,18 +1832,17 @@ class DeviceSection:
         self.phases = self._print_phases()
         self.functions = self._print_functions()
 
-    def _layout(self, bodies: Sequence[Sequence[Node]],
-                force_midi_out: bool) -> None:
+    def _layout(self, bodies: Sequence[Sequence[Node]]) -> None:
         """The heap row, the reference's layout (its devgen.py:269-331):
         [plugin heap | gmem window | MIDI out table | msg OUT table | msg
         IN region], each part present where a section uses it."""
-        self.uses_gmem = not self.reduced_heap and self._detect(
+        self.uses_gmem = self._detect(
             bodies, lambda n: (isinstance(n, Mem) and isinstance(n.base, Name)
                                and n.base.ident == "gmem")
             or (isinstance(n, CallExpr) and n.func in GMEM_FNS))
         self.gmem_base = self.mem_size
         self.gmem_cells = len(self.snap.gmem) if self.uses_gmem else 0
-        self.uses_midi_out = bool(force_midi_out) or self._detect(
+        self.uses_midi_out = self._detect(
             bodies, lambda n: isinstance(n, CallExpr) and n.func == "midisend")
         # the MIDI out table: [count | CAP rows of 4]
         self.midi_out_base = self.gmem_base + self.gmem_cells
@@ -1898,10 +1894,6 @@ class DeviceSection:
         the numeric repr (numeric channel handles are legal)."""
         text = self.snap.string_for_handle(float(handle))
         return text if text is not None else repr(float(handle))
-
-    def gmem_allowed(self, what: str) -> None:
-        if self.reduced_heap:
-            raise DevgenError(f"{what} in @{self.section}: {_BUS_K11}")
 
     def cell(self, a: int) -> str:
         """Static heap cell a (below the heap): K11 keeps the first

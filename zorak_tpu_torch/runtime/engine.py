@@ -12,9 +12,10 @@ for its midirecv; its gmem is the heap's window, and a lone instance's
 bus calls fold inert on the device, as the golden's host answers them.
 What the vectorizer rejects renders through the sequential device
 executor (engine "torch-devexec": the whole plugin in one kernel, K11), as
-the reference's engine orders them; what that also rejects (gmem and the
-bus, which K11 refuses; a host-service call neither device printer
-takes) renders through the golden (engine "cpu-shadow").  A plugin of an
+the reference's engine orders them, gmem and a lone instance's bus
+included (the heap row's window, the calls folded inert); what that also
+rejects (the bus calls and host services the reference's device sections
+refuse too) renders through the golden (engine "cpu-shadow").  A plugin of an
 instance made with `host=EngineHost()` (runtime/services.py) reads its
 file slots and sample pool on the device: a load from a file slot in an
 audio-coupled @block folds into K10's text, and a loaded sample pool is
@@ -144,7 +145,7 @@ class PluginInstance:
         self.kernel = None
         self.engine = "cpu-shadow"
         self.spec_error: Optional[str] = None
-        if prefer in ("auto", "vector", "devexec"):
+        if prefer in ("auto", "tpu", "vector", "devexec"):
             self._specialize(prefer)
 
     def _specialize(self, prefer: str) -> None:
@@ -153,7 +154,8 @@ class PluginInstance:
         golden, which renders what both reject; spec_error keeps both
         reasons, in every RenderResult's details too.  prefer="vector"
         raises where the vectorizer refuses, prefer="devexec" skips it
-        and raises where devexec refuses."""
+        and raises where devexec refuses, prefer="tpu" (the reference's
+        name for the device engines) raises only where both refuse."""
         from ..lowering.devexec import DeviceExecKernel
 
         self.kernel, self.engine, self.spec_error = None, "cpu-shadow", None
@@ -178,7 +180,7 @@ class PluginInstance:
             self.engine = "torch-devexec"
         except SpecializeError as exc:
             self.spec_error = f"{self.spec_error}; devexec: {exc}"
-            if prefer == "devexec":
+            if prefer in ("devexec", "tpu"):
                 raise SpecializeError(self.spec_error) from None
 
     def _upsample(self, x: np.ndarray) -> np.ndarray:
