@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases spectral  # the spectral phase alone
     python3 chip_smoke.py --phases coupled   # the coupled @block alone
     python3 chip_smoke.py --phases gated,hop # the gated and hop regimes
+    python3 chip_smoke.py --phases planner   # ring cycles, dynamic delays, rand()
     python3 chip_smoke.py --phases devexec   # the sequential executor
     python3 chip_smoke.py --phases tooling   # bench, help, new-plugin, dumps
     python3 chip_smoke.py --phases graph     # the render graph's lockstep
@@ -15,8 +16,8 @@
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result (`--phases` takes any of `jsfx`, `batch`,
-`spectral`, `coupled`, `gated`, `hop`, `devexec`, `tooling`, `graph`,
-`services` and `faust`, all eleven by default;
+`spectral`, `coupled`, `gated`, `hop`, `planner`, `devexec`, `tooling`,
+`graph`, `services` and `faust`, all twelve by default;
 device and build always run; `k4sweep` is described at the end):
 
 1. device   the card's name and power limit (nvidia-smi);
@@ -188,6 +189,27 @@ device and build always run; `k4sweep` is described at the end):
             FFT_TOL_REL), its time a hop by CUDA events beside its bound;
             8 files of 2 s through BatchRenderer, each torch.equal to its
             solo render;
+4p. planner  the planner's paths at the CPU tests' sizes on the card
+            (tests/test_torch_planner_paths.py): the time-blocked ring
+            cycles (their segment lengths, 256 and 512), the dynamic
+            delays, ungated and gated rand() and the sysex payload from
+            @block, each held to the native golden (audio, vars and heap)
+            and to the port's CPU render; the gated branch's rand()
+            streamed over two resumed renders; the sub-block cycle on
+            devexec (K11) against the golden.  Then two stand-ins, 60 s
+            of stereo each through PluginInstance.render:
+            modulated_delay_chorus(3, 4096) (per-voice sine LFOs, twelve
+            dynamic ring reads; engine torch-vector): device ms after a
+            warm-up, a traced 1 s with the idle share and K3b's share
+            (the kernels inside the emitter's zorak.k3b ranges, plain
+            torch) of the busy time, the render held to the native
+            golden; tpdf_dither(16) (four ungated rand() draws a
+            sample): the first fresh render (the draw cache's miss, the
+            host's MT19937 seconds and the matrix's upload) and the
+            second (the hit) by CUDA events and wall clock, the hit's
+            audio torch.equal to the miss's, the generator state equal,
+            the cached matrix unchanged, the render held to the native
+            golden;
 4f. devexec  the sequential device executor: K11 (device_exec, CUDA C
             generated from a plugin's @block, @slider and @sample by
             lowering/devgen.py with the reduced heap and the staged draw
@@ -2793,6 +2815,352 @@ def hop_phase(torch, cuda, rng, card):
             "hop_statements_thread0": len(hop.block.body)}
 
 
+# the planner phase: the CPU tests' cases of tests/test_torch_planner_paths.py
+PLANNER_RING_CYCLE = """\
+@init
+M = 512;
+D = {delay};
+A = 4096;
+B = 8192;
+@sample
+ra = ia - D; ra < 0 ? ra += M;
+rb = ib - D; rb < 0 ? rb += M;
+A[ia] = spl0 + 0.5 * B[rb];
+B[ib] = spl1 + 0.4 * A[ra];
+spl0 = A[ia] - 0.25 * B[rb];
+spl1 = B[ib];
+ia += 1; ia >= M ? ia = 0;
+ib += 1; ib >= M ? ib = 0;
+"""
+PLANNER_RAND_IN_BRANCH = \
+    "@sample\nspl0 > 0 ? ( spl0 = rand(1) * 0.5; ) : ( spl0 *= 2; );\n"
+PLANNER_SYSEX = """\
+@init
+p = 32; p[0] = 65; p[1] = 16; p[2] = 99;
+cnt = 0;
+@block
+cnt += 1;
+cnt == 2 ? midisyx(5, p, 3);
+@sample
+spl0 = spl0 * 0.5;
+spl1 = spl1 * 0.5;
+"""
+# name -> (source, (channels, samples, scale, seed) of seeded noise (scale
+# 0: silence), kernel options, the segment length a ring cycle cuts to)
+PLANNER_CASES = {
+    "ring_cycle_delay_300": (
+        PLANNER_RING_CYCLE.format(delay=300), (2, 4000, 0.3, 3),
+        {"block_size": 64, "segment_len": 4096}, 256),
+    "ring_ring_cycle": (
+        "@init\nbufA = 0; bufB = 4096;\n@sample\n"
+        "ia += 1; ia >= 1024 ? ia = 0;\nib += 1; ib >= 1024 ? ib = 0;\n"
+        "ra = ia - 600; ra < 0 ? ra += 1024;\n"
+        "rb = ib - 700; rb < 0 ? rb += 1024;\n"
+        "bufA[ia] = spl0 * 0.5 + bufB[rb] * 0.4;\n"
+        "bufB[ib] = spl0 * 0.3 + bufA[ra] * 0.45;\n"
+        "spl0 = bufA[ra] * 0.5 + bufB[rb] * 0.5;\n",
+        (1, 5000, 0.4, 9), {"segment_len": 1 << 14}, 512),
+    "modulated_delay": (
+        "@init\nMASK = 1023;\n@sample\nbuf[w & MASK] = spl0;\n"
+        "ph += 0.01;\nd = (40 + 30*sin(ph)) | 0;\n"
+        "spl0 = 0.5*spl0 + 0.5*buf[(w - d) & MASK];\nw += 1;\n",
+        (1, 5000, 0.4, 9), {"segment_len": 1024}, None),
+    "signal_dependent_delay": (
+        "@init\nMASK = 511;\n@sample\nbuf[w & MASK] = spl0;\n"
+        "d = (10 + abs(spl1)*200) | 0;\nspl0 = buf[(w - d) & MASK];\n"
+        "w += 1;\n", (2, 4000, 0.4, 9), {"segment_len": 512}, None),
+    "wavetable_lookup": (
+        "@init\ntab = 100;\n"
+        "i = 0; loop(256, tab[i] = sin(i * $pi / 128); i += 1;);\n"
+        "@sample\nph += 0.3 + 0.2*spl0;\nspl0 = tab[(ph | 0) & 255];\n",
+        (1, 4000, 0.4, 9), {"segment_len": 1024}, None),
+    "delay_crossing_segments": (
+        "@init\nMASK = 255;\n@sample\nbuf[w & MASK] = spl0;\n"
+        "d = 100 + ((w >> 5) & 63);\nspl0 = buf[(w - d) & MASK];\n"
+        "w += 1;\n", (1, 2000, 0.4, 9), {"segment_len": 256}, None),
+    "read_before_write_same_slot": (
+        "@init\nMASK = 63;\n@sample\nold = buf[w & MASK];\n"
+        "buf[w & MASK] = spl0;\nspl0 = old;\nw += 1;\n",
+        (1, 500, 0.4, 9), {"segment_len": 128}, None),
+    "rand_noise_source": (
+        "@sample\nspl0 = rand(2) - 1;\n", (1, 3000, 0.0, 0),
+        {"segment_len": 1024}, None),
+    "rand_several_draws_a_sample": (
+        "@sample\na = rand(1);\nb = rand(10);\n"
+        "spl0 = a*0.1 + b*0.01 + spl0*0.5;\n", (1, 2000, 0.2, 0),
+        {"segment_len": 512}, None),
+    "rand_after_init_draws": (
+        "@init\nseed_burn = rand(1) + rand(1);\n@sample\nspl0 = rand(1);\n",
+        (1, 1500, 0.0, 0), {"segment_len": 512}, None),
+    "rand_with_dynamic_limit": (
+        "@sample\nlim = 1 + abs(spl0)*5;\nspl0 = rand(lim) * 0.1;\n",
+        (1, 2000, 0.4, 1), {"segment_len": 512}, None),
+    "rand_in_branch": (
+        PLANNER_RAND_IN_BRANCH, (1, 1500, 0.4, 5), {"segment_len": 512},
+        None),
+    "rand_state_after_render": (
+        "@sample\nspl0 = rand(1);\n", (1, 700, 0.0, 0),
+        {"segment_len": 256}, None),
+    "sysex_from_block": (
+        PLANNER_SYSEX, (2, 2048, 0.25, 3),
+        {"segment_len": 1024, "block_size": 512}, None),
+}
+PLANNER_CHORUS = (3, 4096)     # builtin_plugins.modulated_delay_chorus
+PLANNER_DITHER_BITS = 16       # builtin_plugins.tpdf_dither
+
+
+def planner_input(shape):
+    nch, n, scale, seed = shape
+    if not scale:
+        return np.zeros((nch, n), np.float32)
+    return (np.random.RandomState(seed).randn(nch, n) * scale).astype(
+        np.float32)
+
+
+def planner_cases(torch, cuda):
+    """Every case of PLANNER_CASES rendered on the card and held to the
+    native golden (audio, vars and heap) and to the port's CPU render;
+    the ring cycles' segment lengths; the gated branch streamed over two
+    resumed renders; the sub-block cycle on devexec.  Returns the largest
+    audio difference from the golden."""
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.lowering import SpecializeError, specialize_sample_kernel
+    from zorak_tpu_torch.shadow import compile_native_shadow
+    from zorak_tpu_torch.verify import (
+        SCALAR_EPS, compare_audio, make_initialized_shadow, null_test_plugin)
+    from zorak_tpu_torch.verify.nulltest import apply_slider_state
+
+    worst = 0.0
+    for name, (src, shape, opts, seg) in PLANNER_CASES.items():
+        opts = {"block_size": 512, **opts}
+        prog = compile_plugin_source(src)
+        x = planner_input(shape)
+        kern = specialize_sample_kernel(
+            prog, make_initialized_shadow(prog).state, shape[0], device=cuda,
+            **opts)
+        cpu = specialize_sample_kernel(
+            prog, make_initialized_shadow(prog).state, shape[0],
+            device="cpu", **opts)
+        check(kern.L == cpu.L and (seg is None or kern.L == seg),
+              f"planner {name}: segment length {kern.L} (CPU {cpu.L})")
+        y, (svec, rings) = kern.render(x)
+        y_c, (svec_c, rings_c) = cpu.render(x)
+        rep = compare_audio(y_c, y)
+        carry = max([np.abs(svec.cpu().numpy() - svec_c.numpy()).max(
+            initial=0.0)] + [np.abs(rings[r].cpu().numpy() - a.numpy()).max(
+                initial=0.0) for r, a in rings_c.items()])
+        check(rep.audio_passed and carry <= SCALAR_EPS,
+              f"planner {name}: CUDA vs CPU render {rep.summary()}, carry "
+              f"{carry:.3e}")
+        if name == "sysex_from_block":
+            check(kern.last_midi_out == cpu.last_midi_out == [
+                (517, 240, 65, 16, (240, 65, 16, 99, 247))],
+                f"planner {name}: MIDI out {kern.last_midi_out}")
+        gold = null_test_plugin(prog, x, golden="native", device=cuda,
+                                compare_state=True, compare_mem=True, **opts)
+        check(gold.passed, f"planner {name}: vs the native golden "
+              f"{gold.summary()}")
+        worst = max(worst, gold.max_abs_delta)
+        print(f"[planner] {name}: L {kern.L}, CUDA vs CPU audio "
+              f"{rep.max_abs_delta:.3e} carry {carry:.3e}; vs the native "
+              f"golden (state and heap) {gold.summary()}")
+    # the gated branch over two resumed renders, the generator rebased
+    # between them
+    prog = compile_plugin_source(PLANNER_RAND_IN_BRANCH)
+    x = planner_input((1, 1400, 0.4, 6))
+    gold = compile_native_shadow(prog)
+    gold.state.srate = SR
+    apply_slider_state(gold.state, prog, None)
+    gold.run_init()
+    gold.run_slider()
+    y_ref = np.zeros_like(x)
+    for s in range(0, x.shape[1], 512):
+        gold.process_block(x[:, s:s + 512], y_ref[:, s:s + 512])
+    parts = []
+    for dev in (cuda, "cpu"):
+        kern = specialize_sample_kernel(
+            prog, make_initialized_shadow(prog).state, 1, segment_len=512,
+            device=dev)
+        y1, carry = kern.render(x[:, :700])
+        y2, carry = kern.render(x[:, 700:], carry)
+        parts.append(np.concatenate([y1, y2], axis=1))
+    rep, rep_c = compare_audio(y_ref, parts[0]), compare_audio(parts[1],
+                                                               parts[0])
+    check(rep.audio_passed and rep_c.audio_passed,
+          f"planner streamed branch: vs the golden {rep.summary()}, vs CPU "
+          f"{rep_c.summary()}")
+    print(f"[planner] rand() in a branch over two resumed renders: vs the "
+          f"native golden {rep.summary()}; vs CPU {rep_c.max_abs_delta:.3e}")
+    # the sub-block coupling delay: refused by the vectorizer, rendered by
+    # the sequential executor
+    prog = compile_plugin_source(PLANNER_RING_CYCLE.format(delay=3))
+    try:
+        specialize_sample_kernel(prog, make_initialized_shadow(prog).state, 2,
+                                 block_size=512, device=cuda)
+        check(False, "planner: the sub-block ring cycle was not refused")
+    except SpecializeError as exc:
+        check("cyclic" in str(exc) or "coupling" in str(exc),
+              f"planner: the sub-block cycle refused for {exc}")
+    rep = null_test_plugin(prog, planner_input((2, 256, 0.3, 9)),
+                           block_size=64, golden="native", compare_state=True,
+                           compare_mem=True, engine="devexec", device=cuda)
+    check(rep.passed, f"planner: the sub-block cycle on devexec {rep.summary()}")
+    print(f"[planner] ring cycle at delay 3: refused by the vectorizer; on "
+          f"devexec (K11) vs the native golden {rep.summary()}")
+    return worst
+
+
+def planner_phase(torch, cuda, rng, card):
+    """The planner's paths on the card (`planner_cases`), then the chorus
+    (dynamic ring reads; K3b's share of a traced second) and the dither
+    (the fresh-render draw cache's miss and hit), 60 s of stereo each
+    through PluginInstance.render, held to the native golden."""
+    from torch.autograd import DeviceType
+    from zorak_tpu_torch import builtin_plugins as BP
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.lowering import specialize as SP
+    from zorak_tpu_torch.runtime.engine import PluginInstance
+
+    t0 = time.perf_counter()
+    worst = planner_cases(torch, cuda)
+    print(f"[planner] the cases in {time.perf_counter() - t0:.1f} s, largest "
+          f"audio difference from the golden {worst:.3e}")
+    sec = MAIN_T / SR
+    n1 = int(SR)
+    out = {"planner_cases_max_abs_err": worst}
+
+    # the chorus: twelve dynamic ring reads a sample at 3 voices
+    voices, buf = PLANNER_CHORUS
+    prog = compile_plugin_source(BP.modulated_delay_chorus(voices, buf))
+    x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+    inst = PluginInstance(prog, srate=SR)
+    kern = inst.kernel
+    reads = sum(n.kind == "dynringref" for n in kern._all_nodes(kern.sym))
+    check(inst.engine == "torch-vector" and reads == 4 * voices,
+          f"chorus: engine {inst.engine} ({inst.spec_error}), {reads} "
+          f"dynamic reads")
+    inst.render(x[:, :n1])                                # warm-up
+    res = []
+    t0 = time.perf_counter()
+    ms = cuda_ms(lambda: res.append(inst.render(x)))
+    wall = time.perf_counter() - t0
+    y = res[0].audio
+    check(res[0].engine == "torch-vector" and y.shape == (2, MAIN_T)
+          and bool(np.isfinite(y).all()), "chorus: output")
+    rep, gold_s = held_to_native_golden(prog, x, y, inst.shadow.state)
+    check(rep.passed, f"chorus: vs the native golden {rep.summary()}")
+    print(f"[planner] modulated_delay_chorus({voices}, {buf}) 60 s stereo: "
+          f"engine {res[0].engine}, {reads} dynamic ring reads a sample, "
+          f"segment {kern.L}; device_ms={ms:.2f} wall_s={wall:.4f} "
+          f"audio_s_per_s={sec / (ms / 1e3):.1f}; vs the native golden "
+          f"{rep.summary()}, the golden {gold_s:.2f} s card='{card}'")
+    # K3b's share of a traced second: the kernels launched inside the
+    # emitter's K3b ranges against every kernel's device time
+    x_dev = torch.from_numpy(x[:, :n1]).to(cuda)
+    kern.render_device(x_dev)
+    events = traced(lambda: kern.render_device(x_dev))
+    kernels = device_kernels(events)
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    ranges = [e for e in events if e.name == SP.K3B_RANGE
+              and e.device_type == DeviceType.CPU]
+
+    def inside(e):
+        for ch in e.cpu_children:
+            yield ch
+            yield from inside(ch)
+
+    k3b_us = sum(k.duration for r in ranges for op in inside(r)
+                 for k in op.kernels)
+    share = k3b_us / busy_us if busy_us else None
+    idle = None
+    if kernels:
+        span_us = (max(e.time_range.end for e in kernels)
+                   - min(e.time_range.start for e in kernels))
+        idle = 1.0 - busy_us / span_us
+        check(ranges and k3b_us > 0, f"chorus: the trace's {len(ranges)} K3b "
+              "ranges hold no device time")
+    # K3b's least time in that second: each dynamic read's slot stream
+    # read, its gathered values read and its output written, once, at the
+    # card's memory rate (the chorus's cursor is an induction variable:
+    # no cursor positions)
+    k3b_bytes = 3 * reads * n1 * 8
+    k3b_bound = k3b_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[planner] chorus, a traced 1 s (segments of "
+          f"{kern.segment_length(n1)}): K3b bound {k3b_bound:.6f} ms (bytes: "
+          f"{k3b_bytes}, {reads} reads' slots, gathers and outputs of {n1} "
+          f"samples once)")
+    print(f"[planner] chorus, a traced 1 s: {len(kernels)} device events, "
+          f"busy {busy_us / 1e3:.3f} ms, idle share "
+          + (f"{idle:.3f}" if idle is not None else "not measured")
+          + f"; K3b (the kernels inside the emitter's {SP.K3B_RANGE} ranges: "
+          f"cursor positions, slot arithmetic, last-writer choice, gathers) "
+          f"{k3b_us / 1e3:.3f} ms, share "
+          + (f"{share:.3f}" if share is not None else "not measured")
+          + f" ({len(ranges)} ranges) card='{card}'")
+    out.update(chorus_ms=ms, chorus_golden_s=gold_s, chorus_idle=idle,
+               k3b_share=share, k3b_ms_traced_s=k3b_us / 1e3,
+               k3b_bound_ms=k3b_bound)
+
+    # the dither: a fresh ungated render's draw matrix, the miss and the hit
+    prog = compile_plugin_source(BP.tpdf_dither(PLANNER_DITHER_BITS))
+    x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
+    inst = PluginInstance(prog, srate=SR)
+    kern = inst.kernel
+    check(inst.engine == "torch-vector" and kern.n_rand == 4
+          and not kern.rand_gated, f"dither: engine {inst.engine} "
+          f"({inst.spec_error}), {kern.n_rand} draws a sample")
+    streams, mt_s = kern._rand_streams, []
+
+    def timed_streams(T, reset):
+        t = time.perf_counter()
+        draws = streams(T, reset)
+        mt_s.append(time.perf_counter() - t)
+        return draws
+
+    kern._rand_streams = timed_streams
+    timing = {}
+    try:
+        for which in ("miss", "hit"):
+            res = []
+            t0 = time.perf_counter()
+            ms = cuda_ms(lambda: res.append(inst.render(x)))
+            timing[which] = (ms, time.perf_counter() - t0, res[0].audio,
+                             kern._rng_state)
+            if which == "miss":
+                cached, state = kern._rand_cache[MAIN_T]
+                kept = cached.clone()
+    finally:
+        del kern._rand_streams
+    (ms_m, wall_m, y_m, rng_m), (ms_h, wall_h, y_h, rng_h) = (
+        timing["miss"], timing["hit"])
+    check(len(mt_s) == 1, f"dither: the host generated {len(mt_s)} times")
+    check(cached.device.type == kern.device.type
+          and cached.dtype == torch.float64
+          and tuple(cached.shape) == (MAIN_T, 4), "dither: the cached matrix")
+    check(kern._rand_cache[MAIN_T][0] is cached and torch.equal(cached, kept),
+          "dither: a render wrote into the cached matrix")
+    check(torch.equal(torch.from_numpy(y_m), torch.from_numpy(y_h)),
+          "dither: the hit's audio differs from the miss's")
+    check(np.array_equal(rng_m[0], rng_h[0]) and rng_m[1] == rng_h[1]
+          and np.array_equal(state[0], rng_h[0]),
+          "dither: the generator after the hit differs from the miss's")
+    rep, gold_s = held_to_native_golden(prog, x, y_h, inst.shadow.state)
+    check(rep.passed, f"dither: vs the native golden {rep.summary()}")
+    mb = cached.numel() * 8 / 1e6
+    print(f"[planner] tpdf_dither({PLANNER_DITHER_BITS}) 60 s stereo, 4 "
+          f"draws a sample: the first fresh render (the cache's miss) "
+          f"device_ms={ms_m:.2f} wall_s={wall_m:.4f}, of it the host's "
+          f"MT19937 {mt_s[0]:.4f} s and a {mb:.1f} MB matrix put on the "
+          f"card; the second (the hit) device_ms={ms_h:.2f} "
+          f"wall_s={wall_h:.4f}; the hit's audio torch.equal to the miss's, "
+          f"the generator equal, the matrix unchanged; vs the native golden "
+          f"{rep.summary()}, the golden {gold_s:.2f} s card='{card}'")
+    out.update(dither_miss_ms=ms_m, dither_hit_ms=ms_h,
+               dither_miss_wall_s=wall_m, dither_hit_wall_s=wall_h,
+               dither_mt19937_s=mt_s[0], dither_golden_s=gold_s)
+    return out
+
+
 DEVEXEC_GRAINS, DEVEXEC_RING = 16, 131072   # the Texture stand-in
 DEVEXEC_NOTE_EVERY = 24000      # a note-on every 0.5 s
 DEVEXEC_SHORT_T = 1100          # two blocks and a remainder of 76
@@ -4949,11 +5317,12 @@ def services_phase(torch, cuda, rng, card, golden, t_start):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="jsfx,batch,spectral,coupled,gated,hop,devexec,"
-                            "tooling,graph,services,faust",
+                    default="jsfx,batch,spectral,coupled,gated,hop,planner,"
+                            "devexec,tooling,graph,services,faust",
                     help="comma-separated: jsfx, batch, spectral, coupled, "
-                         "gated, hop, devexec, tooling, graph, services, "
-                         "faust (default all eleven); k4sweep times K4 "
+                         "gated, hop, planner, devexec, tooling, graph, "
+                         "services, faust (default all twelve); k4sweep "
+                         "times K4 "
                          "across register block sizes")
     ap.add_argument("--sampler-golden", metavar="OUT", default=None,
                     help=argparse.SUPPRESS)
@@ -4963,10 +5332,12 @@ def main(argv=None) -> int:
         return sampler_golden_child(args.sampler_golden)
     phases = set(args.phases.split(","))
     if not phases or phases - {"jsfx", "batch", "spectral", "coupled",
-                               "gated", "hop", "devexec", "tooling", "graph",
-                               "services", "faust", "k4sweep"}:
+                               "gated", "hop", "planner", "devexec",
+                               "tooling", "graph", "services", "faust",
+                               "k4sweep"}:
         ap.error("--phases takes jsfx, batch, spectral, coupled, gated, hop, "
-                 "devexec, tooling, graph, services, faust or k4sweep")
+                 "planner, devexec, tooling, graph, services, faust or "
+                 "k4sweep")
     t_start = time.perf_counter()
     import torch
 
@@ -5109,6 +5480,13 @@ def run_phases(torch, cuda, rng, card, phases, golden, t_start) -> int:
                 "bound_by": hop["hop_bound_by"], "library_ms": None, **hop})
         print(f"[done] hop phase in {time.perf_counter() - t0:.1f} s")
         ended("hop")
+    if "planner" in phases:
+        t0 = time.perf_counter()
+        planner = planner_phase(torch, cuda, np.random.RandomState(SEED + 17),
+                                card)
+        print(f"[done] planner phase in {time.perf_counter() - t0:.1f} s: "
+              f"{json.dumps(planner)}")
+        ended("planner")
     if "devexec" in phases:
         t0 = time.perf_counter()
         kernels.append(devexec_phase(torch, cuda,

@@ -631,6 +631,9 @@ def test_plugin_instance_takes_a_scan_group_plan_for_the_card(monkeypatch):
     # plans the plugin for CUDA, keeps the vector engine and records no
     # refusal (it used to render such a plugin through the golden)
     import zorak_tpu_torch.device as device_mod
+    # imported before the stand-in, so that its own binding of the policy
+    # stays the real one for the tests after this one
+    import zorak_tpu_torch.lowering.devexec  # noqa: F401
     import zorak_tpu_torch.runtime.engine as engine_mod
 
     for mod in (device_mod, engine_mod):

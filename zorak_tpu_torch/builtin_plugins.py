@@ -37,6 +37,12 @@ the vectorizer rejects its traced pool reads, and K11 gathers them.
 under a reload flag and reads it through a cursor in @sample (the shape
 of PsychoConvolver's `load_raw_ir`): the load folds into K10's @block.
 `sampler_slot` and `table_slot` make the slots' audio from a seed.
+`modulated_delay_chorus(voices, buf)` is a chorus whose voices read the
+rings at delays that a sine LFO moves every sample (the shape of the
+catalog's DPT): the vectorizer plans it with dynamic ring reads.
+`tpdf_dither(bits)` adds triangular dither from four ungated rand()
+draws a sample before it quantises (the shape of the catalog's SOMA and
+BedRock noise): the vector path's fresh-render draw matrix.
 """
 from __future__ import annotations
 
@@ -741,3 +747,66 @@ def table_slot(frames: int = 65536, seed: int = 0) -> np.ndarray:
     rng = np.random.RandomState(seed)
     t = np.arange(int(frames), dtype=np.float64)
     return (rng.randn(int(frames)) * np.exp(-t / (frames / 6.0)))[None, :]
+
+
+def modulated_delay_chorus(voices: int = 3, buf: int = 4096) -> str:
+    """A stereo chorus of `voices` voices over two rings of `buf` cells.
+
+    Each voice's delay is `buf / 8 + i * buf / 16` cells, moved by
+    `buf / 16` cells by a sine LFO of its own rate and phase (the sample
+    counter `w` is its clock), so the read slot changes every sample.  A
+    voice reads each ring twice, at the delay's whole part and one cell
+    further, and interpolates linearly by its fraction; the voices are
+    panned across the channels.  The delays stay below `buf`, so no read
+    reaches the sample's own write."""
+    v, m = int(voices), int(buf)
+    reads = []
+    for i in range(v):
+        base, depth = m // 8 + i * (m // 16), m // 16
+        rate = 2 * np.pi * (0.23 + 0.17 * i) / 48000.0
+        reads.append(
+            f"d{i} = {base} + {depth} * sin(w * {rate!r} + {0.9 * i!r});\n"
+            f"k{i} = floor(d{i}); f{i} = d{i} - k{i};\n"
+            f"a{i} = mem[(w - k{i}) & MASK];\n"
+            f"b{i} = mem[(w - k{i} - 1) & MASK];\n"
+            f"c{i} = mem[{m} + ((w - k{i}) & MASK)];\n"
+            f"e{i} = mem[{m} + ((w - k{i} - 1) & MASK)];\n"
+            f"vl{i} = a{i} + f{i} * (b{i} - a{i});\n"
+            f"vr{i} = c{i} + f{i} * (e{i} - c{i});")
+    pan = [(i + 0.5) / v for i in range(v)]
+    left = " + ".join(f"{1.0 - p!r} * vl{i}" for i, p in enumerate(pan))
+    right = " + ".join(f"{p!r} * vr{i}" for i, p in enumerate(pan))
+    body = "\n".join(reads)
+    return f"""\
+desc:modulated delay chorus (per-voice sine LFOs, dynamic ring reads)
+
+@init
+MASK = {m - 1};
+w = 0;
+
+@sample
+mem[w & MASK] = spl0;
+mem[{m} + (w & MASK)] = spl1;
+{body}
+spl0 = 0.6 * spl0 + {0.8 / v!r} * ({left});
+spl1 = 0.6 * spl1 + {0.8 / v!r} * ({right});
+w += 1;
+"""
+
+
+def tpdf_dither(bits: int = 16) -> str:
+    """Triangular (TPDF) dither, then quantisation to `bits` bits: each
+    channel adds `(rand(1) - rand(1))` steps of the quantiser and rounds
+    to the step, four ungated rand() draws a sample."""
+    return f"""\
+desc:TPDF dither to {int(bits)} bits (ungated rand, 4 draws a sample)
+
+@init
+q = {1.0 / (1 << (int(bits) - 1))!r};
+
+@sample
+dl = (rand(1) - rand(1)) * q;
+dr = (rand(1) - rand(1)) * q;
+spl0 = floor((spl0 + dl) / q + 0.5) * q;
+spl1 = floor((spl1 + dr) / q + 0.5) * q;
+"""

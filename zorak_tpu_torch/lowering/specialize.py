@@ -70,21 +70,34 @@ MAX_WHILE_CONCRETE = 1 << 22
 MAX_INLINE_DEPTH = 64
 # the guessed loop(n) bounds' overflow ladder: rebuilds before it gives up
 LADDER_ATTEMPTS = 8
+# the render lengths whose fresh ungated draw matrix a kernel keeps
+RAND_CACHE_LENGTHS = 4
 # the profiler range over K6's ops: the gated regime's gate masks, prefix
 # sums, cursor arithmetic, gathers and ring scatter (no other work inside)
 K6_RANGE = "zorak.k6"
+# the profiler range over K3b's ops: an ungated ring cursor's positions and
+# a dynamic ring read's slot arithmetic, last-writer choice and gather
+K3B_RANGE = "zorak.k3b"
 
 
-def _k6_range():
-    """A `torch.profiler` range named K6_RANGE while a profiler runs, else
+def _profiler_range(name: str):
+    """A `torch.profiler` range named `name` while a profiler runs, else
     nothing: a range costs microseconds of host time a call even then."""
     import contextlib
 
     import torch
 
     if torch.autograd.profiler._is_profiler_enabled:
-        return torch.profiler.record_function(K6_RANGE)
+        return torch.profiler.record_function(name)
     return contextlib.nullcontext()
+
+
+def _k6_range():
+    return _profiler_range(K6_RANGE)
+
+
+def _k3b_range():
+    return _profiler_range(K3B_RANGE)
 
 
 class _CoupledUpgrade(Exception):
@@ -2332,6 +2345,10 @@ class SpecializedSampleKernel:
         # are real, see _advance_rng_by_used)
         self._rng_state = None
         self._rng_prestate = None
+        # T -> (a fresh ungated render's draw matrix [T, n_rand], f64 on
+        # the kernel's device, and the generator state after it): a fresh
+        # render draws from snap.rng, so the matrix is a pure function of T
+        self._rand_cache: Dict[int, Tuple[Any, Any]] = {}
         self._traj_plugin = None
         self.last_control_state = None
         self._seg_fns: Dict[Any, Callable] = {}
@@ -4266,12 +4283,13 @@ class SpecializedSampleKernel:
 
             def cursor_idx(var, offset, mod, k0, k1):
                 start = cursor_start(var, offset + k0, mod)
-                pos = start + (t64[:k1 - k0] if k1 - k0 <= L else
-                               torch.arange(k1 - k0, dtype=torch.int64,
-                                            device=dev))
-                if mod & (mod - 1) == 0:
-                    return pos & (mod - 1)
-                return torch.remainder(pos, mod)
+                with _k3b_range():
+                    pos = start + (t64[:k1 - k0] if k1 - k0 <= L else
+                                   torch.arange(k1 - k0, dtype=torch.int64,
+                                                device=dev))
+                    if mod & (mod - 1) == 0:
+                        return pos & (mod - 1)
+                    return torch.remainder(pos, mod)
 
             def _arr(v):
                 return const(v) if isinstance(v, float) else v
@@ -4593,28 +4611,33 @@ class SpecializedSampleKernel:
                 touched that slot."""
                 region = x.meta["region"]
                 origin, mod = region
-                sigma = EM.to_i64(_arr(emit(x.args[0])))  # slot in [0,mod)
+                # the slot's expression, the segment's writes and the
+                # joined history are emitted outside K3b's range
+                slot = _arr(emit(x.args[0]))                # in [0, mod)
                 ws = sym.ring_writes.get(region)
                 if ws is None:
                     src_arr = (rings[region] if region not in static_regions
                                else static_regions[region])
-                    return _take(src_arr, sigma)
+                    with _k3b_range():
+                        return _take(src_arr, EM.to_i64(slot))
                 w = ws[-1]
                 full = ring_hist_full(region)
                 w0c = _host_i64(host_scalar(w.var)) + w.offset
                 pre = [u for u in ws if u.order < x.meta["order"]]
-                if not pre:
-                    dtil = torch.remainder(w0c + t64 - sigma - 1, mod) + 1
-                    return _take(full, mod + t64 - dtil)
-                dtil = torch.remainder(w0c + t64 - sigma, mod)
-                base = _take(full, mod + t64 - dtil)
-                if pre[-1] is w:
-                    return base
                 # same-slot same-sample reads see the latest PRECEDING
                 # writer, not the region's final (last-writer) value
-                return torch.where(dtil == 0,
-                                   write_stream(region, ws.index(pre[-1])),
-                                   base)
+                same = (write_stream(region, ws.index(pre[-1]))
+                        if pre and pre[-1] is not w else None)
+                with _k3b_range():
+                    sigma = EM.to_i64(slot)
+                    if not pre:
+                        dtil = torch.remainder(w0c + t64 - sigma - 1, mod) + 1
+                        return _take(full, mod + t64 - dtil)
+                    dtil = torch.remainder(w0c + t64 - sigma, mod)
+                    base = _take(full, mod + t64 - dtil)
+                    if same is None:
+                        return base
+                    return torch.where(dtil == 0, same, base)
 
             solved_groups: Set[int] = set()
 
@@ -5307,7 +5330,7 @@ class SpecializedSampleKernel:
                     resume=not fresh)
             else:
                 ctrl = self.fresh_control(T)
-        rand = self._rand_streams(T, reset=fresh)
+        rand = self._render_draws(T, fresh)
         self.last_midi_out = list(self._traj_midi_out)
         if midi and not self.accepts_midi:
             raise SpecializeError(
@@ -5326,16 +5349,14 @@ class SpecializedSampleKernel:
             y, ((svec, rings), hvars, hmem) = self._hop_run(
                 ((svec[None], {r: a[None] for r, a in rings.items()}),
                  hvars[None], hmem[None]),
-                self.put_audio(x)[None], self.put_f64(ctrl),
-                self.put_f64(rand), phase)
+                self.put_audio(x)[None], self.put_f64(ctrl), rand, phase)
             return y[0], ((svec[0], {r: a[0] for r, a in rings.items()}),
                           hvars[0], hmem[0])
         # the solo render is the batch of one file
         svec, rings = carry
         y, (svec, rings) = self._run(
             (svec[None], {r: a[None] for r, a in rings.items()}),
-            self.put_audio(x)[None], self.put_f64(ctrl), self.put_f64(rand),
-            L)
+            self.put_audio(x)[None], self.put_f64(ctrl), rand, L)
         return y[0], (svec[0], {r: a[0] for r, a in rings.items()})
 
     def _render_coupled(self, x, carry, fresh: bool, midi, ctrl):
@@ -5353,7 +5374,7 @@ class SpecializedSampleKernel:
         nch, T = x.shape
         self._traj_midi_out = []
         self.last_midi_out = []
-        rand = self._rand_streams(T, reset=fresh)
+        rand = self._render_draws(T, fresh)
         if T == 0:
             return torch.zeros((nch, 0), dtype=torch.float32,
                                device=self.device), carry
@@ -5365,7 +5386,7 @@ class SpecializedSampleKernel:
         y, ((svec, rings), bvars, bmem), mouts = self._coupled_run(
             ((svec[None], {r: a[None] for r, a in rings.items()}),
              bvars[None], bmem[None]),
-            self.put_audio(x)[None], self.put_f64(rand), planes)
+            self.put_audio(x)[None], rand, planes)
         if mouts is not None:
             self.last_midi_out = self._decode_midi_out(
                 mouts[:, 0].cpu().numpy())
@@ -5406,6 +5427,23 @@ class SpecializedSampleKernel:
             return self.cached_trajectory(n_full_blocks, rem_block)
         rows = n_full_blocks + (1 if rem_block else 0)
         return np.zeros((rows, len(self.ctrl_order)), dtype=np.float64)
+
+    def _render_draws(self, T: int, fresh: bool):
+        """The draw matrix of a render of T samples, f64 on the kernel's
+        device (`_rand_streams`).  A fresh ungated render's is kept by T,
+        for at most RAND_CACHE_LENGTHS lengths, with the generator state
+        after it: a hit leaves `_rng_state` as the miss did.  No render
+        writes into the matrix it is given."""
+        if not (self.n_rand and fresh and not self.rand_gated):
+            return self.put_f64(self._rand_streams(T, reset=fresh))
+        hit = self._rand_cache.get(T)
+        if hit is not None:
+            rand, self._rng_state = hit
+            return rand
+        rand = self.put_f64(self._rand_streams(T, reset=True))
+        if len(self._rand_cache) < RAND_CACHE_LENGTHS:
+            self._rand_cache[T] = (rand, self._rng_state)
+        return rand
 
     def _rand_streams(self, T: int, reset: bool) -> np.ndarray:
         """Pregenerate the exact MT19937 draw matrix [T, n_rand] (f64 u32
