@@ -145,12 +145,13 @@ device and build always run; `k4sweep` is described at the end):
             PluginInstance.render on 60 s of stereo: engine torch-vector,
             K10 and K3 launched once a block, K2 a fixed number of times a
             block, no block loop run on thread 0 (K10's counter), the time
-            after a 1 s warm-up render (K10's inputs recorded at two blocks
-            inside it) with the spread of two more renders, the whole
-            render (audio,
+            after a 1 s warm-up render with the spread of two more
+            renders, the render through K5 torch.equal to the eager
+            step's (whose K10 inputs are recorded at two blocks), the
+            whole render (audio,
             vars and heap after the writeback) held to the native golden,
             the golden's own time; on the inputs K10 met at the first and
-            the middle block of renders of 1 file (60 s) and of 8 (20 s), K10
+            the middle block of renders of 1 file (60 s) and of 8 (60 s), K10
             against the earlier design bit for bit (vars, the heap with
             the FFT buffer, the exchanges, control row, MIDI out) and
             against its plain version (the exchanges and the heap outside
@@ -161,20 +162,23 @@ device and build always run; `k4sweep` is described at the end):
             one thread, thread 0's ordered code alone, fft_real on one
             thread and in block form beside torch.fft.rfft, a dependent
             f64 add and a barrier (the chain bound); the idle share and
-            K10's share of a traced 10 s render; a batch of 8 files x 20 s
+            K10's share of a traced 10 s render; K5 held to the eager step
+            on 10 s and on 8 files x 2 s; a batch of 8 files x 60 s
             beside one file's time, and each file of an 8-file batch of
             2 s torch.equal to its solo render;
 4d. gated   builtin_plugins' gated_fdn_tank(8, 8192) (eight rings whose
             shared cursor advances only where the input level passes a
             threshold, taps 1,500 to 4,000 cells behind it, one of them
             from the control, a one-pole in the gate's branch, a gated
-            rand() dither) through PluginInstance.render on 10 s of
-            stereo: engine torch-vector, the segment length the plan cut
+            rand() dither) through PluginInstance.render on 60 s of
+            stereo (K5's replays; 10 s while the host paced it):
+            engine torch-vector, the segment length the plan cut
             (1,024) and the segments, K2's launches, the whole render
             (audio, vars and heap) held to the native golden, its first
-            second to the port's CPU render, a traced 2 s render with
-            K6's share (the prefix sums, gathers and scatters, plain
-            torch) of the busy device time; the masked-loop ladder on
+            second to the port's CPU render, a traced 1 s render of the
+            eager step with K6's share (the prefix sums, gathers and
+            scatters, plain torch) of the busy device time, K5 held to
+            the eager step on 5 s; the masked-loop ladder on
             10 s of stereo from a guessed bound of 2 (the rebuilds
             counted, the render held to the native golden); 8 files of
             2 s through BatchRenderer, each torch.equal to its solo
@@ -592,6 +596,265 @@ def profile_render(render, label: str, segments: int = 0, traces: int = 3):
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[profile]   {us / 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
     return len(kernels) / segments if segments else None, by_name
+
+
+# K5's figures of each render that takes it (`k5_held`), printed as one
+# `[k5]` JSON line before the `kernels` line
+K5_ROWS = []
+
+
+def k5_counts():
+    """The launch counters a K5 replay adds to, and K5's replays."""
+    from zorak_tpu_torch.kernels import block_section as BS
+    from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
+    from zorak_tpu_torch.kernels import scan_group as SG
+    from zorak_tpu_torch.kernels import segment_graph as K5
+
+    return {"linrec_scan": LS.LAUNCHES, "ring_tap_sum": RT.LAUNCHES,
+            "scan_group": SG.LAUNCHES, "block_section": BS.LAUNCHES,
+            "replays": K5.LAUNCHES}
+
+
+def k5_set_counts(counts):
+    from zorak_tpu_torch.kernels import block_section as BS
+    from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
+    from zorak_tpu_torch.kernels import scan_group as SG
+    from zorak_tpu_torch.kernels import segment_graph as K5
+
+    (LS.LAUNCHES, RT.LAUNCHES, SG.LAUNCHES, BS.LAUNCHES,
+     K5.LAUNCHES) = (counts[k] for k in ("linrec_scan", "ring_tap_sum",
+                                         "scan_group", "block_section",
+                                         "replays"))
+
+
+def k5_steps(kern, n: int) -> int:
+    """The steps of a render of n samples: blocks where @block is
+    coupled, else segments."""
+    return -(-n // (kern.B if kern.coupled else kern.segment_length(n)))
+
+
+def kernel_render(kern, x_dev):
+    """render(step, n) of one kernel on x_dev [nch, T]: (y, the carry's
+    tensors: svec, rings by region, K10's vars and heap)."""
+    def render(step, n):
+        y, carry = kern._render_device_as(step, x_dev[:, :n])
+        if kern.has_device_view:
+            (svec, rings), bvars, bmem = carry
+            return y, [svec] + [rings[r] for r in sorted(rings)] + [bvars,
+                                                                    bmem]
+        svec, rings = carry
+        return y, [svec] + [rings[r] for r in sorted(rings)]
+    return render
+
+
+def batch_render(br, x_dev):
+    """render(step, n) of a BatchRenderer on x_dev [nf, nch, T]: (y, [])."""
+    return lambda step, n: (br._render_as(step, x_dev[:, :, :n]), [])
+
+
+# the device kernels of each wrapper whose launches a K5 replay adds, by a
+# part of their names: K2's chunk, carry and chain kernels, K3's staged and
+# global tap sums, K4's generated scan kernels, K10's section
+K5_FAMILIES = (("linrec_scan", "linrec_"), ("ring_tap_sum", "ring_tap_sum"),
+               ("scan_group", "zs_"), ("block_section", "zb_kernel"))
+
+
+def k5_trace(torch, render, n, steps):
+    """One traced render of n samples (its keys captured before): host
+    operations a step (the CUDA runtime's launches, graph launches,
+    copies and sets inside the step's `zorak.k5` ranges, or, with no
+    range, in the whole render), device events a step, busy ms a step,
+    the idle share, the device kernels of each K5_FAMILIES wrapper, and
+    the LAUNCHES counters' and K5's replays' increments over the render."""
+    from torch.autograd import DeviceType
+    from zorak_tpu_torch.lowering import specialize as SP
+
+    c0 = k5_counts()
+    events = traced(lambda: render(n))
+    c1 = k5_counts()
+    issued = [e for e in events if e.device_type == DeviceType.CPU
+              and e.name.startswith("cu")
+              and any(w in e.name for w in ("Launch", "Memcpy", "Memset"))]
+    ranges = [e.time_range for e in events if e.name == SP.K5_RANGE
+              and e.device_type == DeviceType.CPU]
+    if ranges:
+        issued = [e for e in issued if any(
+            r.start <= e.time_range.start <= r.end for r in ranges)]
+    kernels = device_kernels(events)
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    span_us = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels)) if kernels else 0
+    return {"host_ops": len(issued) / (len(ranges) or steps),
+            "ranges": len(ranges), "device_events": len(kernels) / steps,
+            "busy_ms": busy_us / 1e3 / steps,
+            "idle": 1.0 - busy_us / span_us if span_us else None,
+            "families": {fam: sum(part in e.name for e in kernels)
+                         for fam, part in K5_FAMILIES},
+            "counted": {k: c1[k] - c0[k] for k in c0},
+            "edges": [e.name[:60] for e in kernels[:2] + kernels[-2:]]}
+
+
+def k5_held(torch, label, kern, render, T, card, turns_T=None, trace_T=None):
+    """K5 on one render: `render(step, n)` renders the first n samples with
+    the kernel's steps run as `step` says ("eager": the eager step, the
+    yardstick; None: as a user's render runs them) and returns (y, the
+    carry's tensors).  Holds the graph's render of T to the eager step's
+    (audio and carry `same_values`, LAUNCHES equal), asserts the dispatch
+    reads `graph` and that the third render replays every step (a key is
+    captured the second time it is seen); prints wall times in turns
+    (eager, graph, graph, eager on turns_T), the first render's captures
+    and their seconds, host operations and device events a step and the
+    idle share of a traced trace_T (a second), where every step must
+    replay and the kernels on the card, counted by name in it and in the
+    eager step's same second, must be what the launches put there
+    (at most 5 % lost, what a trace can lack), and the captures' pool
+    bytes.
+    Returns the figures."""
+    saved = k5_counts()
+    k5_set_counts(dict.fromkeys(saved, 0))
+    try:
+        t0 = time.perf_counter()
+        y_e, c_e = render("eager", T)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        eager_counts = k5_counts()
+        check(kern.dispatch == "eager: the eager step, asked for",
+              f"{label}: the yardstick ran as {kern.dispatch}")
+        st0 = kern._k5.stats() if kern._k5 is not None else {
+            "captures": 0, "capture_seconds": 0.0}
+        k5_set_counts(dict.fromkeys(saved, 0))
+        t0 = time.perf_counter()
+        y_g, c_g = render(None, T)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        graph_counts = k5_counts()
+        check(kern.dispatch == "graph", f"{label}: dispatch {kern.dispatch}")
+        st1 = kern._k5.stats()
+        captures = st1["captures"] - st0["captures"]
+        capture_s = st1["capture_seconds"] - st0["capture_seconds"]
+        replays = graph_counts.pop("replays")
+        eager_counts.pop("replays")
+        check(graph_counts == eager_counts, f"{label}: launches "
+              f"{graph_counts} through K5, {eager_counts} eager")
+        check(same_values(y_e, y_g) and len(c_e) == len(c_g) and all(
+            same_values(a, b) for a, b in zip(c_e, c_g)),
+            f"{label}: the graph's render differs from the eager step's")
+        # a key is captured the second time it is seen: the second render
+        # captures what the first saw once, and the third none
+        for nth in ("second", "third"):
+            st2 = kern._k5.stats()
+            y_2, c_2 = render(None, T)
+            check(same_values(y_e, y_2) and all(
+                same_values(a, b) for a, b in zip(c_e, c_2)),
+                f"{label}: the {nth} render through K5 differs from the "
+                "eager step's")
+        st3 = kern._k5.stats()
+        check(st3["captures"] == st2["captures"]
+              and st3["uncaptured"] == st2["uncaptured"]
+              and st3["replays"] - st2["replays"] == k5_steps(kern, T),
+              f"{label}: the third render replayed "
+              f"{st3['replays'] - st2['replays']} of {k5_steps(kern, T)} "
+              f"steps ({st3['captures'] - st2['captures']} captures, "
+              f"{st3['uncaptured'] - st2['uncaptured']} uncaptured)")
+        n = turns_T or T
+        for _ in range(2):
+            render(None, n)
+        torch.cuda.synchronize()
+        walls = {"eager": [], "graph": []}
+        for step in ("eager", None, None, "eager"):
+            t0 = time.perf_counter()
+            render(step, n)
+            torch.cuda.synchronize()
+            walls[step or "graph"].append(time.perf_counter() - t0)
+        nt = min(T, trace_T or int(SR))
+        steps_t = k5_steps(kern, nt)
+        for _ in range(2):
+            render(None, nt)
+        torch.cuda.synchronize()
+        # the replays' kernels, counted by name on the card, and the eager
+        # step's in the same second, against what the launches put there:
+        # K3 and K10 one kernel a call, K2 and K4 as many a call as the
+        # traces show.  A trace can lack events (late in the whole script,
+        # one K10 launch of 94, or a replayed trace's first 3 steps, and
+        # again in a trace taken after it; never in the coupled phase
+        # alone): each is held to at most 5 % of a family's kernels lost
+        tr_g = k5_trace(torch, lambda m: render(None, m), nt, steps_t)
+        tr_e = k5_trace(torch, lambda m: render("eager", m), nt, steps_t)
+        fam_g, fam_e = tr_g["families"], tr_e["families"]
+        counted_g, counted_e = dict(tr_g["counted"]), dict(tr_e["counted"])
+        replayed = counted_g.pop("replays")
+        counted_e.pop("replays")
+        per_call = {f: 1 if f in ("ring_tap_sum", "block_section") else
+                    round(max(fam_g[f], fam_e[f]) / counted_e[f])
+                    if counted_e[f] else 0 for f in fam_e}
+        expected = {f: counted_g[f] * per_call[f] for f in fam_e}
+        lost = {f: (expected[f] - fam_g[f], expected[f] - fam_e[f])
+                for f in expected}
+        check(replayed == steps_t, f"{label}: the traced render replayed "
+              f"{replayed} of {steps_t} steps")
+        check(counted_g == counted_e, f"{label}: LAUNCHES of the traced "
+              f"second {counted_g} through K5, {counted_e} eager")
+        check(all(0 <= n <= max(1, expected[f] // 20)
+                  for f, pair in lost.items() for n in pair)
+              and all((expected[f] > 0) == (counted_g[f] > 0)
+                      for f in expected),
+              f"{label}: kernels on the card by name {fam_g} in the "
+              f"replayed second, {fam_e} in the eager step's, against "
+              f"{expected} from LAUNCHES {counted_g} (the traces' first "
+              f"and last kernels {tr_g['edges']}, {tr_e['edges']})")
+        pool = kern._k5.pool_bytes()
+        total = kern._k5.stats()
+    finally:
+        k5_set_counts(saved)
+    steps = k5_steps(kern, T)
+    row = {"label": label, "T": T, "steps": steps, "nf": int(y_g.shape[0])
+           if y_g.dim() == 3 else 1, "eager_s": eager_s,
+           "first_s": first_s, "captures": captures,
+           "capture_s": capture_s, "replays": replays,
+           "turns_T": n, "turns_eager_s": walls["eager"],
+           "turns_graph_s": walls["graph"],
+           "eager_ms_a_step": 1e3 * min(walls["eager"]) / k5_steps(kern, n),
+           "graph_ms_a_step": 1e3 * min(walls["graph"]) / k5_steps(kern, n),
+           "traced_T": nt, "graph_trace": tr_g, "eager_trace": tr_e,
+           "pool_bytes": pool, "launches": graph_counts,
+           "traced_kernels_by_name": fam_g,
+           "eager_traced_kernels_by_name": fam_e,
+           "kernels_from_launches": expected,
+           "traced_launches": counted_g,
+           "buffer_bytes": total["buffer_bytes"],
+           "kernel_captures": total["captures"],
+           "kernel_capture_s": total["capture_seconds"], "card": card}
+    K5_ROWS.append(row)
+    print(f"[k5] {label}: {T / SR:g} s in {steps} steps; dispatch graph, "
+          f"audio and carry same_values the eager step's, launches "
+          f"{graph_counts} equal the eager step's, {replays} replays; "
+          f"first render {first_s:.4f} s with {captures} captures "
+          f"({capture_s:.4f} s of it; the kernel's captures so far "
+          f"{total['captures']} in {total['capture_seconds']:.4f} s), eager "
+          f"{eager_s:.4f} s; wall in "
+          f"turns on {n / SR:g} s: eager "
+          f"{' '.join(f'{w:.4f}' for w in walls['eager'])}, graph "
+          f"{' '.join(f'{w:.4f}' for w in walls['graph'])} s "
+          f"({row['eager_ms_a_step']:.4f} against "
+          f"{row['graph_ms_a_step']:.4f} ms a step); card='{card}'")
+    print(f"[k5] {label}: a traced {nt / SR:g} s ({steps_t} steps): host "
+          f"operations a step {tr_g['host_ops']:.2f} ({tr_g['ranges']} "
+          f"step ranges) against {tr_e['host_ops']:.2f} eager; device "
+          f"events a step {tr_g['device_events']:.1f} against "
+          f"{tr_e['device_events']:.1f}; busy {tr_g['busy_ms']:.4f} against "
+          f"{tr_e['busy_ms']:.4f} ms a step; idle share "
+          + (f"{tr_g['idle']:.3f}" if tr_g["idle"] is not None else "not "
+             "measured") + " against "
+          + (f"{tr_e['idle']:.3f}" if tr_e["idle"] is not None else "not "
+             "measured")
+          + f"; the captures' pool "
+          + (f"{pool} bytes" if pool is not None else "not measured")
+          + f", static buffers {total['buffer_bytes']} bytes; kernels on "
+          f"the card by name {fam_g} replayed, {fam_e} in the eager step's "
+          f"trace, {expected} from LAUNCHES {counted_g} card='{card}'")
+    check(tr_g["host_ops"] <= 4.0, f"{label}: {tr_g['host_ops']:.2f} host "
+          "operations a step through K5")
+    return row
 
 
 def same_bits(a, b):
@@ -1521,6 +1784,8 @@ def jsfx_phase(torch, cuda, rng, card):
         reruns[label] = sum(int(v.item()) for v in SG.RERUN_STEPS.values())
         res = out[0]
         check(res.engine == "torch-vector", f"{label}: rendered by {res.engine}")
+        check(res.details.get("dispatch") == "graph",
+              f"{label}: the render ran as {res.details.get('dispatch')}")
         check(tuple(launches[label].values())
               == tuple(n * segments for n in per_segment),
               f"{label}: launches {launches[label]}, expected "
@@ -1550,6 +1815,8 @@ def jsfx_phase(torch, cuda, rng, card):
         print(f"[main] JSFX {label}: device events a segment {events}, K3 "
               f"launches a segment {per_segment[1]} (in the trace "
               f"{traced_k3} of {per_segment[1] * segments}) card='{card}'")
+        k5_held(torch, f"JSFX {label}", kern, kernel_render(kern, x_dev),
+                MAIN_T, card)
 
         # causal, so the first second stands alone: against the port's
         # CPU render (the doubling ladders in place of K2's order)
@@ -1616,7 +1883,80 @@ def jsfx_phase(torch, cuda, rng, card):
                   "tables alias the ring; ROADMAP queue 3)")
         print(f"[done] JSFX {label} in {time.perf_counter() - t_phase:.1f} s")
 
+    k5_new_keys(torch, cuda, card)
     return launches, reruns
+
+
+# a modular counter that wraps at a prime, so a step of 512 starts it at a
+# new place mod 9,973 each time: every step of K5 a new key
+NEW_KEYS_PRIME = 9973
+NEW_KEYS_SRC = f"""@init
+MASK = 1023;
+@sample
+buf[w & MASK] = spl0;
+p += 1; p >= {NEW_KEYS_PRIME} ? p = 0;
+spl0 = 0.5*spl0 + buf[(w - 300) & MASK] + p*1e-6;
+w += 1;
+"""
+NEW_KEYS_L = 512
+NEW_KEYS_STEPS = 900        # a turn; 4 turns stay below the prime
+
+
+def k5_new_keys(torch, cuda, card):
+    """K5 where no key comes back: NEW_KEYS_SRC in steps of 512, resumed
+    render after render, so every step of the graph's renders is a key
+    seen for the first time and runs uncaptured.  Times the renders in
+    turns (eager, graph, graph, eager) and holds the graph's turns to no
+    capture and no replay."""
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.lowering import specialize_sample_kernel
+    from zorak_tpu_torch.verify import make_initialized_shadow
+
+    prog = compile_plugin_source(NEW_KEYS_SRC)
+    kern = specialize_sample_kernel(prog, make_initialized_shadow(prog).state,
+                                    1, device=cuda, segment_len=NEW_KEYS_L)
+    check(kern.k5_refusal is None and kern.L == NEW_KEYS_L,
+          f"new keys: refusal {kern.k5_refusal}, segment {kern.L}")
+    n = NEW_KEYS_STEPS * NEW_KEYS_L
+    x = torch.from_numpy((np.random.RandomState(SEED + 22).randn(1, n)
+                          * 0.25).astype(np.float32)).to(cuda)
+    # builds and first allocations, on a carry of their own
+    for step in ("eager", "graph"):
+        kern._render_device_as(step, x[:, :4 * NEW_KEYS_L])
+    _y, carry = kern._render_device_as("eager", x[:, :NEW_KEYS_L])
+    st0 = kern._k5.stats()
+    walls = {"eager": [], "graph": []}
+    for step in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _y, carry = kern._render_device_as(step, x, carry)
+        torch.cuda.synchronize()
+        walls[step].append(time.perf_counter() - t0)
+        check(step == "eager" or kern.dispatch == "graph",
+              f"new keys: ran as {kern.dispatch}")
+    st1 = kern._k5.stats()
+    check(st1["captures"] == st0["captures"]
+          and st1["replays"] == st0["replays"]
+          and st1["uncaptured"] - st0["uncaptured"] == 2 * NEW_KEYS_STEPS,
+          f"new keys: {st1['captures'] - st0['captures']} captures, "
+          f"{st1['replays'] - st0['replays']} replays, "
+          f"{st1['uncaptured'] - st0['uncaptured']} steps uncaptured of "
+          f"{2 * NEW_KEYS_STEPS}")
+    row = {"label": "new keys", "steps_a_turn": NEW_KEYS_STEPS,
+           "L": NEW_KEYS_L, "turns_eager_s": walls["eager"],
+           "turns_graph_s": walls["graph"],
+           "eager_ms_a_step": 1e3 * min(walls["eager"]) / NEW_KEYS_STEPS,
+           "graph_ms_a_step": 1e3 * min(walls["graph"]) / NEW_KEYS_STEPS,
+           "card": card}
+    K5_ROWS.append(row)
+    print(f"[k5] new keys: {NEW_KEYS_STEPS} steps of {NEW_KEYS_L} a render, "
+          f"resumed, every step of the graph's renders a key seen for the "
+          f"first time (uncaptured, no capture, no replay); wall in turns: "
+          f"eager {' '.join(f'{w:.4f}' for w in walls['eager'])}, graph "
+          f"{' '.join(f'{w:.4f}' for w in walls['graph'])} s "
+          f"({row['eager_ms_a_step']:.4f} against "
+          f"{row['graph_ms_a_step']:.4f} ms a step) card='{card}'")
+    return row
 
 
 def verify_cli_phase(card):
@@ -1807,14 +2147,15 @@ def kernel_bounds(kern, label, nf, seg, per_segment, segments):
 def held_at_the_batch_shapes(torch, label, src, seg, x, y, per_segment,
                              segment):
     """K2, K3 and K4 at the shapes a batch render gives them: a fresh
-    BatchRenderer renders x with the wrappers' calls of one segment
+    BatchRenderer renders x through the eager step (K5's replays call no
+    wrapper) with the wrappers' calls of one segment
     recorded (the inputs copied before the launch, the kernel's output
     kept), and each recorded launch is held bit for bit (every NaN one
     value) to its plain version on those same CUDA inputs: K2 to
     `linrec_chunked`, the NumPy mirror of its order, K3 to
     `ring_tap_sum_reference`, K4 to `scan_group_plain` (within
     K4_LIBM_TOL where its body calls the device's libm).  The render must
-    equal y."""
+    equal y (a render through K5)."""
     from zorak_tpu_torch.ir import compile_plugin_source
     from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
     from zorak_tpu_torch.kernels import scan_group as SG
@@ -1849,9 +2190,10 @@ def held_at_the_batch_shapes(torch, label, src, seg, x, y, per_segment,
     try:
         for (mod, name, per), (_m, _n, fn) in zip(wrappers, kept_fns):
             spy(mod, name, fn, per)
-        # a fresh renderer: its segment program binds the recording wrappers
+        # a fresh renderer: its segment program binds the recording
+        # wrappers; the eager step calls them (a replay calls none)
         br = BatchRenderer(compile_plugin_source(src), SR, segment_len=seg)
-        again = br.render_files(x)
+        again = br._render_as("eager", x)
         torch.cuda.synchronize()
     finally:
         for mod, name, fn in kept_fns:
@@ -2007,6 +2349,8 @@ def batch_phase(torch, cuda, rng, card):
                   f"{per_launch(by_name):.4f} ms a launch (one file "
                   f"{per_launch(by_name_one):.4f}), bound {bound[0]:.5f} ms "
                   f"({bound[1]}) card='{card}'")
+        k5_held(torch, f"batch {label} {nf} files", kern,
+                batch_render(br, x), n, card)
         print(f"[done] batch {label} in {time.perf_counter() - t_phase:.1f} s")
 
     # the catalog functions on the card against the CPU: two Faust
@@ -2065,7 +2409,7 @@ def batch_phase(torch, cuda, rng, card):
 
 COUPLED_FFT = 2048      # the stand-in's FFT (spectral_tilt_leveler)
 COUPLED_FILES = 8
-COUPLED_FILES_T = 960_000   # the coupled batch, 8 files x 20 s
+COUPLED_FILES_T = 2_880_000   # the coupled batch, 8 files x 60 s
 COUPLED_THREADS = (128, 256, 512, 1024)   # K10's thread sweep
 
 
@@ -2201,22 +2545,34 @@ def coupled_phase(torch, cuda, rng, card):
     inst.render(x[:, :int(SR)])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    # K10's inputs at the first and the middle block, recorded through
+    # the eager step up to the middle block (a K5 replay calls no
+    # wrapper): K5's yardstick
+    n_rec = (mid + 1) * B
     got, spy, real = k10_recording({0, mid})
-    BS.zero_serial_runs()
-    BS.LAUNCHES = LS.LAUNCHES = RT.LAUNCHES = 0
-    out = []
     BS.block_section = spy
     t0 = time.perf_counter()
     try:
-        ms = cuda_ms(lambda: out.append(inst.render(x)))
+        y_eager, _c = kern._render_device_as("eager", x_dev[:, :n_rec])
+        torch.cuda.synchronize()
     finally:
         BS.block_section = real
+    eager_s = time.perf_counter() - t0
+    BS.zero_serial_runs()
+    BS.LAUNCHES = LS.LAUNCHES = RT.LAUNCHES = 0
+    out = []
+    t0 = time.perf_counter()
+    ms = cuda_ms(lambda: out.append(inst.render(x)))
     wall = time.perf_counter() - t0
     launches = {"block_section": BS.LAUNCHES, "linrec_scan": LS.LAUNCHES,
                 "ring_tap_sum": RT.LAUNCHES}
     serial = BS.serial_runs(cuda)
     res = out[0]
     check(res.engine == "torch-vector", f"coupled: rendered by {res.engine}")
+    check(res.details.get("dispatch") == "graph",
+          f"coupled: the render ran as {res.details.get('dispatch')}")
+    check(torch.equal(torch.from_numpy(res.audio[:, :n_rec]), y_eager.cpu()),
+          "coupled: the render through K5 differs from the eager step's")
     check(launches["block_section"] == blocks
           and launches["ring_tap_sum"] == blocks
           and launches["linrec_scan"] > 0
@@ -2234,7 +2590,9 @@ def coupled_phase(torch, cuda, rng, card):
           f"blocks={blocks} ({launches['linrec_scan'] // blocks} K2 a block)"
           f" block loops on thread 0: {serial}; 1 s warm-up render "
           f"(builds included) {warm_s:.2f} s; two more renders "
-          f"{' '.join(f'{m:.2f}' for m in more_ms)} ms card='{card}'")
+          f"{' '.join(f'{m:.2f}' for m in more_ms)} ms; through K5, "
+          f"torch.equal to the eager step's render of its first "
+          f"{n_rec / SR:.1f} s ({eager_s:.2f} s of wall) card='{card}'")
 
     # the native golden on the same 60 s, timed alone; the render above
     # (the instance's audio and its state after the writeback) held to it
@@ -2340,8 +2698,11 @@ def coupled_phase(torch, cuda, rng, card):
         print(f"[coupled] K10 in the trace: {n} launches, {us / n:.1f} us a "
               f"launch, {us / 1e3 / busy_ms:.3f} of the busy time; busy "
               f"{busy_ms / n:.4f} ms a block")
+    k5_1 = k5_held(torch, f"coupled spectral_tilt_leveler({n_fft})", kern,
+                   kernel_render(kern, x_dev), n10, card,
+                   turns_T=5 * int(SR))
 
-    # 8 files: the batch render of 20 s beside one file's, K10 at the
+    # 8 files: the batch render of 60 s beside one file's, K10 at the
     # batch's first and middle blocks (held, and the two designs in
     # turns); every file of a 2 s batch equal to its solo render
     x8 = torch.from_numpy((rng.randn(COUPLED_FILES, 2, COUPLED_FILES_T)
@@ -2349,12 +2710,18 @@ def coupled_phase(torch, cuda, rng, card):
     mid8 = -(-COUPLED_FILES_T // B) // 2
     br = BatchRenderer(prog, srate=SR)
     br.render_files(x8[:, :, :B])                    # stage and warm up
+    n8_rec = (mid8 + 1) * B
     got8, spy, real = k10_recording({0, mid8})
     BS.block_section = spy
     try:
-        batch_ms = cuda_ms(lambda: br.render_files(x8))
+        # the wrappers' calls, up to the middle block
+        y8_eager = br._render_as("eager", x8[:, :, :n8_rec])
     finally:
         BS.block_section = real
+    check(torch.equal(br.render_files(x8)[:, :, :n8_rec], y8_eager),
+          "coupled batch: the render through K5 differs from the eager "
+          "step's")
+    batch_ms = cuda_ms(lambda: br.render_files(x8))
     solo_ms = cuda_ms(lambda: br.kernel.render_device(x8[0]))
     err3, _ = held(f"{COUPLED_FILES} files, block 0", got8[0])
     err4, plain8_ms = held(f"{COUPLED_FILES} files, block {mid8}",
@@ -2367,6 +2734,9 @@ def coupled_phase(torch, cuda, rng, card):
         solo, _ = br.kernel.render_device(x8[f, :, :n2])
         check(torch.equal(y8[f], solo),
               f"coupled batch: file {f} differs from its solo render")
+    k5_8 = k5_held(torch, f"coupled spectral_tilt_leveler({n_fft}) "
+                   f"{COUPLED_FILES} files", br.kernel, batch_render(br, x8),
+                   n2, card)
     serial_all = BS.serial_runs(cuda)
     check(serial_all == 0, f"coupled: K10 ran a block loop on thread 0 "
           f"{serial_all} times in the phase")
@@ -2399,13 +2769,17 @@ def coupled_phase(torch, cuda, rng, card):
         "serial_runs": serial, "render_ms": ms, "render_more_ms": more_ms,
         "golden_s": gold_s, "batch_ms": batch_ms, "solo_ms": solo_ms,
         "blocks": blocks, **traced,
+        "k5_ms_a_block": k5_1["graph_ms_a_step"],
+        "k5_eager_ms_a_block": k5_1["eager_ms_a_step"],
+        "k5_ms_a_block_8_files": k5_8["graph_ms_a_step"],
         "launches_linrec_scan": launches["linrec_scan"],
         "launches_ring_tap_sum": launches["ring_tap_sum"],
     }
 
 
 GATED_LINES, GATED_BUF = 8, 8192   # builtin_plugins.gated_fdn_tank
-GATED_T = 480_000   # the gated render, 10 s: host-paced, 2 to 3 s of wall a s
+GATED_T = 2_880_000   # the gated render, 60 s through K5's replays
+GATED_K5_T = 240_000  # the eager step beside it, 5 s: host-paced
 HOP_PART, HOP_PARTS = 1024, 8       # builtin_plugins.hop_convolver
 # guessed loop(n) bounds: @block's count runs 3 to 9, the guess starts at 2
 LADDER_SRC = ("@block\nr = r + 1; r > 9 ? r = 3;\n@sample\nacc = 0;\n"
@@ -2487,7 +2861,7 @@ def batch_equals_solo(torch, label, prog, x8):
 
 def gated_phase(torch, cuda, rng, card):
     """The gated regime: builtin_plugins.gated_fdn_tank through
-    PluginInstance.render on GATED_T (10 s) of stereo (the segment length
+    PluginInstance.render on GATED_T (60 s) of stereo (the segment length
     the plan
     cut, K2's launches, the render held to the native golden and its
     first second to the port's CPU render, a profiler pass with K6's
@@ -2534,6 +2908,8 @@ def gated_phase(torch, cuda, rng, card):
     res = out[0]
     y = res.audio
     check(res.engine == "torch-vector", f"gated: rendered by {res.engine}")
+    check(res.details.get("dispatch") == "graph",
+          f"gated: the render ran as {res.details.get('dispatch')}")
     check(launches == {"linrec_scan": GATED_K2_PER_SEGMENT * segments,
                        "ring_tap_sum": 0, "scan_group": 0},
           f"gated: launches {launches} for {segments} segments, "
@@ -2566,9 +2942,10 @@ def gated_phase(torch, cuda, rng, card):
     # masks, prefix sums, cursor arithmetic, the gathers, the gated
     # scatter), against every kernel's (about 1,200 device events a
     # segment: the trace's own processing grows with them)
+    # the eager step: a K5 replay opens no range
     x_dev = torch.from_numpy(x).to(cuda)
     t_tr = time.perf_counter()
-    events = traced(lambda: kern.render_device(x_dev[:, :n1]))
+    events = traced(lambda: kern._render_device_as("eager", x_dev[:, :n1]))
     kernels = device_kernels(events)
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     ranges = [e for e in events if e.name == SP.K6_RANGE
@@ -2605,6 +2982,12 @@ def gated_phase(torch, cuda, rng, card):
           f"ranges' own spans on the card {span_own_us / 1e3:.3f} ms, not "
           f"counted); K2 {k2_us / 1e3:.3f} ms; the trace "
           f"took {time.perf_counter() - t_tr:.1f} s card='{card}'")
+    k5 = k5_held(torch, f"gated_fdn_tank({GATED_LINES}, {GATED_BUF})", kern,
+                 kernel_render(kern, x_dev), GATED_K5_T, card, turns_T=n1)
+    print(f"[gated] K6 in the eager step: {k6_us / 1e3 / -(-n1 // L):.4f} "
+          f"ms a segment of its {busy_us / 1e3 / -(-n1 // L):.4f} ms busy; "
+          f"the same step replayed: {k5['graph_trace']['busy_ms']:.4f} ms "
+          f"busy a segment card='{card}'")
 
     # the masked-loop ladder on the card: a guess of K = 2 for a count
     # that reaches 9, rebuilt and replayed on the same device
@@ -2672,7 +3055,9 @@ def gated_phase(torch, cuda, rng, card):
     return {"launches_gated": launches["linrec_scan"], "gated_segment": L,
             "gated_render_ms": ms, "k6_share": k6_share,
             "k6_bound_ms": k6_bound, "ladder_rebuilds": rebuilds[0],
-            "gated_golden_s": gold_s}
+            "gated_golden_s": gold_s,
+            "k5_ms_a_segment": k5["graph_ms_a_step"],
+            "k5_eager_ms_a_segment": k5["eager_ms_a_step"]}
 
 
 def hop_phase(torch, cuda, rng, card):
@@ -3047,6 +3432,8 @@ def planner_phase(torch, cuda, rng, card):
     y = res[0].audio
     check(res[0].engine == "torch-vector" and y.shape == (2, MAIN_T)
           and bool(np.isfinite(y).all()), "chorus: output")
+    check(res[0].details.get("dispatch") == "graph",
+          f"chorus: the render ran as {res[0].details.get('dispatch')}")
     rep, gold_s = held_to_native_golden(prog, x, y, inst.shadow.state)
     check(rep.passed, f"chorus: vs the native golden {rep.summary()}")
     print(f"[planner] modulated_delay_chorus({voices}, {buf}) 60 s stereo: "
@@ -3054,11 +3441,12 @@ def planner_phase(torch, cuda, rng, card):
           f"segment {kern.L}; device_ms={ms:.2f} wall_s={wall:.4f} "
           f"audio_s_per_s={sec / (ms / 1e3):.1f}; vs the native golden "
           f"{rep.summary()}, the golden {gold_s:.2f} s card='{card}'")
-    # K3b's share of a traced second: the kernels launched inside the
-    # emitter's K3b ranges against every kernel's device time
+    # K3b's share of a traced second of the eager step (a K5 replay opens
+    # no range): the kernels launched inside the emitter's K3b ranges
+    # against every kernel's device time
     x_dev = torch.from_numpy(x[:, :n1]).to(cuda)
-    kern.render_device(x_dev)
-    events = traced(lambda: kern.render_device(x_dev))
+    kern._render_device_as("eager", x_dev)
+    events = traced(lambda: kern._render_device_as("eager", x_dev))
     kernels = device_kernels(events)
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     ranges = [e for e in events if e.name == SP.K3B_RANGE
@@ -3097,9 +3485,18 @@ def planner_phase(torch, cuda, rng, card):
           f"{k3b_us / 1e3:.3f} ms, share "
           + (f"{share:.3f}" if share is not None else "not measured")
           + f" ({len(ranges)} ranges) card='{card}'")
+    k5 = k5_held(torch, f"modulated_delay_chorus({voices}, {buf})", kern,
+                 kernel_render(kern, torch.from_numpy(x).to(cuda)), MAIN_T,
+                 card)
+    print(f"[planner] chorus: K3b in the eager step {k3b_us / 1e3:.3f} ms "
+          f"of {busy_us / 1e3:.3f} ms busy in the traced 1 s; the same "
+          f"second replayed: {k5['graph_trace']['busy_ms']:.4f} ms busy a "
+          f"segment card='{card}'")
     out.update(chorus_ms=ms, chorus_golden_s=gold_s, chorus_idle=idle,
                k3b_share=share, k3b_ms_traced_s=k3b_us / 1e3,
-               k3b_bound_ms=k3b_bound)
+               k3b_bound_ms=k3b_bound,
+               chorus_k5_ms_a_segment=k5["graph_ms_a_step"],
+               chorus_k5_eager_ms_a_segment=k5["eager_ms_a_step"])
 
     # the dither: a fresh ungated render's draw matrix, the miss and the hit
     prog = compile_plugin_source(BP.tpdf_dither(PLANNER_DITHER_BITS))
@@ -3155,6 +3552,12 @@ def planner_phase(torch, cuda, rng, card):
           f"wall_s={wall_h:.4f}; the hit's audio torch.equal to the miss's, "
           f"the generator equal, the matrix unchanged; vs the native golden "
           f"{rep.summary()}, the golden {gold_s:.2f} s card='{card}'")
+    check(kern.dispatch == "graph", f"dither: ran as {kern.dispatch}")
+    k5 = k5_held(torch, f"tpdf_dither({PLANNER_DITHER_BITS})", kern,
+                 kernel_render(kern, torch.from_numpy(x).to(cuda)), MAIN_T,
+                 card)
+    out.update(dither_k5_ms_a_segment=k5["graph_ms_a_step"],
+               dither_k5_eager_ms_a_segment=k5["eager_ms_a_step"])
     out.update(dither_miss_ms=ms_m, dither_hit_ms=ms_h,
                dither_miss_wall_s=wall_m, dither_hit_wall_s=wall_h,
                dither_mt19937_s=mt_s[0], dither_golden_s=gold_s)
@@ -5248,21 +5651,30 @@ def services_phase(torch, cuda, rng, card, golden, t_start):
     xl = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
     blocks = -(-MAIN_T // 512)
     steady = min(1000, blocks // 2)
+    # K10's inputs recorded through the eager step (a K5 replay calls no
+    # wrapper) on the blocks up to the steady one
+    n_rec = (steady + 1) * 512
     got, spy, real_k10 = k10_recording({0, steady})
-    BS.LAUNCHES = 0
-    out = []
     BS.block_section = spy
-    t0 = time.perf_counter()
     try:
-        l_ms = cuda_ms(lambda: out.append(leveler.render(xl)))
+        y_rec, _c = leveler.kernel._render_device_as(
+            "eager", torch.from_numpy(xl[:, :n_rec]).to(cuda))
     finally:
         BS.block_section = real_k10
+    BS.LAUNCHES = 0
+    out = []
+    t0 = time.perf_counter()
+    l_ms = cuda_ms(lambda: out.append(leveler.render(xl)))
     l_wall = time.perf_counter() - t0
     l_launches = BS.LAUNCHES
     lres = out[0]
     check(lres.engine == "torch-vector" and l_launches == blocks,
           f"services: leveler {lres.engine}, {l_launches} K10 launches of "
           f"{blocks} blocks")
+    check(lres.details.get("dispatch") == "graph" and torch.equal(
+        torch.from_numpy(lres.audio[:, :n_rec]), y_rec.cpu()),
+        f"services: the leveler ran as {lres.details.get('dispatch')}, or "
+        "differs from the eager step's render")
     check(k10.tables.stagings == 1, f"services: the leveler's tables staged "
           f"{k10.tables.stagings} times")
     lrep, l_gold_s = held_to_native_golden(lprog, xl, lres.audio,
@@ -5569,6 +5981,7 @@ def run_phases(torch, cuda, rng, card, phases, golden, t_start) -> int:
         ended("faust")
     print(f"[done] {time.perf_counter() - t_start:.1f} s; the phases end at "
           f"(s of the script): {', '.join(ends)}")
+    print("[k5] " + json.dumps({"k5": K5_ROWS}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -356,6 +356,9 @@ _SERVICES_MODULES = ["runtime.services", "runtime.import_recipes", "gfx",
 # the tooling: the staged dumps (the CLI is among the JSFX path's)
 _TOOLING_MODULES = ["utils.dumps"]
 
+# K5: a render's step captured as a CUDA graph and replayed
+_K5_MODULES = ["kernels.segment_graph"]
+
 
 def test_port_imports_neither_jax_nor_zorak_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -366,7 +369,7 @@ def test_port_imports_neither_jax_nor_zorak_tpu():
     assert int(n) >= 57 and bad.strip() == "["
     for mod in (_JSFX_MODULES + _SPECTRAL_MODULES + _BATCH_MODULES
                 + _COUPLED_MODULES + _DEVEXEC_MODULES + _GRAPH_MODULES
-                + _SERVICES_MODULES + _TOOLING_MODULES):
+                + _SERVICES_MODULES + _TOOLING_MODULES + _K5_MODULES):
         assert f"'zorak_tpu_torch.{mod}'" in names, mod
 
 

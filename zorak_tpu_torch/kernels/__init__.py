@@ -13,6 +13,8 @@
                      lowering/devgen.py, csrc/block_ops.cuh)
     device_exec      the sequential executor's whole render (K11, generated
                      by lowering/devgen.py, csrc/block_ops.cuh)
+    segment_graph    a render's step captured as a CUDA graph and replayed
+                     (K5: the segment, or a coupled block's K10 and segment)
 """
 from .stft import stft, istft, stft_process  # noqa: F401
 from .convolution import fir_conv, partitioned_convolve  # noqa: F401

@@ -78,6 +78,9 @@ K6_RANGE = "zorak.k6"
 # the profiler range over K3b's ops: an ungated ring cursor's positions and
 # a dynamic ring read's slot arithmetic, last-writer choice and gather
 K3B_RANGE = "zorak.k3b"
+# the profiler range over one K5 step's host work: the copies into its
+# static buffers, the replay (or the run and capture), the copy out
+K5_RANGE = "zorak.k5"
 
 
 def _profiler_range(name: str):
@@ -98,6 +101,10 @@ def _k6_range():
 
 def _k3b_range():
     return _profiler_range(K3B_RANGE)
+
+
+def _k5_range():
+    return _profiler_range(K5_RANGE)
 
 
 class _CoupledUpgrade(Exception):
@@ -1710,6 +1717,31 @@ def _host_i64(v: float) -> int:
     return int(v)
 
 
+# the plans whose slot the host mirror advances a segment (`_counter_next`)
+_COUNTER_PLANS = ("induction", "modind", "const")
+
+
+def _counter_next(plan, v, L: int):
+    """A counter slot after a segment of L, one rule for the host mirror
+    and the device: v is the slot before it, a Python float (the host
+    mirror, the eager step) or an [nf, 1] f64 tensor (the graph's step),
+    and both go through the same f64 operations in the same order.  An
+    induction counter ends at w0 + out + L - 1; a modular one takes that
+    by Python's float % (fmod, the divisor added where the signs differ,
+    a zero remainder +0.0: `torch.remainder` then + 0.0 on the device);
+    a constant is its value."""
+    import torch
+
+    if plan.kind == "const":
+        return float(plan.out)
+    w = v + float(plan.out + L - 1)
+    if plan.kind == "induction":
+        return w
+    if isinstance(w, float):
+        return w % float(plan.A)
+    return torch.remainder(w, float(plan.A)) + 0.0
+
+
 def _shared_value(values: Sequence[float], key) -> float:
     """The one value every file of a batch holds for a host-mirrored
     carried scalar; a batch whose files disagree on it is refused, never
@@ -2352,6 +2384,13 @@ class SpecializedSampleKernel:
         self._traj_plugin = None
         self.last_control_state = None
         self._seg_fns: Dict[Any, Callable] = {}
+        self._graph_seg_fns: Dict[Any, Callable] = {}
+        # K5: the static buffers and captured steps (made at the first
+        # captured render), what the last render's steps ran as ("graph",
+        # "static" or "eager: <why>") and the host mirror it ended with
+        self._k5 = None
+        self.dispatch: Optional[str] = None
+        self._k5_mirror: Optional[List[Optional[float]]] = None
         # per-kernel device constants: 0-d tensors by value, and, by
         # segment length, the ring tap chains' launches (or None) by `+`
         # node (`_tap_plan`)
@@ -2368,6 +2407,9 @@ class SpecializedSampleKernel:
             level: self._scan_level_steps(level)
             for level in sorted({self.scan_levels.get(i, 0)
                                  for i in range(len(self.scan_groups))})}
+        # why K5 cannot capture this plan's step, or None: decided here,
+        # from the plan alone (`_find_k5_refusal`)
+        self.k5_refusal: Optional[str] = self._find_k5_refusal()
 
     def _require_devblock(self) -> None:
         """Switch to the coupled regime: @block must print as device code
@@ -4160,7 +4202,8 @@ class SpecializedSampleKernel:
         `scan_level_program(level)`}; empty for a plan without them."""
         return {lv: self.scan_level_program(lv) for lv in self._scan_steps}
 
-    def _make_seg_fn(self, L: int, nf: int = 1) -> Callable:
+    def _make_seg_fn(self, L: int, nf: int = 1,
+                     graph: bool = False) -> Callable:
         """The per-segment program of length L over a batch of nf files,
         in torch.
 
@@ -4187,6 +4230,17 @@ class SpecializedSampleKernel:
         one launch together, each ring read in place, the files its grid's
         third axis) and the sequential scan groups (`scan_group`,
         generated from the group's steps, a block a component and file).
+
+        `graph`: the program K5 captures (`_run_steps`).  It reads no host
+        value but the ring cursors that shape it (slices, split points,
+        the tap launches' cursors and the writeback's start, each a cursor
+        mod a ring's length): every other carried scalar comes from svec,
+        the induction counters advance on the device by the host's
+        operations in the host's order, and nothing is uploaded, so one
+        capture replays on every segment whose cursors agree mod those
+        lengths.  `seg.uses` collects the (slot, length) pairs its runs
+        reduced a cursor by.  The host mirror is the caller's to advance
+        (`_advance_mirror`): the step returns None in its place.
         """
         import torch
 
@@ -4259,9 +4313,10 @@ class SpecializedSampleKernel:
             memo: Dict[int, Any] = {}
 
             def sc(key):
-                """A carried scalar: a float, or an [nf, 1] device tensor."""
+                """A carried scalar: a float, or an [nf, 1] device tensor
+                (always the tensor in the graph's program)."""
                 i = scalar_index[key]
-                v = known[i]
+                v = None if graph else known[i]
                 return svec[:, i:i + 1] if v is None else v
 
             def host_scalar(key) -> float:
@@ -4273,13 +4328,26 @@ class SpecializedSampleKernel:
                     known[i] = _shared_value(svec[:, i].tolist(), key)
                 return known[i]
 
+            def host_cursor(var, mod) -> int:
+                """A ring cursor as the host's int, to be taken mod
+                `mod`: the one host value the graph's program reads."""
+                if not graph:
+                    return _host_i64(host_scalar(var))
+                i = scalar_index[var]
+                if known[i] is None:
+                    raise SpecializeError(
+                        f"the captured step needs the cursor {var!r}, which "
+                        "the host does not know (a plan K5 refuses)")
+                seg.uses.add((i, mod))
+                return _host_i64(known[i])
+
             var_stream: Dict[Any, Any] = {}
             var_prev: Dict[Any, Any] = {}
             ring_src: Dict[Tuple[Tuple[int, int], int], Any] = {}
             in_progress: Set[Any] = set()
 
             def cursor_start(var, offset, mod):
-                return (_host_i64(host_scalar(var)) + offset) % mod
+                return (host_cursor(var, mod) + offset) % mod
 
             def cursor_idx(var, offset, mod, k0, k1):
                 start = cursor_start(var, offset + k0, mod)
@@ -4303,7 +4371,14 @@ class SpecializedSampleKernel:
 
             def _rows(vals):
                 """Python floats and one-value-a-file tensors -> [nf, k]
-                (one upload for the floats of every file)."""
+                (one upload for the floats of every file; in the graph's
+                program, where every float is a constant, a join)."""
+                if graph:
+                    if not vals:
+                        return torch.zeros((nf, 0), dtype=F64, device=dev)
+                    return torch.cat(
+                        [(const(v) if isinstance(v, float) else v)
+                         .reshape(-1, 1).expand(nf, 1) for v in vals], dim=1)
                 out = upload([v if isinstance(v, float) else 0.0
                               for v in vals] * nf, F64).view(nf, len(vals))
                 for i, v in enumerate(vals):
@@ -4499,6 +4574,11 @@ class SpecializedSampleKernel:
                     val = EM.eel_and(_arr(emit(x.args[0])),
                                      const(float(x.meta["mod"] - 1)))
                 elif x.kind == "normloop":
+                    if graph:
+                        # its loop reads the device each pass
+                        raise SpecializeError(
+                            "a normloop in the captured step (a plan K5 "
+                            "refuses)")
                     val = _norm_loop(_arr(emit(x.args[0])), x.meta)
                 elif x.kind == "ringref":
                     region = x.meta["region"]
@@ -4622,7 +4702,10 @@ class SpecializedSampleKernel:
                         return _take(src_arr, EM.to_i64(slot))
                 w = ws[-1]
                 full = ring_hist_full(region)
-                w0c = _host_i64(host_scalar(w.var)) + w.offset
+                # the write cursor: the host's int, or in the graph's
+                # program the device's ([nf, 1], the same conversion)
+                w0c = (EM.to_i64(sc(w.var)) if graph
+                       else _host_i64(host_scalar(w.var))) + w.offset
                 pre = [u for u in ws if u.order < x.meta["order"]]
                 # same-slot same-sample reads see the latest PRECEDING
                 # writer, not the region's final (last-writer) value
@@ -4814,14 +4897,10 @@ class SpecializedSampleKernel:
                     new_vals.append(acc)
                 elif key in P_plans:
                     plan = P_plans[key]
-                    if plan.kind == "induction":
-                        # value after the last sample: w0 + final_offset + (L-1)
-                        new_vals.append(
-                            host_scalar(key) + float(plan.out + L - 1))
-                    elif plan.kind == "modind":
-                        new_vals.append(
-                            (host_scalar(key) + float(plan.out + L - 1))
-                            % float(plan.A))
+                    if plan.kind in _COUNTER_PLANS:
+                        v = None if plan.kind == "const" else (
+                            sc(key) if graph else host_scalar(key))
+                        new_vals.append(_counter_next(plan, v, L))
                     elif plan.kind == "gmodind":
                         # a value a file: the device keeps it
                         prefix = gate_prefix(key, True)
@@ -4829,8 +4908,6 @@ class SpecializedSampleKernel:
                             new_vals.append(torch.remainder(
                                 _arr(sc(key)) + prefix[:, -1:].to(F64),
                                 float(plan.A)))
-                    elif plan.kind == "const":
-                        new_vals.append(float(plan.out))
                     else:
                         new_vals.append(stream_of(key)[..., -1:])
                 elif key[0] == "spl" and key[1] < nch:
@@ -4838,8 +4915,8 @@ class SpecializedSampleKernel:
                 else:
                     new_vals.append(sc(key))
             new_svec = _rows(new_vals)
-            new_known = [v if isinstance(v, float) else None
-                         for v in new_vals]
+            new_known = None if graph else [
+                v if isinstance(v, float) else None for v in new_vals]
             new_rings = {}
             for region in carry_regions:
                 ws_r = sym.ring_writes.get(region)
@@ -4897,7 +4974,7 @@ class SpecializedSampleKernel:
                 # the last k writes land at consecutive mod-M positions
                 # from `start`: copy them into a fresh ring in one or two
                 # slices (the carry handed in is left as it was)
-                start = (_host_i64(host_scalar(w.var)) + w.offset
+                start = (host_cursor(w.var, mod) + w.offset
                          + (L - k)) % mod
                 ring = rings[region].clone()
                 n1 = min(k, mod - start)
@@ -4905,8 +4982,11 @@ class SpecializedSampleKernel:
                 if k > n1:
                     ring[:, :k - n1] = src[:, L - k + n1:]
                 new_rings[region] = ring
+            seg.ran = True
             return (new_svec, new_rings), y, new_known
 
+        seg.uses = set()
+        seg.ran = False
         return seg
 
     # -- state plumbing ------------------------------------------------------
@@ -5019,11 +5099,12 @@ class SpecializedSampleKernel:
         svec, rings = carry
         return (put(svec), {tuple(r): put(a) for r, a in rings.items()})
 
-    def _seg_fn(self, L: int, nf: int = 1):
-        fn = self._seg_fns.get((L, nf))
+    def _seg_fn(self, L: int, nf: int = 1, graph: bool = False):
+        fns = self._graph_seg_fns if graph else self._seg_fns
+        fn = fns.get((L, nf))
         if fn is None:
-            fn = self._make_seg_fn(L, nf)
-            self._seg_fns[(L, nf)] = fn
+            fn = self._make_seg_fn(L, nf, graph)
+            fns[(L, nf)] = fn
         return fn
 
     def mirrored_slots(self) -> List[int]:
@@ -5047,14 +5128,291 @@ class SpecializedSampleKernel:
                                     if k in self.scalar_index)
         return self._mirrored
 
-    def _run(self, carry, x, ctrl, rand, L: int):
+    # -- K5: the captured step ------------------------------------------------
+
+    def cursor_slots(self) -> Set[int]:
+        """The mirrored slots that shape the segment program: the ring
+        cursors (every ring write's, every plain ring access's, and the
+        modular counters', whose stream is a cursor's positions).  The
+        other mirrored slots, the induction counters, only enter
+        arithmetic (value slots)."""
+        keys = {w.var for ws in self.sym.ring_writes.values() for w in ws}
+        keys |= {n.meta["var"] for n in self._all_nodes(self.sym)
+                 if n.kind in ("ringidx", "ringref", "dynringref")
+                 and "var" in n.meta}
+        keys |= {k for k, p in self.plans.items() if p.kind == "modind"}
+        return {self.scalar_index[k] for k in keys if k in self.scalar_index}
+
+    def _find_k5_refusal(self) -> Optional[str]:
+        """Why K5 cannot capture this plan's step, or None.  A captured
+        step reads no host value but the cursors that shape it, so a plan
+        is refused where such a cursor is one the host cannot follow, or
+        where a step must read the device or the host mid-way."""
+        if self._hop is not None:
+            return ("the hop regime: K10 a hop between segments of the "
+                    "hop's length, not captured (the render is K10-bound)")
+        if any(n.kind == "normloop" for n in self._all_nodes(self.sym)):
+            # the segment program may emit it even where a scan group
+            # walks it too (a consumer of the loop's own value)
+            return ("a range-normalization loop (normloop) reads the "
+                    "device each pass")
+        cursors = self.cursor_slots()
+        for i in sorted(cursors):
+            key = self.carried_vars[i]
+            plan = self.plans.get(key)
+            if plan is not None and plan.kind not in ("induction", "modind",
+                                                      "const"):
+                return (f"the ring cursor {key!r} is a {plan.kind} the "
+                        "device computes, and it shapes the segment")
+        if self.coupled:
+            for i in self._block_rewrites:
+                if i in cursors:
+                    return (f"@block rewrites the ring cursor "
+                            f"{self.carried_vars[i]!r}, which shapes the "
+                            "segment")
+            if self.accepts_midi or self._block_prog.midi_out_cells:
+                return ("MIDI in the coupled @block: a host event count "
+                        "and an out table a block")
+        return None
+
+    def _step_mode(self, step) -> str:
+        """How a render's steps run, and `dispatch` set to say so: "graph"
+        (K5, captured and replayed), "static" (K5's step on CPU tensors,
+        uncaptured) or "eager".  step None: K5 on the card wherever the
+        plan allows it (`k5_refusal`), the eager step on CPU tensors;
+        "eager": the eager step (the yardstick); "graph": K5's step, or
+        SpecializeError where the plan is refused."""
+        why = self.k5_refusal
+        if step == "eager":
+            self.dispatch = "eager: the eager step, asked for"
+            return "eager"
+        if step not in (None, "graph"):
+            raise ValueError(f"step must be None, 'eager' or 'graph', not "
+                             f"{step!r}")
+        if why is not None:
+            if step == "graph":
+                raise SpecializeError(f"K5 refuses this plan: {why}")
+            self.dispatch = f"eager: {why}"
+            return "eager"
+        if self.device.type == "cuda":
+            self.dispatch = "graph"
+            return "graph"
+        if step == "graph":
+            self.dispatch = "static: K5's step on CPU tensors, uncaptured"
+            return "static"
+        self.dispatch = "eager: CPU tensors take the eager step"
+        return "eager"
+
+    def _k5_graphs(self):
+        if self._k5 is None:
+            from ..kernels.segment_graph import StepGraphs
+
+            self._k5 = StepGraphs(self.device)
+        return self._k5
+
+    def _mirror_start(self, svec) -> List[Optional[float]]:
+        """The host mirror a captured render starts from: the mirrored
+        slots' shared values (one device read), None elsewhere."""
+        mirrored = self.mirrored_slots()
+        known = _shared_known(svec.tolist(), mirrored, self.carried_vars)
+        keep = set(mirrored)
+        return [v if i in keep else None for i, v in enumerate(known)]
+
+    def _advance_mirror(self, known, L: int) -> List[Optional[float]]:
+        """The host mirror after a segment of L, each mirrored slot as the
+        eager step's host computes it, None where only the device knows
+        it."""
+        out: List[Optional[float]] = [None] * len(known)
+        for i in self.mirrored_slots():
+            v = known[i]
+            plan = self.plans.get(self.carried_vars[i])
+            if plan is None:
+                out[i] = v                  # @sample does not write it
+            elif plan.kind in _COUNTER_PLANS and (
+                    v is not None or plan.kind == "const"):
+                out[i] = _counter_next(plan, v, L)
+        return out
+
+    @staticmethod
+    def _k5_key(kind: str, seg, L: int, nf: int, pool, known):
+        """A step's capture key: what decides every constant its program
+        bakes in (None before the program's first run)."""
+        if not seg.ran:
+            return None
+        cursors = []
+        for i, mod in sorted(seg.uses):
+            if known[i] is None:
+                raise SpecializeError(f"the cursor in slot {i} is unknown "
+                                      "to the host (a plan K5 refuses)")
+            cursors.append((i, mod, _host_i64(known[i]) % mod))
+        return (kind, L, nf, None if pool is None else pool.numel(),
+                tuple(cursors))
+
+    def _k5_carry(self, k5, nf: int, svec0, rings0):
+        """The static sample-side carry of nf files, loaded with (svec0,
+        rings0)."""
+        import torch
+
+        svec = k5.static("svec", svec0.shape, torch.float64)
+        svec.copy_(svec0)
+        rings = {}
+        for r, a in rings0.items():
+            rings[r] = k5.static(("ring", r), a.shape, torch.float64)
+            rings[r].copy_(a)
+        return svec, rings
+
+    def _k5_pool(self, k5, rand):
+        """The gated regime's draw pool in its static buffer (one copy a
+        render), else None."""
+        import torch
+
+        if not self.rand_gated:
+            return None
+        flat = rand.reshape(-1)
+        pool = k5.static("pool", flat.shape, torch.float64)
+        pool.copy_(flat)
+        return pool
+
+    @staticmethod
+    def _k5_store(svec, rings, new_svec, new_rings) -> None:
+        """A step's new carry into the static one (inside the step)."""
+        svec.copy_(new_svec)
+        for r, a in new_rings.items():
+            if a is not rings[r]:
+                rings[r].copy_(a)
+
+    def _run_steps(self, carry, x, ctrl, rand, L: int):
+        """`_run` through K5: each segment's inputs copied into the static
+        buffers, the step replayed (captured the second time its key is
+        seen), the output copied out.  ctrl and the draw rows go in as one
+        row a segment, packed once a render."""
+        import torch
+
+        f64 = torch.float64
+        k5 = self._k5_graphs()
+        capture = self.device.type == "cuda"
+        nf, nch, T = x.shape
+        known = self._mirror_start(carry[0])
+        svec, rings = self._k5_carry(k5, nf, *carry)
+        pool = self._k5_pool(k5, rand)
+        nfull, rem = divmod(T, L)
+        rps = L // self.B
+        nc = ctrl.shape[1]
+        nr = 0 if pool is not None else rand.shape[1]
+        spans = [(s * L, s * rps, L, rps) for s in range(nfull)]
+        if rem:
+            spans.append((nfull * L, nfull * rps, rem,
+                          ctrl.shape[0] - nfull * rps))
+        parts = ([ctrl[:nfull * rps].reshape(nfull, rps * nc)] if nc else []) \
+            + ([rand[:nfull * L].reshape(nfull, L * nr)] if nr else [])
+        packed = torch.cat(parts, dim=1) if parts else None
+        y = torch.empty((nf, self.nch, T), dtype=torch.float32,
+                        device=self.device)
+        for s, (t0, r0, n, rows) in enumerate(spans):
+            xin = k5.static("x", (nf, nch, n), torch.float32)
+            yout = k5.static("y", (nf, self.nch, n), torch.float32)
+            aux = k5.static("aux", (rows * nc + n * nr,), f64)
+            seg = self._seg_fn(n, nf, graph=True)
+            ctrl_v = aux[:rows * nc].view(rows, nc)
+            draws = pool if pool is not None else \
+                aux[rows * nc:].view(n, nr)
+
+            def body(seg=seg, xin=xin, yout=yout, ctrl_v=ctrl_v,
+                     draws=draws, kn=known):
+                (sv, rg), yseg, _ = seg((svec, rings),
+                                        (xin.to(f64), ctrl_v, draws), kn)
+                self._k5_store(svec, rings, sv, rg)
+                yout.copy_(yseg)
+
+            with _k5_range():
+                xin.copy_(x[:, :, t0:t0 + n])
+                if s < nfull and packed is not None:
+                    aux.copy_(packed[s])
+                elif s == nfull:                  # the remainder's rows
+                    if nc:
+                        aux[:rows * nc].copy_(ctrl[r0:r0 + rows].reshape(-1))
+                    if nr:
+                        aux[rows * nc:].copy_(rand[t0:t0 + n].reshape(-1))
+                k5.step(lambda seg=seg, n=n, kn=known:
+                        self._k5_key("seg", seg, n, nf, pool, kn),
+                        body, capture)
+                y[:, :, t0:t0 + n].copy_(yout)
+            known = self._advance_mirror(known, n)
+        self._k5_mirror = known
+        return y, (svec.clone(), {r: a.clone() for r, a in rings.items()})
+
+    def _coupled_steps(self, carry, x, rand):
+        """`_coupled_run` through K5: a block's step is K10 then the
+        block's segment, on the static carry, K10's view and control row
+        included."""
+        import torch
+
+        from ..kernels.block_section import block_section
+
+        f64 = torch.float64
+        prog = self._block_prog
+        k5 = self._k5_graphs()
+        capture = self.device.type == "cuda"
+        (svec0, rings0), bvars0, bmem0 = carry
+        nf, nch, T = x.shape
+        B = self.B
+        known = self._mirror_start(svec0)
+        svec, rings = self._k5_carry(k5, nf, svec0, rings0)
+        bvars = k5.static("bvars", bvars0.shape, f64)
+        bvars.copy_(bvars0)
+        bmem = k5.static("bmem", bmem0.shape, f64)
+        bmem.copy_(bmem0)
+        ctrl = k5.static("ctrl", (nf, len(self.ctrl_order)), f64)
+        pool = self._k5_pool(k5, rand)
+        nr = 0 if pool is not None else rand.shape[1]
+        rewrites = set(self._block_rewrites)
+        nfull, rem = divmod(T, B)
+        y = torch.empty((nf, self.nch, T), dtype=torch.float32,
+                        device=self.device)
+        for b in range(nfull + (1 if rem else 0)):
+            L = B if b < nfull else rem
+            t0 = b * B
+            xin = k5.static("x", (nf, nch, L), torch.float32)
+            yout = k5.static("y", (nf, self.nch, L), torch.float32)
+            draws = pool if pool is not None else \
+                k5.static("aux", (L, nr), f64)
+            # K10 may rewrite these: the host's mirror of them is void
+            kn = [None if i in rewrites else v for i, v in enumerate(known)]
+            seg = self._seg_fn(L, nf, graph=True)
+
+            def body(seg=seg, L=L, xin=xin, yout=yout, draws=draws, kn=kn):
+                block_section(prog, svec, [rings[r] for r in prog.regions],
+                              bvars, bmem, float(L), None, ctrl=ctrl)
+                (sv, rg), yseg, _ = seg((svec, rings),
+                                        (xin.to(f64), ctrl[:, None], draws),
+                                        kn)
+                self._k5_store(svec, rings, sv, rg)
+                yout.copy_(yseg)
+
+            with _k5_range():
+                xin.copy_(x[:, :, t0:t0 + L])
+                if pool is None and nr:
+                    draws.copy_(rand[t0:t0 + L])
+                k5.step(lambda seg=seg, L=L, kn=kn:
+                        self._k5_key("block", seg, L, nf, pool, kn),
+                        body, capture)
+                y[:, :, t0:t0 + L].copy_(yout)
+            known = self._advance_mirror(kn, L)
+        self._k5_mirror = known
+        return y, ((svec.clone(), {r: a.clone() for r, a in rings.items()}),
+                   bvars.clone(), bmem.clone()), None
+
+    def _run(self, carry, x, ctrl, rand, L: int, step=None):
         """The segment loop over a batch of files: full segments of L,
         then the remainder.  x [nf, nch, T] on the device (f32 audio, each
         segment taken to f64 as it runs); carry (svec [nf, n], rings
         {region: [nf, mod]}) f64; ctrl and rand shared by every file.
-        Returns (y f32 [nf, nch, T], carry)."""
+        Returns (y f32 [nf, nch, T], carry).  `step` as `_step_mode`
+        takes it: K5 (`_run_steps`) or the eager loop below."""
         import torch
 
+        if self._step_mode(step) != "eager":
+            return self._run_steps(carry, x, ctrl, rand, L)
         nf, _nch, T = x.shape
         # the one device-to-host read of a render: the scalars it starts
         # from.  From here on each segment hands the next what the host
@@ -5092,7 +5450,7 @@ class SpecializedSampleKernel:
             return lambda t0, t1: pool
         return lambda t0, t1: rand[t0:t1]
 
-    def _coupled_run(self, carry, x, rand, midi_planes=None):
+    def _coupled_run(self, carry, x, rand, midi_planes=None, step=None):
         """The fused block/sample pipeline over a batch of files: a host
         loop over blocks, each one K10 launch (the device @block and its
         exchanges) then the segment program of the block's length, the
@@ -5103,7 +5461,10 @@ class SpecializedSampleKernel:
         device, counts [rows] on the host) shared by every file.  Returns
         (y f32 [nf, nch, T], carry, the MIDI out tables [rows, nf, cells]
         or None).  Nothing in the loop waits for the device unless @block
-        rewrites a cursor the host mirrors."""
+        rewrites a cursor the host mirrors.  `step` as `_step_mode` takes
+        it: K5 (`_coupled_steps`) or the eager blocks of `_CoupledSteps`."""
+        if self._step_mode(step) != "eager":
+            return self._coupled_steps(carry, x, rand)
         steps = _CoupledSteps(self, carry, x, rand, midi_planes)
         for b in range(steps.n_rows):
             steps.step(b)
@@ -5253,9 +5614,18 @@ class SpecializedSampleKernel:
         the bound K, rebuilds with K doubled past it on the same device
         and replays with the generator state, the hop phase and the
         trajectory state it started from.
+
+        On the card the steps go through K5 (`kernels/segment_graph.py`)
+        wherever the plan allows it; `dispatch` says how they ran.
         """
+        return self._render_device_as(None, x, carry, midi, ctrl)
+
+    def _render_device_as(self, step, x, carry=None, midi=None, ctrl=None):
+        """`render_device` with its steps run as `step` says
+        (`_step_mode`): None as render_device, "eager" the eager step
+        (chip_smoke.py's yardstick for K5), "graph" K5's step."""
         if not self.sym.masked_loops:
-            return self._render_device_once(x, carry, midi, ctrl)
+            return self._render_device_once(x, carry, midi, ctrl, step)
         T = x.shape[1]
         fresh = carry is None
         if ctrl is None and self.has_block and not self.coupled:
@@ -5271,7 +5641,7 @@ class SpecializedSampleKernel:
         rng_save = (self._rng_state, self._rng_prestate)
         hop_save = self._hop_phase if self._hop is not None else None
         for _attempt in range(LADDER_ATTEMPTS):
-            out = self._render_device_once(x, carry, midi, ctrl)
+            out = self._render_device_once(x, carry, midi, ctrl, step)
             ovf = self.loop_overflow(out[1])
             if ovf <= 0.0:
                 return out
@@ -5293,8 +5663,8 @@ class SpecializedSampleKernel:
         raise SpecializeError("masked-loop overflow ladder did not "
                               "converge")
 
-    def _render_device_once(self, x, carry, midi, ctrl):
-        """One render, `render_device` without the ladder."""
+    def _render_device_once(self, x, carry, midi, ctrl, step=None):
+        """One render, `_render_device_as` without the ladder."""
         import torch
 
         nch, T = x.shape
@@ -5319,7 +5689,7 @@ class SpecializedSampleKernel:
             self._advance_rng_by_used(int(svec[slot].item()))
             svec[slot] = 0.0
         if self.coupled:
-            return self._render_coupled(x, carry, fresh, midi, ctrl)
+            return self._render_coupled(x, carry, fresh, midi, ctrl, step)
         L = self.segment_length(T)
         if ctrl is None:
             self._traj_midi_out = []
@@ -5341,6 +5711,7 @@ class SpecializedSampleKernel:
             return torch.zeros((nch, 0), dtype=torch.float32,
                                device=self.device), carry
         if self._hop is not None:
+            self._step_mode(step)         # eager: K5 refuses the hop regime
             # the counter's phase advances by T, and the next resumed
             # render segments from there
             phase = self._hop_phase
@@ -5356,10 +5727,11 @@ class SpecializedSampleKernel:
         svec, rings = carry
         y, (svec, rings) = self._run(
             (svec[None], {r: a[None] for r, a in rings.items()}),
-            self.put_audio(x)[None], self.put_f64(ctrl), rand, L)
+            self.put_audio(x)[None], self.put_f64(ctrl), rand, L, step)
         return y[0], (svec[0], {r: a[0] for r, a in rings.items()})
 
-    def _render_coupled(self, x, carry, fresh: bool, midi, ctrl):
+    def _render_coupled(self, x, carry, fresh: bool, midi, ctrl,
+                        step=None):
         """render_device's coupled branch: the solo render is the batch of
         one file through `_coupled_run`."""
         import torch
@@ -5386,7 +5758,7 @@ class SpecializedSampleKernel:
         y, ((svec, rings), bvars, bmem), mouts = self._coupled_run(
             ((svec[None], {r: a[None] for r, a in rings.items()}),
              bvars[None], bmem[None]),
-            self.put_audio(x)[None], rand, planes)
+            self.put_audio(x)[None], rand, planes, step)
         if mouts is not None:
             self.last_midi_out = self._decode_midi_out(
                 mouts[:, 0].cpu().numpy())
@@ -5686,9 +6058,10 @@ class _CoupledSteps:
     """The fused block/sample pipeline of one render, a block at a time:
     one K10 launch (the device @block and its exchanges, with a graph's
     staging where given) then the segment program of the block's length,
-    the remainder block with samplesblock = its length.  `_coupled_run`
-    steps its blocks in order; a graph's lockstep (`lockstep_gmem_run`)
-    steps its members' blocks in turn.
+    the remainder block with samplesblock = its length.  `_coupled_run`'s
+    eager step steps its blocks in order (K5's step is `_coupled_steps`);
+    a graph's lockstep (`lockstep_gmem_run`) steps its members' blocks in
+    turn.
 
     x [nf, nch, T] on the device; carry ((svec [nf, n], rings {region:
     [nf, mod]}), bvars [nf, n_vars], bmem [nf, total_mem]) f64, updated in

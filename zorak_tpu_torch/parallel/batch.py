@@ -101,6 +101,12 @@ class BatchRenderer:
         if mesh is not None:
             raise ValueError("mesh= shards the files over several devices; "
                              "the port renders a batch on one GPU")
+        return self._render_as(None, x)
+
+    def _render_as(self, step, x) -> torch.Tensor:
+        """`render_files` with the kernel's steps run as `step` says
+        (`SpecializedSampleKernel._step_mode`: None as render_files,
+        "eager" the eager step, chip_smoke.py's yardstick for K5)."""
         x = self.kernel.put_audio(x)
         if x.dim() != 3 or x.shape[1] != self.nch:
             raise ValueError(f"render_files takes [nf, {self.nch}, T], got "
@@ -112,7 +118,7 @@ class BatchRenderer:
         for _attempt in range(LADDER_ATTEMPTS):
             kern = self.kernel
             carry, ctrl, rand = self.staged(nf, T)
-            y, fcarry = _one_pass(kern, carry, x, ctrl, rand)
+            y, fcarry = _one_pass(kern, carry, x, ctrl, rand, step)
             # the guessed loop(n) bounds: one device read of the overflow
             # monitor, the largest of the files', and on overflow a
             # rebuild with K doubled past it and a replay (the solo
@@ -128,19 +134,22 @@ class BatchRenderer:
                               "converge")
 
 
-def _one_pass(kern, carry, x, ctrl, rand):
+def _one_pass(kern, carry, x, ctrl, rand, step=None):
     """The kernel's whole render of x [nf, nch, T] from a staged carry:
     the fused block/sample loop (coupled), the fused sample/hop loop from
     the counter's planned phase (hop; K10 updates its carry in place, so
     both take a copy and the staging stays fresh), or the segment loop.
     Returns (y f32 [nf, nch, T], carry)."""
     if kern.coupled:
-        y, carry, _mo = kern._coupled_run(kern.device_carry(carry), x, rand)
+        y, carry, _mo = kern._coupled_run(kern.device_carry(carry), x, rand,
+                                          step=step)
         return y, carry
     if kern._hop is not None:
+        kern._step_mode(step)         # eager: K5 refuses the hop regime
         return kern._hop_run(kern.device_carry(carry), x, ctrl, rand,
                              kern._hop_phase0)
-    return kern._run(carry, x, ctrl, rand, kern.segment_length(x.shape[2]))
+    return kern._run(carry, x, ctrl, rand, kern.segment_length(x.shape[2]),
+                     step)
 
 
 def render_batch(program: PluginProgram, x_files, srate: float = 48000.0,

@@ -370,7 +370,7 @@ class PluginInstance:
                     state=self.shadow.state,
                     details={"peak": peak, "rms": rms,
                              "all_finite": int(nfinite) == y_dev.numel(),
-                             "audio_device": y_dev})
+                             "audio_device": y_dev, **self._dispatch()})
             if sync_state:
                 self.kernel.writeback(carry, self.shadow.state)
         wall = time.perf_counter() - t0
@@ -380,8 +380,16 @@ class PluginInstance:
             audio=y, srate=self.srate, engine=self.engine, wall_seconds=wall,
             realtime_factor=(audio_seconds / wall) if wall > 0 else float("inf"),
             state=self.shadow.state,
-            details={"spec_error": self.spec_error} if self.spec_error else {},
+            details={**({"spec_error": self.spec_error} if self.spec_error
+                        else {}), **self._dispatch()},
         )
+
+    def _dispatch(self) -> Dict:
+        """How the kernel's last render ran its steps, where it says:
+        {"dispatch": "graph"} (K5's captured steps replayed) or
+        "eager: <why>" (`SpecializedSampleKernel.dispatch`)."""
+        got = getattr(self.kernel, "dispatch", None)
+        return {"dispatch": got} if got else {}
 
     def _render_monitor(self, x: np.ndarray, block_size: int, midi,
                         monitor: str) -> RenderResult:
@@ -522,7 +530,7 @@ class PluginInstance:
             details={"idle_mode": mode,
                      "awake_blocks": int(awake.sum()), "blocks": nb,
                      "midi_out": [(e[0] // F,) + tuple(e[1:])
-                                  for e in midi_out]})
+                                  for e in midi_out], **self._dispatch()})
 
     # -- shadow block loop (midi / smart idle / fallback) ---------------------
 
