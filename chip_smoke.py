@@ -663,15 +663,25 @@ def k5_trace(torch, render, n, steps):
     """One traced render of n samples (its keys captured before): host
     operations a step (the CUDA runtime's launches, graph launches,
     copies and sets inside the step's `zorak.k5` ranges, or, with no
-    range, in the whole render), device events a step, busy ms a step,
-    the idle share, the device kernels of each K5_FAMILIES wrapper, and
-    the LAUNCHES counters' and K5's replays' increments over the render."""
+    range, in the whole render), device events a step, busy ms a step
+    and the copies' share of it (the device's memcpy and memset events:
+    a render's carries and audio going in and out), the idle share, the
+    device kernels of each K5_FAMILIES wrapper, and the LAUNCHES
+    counters' and K5's replays' increments over the render."""
     from torch.autograd import DeviceType
     from zorak_tpu_torch.lowering import specialize as SP
 
-    c0 = k5_counts()
-    events = traced(lambda: render(n))
-    c1 = k5_counts()
+    for attempt in range(1, 4):
+        c0 = k5_counts()
+        events = traced(lambda: render(n))
+        c1 = k5_counts()
+        if device_kernels(events):
+            break
+        # the profiler gave back no device event at all (the batch phase's
+        # eager trace, in the whole script only): the render is traced
+        # again, and the checks read the trace that holds events
+        print(f"[k5] a trace of {n} samples held no device event "
+              f"(attempt {attempt} of 3)")
     issued = [e for e in events if e.device_type == DeviceType.CPU
               and e.name.startswith("cu")
               and any(w in e.name for w in ("Launch", "Memcpy", "Memset"))]
@@ -682,16 +692,69 @@ def k5_trace(torch, render, n, steps):
             r.start <= e.time_range.start <= r.end for r in ranges)]
     kernels = device_kernels(events)
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    copies_us = sum(e.time_range.elapsed_us() for e in kernels
+                    if e.name.startswith(("Memcpy", "Memset")))
     span_us = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels)) if kernels else 0
     return {"host_ops": len(issued) / (len(ranges) or steps),
             "ranges": len(ranges), "device_events": len(kernels) / steps,
             "busy_ms": busy_us / 1e3 / steps,
+            "copies_ms": copies_us / 1e3 / steps,
             "idle": 1.0 - busy_us / span_us if span_us else None,
             "families": {fam: sum(part in e.name for e in kernels)
                          for fam, part in K5_FAMILIES},
             "counted": {k: c1[k] - c0[k] for k in c0},
             "edges": [e.name[:60] for e in kernels[:2] + kernels[-2:]]}
+
+
+def k5_traces(torch, label, render, nt, steps_t):
+    """The replayed and the eager step's traces of nt samples (`k5_trace`;
+    render(step, n) as `k5_held` takes it, every key captured before),
+    held: every step of the replayed one replays, both count the same
+    LAUNCHES, and the kernels on the card, counted by name in each, are
+    what the launches put there: K3 and K10 one kernel a call, K2 and K4
+    as many a call as the traces show.  A trace can lack events (late in
+    the whole script, one K10 launch of 94, or a replayed trace's first 3
+    steps, and again in a trace taken after it; never in the coupled phase
+    alone): each is held to at most 5 % of a family's kernels lost.  A
+    pair of traces where a family lost more (the batch phase's eager
+    trace once held none of its K4 kernels, the launches counted as
+    ever) is taken again, up to three times, and the checks read the
+    last pair taken.
+    Returns (the replayed trace, the eager one, the kernels by name the
+    launches put there)."""
+    for attempt in range(1, 4):
+        tr_g = k5_trace(torch, lambda m: render(None, m), nt, steps_t)
+        tr_e = k5_trace(torch, lambda m: render("eager", m), nt, steps_t)
+        fam_g, fam_e = tr_g["families"], tr_e["families"]
+        counted_g, counted_e = dict(tr_g["counted"]), dict(tr_e["counted"])
+        replayed = counted_g.pop("replays")
+        counted_e.pop("replays")
+        check(replayed == steps_t, f"{label}: the traced render replayed "
+              f"{replayed} of {steps_t} steps")
+        check(counted_g == counted_e, f"{label}: LAUNCHES of the traced "
+              f"second {counted_g} through K5, {counted_e} eager")
+        per_call = {f: 1 if f in ("ring_tap_sum", "block_section") else
+                    round(max(fam_g[f], fam_e[f]) / counted_e[f])
+                    if counted_e[f] else 0 for f in fam_e}
+        expected = {f: counted_g[f] * per_call[f] for f in fam_e}
+        lost = {f: (expected[f] - fam_g[f], expected[f] - fam_e[f])
+                for f in expected}
+        by_name = (all(0 <= n <= max(1, expected[f] // 20)
+                       for f, pair in lost.items() for n in pair)
+                   and all((expected[f] > 0) == (counted_g[f] > 0)
+                           for f in expected))
+        if by_name:
+            break
+        print(f"[k5] {label}: kernels on the card by name {fam_g} "
+              f"replayed, {fam_e} eager, against {expected} from LAUNCHES "
+              f"{counted_g} (attempt {attempt} of 3)")
+    check(by_name,
+          f"{label}: kernels on the card by name {fam_g} in the "
+          f"replayed second, {fam_e} in the eager step's, against "
+          f"{expected} from LAUNCHES {counted_g} (the traces' first "
+          f"and last kernels {tr_g['edges']}, {tr_e['edges']})")
+    return tr_g, tr_e, expected
 
 
 def k5_held(torch, label, kern, render, T, card, turns_T=None, trace_T=None):
@@ -771,37 +834,10 @@ def k5_held(torch, label, kern, render, T, card, turns_T=None, trace_T=None):
         for _ in range(2):
             render(None, nt)
         torch.cuda.synchronize()
-        # the replays' kernels, counted by name on the card, and the eager
-        # step's in the same second, against what the launches put there:
-        # K3 and K10 one kernel a call, K2 and K4 as many a call as the
-        # traces show.  A trace can lack events (late in the whole script,
-        # one K10 launch of 94, or a replayed trace's first 3 steps, and
-        # again in a trace taken after it; never in the coupled phase
-        # alone): each is held to at most 5 % of a family's kernels lost
-        tr_g = k5_trace(torch, lambda m: render(None, m), nt, steps_t)
-        tr_e = k5_trace(torch, lambda m: render("eager", m), nt, steps_t)
+        tr_g, tr_e, expected = k5_traces(torch, label, render, nt, steps_t)
         fam_g, fam_e = tr_g["families"], tr_e["families"]
-        counted_g, counted_e = dict(tr_g["counted"]), dict(tr_e["counted"])
-        replayed = counted_g.pop("replays")
-        counted_e.pop("replays")
-        per_call = {f: 1 if f in ("ring_tap_sum", "block_section") else
-                    round(max(fam_g[f], fam_e[f]) / counted_e[f])
-                    if counted_e[f] else 0 for f in fam_e}
-        expected = {f: counted_g[f] * per_call[f] for f in fam_e}
-        lost = {f: (expected[f] - fam_g[f], expected[f] - fam_e[f])
-                for f in expected}
-        check(replayed == steps_t, f"{label}: the traced render replayed "
-              f"{replayed} of {steps_t} steps")
-        check(counted_g == counted_e, f"{label}: LAUNCHES of the traced "
-              f"second {counted_g} through K5, {counted_e} eager")
-        check(all(0 <= n <= max(1, expected[f] // 20)
-                  for f, pair in lost.items() for n in pair)
-              and all((expected[f] > 0) == (counted_g[f] > 0)
-                      for f in expected),
-              f"{label}: kernels on the card by name {fam_g} in the "
-              f"replayed second, {fam_e} in the eager step's, against "
-              f"{expected} from LAUNCHES {counted_g} (the traces' first "
-              f"and last kernels {tr_g['edges']}, {tr_e['edges']})")
+        counted_g = {k: v for k, v in tr_g["counted"].items()
+                     if k != "replays"}
         pool = kern._k5.pool_bytes()
         total = kern._k5.stats()
     finally:
@@ -4169,6 +4205,7 @@ def devexec_phase(torch, cuda, rng, card):
 GRAPH_NODES = 4           # builtin_plugins.crossmix_declutter slots
 GRAPH_BLOCK = 512         # the reference RenderGraph's default block
 GRAPH_PROBE_T = 96_000    # the 3-node graph: 2 s at block 64
+GRAPH_TURNS_T = 480_000   # K5's turns on the lockstep: 10 s a render
 # the 3-node graph's uncoupled node: a sender on a bus of its own, its
 # @block on the host in lockstep (the catalog's IPCProbeA shape)
 GRAPH_SENDER_SRC = """\
@@ -4233,18 +4270,63 @@ def graph_held(label, gd, gs, outs_d, outs_s):
     return worst_audio, worst_val
 
 
+def lockstep_tensors(res):
+    """`lockstep_gmem_run`'s results as a list of tensors: each member's
+    audio and carry (svec, K10's vars and heap, the rings by region), the
+    segments, the ring window and its control row."""
+    ys, fin, gfin, _mos, msg_fin, _dispatch = res
+    out = list(ys)
+    for (svec, rings), bvars, bmem in fin:
+        out += [svec, bvars, bmem] + [rings[r] for r in sorted(rings)]
+    return out + list(gfin) + (list(msg_fin) if msg_fin is not None else [])
+
+
+def lockstep_recorded(fn):
+    """fn() with `lockstep_gmem_run` spied: (fn's result, the tensors of
+    each call's results, `lockstep_tensors`)."""
+    from zorak_tpu_torch.lowering import specialize as SP
+
+    got, real = [], SP.lockstep_gmem_run
+
+    def spy(*args, **kwargs):
+        res = real(*args, **kwargs)
+        got.append(lockstep_tensors(res))
+        return res
+    SP.lockstep_gmem_run = spy
+    try:
+        return fn(), got
+    finally:
+        SP.lockstep_gmem_run = real
+
+
+def lockstep_same(label, eager, graph):
+    """Two renders' outputs and lockstep results (`lockstep_recorded`)
+    held `same_values`: audio, carries, segments, window and control
+    row."""
+    (outs_e, rec_e), (outs_g, rec_g) = eager, graph
+    check(len(rec_e) == len(rec_g) == 1 and len(rec_e[0]) == len(rec_g[0])
+          and all(same_values(a, b) for a, b in zip(rec_e[0], rec_g[0])),
+          f"{label}: the graph's lockstep differs from the eager one's "
+          "(audio, carries, segments, window or control row)")
+    check(all(np.array_equal(outs_e[k], outs_g[k]) for k in outs_e),
+          f"{label}: the graph's outputs differ from the eager one's")
+
+
 def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
     """The render graph: builtin_plugins.crossmix_declutter on 4 nodes x
-    60 s at block 512 through RenderGraph (all torch-lockstep) against the
-    all-shadow graph through the native golden, K10 with the staging at
-    each member's first and middle block against its plain version, the
-    times, the bound, the trace; then the 3-node graph.  Returns the
-    entries K10's `kernels` line gains."""
+    60 s at block 512 through RenderGraph (all torch-lockstep, each graph
+    block replayed through K5) against the all-shadow graph through the
+    native golden; K5 on the lockstep in turns of 10 s (eager, graph,
+    graph, eager) on two graphs built alike, each eager render held
+    `same_values` to the graph's of the same state, a third graph render
+    replaying every graph block, a traced second of each; K10 with the
+    staging at each member's first and middle block of the eager turn
+    against its plain version, its times and bound; then the 3-node graph
+    through K5.  Returns the entries K10's `kernels` line gains."""
     from zorak_tpu_torch import builtin_plugins as BP
     from zorak_tpu_torch.ir import compile_plugin_source
     from zorak_tpu_torch.kernels import _build
     from zorak_tpu_torch.kernels import block_section as BS
-    from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
     from zorak_tpu_torch.runtime.graph import RenderGraph
 
     names = [f"n{i}" for i in range(GRAPH_NODES)]
@@ -4282,34 +4364,48 @@ def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
             print(f"[build] block_section (graph member): {line.strip()}")
     gd.run(x_lead)
     torch.cuda.synchronize()
+    check(gd.lockstep_dispatch == "graph",
+          f"graph: the lockstep ran as {gd.lockstep_dispatch}")
     print(f"[graph] 4 nodes built, K10 built for each (nvcc together) and a "
           f"{lead}-sample render in {time.perf_counter() - t0:.2f} s; "
           f"K10's phases {[ph.kind for ph in k10s[0].block.phases]}, kept "
           f"on thread 0: {k10s[0].block.serial_loops}")
 
-    # the main render, K10's inputs kept at each member's first and middle
-    # block (the copies are made between launches, outside the count)
+    # the main render, through the replayed lockstep: the lead render's
+    # StepGraphs, its graph blocks new keys (the window's rows W, in the
+    # key, grow with the ring's backlog as the render starts)
     blocks = -(-MAIN_T // GRAPH_BLOCK)
-    mid = blocks // 2
-    wanted = {b * GRAPH_NODES + j for b in (0, mid)
-              for j in range(GRAPH_NODES)}
-    got, spy, real = k10_recording(wanted)
-    BS.block_section = spy
-    BS.LAUNCHES = LS.LAUNCHES = RT.LAUNCHES = 0
-    try:
-        t0 = time.perf_counter()
-        outs_d = gd.run(x)
-        torch.cuda.synchronize()
-        render_s = time.perf_counter() - t0
-    finally:
-        BS.block_section = real
-    launches = {"block_section": BS.LAUNCHES, "linrec_scan": LS.LAUNCHES,
-                "ring_tap_sum": RT.LAUNCHES}
+    lead_k5 = gd.lockstep_k5
+    before = lead_k5.stats()
+    k5_set_counts(dict.fromkeys(k5_counts(), 0))
+    t0 = time.perf_counter()
+    outs_d = gd.run(x)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches = k5_counts()
+    check(gd.lockstep_dispatch == "graph",
+          f"graph: the lockstep ran as {gd.lockstep_dispatch}")
+    check(gd.lockstep_k5 is lead_k5 and len(gd._lockstep_graphs) == 1
+          and lead_k5.regrowths == 0,
+          f"graph: the main render took a StepGraphs of its own or grew a "
+          f"static buffer ({len(gd._lockstep_graphs)} StepGraphs, "
+          f"{lead_k5.regrowths} regrowths)")
+    after = lead_k5.stats()
+    main_k5 = {k: after[k] - before[k] for k in
+               ("steps", "captures", "capture_seconds", "uncaptured",
+                "replays")}
+    main_k5["keys"] = after["keys"]
     check(launches["block_section"] == GRAPH_NODES * blocks == 22_500,
           f"graph: K10 launched {launches['block_section']} times for "
           f"{GRAPH_NODES} x {blocks} blocks")
     check(launches["linrec_scan"] > 0 and launches["ring_tap_sum"] > 0,
           f"graph: launches {launches}")
+    check(main_k5["steps"] == blocks
+          and launches["replays"] == main_k5["replays"]
+          == blocks - main_k5["captures"] - main_k5["uncaptured"]
+          and main_k5["replays"] > 0,
+          f"graph: the main render's graph blocks {main_k5}, replays "
+          f"{launches['replays']}")
     for nm in names:
         y = outs_d[nm]
         check(y.shape == (2, MAIN_T) and bool(np.isfinite(y).all()),
@@ -4319,10 +4415,15 @@ def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
           f"graph: the ring window overflowed or a queue dropped: {stats}")
     node_s = GRAPH_NODES * MAIN_T / SR
     print(f"[main] graph crossmix_declutter x{GRAPH_NODES} 60 s stereo, "
-          f"block {GRAPH_BLOCK}: engines {gd.node_engines} render "
-          f"{render_s:.2f} s ({render_s * 1e3:.1f} ms) node_audio_s_per_s="
+          f"block {GRAPH_BLOCK}: engines {gd.node_engines}, lockstep "
+          f"dispatch {gd.lockstep_dispatch}, render {render_s:.2f} s "
+          f"({render_s * 1e3:.1f} ms) node_audio_s_per_s="
           f"{node_s / render_s:.2f} launches={launches} host_ms_a_block="
-          f"{render_s * 1e3 / blocks:.4f} ring {stats} card='{card}'")
+          f"{render_s * 1e3 / blocks:.4f}; graph blocks: {main_k5['keys']} "
+          f"keys with the lead's, {main_k5['captures']} captured in "
+          f"{main_k5['capture_seconds']:.4f} s, {main_k5['uncaptured']} "
+          f"uncaptured, {main_k5['replays']} replayed; ring {stats} "
+          f"card='{card}'")
 
     # the all-shadow graph through the native golden, the same renders
     gs = graph("shadow", golden="native")
@@ -4337,8 +4438,159 @@ def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
           f"{gold_s:.2f} s on the host ({node_s / gold_s:.2f} node-audio-s "
           f"per s)")
 
+    # K5 on the lockstep: two graphs built alike, one rendering eagerly
+    # (the yardstick), one through K5, each render of one held
+    # `same_values` to the other's of the same state; wall in turns
+    label = f"graph lockstep crossmix_declutter x{GRAPH_NODES}"
+    turns_T = GRAPH_TURNS_T
+    xt = {nm: (rng.randn(2, turns_T) * 0.25).astype(np.float32)
+          for nm in names}
+    t0 = time.perf_counter()
+    ge, gg = graph("auto"), graph("auto")
+    lockstep_same("graph lead", lockstep_recorded(
+        lambda: ge._run_as("eager", x_lead)), lockstep_recorded(
+        lambda: gg.run(x_lead)))
+    build_s = time.perf_counter() - t0
+    t_blocks = -(-turns_T // GRAPH_BLOCK)
+    mid = t_blocks // 2
+    wanted = {b * GRAPH_NODES + j for b in (0, mid)
+              for j in range(GRAPH_NODES)}
+    got, spy, real = k10_recording(wanted)
+    walls = {"eager": [], "graph": []}
+    turns = {}
+    k5_set_counts(dict.fromkeys(k5_counts(), 0))
+    for nth, (g, step) in enumerate(((ge, "eager"), (gg, None),
+                                     (gg, None), (ge, "eager"))):
+        # K10's inputs kept from the first eager turn (a replay calls no
+        # wrapper; the copies are made between launches, outside the count)
+        if nth == 0:
+            BS.block_section = spy
+        try:
+            t0 = time.perf_counter()
+            turns[nth] = lockstep_recorded(lambda g=g, step=step:
+                                           g._run_as(step, xt))
+            torch.cuda.synchronize()
+            walls[step or "graph"].append(time.perf_counter() - t0)
+        finally:
+            BS.block_section = real
+        check(g.lockstep_dispatch == ("graph" if step is None else
+                                      "eager: the eager step, asked for"),
+              f"{label}: turn {nth} ran as {g.lockstep_dispatch}")
+        if nth == 1:
+            k5g = gg.lockstep_k5
+            first_k5 = k5g.stats()
+    turn_counts = k5_counts()
+    lockstep_same(f"{label} first turns", turns[0], turns[1])
+    lockstep_same(f"{label} second turns", turns[3], turns[2])
+    check(turn_counts["block_section"] == 4 * GRAPH_NODES * t_blocks,
+          f"{label}: K10 launched {turn_counts['block_section']} times in "
+          f"four turns of {t_blocks} blocks")
+    # a key is captured the second time it is seen: the third render
+    # replays every graph block
+    st2 = k5g.stats()
+    gg.run(xt)
+    torch.cuda.synchronize()
+    st3 = k5g.stats()
+    check(gg.lockstep_k5 is k5g and st3["captures"] == st2["captures"]
+          and st3["uncaptured"] == st2["uncaptured"]
+          and st3["replays"] - st2["replays"] == t_blocks,
+          f"{label}: the third render replayed "
+          f"{st3['replays'] - st2['replays']} of {t_blocks} graph blocks "
+          f"({st3['captures'] - st2['captures']} captures, "
+          f"{st3['uncaptured'] - st2['uncaptured']} uncaptured)")
+    # what a render costs besides its graph blocks: a one-block render
+    # (the members' carries loaded into the static buffers and cloned
+    # out, the host's state written back), replayed
+    x_one = {nm: a[:, :GRAPH_BLOCK] for nm, a in xt.items()}
+    gg.run(x_one)
+    t0 = time.perf_counter()
+    gg.run(x_one)
+    torch.cuda.synchronize()
+    one_block_s = time.perf_counter() - t0
+    eager_ms = 1e3 * min(walls["eager"]) / t_blocks
+    replay_ms = 1e3 * min(walls["graph"]) / t_blocks
+    print(f"[k5] {label}: {turns_T / SR:g} s in {t_blocks} graph blocks; "
+          f"two graphs built alike and a lead render each in {build_s:.2f} "
+          f"s; eager and graph renders of the same state same_values "
+          f"(audio, carries, segments, window, control row), twice; the "
+          f"first graph render captured {first_k5['captures']} in "
+          f"{first_k5['capture_seconds']:.4f} s ({first_k5['uncaptured']} "
+          f"uncaptured, {first_k5['keys']} keys), the third replayed all "
+          f"{t_blocks}; wall in turns: eager "
+          f"{' '.join(f'{w:.4f}' for w in walls['eager'])}, graph "
+          f"{' '.join(f'{w:.4f}' for w in walls['graph'])} s ({eager_ms:.4f} "
+          f"against {replay_ms:.4f} ms a graph block); a one-block render "
+          f"{one_block_s:.4f} s card='{card}'")
+
+    # a traced second of each: host operations, device events and busy
+    # time a graph block, the idle share, the kernels by name
+    n1 = int(SR)
+    x1 = {nm: a[:, :n1] for nm, a in xt.items()}
+    blocks1 = -(-n1 // GRAPH_BLOCK)
+    for _ in range(2):
+        gg.run(x1)
+    torch.cuda.synchronize()
+    tr_g, tr_e, expected = k5_traces(
+        torch, label, lambda step, _n: (gg if step is None else ge)._run_as(
+            step, x1), n1, blocks1)
+    pool = k5g.pool_bytes()
+    total = k5g.stats()
+    # the device's time of a full graph block: its capture replayed back
+    # to back on the static buffers (a render loads them again).  One
+    # capture a window size W (in the key; the lead render's ring started
+    # empty), the last render's replayed last
+    full = [(k, v[0]) for k, v in k5g.graphs.items()
+            if k[1] == GRAPH_BLOCK]
+    check(full and len(full) == len({k[2] for k, _g in full}),
+          f"{label}: {len(full)} captures of a full block for window sizes "
+          f"{sorted({k[2] for k, _g in full})}")
+    full[-1][1].replay()
+    replay_dev_ms = cuda_ms(full[-1][1].replay, reps=200)
+    print(f"[k5] {label}: a traced {n1 / SR:g} s ({blocks1} graph blocks): "
+          f"host operations a graph block {tr_g['host_ops']:.2f} "
+          f"({tr_g['ranges']} ranges) against {tr_e['host_ops']:.2f} "
+          f"eager; device events a graph block {tr_g['device_events']:.1f} "
+          f"against {tr_e['device_events']:.1f}; busy "
+          f"{tr_g['busy_ms']:.4f} against {tr_e['busy_ms']:.4f} ms a graph "
+          f"block, of it the render's copies {tr_g['copies_ms']:.4f} and "
+          f"{tr_e['copies_ms']:.4f}; a full graph block's replay alone "
+          f"{replay_dev_ms:.4f} ms of device time (CUDA events, 200 back "
+          f"to back); idle share "
+          + (f"{tr_g['idle']:.3f}" if tr_g["idle"] is not None else "not "
+             "measured") + " against "
+          + (f"{tr_e['idle']:.3f}" if tr_e["idle"] is not None else "not "
+             "measured")
+          + "; the captures' pool "
+          + (f"{pool} bytes" if pool is not None else "not measured")
+          + f", static buffers {total['buffer_bytes']} bytes; "
+          f"{total['captures']} captures in "
+          f"{total['capture_seconds']:.4f} s, {total['keys']} keys; kernels "
+          f"on the card by name {tr_g['families']} replayed, "
+          f"{tr_e['families']} eager, {expected} from LAUNCHES "
+          f"card='{card}'")
+    check(tr_g["host_ops"] <= 4.0, f"{label}: {tr_g['host_ops']:.2f} host "
+          "operations a graph block through K5")
+    K5_ROWS.append({
+        "label": label, "T": MAIN_T, "steps": blocks,
+        "members": GRAPH_NODES, "main_s": render_s,
+        "main_captures": main_k5["captures"],
+        "main_capture_s": main_k5["capture_seconds"],
+        "main_replays": main_k5["replays"], "keys": main_k5["keys"],
+        "turns_T": turns_T, "turns_eager_s": walls["eager"],
+        "turns_graph_s": walls["graph"], "eager_ms_a_step": eager_ms,
+        "graph_ms_a_step": replay_ms, "replay_device_ms": replay_dev_ms,
+        "one_block_render_s": one_block_s,
+        "first_turn_captures": first_k5["captures"],
+        "first_turn_capture_s": first_k5["capture_seconds"],
+        "traced_T": n1, "graph_trace": tr_g, "eager_trace": tr_e,
+        "pool_bytes": pool, "launches": launches,
+        "kernels_from_launches": expected,
+        "buffer_bytes": total["buffer_bytes"],
+        "kernel_captures": total["captures"],
+        "kernel_capture_s": total["capture_seconds"], "card": card})
+
     # K10 with the staging against its plain version, each member's first
-    # and middle block
+    # and middle block of the eager turn
     plain_ms = []
     err = 0.0
     for key in sorted(got):
@@ -4347,11 +4599,13 @@ def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
                                  f"{key // GRAPH_NODES}")
         err = max(err, e)
         plain_ms.append(p_ms)
+    check(len(got) == len(wanted), f"graph: K10 recorded at {sorted(got)}")
     print(f"[graph] K10 with the staging at the first and middle block of "
-          f"each of the {GRAPH_NODES} members: bit-identical to the plain "
-          f"version (vars, heap with queues, OUT table and gmem window, "
-          f"segment, ring window, count and cursors, control row, rings); "
-          f"plain version {min(plain_ms):.1f} to {max(plain_ms):.1f} ms")
+          f"each of the {GRAPH_NODES} members (the eager turn): "
+          f"bit-identical to the plain version (vars, heap with queues, OUT "
+          f"table and gmem window, segment, ring window, count and cursors, "
+          f"control row, rings); plain version {min(plain_ms):.1f} to "
+          f"{max(plain_ms):.1f} ms")
 
     # K10 a launch at member 0's middle block, and its bound
     st = got[mid * GRAPH_NODES].stage
@@ -4364,9 +4618,8 @@ def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
     # and the host-paced rate of eager launches
     k10_ms = graph_ms(lambda: BS.block_section(program, *args, sb,
                                                stage=st_t))
-    eager_ms = cuda_ms(lambda: BS.block_section(program, *args, sb,
-                                                stage=st_t), reps=reps)
-    BS.LAUNCHES = 0
+    k10_eager_ms = cuda_ms(lambda: BS.block_section(program, *args, sb,
+                                                    stage=st_t), reps=reps)
     lat = torch.zeros(1, dtype=torch.float64, device=cuda)
     n_lat = 1 << 16
     BS.block_section_latency_probe(probe, lat, 16)
@@ -4402,7 +4655,7 @@ def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
     graph_by = "bytes" if bytes_ms >= chain_ms else "operations"
     print(f"[graph] K10 a launch in the graph (member 0, block {mid}'s "
           f"inputs, a CUDA graph of 20): {k10_ms * 1e3:.2f} us; eager, mean "
-          f"of {reps}: {eager_ms * 1e3:.2f} us"
+          f"of {reps}: {k10_eager_ms * 1e3:.2f} us"
           + (f", beside the coupled phase's {coupled_k10_ms * 1e3:.2f} us"
              if coupled_k10_ms is not None else "")
           + f"; bound {graph_bound * 1e3:.4f} us by {graph_by} ({nbytes} "
@@ -4410,25 +4663,8 @@ def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
           f"appended; thread 0's chain {chain_ops} dependent f64 operations "
           f"at {add_ns:.2f} ns) card='{card}'")
 
-    # a traced second of the graph: device events and idle share
-    n1 = int(SR)
-    x1 = {nm: a[:, :n1] for nm, a in x.items()}
-    blocks1 = -(-n1 // GRAPH_BLOCK)
-    _per, by_name = profile_render(lambda: gd.run(x1), "graph 1 s",
-                                   traces=1)
-    events = sum(n for n, _us in by_name.values())
-    busy_ms = sum(us for _n, us in by_name.values()) / 1e3
-    k10_traced = [(n, us) for name, (n, us) in by_name.items()
-                  if "zb_kernel" in name]
-    print(f"[graph] traced 1 s: {events} device events, "
-          f"{events / blocks1:.1f} a graph block ({events / blocks1 / GRAPH_NODES:.1f} "
-          f"a member block), busy {busy_ms:.2f} ms"
-          + (f"; K10 {k10_traced[0][0]} launches, "
-             f"{k10_traced[0][1] / k10_traced[0][0]:.2f} us a launch"
-             if k10_traced else ""))
-
     # the 3-node graph: a coupled lockstep pair beside an uncoupled node
-    # on a bus of its own, 2 s at block 64
+    # on a bus of its own, 2 s at block 64, its pair through K5
     small = [("a", BP.crossmix_declutter(0, 2)),
              ("b", BP.crossmix_declutter(1, 2)), ("tx", GRAPH_SENDER_SRC)]
     xs = {nm: (rng.randn(2, GRAPH_PROBE_T) * 0.25).astype(np.float32)
@@ -4440,41 +4676,58 @@ def graph_phase(torch, cuda, rng, card, coupled_k10_ms=None):
         for nm, src in small:
             g.add(nm, compile_plugin_source(src))
         g.init_all()
-        BS.LAUNCHES = 0
+        k5_set_counts(dict.fromkeys(k5_counts(), 0))
         t0 = time.perf_counter()
         outs = g.run(xs)
         torch.cuda.synchronize()
-        res[prefer] = (g, outs, time.perf_counter() - t0, BS.LAUNCHES)
-    g3, outs3, s3, k10_3 = res["auto"]
+        res[prefer] = (g, outs, time.perf_counter() - t0, k5_counts())
+    g3, outs3, s3, counts3 = res["auto"]
     check(g3.node_engines == ["torch-lockstep", "torch-lockstep",
                               "torch-vector"],
           f"graph 3 nodes: engines {g3.node_engines} ({g3.spec_errors})")
     blocks3 = -(-GRAPH_PROBE_T // 64)
+    k10_3 = counts3["block_section"]
     check(k10_3 == 2 * blocks3, f"graph 3 nodes: K10 launched {k10_3}")
+    st_3 = g3.lockstep_k5.stats()
+    check(g3.lockstep_dispatch == "graph" and counts3["replays"]
+          == st_3["replays"] == blocks3 - st_3["captures"]
+          - st_3["uncaptured"] > 0,
+          f"graph 3 nodes: the lockstep ran as {g3.lockstep_dispatch}, "
+          f"{st_3}, replays {counts3['replays']}")
     err3 = graph_held("3 nodes", g3, res["shadow"][0], outs3,
                       res["shadow"][1])
     check(g3.plugins[2].state.V["seq"] == float(blocks3),
           "graph 3 nodes: the host-lockstep sender's @block ran "
           f"{g3.plugins[2].state.V['seq']} times")
     print(f"[graph] 3 nodes (a lockstep pair beside a host-lockstep sender) "
-          f"2 s at block 64: engines {g3.node_engines}, K10 {k10_3} "
-          f"launches, {s3:.2f} s on the card, the golden graph "
+          f"2 s at block 64: engines {g3.node_engines}, lockstep dispatch "
+          f"{g3.lockstep_dispatch}, {st_3['replays']} of {blocks3} graph "
+          f"blocks replayed ({st_3['captures']} captured, "
+          f"{st_3['uncaptured']} uncaptured), K10 {k10_3} launches, "
+          f"{s3:.2f} s on the card, the golden graph "
           f"{res['shadow'][2]:.2f} s; held to the native golden graph "
           f"(audio {err3[0]:.3e}, vars and segments {err3[1]:.3e})")
     return {
         "launches_graph": launches["block_section"],
-        "graph_ms_a_launch": k10_ms, "graph_eager_ms_a_launch": eager_ms,
+        "graph_ms_a_launch": k10_ms, "graph_eager_ms_a_launch": k10_eager_ms,
         "graph_plain_ms": float(np.median(
             plain_ms)), "graph_bound_ms": graph_bound,
         "graph_bound_by": graph_by, "graph_max_abs_err": err,
         "graph_render_s": render_s, "graph_golden_s": gold_s,
         "graph_node_audio_s_per_s": node_s / render_s,
         "graph_host_ms_a_block": render_s * 1e3 / blocks,
-        "graph_events_a_block": events / blocks1,
+        "graph_replays": launches["replays"],
+        "graph_turn_eager_ms_a_block": eager_ms,
+        "graph_turn_replay_ms_a_block": replay_ms,
+        "graph_host_ops_a_block": tr_g["host_ops"],
+        "graph_replay_device_ms": replay_dev_ms,
+        "graph_events_a_block": tr_g["device_events"],
+        "graph_idle": tr_g["idle"],
         "graph_launches_linrec_scan": launches["linrec_scan"],
         "graph_launches_ring_tap_sum": launches["ring_tap_sum"],
         "graph_add_ns": add_ns, "graph_chain_ops": chain_ops,
         "graph3_render_s": s3, "graph3_launches": k10_3,
+        "graph3_replays": counts3["replays"],
     }
 
 

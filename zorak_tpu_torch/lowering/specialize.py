@@ -5176,32 +5176,11 @@ class SpecializedSampleKernel:
         return None
 
     def _step_mode(self, step) -> str:
-        """How a render's steps run, and `dispatch` set to say so: "graph"
-        (K5, captured and replayed), "static" (K5's step on CPU tensors,
-        uncaptured) or "eager".  step None: K5 on the card wherever the
-        plan allows it (`k5_refusal`), the eager step on CPU tensors;
-        "eager": the eager step (the yardstick); "graph": K5's step, or
-        SpecializeError where the plan is refused."""
-        why = self.k5_refusal
-        if step == "eager":
-            self.dispatch = "eager: the eager step, asked for"
-            return "eager"
-        if step not in (None, "graph"):
-            raise ValueError(f"step must be None, 'eager' or 'graph', not "
-                             f"{step!r}")
-        if why is not None:
-            if step == "graph":
-                raise SpecializeError(f"K5 refuses this plan: {why}")
-            self.dispatch = f"eager: {why}"
-            return "eager"
-        if self.device.type == "cuda":
-            self.dispatch = "graph"
-            return "graph"
-        if step == "graph":
-            self.dispatch = "static: K5's step on CPU tensors, uncaptured"
-            return "static"
-        self.dispatch = "eager: CPU tensors take the eager step"
-        return "eager"
+        """How a render's steps run (`k5_step_mode`), with `dispatch` set
+        to say so: "graph" (K5, captured and replayed), "static" (K5's
+        step on CPU tensors, uncaptured) or "eager"."""
+        mode, self.dispatch = k5_step_mode([self], step)
+        return mode
 
     def _k5_graphs(self):
         if self._k5 is None:
@@ -5347,25 +5326,11 @@ class SpecializedSampleKernel:
         included."""
         import torch
 
-        from ..kernels.block_section import block_section
-
-        f64 = torch.float64
-        prog = self._block_prog
         k5 = self._k5_graphs()
         capture = self.device.type == "cuda"
-        (svec0, rings0), bvars0, bmem0 = carry
         nf, nch, T = x.shape
         B = self.B
-        known = self._mirror_start(svec0)
-        svec, rings = self._k5_carry(k5, nf, svec0, rings0)
-        bvars = k5.static("bvars", bvars0.shape, f64)
-        bvars.copy_(bvars0)
-        bmem = k5.static("bmem", bmem0.shape, f64)
-        bmem.copy_(bmem0)
-        ctrl = k5.static("ctrl", (nf, len(self.ctrl_order)), f64)
-        pool = self._k5_pool(k5, rand)
-        nr = 0 if pool is not None else rand.shape[1]
-        rewrites = set(self._block_rewrites)
+        blk = _K5Block(self, k5, carry, rand, nf)
         nfull, rem = divmod(T, B)
         y = torch.empty((nf, self.nch, T), dtype=torch.float32,
                         device=self.device)
@@ -5374,40 +5339,25 @@ class SpecializedSampleKernel:
             t0 = b * B
             xin = k5.static("x", (nf, nch, L), torch.float32)
             yout = k5.static("y", (nf, self.nch, L), torch.float32)
-            draws = pool if pool is not None else \
-                k5.static("aux", (L, nr), f64)
-            # K10 may rewrite these: the host's mirror of them is void
-            kn = [None if i in rewrites else v for i, v in enumerate(known)]
-            seg = self._seg_fn(L, nf, graph=True)
-
-            def body(seg=seg, L=L, xin=xin, yout=yout, draws=draws, kn=kn):
-                block_section(prog, svec, [rings[r] for r in prog.regions],
-                              bvars, bmem, float(L), None, ctrl=ctrl)
-                (sv, rg), yseg, _ = seg((svec, rings),
-                                        (xin.to(f64), ctrl[:, None], draws),
-                                        kn)
-                self._k5_store(svec, rings, sv, rg)
-                yout.copy_(yseg)
-
+            blk.begin(L, None if blk.pool is not None else
+                      k5.static("aux", (L, blk.nr), torch.float64))
             with _k5_range():
                 xin.copy_(x[:, :, t0:t0 + L])
-                if pool is None and nr:
-                    draws.copy_(rand[t0:t0 + L])
-                k5.step(lambda seg=seg, L=L, kn=kn:
-                        self._k5_key("block", seg, L, nf, pool, kn),
-                        body, capture)
+                if blk.pool is None and blk.nr:
+                    blk.draws.copy_(rand[t0:t0 + L])
+                k5.step(blk.key,
+                        lambda xin=xin, yout=yout: blk.body(xin, yout),
+                        capture)
                 y[:, :, t0:t0 + L].copy_(yout)
-            known = self._advance_mirror(kn, L)
-        self._k5_mirror = known
-        return y, ((svec.clone(), {r: a.clone() for r, a in rings.items()}),
-                   bvars.clone(), bmem.clone()), None
+            blk.end()
+        return y, blk.result(), None
 
     def _run(self, carry, x, ctrl, rand, L: int, step=None):
         """The segment loop over a batch of files: full segments of L,
         then the remainder.  x [nf, nch, T] on the device (f32 audio, each
         segment taken to f64 as it runs); carry (svec [nf, n], rings
         {region: [nf, mod]}) f64; ctrl and rand shared by every file.
-        Returns (y f32 [nf, nch, T], carry).  `step` as `_step_mode`
+        Returns (y f32 [nf, nch, T], carry).  `step` as `k5_step_mode`
         takes it: K5 (`_run_steps`) or the eager loop below."""
         import torch
 
@@ -5461,7 +5411,7 @@ class SpecializedSampleKernel:
         device, counts [rows] on the host) shared by every file.  Returns
         (y f32 [nf, nch, T], carry, the MIDI out tables [rows, nf, cells]
         or None).  Nothing in the loop waits for the device unless @block
-        rewrites a cursor the host mirrors.  `step` as `_step_mode` takes
+        rewrites a cursor the host mirrors.  `step` as `k5_step_mode` takes
         it: K5 (`_coupled_steps`) or the eager blocks of `_CoupledSteps`."""
         if self._step_mode(step) != "eager":
             return self._coupled_steps(carry, x, rand)
@@ -5622,7 +5572,7 @@ class SpecializedSampleKernel:
 
     def _render_device_as(self, step, x, carry=None, midi=None, ctrl=None):
         """`render_device` with its steps run as `step` says
-        (`_step_mode`): None as render_device, "eager" the eager step
+        (`k5_step_mode`): None as render_device, "eager" the eager step
         (chip_smoke.py's yardstick for K5), "graph" K5's step."""
         if not self.sym.masked_loops:
             return self._render_device_once(x, carry, midi, ctrl, step)
@@ -6060,8 +6010,8 @@ class _CoupledSteps:
     staging where given) then the segment program of the block's length,
     the remainder block with samplesblock = its length.  `_coupled_run`'s
     eager step steps its blocks in order (K5's step is `_coupled_steps`);
-    a graph's lockstep (`lockstep_gmem_run`) steps its members' blocks in
-    turn.
+    a graph's eager lockstep (`lockstep_gmem_run`) steps its members'
+    blocks in turn (K5's graph block is `_lockstep_graph_blocks`).
 
     x [nf, nch, T] on the device; carry ((svec [nf, n], rings {region:
     [nf, mod]}), bvars [nf, n_vars], bmem [nf, total_mem]) f64, updated in
@@ -6126,9 +6076,158 @@ class _CoupledSteps:
             self.mouts
 
 
+class _K5Block:
+    """One kernel's part of a K5 coupled block step: a render's own
+    (`_coupled_steps`) or a member's share of a lockstep's graph block
+    (`_lockstep_graph_blocks`).
+
+    Loads, once a render, the kernel's static carry, K10's view and
+    control row and its gated pool under `bufs`' names (a StepGraphs, or
+    a lockstep member's `_MemberBuffers`), from `carry` ((svec [nf, n],
+    rings {region: [nf, mod]}), bvars [nf, n_vars], bmem [nf, total_mem]):
+    host arrays or tensors, copied straight into the static buffers.  Keeps
+    the host mirror as `_coupled_steps` always has: `_mirror_start`, the
+    slots @block rewrites voided before each block, `_advance_mirror`
+    after it.  A block: `begin(L, draws)`, then `body` (K10 with `stage`,
+    then the graph segment program of length L) inside the step and `key`
+    its part of the capture key, then `end()`."""
+
+    def __init__(self, kern, bufs, carry, rand, nf: int, stage=None):
+        import torch
+
+        f64 = torch.float64
+
+        def t(a):
+            return a if isinstance(a, torch.Tensor) else \
+                torch.from_numpy(np.asarray(a, dtype=np.float64))
+
+        (svec0, rings0), bvars0, bmem0 = carry
+        self.kern, self.nf, self.stage = kern, nf, stage
+        self.svec, self.rings = kern._k5_carry(
+            bufs, nf, t(svec0), {r: t(a) for r, a in rings0.items()})
+        self.bvars = bufs.static("bvars", np.shape(bvars0), f64)
+        self.bvars.copy_(t(bvars0))
+        self.bmem = bufs.static("bmem", np.shape(bmem0), f64)
+        self.bmem.copy_(t(bmem0))
+        self.ctrl = bufs.static("ctrl", (nf, len(kern.ctrl_order)), f64)
+        self.pool = kern._k5_pool(bufs, rand)
+        # the render's draws [T, n_rand] on the device, and the draw rows a
+        # sample a block takes where the gated pool does not draw
+        self.rand = rand
+        self.nr = 0 if self.pool is not None else rand.shape[1]
+        self.known = kern._mirror_start(self.svec)
+        self._rewrites = set(kern._block_rewrites)
+
+    def begin(self, L: int, draws) -> None:
+        """A block of L, its draw rows in `draws` [L, nr] (unused where
+        the gated pool draws): the mirror with the slots K10 may rewrite
+        voided, and the segment program."""
+        self.L = L
+        self.kn = [None if i in self._rewrites else v
+                   for i, v in enumerate(self.known)]
+        self.seg = self.kern._seg_fn(L, self.nf, graph=True)
+        self.draws = self.pool if self.pool is not None else draws
+
+    def body(self, xin, yout) -> None:
+        """The block's program on the static buffers: K10 then the
+        segment, reading xin [nf, nch, L] f32 and writing yout."""
+        import torch
+
+        from ..kernels.block_section import block_section
+
+        kern, prog = self.kern, self.kern._block_prog
+        block_section(prog, self.svec, [self.rings[r] for r in prog.regions],
+                      self.bvars, self.bmem, float(self.L), None,
+                      ctrl=self.ctrl, stage=self.stage)
+        (sv, rg), yseg, _ = self.seg(
+            (self.svec, self.rings),
+            (xin.to(torch.float64), self.ctrl[:, None], self.draws), self.kn)
+        kern._k5_store(self.svec, self.rings, sv, rg)
+        yout.copy_(yseg)
+
+    def key(self):
+        return self.kern._k5_key("block", self.seg, self.L, self.nf,
+                                 self.pool, self.kn)
+
+    def end(self) -> None:
+        self.known = self.kern._advance_mirror(self.kn, self.L)
+
+    def result(self):
+        """The carry cloned out of the static buffers, the mirror kept
+        for the kernel."""
+        self.kern._k5_mirror = self.known
+        return ((self.svec.clone(), {r: a.clone()
+                                     for r, a in self.rings.items()}),
+                self.bvars.clone(), self.bmem.clone())
+
+
+def k5_step_mode(kernels: Sequence["SpecializedSampleKernel"], step,
+                 names: Optional[Sequence[str]] = None) -> Tuple[str, str]:
+    """How the steps of a render of `kernels` run, and the dispatch that
+    says so: one kernel's segments or blocks, or a graph's lockstep
+    members' graph blocks (`names` their nodes).  ("graph", "graph"): K5,
+    captured and replayed on the card; ("static", ...): K5's step on CPU
+    tensors, uncaptured; ("eager", why).  K5 refuses where it refuses a
+    kernel's plan (`k5_refusal`, decided at build; the first such member
+    named).  step None: K5 wherever it may, the eager step on CPU
+    tensors; "eager": the eager step (the yardstick); "graph": K5's step,
+    or SpecializeError where a plan is refused."""
+    if step == "eager":
+        return "eager", "eager: the eager step, asked for"
+    if step not in (None, "graph"):
+        raise ValueError(f"step must be None, 'eager' or 'graph', not "
+                         f"{step!r}")
+    for j, k in enumerate(kernels):
+        if k.k5_refusal is not None:
+            why = k.k5_refusal if names is None else \
+                f"node {names[j]}: {k.k5_refusal}"
+            if step == "graph":
+                raise SpecializeError(f"K5 refuses this plan: {why}")
+            return "eager", f"eager: {why}"
+    if kernels and kernels[0].device.type == "cuda":
+        return "graph", "graph"
+    if step == "graph":
+        return "static", "static: K5's step on CPU tensors, uncaptured"
+    return "eager", "eager: CPU tensors take the eager step"
+
+
+def _lockstep_bus0(msg, m0, n_bus: int):
+    """The bus as a render starts it, in NumPy f64: the ring window [W,
+    WINDOW_ENT] with the pending rows first, and its control row."""
+    from ..kernels.block_section import CTL_CURSORS, WINDOW_ENT
+
+    marr0, mn0, mc0 = m0
+    window = np.zeros((int(msg.W), WINDOW_ENT), dtype=np.float64)
+    window[:len(marr0)] = np.asarray(marr0, dtype=np.float64)
+    ctl = np.array([float(mn0), 0.0, 0.0] + [float(c) for c in mc0],
+                   dtype=np.float64)
+    assert ctl.shape[0] == CTL_CURSORS + n_bus
+    return window, ctl
+
+
+def _lockstep_stages(seg_ids, segs, window, ctl, subs, bus, msg):
+    """Each member's `Stage` (None where it shares nothing): its shared
+    segment, and where it uses the bus the window, its control row, the
+    member's cursor, whether it compacts (the first bus member), its
+    subscriptions and its instance id."""
+    from ..kernels.block_section import Stage
+
+    cursor_of = {j: c for c, j in enumerate(bus)}
+    stages = []
+    for j, sid in enumerate(seg_ids):
+        seg = segs[sid] if sid >= 0 else None
+        if j in cursor_of:
+            stages.append(Stage(seg, window, ctl, cursor_of[j], j == bus[0],
+                                subs[j], float(msg.my_ids[j])))
+        else:
+            stages.append(None if seg is None else Stage(gseg=seg))
+    return stages
+
+
 def lockstep_gmem_run(kernels: Sequence[SpecializedSampleKernel],
                       seg_ids: Sequence[int], carries, xs, rands, planes, g0,
-                      msg=None, m0=None):
+                      msg=None, m0=None, step=None, graphs=None,
+                      names: Optional[Sequence[str]] = None):
     """The joint render of a graph's lockstep members (the reference's
     `lockstep_gmem_run`, its specialize.py:5522).
 
@@ -6151,18 +6250,23 @@ def lockstep_gmem_run(kernels: Sequence[SpecializedSampleKernel],
     drops the entries every member has seen, so W bounds two blocks of
     traffic and the graph refuses a render that overflowed it.
 
+    step as `k5_step_mode` takes it: K5's graph blocks
+    (`_lockstep_graph_blocks`, on `graphs`, the lockstep's StepGraphs the
+    caller keeps across renders; a new one where None) or the eager loop
+    of `_CoupledSteps`; names: the members' node names, for the dispatch.
+
     carries as `initial_carry()` gives them, xs f32 [nch, T], rands [T,
     n_rand], planes each member's MIDI planes or None, g0 each shared
     segment's cells, m0 (rows [n, 9], n, the bus members' cursors) where
-    the bus is on.  Returns (ys, carries, gfin, mos, msg_fin): per-member
-    f32 outputs [nch, T] and final carries, the segments, the MIDI out
-    tables [rows, cells] (None where a member sends none), and (window,
-    ctl) tensors where the bus is on (see `block_section.CTL_*`).
-    Everything stays on the members' device."""
+    the bus is on.  Returns (ys, carries, gfin, mos, msg_fin, dispatch):
+    per-member f32 outputs [nch, T] and final carries, the segments, the
+    MIDI out tables [rows, cells] (None where a member sends none), (window,
+    ctl) tensors where the bus is on (see `block_section.CTL_*`), and how
+    the blocks ran (`k5_step_mode`).  Everything stays on the
+    members' device."""
     import torch
 
     from ..kernels import _build
-    from ..kernels.block_section import CTL_CURSORS, WINDOW_ENT, Stage
 
     if not kernels:
         raise SpecializeError("a lockstep needs a member")
@@ -6171,31 +6275,33 @@ def lockstep_gmem_run(kernels: Sequence[SpecializedSampleKernel],
         raise SpecializeError("gmem lockstep needs one shared block size")
     if any(not k.coupled for k in kernels):
         raise SpecializeError("a lockstep member needs a coupled @block")
+    mode, dispatch = k5_step_mode(kernels, step, names)
     dev = kernels[0].device
     bus = [j for j, k in enumerate(kernels) if k._block_prog.uses_msg]
     if bus and msg is None:
         raise SpecializeError("members use the bus: msg is needed")
-    cursor_of = {j: c for c, j in enumerate(bus)}
-    f64 = torch.float64
+    bus0 = _lockstep_bus0(msg, m0, len(bus)) if bus else None
     if dev.type == "cuda":
         # one nvcc a member's K10, all started together
         _build.build_generated([k._block_prog.source for k in kernels])
+    if mode != "eager":
+        from ..kernels.segment_graph import StepGraphs
+
+        k5 = graphs if graphs is not None else StepGraphs(dev)
+        return _lockstep_graph_blocks(kernels, seg_ids, carries, xs, rands,
+                                      g0, msg, bus, bus0, k5,
+                                      mode == "graph") + (dispatch,)
     # copies: the host's segments stay as they were until the end
     segs = [torch.from_numpy(np.array(g, dtype=np.float64)).to(dev)
             for g in g0]
     window = ctl = None
     subs = {}
     if bus:
-        marr0, mn0, mc0 = m0
-        window = torch.zeros((int(msg.W), WINDOW_ENT), dtype=f64, device=dev)
-        window[:len(marr0)] = torch.as_tensor(
-            np.asarray(marr0, dtype=np.float64)).to(dev)
-        ctl = torch.tensor([float(mn0), 0.0, 0.0] + [float(c) for c in mc0],
-                           dtype=f64, device=dev)
-        assert ctl.shape[0] == CTL_CURSORS + len(bus)
+        window, ctl = (torch.from_numpy(a).to(dev) for a in bus0)
         subs = {j: torch.as_tensor(np.asarray(msg.sub_masks[j],
                                               dtype=np.float64)).to(dev)
                 for j in bus}
+    stages = _lockstep_stages(seg_ids, segs, window, ctl, subs, bus, msg)
     steps = []
     for j, k in enumerate(kernels):
         (svec, rings), bvars, bmem = k.device_carry(carries[j])
@@ -6206,15 +6312,8 @@ def lockstep_gmem_run(kernels: Sequence[SpecializedSampleKernel],
             None if planes[j] is None else
             (k.put_f64(planes[j][0]), planes[j][1])))
     for b in range(steps[0].n_rows):
-        for j, k in enumerate(kernels):
-            seg = segs[seg_ids[j]] if seg_ids[j] >= 0 else None
-            stage = None
-            if j in cursor_of:
-                stage = Stage(seg, window, ctl, cursor_of[j], j == bus[0],
-                              subs[j], float(msg.my_ids[j]))
-            elif seg is not None:
-                stage = Stage(gseg=seg)
-            steps[j].step(b, stage)
+        for j in range(len(kernels)):
+            steps[j].step(b, stages[j])
     ys, fin, mos = [], [], []
     for st in steps:
         y, ((svec, rings), bvars, bmem), mouts = st.result()
@@ -6222,4 +6321,142 @@ def lockstep_gmem_run(kernels: Sequence[SpecializedSampleKernel],
         fin.append(((svec[0], {r: a[0] for r, a in rings.items()}),
                     bvars[0], bmem[0]))
         mos.append(None if mouts is None else mouts[:, 0])
-    return ys, fin, segs, mos, (None if ctl is None else (window, ctl))
+    return ys, fin, segs, mos, (None if ctl is None else (window, ctl)), \
+        dispatch
+
+
+class _MemberBuffers:
+    """A lockstep member's names in the lockstep's StepGraphs: `static`
+    as StepGraphs', each name taken under the member's index, so that
+    `_K5Block` lays out each member's buffers apart."""
+
+    def __init__(self, k5, j: int):
+        self.k5, self.j = k5, j
+
+    def static(self, name, shape, dtype):
+        return self.k5.static((self.j, name), shape, dtype)
+
+
+def _lockstep_graph_blocks(kernels, seg_ids, carries, xs, rands, g0, msg,
+                           bus, bus0, k5, capture: bool):
+    """`lockstep_gmem_run` through K5 (the reference's one `lax.scan` over
+    blocks, its `joint_step`): a graph block, every member's K10 with its
+    staging and then its segment, in node order on one stream, is one step
+    of the lockstep's StepGraphs (`k5`), captured the second time its key
+    is seen and replayed; on CPU tensors (`capture` False) the same step
+    runs uncaptured.
+
+    Every buffer a graph block reads or writes is static, loaded once a
+    render: each member's part (`_K5Block`, under its own names), the
+    shared segments, and the bus's window, control row and subscriptions.
+    The window is one storage for every render, sized once for the
+    largest window the bus can ask for (W grows with the ring's backlog
+    as a render starts), each render's W a prefix of it.  Where the
+    members share a channel count their inputs go to the card stacked,
+    [members, nch, T], and a graph block copies one slice in and one out;
+    else a member's slice each.  A graph block's key is ("lockstep", L,
+    W, nc) and the members' block keys (`_k5_key`) in node order.  Returns
+    (ys, carries, gfin, mos, msg_fin) as `lockstep_gmem_run`, the results
+    cloned out of the static buffers."""
+    import torch
+
+    from ..comm.bus import RING_CAPACITY
+    from ..kernels.block_section import WINDOW_ENT
+    from .devgen import MSG_OUT_CAP
+
+    f64, f32 = torch.float64, torch.float32
+    dev = kernels[0].device
+    M, B = len(kernels), kernels[0].B
+    T = xs[0].shape[1]
+    segs = []
+    for s, g in enumerate(g0):
+        a = np.asarray(g, dtype=np.float64)
+        segs.append(k5.static(("gseg", s), a.shape, f64))
+        segs[-1].copy_(torch.from_numpy(a))
+    window = ctl = None
+    subs = {}
+    if bus:
+        k5.static("window", (2 * len(bus) * MSG_OUT_CAP + RING_CAPACITY,
+                             WINDOW_ENT), f64)
+        window = k5.static("window", bus0[0].shape, f64)
+        window.copy_(torch.from_numpy(bus0[0]))
+        ctl = k5.static("ctl", bus0[1].shape, f64)
+        ctl.copy_(torch.from_numpy(bus0[1]))
+        for j in bus:
+            sub = np.asarray(msg.sub_masks[j], dtype=np.float64)
+            subs[j] = k5.static(("sub", j), sub.shape, f64)
+            subs[j].copy_(torch.from_numpy(sub))
+    layout = (None, None) if not bus else (int(msg.W), int(msg.nc))
+    stages = _lockstep_stages(seg_ids, segs, window, ctl, subs, bus, msg)
+    members = [
+        _K5Block(k, _MemberBuffers(k5, j),
+                 ((carries[j][0][0][None],
+                   {r: a[None] for r, a in carries[j][0][1].items()}),
+                  carries[j][1][None], carries[j][2][None]),
+                 k.put_f64(rands[j]), 1, stages[j])
+        for j, k in enumerate(kernels)]
+    stacked = len({k.nch for k in kernels}) == 1
+    # the audio on the card, [members, nch, T] where the members share a
+    # channel count (one copy in and one out a graph block), else [1, nch,
+    # T] a member (a copy each a member)
+    if stacked:
+        audio = [torch.stack([k.put_audio(x) for k, x in zip(kernels, xs)])]
+    else:
+        audio = [k.put_audio(x)[None] for k, x in zip(kernels, xs)]
+    outs = [torch.empty(a.shape, dtype=f32, device=dev) for a in audio]
+    # the draw rows of the members that draw (not from a gated pool): one
+    # row a full block of all of them, [B x nr] a member in node order,
+    # packed once a render
+    drawing = [m for m in members if m.nr]
+    nfull, rem = divmod(T, B)
+    packed = torch.cat([m.rand[:nfull * B].reshape(nfull, B * m.nr)
+                        for m in drawing], dim=1) \
+        if drawing and nfull else None
+    for b in range(nfull + (1 if rem else 0)):
+        L = B if b < nfull else rem
+        t0 = b * B
+        # the static input and output of the graph block, one a tensor of
+        # `audio`, and each member's view of them
+        x_st = [k5.static(("x", i), a.shape[:2] + (L,), f32)
+                for i, a in enumerate(audio)]
+        y_st = [k5.static(("y", i), a.shape[:2] + (L,), f32)
+                for i, a in enumerate(audio)]
+        if stacked:
+            xins = [x_st[0][j:j + 1] for j in range(M)]
+            youts = [y_st[0][j:j + 1] for j in range(M)]
+        else:
+            xins, youts = x_st, y_st
+        aux = k5.static("aux", (L * sum(m.nr for m in members),), f64)
+        at = 0
+        for m in members:
+            m.begin(L, aux[at:at + L * m.nr].view(L, m.nr))
+            at += L * m.nr
+
+        def body(xins=xins, youts=youts):
+            for m, xin, yout in zip(members, xins, youts):
+                m.body(xin, yout)
+
+        def key(L=L):
+            parts = [m.key() for m in members]
+            if any(p is None for p in parts):
+                return None
+            return ("lockstep", L) + layout + tuple(parts)
+
+        with _k5_range():
+            for a, st in zip(audio, x_st):
+                st.copy_(a[:, :, t0:t0 + L])
+            if packed is not None and b < nfull:
+                aux.copy_(packed[b])
+            elif drawing:                       # the remainder's rows
+                aux.copy_(torch.cat([m.rand[t0:t0 + L].reshape(-1)
+                                     for m in drawing]))
+            k5.step(key, body, capture)
+            for st, y in zip(y_st, outs):
+                y[:, :, t0:t0 + L].copy_(st)
+        for m in members:
+            m.end()
+    ys = [outs[0][j] if stacked else outs[j][0] for j in range(M)]
+    fin = [((svec[0], {r: a[0] for r, a in rings.items()}), bvars[0], bmem[0])
+           for (svec, rings), bvars, bmem in (m.result() for m in members)]
+    return (ys, fin, [s.clone() for s in segs], [None] * M,
+            None if ctl is None else (window.clone(), ctl.clone()))

@@ -19,8 +19,14 @@ the message bus (`torch-lockstep`) render jointly: one loop over blocks,
 each member's K10 launch and segment in node order on one stream, K10
 reading and writing the shared segment in place and staging the bus
 through a ring window on the card (`lowering.specialize.lockstep_gmem_run`,
-`kernels.block_section.Stage`).  The host reads the window, the segments
-and the carries once, at the end.
+`kernels.block_section.Stage`).  On the card a block of all the members
+is one CUDA graph, captured the second time its key is seen and replayed
+(K5, `kernels/segment_graph.py`), on the static buffers of the
+lockstep's `StepGraphs`, which the graph keeps across renders as the
+reference keeps its jitted joint scans; `lockstep_dispatch` says how the
+last render's blocks ran, and names the member whose plan K5 refuses
+where the lockstep runs eagerly.  The host reads the window, the
+segments and the carries once, at the end.
 
 Engines: `torch-vector`, `torch-lockstep`, `cpu-shadow`.
 """
@@ -93,6 +99,15 @@ class RenderGraph:
         # the lockstep's ring window after the last render: rows, count,
         # overflow, rows compacted away, each bus member's drops
         self.last_ring: Optional[dict] = None
+        # how the last render's lockstep blocks ran (`k5_step_mode`:
+        # "graph", "static: ..." or "eager: why"), None without a lockstep
+        self.lockstep_dispatch: Optional[str] = None
+        # the locksteps' StepGraphs (K5) by the reference's key of its
+        # joint scans less what changes from render to render (see
+        # `_run_gmem_lockstep`), dropped when the kernels are rebuilt; and
+        # the last render's
+        self._lockstep_graphs: Dict[tuple, object] = {}
+        self.lockstep_k5 = None
 
     def add(self, name: str, program: PluginProgram,
             sliders: Optional[Dict[int, float]] = None,
@@ -130,6 +145,9 @@ class RenderGraph:
         is dropped here to keep the ring as the render starts it."""
         from ..lowering import SpecializeError, specialize_sample_kernel
 
+        # the locksteps' captures and static buffers are the old kernels'
+        self._lockstep_graphs.clear()
+        self.lockstep_k5 = None
         # the specializer's @block probes run on cloned states with the live
         # host: their sends take sequence numbers and their gmem writes
         # bump the segments' page sequence numbers.  Give both back, so
@@ -265,11 +283,24 @@ class RenderGraph:
     def run(self, inputs: Dict[str, np.ndarray], total: Optional[int] = None
             ) -> Dict[str, np.ndarray]:
         """inputs: name -> float32 [ch, samples]; returns per-node outputs."""
+        return self._run_as(None, inputs, total)
+
+    def _run_as(self, step, inputs: Dict[str, np.ndarray],
+                total: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """`run` with the lockstep's blocks run as `step` says
+        (`lowering.specialize.k5_step_mode`): None as `run`, "eager"
+        the eager loop (the yardstick), "graph" K5's graph blocks, refused
+        with a SpecializeError before anything renders where K5 refuses a
+        member's plan."""
         if total is None:
             total = max((a.shape[1] for a in inputs.values()), default=0)
         if any(k is not None for k in self.kernels):
-            return self._run_device(inputs, total)
+            return self._run_device(inputs, total, step)
         return self._run_shadow(inputs, total)
+
+    def _lockstep(self) -> List[int]:
+        return [i for i, e in enumerate(self.node_engines)
+                if e == "torch-lockstep"]
 
     def _outputs(self, total: int):
         outs: Dict[str, np.ndarray] = {}
@@ -293,9 +324,16 @@ class RenderGraph:
                 host.end_block(plug.state)
         return outs
 
-    def _run_device(self, inputs, total: int) -> Dict[str, np.ndarray]:
+    def _run_device(self, inputs, total: int, step=None
+                    ) -> Dict[str, np.ndarray]:
         """The host lockstep, the independent device renders, then the
-        lockstep members' joint render."""
+        lockstep members' joint render (its blocks as `step` says)."""
+        from ..lowering.specialize import k5_step_mode
+
+        lock = self._lockstep()
+        # a refused `step` raises here, before any state moves
+        k5_step_mode([self.kernels[i] for i in lock], step,
+                     [self.nodes[i].name for i in lock])
         outs, chans = self._outputs(total)
         bs = self.block_size
         steppers = [kern.trajectory_stepper()
@@ -341,22 +379,25 @@ class RenderGraph:
                 y, carry = kern.render(x)    # the coupled @block on the card
             outs[node.name][:, :] = y
             kern.writeback(carry, plug.state)
-        self._run_gmem_lockstep(inputs, total, outs, chans)
+        self._run_gmem_lockstep(inputs, total, outs, chans, step)
         return outs
 
-    def _run_gmem_lockstep(self, inputs, total: int, outs, chans) -> None:
+    def _run_gmem_lockstep(self, inputs, total: int, outs, chans,
+                           step=None) -> None:
         """The joint render of the `torch-lockstep` members (see
-        `lockstep_gmem_run`), then the host's state from its end: the
+        `lockstep_gmem_run`; its blocks as `step` says, through the
+        lockstep's StepGraphs), then the host's state from its end: the
         members' states, the segments (page sequence numbers bumped once a
         member over the changed span, the reference's coarse attribution),
         the ring, the cursors and the inboxes."""
         from types import SimpleNamespace
 
         from ..comm.bus import KIND_SCALAR
+        from ..kernels.segment_graph import StepGraphs
         from ..lowering.specialize import lockstep_gmem_run
 
-        lock = [i for i, e in enumerate(self.node_engines)
-                if e == "torch-lockstep"]
+        lock = self._lockstep()
+        self.lockstep_dispatch = self.lockstep_k5 = None
         if not lock:
             return
         kerns = [self.kernels[i] for i in lock]
@@ -436,8 +477,22 @@ class RenderGraph:
                 self._stage_inbox(kern, self.hosts[i], carry[2])
             carries.append(carry)
         g0 = [np.asarray(s.cells, dtype=np.float64) for s in seg_objs]
-        ys, fcarries, gfin, mos, msg_fin = lockstep_gmem_run(
-            kerns, seg_ids, carries, xs, rands, planes, g0, msg=msg, m0=m0)
+        # the reference's key of its jitted joint scans, less what changes
+        # from render to render (the length, the window's rows W and the
+        # channels interned nc): a graph block's key holds those, so one
+        # StepGraphs, its static buffers sized once, serves every render
+        key = (tuple(lock), tuple(seg_ids), None if msg is None else
+               (tuple(msg.my_ids),
+                tuple(tuple(np.flatnonzero(row).tolist())
+                      for row in msg.sub_masks)))
+        k5 = self._lockstep_graphs.get(key)
+        if k5 is None:
+            k5 = self._lockstep_graphs[key] = StepGraphs(kerns[0].device)
+        ys, fcarries, gfin, mos, msg_fin, self.lockstep_dispatch = \
+            lockstep_gmem_run(kerns, seg_ids, carries, xs, rands, planes, g0,
+                              msg=msg, m0=m0, step=step, graphs=k5,
+                              names=[self.nodes[i].name for i in lock])
+        self.lockstep_k5 = k5
 
         # the host reads the card once, and refuses a render that lost a
         # message before it changes any host state
