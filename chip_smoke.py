@@ -173,16 +173,21 @@ device and build always run; `k4sweep` is described at the end):
             rand() dither) through PluginInstance.render on 60 s of
             stereo (K5's replays; 10 s while the host paced it):
             engine torch-vector, the segment length the plan cut
-            (1,024) and the segments, K2's launches, the whole render
+            (1,024) and the segments, K2's launches and K6's and K3b's
+            (GATED_K6_PER_SEGMENT: K6a, K6b, K6c and the eight taps'
+            gathers a segment, csrc/gated_index.cu), the whole render
             (audio, vars and heap) held to the native golden, its first
             second to the port's CPU render, a traced 1 s render of the
-            eager step with K6's share (the prefix sums, gathers and
-            scatters, plain torch) of the busy device time, K5 held to
+            eager step with K6's share (the kernels inside the emitter's
+            zorak.k6 ranges) of the busy device time, K5 held to
             the eager step on 5 s; the masked-loop ladder on
             10 s of stereo from a guessed bound of 2 (the rebuilds
             counted, the render held to the native golden); 8 files of
             2 s through BatchRenderer, each torch.equal to its solo
-            render;
+            render; K6's and the taps' launches of a middle segment of 1
+            and of 8 files held bit for bit to their plain versions on
+            the same inputs, each timed (20 launches in a CUDA graph)
+            beside its plain version and its bound;
 4e. hop     builtin_plugins' hop_convolver(1024, 8) (a partitioned
             convolver whose FFT work fires every 1,024 samples from
             inside @sample) through PluginInstance.render on 60 s of
@@ -204,10 +209,12 @@ device and build always run; `k4sweep` is described at the end):
             of stereo each through PluginInstance.render:
             modulated_delay_chorus(3, 4096) (per-voice sine LFOs, twelve
             dynamic ring reads; engine torch-vector): device ms after a
-            warm-up, a traced 1 s with the idle share and K3b's share
-            (the kernels inside the emitter's zorak.k3b ranges, plain
-            torch) of the busy time, the render held to the native
-            golden; tpdf_dither(16) (four ungated rand() draws a
+            warm-up, K3b's launches (twelve a segment), a traced 1 s
+            with the idle share and K3b's share (the kernels inside the
+            emitter's zorak.k3b ranges) of the busy time, the render
+            held to the native golden, K3b's twelve launches of a
+            middle segment held bit for bit to the plain version and
+            timed; tpdf_dither(16) (four ungated rand() draws a
             sample): the first fresh render (the draw cache's miss, the
             host's MT19937 seconds and the matrix's upload) and the
             second (the hit) by CUDA events and wall clock, the hit's
@@ -337,7 +344,11 @@ worst case, and the program-like render's re-run steps; K11 the
 render's launches, the golden's seconds, audio-s per s by files; K2, K3
 and K4
 carry `launches_batched`, their launches in the batch phase's render of 8
-files, K2 `launches_gated`, its launches in the gated render, and K10 the
+files, K2 `launches_gated`, its launches in the gated render; K6
+(`gated_index`: K6a, K6b, K6c and the tank's gathers, a segment's
+launches timed at one file) its launches and times by kernel, K3b
+(`dyn_ring_read`, a launch at the chorus's shape) `launches_gated` and
+the tank's times; K10 the
 hop section's `hop_ms`, `hop_launches` and the rest, and the graph's
 `launches_graph`, `graph_ms_a_launch` and the rest; K11 and K10 the
 services phase's `services_*` fields: the sampler's and the leveler's
@@ -569,6 +580,30 @@ def device_kernels(events):
             and not e.name.startswith("zorak.")]
 
 
+def range_kernels(events, name):
+    """(the CPU ranges `name` of a trace, the device kernels launched
+    inside them): each kernel whose launch, the runtime's launch call,
+    starts inside a range, matched by its correlation id.  The profiler
+    gives a kernel bound through ctypes no op to hang on, so the ops
+    inside a range would miss it; the launch calls see every kernel."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    ranges = sorted((e for e in events if e.name == name
+                     and e.device_type == DeviceType.CPU),
+                    key=lambda e: e.time_range.start)
+    starts = [r.time_range.start for r in ranges]
+    ids = set()
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("cu") \
+                and "Launch" in e.name:
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.start <= ranges[i].time_range.end:
+                ids.add(e.id)
+    return ranges, [k for k in device_kernels(events) if k.id in ids]
+
+
 def profile_render(render, label: str, segments: int = 0, traces: int = 3):
     """Device busy time, idle share and top kernels of one render, from
     the fullest of `traces` torch.profiler traces of the kernels it ran
@@ -603,6 +638,33 @@ def profile_render(render, label: str, segments: int = 0, traces: int = 3):
 K5_ROWS = []
 
 
+# K6's and K3b's wrappers (kernels/gated_index.py) by the counter each
+# keeps; ring_cursor, the ungated cursor, launches K6a's kernel and counts
+# with gated_cursor
+GI_COUNTERS = {"gated_cursor": "CURSOR_LAUNCHES",
+               "gated_draws": "DRAWS_LAUNCHES",
+               "gated_ring_write": "WRITE_LAUNCHES",
+               "dyn_ring_read": "READ_LAUNCHES"}
+GI_WRAPPERS = (("gated_cursor", "gated_cursor"),
+               ("gated_cursor", "ring_cursor"),
+               ("gated_draws", "gated_draws"),
+               ("gated_ring_write", "gated_ring_write"),
+               ("dyn_ring_read", "dyn_ring_read"))
+
+
+def gi_counts():
+    from zorak_tpu_torch.kernels import gated_index as GI
+
+    return {k: getattr(GI, attr) for k, attr in GI_COUNTERS.items()}
+
+
+def gi_set_counts(counts):
+    from zorak_tpu_torch.kernels import gated_index as GI
+
+    for k, attr in GI_COUNTERS.items():
+        setattr(GI, attr, counts[k])
+
+
 def k5_counts():
     """The launch counters a K5 replay adds to, and K5's replays."""
     from zorak_tpu_torch.kernels import block_section as BS
@@ -612,7 +674,7 @@ def k5_counts():
 
     return {"linrec_scan": LS.LAUNCHES, "ring_tap_sum": RT.LAUNCHES,
             "scan_group": SG.LAUNCHES, "block_section": BS.LAUNCHES,
-            "replays": K5.LAUNCHES}
+            **gi_counts(), "replays": K5.LAUNCHES}
 
 
 def k5_set_counts(counts):
@@ -625,6 +687,7 @@ def k5_set_counts(counts):
      K5.LAUNCHES) = (counts[k] for k in ("linrec_scan", "ring_tap_sum",
                                          "scan_group", "block_section",
                                          "replays"))
+    gi_set_counts(counts)
 
 
 def k5_steps(kern, n: int) -> int:
@@ -656,7 +719,11 @@ def batch_render(br, x_dev):
 # part of their names: K2's chunk, carry and chain kernels, K3's staged and
 # global tap sums, K4's generated scan kernels, K10's section
 K5_FAMILIES = (("linrec_scan", "linrec_"), ("ring_tap_sum", "ring_tap_sum"),
-               ("scan_group", "zs_"), ("block_section", "zb_kernel"))
+               ("scan_group", "zs_"), ("block_section", "zb_kernel"),
+               ("gated_cursor", "gi_cursor_kernel"),
+               ("gated_draws", "gi_draws_kernel"),
+               ("gated_ring_write", "gi_write_kernel"),
+               ("dyn_ring_read", "gi_read_kernel"))
 
 
 def k5_trace(torch, render, n, steps):
@@ -712,7 +779,8 @@ def k5_traces(torch, label, render, nt, steps_t):
     render(step, n) as `k5_held` takes it, every key captured before),
     held: every step of the replayed one replays, both count the same
     LAUNCHES, and the kernels on the card, counted by name in each, are
-    what the launches put there: K3 and K10 one kernel a call, K2 and K4
+    what the launches put there: K3, K10, K6 and K3b one kernel a call,
+    K2 and K4
     as many a call as the traces show.  A trace can lack events (late in
     the whole script, one K10 launch of 94, or a replayed trace's first 3
     steps, and again in a trace taken after it; never in the coupled phase
@@ -734,7 +802,8 @@ def k5_traces(torch, label, render, nt, steps_t):
               f"{replayed} of {steps_t} steps")
         check(counted_g == counted_e, f"{label}: LAUNCHES of the traced "
               f"second {counted_g} through K5, {counted_e} eager")
-        per_call = {f: 1 if f in ("ring_tap_sum", "block_section") else
+        per_call = {f: 1 if f in ("ring_tap_sum", "block_section")
+                    or f in GI_COUNTERS else
                     round(max(fam_g[f], fam_e[f]) / counted_e[f])
                     if counted_e[f] else 0 for f in fam_e}
         expected = {f: counted_g[f] * per_call[f] for f in fam_e}
@@ -2825,6 +2894,12 @@ LADDER_K0 = 2
 # (25 rows a file with a per-sample a, the values held and filtered inside
 # the gate, then 1)
 GATED_K2_PER_SEGMENT = 2
+# K6's and K3b's launches a segment of the tank: one K6a for the gate's
+# readers (a gringidx, eight gringrefs, the cursor's stream and carry), one
+# K6b for the gated rand() site, one K6c for the eight rings' writes, and
+# a K3b gather for each of the eight dynamic taps
+GATED_K6_PER_SEGMENT = {"gated_cursor": 1, "gated_draws": 1,
+                        "gated_ring_write": 1, "dyn_ring_read": 8}
 
 
 def held_to_native_golden(prog, x, y, state, B=512, midi=None, trace=None,
@@ -2895,16 +2970,167 @@ def batch_equals_solo(torch, label, prog, x8):
     return y8[0], batch_ms, solo_ms
 
 
+def gi_copied(torch, v):
+    """The tensors of a wrapper's arguments cloned, the rest as it is."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return type(v)(*(gi_copied(torch, u) for u in v))
+    if isinstance(v, (list, tuple)):
+        return type(v)(gi_copied(torch, u) for u in v)
+    return v
+
+
+def gi_tensors(v):
+    """The tensors of a wrapper's output, in order (None kept)."""
+    if isinstance(v, (list, tuple)):
+        return [t for u in v for t in gi_tensors(u)]
+    return [v]
+
+
+def gi_recorded(torch, label, src, seg, x, y, per_segment, segment):
+    """K6's and K3b's wrappers at the shapes and on the inputs a render
+    gives them: a fresh BatchRenderer renders x [files, ch, T] through the
+    eager step (a replay calls no wrapper) with each wrapper's calls of
+    segment `segment` recorded (the inputs copied before the launch, the
+    output kept); the render must equal y.  Returns [(wrapper, args,
+    keywords, output)] in the order the segment made them."""
+    from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import gated_index as GI
+    from zorak_tpu_torch.parallel import BatchRenderer
+
+    calls = []
+    seen = dict.fromkeys(GI_COUNTERS, 0)
+    real = {name: getattr(GI, name) for _c, name in GI_WRAPPERS}
+
+    def spy(counter, name):
+        fn, per = real[name], per_segment[counter]
+
+        def run(*args, **kw):
+            i = seen[counter]
+            seen[counter] += 1
+            if per * segment <= i < per * (segment + 1):
+                kept = (gi_copied(torch, args), gi_copied(torch, kw))
+                out = fn(*args, **kw)
+                calls.append((name, kept[0], kept[1], out))
+                return out
+            return fn(*args, **kw)
+        return run
+
+    try:
+        for counter, name in GI_WRAPPERS:
+            setattr(GI, name, spy(counter, name))
+        # a fresh renderer: its segment program binds the recording wrappers
+        br = BatchRenderer(compile_plugin_source(src), SR, segment_len=seg)
+        again = br._render_as("eager", x)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(GI, name, fn)
+    check(torch.equal(again, y), f"{label}: the recorded render differs")
+    got = dict.fromkeys(GI_COUNTERS, 0)
+    for name, *_rest in calls:
+        got[dict((n, c) for c, n in GI_WRAPPERS)[name]] += 1
+    check(got == per_segment, f"{label}: segment {segment}'s calls {got}, "
+          f"{per_segment} expected")
+    return calls
+
+
+def gi_bytes(name, args, kw, out) -> int:
+    """The bytes a K6 or K3b call must move: each input read once (a gated
+    ring's row, a gathered array only at the cells its outputs take, one a
+    sample) and each output written once."""
+    import torch
+
+    def nbytes(t):
+        return t.numel() * t.element_size() if isinstance(
+            t, torch.Tensor) else 0
+
+    outs = gi_tensors(out)
+    moved = sum(nbytes(t) for t in outs)
+    if name in ("gated_cursor", "gated_draws", "gated_ring_write"):
+        moved += nbytes(args[0]) if name != "gated_draws" else sum(
+            nbytes(g) for g in args[0])
+        moved += nbytes(args[1])                    # a device anchor
+    if name == "gated_cursor":
+        # a value reader reads a cell a sample and file (its output)
+        moved += sum(nbytes(o) for r, o in zip(args[2], outs)
+                     if r.kind == "value")
+    elif name == "gated_draws":
+        moved += nbytes(outs[0])                    # the pool's cells
+    elif name == "gated_ring_write":
+        moved += sum(nbytes(ring) + nbytes(value)
+                     for ring, value, _o, _m in args[2])
+    elif name == "dyn_ring_read":
+        src, slot = args[0], args[1]
+        moved += nbytes(slot) + nbytes(outs[0])     # the slot, the cells
+        moved += sum(nbytes(v) for v in kw.values()) + sum(
+            nbytes(v) for v in args[4:])            # cursor, same
+    return moved
+
+
+def gi_held(torch, calls, what, timed):
+    """Each recorded call's output held bit for bit (every NaN one value)
+    to its plain version on the same CUDA inputs; where `timed`, each call
+    timed as the kernel (`graph_ms`: 20 launches in a CUDA graph) and as
+    its plain version (eager, by CUDA events), and its bound from
+    `gi_bytes`.  A comparison: the counters are left as they were.
+    Returns {wrapper: {calls, ms, plain_ms, bound_ms, max_abs_err}}, the
+    times summed over the calls."""
+    from zorak_tpu_torch.kernels import gated_index as GI
+
+    rows = {}
+    saved = gi_counts()
+    try:
+        for name, args, kw, out in calls:
+            plain = getattr(GI, f"{name}_plain")
+            ref = plain(*args, **kw)
+            err = 0.0
+            for a, b in zip(gi_tensors(out), gi_tensors(ref)):
+                check((a is None) == (b is None) and (a is None or (
+                    a.dtype == b.dtype and (same_values(a, b)
+                                            if a.is_floating_point()
+                                            else torch.equal(a, b)))),
+                      f"{what}: {name} differs from its plain version")
+                if a is not None and a.numel():
+                    err = max(err, float((a.double() - b.double()).abs()
+                                         .nan_to_num().max()))
+            row = rows.setdefault(name, {"calls": 0, "ms": 0.0,
+                                         "plain_ms": 0.0, "bound_ms": 0.0,
+                                         "max_abs_err": 0.0})
+            row["calls"] += 1
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if timed:
+                kernel = getattr(GI, name)
+                row["ms"] += graph_ms(lambda: kernel(*args, **kw))
+                plain(*args, **kw)
+                row["plain_ms"] += cuda_ms(lambda: plain(*args, **kw),
+                                           reps=20)
+                row["bound_ms"] += bound_ms(gi_bytes(name, args, kw, out),
+                                            0.0)[0]
+    finally:
+        gi_set_counts(saved)
+    return rows
+
+
+def gi_line(rows, card) -> str:
+    return "; ".join(
+        f"{name} x{r['calls']}: {r['ms']:.5f} ms against plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms"
+        for name, r in rows.items()) + f" card='{card}'"
+
+
 def gated_phase(torch, cuda, rng, card):
     """The gated regime: builtin_plugins.gated_fdn_tank through
     PluginInstance.render on GATED_T (60 s) of stereo (the segment length
     the plan
-    cut, K2's launches, the render held to the native golden and its
-    first second to the port's CPU render, a profiler pass with K6's
+    cut, K2's and K6's launches, the render held to the native golden and
+    its first second to the port's CPU render, a profiler pass with K6's
     share), the masked-loop ladder on 10 s from K = 2, and 8 files through
     BatchRenderer, K2's launches of a middle segment of 1 and of 8 files
-    held to `linrec_chunked` on the same inputs; returns K2's launches in
-    the render."""
+    held to `linrec_chunked` on the same inputs, and K6's and the tank's
+    K3b launches there held to their plain versions and timed; returns
+    K2's launches in the render and K6's entry of the `kernels` line."""
     from zorak_tpu_torch import builtin_plugins as BP
     from zorak_tpu_torch.ir import compile_plugin_source
     from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
@@ -2912,7 +3138,6 @@ def gated_phase(torch, cuda, rng, card):
     from zorak_tpu_torch.lowering import specialize as SP
     from zorak_tpu_torch.runtime.engine import PluginInstance
     from zorak_tpu_torch.verify import AUDIO_EPS, SCALAR_EPS, compare_audio
-    from torch.autograd import DeviceType
 
     sec = GATED_T / SR
     n1, n10 = int(SR), 10 * int(SR)
@@ -2935,21 +3160,25 @@ def gated_phase(torch, cuda, rng, card):
     segments = -(-GATED_T // L)
     check(L == 1024, f"gated: the plan's segment length is {L}")
     LS.LAUNCHES = RT.LAUNCHES = SG.LAUNCHES = 0
+    gi_set_counts(dict.fromkeys(GI_COUNTERS, 0))
     out = []
     t0 = time.perf_counter()
     ms = cuda_ms(lambda: out.append(inst.render(x)))
     wall = time.perf_counter() - t0
     launches = {"linrec_scan": LS.LAUNCHES, "ring_tap_sum": RT.LAUNCHES,
-                "scan_group": SG.LAUNCHES}
+                "scan_group": SG.LAUNCHES, **gi_counts()}
     res = out[0]
     y = res.audio
     check(res.engine == "torch-vector", f"gated: rendered by {res.engine}")
     check(res.details.get("dispatch") == "graph",
           f"gated: the render ran as {res.details.get('dispatch')}")
     check(launches == {"linrec_scan": GATED_K2_PER_SEGMENT * segments,
-                       "ring_tap_sum": 0, "scan_group": 0},
+                       "ring_tap_sum": 0, "scan_group": 0,
+                       **{k: n * segments
+                          for k, n in GATED_K6_PER_SEGMENT.items()}},
           f"gated: launches {launches} for {segments} segments, "
-          f"{GATED_K2_PER_SEGMENT} K2 a segment expected")
+          f"{GATED_K2_PER_SEGMENT} K2 and {GATED_K6_PER_SEGMENT} a segment "
+          f"expected")
     check(y.shape == (2, GATED_T) and bool(np.isfinite(y).all()),
           "gated: output not finite or of the wrong shape")
     print(f"[gated] gated_fdn_tank({GATED_LINES}, {GATED_BUF}) "
@@ -2958,8 +3187,9 @@ def gated_phase(torch, cuda, rng, card):
           f"cells behind the cursor in rings of {GATED_BUF}), {segments} "
           f"segments; device_ms={ms:.2f} wall_s={wall:.4f} "
           f"audio_s_per_s={sec / (ms / 1e3):.2f} launches={launches} "
-          f"({launches['linrec_scan'] / segments:.2f} K2 a segment); 1 s "
-          f"warm-up render {warm_s:.2f} s card='{card}'")
+          f"({launches['linrec_scan'] / segments:.2f} K2 a segment, "
+          f"{sum(launches[k] for k in GI_COUNTERS) / segments:.2f} K6 and "
+          f"K3b); 1 s warm-up render {warm_s:.2f} s card='{card}'")
     rep, gold_s = held_to_native_golden(prog, x, y, inst.shadow.state)
     print(f"[gated] whole {GATED_T / SR:.0f} s, PluginInstance.render on "
           f"the card vs the "
@@ -2984,18 +3214,10 @@ def gated_phase(torch, cuda, rng, card):
     events = traced(lambda: kern._render_device_as("eager", x_dev[:, :n1]))
     kernels = device_kernels(events)
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    ranges = [e for e in events if e.name == SP.K6_RANGE
-              and e.device_type == DeviceType.CPU]
-
-    def inside(e):
-        for ch in e.cpu_children:
-            yield ch
-            yield from inside(ch)
-
-    # the kernels of the ops inside each range; a range's own device
-    # record is its span on the card, gaps included, and is not counted
-    k6_kernels = [k for r in ranges for op in inside(r) for k in op.kernels]
-    k6_us = sum(k.duration for k in k6_kernels)
+    # the kernels launched inside each range; a range's own device record
+    # is its span on the card, gaps included, and is not counted
+    ranges, k6_kernels = range_kernels(events, SP.K6_RANGE)
+    k6_us = sum(k.time_range.elapsed_us() for k in k6_kernels)
     span_own_us = sum(k.duration for r in ranges for k in r.kernels)
     k6_share = k6_us / busy_us if busy_us else None
     k2_us = sum(e.time_range.elapsed_us() for e in kernels
@@ -3009,9 +3231,13 @@ def gated_phase(torch, cuda, rng, card):
               f"({len(kernels) / -(-n1 // L):.1f} a segment), busy "
               f"{busy_us / 1e3:.2f} ms of a {span_us / 1e3:.2f} ms span, "
               f"idle share {1.0 - busy_us / span_us:.3f}")
+    gi_us = sum(k.time_range.elapsed_us() for k in kernels
+                if any(part in k.name for fam, part in K5_FAMILIES
+                       if fam in GI_COUNTERS))
     print(f"[gated] K6 (the kernels launched inside the emitter's "
-          f"{SP.K6_RANGE} ranges: gate masks, prefix sums, cursors, "
-          f"gathers, the gated scatter): {k6_us / 1e3:.3f} ms of "
+          f"{SP.K6_RANGE} ranges: K6a, K6b, K6c and the taps' K3b "
+          f"gathers; {gi_us / 1e3:.3f} ms by their names): "
+          f"{k6_us / 1e3:.3f} ms of "
           f"{busy_us / 1e3:.3f} ms busy, share "
           + (f"{k6_share:.3f}" if k6_share is not None else "not measured")
           + f" ({len(ranges)} ranges, {len(k6_kernels)} kernels; the "
@@ -3078,22 +3304,70 @@ def gated_phase(torch, cuda, rng, card):
         print(f"[gated] {files} file(s): segment {middle}'s K2 launches "
               f"({'; '.join(shapes)}) bit-identical to linrec_chunked on "
               f"the same inputs ({time.perf_counter() - t0:.1f} s)")
+    # K6 (K6a, K6b, K6c) and the tank's K3b gathers at the shapes and on
+    # the inputs the path gives them, held bit for bit to their plain
+    # versions on the card and timed
+    held = {}
+    for files in (1, 8):
+        t0 = time.perf_counter()
+        calls = gi_recorded(torch, f"gated {files} file(s)", src, L,
+                            x8[:files], y8[:files], GATED_K6_PER_SEGMENT,
+                            middle)
+        held[files] = gi_held(torch, calls, f"gated {files} file(s)", True)
+        print(f"[gated] {files} file(s): segment {middle}'s K6 and K3b "
+              f"calls bit-identical to their plain versions on the same "
+              f"inputs ({time.perf_counter() - t0:.1f} s); a segment: "
+              + gi_line(held[files], card))
     # K6's least time a segment of one file: the gate mask, the pool's
     # draws and the rings read once, the rings, the draws and the cursor
-    # positions written once, at the card's memory rate
+    # positions written once, at the card's memory rate (the figure every
+    # slice has stated); beside it, the sum of the kernels' own bounds
+    # (`gi_bytes`: every reader's output, the taps' gathers too)
     k6_bytes = 4 * L * 8 + 2 * GATED_LINES * GATED_BUF * 8
     k6_bound = k6_bytes / HBM_BYTES_PER_S * 1e3
     k6_seg_ms = k6_us / 1e3 / -(-n1 // L)
-    print(f"[gated] K6 a segment: {k6_seg_ms:.4f} ms in the traced 1 s, "
-          f"bound {k6_bound:.6f} ms (bytes: {k6_bytes}, the mask, draws and "
-          f"cursors of {L} samples and {GATED_LINES} rings of {GATED_BUF} "
-          f"read and written once) card='{card}'")
+    one = held[1]
+    k6_ms = sum(r["ms"] for r in one.values())
+    k6_plain_ms = sum(r["plain_ms"] for r in one.values())
+    k6_calls_bound = sum(r["bound_ms"] for r in one.values())
+    print(f"[gated] K6 a segment: {k6_seg_ms:.4f} ms in the traced 1 s "
+          f"(the eager step), its {sum(GATED_K6_PER_SEGMENT.values())} "
+          f"launches {k6_ms:.5f} ms each timed alone (plain "
+          f"{k6_plain_ms:.4f} ms), bound {k6_bound:.6f} ms (bytes: "
+          f"{k6_bytes}, the mask, draws and cursors of {L} samples and "
+          f"{GATED_LINES} rings of {GATED_BUF} read and written once; the "
+          f"launches' own bounds {k6_calls_bound:.6f} ms) card='{card}'")
+    entry = {
+        "name": "gated_index", "route": "cuda",
+        "source": "zorak_tpu_torch/csrc/gated_index.cu",
+        "replaces": "zorak_tpu/lowering/specialize.py:4228",
+        "launches": sum(launches[k] for k in GI_COUNTERS),
+        "max_abs_err": max(r["max_abs_err"] for h in held.values()
+                           for r in h.values()),
+        "ms": k6_ms, "plain_ms": k6_plain_ms,
+        "bound_ms": k6_calls_bound, "bound_by": "bytes",
+        "library_ms": None,
+        "launches_by_kernel": {k: launches[k] for k in GI_COUNTERS},
+        "per_segment": GATED_K6_PER_SEGMENT,
+        "kernels_ms": {k: r["ms"] for k, r in one.items()},
+        "kernels_plain_ms": {k: r["plain_ms"] for k, r in one.items()},
+        "kernels_bound_ms": {k: r["bound_ms"] for k, r in one.items()},
+        "ms_8_files": sum(r["ms"] for r in held[8].values()),
+        "plain_ms_8_files": sum(r["plain_ms"] for r in held[8].values()),
+        "k6_share": k6_share, "k6_eager_ms_a_segment": k6_seg_ms,
+        "k6_stated_bound_ms": k6_bound}
     return {"launches_gated": launches["linrec_scan"], "gated_segment": L,
             "gated_render_ms": ms, "k6_share": k6_share,
             "k6_bound_ms": k6_bound, "ladder_rebuilds": rebuilds[0],
             "gated_golden_s": gold_s,
             "k5_ms_a_segment": k5["graph_ms_a_step"],
-            "k5_eager_ms_a_segment": k5["eager_ms_a_step"]}
+            "k5_eager_ms_a_segment": k5["eager_ms_a_step"],
+            "k6_entry": entry,
+            "k3b_launches_gated": launches["dyn_ring_read"],
+            "k3b_tank_ms": one["dyn_ring_read"]["ms"]
+            / one["dyn_ring_read"]["calls"],
+            "k3b_tank_plain_ms": one["dyn_ring_read"]["plain_ms"]
+            / one["dyn_ring_read"]["calls"]}
 
 
 def hop_phase(torch, cuda, rng, card):
@@ -3327,6 +3601,9 @@ PLANNER_CASES = {
         {"segment_len": 1024, "block_size": 512}, None),
 }
 PLANNER_CHORUS = (3, 4096)     # builtin_plugins.modulated_delay_chorus
+# K3b's launches a segment of the chorus: each of its twelve dynamic reads
+PLANNER_K3B_PER_SEGMENT = {"gated_cursor": 0, "gated_draws": 0,
+                           "gated_ring_write": 0, "dyn_ring_read": 12}
 PLANNER_DITHER_BITS = 16       # builtin_plugins.tpdf_dither
 
 
@@ -3436,10 +3713,10 @@ def planner_phase(torch, cuda, rng, card):
     (dynamic ring reads; K3b's share of a traced second) and the dither
     (the fresh-render draw cache's miss and hit), 60 s of stereo each
     through PluginInstance.render, held to the native golden."""
-    from torch.autograd import DeviceType
     from zorak_tpu_torch import builtin_plugins as BP
     from zorak_tpu_torch.ir import compile_plugin_source
     from zorak_tpu_torch.lowering import specialize as SP
+    from zorak_tpu_torch.parallel import BatchRenderer
     from zorak_tpu_torch.runtime.engine import PluginInstance
 
     t0 = time.perf_counter()
@@ -3452,7 +3729,8 @@ def planner_phase(torch, cuda, rng, card):
 
     # the chorus: twelve dynamic ring reads a sample at 3 voices
     voices, buf = PLANNER_CHORUS
-    prog = compile_plugin_source(BP.modulated_delay_chorus(voices, buf))
+    src = BP.modulated_delay_chorus(voices, buf)
+    prog = compile_plugin_source(src)
     x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
     inst = PluginInstance(prog, srate=SR)
     kern = inst.kernel
@@ -3462,19 +3740,38 @@ def planner_phase(torch, cuda, rng, card):
           f"dynamic reads")
     inst.render(x[:, :n1])                                # warm-up
     res = []
+    gi_set_counts(dict.fromkeys(GI_COUNTERS, 0))
     t0 = time.perf_counter()
     ms = cuda_ms(lambda: res.append(inst.render(x)))
     wall = time.perf_counter() - t0
+    launches = gi_counts()
     y = res[0].audio
     check(res[0].engine == "torch-vector" and y.shape == (2, MAIN_T)
           and bool(np.isfinite(y).all()), "chorus: output")
+    seg = kern.segment_length(MAIN_T)
+    segments = -(-MAIN_T // seg)
+    check(launches == {k: n * segments
+                       for k, n in PLANNER_K3B_PER_SEGMENT.items()},
+          f"chorus: launches {launches} for {segments} segments of {seg}, "
+          f"{PLANNER_K3B_PER_SEGMENT} a segment expected")
     check(res[0].details.get("dispatch") == "graph",
           f"chorus: the render ran as {res[0].details.get('dispatch')}")
     rep, gold_s = held_to_native_golden(prog, x, y, inst.shadow.state)
     check(rep.passed, f"chorus: vs the native golden {rep.summary()}")
+    # a second render: every key captured by the first, each step replayed
+    st0 = kern._k5.stats()
+    again = []
+    ms2 = cuda_ms(lambda: again.append(inst.render(x)))
+    st1 = kern._k5.stats()
+    print(f"[planner] chorus: the first 60 s render's steps {st0}; a second "
+          f"render device_ms={ms2:.2f}, "
+          f"{st1['replays'] - st0['replays']} of {segments} steps replayed "
+          f"card='{card}'")
     print(f"[planner] modulated_delay_chorus({voices}, {buf}) 60 s stereo: "
           f"engine {res[0].engine}, {reads} dynamic ring reads a sample, "
-          f"segment {kern.L}; device_ms={ms:.2f} wall_s={wall:.4f} "
+          f"segment {seg}, K3b launched {launches['dyn_ring_read']} times "
+          f"({launches['dyn_ring_read'] / segments:.0f} a segment); "
+          f"device_ms={ms:.2f} wall_s={wall:.4f} "
           f"audio_s_per_s={sec / (ms / 1e3):.1f}; vs the native golden "
           f"{rep.summary()}, the golden {gold_s:.2f} s card='{card}'")
     # K3b's share of a traced second of the eager step (a K5 replay opens
@@ -3485,16 +3782,8 @@ def planner_phase(torch, cuda, rng, card):
     events = traced(lambda: kern._render_device_as("eager", x_dev))
     kernels = device_kernels(events)
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    ranges = [e for e in events if e.name == SP.K3B_RANGE
-              and e.device_type == DeviceType.CPU]
-
-    def inside(e):
-        for ch in e.cpu_children:
-            yield ch
-            yield from inside(ch)
-
-    k3b_us = sum(k.duration for r in ranges for op in inside(r)
-                 for k in op.kernels)
+    ranges, k3b_kernels = range_kernels(events, SP.K3B_RANGE)
+    k3b_us = sum(k.time_range.elapsed_us() for k in k3b_kernels)
     share = k3b_us / busy_us if busy_us else None
     idle = None
     if kernels:
@@ -3517,8 +3806,8 @@ def planner_phase(torch, cuda, rng, card):
           f"busy {busy_us / 1e3:.3f} ms, idle share "
           + (f"{idle:.3f}" if idle is not None else "not measured")
           + f"; K3b (the kernels inside the emitter's {SP.K3B_RANGE} ranges: "
-          f"cursor positions, slot arithmetic, last-writer choice, gathers) "
-          f"{k3b_us / 1e3:.3f} ms, share "
+          f"cursor positions, slot arithmetic, last-writer choice, gathers; "
+          f"{len(k3b_kernels)} kernels) {k3b_us / 1e3:.3f} ms, share "
           + (f"{share:.3f}" if share is not None else "not measured")
           + f" ({len(ranges)} ranges) card='{card}'")
     k5 = k5_held(torch, f"modulated_delay_chorus({voices}, {buf})", kern,
@@ -3533,6 +3822,29 @@ def planner_phase(torch, cuda, rng, card):
                k3b_bound_ms=k3b_bound,
                chorus_k5_ms_a_segment=k5["graph_ms_a_step"],
                chorus_k5_eager_ms_a_segment=k5["eager_ms_a_step"])
+    # K3b at the chorus's shape: a middle segment's twelve reads, recorded
+    # in an eager render of three segments, held bit for bit to the plain
+    # version on the same inputs and timed
+    t0 = time.perf_counter()
+    xr = torch.from_numpy(x[None, :, :3 * seg]).to(cuda)
+    yr = BatchRenderer(prog, SR, segment_len=seg).render_files(xr)
+    rows = gi_held(torch, gi_recorded(torch, "chorus", src, seg, xr, yr,
+                                      PLANNER_K3B_PER_SEGMENT, 1),
+                   "chorus", True)
+    r = rows["dyn_ring_read"]
+    print(f"[planner] chorus: segment 1's K3b calls bit-identical to the "
+          f"plain version on the same inputs "
+          f"({time.perf_counter() - t0:.1f} s): " + gi_line(rows, card))
+    out["k3b_entry"] = {
+        "name": "dyn_ring_read", "route": "cuda",
+        "source": "zorak_tpu_torch/csrc/gated_index.cu",
+        "replaces": "zorak_tpu/lowering/specialize.py:4432",
+        "launches": launches["dyn_ring_read"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"] / r["calls"],
+        "plain_ms": r["plain_ms"] / r["calls"],
+        "bound_ms": r["bound_ms"] / r["calls"], "bound_by": "bytes",
+        "library_ms": None, "per_segment": r["calls"], "segment": seg,
+        "k3b_share": share, "chorus_ms": ms}
 
     # the dither: a fresh ungated render's draw matrix, the miss and the hit
     prog = compile_plugin_source(BP.tpdf_dither(PLANNER_DITHER_BITS))
@@ -6123,6 +6435,7 @@ def run_phases(torch, cuda, rng, card, phases, golden, t_start) -> int:
         for entry in kernels:
             if entry["name"] == "linrec_scan":
                 entry["launches_gated"] = gated["launches_gated"]
+        kernels.append(gated.pop("k6_entry"))
         print(f"[done] gated phase in {time.perf_counter() - t0:.1f} s: "
               f"{json.dumps(gated)}")
         ended("gated")
@@ -6149,9 +6462,30 @@ def run_phases(torch, cuda, rng, card, phases, golden, t_start) -> int:
         t0 = time.perf_counter()
         planner = planner_phase(torch, cuda, np.random.RandomState(SEED + 17),
                                 card)
+        kernels.append(planner.pop("k3b_entry"))
         print(f"[done] planner phase in {time.perf_counter() - t0:.1f} s: "
               f"{json.dumps(planner)}")
         ended("planner")
+    if "gated" in phases:
+        k3b = [e for e in kernels if e["name"] == "dyn_ring_read"]
+        tank = {"launches_gated": gated["k3b_launches_gated"],
+                "ms_tank": gated["k3b_tank_ms"],
+                "plain_ms_tank": gated["k3b_tank_plain_ms"]}
+        if k3b:
+            k3b[0].update(tank)
+        else:
+            # the planner phase did not run: K3b's entry is the tank's
+            k6 = [e for e in kernels if e["name"] == "gated_index"][0]
+            kernels.append({
+                "name": "dyn_ring_read", "route": "cuda",
+                "source": "zorak_tpu_torch/csrc/gated_index.cu",
+                "replaces": "zorak_tpu/lowering/specialize.py:4432",
+                "launches": tank["launches_gated"],
+                "max_abs_err": k6["max_abs_err"], "ms": tank["ms_tank"],
+                "plain_ms": tank["plain_ms_tank"],
+                "bound_ms": k6["kernels_bound_ms"]["dyn_ring_read"]
+                / GATED_K6_PER_SEGMENT["dyn_ring_read"],
+                "bound_by": "bytes", "library_ms": None, **tank})
     if "devexec" in phases:
         t0 = time.perf_counter()
         kernels.append(devexec_phase(torch, cuda,

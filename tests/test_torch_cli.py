@@ -359,6 +359,9 @@ _TOOLING_MODULES = ["utils.dumps"]
 # K5: a render's step captured as a CUDA graph and replayed
 _K5_MODULES = ["kernels.segment_graph"]
 
+# K6 and K3b: the gated regime's index program and the dynamic ring read
+_K6_MODULES = ["kernels.gated_index"]
+
 
 def test_port_imports_neither_jax_nor_zorak_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -369,7 +372,8 @@ def test_port_imports_neither_jax_nor_zorak_tpu():
     assert int(n) >= 57 and bad.strip() == "["
     for mod in (_JSFX_MODULES + _SPECTRAL_MODULES + _BATCH_MODULES
                 + _COUPLED_MODULES + _DEVEXEC_MODULES + _GRAPH_MODULES
-                + _SERVICES_MODULES + _TOOLING_MODULES + _K5_MODULES):
+                + _SERVICES_MODULES + _TOOLING_MODULES + _K5_MODULES
+                + _K6_MODULES):
         assert f"'zorak_tpu_torch.{mod}'" in names, mod
 
 

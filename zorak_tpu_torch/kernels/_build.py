@@ -41,6 +41,7 @@ SOURCES: Dict[str, str] = {
     "ring_taps": "ring_taps.cu",
     "stft_ola": "stft_ola.cu",
     "partition_mac": "partition_mac.cu",
+    "gated_index": "gated_index.cu",
 }
 
 # --fmad=false keeps multiply and add as two roundings, as in the plain

@@ -32,8 +32,9 @@ buffers, uncaptured: on CPU tensors that is what `step` does.  A capture
 or replay that fails raises; nothing falls back to the eager step.
 
 A replay calls no wrapper, so each capture records the launches its
-program made (the `LAUNCHES` counters of K2, K3, K4 and K10) and every
-replay adds them: the counters keep counting launches on the card.
+program made (the `LAUNCHES` counters of K2, K3, K4 and K10, and the four
+of K6 and K3b) and every replay adds them: the counters keep counting
+launches on the card.
 """
 from __future__ import annotations
 
@@ -49,8 +50,12 @@ import torch
 # path and reads it after).
 LAUNCHES = 0
 
-# The wrappers whose launch counters a capture records and a replay adds.
-COUNTED = ("linrec_scan", "ring_taps", "scan_group", "block_section")
+# The wrappers whose launch counters a capture records and a replay adds:
+# a module's LAUNCHES, or `module.NAME` for a counter of another name (the
+# gated index module keeps one a wrapper).
+COUNTED = ("linrec_scan", "ring_taps", "scan_group", "block_section",
+           "gated_index.CURSOR_LAUNCHES", "gated_index.DRAWS_LAUNCHES",
+           "gated_index.WRITE_LAUNCHES", "gated_index.READ_LAUNCHES")
 
 # Captures a kernel keeps.
 MAX_GRAPHS = 512
@@ -60,18 +65,23 @@ MAX_GRAPHS = 512
 KEEP_SEEN = 4 * MAX_GRAPHS
 
 
-def _modules():
-    return [importlib.import_module(f"{__package__}.{name}")
-            for name in COUNTED]
+def _counters():
+    """(module, counter name) of each COUNTED entry."""
+    out = []
+    for entry in COUNTED:
+        name, _dot, attr = entry.partition(".")
+        out.append((importlib.import_module(f"{__package__}.{name}"),
+                    attr or "LAUNCHES"))
+    return out
 
 
 def _counts() -> Tuple[int, ...]:
-    return tuple(m.LAUNCHES for m in _modules())
+    return tuple(getattr(m, attr) for m, attr in _counters())
 
 
 def _add(deltas: Tuple[int, ...]) -> None:
-    for m, d in zip(_modules(), deltas):
-        m.LAUNCHES += d
+    for (m, attr), d in zip(_counters(), deltas):
+        setattr(m, attr, getattr(m, attr) + d)
 
 
 class StepGraphs:

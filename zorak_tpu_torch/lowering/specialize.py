@@ -1717,6 +1717,17 @@ def _host_i64(v: float) -> int:
     return int(v)
 
 
+def _gate_reader_spec(n) -> Tuple:
+    """A `gringidx` or `gringref` node as the reader spec K6a takes:
+    (kind, offset, mod, incl, origin, region)."""
+    if n.kind == "gringidx":
+        return ("position", n.meta["offset"], n.meta["mod"], n.meta["incl"],
+                float(n.meta["origin"]), None)
+    region = n.meta["region"]
+    return ("value", n.meta["offset"], region[1], n.meta.get("incl", False),
+            None, region)
+
+
 # the plans whose slot the host mirror advances a segment (`_counter_next`)
 _COUNTER_PLANS = ("induction", "modind", "const")
 
@@ -2396,6 +2407,9 @@ class SpecializedSampleKernel:
         # node (`_tap_plan`)
         self._const_cache: Dict[Any, Any] = {}
         self._tap_tables: Dict[Tuple[int, int], Dict[int, Any]] = {}
+        # a gated cursor's readers that K6a serves in one launch, by cursor
+        # var (`_gate_readers`)
+        self._gate_reader_specs: Dict[Any, Any] = {}
         # the lowered scan-group levels (step list, externals, generated
         # source) by DAG level
         self._scan_programs: Dict[int, Any] = {}
@@ -3485,6 +3499,38 @@ class SpecializedSampleKernel:
                 self._tap_launch([chain], L, nf)
         return plan[id(x)]
 
+    def _gate_readers(self, var) -> Tuple[List[Tuple], Optional[int],
+                                           Optional[int]]:
+        """What one K6a launch (`gated_cursor`) computes for gated cursor
+        `var`, enumerated once for the kernel's life: (the readers as
+        (kind, offset, mod, incl, origin, region) specs, each distinct
+        `gringidx` and `gringref` of the cursor in plan order; the index of
+        the `gmodind` stream's spec or None; the modulus of the cursor's
+        carried value or None).  A reader the walk did not meet is a
+        launch of its own, made at its first use."""
+        got = self._gate_reader_specs.get(var)
+        if got is not None:
+            return got
+        specs: List[Tuple] = []
+
+        def add(spec) -> int:
+            if spec not in specs:
+                specs.append(spec)
+            return specs.index(spec)
+
+        for n in self._all_nodes(self.sym):
+            if n.kind in ("gringidx", "gringref") and n.meta["var"] == var:
+                add(_gate_reader_spec(n))
+        plan = self.plans.get(var)
+        stream = carry_mod = None
+        if plan is not None and plan.kind == "gmodind":
+            stream = add(("position", 0, plan.A, True, None, None))
+            if var in self.carried_vars:
+                carry_mod = plan.A
+        got = (specs, stream, carry_mod)
+        self._gate_reader_specs[var] = got
+        return got
+
     def tap_launches(self, L: int, nf: int = 1) -> List[_TapGroup]:
         """The planned `ring_tap_sum` launches of the segment program of
         length L over nf files, each with its chains and tables."""
@@ -4245,6 +4291,9 @@ class SpecializedSampleKernel:
         import torch
 
         from . import eelmath as EM
+        from ..kernels.gated_index import (
+            CursorReader, dyn_ring_read as ring_read, gated_cursor,
+            gated_draws, gated_ring_write, ring_cursor)
         from ..kernels.linrec_scan import linrec_scan
         from ..kernels.ring_taps import ring_tap_sum
         from ..kernels.scan_group import scan_group
@@ -4286,7 +4335,13 @@ class SpecializedSampleKernel:
         rand_sites = self.rand_sites
         t64 = torch.arange(L, dtype=torch.int64, device=dev)
         tf = t64.to(F64)
-        file_row = torch.arange(nf, dtype=torch.int64, device=dev)[:, None]
+        # the carried regions a gated cursor writes, by cursor: K6c writes
+        # them in one launch
+        gated_regions: Dict[Any, List[Tuple[int, int]]] = {}
+        for region in carry_regions:
+            if not sym.ring_writes.get(region) and region in sym.gring_writes:
+                gated_regions.setdefault(
+                    sym.gring_writes[region][0].var, []).append(region)
 
         def upload(values, dtype):
             """A host list as a tensor on the kernel's device, without
@@ -4352,12 +4407,7 @@ class SpecializedSampleKernel:
             def cursor_idx(var, offset, mod, k0, k1):
                 start = cursor_start(var, offset + k0, mod)
                 with _k3b_range():
-                    pos = start + (t64[:k1 - k0] if k1 - k0 <= L else
-                                   torch.arange(k1 - k0, dtype=torch.int64,
-                                                device=dev))
-                    if mod & (mod - 1) == 0:
-                        return pos & (mod - 1)
-                    return torch.remainder(pos, mod)
+                    return ring_cursor(start, mod, k1 - k0, dev)
 
             def _arr(v):
                 return const(v) if isinstance(v, float) else v
@@ -4386,61 +4436,50 @@ class SpecializedSampleKernel:
                         out[:, i:i + 1] = v
                 return out
 
-            def _take(arr, idx):
-                """arr at idx along its last axis, per file: arr [m]
-                (shared) or [nf, m]; idx [L] or broadcast to [nf, L]."""
-                if idx.dim() < 2:
-                    idx = idx.expand(L)
-                    if arr.dim() == 1:
-                        return arr[idx]
-                if arr.dim() == 1:
-                    return arr[idx.expand(nf, L)]
-                return torch.gather(arr, 1, idx.expand(nf, L))
+            def ring_of(region):
+                """A region's ring: the carry's, or its baked constant."""
+                return (rings[region] if region not in static_regions
+                        else static_regions[region])
 
-            def anchor_i64(var):
-                """A gated cursor's value at the segment's start as int64:
-                a host int where every file holds it, else [nf, 1]."""
-                v = sc(var)
-                return _host_i64(v) if isinstance(v, float) else EM.to_i64(v)
+            # K6: a gated cursor's readers, its draws and its ring writes,
+            # one launch each a gate and segment (kernels/gated_index.py);
+            # their inputs are emitted outside K6's range
+            k6: Dict[Any, Any] = {}
 
-            gate_cache: Dict[Any, Any] = {}
-
-            def gate_mask(var):
-                """The 0/1 gate of a gated cursor as int64 [nf, L], made
-                once a segment."""
-                got = gate_cache.get(var)
+            def gated_cursor_out(var):
+                """K6a's launch for gated cursor var, memoized: (its
+                readers' outputs, the cursor's next carried value)."""
+                got = k6.get(("cursor", var))
                 if got is None:
+                    specs, _stream, carry_mod = self._gate_readers(var)
                     gate = _arr(emit(sym.gate_of[var]))
+                    readers = [CursorReader(kind, off, mod, incl, origin,
+                                            None if region is None
+                                            else ring_of(region))
+                               for kind, off, mod, incl, origin, region
+                               in specs]
                     with _k6_range():
-                        got = EM.truthy_mask(gate).to(torch.int64).expand(
-                            nf, L)
-                    gate_cache[var] = got
+                        got = gated_cursor(gate, sc(var), readers, nf, L,
+                                           carry_mod)
+                    k6[("cursor", var)] = got
                 return got
 
-            def gate_prefix(var, incl):
-                """The gate's fires up to each sample, int64 [nf, L]: after
-                it (incl) or before it.  An int64 cumsum, exact (the
-                reference takes it in f64, a dodge for the TPU's vmem);
-                one a gate and segment, shared by every tap and write."""
-                got = gate_cache.get((var, incl))
-                if got is None:
-                    m = gate_mask(var)
-                    after = None if incl else gate_prefix(var, True)
-                    with _k6_range():
-                        got = torch.cumsum(m, dim=1) if incl else after - m
-                    gate_cache[(var, incl)] = got
-                return got
-
-            def gcursor_idx(var, offset, mod, incl):
-                """Gated cursor positions (anchor + gate prefix + offset)
-                mod M, int64 [nf, L]; incl is the value after the
-                advance."""
-                prefix = gate_prefix(var, incl)
+            def gated_reader(x):
+                """A `gringidx` or `gringref` node's value: its reader's
+                output of K6a's launch (a launch of its own for a reader
+                the plan did not list)."""
+                var = x.meta["var"]
+                spec = _gate_reader_spec(x)
+                specs = self._gate_readers(var)[0]
+                if spec in specs:
+                    return gated_cursor_out(var)[0][specs.index(spec)]
+                kind, off, mod, incl, origin, region = spec
+                gate = _arr(emit(sym.gate_of[var]))
+                reader = CursorReader(kind, off, mod, incl, origin,
+                                      None if region is None
+                                      else ring_of(region))
                 with _k6_range():
-                    pos = anchor_i64(var) + prefix + offset
-                    if mod & (mod - 1) == 0:
-                        return pos & (mod - 1)
-                    return torch.remainder(pos, mod)
+                    return gated_cursor(gate, sc(var), [reader], nf, L)[0][0]
 
             # gated rand: sites draw only when their branch gate holds, so
             # the flat MT19937 pool (randseg: the whole render's) is
@@ -4449,7 +4488,7 @@ class SpecializedSampleKernel:
             rand_ctx: Dict[str, Any] = {}
 
             def gated_rand_vals():
-                """The draws [nf, L, sites] of every rand site."""
+                """The draws [nf, L, sites] of every rand site (K6b)."""
                 got = rand_ctx.get("vals")
                 if got is not None:
                     return got
@@ -4462,19 +4501,8 @@ class SpecializedSampleKernel:
                          for _slot, gate in rand_sites]
                 rand_ctx["building"] = False
                 with _k6_range():
-                    fires = torch.stack(
-                        [torch.ones((nf, L), dtype=torch.int64, device=dev)
-                         if gate is None else
-                         EM.truthy_mask(gate).to(torch.int64).expand(nf, L)
-                         for gate in gates], dim=2)
-                    within = torch.cumsum(fires, dim=2) - fires
-                    per_t = fires.sum(dim=2)
-                    before = torch.cumsum(per_t, dim=1) - per_t
-                    idx = (anchor_i64(("rand", "used")) + before)[:, :, None] \
-                        + within
-                    rand_ctx["vals"] = randseg[
-                        idx.clamp(0, randseg.numel() - 1)]
-                    rand_ctx["fires"] = per_t.sum(dim=1, keepdim=True)
+                    rand_ctx["vals"], rand_ctx["used"] = gated_draws(
+                        gates, sc(("rand", "used")), randseg, nf, L)
                 return rand_ctx["vals"]
 
             tap_emitting: Set[int] = set()
@@ -4528,32 +4556,20 @@ class SpecializedSampleKernel:
                     idx = cursor_idx(x.meta["var"], x.meta["offset"],
                                      x.meta["mod"], 0, L)
                     val = idx.to(F64) + float(x.meta["origin"])
-                elif x.kind == "gringidx":
-                    idx = gcursor_idx(x.meta["var"], x.meta["offset"],
-                                      x.meta["mod"], x.meta["incl"])
-                    with _k6_range():
-                        val = idx.to(F64) + float(x.meta["origin"])
-                elif x.kind == "gringref":
-                    # plan time pinned every tap of a written gated region
-                    # into carry history (G-space delay >= L), so the
-                    # gather never reads this segment's writes
-                    region = x.meta["region"]
-                    src_arr = (rings[region] if region not in
-                               static_regions else static_regions[region])
-                    idx = gcursor_idx(x.meta["var"], x.meta["offset"],
-                                      region[1], x.meta.get("incl", False))
-                    with _k6_range():
-                        val = _take(src_arr, idx)
+                elif x.kind in ("gringidx", "gringref"):
+                    # a gringref: plan time pinned every tap of a written
+                    # gated region into carry history (G-space delay >= L),
+                    # so the gather never reads this segment's writes
+                    val = gated_reader(x)
                 elif x.kind == "gdynringref":
                     # bounded dynamic-delay tap off a gated cursor: the
                     # masked index expression is the absolute slot, which
-                    # plan time proved reaches only carry history
-                    region = x.meta["region"]
-                    src_arr = (rings[region] if region not in
-                               static_regions else static_regions[region])
+                    # plan time proved reaches only carry history (K3b's
+                    # gather, in K6's range)
                     slot = _arr(emit(x.args[0]))
                     with _k6_range():
-                        val = _take(src_arr, EM.to_i64(slot))
+                        val = ring_read(ring_of(x.meta["region"]), slot, nf,
+                                        L)
                 elif x.kind == "bin":
                     # the plan is static, so a `+` node is matched once
                     # for the kernel's life, not once a segment
@@ -4690,37 +4706,26 @@ class SpecializedSampleKernel:
                 against whichever write (this segment or ring history) last
                 touched that slot."""
                 region = x.meta["region"]
-                origin, mod = region
                 # the slot's expression, the segment's writes and the
                 # joined history are emitted outside K3b's range
                 slot = _arr(emit(x.args[0]))                # in [0, mod)
                 ws = sym.ring_writes.get(region)
                 if ws is None:
-                    src_arr = (rings[region] if region not in static_regions
-                               else static_regions[region])
                     with _k3b_range():
-                        return _take(src_arr, EM.to_i64(slot))
+                        return ring_read(ring_of(region), slot, nf, L)
                 w = ws[-1]
                 full = ring_hist_full(region)
-                # the write cursor: the host's int, or in the graph's
-                # program the device's ([nf, 1], the same conversion)
-                w0c = (EM.to_i64(sc(w.var)) if graph
-                       else _host_i64(host_scalar(w.var))) + w.offset
+                # the write cursor: the host's, or in the graph's program
+                # the device's ([nf, 1]; the kernel converts either)
+                cursor = sc(w.var) if graph else host_scalar(w.var)
                 pre = [u for u in ws if u.order < x.meta["order"]]
                 # same-slot same-sample reads see the latest PRECEDING
                 # writer, not the region's final (last-writer) value
                 same = (write_stream(region, ws.index(pre[-1]))
                         if pre and pre[-1] is not w else None)
                 with _k3b_range():
-                    sigma = EM.to_i64(slot)
-                    if not pre:
-                        dtil = torch.remainder(w0c + t64 - sigma - 1, mod) + 1
-                        return _take(full, mod + t64 - dtil)
-                    dtil = torch.remainder(w0c + t64 - sigma, mod)
-                    base = _take(full, mod + t64 - dtil)
-                    if same is None:
-                        return base
-                    return torch.where(dtil == 0, same, base)
+                    return ring_read(full, slot, nf, L, cursor, w.offset,
+                                     bool(pre), same)
 
             solved_groups: Set[int] = set()
 
@@ -4823,9 +4828,7 @@ class SpecializedSampleKernel:
                     val = cursor_idx(key, plan.out, plan.A, 0, L).to(F64)
                 elif plan.kind == "gmodind":
                     # end-of-sample gated cursor: anchor + inclusive prefix
-                    idx = gcursor_idx(key, 0, plan.A, True)
-                    with _k6_range():
-                        val = idx.to(F64)
+                    val = gated_cursor_out(key)[0][self._gate_readers(key)[1]]
                 elif plan.kind == "stream":
                     val = _full(emit(plan.out))
                 elif plan.kind == "linrec":
@@ -4882,8 +4885,7 @@ class SpecializedSampleKernel:
                     # force the gate masks even if every draw is dead code:
                     # the golden still consumes those draws
                     gated_rand_vals()
-                    with _k6_range():
-                        new_vals.append(sc(key) + rand_ctx["fires"].to(F64))
+                    new_vals.append(rand_ctx["used"])
                 elif key == ("mloop", "ovf"):
                     # masked-loop overflow monitor: a running max of
                     # (realised loop count - guessed bound K); a positive
@@ -4903,11 +4905,7 @@ class SpecializedSampleKernel:
                         new_vals.append(_counter_next(plan, v, L))
                     elif plan.kind == "gmodind":
                         # a value a file: the device keeps it
-                        prefix = gate_prefix(key, True)
-                        with _k6_range():
-                            new_vals.append(torch.remainder(
-                                _arr(sc(key)) + prefix[:, -1:].to(F64),
-                                float(plan.A)))
+                        new_vals.append(gated_cursor_out(key)[1])
                     else:
                         new_vals.append(stream_of(key)[..., -1:])
                 elif key[0] == "spl" and key[1] < nch:
@@ -4926,25 +4924,22 @@ class SpecializedSampleKernel:
                     if gws is not None:
                         # gated ring write: the segment's writes land at
                         # consecutive G-space positions (the cursor
-                        # advances exactly when the write fires); a file's
-                        # inactive samples go to one spare cell past every
-                        # row, dropped.  Active positions are distinct
-                        # (the plan enforces M >= L), so one scatter is
-                        # exact, each file in its own row.
-                        g = gws[0]
-                        mod = region[1]
-                        gm = gate_mask(g.var)
-                        cur = gcursor_idx(g.var, g.offset, mod, False)
-                        value = _full(emit(g.value))
-                        with _k6_range():
-                            pos = torch.where(gm > 0, cur + file_row * mod,
-                                              torch.full_like(gm, nf * mod))
-                            flat = torch.empty(nf * mod + 1, dtype=F64,
-                                               device=dev)
-                            flat[:nf * mod] = rings[region].reshape(-1)
-                            flat.scatter_(0, pos.reshape(-1),
-                                          value.reshape(-1))
-                        new_rings[region] = flat[:nf * mod].view(nf, mod)
+                        # advances exactly when the write fires); every
+                        # region of the cursor in one K6c launch
+                        var = gws[0].var
+                        if ("write", var) not in k6:
+                            regs = gated_regions[var]
+                            writes = [
+                                (rings[r], _full(emit(sym.gring_writes[r][0]
+                                                      .value)),
+                                 sym.gring_writes[r][0].offset, r[1])
+                                for r in regs]
+                            gate = _arr(emit(sym.gate_of[var]))
+                            with _k6_range():
+                                k6[("write", var)] = dict(zip(
+                                    regs, gated_ring_write(gate, sc(var),
+                                                           writes, nf, L)))
+                        new_rings[region] = k6[("write", var)][region]
                         continue
                     dw = dyn_write_map.get(region)
                     if dw is None:  # carried read-only region: pass through
