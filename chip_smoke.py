@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases tooling   # bench, help, new-plugin, dumps
     python3 chip_smoke.py --phases graph     # the render graph's lockstep
     python3 chip_smoke.py --phases services  # the host services (K11, K10)
+    python3 chip_smoke.py --phases faust     # K1, K9, VAR, the Faust batches
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result (`--phases` takes any of `jsfx`, `batch`,
@@ -327,17 +328,34 @@ device and build always run; `k4sweep` is described at the end):
             bit for bit to K1 as one chunk: the main shape in f64 and
             f32, the worst case and every input the VAR and RED renders
             below give K1;
+            Then K9 (csrc/dsp_scan.cu: the chunked affine, max-plus and
+            biquad scans, the LCG's jump-ahead noise) against its host
+            form (the source compiled with g++) bit for bit, every NaN
+            one value, and its plain doubling ladder within 1e-9 x
+            max|y| with NaN and inf in the same places: T in 1, 127,
+            128, 129, 4,097 and two carry tiles, rows 1, 3 and 8,
+            non-zero z0 and s0, a per-sample pole, NaN and inf in x, the
+            VAR biquads' coefficients; the noise bit for bit at four
+            seeds across the grid's edges and at the main length; each
+            kernel's time at the main length (a CUDA graph of 20 calls)
+            beside its bytes bound and its plain ladder's time;
 6. main (faust)  VAR on 60 s of 48 kHz stereo noise (seeded numpy) on CUDA:
-            launch counts, re-run steps, finite output, timing, and the
+            launch counts (K1 once, K9 8 + 5 + 2), re-run steps, finite
+            output, timing, and the
             first second against the port's CPU render at the audio
             epsilon; then VAR on 60 s of program-like material (noise
             with a silent lead-in, silent gaps and a fade-out): time and
             re-run steps;
 7. batch (faust)  all five Faust modules through FaustBatchRenderer on
-            8 files of 10 s each, the first second of each file against
+            8 files of 10 s each (K1 and K9 launches), the first second
+            of each file against
             the CPU render and file 0's first 4,800 samples against the
-            module's NumPy golden (models/faust_golden.py);
-then one `kernels` JSON line (beside `bound_ms`: `chain_ms`, the chain
+            module's NumPy golden (models/faust_golden.py); each file of
+            VAR's batch torch.equal to its solo render;
+then one `kernels` JSON line (K9's entries, `affine_scan`, `maxplus_scan`,
+`biquad_scan` and `lcg_noise`, carry `launches_var` and `launches_batch`,
+their launches in the VAR render and in the five batch renders, and
+`launches` their sum; beside K1's `bound_ms`: `chain_ms`, the chain
 bound of T steps in one thread, `chunk_chain_ms`, that of the chunked
 scan's warmup + chunk steps, `earlier_ms`, the one-chunk time, the
 worst case, and the program-like render's re-run steps; K11 the
@@ -481,6 +499,20 @@ SCAN_OPS_PER_STEP = 5   # compare, select, subtract, multiply, add
 # VAR.forward): two noise streams, eight biquads, five one-poles, one scan
 VAR_STAGES = {"lcg_noise": 2, "biquad_tf2": 8, "onepole": 5,
               "switching_scan": 1}
+# K9 (kernels/dsp_scan.py): each wrapper's launch counter, and the
+# launches of one VAR render (its biquads, one-poles and noise streams)
+K9_COUNTERS = {"affine_scan": "AFFINE_LAUNCHES",
+               "maxplus_scan": "MAXPLUS_LAUNCHES",
+               "biquad_scan": "BIQUAD_LAUNCHES", "lcg_noise": "LCG_LAUNCHES"}
+VAR_K9_LAUNCHES = {"affine_scan": 5, "maxplus_scan": 0, "biquad_scan": 8,
+                   "lcg_noise": 2}
+K9_EDGE_T = (1, 127, 128, 129, 4097)   # and two carry tiles of chunks
+K9_LCG_SEEDS = (12345, 54321, 0, 2 ** 32 - 1)
+# f64 operations a sample of each stage's recurrence (its bound's other
+# side, far below the bytes): b = (1-a)*x and a*z + b; b = x and a*z + b;
+# a*z and the max; y = b0*x + s1 and the state's seven
+K9_OPS = {"onepole": 4, "integrator": 2, "max_follower": 2,
+          "biquad_tf2": 9, "lcg_noise": 2}
 
 # the spectral slice: STFT sizes, the bench's shapes (bench.py:137-206)
 SPEC_SIZE, SPEC_HOP, PART = 2048, 512, 2048
@@ -5485,9 +5517,185 @@ def spectral_phase(torch, cuda, rng, card):
                                  "gate_gain", "partition_mac")]
 
 
+def k9_counts():
+    from zorak_tpu_torch.kernels import dsp_scan as DS
+
+    return {name: getattr(DS, c) for name, c in K9_COUNTERS.items()}
+
+
+def k9_set_counts(counts):
+    from zorak_tpu_torch.kernels import dsp_scan as DS
+
+    for name, c in K9_COUNTERS.items():
+        setattr(DS, c, counts.get(name, 0))
+
+
+def k9_phase(torch, cuda, rng, card):
+    """K9 on the card: each kernel against its host form (bit for bit,
+    every NaN one value) and its plain ladder (within TOL_REL x max|y|,
+    NaN and inf in the same places) at the edge shapes, then its time at
+    the main length beside its bound and the ladder's.  Returns the
+    figures by stage (onepole, integrator, max_follower, biquad_tf2,
+    lcg_noise)."""
+    from zorak_tpu_torch.kernels import dsp_scan as DS
+    from zorak_tpu_torch.models import dspkit as K
+
+    t0 = time.perf_counter()
+    DS._host_library()          # the host form, built with g++ once
+    tiles_t = DS.TILE_MAPS * DS.CHUNK + 3 * DS.CHUNK + 5
+    var_bq = [K.rbj_coeffs(kind, fc, q, SR) for kind, fc, q in
+              (("bp_skirt", 9500.0, 1.0), ("hp", 11500.0, 0.707),
+               ("bp_skirt", 16000.0, 1.2))]
+    fns = {  # stage: (kernel, host form, plain)
+        "onepole": (lambda *a: DS.affine_scan(*a, onepole=True),
+                    lambda *a: DS.affine_scan_host(*a, onepole=True),
+                    lambda *a: DS.affine_scan_plain(*a, onepole=True)),
+        "integrator": (lambda *a: DS.affine_scan(*a, onepole=False),
+                       lambda *a: DS.affine_scan_host(*a, onepole=False),
+                       lambda *a: DS.affine_scan_plain(*a, onepole=False)),
+        "max_follower": (DS.maxplus_scan, DS.maxplus_scan_host,
+                         DS.maxplus_scan_plain),
+        "biquad_tf2": (DS.biquad_scan, DS.biquad_scan_host,
+                       DS.biquad_scan_plain),
+    }
+    errs = {name: 0.0 for name in fns}
+    cases = {name: 0 for name in list(fns) + ["lcg_noise"]}
+
+    def cpu(v):
+        return v.cpu() if isinstance(v, torch.Tensor) else v
+
+    def held(stage, what, x, *args, places=True):
+        kernel, host, plain = fns[stage]
+        got = kernel(x, *args)
+        want = plain(x, *args)
+        torch.cuda.synchronize()
+        got = got.cpu()
+        want = want.cpu()
+        on_host = host(x.cpu(), *(cpu(a) for a in args))
+        bits = same_values(got, on_host)
+        same = all(torch.equal(f(got), f(want))
+                   for f in (torch.isnan, torch.isposinf, torch.isneginf))
+        fin = torch.isfinite(want) & torch.isfinite(got)
+        scale = want[fin].abs().max().item() if fin.any() else 0.0
+        err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+        check(bits and (same or not places) and err <= DS.TOL_REL * scale,
+              f"K9 {stage} {what}: against its host form "
+              f"{'bit-identical' if bits else 'DIFFERS'}, NaN and inf "
+              f"{'where' if same else 'NOT where'} the ladder puts them, "
+              f"max_abs_err {err:.3e} of max|y| {scale:.3e}")
+        errs[stage] = max(errs[stage], err)
+        cases[stage] += 1
+
+    def signal(shape, positive=False):
+        x = rng.randn(*shape)
+        return torch.from_numpy(np.abs(x) if positive else x).to(cuda)
+
+    for n_t in K9_EDGE_T + (tiles_t,):
+        for rows in (1, 3, 8):
+            shape = (n_t,) if rows == 1 else (rows, n_t)
+            what = f"T={n_t} rows={rows}"
+            z0 = (0.3 if rows == 1 else torch.from_numpy(
+                rng.uniform(-1.0, 1.0, (rows, 1))).to(cuda))
+            x = signal(shape)
+            for pole in (0.98, float(np.exp(-1.0 / (SR * 0.14)))):
+                held("onepole", f"{what} pole={pole:.6f}", x, pole, z0)
+            held("integrator", what, x, 0.95, z0)
+            held("max_follower", what, signal(shape, True), 0.97,
+                 abs(z0) if rows == 1 else z0.abs())
+            for c in var_bq:
+                held("biquad_tf2", what, x, *c, (0.1, -0.2))
+        pole = torch.from_numpy(0.9 + 0.09 * np.abs(np.sin(
+            np.arange(n_t) / 50.0))).to(cuda)
+        held("onepole", f"T={n_t} rows=3 per-sample pole", signal((3, n_t)),
+             pole, 0.3)
+    # NaN and inf in x: no product of these poles underflows at 4,097
+    # samples, so the ladder keeps inf; the biquad's ladder gives inf in a
+    # few samples after an inf that its sequential loop, and the kernel,
+    # give NaN (tests/test_torch_dsp_scan.py holds the host form there to
+    # the loop), so there the kernel is held to its host form alone
+    for kind in ("nan", "inf", "-inf"):
+        for stage in fns:
+            x = rng.randn(3, 4097)
+            if stage == "max_follower":
+                x = np.abs(x)
+            if kind == "nan":
+                x[0, 1500], x[2, 5] = np.nan, np.nan
+            else:
+                x[0, 1500] = np.inf
+                x[1, 7] = np.inf if kind == "inf" or \
+                    stage == "max_follower" else -np.inf
+            x = torch.from_numpy(x).to(cuda)
+            if stage == "biquad_tf2":
+                held(stage, f"{kind} in x", x, *var_bq[0], (0.1, -0.2),
+                     places=kind == "nan")
+            else:
+                held(stage, f"{kind} in x", x, 0.97, 0.3)
+    for seed in K9_LCG_SEEDS:
+        for n in (1, 255, 256, 257, 4097, 1056 * 256 + 1, MAIN_T):
+            got = DS.lcg_noise(n, seed, device=cuda)
+            want = DS.lcg_noise_plain(n, seed, device=cuda)
+            on_host = DS.lcg_noise_host(n, seed)
+            check(same_bits(got, want) and same_bits(got.cpu(), on_host),
+                  f"K9 lcg_noise n={n} seed={seed} differs from its plain "
+                  f"version or its host form")
+            cases["lcg_noise"] += 1
+    print(f"[kernels] K9 edge shapes: {json.dumps(cases)} cases, each "
+          f"bit-identical to its host form; max_abs_err against the "
+          f"ladders {json.dumps(errs)}; {time.perf_counter() - t0:.1f} s")
+
+    # the main length, one row, f64: each kernel's device time (a CUDA
+    # graph of 20 calls: a call's host work exceeds its kernels'), the
+    # wrapper's eager time, the ladder's
+    xs = torch.from_numpy(rng.randn(MAIN_T)).to(cuda)
+    xa = xs.abs()
+    bq = K.rbj_coeffs("hp", 11500.0, 0.707, SR)
+    mains = {
+        "onepole": (lambda: DS.affine_scan(xs, 0.99, onepole=True),
+                    lambda: DS.affine_scan_plain(xs, 0.99, onepole=True)),
+        "integrator": (lambda: DS.affine_scan(xs, 0.95, onepole=False),
+                       lambda: DS.affine_scan_plain(xs, 0.95,
+                                                    onepole=False)),
+        "max_follower": (lambda: DS.maxplus_scan(xa, 0.97),
+                         lambda: DS.maxplus_scan_plain(xa, 0.97)),
+        "biquad_tf2": (lambda: DS.biquad_scan(xs, *bq),
+                       lambda: DS.biquad_scan_plain(xs, *bq)),
+        "lcg_noise": (lambda: DS.lcg_noise(MAIN_T, device=cuda),
+                      lambda: DS.lcg_noise_plain(MAIN_T, device=cuda)),
+    }
+    out = {}
+    for stage, (fn, plain) in mains.items():
+        got, want = fn(), plain()
+        err = (got - want).abs().max().item()
+        if stage == "lcg_noise":
+            check(same_bits(got, want), "K9 lcg_noise at the main length "
+                  "differs from its plain version")
+        else:
+            check(err <= DS.TOL_REL * want.abs().max().item(),
+                  f"K9 {stage} at the main length: max_abs_err {err:.3e}")
+        ms = graph_ms(fn)
+        eager_ms = cuda_ms(fn, reps=20)
+        plain_ms = cuda_ms(plain, reps=3)
+        ms_2 = graph_ms(fn)
+        nbytes = (1 if stage == "lcg_noise" else 2) * MAIN_T * 8
+        # the noise's 32-bit integer steps at the 32-bit non-tensor rate
+        bound, by = bound_ms(nbytes, K9_OPS[stage] * MAIN_T,
+                             "float32" if stage == "lcg_noise" else "float64")
+        out[stage] = {"ms": ms, "ms_again": ms_2, "eager_ms": eager_ms,
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "max_abs_err": max(err, errs.get(
+                          stage, 0.0)), "cases": cases[stage]}
+        print(f"[kernels] K9 {stage} float64 T={MAIN_T}: ms={ms:.5f} (again "
+              f"{ms_2:.5f}, a CUDA graph of 20 calls) eager_ms="
+              f"{eager_ms:.5f} plain_ms={plain_ms:.3f} bound_ms={bound:.5f} "
+              f"({by}) {ms / bound:.2f}x the bound max_abs_err={err:.3e} "
+              f"card='{card}'")
+    return out
+
+
 def faust_phases(torch, cuda, rng, card):
-    """The Faust family: K1 against its plain loop, the VAR renders and the
-    batch renders; returns K1's entry of the `kernels` line."""
+    """The Faust family: K1 against its plain loop, K9 against its host
+    form and its plain ladders, the VAR renders and the batch renders;
+    returns K1's and K9's entries of the `kernels` line."""
     from zorak_tpu_torch.kernels import switching_scan as SS
     from zorak_tpu_torch.models import FAUST_MODULES, dspkit as K
     from zorak_tpu_torch.models import get_faust_module
@@ -5670,19 +5878,26 @@ def faust_phases(torch, cuda, rng, card):
           f"x {chain_ns:.3f} ns = {chunk_chain_ms:.4f} ms, the kernel "
           f"{scan_ms / chunk_chain_ms:.3f}x it")
 
+    # K9 against its host form and its plain ladders; a stream of its own,
+    # so the draws below stay what they were before K9
+    k9 = k9_phase(torch, cuda, np.random.RandomState(SEED + 18), card)
+
     # stage times at the main shape, each after a warm-up, for the
-    # breakdown of a VAR render
+    # breakdown of a VAR render: the calls as a render makes them
     xs = torch.from_numpy(rng.randn(MAIN_T)).to(cuda, torch.float64)
+    xa = xs.abs()
     bq = K.rbj_coeffs("hp", 11500.0, 0.707, SR)
     stage_fns = {
         "lcg_noise": lambda: K.lcg_noise(MAIN_T, device=cuda),
         "biquad_tf2": lambda: K.biquad_tf2(xs, *bq),
         "onepole": lambda: K.onepole(xs, 0.99),
+        "integrator": lambda: K.integrator(xs, 0.95),
+        "max_follower": lambda: K.max_follower(xa, 0.97),
     }
     stages = {}
     for name, fn in stage_fns.items():
         fn()
-        stages[name] = cuda_ms(fn, 3)
+        stages[name] = cuda_ms(fn, 20)
     stages["switching_scan"] = scan_ms
     print("[stages] T=%d f64 %s" % (MAIN_T, " ".join(
         f"{k}_ms={v:.3f}" for k, v in stages.items())))
@@ -5695,16 +5910,18 @@ def faust_phases(torch, cuda, rng, card):
     var_scans = caught_scans(lambda: var(x, v, SR))   # warm-up
     torch.cuda.synchronize()
     SS.LAUNCHES = 0
+    k9_set_counts({})
     zero_reruns()
     t0 = time.perf_counter()
     y_holder = []
     var_ms = cuda_ms(lambda: y_holder.append(var(x, v, SR)))
     var_wall = time.perf_counter() - t0
-    main_launches = {"switching_scan": SS.LAUNCHES}
+    main_launches = {"switching_scan": SS.LAUNCHES, **k9_counts()}
     var_reruns = rerun_steps()
     y = y_holder[0]
-    check(all(n > 0 for n in main_launches.values()),
-          f"main path skipped a kernel: {main_launches}")
+    check(main_launches == {"switching_scan": 1, **VAR_K9_LAUNCHES},
+          f"a VAR render launched {main_launches}, not K1 once and "
+          f"{VAR_K9_LAUNCHES}")
     check(tuple(y.shape) == (2, MAIN_T), f"VAR output shape {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()), "VAR output not finite")
     sec = MAIN_T / SR
@@ -5743,6 +5960,7 @@ def faust_phases(torch, cuda, rng, card):
     x_prog = torch.from_numpy(x_prog).to(cuda)
     prog_scans = caught_scans(lambda: var(x_prog, v, SR))   # warm-up
     SS.LAUNCHES = 0
+    k9_set_counts({})
     zero_reruns()
     prog_ms = cuda_ms(lambda: var(x_prog, v, SR))
     prog_reruns, prog_launches = rerun_steps(), SS.LAUNCHES
@@ -5755,16 +5973,21 @@ def faust_phases(torch, cuda, rng, card):
 
     # 7. batch path: five modules, 8 files x 10 s ----------------------------
     batch = {}
+    batch_k9 = dict.fromkeys(K9_COUNTERS, 0)
     for slug in FAUST_MODULES:
         r = FaustBatchRenderer(slug, srate=SR, device=cuda)
         xb = (rng.randn(BATCH_FILES, r.nch, BATCH_T) * 0.25).astype(np.float32)
         xb = torch.from_numpy(xb).to(cuda)
         scans = caught_scans(lambda: r.render_files(xb))   # warm-up
         SS.LAUNCHES = 0
+        k9_set_counts({})
         zero_reruns()
         out = []
         ms = cuda_ms(lambda: out.append(r.render_files(xb)))
         reruns = rerun_steps()
+        k9_launches = k9_counts()
+        for name, n in k9_launches.items():
+            batch_k9[name] += n
         yb = out[0]
         check(tuple(yb.shape) == tuple(xb.shape), f"{slug} batch shape")
         check(bool(torch.isfinite(yb).all()), f"{slug} batch not finite")
@@ -5774,7 +5997,17 @@ def faust_phases(torch, cuda, rng, card):
         batch[slug] = audio_s / (ms / 1e3)
         print(f"[batch] {slug} {BATCH_FILES}x{r.nch}ch x 10 s: device_ms={ms:.2f} "
               f"audio_s_per_s={batch[slug]:.1f} switching_scan_launches="
-              f"{SS.LAUNCHES} rerun_steps={reruns} card='{card}'")
+              f"{SS.LAUNCHES} k9_launches={json.dumps(k9_launches)} "
+              f"rerun_steps={reruns} card='{card}'")
+        if slug == "VAR":
+            # VAR runs no conv1d (whose algorithm may change with the
+            # batch): every file equals its solo render bit for bit
+            solo = r.raw_render(BATCH_T)
+            for i in range(BATCH_FILES):
+                check(torch.equal(solo(xb[i])[0], yb[i]),
+                      f"VAR batch file {i} differs from its solo render")
+            print(f"[batch] VAR: each of the {BATCH_FILES} files torch.equal "
+                  f"to its solo render")
         for a in scans:
             witnessed(f"{slug} batch follower input", a)
         # every module is causal: the first second of each file against
@@ -5796,7 +6029,34 @@ def faust_phases(torch, cuda, rng, card):
         check(rep.audio_passed,
               f"{slug} batch render disagrees with its golden at {AUDIO_EPS}")
 
-    return {
+    check(all(main_launches[n] + batch_k9[n] > 0 for n in K9_COUNTERS),
+          f"the Faust paths skipped a K9 kernel: VAR {main_launches}, "
+          f"batch {batch_k9}")
+    k9_entries = []
+    for name, stage, src_line in (
+            ("affine_scan", "onepole", 52), ("maxplus_scan", "max_follower",
+                                             78),
+            ("biquad_scan", "biquad_tf2", 138), ("lcg_noise", "lcg_noise",
+                                                 244)):
+        f = k9[stage]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "zorak_tpu_torch/csrc/dsp_scan.cu",
+            "replaces": f"zorak_tpu/models/dspkit.py:{src_line}",
+            "launches": main_launches[name] + batch_k9[name],
+            "launches_var": main_launches[name],
+            "launches_batch": batch_k9[name],
+            "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": None,
+            "stage": stage, "ms_again": f["ms_again"],
+            "eager_ms": f["eager_ms"], "edge_cases": f["cases"]}
+        if name == "affine_scan":    # K9a's other stage
+            entry.update({f"integrator_{k}": v
+                          for k, v in k9["integrator"].items()})
+        k9_entries.append(entry)
+
+    return [{
         "name": "switching_scan",
         "route": "cuda",
         "source": "zorak_tpu_torch/csrc/switching_scan.cu",
@@ -5818,7 +6078,7 @@ def faust_phases(torch, cuda, rng, card):
         "chunk": chunk,
         "warmup": warmup,
         "library_ms": None,
-    }
+    }] + k9_entries
 
 
 TOOLING_BENCH_S = 10.0     # bench --seconds on the card
@@ -6563,7 +6823,7 @@ def run_phases(torch, cuda, rng, card, phases, golden, t_start) -> int:
         scan_group_sweep(torch, cuda, np.random.RandomState(SEED))
     if "faust" in phases:
         t0 = time.perf_counter()
-        kernels.insert(0, faust_phases(torch, cuda, rng, card))
+        kernels[:0] = faust_phases(torch, cuda, rng, card)
         print(f"[done] faust phases in {time.perf_counter() - t0:.1f} s")
         ended("faust")
     print(f"[done] {time.perf_counter() - t_start:.1f} s; the phases end at "

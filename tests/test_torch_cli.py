@@ -362,6 +362,9 @@ _K5_MODULES = ["kernels.segment_graph"]
 # K6 and K3b: the gated regime's index program and the dynamic ring read
 _K6_MODULES = ["kernels.gated_index"]
 
+# K9: the Faust stages' recurrences and noise
+_K9_MODULES = ["kernels.dsp_scan"]
+
 
 def test_port_imports_neither_jax_nor_zorak_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -373,7 +376,7 @@ def test_port_imports_neither_jax_nor_zorak_tpu():
     for mod in (_JSFX_MODULES + _SPECTRAL_MODULES + _BATCH_MODULES
                 + _COUPLED_MODULES + _DEVEXEC_MODULES + _GRAPH_MODULES
                 + _SERVICES_MODULES + _TOOLING_MODULES + _K5_MODULES
-                + _K6_MODULES):
+                + _K6_MODULES + _K9_MODULES):
         assert f"'zorak_tpu_torch.{mod}'" in names, mod
 
 

@@ -247,7 +247,7 @@ def test_build_module_imports_and_names_libraries_without_nvcc(
         monkeypatch, tmp_path):
     assert set(_build.SOURCES) == {"switching_scan", "linrec_scan",
                                    "ring_taps", "stft_ola", "partition_mac",
-                                   "gated_index"}
+                                   "gated_index", "dsp_scan"}
     for name, src in _build.SOURCES.items():
         assert (_build.CSRC_DIR / src).is_file(), name
     path = _build.library_path("switching_scan")

@@ -15,6 +15,10 @@
                      by lowering/devgen.py, csrc/block_ops.cuh)
     segment_graph    a render's step captured as a CUDA graph and replayed
                      (K5: the segment, or a coupled block's K10 and segment)
+    gated_index      the gated regime's index program and the dynamic ring
+                     read (K6, K3b: csrc/gated_index.cu)
+    dsp_scan         the Faust stages' recurrences and noise (K9:
+                     csrc/dsp_scan.cu)
 """
 from .stft import stft, istft, stft_process  # noqa: F401
 from .convolution import fir_conv, partitioned_convolve  # noqa: F401

@@ -42,6 +42,7 @@ SOURCES: Dict[str, str] = {
     "stft_ola": "stft_ola.cu",
     "partition_mac": "partition_mac.cu",
     "gated_index": "gated_index.cu",
+    "dsp_scan": "dsp_scan.cu",
 }
 
 # --fmad=false keeps multiply and add as two roundings, as in the plain

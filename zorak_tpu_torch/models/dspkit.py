@@ -4,12 +4,13 @@ Counterpart of zorak_tpu/models/dspkit.py.  Everything is f64 and
 [..., T]-shaped with time last; any leading dims are a batch.
 
 - one-poles, leaky integrators, max-hold followers and biquads are linear
-  (or max-plus) recurrences, run here as log-depth doubling scans over the
-  time axis in plain PyTorch: ceil(log2 T) stages of a few tensor ops each;
+  (or max-plus) recurrences, run on the hand-written CUDA kernels of K9
+  (kernels/dsp_scan.py: chunked scans) on the GPU and as the doubling
+  ladders on the CPU;
 - the switching (attack/release) one-pole is not associative and runs on
   the hand-written CUDA kernel (kernels/switching_scan.py) on the GPU;
-- FIRs are f64 conv1d; Faust's int32 LCG noise is an affine doubling scan
-  in int64 on the device.
+- FIRs are f64 conv1d; Faust's int32 LCG noise is K9's jump-ahead kernel
+  on the GPU.
 
 Scalar helpers take Python floats (control values) or tensors (signals)
 and return the same kind.
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..kernels import dsp_scan as DS
 # si.lag_ud / si.onePoleSwitching: the pole depends on rise vs fall, so it
 # is genuinely sequential; the CUDA kernel on the GPU, the plain loop on
 # the CPU, with the leading axes as the kernel's lanes
@@ -65,52 +67,22 @@ def hz2pole(hz, srate):
 
 
 # ---------------------------------------------------------------------------
-# recurrences
-
-
-def _coef(c, like: torch.Tensor) -> torch.Tensor:
-    """A per-sample coefficient tensor shaped like `like` (a fresh copy)."""
-    c = torch.as_tensor(c, dtype=like.dtype, device=like.device)
-    return c.broadcast_to(like.shape).clone()
-
-
-def _affine_scan(a: torch.Tensor, b: torch.Tensor):
-    """Inclusive scan of the maps z -> a[t]*z + b[t] along the last axis.
-
-    Returns (A, B) with A[t] = a[0]*...*a[t] and B[t] the recurrence's
-    value at t from a zero start.  Hillis-Steele doubling: at stride d every
-    t >= d folds in the composite ending at t-d.  Consumes a and b.
-    """
-    n, d = a.shape[-1], 1
-    while d < n:
-        b[..., d:] = a[..., d:] * b[..., :-d] + b[..., d:]
-        a[..., d:] = a[..., :-d] * a[..., d:]
-        d *= 2
-    return a, b
+# recurrences (K9: kernels/dsp_scan.py)
 
 
 def onepole(x, pole, z0=0.0):
     """y[t] = (1-pole)*x[t] + pole*y[t-1]  (si.smooth / onePoleExp)."""
-    a = _coef(pole, x)
-    A, B = _affine_scan(a, (1.0 - a) * x)
-    return A * z0 + B
+    return DS.affine_scan(x, pole, z0, onepole=True)
 
 
 def integrator(x, pole, z0=0.0):
     """y[t] = x[t] + pole*y[t-1]  (plain leaky accumulation)."""
-    A, B = _affine_scan(_coef(pole, x), x.clone())
-    return A * z0 + B
+    return DS.affine_scan(x, pole, z0, onepole=False)
 
 
 def max_follower(x, rel_pole, z0=0.0):
-    """y[t] = max(x[t], rel_pole*y[t-1])  — max-plus doubling scan."""
-    a, b = _coef(rel_pole, x), x.clone()
-    n, d = x.shape[-1], 1
-    while d < n:
-        b[..., d:] = torch.maximum(b[..., :-d] * a[..., d:], b[..., d:])
-        a[..., d:] = a[..., :-d] * a[..., d:]
-        d *= 2
-    return torch.maximum(a * z0, b)
+    """y[t] = max(x[t], rel_pole*y[t-1])  (max-hold follower)."""
+    return DS.maxplus_scan(x, rel_pole, z0)
 
 
 def amp_follower_ar(x, att_sec, rel_sec, srate, z0=0.0):
@@ -121,38 +93,13 @@ def amp_follower_ar(x, att_sec, rel_sec, srate, z0=0.0):
 
 
 def biquad_tf2(x, b0, b1, b2, a1, a2, s0=(0.0, 0.0)):
-    """Transposed direct-form II biquad (fi.tf22t) via matrix doubling scan.
+    """Transposed direct-form II biquad (fi.tf22t).
 
     y[t]  = b0*x + s1
     s1'   = b1*x - a1*y + s2
     s2'   = b2*x - a2*y
-
-    The state recurrence s' = M s + v*x[t] with constant M = [[-a1, 1],
-    [-a2, 0]] scans as (2x2 matrix, 2-vector) pairs, kept as six [..., T]
-    component tensors; y comes from the state before each sample.
     """
-    # M's entries (p q / r s) and the input vector (u, w) at every t
-    p, q = _coef(-a1, x), _coef(1.0, x)
-    r, s = _coef(-a2, x), _coef(0.0, x)
-    u, w = (b1 - a1 * b0) * x, (b2 - a2 * b0) * x
-    n, d = x.shape[-1], 1
-    while d < n:
-        # later (at t) composed after earlier (at t-d): M2 @ M1, M2 @ v1 + v2
-        p1, q1, r1, s1 = p[..., :-d], q[..., :-d], r[..., :-d], s[..., :-d]
-        p2, q2, r2, s2 = p[..., d:], q[..., d:], r[..., d:], s[..., d:]
-        u1, w1 = u[..., :-d], w[..., :-d]
-        nu = p2 * u1 + q2 * w1 + u[..., d:]
-        nw = r2 * u1 + s2 * w1 + w[..., d:]
-        np_, nq = p2 * p1 + q2 * r1, p2 * q1 + q2 * s1
-        nr, ns = r2 * p1 + s2 * r1, r2 * q1 + s2 * s1
-        u[..., d:], w[..., d:] = nu, nw
-        p[..., d:], q[..., d:], r[..., d:], s[..., d:] = np_, nq, nr, ns
-        d *= 2
-    s_init0, s_init1 = float(s0[0]), float(s0[1])
-    s1_after = p * s_init0 + q * s_init1 + u      # state s1 AFTER sample t
-    s1_prev = torch.cat([torch.full_like(x[..., :1], s_init0),
-                         s1_after[..., :-1]], dim=-1)
-    return b0 * x + s1_prev
+    return DS.biquad_scan(x, b0, b1, b2, a1, a2, s0)
 
 
 def rbj_coeffs(kind: str, fc, q, srate) -> Tuple:
@@ -214,35 +161,9 @@ def gaussian_fir_taps(sigma_samples, radius: int, device=None):
 # ---------------------------------------------------------------------------
 # noise (Faust no.noise: int32 LCG)
 
-_LCG_A = 1103515245
-_LCG_C = 12345
-_MASK32 = 0xFFFFFFFF
-
-
-def _mulmod32(a: torch.Tensor, b) -> torch.Tensor:
-    """a*b mod 2^32 for int64 values in [0, 2^32), with no int64 overflow:
-    a splits into 16-bit halves so no partial product reaches 2^49."""
-    lo, hi = a & 0xFFFF, a >> 16
-    return (lo * b + (((hi * b) & 0xFFFF) << 16)) & _MASK32
-
 
 def lcg_noise(n: int, seed: int = 12345, dtype=F64, device=None):
-    """Faust-style noise in (-1, 1): x_k = lcg^(k+1)(seed)/2^31 as int32.
-
-    Computed on the device: an inclusive doubling scan composes the affine
-    LCG step s -> A*s + C (mod 2^32) into the map of k+1 steps for every k,
-    in int64 masked to 32 bits, and applies it to the seed.  The same
-    stream as zorak_tpu's host loop, bit for bit.
-    """
-    dev = resolve_device(device)
-    a = torch.full((n,), _LCG_A, dtype=torch.int64, device=dev)
-    c = torch.full((n,), _LCG_C, dtype=torch.int64, device=dev)
-    d = 1
-    while d < n:
-        # later map (a2, c2) after earlier (a1, c1): s -> a2*a1*s + a2*c1 + c2
-        c[d:] = (_mulmod32(a[d:], c[:-d]) + c[d:]) & _MASK32
-        a[d:] = _mulmod32(a[d:], a[:-d])
-        d *= 2
-    s = (_mulmod32(a, seed & _MASK32) + c) & _MASK32
-    s = torch.where(s < (1 << 31), s, s - (1 << 32))
-    return s.to(F64).div_(float(1 << 31)).to(dtype)
+    """Faust-style noise in (-1, 1): x_k = lcg^(k+1)(seed)/2^31 as int32,
+    computed on the device; the same stream as zorak_tpu's host loop, bit
+    for bit."""
+    return DS.lcg_noise(n, seed, dtype, resolve_device(device))
