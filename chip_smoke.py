@@ -192,13 +192,23 @@ device and build always run; `k4sweep` is described at the end):
 4e. hop     builtin_plugins' hop_convolver(1024, 8) (a partitioned
             convolver whose FFT work fires every 1,024 samples from
             inside @sample) through PluginInstance.render on 60 s of
-            stereo: engine torch-vector, K10 launched once a hop, the
-            render held to the native golden; K10 on the hop section at
-            the first and the middle hop against its plain version (the
-            scalars and vars bit for bit, heap and rings within
-            FFT_TOL_REL), its time a hop by CUDA events beside its bound;
-            8 files of 2 s through BatchRenderer, each torch.equal to its
-            solo render;
+            stereo: engine torch-vector, dispatch graph (a hop's step,
+            its segment then K10, replayed by K5), K10 launched once a
+            hop by the replays' counts with no block loop or copy on
+            thread 0, the render torch.equal to the eager loop's over
+            its first half and held to the native golden; K10's phases
+            printed (process(), called as a statement, in place: its
+            copies, transforms and counted while loops across the block,
+            the delay line's shift and the partition loop as loops every
+            thread follows); K10 at the first and the middle hop bit for
+            bit to its earlier one-thread design (a probe build) and
+            against its plain version (the scalars and vars bit for bit,
+            heap and rings within FFT_TOL_REL), the two designs timed in
+            turns by CUDA events beside the chain bound (the barriers
+            the host form counts, at the probes' latencies) and the
+            bytes bound; K5 held to the eager step on 10 s (`k5_held`);
+            8 files of 2 s through BatchRenderer, each torch.equal to
+            its solo render;
 4p. planner  the planner's paths at the CPU tests' sizes on the card
             (tests/test_torch_planner_paths.py): the time-blocked ring
             cycles (their segment lengths, 256 and 512), the dynamic
@@ -723,8 +733,10 @@ def k5_set_counts(counts):
 
 
 def k5_steps(kern, n: int) -> int:
-    """The steps of a render of n samples: blocks where @block is
-    coupled, else segments."""
+    """The steps of a fresh render of n samples: blocks where @block is
+    coupled, a hop kernel's spans (lead, hops, tail), else segments."""
+    if kern._hop is not None:
+        return len(kern._hop_spans(n, kern._hop_phase0))
     return -(-n // (kern.B if kern.coupled else kern.segment_length(n)))
 
 
@@ -3402,15 +3414,31 @@ def gated_phase(torch, cuda, rng, card):
             / one["dyn_ring_read"]["calls"]}
 
 
+def flat_phases(phases):
+    """K10's phases depth first, a loop phase's body after it."""
+    for ph in phases:
+        yield ph
+        yield from flat_phases(ph.body)
+
+
+def phase_kinds(phases):
+    """The phases' kinds, a loop phase as [kind, its body's kinds]."""
+    return [[ph.kind, phase_kinds(ph.body)] if ph.body else ph.kind
+            for ph in phases]
+
+
 def hop_phase(torch, cuda, rng, card):
     """The hop pipeline: builtin_plugins.hop_convolver through
-    PluginInstance.render on 60 s of stereo (K10 once a hop, the render
-    held to the native golden), K10 on the hop section at the first and
-    the middle hop against its plain version and timed, and 8 files
-    through BatchRenderer; returns K10's hop entries for the `kernels`
-    line."""
+    PluginInstance.render on 60 s of stereo (a hop's step, its segment
+    then K10 on the hop section, replayed by K5; the render held to the
+    native golden and to the eager loop), K10 at the first and the middle
+    hop against its earlier one-thread design (bit for bit) and its plain
+    version, the two designs timed in turns beside the chain and bytes
+    bounds, K5 held on 10 s (`k5_held`), and 8 files through
+    BatchRenderer; returns K10's hop entries for the `kernels` line."""
     from zorak_tpu_torch import builtin_plugins as BP
     from zorak_tpu_torch.ir import compile_plugin_source
+    from zorak_tpu_torch.kernels import _build
     from zorak_tpu_torch.kernels import block_section as BS
     from zorak_tpu_torch.kernels import linrec_scan as LS, ring_taps as RT
     from zorak_tpu_torch.runtime.engine import PluginInstance
@@ -3424,65 +3452,116 @@ def hop_phase(torch, cuda, rng, card):
     check(inst.engine == "torch-vector" and kern._hop is not None
           and kern._hop_len == HOP_PART,
           f"hop: engine {inst.engine} ({inst.spec_error})")
+    check(kern.k5_refusal is None, f"hop: K5 refuses the plan: "
+          f"{kern.k5_refusal}")
     hop = kern._hop_prog
     hops = MAIN_T // HOP_PART          # the counter starts at 0
-    phases = [(ph.kind, ph.label) for ph in hop.block.phases]
+    kinds = phase_kinds(hop.block.phases)
+    every = list(flat_phases(hop.block.phases))
+    block = [ph for ph in every if ph.kind != "serial"]
+    check(hop.block.body and not hop.block.serial_loops
+          and {ph.kind for ph in block} >= {"fft", "copy", "loop", "while"},
+          f"hop: K10's phases {kinds}, kept on thread 0: "
+          f"{hop.block.serial_loops}")
     print(f"[hop] the hop section: {len(hop.block.body)} top-level "
-          f"statement(s) ({phases}), every one on thread 0 (the transforms "
-          f"run inside the user function process(), one-thread forms); heap "
+          f"statement(s), process() called as a statement and printed in "
+          f"place as phases: {kinds} ({len(block)} block phases of "
+          f"{len(every)}: {', '.join(ph.label for ph in block)}); heap "
           f"{hop.mem_size} cells, {len(hop.regions)} carried regions; "
           f"{hop.threads} threads")
+    probe = BS.BlockSectionProgram(hop.block, hop.slider, hop.n_svec,
+                                   hop.inter, hop.regions, hop.cells,
+                                   hop.ctrl, probe=True, threads=hop.threads)
+    t0 = time.perf_counter()
+    logs = _build.build_generated([hop.source, probe.source])
+    print(f"[hop] K10 and its probe build (the earlier one-thread design) "
+          f"built together in {time.perf_counter() - t0:.2f} s")
+    for label, source in [("block_section hop", hop.source),
+                          ("block_section hop probe build", probe.source)]:
+        for line in logs[source].splitlines():
+            if "registers" in line or "spill" in line or "stack" in line:
+                print(f"[build] {label}: {line.strip()}")
     x = (rng.randn(2, MAIN_T) * 0.25).astype(np.float32)
-
-    # K10's inputs at the first and the middle hop, copied before the launch
-    got, spy, real = k10_recording({0, hops // 2})
+    x_dev = torch.from_numpy(x).to(cuda)
 
     t0 = time.perf_counter()
     PluginInstance(prog, srate=SR).render(x[:, :n1])     # warm-up, 1 s
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    # the main path: counts zeroed just before, read just after (the spy
-    # copies K10's inputs at two hops and launches K10 itself)
-    BS.zero_serial_runs()
-    BS.LAUNCHES = LS.LAUNCHES = RT.LAUNCHES = 0
-    out = []
+    # K10's inputs at the first and the middle hop, recorded through the
+    # eager step up to the middle hop (a K5 replay calls no wrapper): the
+    # main path's yardstick
+    n_rec = (hops // 2 + 1) * HOP_PART
+    got, spy, real = k10_recording({0, hops // 2})
     BS.block_section = spy
     t0 = time.perf_counter()
     try:
-        ms = cuda_ms(lambda: out.append(inst.render(x)))
+        y_eager, _c = kern._render_device_as("eager", x_dev[:, :n_rec])
+        torch.cuda.synchronize()
     finally:
         BS.block_section = real
+    eager_s = time.perf_counter() - t0
+
+    # the main path: counts zeroed just before, read just after
+    BS.zero_serial_runs()
+    BS.LAUNCHES = LS.LAUNCHES = RT.LAUNCHES = 0
+    out = []
+    t0 = time.perf_counter()
+    ms = cuda_ms(lambda: out.append(inst.render(x)))
     wall = time.perf_counter() - t0
     launches = BS.LAUNCHES
+    serial = BS.serial_runs(cuda)
     res = out[0]
     y = res.audio
     check(res.engine == "torch-vector", f"hop: rendered by {res.engine}")
+    check(res.details.get("dispatch") == "graph",
+          f"hop: the render ran as {res.details.get('dispatch')}")
     check(launches == hops and LS.LAUNCHES == 0 and RT.LAUNCHES == 0,
           f"hop: K10 launched {launches} times for {hops} hops")
+    check(serial == 0, f"hop: K10 ran a block loop or copy on thread 0 "
+          f"{serial} times")
+    check(torch.equal(torch.from_numpy(y[:, :n_rec]), y_eager.cpu()),
+          "hop: the render through K5 differs from the eager step's")
     check(y.shape == (2, MAIN_T) and bool(np.isfinite(y).all()),
           "hop: output not finite or of the wrong shape")
     wet = float(np.abs(y - 0.5 * x).max())
     check(wet > 1e-3, f"hop: the convolution is silent ({wet})")
+    more_ms = sorted(cuda_ms(lambda: inst.render(x)) for _ in range(2))
     print(f"[hop] hop_convolver({HOP_PART}, {HOP_PARTS}) 60 s stereo: "
-          f"engine={res.engine} device_ms={ms:.2f} wall_s={wall:.4f} "
+          f"engine={res.engine} dispatch={res.details.get('dispatch')} "
+          f"device_ms={ms:.2f} wall_s={wall:.4f} "
           f"audio_s_per_s={sec / (ms / 1e3):.2f} K10 launches {launches} "
-          f"for {hops} hops; wet peak {wet:.3f}; 1 s warm-up render (K10's "
-          f"build included) {warm_s:.2f} s card='{card}'")
+          f"for {hops} hops (the replays' counts), block loops and copies "
+          f"on thread 0: {serial}; two more renders "
+          f"{' '.join(f'{m:.2f}' for m in more_ms)} ms; wet peak "
+          f"{wet:.3f}; 1 s warm-up render {warm_s:.2f} s; through K5, "
+          f"torch.equal to the eager step's render of its first "
+          f"{n_rec / SR:.1f} s ({eager_s:.2f} s of wall) card='{card}'")
     rep, gold_s = held_to_native_golden(prog, x, y, inst.shadow.state)
     print(f"[hop] whole 60 s, PluginInstance.render on the card vs the "
           f"native golden (audio {AUDIO_EPS}, vars and heap {SCALAR_EPS}): "
           f"{rep.summary()}; the golden alone {gold_s:.2f} s")
     check(rep.passed, "hop: the 60 s render disagrees with the native golden")
 
-    # K10 on the hop section at the first and the middle hop: against its
-    # plain version (the sample side's scalars and the hop's vars bit for
-    # bit, the heap and the rings within FFT_TOL_REL: they hold the
-    # transforms' output), then timed at the middle hop
+    # K10 at the first and the middle hop: bit for bit to the earlier
+    # one-thread design on the same inputs, and against its plain version
+    # (the sample side's scalars and the hop's vars bit for bit, the heap
+    # and the rings within FFT_TOL_REL: they hold the transforms' output)
     errs, plain_ms = [], None
     for i in sorted(got):
-        new, cpu = got[i].copy(), got[i].copy("cpu")
+        new, old = got[i].copy(), got[i].copy()
         new.run(BS.block_section, hop)
+        old.run(BS.block_section_earlier, probe)
+        torch.cuda.synchronize()
+        pairs = [("svec", new.svec, old.svec), ("vars", new.bvars, old.bvars),
+                 ("heap", new.bmem, old.bmem)] + [
+            (f"ring {j}", a, b) for j, (a, b) in enumerate(zip(new.rings,
+                                                               old.rings))]
+        for name, a, b in pairs:
+            check(same_values(a, b), f"K10 hop {i}: {name} differs from the "
+                  "earlier one-thread design")
+        cpu = got[i].copy("cpu")
         t_p = time.perf_counter()
         cpu.run(BS.block_section_plain, hop)
         plain_ms = (time.perf_counter() - t_p) * 1e3
@@ -3498,23 +3577,54 @@ def hop_phase(torch, cuda, rng, card):
         errs.append(err)
         check(excess <= 0.0, f"K10 hop {i}: {err:.3e} from the plain "
               f"version, beyond FFT_TOL_REL {BS.FFT_TOL_REL}")
-        print(f"[hop] K10 at hop {i}: scalars and vars bit-identical to the "
-              f"plain version, heap and rings within {err:.3e} (of max "
-              f"{float(cpu.bmem.abs().max()):.3e}); plain version "
-              f"{plain_ms:.1f} ms")
-    _p, svec, rings, bvars, bmem, sb, _st = got[hops // 2]
+        print(f"[hop] K10 at hop {i}: svec, vars, heap and rings "
+              f"bit-identical to the earlier one-thread design; against the "
+              f"plain version scalars and vars bit-identical, heap and rings "
+              f"within {err:.3e} (of max {float(cpu.bmem.abs().max()):.3e}); "
+              f"plain version {plain_ms:.1f} ms")
+
+    # K10 alone at the middle hop's inputs, the two designs in turns
+    # (earlier, K10, K10, earlier; each launch a hop on the inputs it
+    # changes)
+    inputs = got[hops // 2]
+    _p, svec, rings, bvars, bmem, sb, _st = inputs.copy()
     reps = 20
-    hop_ms = cuda_ms(lambda: BS.block_section(hop, svec, rings, bvars, bmem,
-                                              sb), reps=reps)
+    turns = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        fn, p = (BS.block_section_earlier, probe) if which == "old" \
+            else (BS.block_section, hop)
+        turns[which].append(cuda_ms(
+            lambda: fn(p, svec, rings, bvars, bmem, sb), reps=reps))
     BS.LAUNCHES = 0
+    hop_ms = sum(turns["new"]) / len(turns["new"])
+    old_ms = sum(turns["old"]) / len(turns["old"])
     serial = BS.serial_runs(cuda)
-    # the least time for a hop: the exchanges (the carried rings in and
-    # out, the vars in and out) and the section's heap traffic (the input
-    # block, the partitions' spectra, the delay line and the overlap read;
-    # the output ring, the overlap, the delay line and two work buffers
-    # written) at the card's memory rate, beside two real transforms of
-    # 2 * part, `parts` complex products and the accumulation at its f64
-    # rate
+    check(serial == 0, f"hop: K10 ran a block loop or copy on thread 0 "
+          f"{serial} times in the phase")
+    # the chain bound: the barriers a launch passes (the exchanges' and the
+    # phases', counted by the host form on the middle hop's inputs), each
+    # after at least one dependent f64 operation, at the probes' latencies
+    bars = []
+    cpu = inputs.copy("cpu")
+    BS.block_section_host(hop, cpu.svec, cpu.rings, cpu.bvars, cpu.bmem,
+                          cpu.sb, threads=hop.threads, barriers=bars)
+    n_bar = BS.barriers_a_launch(hop, bars[0])
+    lat = torch.zeros(1, dtype=torch.float64, device=cuda)
+    n_lat = 1 << 16
+    BS.block_section_latency_probe(probe, lat, 16)
+    BS.block_section_latency_probe(probe, lat, 16, barriers=True)
+    add_ns = cuda_ms(lambda: BS.block_section_latency_probe(
+        probe, lat, n_lat)) * 1e6 / n_lat
+    bar_ns = cuda_ms(lambda: BS.block_section_latency_probe(
+        probe, lat, n_lat, barriers=True)) * 1e6 / n_lat
+    chain_bound = n_bar * (add_ns + bar_ns) / 1e6
+    # the least time for a hop by bytes and operations: the exchanges (the
+    # carried rings in and out, the vars in and out) and the section's heap
+    # traffic (the input block, the partitions' spectra, the delay line and
+    # the overlap read; the output ring, the overlap, the delay line and two
+    # work buffers written) at the card's memory rate, beside two real
+    # transforms of 2 * part, `parts` complex products and the
+    # accumulation at its f64 rate
     n2 = 2 * HOP_PART
     ring_cells = sum(m for _o, m in hop.regions)
     nbytes = 8 * (2 * ring_cells + 2 * hop.n_vars
@@ -3524,10 +3634,22 @@ def hop_phase(torch, cuda, rng, card):
            + HOP_PARTS * 6 * HOP_PART + HOP_PARTS * n2 + 3 * HOP_PART)
     b_ms, b_by = bound_ms(nbytes, ops)
     print(f"[hop] K10 a hop, middle hop's inputs, mean of {reps} by CUDA "
-          f"events: {hop_ms * 1e3:.1f} us ({hops} hops: "
-          f"{hop_ms * hops:.1f} ms of a render); bound {b_ms * 1e3:.4f} us "
-          f"by {b_by} ({nbytes} bytes, {ops} f64 operations); block loops "
-          f"on thread 0 counted: {serial} card='{card}'")
+          f"events, in turns: earlier one-thread design "
+          f"{turns['old'][0] * 1e3:.1f}, K10 {turns['new'][0] * 1e3:.1f}, "
+          f"K10 {turns['new'][1] * 1e3:.1f}, earlier "
+          f"{turns['old'][1] * 1e3:.1f} us ({hops} hops: "
+          f"{hop_ms * hops:.1f} ms of a render); chain bound "
+          f"{chain_bound * 1e3:.2f} us ({n_bar} barriers a launch, "
+          f"{bars[0]} of them the phases', each after a dependent f64 add: "
+          f"{add_ns:.2f} ns, a barrier of {probe.threads} threads "
+          f"{bar_ns:.2f} ns); bytes and operations bound "
+          f"{b_ms * 1e3:.4f} us by {b_by} ({nbytes} bytes, {ops} f64 "
+          f"operations); block loops and copies on thread 0: {serial} "
+          f"card='{card}'")
+
+    # K5 on the hop render: a hop's step replayed against the eager loop
+    k5 = k5_held(torch, f"hop_convolver({HOP_PART}, {HOP_PARTS})", kern,
+                 kernel_render(kern, x_dev), 10 * n1, card, turns_T=5 * n1)
 
     x8 = torch.from_numpy((rng.randn(8, 2, 2 * n1) * 0.25).astype(np.float32)
                           ).to(cuda)
@@ -3538,8 +3660,21 @@ def hop_phase(torch, cuda, rng, card):
     return {"hop_launches": launches, "hop_ms": hop_ms,
             "hop_plain_ms": plain_ms, "hop_max_abs_err": max(errs),
             "hop_bound_ms": b_ms, "hop_bound_by": b_by,
-            "hop_render_ms": ms, "hop_golden_s": gold_s,
-            "hop_statements_thread0": len(hop.block.body)}
+            "hop_render_ms": ms, "hop_render_more_ms": more_ms,
+            "hop_golden_s": gold_s,
+            "hop_statements_thread0": sum(ph.kind == "serial"
+                                          for ph in every),
+            "hop_phases": kinds, "hop_block_phases": len(block),
+            "hop_earlier_ms": old_ms,
+            "hop_turns_ms": {"earlier": turns["old"], "new": turns["new"]},
+            "hop_chain_bound_ms": chain_bound, "hop_barriers": n_bar,
+            "hop_add_ns": add_ns, "hop_barrier_ns": bar_ns,
+            "hop_serial_runs": serial,
+            "hop_dispatch": res.details.get("dispatch"),
+            "hop_k5_ms_a_step": k5["graph_ms_a_step"],
+            "hop_k5_eager_ms_a_step": k5["eager_ms_a_step"],
+            "hop_k5_host_ops": k5["graph_trace"]["host_ops"],
+            "hop_batch_ms": batch_ms, "hop_solo_ms": solo_ms}
 
 
 # the planner phase: the CPU tests' cases of tests/test_torch_planner_paths.py

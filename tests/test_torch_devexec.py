@@ -766,15 +766,17 @@ def test_sample_chain_ops_counts_the_longest_path():
 def test_k10_sources_stay_as_they_were():
     # the reduced heap's printing (K11) leaves K10's sections alone: the
     # generated K10 text of the coupled and hop stand-ins, byte for byte
+    # (both as K10's design note and the hop's phases through process()
+    # print them)
     import hashlib
 
     want = {
         "spectral_tilt_leveler(2048)": (
             builtin_plugins.spectral_tilt_leveler(2048), "_block_prog",
-            "71e58b53aafff3087538b6996dee311c3412675f349563ab212933fc6a15b1f2"),
+            "59854630e91feca89561f06dc600bc0abf9a0c0e9b29415d5153d3b986581750"),
         "hop_convolver(1024, 8)": (
             builtin_plugins.hop_convolver(1024, 8), "_hop_prog",
-            "6e241925258f90efc50d3f8972d1b895ae067cf009091d935a7a6998fda80ee9"),
+            "455fde3bab766060af3af0d04bcd2442e68725a252aa8bc822dc9287e6fce657"),
     }
     for name, (src, attr, digest) in want.items():
         inst = PluginInstance(compile_plugin_source(src), device="cpu")

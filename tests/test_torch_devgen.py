@@ -13,6 +13,13 @@ are held within `FFT_TOL_REL` of the heap's largest magnitude and whose
 vars within `FFT_TOL_REL` of their own (a radix-2 against NumPy's FFT).
 Both are held to JAX within 1e-8 on every var slot but the function
 params (the C functions take them as arguments) and on the plugin heap.
+The host form's phases, with 1, 3 and 128 threads in both orders, equal
+its one-thread form bit for bit; the cases include the phases through a
+user function called as a statement (nested once, its value used
+elsewhere), block copies (overlapping runs both ways, lengths <= 0 and
+not whole), counted `while` loops (a start that is not an integer, no
+trips, `<=`, a bound past the heap) and loops whose bodies hold block
+phases, and the host form's count of the barriers they pass.
 """
 import functools
 import re
@@ -320,6 +327,101 @@ dst = 340 - (ctr % 2) * 30;
 i = 0;
 loop(20, dst[i] = SRC[i] + ctr; i += 1;);
 """, 3, 1 << 12, 512),
+    # the phases through a user function called as a statement: its
+    # arguments in the shared row, its locals in their slots, a block loop
+    # over a parameter's cells, and a call nested once
+    "function_phases_nested": ("""
+@init
+A = 1000; B = 3000; N = 64;
+i = 0; loop(2*N, A[i] = sin(i*0.3); i += 1;);
+function inner(dst, n) local(j) (
+  memset(dst, 0.25, 40);
+  j = 0;
+  while (j < n) ( dst[j] += j * 0.5 + n; j += 1; );
+);
+function outer(k) local(q) (
+  memcpy(B, A, 2*N);
+  fft(B, N);
+  inner(B + 2*N, k);
+  q = B[3] + k;
+  acc = q;
+);
+@block
+ctr += 1;
+outer(ctr + 10);
+done = acc + B[2*N + 5];
+""", 3, 1 << 14, 512),
+    # block copies: overlapping runs both ways (thread 0 copies them, 2 a
+    # block), a length <= 0, a non-integer length, a copy onto itself, a
+    # dynamic source; memset with a non-integer length, a start clamped
+    # at the heap's end, a negative length
+    "block_copies": ("""
+@init
+S = 100;
+i = 0; loop(64, S[i] = i + 0.5; i += 1;);
+@block
+ctr += 1;
+memcpy(S + 10, S, 40);
+memcpy(S, S + 5, 30);
+memcpy(400, S, -3);
+memcpy(500, S + 2, 7.9);
+memcpy(600, S, 0);
+memcpy(S + 3, S + 3, 10);
+memcpy(700, S + ctr, 16);
+memset(200 + ctr, ctr * 0.5, 33.7);
+memset(3990 + ctr, -1, 200);
+memset(300, 7, -5);
+chk = mem[510] + mem[706] + mem[210] + mem[4095];
+""", 3, 1 << 12, 512),
+    # counted while loops: a start that is not an integer (odd blocks:
+    # thread 0 runs it), no trips, `<=`, and a bound past the heap (its
+    # writes clamp: thread 0 runs it)
+    "counted_while_edges": ("""
+@init
+T = 100; U = 600;
+@block
+ctr += 1;
+i = 0.5 * ctr;
+while (i < 40) ( T[i] = i * 2 + ctr; i += 1; );
+j = 50;
+while (j < 10) ( U[j] = 1; j += 1; );
+k = ctr;
+while (k <= 30) ( U[k] = k * k; k += 1; );
+m = 3;
+while (m < 5000) ( mem[m] = m + ctr; m += 1; );
+last = i + j + k + m;
+""", 3, 1 << 12, 512),
+    # loops whose bodies hold block phases: a while with a data-dependent
+    # condition around a copy and an FFT, and a loop(n) around a memset
+    # and a permutation
+    "loop_with_fft_and_copy": ("""
+@init
+W = 1000; N = 32; A = 2000;
+i = 0; loop(2*N, A[i] = cos(i * 0.2); i += 1;);
+@block
+ctr += 1;
+e = 0; p = 0;
+while (e < 3 + (ctr % 2) && p < 5) (
+  memcpy(W, A + p, 2*N);
+  fft(W, N);
+  e += abs(W[2]) > 0.1 ? 1 : 0.5;
+  p += 1;
+);
+loop(2, memset(W + 2*N, e, 4); fft_permute(W, N););
+res = e + p + W[5];
+""", 3, 1 << 14, 512),
+    # a function whose value is used stays on thread 0; called as a
+    # statement, its body's phases run in place
+    "function_value_used_stays_serial": ("""
+@init
+function f(x) local(t) ( memset(300, x, 4); fft(400, 16); t = x * 2; t + 1 );
+i = 0; loop(32, mem[400 + i] = i * 0.1; i += 1;);
+@block
+ctr += 1;
+y = f(ctr);
+f(ctr + 1);
+z = y + mem[301] + mem[402];
+""", 3, 1 << 12, 512),
 }
 
 # name -> the kinds of @block's phases (DeviceSection.phases)
@@ -339,6 +441,17 @@ PHASES = {
     "loop_start_not_an_integer": ["serial", "loop"],
     "loop_writes_past_the_heap": ["serial", "loop"],
     "loop_overlap_at_run_time": ["serial", "loop"],
+    "function_phases_nested": ["serial", "serial", "copy", "fft", "serial",
+                               "copy", "serial", "loop", "serial",
+                               "serial"],
+    "block_copies": ["serial"] + ["copy"] * 10 + ["serial"],
+    "counted_while_edges": ["serial", "loop", "serial", "loop", "serial",
+                            "loop", "serial", "loop", "serial"],
+    "loop_with_fft_and_copy": [
+        "serial", ("while", ["copy", "fft", "serial"]),
+        ("repeat", ["copy", "fft"]), "serial"],
+    "function_value_used_stays_serial": ["serial", "serial", "copy", "fft",
+                                         "serial", "serial"],
 }
 # name -> why the printer keeps its loop on thread 0
 KEPT_SERIAL = {
@@ -349,7 +462,9 @@ KEPT_SERIAL = {
 # name -> block loops thread 0 runs itself over the case's blocks
 SERIAL_RUNS = {"loop_start_not_an_integer": 2,
                "loop_writes_past_the_heap": 2,
-               "loop_overlap_at_run_time": 2}
+               "loop_overlap_at_run_time": 2,
+               "block_copies": 6,
+               "counted_while_edges": 5}
 # (threads, descending) of the host form's phases
 TEAMS = [(1, False), (3, False), (3, True), (128, False), (128, True)]
 
@@ -469,16 +584,55 @@ def test_host_form_phases_equal_the_one_thread_form(name):
         assert sum(runs) == SERIAL_RUNS.get(name, 0), (threads, desc, runs)
 
 
+def kinds(phases):
+    """The phases' kinds, a loop phase as (kind, its body's kinds)."""
+    return [(ph.kind, kinds(ph.body)) if ph.body else ph.kind
+            for ph in phases]
+
+
+def flat(phases):
+    """Every phase, a loop phase's body after it."""
+    for ph in phases:
+        yield ph
+        yield from flat(ph.body)
+
+
 @pytest.mark.parametrize("name", sorted(PHASES))
 def test_phase_split(name):
     dev, prog = port_program(name)
-    assert [ph.kind for ph in dev.phases] == PHASES[name]
+    assert kinds(dev.phases) == PHASES[name]
     if name in KEPT_SERIAL:
         assert len(dev.serial_loops) == 1
         assert re.search(KEPT_SERIAL[name], dev.serial_loops[0])
-    # the phases print into the kernel's one team function
+    # the phases print into the kernel's one team function; a block loop
+    # and a block copy are one block step of their own each
     assert prog.source.count("ZB_DEV void zb_run_team(") == 1
-    assert prog.source.count("ZB_STEPS(team,") == PHASES[name].count("loop")
+    assert prog.source.count("ZB_STEPS(team,") == sum(
+        ph.kind in ("loop", "copy") for ph in flat(dev.phases))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_host_form_counts_the_barriers(name):
+    """The host form counts the barriers the phases pass (thread 0's runs
+    and the block steps): for a section without loop phases, the count
+    `barriers_a_launch` places; with them, a count the run decides."""
+    if host_compiler() is None:
+        pytest.skip("no host C++ compiler (g++, gcc, c++, cc) for the "
+                    "generated source's host form")
+    dev, prog = port_program(name)
+    counts = []
+
+    def form(*a, **kw):
+        BS.block_section_host(*a, barriers=counts, **kw)
+    run_port(name, form, threads=3)
+    exch = 3 if prog.v_shared else 2
+    assert len(counts) == CASES[name][1] and min(counts) > 0
+    if any(ph.body for ph in dev.phases):
+        with pytest.raises(ValueError, match="count them"):
+            BS.barriers_a_launch(prog)
+        assert BS.barriers_a_launch(prog, counts[0]) == exch + counts[0]
+    else:
+        assert counts == [BS.barriers_a_launch(prog) - exch] * len(counts)
 
 
 def test_phases_of_the_stand_in():

@@ -11,7 +11,10 @@ input at T <= 3,000, within TOL_REL x max|y| at T = 4,097 and across more
 than one carry tile; the noise bit for bit.  A row's result is the same
 alone and among 8 rows, and NaN and inf fall where the plain version puts
 them (where no product of poles underflows; the biquad, where the ladder
-differs from the sequential loop, against that loop).  The host form's
+differs from the sequential loop, against that loop).  Where a product
+of poles underflows, one test states run by run where the ladder, the
+host form, the JAX stage and the Faust golden's recurrence put NaN and
+inf.  The host form's
 cases skip where no host compiler is found.  The CUDA kernels run only on
 the card, where chip_smoke.py holds them to their host form and their
 plain versions.
@@ -349,6 +352,129 @@ def test_biquad_nan_and_inf_land_as_in_the_sequential_loop(host, kind_fc_q,
     _same_places(got, _t(_biquad_loop(x, *c)))
     if kind == "nan":
         _same_places(got, DS.biquad_scan_plain(_t(x), *c))
+
+
+# ---------------------------------------------------------------------------
+# non-finite samples: four orders on one input, held to the Faust golden
+#
+# The same seeded rows, each with one NaN, +inf or -inf at NF_T0[r], far
+# enough from the row's end that a product of the poles over the rest
+# underflows to 0, through the port's plain ladder, the kernels' host
+# form, the JAX stage (zorak_tpu/models/dspkit.py under jax.jit) and the
+# sequential recurrence of zorak_tpu/models/faust_golden.py.  Each test
+# states, run by run, where each order puts NaN and inf.  NaN lands where
+# the golden puts it in every order, but for max_follower; an inf never
+# does: the golden keeps it (or, in the biquad, turns it into NaN a
+# sample sooner), and the three scan orders give NaN where a product of
+# poles underflowed, each at its own places.  Where the port departs from
+# the golden the JAX stage departs too (ROADMAP.md, queue 3, "Of the
+# reference"), so nothing of the port is changed for it.
+
+NF_T = 4097
+NF_T0 = (100, 1500, 2000)
+NF_POLE = 0.6          # 0.6 ** 1459 underflows to 0
+NF_HP = ("hp", 11500.0, 0.707)
+
+
+def _golden_rows(name, x):
+    """The golden's recurrence, a sample at a time: onepole as VAR's
+    level follower (faust_golden.py `z_lvl = (1 - a) * x + a * z_lvl`),
+    integrator as ClickBeGone's high-pass (`a * (L - x') + a * y'`: u + a
+    y'), max_follower as its envelope (`env = max(ehf, env_rel * env)`,
+    Python's max), the biquad as `_Biquad.step` (fi.tf22t)."""
+    from zorak_tpu.models.faust_golden import _Biquad, _rbj
+
+    y = np.empty_like(x)
+    for r in range(x.shape[0]):
+        z, bq = 0.0, _Biquad(_rbj(*NF_HP, SR))
+        for t in range(x.shape[1]):
+            xt = float(x[r, t])
+            if name == "onepole":
+                z = (1.0 - NF_POLE) * xt + NF_POLE * z
+            elif name == "integrator":
+                z = xt + NF_POLE * z
+            elif name == "max_follower":
+                z = max(xt, NF_POLE * z)
+            else:
+                z = bq.step(xt)
+            y[r, t] = z
+    return y
+
+
+def _runs(row):
+    """(class, first, last) runs of the row's non-finite samples and the
+    finite ones after the first of them."""
+    cls = np.where(np.isnan(row), "nan", np.where(
+        np.isposinf(row), "+inf", np.where(np.isneginf(row), "-inf", "")))
+    bad = np.flatnonzero(cls != "")
+    out = []
+    if bad.size:
+        for t in range(int(bad[0]), len(row)):
+            c = str(cls[t]) or "finite"
+            if out and out[-1][0] == c and out[-1][2] == t - 1:
+                out[-1] = (c, out[-1][1], t)
+            else:
+                out.append((c, t, t))
+    return out
+
+
+def _stated(order, name, kind, t0):
+    """Where `order` puts NaN and inf on the row whose sample t0 is
+    `kind` (the runs from the first non-finite sample to the row's end)."""
+    end = NF_T - 1
+    if kind == "nan":
+        if name == "max_follower" and order == "golden":
+            # Python's max keeps the finite operand: NaN at t0 alone
+            return [("nan", t0, t0), ("finite", t0 + 1, end)]
+        return [("nan", t0, end)]
+    s, o = kind, {"inf": "-inf", "-inf": "+inf"}[kind]
+    s = "+inf" if s == "inf" else s
+    if name == "max_follower" and kind == "-inf":
+        return []                       # max(-inf, a z) is a z
+    if name == "biquad":
+        if order == "golden":
+            # s1 = b1 x - a1 y + s2 with x and y infinite: NaN at once
+            return [(s, t0, t0), ("nan", t0 + 1, end)]
+        if order == "plain":
+            # the doubling ladder's 2x2 products keep an inf a few steps
+            return [(s, t0, t0), (o, t0 + 1, t0 + 1), ("nan", t0 + 2, t0 + 2),
+                    (s, t0 + 3, t0 + 3), ("nan", t0 + 4, t0 + 4),
+                    (o, t0 + 5, t0 + 5), ("nan", t0 + 6, t0 + 8),
+                    (o, t0 + 9, t0 + 9), ("nan", t0 + 10, t0 + 512),
+                    (s, t0 + 513, t0 + 513), ("nan", t0 + 514, end)]
+        # the JAX scan and the kernel: (b1 - a1 b0) x is one infinite term
+        return [(s, t0, t0), (o, t0 + 1, t0 + 1), ("nan", t0 + 2, end)]
+    if order == "golden":
+        return [(s, t0, end)]           # a z stays infinite
+    # 0 * inf once a product of the poles underflowed: the JAX scan's last
+    # combination, the ladder's step of 2,048, the kernel's carry tiles
+    first_nan = {"jax": NF_T - 2, "plain": t0 + 2048,
+                 "host": {100: 3072, 1500: 4096, 2000: 4096}[t0]}[order]
+    return [(s, t0, first_nan - 1), ("nan", first_nan, end)]
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf", "-inf"])
+@pytest.mark.parametrize("name", [n for n, _ in POLES] + ["biquad_tf2"])
+def test_non_finite_places_of_four_orders_and_the_golden(host, name, kind):
+    assert NF_POLE ** (NF_T - 1 - max(NF_T0)) == 0.0
+    x = _input(name, (len(NF_T0), NF_T), 33)
+    for r, t0 in enumerate(NF_T0):
+        x[r, t0] = {"nan": np.nan, "inf": np.inf, "-inf": -np.inf}[kind]
+    if name == "biquad_tf2":
+        c = _coeffs(*NF_HP)
+        orders = {"jax": _jax(name, x, *c),
+                  "plain": DS.biquad_scan_plain(_t(x), *c).numpy(),
+                  "host": DS.biquad_scan_host(_t(x), *c).numpy()}
+    else:
+        orders = {"jax": _jax(name, x, NF_POLE),
+                  "plain": _plain(name, _t(x), NF_POLE).numpy(),
+                  "host": _host(name, _t(x), NF_POLE).numpy()}
+    with np.errstate(all="ignore"):
+        orders["golden"] = _golden_rows(name.replace("_tf2", ""), x)
+    for order, y in orders.items():
+        for r, t0 in enumerate(NF_T0):
+            assert _runs(y[r]) == _stated(order, name.replace("_tf2", ""),
+                                          kind, t0), (order, r)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,9 @@ the vars and heap within 1e-8 (the null contract); against the JAX render
 the audio within the same bound, the carry within 1e-8.  Each case prints
 its largest difference from the JAX render (`pytest -s`).  The hop
 section of the convolver stand-in goes through K10's host form (g++)
-with 1, 3 and 128 threads, bit for bit to the one-thread form, and that
-form within FFT_TOL_REL of the plain version.
+with 1, 3 and 128 threads in both orders (its phases: the body of
+process() printed in place), bit for bit to the one-thread form, and
+that form within FFT_TOL_REL of the plain version.
 """
 import json
 
@@ -300,11 +301,15 @@ def test_batch_of_three_files_equals_the_solo_renders():
 
 def test_k10_host_form_runs_the_hop_section_as_the_plain_version(monkeypatch):
     """K10's inputs at every hop of a 2-file CPU render of the convolver
-    stand-in through the host form: its phases with 1, 3 and 128 threads
-    equal the one-thread form bit for bit (the section's FFTs run inside
-    a user function, on thread 0); the one-thread form equals the plain
-    version bit for bit in the sample side's scalars and the hop's vars,
-    and within FFT_TOL_REL in the heap and the rings."""
+    stand-in through the host form: its phases with 1, 3 and 128 threads,
+    each block step's shares in ascending and in descending order, equal
+    the one-thread form bit for bit (the body of process(), called as a
+    statement, runs as phases in place: its copies, transforms and
+    counted while loops across the block, the delay line's shift and the
+    partition loop as loops every thread follows), and no block loop or
+    copy runs on thread 0; the one-thread form equals the plain version
+    bit for bit in the sample side's scalars and the hop's vars, and
+    within FFT_TOL_REL in the heap and the rings."""
     from zorak_tpu_torch.kernels import _build
 
     try:
@@ -317,7 +322,14 @@ def test_k10_host_form_runs_the_hop_section_as_the_plain_version(monkeypatch):
                        block_size=block, device="cpu")
     k10 = br.kernel._hop_prog
     assert k10.block.section == "sample-hop" and not k10.inter
-    assert [ph.kind for ph in k10.block.phases] == ["serial"]
+    kinds = [(ph.kind, [b.kind for b in ph.body]) if ph.body else ph.kind
+             for ph in k10.block.phases]
+    assert kinds == [
+        "copy", "copy", "fft", "fft", "serial", ("while", ["copy", "serial"]),
+        "copy", "copy", "serial",
+        ("while", ["copy", "fft", "serial", "loop", "serial"]),
+        "fft", "fft", "serial", "loop", "serial"]
+    assert not k10.block.serial_loops
     seen = []
     plain = BS.block_section_plain
 
@@ -348,10 +360,11 @@ def test_k10_host_form_runs_the_hop_section_as_the_plain_version(monkeypatch):
         one, runs = run(inputs)
         assert runs == 0
         for threads in (1, 3, 128):
-            team, runs = run(inputs, threads=threads)
-            assert runs == 0
-            for a, b in zip(one, team):
-                assert np.array_equal(bits(a), bits(b)), threads
+            for desc in (False, True):
+                team, runs = run(inputs, threads=threads, descending=desc)
+                assert runs == 0
+                for a, b in zip(one, team):
+                    assert np.array_equal(bits(a), bits(b)), (threads, desc)
         svec, rings, bvars, bmem, sb = (
             t.clone() if isinstance(t, torch.Tensor) else t
             for t in inputs)
@@ -366,6 +379,57 @@ def test_k10_host_form_runs_the_hop_section_as_the_plain_version(monkeypatch):
                              one[-2], bvars) <= 0.0
         for (o, m), r in zip(k10.regions, one[1:-2]):
             assert torch.equal(r, one[-1][:, o:o + m])
+
+
+def test_k10_host_form_runs_the_full_size_hop_section_in_phases(monkeypatch):
+    """hop_convolver(1024, 8), the stand-in at the size chip_smoke.py
+    renders: K10's inputs at the second hop of a CPU render through the
+    host form's phases with 1, 3 and 128 threads in both orders, bit for
+    bit to the one-thread form, no block loop or copy on thread 0, and the
+    barriers the phases pass (chip_smoke.py's chain bound counts them)."""
+    from zorak_tpu_torch.kernels import _build
+
+    try:
+        _build.find_host_compiler()
+    except RuntimeError:
+        pytest.skip("no host C++ compiler (g++, gcc, c++, cc) for K10's "
+                    "host form")
+    br = BatchRenderer(compile_plugin_source(
+        builtin_plugins.hop_convolver(1024, 8)), device="cpu")
+    k10 = br.kernel._hop_prog
+    assert sum(ph.kind != "serial" for ph in k10.block.phases) == 11
+    seen = []
+    plain = BS.block_section_plain
+
+    def spy(program, svec, rings, bvars, bmem, sb, *a, **k):
+        seen.append((svec.clone(), [r.clone() for r in rings], bvars.clone(),
+                     bmem.clone(), sb))
+        return plain(program, svec, rings, bvars, bmem, sb, *a, **k)
+
+    monkeypatch.setattr(BS, "block_section_plain", spy)
+    br.render_files(noise(2, 2 * 1024 + 100, 0.25, seed=90)[None])
+    monkeypatch.setattr(BS, "block_section_plain", plain)
+    assert len(seen) == 2
+    svec, rings, bvars, bmem, sb = seen[1]
+
+    def run(**kw):
+        out = [svec.clone(), [r.clone() for r in rings], bvars.clone(),
+               bmem.clone()]
+        bars = []
+        runs = BS.block_section_host(k10, out[0], out[1], out[2], out[3], sb,
+                                     barriers=bars, **kw)[2]
+        return [out[0], *out[1], out[2], out[3]], runs, bars[0]
+
+    one, runs, _bars = run()
+    assert runs == 0
+    for threads in (1, 3, 128):
+        for desc in (False, True):
+            team, runs, bars = run(threads=threads, descending=desc)
+            assert runs == 0 and bars == 132, (threads, desc)
+            for a, b in zip(one, team):
+                assert torch.equal(a.view(torch.int64), b.view(torch.int64)), \
+                    (threads, desc)
+    assert BS.barriers_a_launch(k10, 132) == 135
 
 
 LEAVES = {

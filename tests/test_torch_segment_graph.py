@@ -13,6 +13,9 @@ three ways on seeded numpy input:
   within 1e-8 (the coupled regime: audio 1e-5 and the written-back state
   1e-8, as tests/test_torch_coupled.py holds it);
 - and the host mirror, the capture keys and the plans K5 refuses at build.
+
+The hop regime's steps (a hop's segment, then K10) are held the same way
+across a render resumed mid-hop, with their keys by the counter's phase.
 """
 import subprocess
 import sys
@@ -306,11 +309,80 @@ def test_normloop_is_eager_at_build(src):
 
 
 def test_hop_regime_is_eager_and_says_so():
+    # the hop plan has no refusal: a hop's step (its segment, then K10)
+    # goes through K5 on the card; on CPU tensors the default render is
+    # the eager step, and says so
     _prog, kern = port_kernel(builtin_plugins.hop_convolver(128, 4), 2,
                               segment_len=512, block_size=32)
-    assert kern.k5_refusal.startswith("the hop regime")
+    assert kern._hop is not None and kern.k5_refusal is None
     kern.render_device(noise(2, 1100, seed=10))
-    assert kern.dispatch == "eager: " + kern.k5_refusal
+    assert kern.dispatch == "eager: CPU tensors take the eager step"
+
+
+def hop_kernel():
+    return port_kernel(builtin_plugins.hop_convolver(128, 4), 2,
+                       segment_len=512, block_size=32)
+
+
+def test_hop_static_step_equals_the_eager_loop_across_a_resumed_render():
+    """The hop render's K5 steps, uncaptured on their static buffers, bit
+    for bit to the eager loop (audio, svec, rings, K10's vars and heap):
+    a fresh render that ends mid-hop, then a render resumed from its
+    carry, whose lead finishes the hop and fires."""
+    _prog, kern = hop_kernel()
+    x = noise(2, 1100 + 700, seed=14)
+    _y, carry = held_to_eager(kern, x[:, :1100])
+    phase = kern._hop_phase
+    assert phase == 1100 % 128
+    spans = kern._hop_spans(700, phase)
+    assert spans[0] == (128 - phase, True) and spans[-1][1] is False
+    # a resumed render starts from the counter's phase the last one left
+    ye, ce = kern._render_device_as("eager", x[:, 1100:], carry)
+    assert kern._hop_phase == (1100 + 700) % 128
+    kern._hop_phase = phase
+    y, cs = kern._render_device_as("graph", x[:, 1100:], carry)
+    assert kern.dispatch.startswith("static")
+    assert kern._hop_phase == (1100 + 700) % 128
+    assert same_values(ye, y)
+    for a, b in zip(carry_tensors(kern, ce), carry_tensors(kern, cs)):
+        assert same_values(a, b)
+    assert float(y.abs().max()) > 0.0
+    jkern, _js = jax_kernel(builtin_plugins.hop_convolver(128, 4), 2,
+                            segment_len=512, block_size=32)
+    yj, _jc = jkern.render(x[:, :1100])
+    ys, _c = kern._render_device_as("graph", x[:, :1100])
+    assert float(np.max(np.abs(ys.numpy().astype(np.float64)
+                               - np.asarray(yj, np.float64)))) \
+        <= COUPLED_AUDIO_TOL
+
+
+def test_hop_keys_change_with_the_hop_phase():
+    # every full hop of a fresh render starts at phase 0 and shares one
+    # key; the lead of a render resumed mid-hop and the tail take keys of
+    # their own, each with the counter's phase at its start
+    _prog, kern = hop_kernel()
+    x = noise(2, 5 * 128 + 40, seed=15)
+    _y, carry = kern._render_device_as("graph", x)
+    keys = list(kern._k5.keys_seen)
+    hops = [k for k in keys if k[0] == "hop"]
+    assert len(hops) == 1 and hops[0][1] == 128 and hops[0][-1] == 0
+    tails = [k for k in keys if k[0] == "seg"]
+    assert len(tails) == 1 and tails[0][1] == 40 and tails[0][-1] == 0
+    assert kern._k5.steps == 6
+    kern._render_device_as("graph", x[:, :300], carry)
+    new = [k for k in kern._k5.keys_seen if k not in keys]
+    # the lead from phase 40 (88 samples, fires), a hop, the tail from 0
+    assert sorted((k[0], k[1], k[-1]) for k in new) == [
+        ("hop", 88, 40), ("seg", 84, 0)]
+    assert kern.dispatch.startswith("static")
+
+
+def test_hop_batch_static_equals_eager():
+    prog = compile_plugin_source(builtin_plugins.hop_convolver(128, 4))
+    br = BatchRenderer(prog, segment_len=512, block_size=32, device="cpu")
+    xs = np.stack([noise(2, 700, seed=50 + f) for f in range(3)])
+    assert same_values(br._render_as("eager", xs), br._render_as("graph", xs))
+    assert br.kernel.dispatch.startswith("static")
 
 
 def test_engine_details_report_the_dispatch():

@@ -127,12 +127,21 @@ struct ZT {
   do { const long long t = (team).t, nt = (team).nt; __VA_ARGS__; \
        __syncthreads(); } while (0)
 #else
-#define ZB_SOLO(team, ...) do { __VA_ARGS__; } while (0)
+// the host form counts the barriers the card would pass: a run of
+// thread 0's code or a block step each (zb_host_barrier_count)
+#ifdef __CUDACC__
+#define ZB_BARRIER_COUNTED() ((void)0)
+#else
+static long long zb_host_barriers = 0;
+extern "C" long long zb_host_barrier_count(void) { return zb_host_barriers; }
+#define ZB_BARRIER_COUNTED() ((void)++zb_host_barriers)
+#endif
+#define ZB_SOLO(team, ...) do { __VA_ARGS__; ZB_BARRIER_COUNTED(); } while (0)
 #define ZB_STEPS(team, ...) \
   do { for (long long zb_k = 0; zb_k < (team).nt; ++zb_k) { \
     const long long nt = (team).nt; \
     const long long t = (team).desc ? nt - 1 - zb_k : zb_k; \
-    (void)t; __VA_ARGS__; } } while (0)
+    (void)t; __VA_ARGS__; } ZB_BARRIER_COUNTED(); } while (0)
 #endif
 
 // -- the heap ------------------------------------------------------------------
@@ -735,6 +744,69 @@ ZB_FN bool zb_read_span(const ZB* S, double b, double i_lo, double i_hi,
 }
 ZB_FN bool zb_apart(long long lo0, long long hi0, long long lo1, long long hi1) {
   return hi0 < lo1 || hi1 < lo0;
+}
+// The trips of a counted `while (iv < e)` (`<=` where le) from iv =
+// start, each trip iv += 1, by the golden's compare of iv + k with e: 0
+// where the first compare fails (NaN too); -1 where thread 0 must run
+// the loop itself (a start that is not an integer, or values iv + k that
+// leave the exact integers, or a bound past them).
+ZB_FN long long zb_while_trips(double start, double e, int le) {
+  if (!(le ? start <= e : start < e)) return 0;
+  if (!(start == floor(start) && fabs(start) < ZB_EXACT)) return -1;
+  const double d = e - start;
+  if (!(d < ZB_EXACT)) return -1;
+  long long n = le ? (long long)floor(d) + 1 : (long long)ceil(d);
+  if (n < 1) n = 1;
+  if (!zb_trip_ok(start, n + 1)) return -1;
+  // e - start may round: settle n on the compare itself (start + k is
+  // exact here)
+  while (n > 1 && !(le ? start + (double)(n - 1) <= e
+                       : start + (double)(n - 1) < e)) --n;
+  while (le ? start + (double)n <= e : start + (double)n < e) {
+    ++n;
+    if (!zb_trip_ok(start, n + 1)) return -1;
+  }
+  return n;
+}
+
+// -- block copies: thread 0 resolves the runs, every thread copies ---------
+//
+// zb_memset's and zb_memcpy's clamping, resolved once by thread 0 and
+// published (q[0] the first cell, then the source's, then the length);
+// every thread then copies the cells t, t + nt, ...  A copy reads each
+// source cell once and writes each destination cell once, so any split
+// gives the bits of the one-thread form where the runs do not overlap;
+// where they do, thread 0 copies them itself (memmove's order, counted)
+// and publishes the length 0.
+ZB_FN double zb_set_region(const ZB* S, double dest, double val, double len,
+                           long long* q, double* v) {
+  const long long n = zb_run_len(S, len);
+  q[0] = zb_run_start(S, dest, n);
+  q[1] = n;
+  *v = val;
+  return dest;
+}
+ZB_FN double zb_copy_region(ZB* S, double dest, double src, double len,
+                            long long* q) {
+  const long long n = zb_run_len(S, len);
+  const long long d = zb_run_start(S, dest, n), s = zb_run_start(S, src, n);
+  q[0] = d;
+  q[1] = s;
+  q[2] = d == s ? 0 : n;            // a copy onto itself changes nothing
+  if (d != s && (d < s ? s - d : d - s) < n) {
+    zb_count_serial(S);
+    zb_memcpy(S, dest, src, len);
+    q[2] = 0;
+  }
+  return dest;
+}
+ZB_FN void zb_blk_set(ZB* S, long long d, long long n, double v, long long t,
+                      long long nt) {
+  for (long long k = t; k < n; k += nt) S->M[d + k] = v;
+}
+ZB_FN void zb_blk_copy(ZB* S, long long d, long long s, long long n,
+                       long long t, long long nt) {
+  for (long long k = t; k < n; k += nt) S->M[d + k] = S->M[s + k];
 }
 
 // -- host services: the sample pool, file_mem, the string literals -------------

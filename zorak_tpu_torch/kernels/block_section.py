@@ -12,11 +12,12 @@ gathered.
 On a CUDA tensor `block_section` launches one generated kernel: a CUDA
 block a file, whose threads copy the exchanges and then run the
 section's phases (`lowering/devgen.py`, `csrc/block_ops.cuh`): thread 0
-alone the ordered code, every thread the FFT calls and the loops with
-independent iterations, between barriers.  On a CPU tensor it runs
-`block_section_plain`, the same exchanges in torch and the sections
-through the port's Python golden (`shadow/pyexec.py`) with the device
-heap's addressing.  Nothing falls back from one to the other.
+alone the ordered code, every thread the FFT calls, the block copies and
+the loops with independent iterations, between barriers (inside a user
+function called as a statement and a loop that holds them too).  On a
+CPU tensor it runs `block_section_plain`, the same exchanges in torch
+and the sections through the port's Python golden (`shadow/pyexec.py`)
+with the device heap's addressing.  Nothing falls back from one to the other.
 `block_section_host` runs the generated text compiled with a host C++
 compiler, for the tests: the phases with any number of threads, their
 shares in either order, or the one-thread form.
@@ -69,9 +70,10 @@ LAUNCHES = 0
 # share the exchanges, the block FFTs and the block loops.
 THREADS = 256
 
-# Block loops that thread 0 ran alone because this run's values failed
-# their checks, by device (an int64 counter on the device, added to by the
-# kernel); `serial_runs` reads it.
+# Block loops and block copies that thread 0 ran alone because this run's
+# values failed their checks (a copy: overlapping runs), by device (an
+# int64 counter on the device, added to by the kernel); `serial_runs`
+# reads it.
 SERIAL_RUNS: dict = {}
 
 # The most shared memory a block takes (of an H100's 227 KB, after the
@@ -109,13 +111,15 @@ _DESIGN = """\
 // sample side into the device view (carried scalars -> var slots, each
 // ring region and carried cell -> the heap), then run the section's
 // phases (zb_run_team): thread 0 alone the ordered statements (ZB_SOLO),
-// every thread a strided share of each top-level FFT call and of each
-// loop whose iterations touch no common cell (ZB_STEPS), with a barrier
-// after each; @slider, where @block retriggered it, on thread 0.  Then
-// the threads copy the view back and gather the next segment's control
-// row.  A butterfly and an iteration do the same arithmetic as on one
-// thread, so the result is the same bits.  No barrier sits in code that
-// only thread 0 runs.
+// every thread a strided share of each FFT call, each memcpy and memset
+// and each loop whose iterations touch no common cell (ZB_STEPS), with a
+// barrier after each, also inside a user function called as a statement
+// and inside a loop whose body holds such work (every thread follows the
+// pass thread 0 decides and publishes); @slider, where @block retriggered
+// it, on thread 0.  Then the threads copy the view back and gather the
+// next segment's control row.  A butterfly, a copied cell and an
+// iteration do the same arithmetic as on one thread, so the result is the
+// same bits.  No barrier sits in code that only thread 0 runs.
 """
 
 
@@ -657,14 +661,7 @@ def _team_function(p: BlockSectionProgram) -> List[str]:
     lines = ["ZB_DEV void zb_run_team(ZB* S, ZT team, double* zp, "
              "long long* zq) {",
              "  (void)zp; (void)zq;"]
-    solo: List[str] = []
-    for ph in p.block.phases:
-        solo.append(ph.solo)
-        if ph.kind == "serial":
-            continue
-        lines += [f"  // {ph.label}, across the block",
-                  f"  ZB_SOLO(team, {' '.join(solo)});", f"  {ph.team}"]
-        solo = []
+    solo = _team_phases(p.block.phases, lines, "  ")
     if p.slider is not None:
         a, b, c = p.pend_slots
         solo.append(
@@ -679,19 +676,65 @@ def _team_function(p: BlockSectionProgram) -> List[str]:
         # thread 0's share alone, no block work and no barrier: the
         # ordered code's own time (a probe; the block phases' results are
         # not made, so the data the ordered code reads differs)
-        solos = [ph.solo for ph in p.block.phases]
         lines += ["ZB_DEV void zb_run_solo(ZB* S, double* zp, long long* zq) {",
-                  "  (void)zp; (void)zq;", *[f"  {{ {x} }}" for x in solos],
-                  "}", ""]
+                  "  (void)zp; (void)zq;"]
+        _solo_phases(p.block.phases, lines, "  ")
+        lines += ["}", ""]
     return lines
 
 
-def barriers_a_launch(p: BlockSectionProgram) -> int:
+def _team_phases(phases, lines: List[str], ind: str) -> List[str]:
+    """The phases' text into `lines`: each block phase one ZB_SOLO (thread
+    0's code since the last one, then its own) and its block step; a loop
+    whose body holds block phases (a "while" or "repeat" phase) a loop
+    every thread runs on thread 0's published decision, its next decision
+    in the ZB_SOLO that ends each pass.  Returns thread 0's code left
+    after the last block phase."""
+    solo: List[str] = []
+    for ph in phases:
+        solo.append(ph.solo)
+        if ph.kind == "serial":
+            continue
+        lines.append(f"{ind}// {ph.label}, across the block")
+        lines.append(f"{ind}ZB_SOLO(team, {' '.join(solo)});")
+        solo = []
+        if ph.body:
+            lines.append(f"{ind}while ({ph.test}) {{")
+            rest = _team_phases(ph.body, lines, ind + "  ")
+            rest.append(ph.again)
+            lines.append(f"{ind}  ZB_SOLO(team, {' '.join(rest)});")
+            lines.append(f"{ind}}}")
+        else:
+            lines.append(f"{ind}{ph.team}")
+    return solo
+
+
+def _solo_phases(phases, lines: List[str], ind: str) -> None:
+    """Thread 0's code of the phases alone (the probe's `zb_run_solo`):
+    each phase's share in braces, a loop phase's control as a loop."""
+    for ph in phases:
+        lines.append(f"{ind}{{ {ph.solo} }}")
+        if ph.body:
+            lines.append(f"{ind}while ({ph.test}) {{")
+            _solo_phases(ph.body, lines, ind + "  ")
+            lines.append(f"{ind}  {{ {ph.again} }}")
+            lines.append(f"{ind}}}")
+
+
+def barriers_a_launch(p: BlockSectionProgram,
+                      team_barriers: Optional[int] = None) -> int:
     """__syncthreads() a file's block passes in one K10 launch, as
     `zb_kernel` and `_team_function` place them: the exchanges' (3, or 2
     with the var row in device memory), one after each of thread 0's
-    runs, and each block phase's steps."""
+    runs, and each block phase's steps.  A section with a loop phase
+    passes a number of barriers its run decides: give the phases' count
+    of that run as `team_barriers` (`block_section_host`'s `barriers`)."""
     n = 3 if p.v_shared else 2
+    if team_barriers is not None:
+        return n + team_barriers
+    if any(ph.body for ph in p.block.phases):
+        raise ValueError("the section's loop phases pass barriers its run "
+                         "decides: count them with block_section_host")
     solo = False
     for ph in p.block.phases:
         solo = True
@@ -1066,7 +1109,8 @@ def _library(source: str, n_rings: int, staged: bool = False,
 def block_section_host(program: BlockSectionProgram, svec, rings, bvars,
                        bmem, samplesblock: float, midi=None,
                        threads: int = 0, descending: bool = False,
-                       stage: Optional[Stage] = None):
+                       stage: Optional[Stage] = None,
+                       barriers: Optional[list] = None):
     """The generated source compiled for the CPU with a host C++ compiler
     (its host form), on CPU tensors, in place as `block_section`.  With
     `threads` = 0 it runs the one-thread form (`zb_run`, the earlier
@@ -1075,15 +1119,20 @@ def block_section_host(program: BlockSectionProgram, svec, rings, bvars,
     where `descending`, in descending t.  Shows without a GPU that the
     printed sections, their phases and exchanges repeat
     `block_section_plain` and each other; no render path calls it, and it
-    leaves LAUNCHES alone.  Returns (ctrl, mout or None, block loops run
-    on thread 0)."""
+    leaves LAUNCHES alone.  Returns (ctrl, mout or None, block loops and
+    copies run on thread 0).  Where `barriers` is a list, the barriers the
+    phases of the launch's files passed (the card's __syncthreads() but
+    the exchanges', `barriers_a_launch`) are appended to it."""
     nf = _check(program, svec, rings, bvars, bmem, stage)
     if bvars.device.type != "cpu":
         raise ValueError("block_section_host takes CPU tensors")
     if isinstance(threads, bool) or not isinstance(threads, int) \
             or threads < 0:
         raise ValueError(f"threads must be an int >= 0, got {threads!r}")
-    fn = _build.load_generated_host(program.source).block_section_host
+    lib = _build.load_generated_host(program.source)
+    fn = lib.block_section_host
+    lib.zb_host_barrier_count.restype = ctypes.c_longlong
+    passed = lib.zb_host_barrier_count()
     fn.argtypes = _HEAD_ARGS + (_STAGE_ARGS if program.staged else []) + [
         ctypes.c_void_p] * int(program.tabled) + [
         ctypes.c_longlong, ctypes.c_int] + [
@@ -1104,6 +1153,8 @@ def block_section_host(program: BlockSectionProgram, svec, rings, bvars,
        *_stage_args(program, stage), *_table_args(program, "cpu"), threads,
        int(descending),
        *[r.data_ptr() for r in rings])
+    if barriers is not None:
+        barriers.append(lib.zb_host_barrier_count() - passed)
     return ctrl, (mout if program.midi_out_cells else None), int(runs)
 
 

@@ -2,12 +2,13 @@
 
 Counterpart of the reference's one-dispatch render: `_render_fn`
 (zorak_tpu/lowering/specialize.py) reshapes the audio and runs one
-`lax.scan` over the full segments and one over the remainder, and the
-coupled regime's `_coupled_run` is one `lax.scan` over blocks.  The port
-renders a segment (or a coupled block: K10, then the block's segment) as
-a few dozen to a thousand small launches; here one step is captured as a
-CUDA graph and then replayed, so a step costs the host a handful of
-operations instead of one launch a kernel.
+`lax.scan` over the full segments and one over the remainder, the
+coupled regime's `_coupled_run` is one `lax.scan` over blocks, and the hop
+regime's `_hop_run` one over hops.  The port renders a segment (or a
+coupled block: K10, then the block's segment; or a hop: its segment, then
+K10) as a few dozen to a thousand small launches; here one step is
+captured as a CUDA graph and then replayed, so a step costs the host a
+handful of operations instead of one launch a kernel.
 
 A step reads and writes only buffers of its own (`StepGraphs.static`):
 the segment's f32 input, its control and draw rows (or the gated

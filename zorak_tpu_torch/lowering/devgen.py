@@ -71,22 +71,37 @@ engine renders the plugin through the golden.  `kernels/block_section.py`
 wraps the printed sections into K10.
 
 A section prints twice.  `body_source` is one function for one thread
-(`zb_section_<name>`).  `phases` splits the top-level statements, in
-source order, into what thread 0 runs alone and what a file's whole CUDA
-block runs between barriers:
+(`zb_section_<name>`).  `phases` splits its statements, in source order,
+into what thread 0 runs alone and what a file's whole CUDA block runs
+between barriers.  A statement is split where it stands at statement
+level: in the section, in the body of a user function called as a
+statement, or in the body of a loop that holds block work.
 
 * a static FFT call (`fft` ... `fft_ipermute`, `convolve_c`): thread 0
   evaluates its arguments and decides its region, then every thread runs
   the transform's block form;
-* a `loop(n, ...; iv += 1)` whose body is assignments and passes
+* `memcpy` and `memset`: thread 0 evaluates the arguments and resolves
+  the runs as the one-thread form does, then every thread copies a
+  strided share; a copy whose runs overlap thread 0 makes itself (in
+  memmove's order, counted);
+* a `loop(n, ...; iv += 1)` or a counted `while (iv < e) (...; iv += 1)`
+  (or `<=`, e loop-invariant) whose body is assignments and passes
   `_BlockLoop`'s checks: every thread runs a strided share of the
   iterations where thread 0 finds, on this run's values, that no two
-  iterations touch one heap cell; else thread 0 runs the loop itself
+  iterations touch one heap cell (for the `while`, its trips from iv's
+  value by the golden's compare); else thread 0 runs the loop itself
   (and counts it);
+* a user function called as a statement (its value unused): its body's
+  phases in place, the arguments bound by thread 0 in the shared row,
+  the locals in their var slots as in the one-thread form;
+* any other `while` or `loop` whose body holds block work: thread 0 runs
+  the loop's own control and publishes each pass's decision, every
+  thread takes the same branch after a barrier, and the body's phases
+  run inside;
 * everything else, a serial phase on thread 0.
 
-Either way the arithmetic of every FFT butterfly and every iteration is
-the same, so both forms give the same bits.
+Either way the arithmetic of every FFT butterfly, every copy and every
+iteration is the same, so both forms give the same bits.
 """
 from __future__ import annotations
 
@@ -1476,12 +1491,20 @@ class Phase(NamedTuple):
     statements, or what a block phase needs first (its arguments, its
     region, its run-time checks).  `team` is what every thread of the
     file's block then runs ("" for a serial phase), `steps` the barriers
-    it passes."""
-    kind: str     # "serial", "loop" or "fft"
+    it passes.
+
+    A "while" or "repeat" phase (a loop whose body holds block work) runs
+    `solo` to decide the first pass, then, while every thread finds
+    `test` true, the phases of `body` and thread 0's `again` (the next
+    pass's decision); its barriers vary with the run (steps 0)."""
+    kind: str     # "serial", "loop", "fft", "copy", "while" or "repeat"
     label: str
     solo: str
     team: str
     steps: int = 0
+    body: Tuple["Phase", ...] = ()
+    test: str = ""
+    again: str = ""
 
 
 class _KeepSerial(Exception):
@@ -1525,21 +1548,24 @@ def _unit_increment(st: Node) -> Optional[str]:
 
 
 class _BlockLoop:
-    """A top-level `loop(count, body)` run across the block.
+    """A `loop(count, body)` or a counted `while (iv < e) body` (or `<=`)
+    at statement level, run across the block.
 
     Print-time checks (else _KeepSerial): the body is assignments ending in
     `iv += 1`, the only assignment of iv; every other name it assigns is
     written before it is read in an iteration (a thread's own temporary,
-    stored by the thread that runs the last iteration); no call with an
-    effect, no nested loop, block or `&&`/`||`; every heap write is
-    `base[iv + c]` with a loop-invariant base and an integer c, one c a
-    base; every heap read is a cell some write of the same iteration
-    writes, or has cells thread 0 can bound on the run's values: `C[iv +
-    c]` over the trip, `C[e & M]` in [C, C + M] for a constant M >= 0, a
-    loop-invariant address.  Thread 0 then checks the run's values (see
-    `solo`) and runs the loop itself where they fail."""
+    stored by the thread that runs the last iteration) and is no
+    parameter of a function printed in place; no call with an effect, no
+    nested loop, block or `&&`/`||`; every heap write is `base[iv + c]`
+    with a loop-invariant base and an integer c, one c a base; every heap
+    read is a cell some write of the same iteration writes, or has cells
+    thread 0 can bound on the run's values: `C[iv + c]` over the trip,
+    `C[e & M]` in [C, C + M] for a constant M >= 0, a loop-invariant
+    address.  A `while`'s condition compares iv with a pure loop-invariant
+    bound.  Thread 0 then checks the run's values (see `solo`) and runs the
+    loop itself where they fail."""
 
-    def __init__(self, dev: "DeviceSection", g: "_SectionC", loop: LoopExpr):
+    def __init__(self, dev: "DeviceSection", g: "_SectionC", loop: Node):
         self.dev, self.g, self.loop = dev, g, loop
         body = loop.body.items if isinstance(loop.body, Block) \
             else [loop.body]
@@ -1550,7 +1576,7 @@ class _BlockLoop:
             raise _KeepSerial("a statement of the body is no assignment")
         self.items = body
         self.iv = _env_key(iv)
-        if self.iv not in dev.slots:
+        if self.iv not in dev.slots or iv in g.params:
             raise _KeepSerial(f"the induction {iv} has no var slot")
         temps: List[Any] = []
         for it in body[:-1]:
@@ -1558,6 +1584,9 @@ class _BlockLoop:
                 key = _env_key(it.target.ident)
                 if key == self.iv:
                     raise _KeepSerial(f"{iv} is assigned in the body")
+                if it.target.ident in g.params:
+                    raise _KeepSerial(f"a write to the parameter "
+                                      f"{it.target.ident}")
                 if key not in temps:
                     temps.append(key)
             elif not isinstance(it.target, Mem):
@@ -1568,6 +1597,20 @@ class _BlockLoop:
             self._pure(it.value)
             self._pure(it.target)
         self._temps_written_first()
+        # a while's bound and compare: (e, `<=`)
+        self.bound: Optional[Tuple[Node, bool]] = None
+        if isinstance(loop, WhileStmt):
+            c = loop.pred
+            if not (isinstance(c, Bin) and c.op in ("<", "<=")
+                    and isinstance(c.lhs, Name)
+                    and _env_key(c.lhs.ident) == self.iv
+                    and c.lhs.ident not in g.params):
+                raise _KeepSerial(f"the condition is not {iv} < e or "
+                                  f"{iv} <= e")
+            self._pure(c.rhs)
+            if not self._invariant(c.rhs):
+                raise _KeepSerial("the bound changes in the loop")
+            self.bound = (c.rhs, c.op == "<=")
         # heap writes: (base shape, c) -> (base, c)
         self.writes: Dict[Tuple[Any, int], Tuple[Node, int]] = {}
         for it in body[:-1]:
@@ -1687,6 +1730,7 @@ class _BlockLoop:
         names = {self.iv: "zi"}
         names.update({k: f"zl{j}" for j, k in enumerate(self.temps)})
         gl = _SectionC(dev, local=names)
+        gl.params = g.params
         spans = len(self.writes) + len(self.reads)
         checks = []
         for j, (base, c) in enumerate(self.writes.values()):
@@ -1718,14 +1762,24 @@ class _BlockLoop:
         spans_c = (f"long long zlo[{spans}], zhi[{spans}]; "
                    f"if (zok && zn > 0) {{ {' '.join(checks)} }} "
                    if spans else "")
+        if self.bound is None:
+            head = (f"const long long zn = zt_i64({g.ex(self.loop.count)}); "
+                    f"const double zs = S->V[{slot}]; bool zok = "
+                    "zb_trip_ok(zs, zn); ")
+            alone = (f"for (long long zk = 0; zk < zn; ++zk) "
+                     f"{{ (void)({g.ex(self.loop.body)}); }}")
+        else:
+            # the trips of the golden's compare from iv's value, -1 where
+            # the values iv + k leave the exact integers
+            e, le = self.bound
+            head = (f"const double zs = S->V[{slot}]; const long long zn = "
+                    f"zb_while_trips(zs, ({g.ex(e)}), {int(le)}); "
+                    "bool zok = zn >= 0; ")
+            alone = g.stmt(self.loop)
         solo = (
-            f"{{ const long long zn = zt_i64({g.ex(self.loop.count)}); "
-            f"const double zs = S->V[{slot}]; bool zok = zb_trip_ok(zs, zn); "
-            f"{spans_c}"
+            f"{{ {head}{spans_c}"
             f"zq[{q}] = zn; zq[{q + 1}] = zok ? 1 : 0; zp[{p}] = zs; "
-            f"if (!zok) {{ zb_count_serial(S); "
-            f"for (long long zk = 0; zk < zn; ++zk) "
-            f"{{ (void)({g.ex(self.loop.body)}); }} }} }}")
+            f"if (!zok) {{ zb_count_serial(S); {alone} }} }}")
         decl = "".join(f" double {nm} = 0.0;" for k, nm in names.items()
                        if k != self.iv)
         body = " ".join(f"(void)({gl.ex(it)});" for it in self.items)
@@ -1911,9 +1965,18 @@ class DeviceSection:
         return self.n_pub_double - k
 
     def _print_phases(self) -> List[Phase]:
-        """The top-level statements as phases, in source order: runs of
-        serial statements, block FFTs and block loops."""
-        g = _SectionC(self)
+        """The section's statements as phases, in source order (the
+        module's docstring).  A reduced heap's section (K11) runs on one
+        thread and has none."""
+        if self.reduced_heap:
+            return []
+        return self._phases_of(_SectionC(self), self.body, ())
+
+    def _phases_of(self, g: _SectionC, stmts: Sequence[Node],
+                   fns: Tuple[str, ...]) -> List[Phase]:
+        """Statements at statement level as phases: runs of serial
+        statements and block phases.  g prints them; fns are the user
+        functions printed in place around them."""
         phases: List[Phase] = []
         run: List[str] = []
 
@@ -1922,33 +1985,87 @@ class DeviceSection:
                 phases.append(Phase("serial", f"{len(run)} statements",
                                     " ".join(run), ""))
                 run.clear()
-        for s in self.body:
-            ph = self._fft_phase(g, s)
-            if ph is None and isinstance(s, LoopExpr):
-                try:
-                    ph = _BlockLoop(self, g, s).phase()
-                    g.forget(s)
-                except _KeepSerial as why:
-                    self.serial_loops.append(f"loop at line {s.pos[0]}: {why}")
-            if ph is None:
+        for s in stmts:
+            got = self._stmt_phases(g, s, fns)
+            if got is None:
                 run.append(g.stmt(s))
                 continue
             serial()
-            phases.append(ph)
+            phases.extend(got)
         serial()
         return phases
 
-    def _fft_phase(self, g: _SectionC, s: Node) -> Optional[Phase]:
-        """A top-level static FFT call as a block phase: thread 0 evaluates
-        the arguments and decides the region (-1: the no-op), then every
-        thread runs the block form."""
-        if not isinstance(s, CallExpr) or s.func in self.P.fn_defs:
+    def _stmt_phases(self, g: _SectionC, s: Node,
+                     fns: Tuple[str, ...]) -> Optional[List[Phase]]:
+        """s's phases where it holds block work, else None (s is then
+        printed as a serial statement; nothing of it is printed here)."""
+        if isinstance(s, (LoopExpr, WhileStmt)):
+            try:
+                loop = _BlockLoop(self, g, s)
+            except _KeepSerial as why:
+                if self._block_work(g, s.body, fns):
+                    return [self._repeat_phase(g, s, fns)]
+                kind = "while" if isinstance(s, WhileStmt) else "loop"
+                self.serial_loops.append(f"{kind} at line {s.pos[0]}: {why}")
+                return None
+            ph = loop.phase()
+            g.forget(s)
+            return [ph]
+        if not self._block_work(g, s, fns):
             return None
+        if isinstance(s, Block):
+            return self._phases_of(g, s.items, fns)
+        if s.func in self.P.fn_defs:
+            return self._inline(g, s, fns)
+        return [self._fft_phase(g, s) or self._copy_phase(g, s)]
+
+    def _block_work(self, g: _SectionC, s: Node,
+                    fns: Tuple[str, ...]) -> bool:
+        """Whether s, at statement level, prints a block phase (decided
+        without printing it)."""
+        if isinstance(s, Block):
+            return any(self._block_work(g, x, fns) for x in s.items)
+        if isinstance(s, (LoopExpr, WhileStmt)):
+            try:
+                _BlockLoop(self, g, s)
+                return True
+            except _KeepSerial:
+                return self._block_work(g, s.body, fns)
+        if not isinstance(s, CallExpr):
+            return False
+        if s.func in self.P.fn_defs:
+            proto = self.P.fn_defs[s.func]
+            return s.func not in fns and self._block_work(
+                _SectionC(self, proto.params, in_function=True), proto.body,
+                fns + (s.func,))
+        return (self._fft_size(g, s) is not None
+                or (s.func in ("memcpy", "memset") and len(s.args) == 3))
+
+    def _fft_size(self, g: _SectionC, s: CallExpr) -> Optional[int]:
+        """The size of a static FFT call that runs in block form, else
+        None (another call, or the WDL no-op of a bad size)."""
         fn, A = s.func, s.args
+        if fn in self.P.fn_defs:
+            return None
         if fn in _FFT_FNS and len(A) == 2:
             n = g._size(fn, A[1])
-            if not FO._pow2_ok(n):
-                return None
+            return n if FO._pow2_ok(n) else None
+        if fn == "convolve_c" and len(A) == 3:
+            n = g._size(fn, A[2])
+            return n if 0 < n <= FO.PAGE_DOUBLES // 2 else None
+        return None
+
+    def _fft_phase(self, g: _SectionC, s: Node) -> Optional[Phase]:
+        """A static FFT call as a block phase: thread 0 evaluates the
+        arguments and decides the region (-1: the no-op), then every
+        thread runs the block form."""
+        if not isinstance(s, CallExpr):
+            return None
+        n = self._fft_size(g, s)
+        if n is None:
+            return None
+        fn, A = s.func, s.args
+        if fn != "convolve_c":
             perm = f"zb_perm_{g._fft_sizes(fn, n)}"
             span = n if fn in ("fft_real", "ifft_real") else 2 * n
             q = self._publish(1)
@@ -1962,18 +2079,92 @@ class DeviceSection:
                 team = f"zb_blk_{fn}(S, zq[{q}], {n}, {perm}, team);"
                 steps = n.bit_length() + 1        # load, log2(n) stages, store
             return Phase("fft", f"{fn}({n})", solo, team, steps)
-        if fn == "convolve_c" and len(A) == 3:
-            n = g._size(fn, A[2])
-            if n <= 0 or n > FO.PAGE_DOUBLES // 2:
-                return None
-            self.scratch_cells = max(self.scratch_cells, 2 * n)
-            q = self._publish(2)
-            solo = (f"{{ const double zd = ({g.ex(A[0])}); const double zs = "
-                    f"({g.ex(A[1])}); zq[{q}] = zb_fft_region(S, zd, {2 * n}); "
-                    f"zq[{q + 1}] = zb_fft_region(S, zs, {2 * n}); }}")
-            team = f"zb_blk_convolve_c(S, zq[{q}], zq[{q + 1}], {n}, team);"
-            return Phase("fft", f"convolve_c({n})", solo, team, 2)
-        return None
+        self.scratch_cells = max(self.scratch_cells, 2 * n)
+        q = self._publish(2)
+        solo = (f"{{ const double zd = ({g.ex(A[0])}); const double zs = "
+                f"({g.ex(A[1])}); zq[{q}] = zb_fft_region(S, zd, {2 * n}); "
+                f"zq[{q + 1}] = zb_fft_region(S, zs, {2 * n}); }}")
+        team = f"zb_blk_convolve_c(S, zq[{q}], zq[{q + 1}], {n}, team);"
+        return Phase("fft", f"convolve_c({n})", solo, team, 2)
+
+    def _copy_phase(self, g: _SectionC, s: CallExpr) -> Phase:
+        """memcpy or memset as a block phase: thread 0 evaluates the
+        arguments (in the one-thread form's order) and resolves the runs
+        as zb_memcpy and zb_memset do, then every thread copies a strided
+        share.  Overlapping runs: thread 0 copies them itself (counted)
+        and publishes no run."""
+        q = self._publish(3)
+        if s.func == "memset":
+            p = self._publish_double(1)
+            solo = g.args(s.args, lambda v: (
+                f"zb_set_region(S, {v[0]}, {v[1]}, {v[2]}, &zq[{q}], "
+                f"&zp[{p}])")) + ";"
+            team = (f"ZB_STEPS(team, zb_blk_set(S, zq[{q}], zq[{q + 1}], "
+                    f"zp[{p}], t, nt));")
+        else:
+            solo = g.args(s.args, lambda v: (
+                f"zb_copy_region(S, {v[0]}, {v[1]}, {v[2]}, &zq[{q}])")) + ";"
+            team = (f"ZB_STEPS(team, zb_blk_copy(S, zq[{q}], zq[{q + 1}], "
+                    f"zq[{q + 2}], t, nt));")
+        return Phase("copy", s.func, solo, team, 1)
+
+    def _inline(self, g: _SectionC, s: CallExpr,
+                fns: Tuple[str, ...]) -> List[Phase]:
+        """A user function called as a statement, its body's phases in
+        place: thread 0 binds the arguments in the shared row (the golden
+        drops extra ones unevaluated and pads with 0), the locals keep
+        their var slots."""
+        proto = self.P.fn_defs[s.func]
+        k = len(proto.params)
+        p = self._publish_double(k)
+        binds = [f"zp[{p + i}] = ({g.ex(a)});"
+                 for i, a in enumerate(s.args[:k])]
+        binds += [f"zp[{p + i}] = 0.0;" for i in range(len(binds), k)]
+        g.known.clear()
+        gf = _SectionC(self, (), in_function=True)
+        gf.params = {name: f"zp[{p + i}]"
+                     for i, name in enumerate(proto.params)}
+        body = proto.body.items if isinstance(proto.body, Block) \
+            else [proto.body]
+        phases = self._phases_of(gf, body, fns + (s.func,))
+        if binds:
+            phases.insert(0, Phase("serial", f"{s.func}'s arguments",
+                                   " ".join(binds), ""))
+        return phases
+
+    def _repeat_phase(self, g: _SectionC, s: Node,
+                      fns: Tuple[str, ...]) -> Phase:
+        """A while or loop(n) whose body holds block work: thread 0 runs
+        the loop's own control (the condition, or the count and the pass
+        counter) and publishes each pass's decision in the shared row;
+        every thread reads it after the barrier, so all take the same
+        branch, and the body's phases run inside."""
+        k = self._publish(2)
+        head = s.pred if isinstance(s, WhileStmt) else None
+        # the one-thread form's order: a loop's count once, then the
+        # passes (a while's condition each pass)
+        count = g.ex(s.count) if head is None else ""
+        g.forget(head)
+        g.forget(s.body)
+        g.repeats += 1
+        try:
+            if head is not None:
+                solo = again = f"zq[{k}] = z_true({g.ex(head)}) ? 1 : 0;"
+                test = f"zq[{k}]"
+                label = f"while at line {s.pos[0]}"
+            else:
+                solo = f"zq[{k}] = zt_i64({count}); zq[{k + 1}] = 0;"
+                again = f"zq[{k + 1}] += 1;"
+                test = f"zq[{k + 1}] < zq[{k}]"
+                label = f"loop at line {s.pos[0]}"
+            items = s.body.items if isinstance(s.body, Block) else [s.body]
+            body = self._phases_of(g, items, fns)
+        finally:
+            g.repeats -= 1
+        g.forget(head)
+        g.forget(s.body)
+        kind = "while" if head is not None else "repeat"
+        return Phase(kind, label, solo, "", 0, tuple(body), test, again)
 
     def _print_functions(self) -> Dict[str, str]:
         """{C name: definition} of every user function the body reaches."""

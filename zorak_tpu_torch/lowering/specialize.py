@@ -36,15 +36,16 @@ of one block each: `lowering/devgen.py` prints it as CUDA C and K10
 block/sample loop `_coupled_run`.  A hop section (FFT block work fired
 every N samples from inside @sample) is extracted and printed the same
 way, and K10 runs it after each hop's segment in the fused sample/hop
-loop `_hop_run`.  The gated regime runs in the segment program: cursors
-that advance only where a gate fires (positions from the gate's int64
-prefix sum), taps gathered from ring history at those positions, gated
-ring writes scattered to consecutive positions, rand() drawn only where
-its gate fires (the draw pool indexed by a fire-count prefix sum), and
-loop(n) unrolled to a guessed bound behind an overflow monitor that
-`render_device`'s ladder reads.  Plugins whose @sample uses features
-outside this subset raise SpecializeError and fall back to the golden
-executor.
+loop `_hop_run`, whose steps (a hop's segment, then K10) K5 captures and
+replays on the card (`_hop_steps`).  The gated regime runs in the
+segment program: cursors that advance only where a gate fires
+(positions from the gate's int64 prefix sum), taps gathered from ring
+history at those positions, gated ring writes scattered to consecutive
+positions, rand() drawn only where its gate fires (the draw pool indexed
+by a fire-count prefix sum), and loop(n) unrolled to a guessed bound
+behind an overflow monitor that `render_device`'s ladder reads.
+Plugins whose @sample uses features outside this subset raise
+SpecializeError and fall back to the golden executor.
 """
 from __future__ import annotations
 
@@ -5143,9 +5144,6 @@ class SpecializedSampleKernel:
         step reads no host value but the cursors that shape it, so a plan
         is refused where such a cursor is one the host cannot follow, or
         where a step must read the device or the host mid-way."""
-        if self._hop is not None:
-            return ("the hop regime: K10 a hop between segments of the "
-                    "hop's length, not captured (the render is K10-bound)")
         if any(n.kind == "normloop" for n in self._all_nodes(self.sym)):
             # the segment program may emit it even where a scan group
             # walks it too (a consumer of the loop's own value)
@@ -5415,7 +5413,26 @@ class SpecializedSampleKernel:
             steps.step(b)
         return steps.result()
 
-    def _hop_run(self, carry, x, ctrl, rand, phase: int):
+    def _hop_spans(self, T: int, phase: int) -> List[Tuple[int, bool]]:
+        """A hop render's spans of T samples from the counter's phase:
+        (length, whether the hop fires at its end): a lead segment up to
+        the counter's wrap, full hops of H, then a tail."""
+        H, B = self._hop_len, self.B
+        lead = (H - phase) % H
+        if lead % B and self.ctrl_order:
+            raise SpecializeError(
+                "resumed hop phase misaligned with the control-block grid")
+        if T < lead:
+            # the render ends inside the lead: the counter never wraps
+            return [(T, False)]
+        # T == lead takes the whole lead, so the hop fires at its end (the
+        # golden runs the hop body inside that sample)
+        nfull = (T - lead) // H
+        tail = T - lead - nfull * H
+        return ([(lead, True)] if lead else []) + [(H, True)] * nfull \
+            + ([(tail, False)] if tail else [])
+
+    def _hop_run(self, carry, x, ctrl, rand, phase: int, step=None):
         """The fused sample/hop pipeline over a batch of files, a host loop
         (the reference's `_hop_run` scans it): a lead segment up to the hop
         counter's wrap, full segments of H samples, each followed by one
@@ -5424,29 +5441,20 @@ class SpecializedSampleKernel:
         entering the render.  x [nf, nch, T] on the device; carry ((svec
         [nf, n], rings {region: [nf, mod]}), hvars [nf, n_vars], hmem [nf,
         total_mem]) f64, updated in place; ctrl and rand shared by every
-        file.  Returns (y f32 [nf, nch, T], carry)."""
+        file.  Returns (y f32 [nf, nch, T], carry).  `step` as
+        `k5_step_mode` takes it: K5 (`_hop_steps`) or the eager loop
+        below."""
         import torch
 
         from ..kernels.block_section import block_section
 
-        H, B = self._hop_len, self.B
+        if self._step_mode(step) != "eager":
+            return self._hop_steps(carry, x, ctrl, rand, phase)
+        B = self.B
         prog = self._hop_prog
         (svec, rings), hvars, hmem = carry
         nf, _nch, T = x.shape
-        lead = (H - phase) % H
-        if lead % B and self.ctrl_order:
-            raise SpecializeError(
-                "resumed hop phase misaligned with the control-block grid")
-        if T < lead:
-            # the render ends inside the lead: the counter never wraps
-            spans = [(T, False)]
-        else:
-            # T == lead takes the whole lead, so the hop fires at its end
-            # (the golden runs the hop body inside that sample)
-            nfull = (T - lead) // H
-            tail = T - lead - nfull * H
-            spans = ([(lead, True)] if lead else []) + [(H, True)] * nfull \
-                + ([(tail, False)] if tail else [])
+        spans = self._hop_spans(T, phase)
         # the one device-to-host read of a render: the scalars it starts
         # from, which every file must agree on where the host mirrors them
         known = _shared_known(svec.tolist(), self.mirrored_slots(),
@@ -5473,6 +5481,87 @@ class SpecializedSampleKernel:
             t0 += n
             r0 += rows
         return y, ((svec, rings), hvars, hmem)
+
+    def _hop_steps(self, carry, x, ctrl, rand, phase: int):
+        """`_hop_run` through K5: each span a step on the static carry,
+        K10's view included: its segment, then, where the hop fires, K10
+        on the hop section (a full hop's step is the reference's scan body,
+        zorak_tpu/lowering/specialize.py:2976).  A span's key is its kind,
+        length, files, pool, the cursors that shape its segment and the
+        hop counter's phase at its start, so every full hop shares one
+        capture.  The host mirror after a hop is `_hop_run`'s: the carried
+        heap cells K10 may rewrite are voided (no mirrored slot is one,
+        checked at build)."""
+        import torch
+
+        from ..kernels.block_section import block_section
+
+        f64 = torch.float64
+        k5 = self._k5_graphs()
+        capture = self.device.type == "cuda"
+        H, B = self._hop_len, self.B
+        prog = self._hop_prog
+        (svec0, rings0), hvars0, hmem0 = carry
+        nf, nch, T = x.shape
+        spans = self._hop_spans(T, phase)
+        known = self._mirror_start(svec0)
+        svec, rings = self._k5_carry(k5, nf, svec0, rings0)
+        hvars = k5.static("bvars", hvars0.shape, f64)
+        hvars.copy_(hvars0)
+        hmem = k5.static("bmem", hmem0.shape, f64)
+        hmem.copy_(hmem0)
+        pool = self._k5_pool(k5, rand)
+        nc = ctrl.shape[1]
+        nr = 0 if pool is not None else rand.shape[1]
+        cells = [a for a, _addr in prog.cells]
+        y = torch.empty((nf, self.nch, T), dtype=torch.float32,
+                        device=self.device)
+        t0 = r0 = 0
+        at = phase
+        for n, fires in spans:
+            rows = -(-n // B)
+            xin = k5.static("x", (nf, nch, n), torch.float32)
+            yout = k5.static("y", (nf, self.nch, n), torch.float32)
+            aux = k5.static("aux", (rows * nc + n * nr,), f64)
+            seg = self._seg_fn(n, nf, graph=True)
+            ctrl_v = aux[:rows * nc].view(rows, nc)
+            draws = pool if pool is not None else \
+                aux[rows * nc:].view(n, nr)
+
+            def body(seg=seg, xin=xin, yout=yout, ctrl_v=ctrl_v,
+                     draws=draws, kn=known, fires=fires):
+                (sv, rg), yseg, _ = seg((svec, rings),
+                                        (xin.to(f64), ctrl_v, draws), kn)
+                self._k5_store(svec, rings, sv, rg)
+                if fires:
+                    block_section(prog, svec,
+                                  [rings[r] for r in prog.regions], hvars,
+                                  hmem, float(B))
+                yout.copy_(yseg)
+
+            def key(seg=seg, n=n, kn=known, fires=fires, at=at):
+                got = self._k5_key("hop" if fires else "seg", seg, n, nf,
+                                   pool, kn)
+                return None if got is None else got + (at,)
+
+            with _k5_range():
+                xin.copy_(x[:, :, t0:t0 + n])
+                if nc:
+                    aux[:rows * nc].copy_(ctrl[r0:r0 + rows].reshape(-1))
+                if nr:
+                    aux[rows * nc:].copy_(rand[t0:t0 + n].reshape(-1))
+                k5.step(key, body, capture)
+                y[:, :, t0:t0 + n].copy_(yout)
+            known = self._advance_mirror(known, n)
+            if fires:
+                for i in cells:
+                    known[i] = None
+            t0 += n
+            r0 += rows
+            at = (at + n) % H
+        self._k5_mirror = known
+        return y, ((svec.clone(), {r: a.clone() for r, a in rings.items()}),
+                   hvars.clone(), hmem.clone())
 
     @property
     def accepts_midi(self) -> bool:
@@ -5656,7 +5745,6 @@ class SpecializedSampleKernel:
             return torch.zeros((nch, 0), dtype=torch.float32,
                                device=self.device), carry
         if self._hop is not None:
-            self._step_mode(step)         # eager: K5 refuses the hop regime
             # the counter's phase advances by T, and the next resumed
             # render segments from there
             phase = self._hop_phase
@@ -5665,7 +5753,8 @@ class SpecializedSampleKernel:
             y, ((svec, rings), hvars, hmem) = self._hop_run(
                 ((svec[None], {r: a[None] for r, a in rings.items()}),
                  hvars[None], hmem[None]),
-                self.put_audio(x)[None], self.put_f64(ctrl), rand, phase)
+                self.put_audio(x)[None], self.put_f64(ctrl), rand, phase,
+                step)
             return y[0], ((svec[0], {r: a[0] for r, a in rings.items()}),
                           hvars[0], hmem[0])
         # the solo render is the batch of one file

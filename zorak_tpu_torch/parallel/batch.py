@@ -145,9 +145,8 @@ def _one_pass(kern, carry, x, ctrl, rand, step=None):
                                           step=step)
         return y, carry
     if kern._hop is not None:
-        kern._step_mode(step)         # eager: K5 refuses the hop regime
         return kern._hop_run(kern.device_carry(carry), x, ctrl, rand,
-                             kern._hop_phase0)
+                             kern._hop_phase0, step)
     return kern._run(carry, x, ctrl, rand, kern.segment_length(x.shape[2]),
                      step)
 
